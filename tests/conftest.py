@@ -13,3 +13,9 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 from holo_tpu.testing import force_virtual_cpu_mesh  # noqa: E402
 
 force_virtual_cpu_mesh(8)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips when none is present"
+    )
