@@ -46,7 +46,8 @@ BATCH_REPS = 3
 COMPUTE_REPS = 5
 # H100 SXM peaks: HBM 3.35 TB/s; int32 132 SMs x 64 INT32 lanes (Hopper
 # white paper) x 1.98 GHz x 2, an add+min pair counting as two operations
-# of one fused instruction (DPX VIADDMNMX), as an FMA counts as two.
+# of one fused instruction (DPX VIADDMNMX, counted in the built library in
+# phase 1), as an FMA counts as two.
 HBM_BYTES_S = 3.35e12
 INT32_OPS_S = 132 * 64 * 1.98e9 * 2
 # int32 operations per (nonzero weight entry, lane) each kernel needs:
@@ -97,6 +98,15 @@ def nbytes(*tensors) -> int:
     return sum(seen.values())
 
 
+def fused_minadd_count(lib_path: Path, nvcc: str) -> int:
+    """VIADDMNMX (DPX add+min) instructions in the built library's SASS."""
+    sass = subprocess.run(
+        [str(Path(nvcc).with_name("cuobjdump")), "-sass", str(lib_path)],
+        capture_output=True, text=True, check=True,
+    ).stdout
+    return sass.count("VIADDMNMX")
+
+
 def bound(name: str, nnz: int, lanes: int, byte_count: int) -> tuple[float, str]:
     ops_ms = OPS_PER_EDGE_LANE[name] * nnz * lanes / INT32_OPS_S * 1e3
     bytes_ms = byte_count / HBM_BYTES_S * 1e3
@@ -144,9 +154,11 @@ def main() -> None:
 
     # -- 1. build
     t0 = time.perf_counter()
-    build.build("blocked_kernels.cu", verbose=True)
+    lib_path = build.build(verbose=True)
     build.load()
     print(f"build: {time.perf_counter() - t0:.3f} s", flush=True)
+    print(f"sass: {fused_minadd_count(lib_path, build.nvcc())} VIADDMNMX "
+          f"instructions in {lib_path.name}", flush=True)
 
     # -- 2. kernels against their plain versions, on real inputs
     t0 = time.perf_counter()
@@ -161,6 +173,9 @@ def main() -> None:
     fdst, fid = bspf.failed_edges_perm(perm_of, topo, masks, device=dev)
     npad = g.in_src.shape[0]
     nnz = int((g.w < blk.CAP).sum())
+    # A kernel needs only the nonzero weights: an int32 value and an int32
+    # index each.  The dense planes are mostly CAP filler.
+    wbytes = nnz * 8
     print(f"planes: {g.w.shape[0]} block pairs, N_pad {npad}, K {g.in_src.shape[1]}, "
           f"W {g.n_words}, nonzero weights {nnz}", flush=True)
 
@@ -174,24 +189,25 @@ def main() -> None:
     pl = (g.w, g.bsrc, g.bdst)
     calls = {
         "relax": (
-            lambda: kernels.relax(*pl, g.seg, dist_mid, dist_mid),
-            lambda: kernels.relax_plain(*pl, dist_mid, dist_mid),
-            BATCH, nbytes(g.w, dist_mid) + dist_mid.numel() * 4,
+            lambda: kernels.relax(*pl, g.seg, dist_mid),
+            lambda: kernels.relax_plain(*pl, dist_mid),
+            BATCH, wbytes + nbytes(dist_mid) + dist_mid.numel() * 4,
         ),
         "dmin": (
             lambda: kernels.dmin(*pl, g.seg, dist),
             lambda: kernels.dmin_plain(*pl, dist),
-            BATCH, nbytes(g.w, dist) + dist.numel() * 4,
+            BATCH, wbytes + nbytes(dist) + dist.numel() * 4,
         ),
         "parent": (
             lambda: kernels.parent(*pl, g.seg, dist, dmin, g.orig_id),
             lambda: kernels.parent_plain(*pl, dist, dmin, g.orig_id),
-            BATCH, nbytes(g.w, dist, dmin, g.orig_id) + dist.numel() * 4,
+            BATCH, wbytes + nbytes(dist, dmin, g.orig_id) + dist.numel() * 4,
         ),
         "nh_or": (
             lambda: kernels.nh_or(*pl, g.seg, dist, gate, nh_mid, direct),
             lambda: kernels.nh_or_plain(*pl, dist, gate, nh_mid, direct),
-            direct.shape[1], nbytes(g.w, dist, gate, nh_mid, direct) + direct.numel() * 4,
+            direct.shape[1],
+            wbytes + nbytes(dist, gate, nh_mid, direct) + direct.numel() * 4,
         ),
     }
     rows = {}

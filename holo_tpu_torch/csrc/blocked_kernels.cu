@@ -15,7 +15,7 @@
 // sorted by destination block and seg[bd] .. seg[bd+1] are the pairs of
 // destination block bd.
 //
-//   relax : out[v,l] = min(ddst[v,l], min_u w[u,v] + dsrc[u,l])
+//   relax : out[v,l] = min(dist[v,l], min_u w[u,v] + dist[u,l])
 //   dmin  : out[v,l] = min dist[u,l] over DAG parents u, CAP if none
 //   parent: out[v,l] = min orig_id[u] over DAG parents u with
 //           dist[u,l] == dmin[v,l], PBIG if none
@@ -40,10 +40,11 @@
 // Bound on this card.  Every (u, v, lane) triple of a pair costs an add and
 // a min (relax) or an add, compares and a select (the others): the kernels
 // are bound by integer throughput, not by the ~170 MB they move per launch
-// at 10k vertices x 1024 scenarios.  Nothing here uses Hopper's DPX
-// instruction __viaddmin_s32(a, b, c) = min(a + b, c), which is exactly
-// relax's inner step; it and a sparser walk of the mostly-CAP weight
-// blocks are the obvious next steps.
+// at 10k vertices x 1024 scenarios.  The source does not call Hopper's DPX
+// intrinsic __viaddmin_s32(a, b, c) = min(a + b, c), relax's inner step,
+// but nvcc fuses relax's add and min into that instruction (VIADDMNMX)
+// anyway; chip_smoke.py counts it in the built library.  The next step is a
+// sparser walk of the mostly-CAP weight blocks.
 
 #include <cuda_runtime.h>
 
@@ -201,9 +202,9 @@ const char* holo_error_string(int rc) {
 }
 
 int holo_blocked_relax(const void* w, const void* seg, const void* bsrc,
-                       const void* dsrc, const void* ddst, void* out, int nb,
-                       int lanes, void* stream) {
-  return launch<RELAX>(w, seg, bsrc, dsrc, ddst, nullptr, nullptr, nullptr,
+                       const void* dist, void* out, int nb, int lanes,
+                       void* stream) {
+  return launch<RELAX>(w, seg, bsrc, dist, dist, nullptr, nullptr, nullptr,
                        out, nb, lanes, lanes, stream);
 }
 

@@ -97,11 +97,11 @@ def _dag(wc, du, dv):
     return (wc < CAP) & (du < CAP) & (wc + du == dv)
 
 
-def relax_plain(w, bsrc, bdst, dsrc, ddst):
+def relax_plain(w, bsrc, bdst, dist):
     def step(acc, wc, rs, rd):
-        return torch.minimum(acc, (wc + dsrc[rs][:, None, :]).amin(0))
+        return torch.minimum(acc, (wc + dist[rs][:, None, :]).amin(0))
 
-    return _pair_loop(w, bsrc, bdst, ddst.clone(), step)
+    return _pair_loop(w, bsrc, bdst, dist.clone(), step)
 
 
 def dmin_plain(w, bsrc, bdst, dist):
@@ -150,15 +150,13 @@ def _launch(name: str, *args) -> None:
     launches[name] += 1
 
 
-def relax(w, bsrc, bdst, seg, dsrc, ddst):
-    """out[v, l] = min(ddst[v, l], min over pairs and u of w[u, v] + dsrc[u, l])."""
-    if not _on_card(w, bsrc, bdst, seg, dsrc, ddst):
-        return relax_plain(w, bsrc, bdst, dsrc, ddst)
-    nb = _check_planes(w, seg, ddst.shape[0])
-    if dsrc.shape != ddst.shape:
-        raise ValueError(f"dsrc {tuple(dsrc.shape)} != ddst {tuple(ddst.shape)}")
-    out = torch.empty_like(ddst)
-    _launch("relax", w, seg, bsrc, dsrc, ddst, out, nb, ddst.shape[1])
+def relax(w, bsrc, bdst, seg, dist):
+    """out[v, l] = min(dist[v, l], min over pairs and u of w[u, v] + dist[u, l])."""
+    if not _on_card(w, bsrc, bdst, seg, dist):
+        return relax_plain(w, bsrc, bdst, dist)
+    nb = _check_planes(w, seg, dist.shape[0])
+    out = torch.empty_like(dist)
+    _launch("relax", w, seg, bsrc, dist, out, nb, dist.shape[1])
     return out
 
 

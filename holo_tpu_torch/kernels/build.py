@@ -1,9 +1,9 @@
 """Build and bind the port's CUDA kernels (nvcc -> shared library -> ctypes).
 
-The sources under ``holo_tpu_torch/csrc/`` are compiled at first use for
-``sm_90a`` into ``holo_tpu_torch/build/`` (listed in ``.gitignore``), one
-library per source, named by a hash of the source so an edit rebuilds it.
-Each C entry point takes ``void*`` pointers, ``int`` sizes and the CUDA
+``holo_tpu_torch/csrc/blocked_kernels.cu`` is compiled at first use for
+``sm_90a`` into ``holo_tpu_torch/build/`` (listed in ``.gitignore``), as a
+library named by a hash of the source so an edit rebuilds it.  Each C
+entry point takes ``void*`` pointers, ``int`` sizes and the CUDA
 stream, launches on that stream and returns ``cudaGetLastError()``.
 """
 
@@ -18,7 +18,7 @@ import tempfile
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
-CSRC = _PKG / "csrc"
+SOURCE = _PKG / "csrc" / "blocked_kernels.cu"
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -27,18 +27,16 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C entry points per source: name -> argtypes (all return int).  Every
-# source also exports holo_error_string(int) -> const char*.
+# C entry points: name -> argtypes (all return int).  The library also
+# exports holo_error_string(int) -> const char*.
 SIGNATURES = {
-    "blocked_kernels.cu": {
-        "holo_blocked_relax": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
-        "holo_blocked_dmin": (_P, _P, _P, _P, _P, _I, _I, _P),
-        "holo_blocked_parent": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
-        "holo_blocked_nh_or": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
-    },
+    "holo_blocked_relax": (_P, _P, _P, _P, _P, _I, _I, _P),
+    "holo_blocked_dmin": (_P, _P, _P, _P, _P, _I, _I, _P),
+    "holo_blocked_parent": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
+    "holo_blocked_nh_or": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
 }
 
-_LIBS: dict[str, ctypes.CDLL] = {}
+_LIB: ctypes.CDLL | None = None
 
 
 def nvcc() -> str:
@@ -53,31 +51,31 @@ def nvcc() -> str:
     return found
 
 
-def library_path(source: str) -> Path:
-    digest = hashlib.sha256((CSRC / source).read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"{Path(source).stem}-{digest}.so"
+def library_path() -> Path:
+    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:12]
+    return BUILD_DIR / f"{SOURCE.stem}-{digest}.so"
 
 
-def build(source: str, verbose: bool = False) -> Path:
-    """Compile ``csrc/<source>`` unless its library is already built.
+def build(verbose: bool = False) -> Path:
+    """Compile the kernel source unless its library is already built.
 
     ``verbose`` adds ``-Xptxas -v`` and returns with the compiler's report
     printed (registers, shared memory and spills per kernel).
     """
-    out = library_path(source)
+    out = library_path()
     if out.exists() and not verbose:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / source)]
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)]
     if verbose:
         cmd[1:1] = ["-Xptxas", "-v"]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed on {source} (rc {proc.returncode}):\n"
+                f"nvcc failed on {SOURCE.name} (rc {proc.returncode}):\n"
                 f"{proc.stdout}{proc.stderr}"
             )
         if verbose:
@@ -89,19 +87,19 @@ def build(source: str, verbose: bool = False) -> Path:
     return out
 
 
-def load(source: str = "blocked_kernels.cu") -> ctypes.CDLL:
-    """The bound library of ``source``, building it at first use."""
-    lib = _LIBS.get(source)
-    if lib is None:
-        lib = ctypes.CDLL(str(build(source)))
-        for name, argtypes in SIGNATURES[source].items():
+def load() -> ctypes.CDLL:
+    """The bound kernel library, built at first use."""
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         lib.holo_error_string.argtypes = (_I,)
         lib.holo_error_string.restype = ctypes.c_char_p
-        _LIBS[source] = lib
-    return lib
+        _LIB = lib
+    return _LIB
 
 
 def check(lib: ctypes.CDLL, rc: int, name: str) -> None:

@@ -155,7 +155,7 @@ def distance_fixpoint(g, root: int, fdst, fid, limit: int) -> torch.Tensor:
     dist[root] = 0
     for _ in range(limit):
         capped = dist.clamp_max(CAP)
-        acc = kernels.relax(g.w, g.bsrc, g.bdst, g.seg, capped, capped)
+        acc = kernels.relax(g.w, g.bsrc, g.bdst, g.seg, capped)
         acc = correct_dist(g, capped, acc, fdst, fid)
         changed = bool((acc != dist).any())
         dist = acc

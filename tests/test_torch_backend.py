@@ -119,7 +119,7 @@ def test_wrapper_refuses_other_devices():
     meta = torch.empty((1, 256, 256), dtype=torch.int32, device="meta")
     small = torch.zeros(1, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="CUDA device"):
-        kernels.relax(meta, small, small, small, meta, meta)
+        kernels.relax(meta, small, small, small, meta)
     cpu = torch.zeros(1, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA device"):
         kernels.dmin(meta, cpu, cpu, cpu, meta)

@@ -50,8 +50,8 @@ def test_kernels_match_plain_versions(batch):
     g, x = _inputs(batch, _card())
     pl = (g.w, g.bsrc, g.bdst)
     pairs = {
-        "relax": (kernels.relax(*pl, g.seg, x["dist_mid"], x["dist_mid"]),
-                  kernels.relax_plain(*pl, x["dist_mid"], x["dist_mid"])),
+        "relax": (kernels.relax(*pl, g.seg, x["dist_mid"]),
+                  kernels.relax_plain(*pl, x["dist_mid"])),
         "dmin": (kernels.dmin(*pl, g.seg, x["dist"]), kernels.dmin_plain(*pl, x["dist"])),
         "parent": (kernels.parent(*pl, g.seg, x["dist"], x["dmin"], g.orig_id),
                    kernels.parent_plain(*pl, x["dist"], x["dmin"], g.orig_id)),
