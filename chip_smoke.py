@@ -10,14 +10,16 @@ what-if configuration of the repo (BASELINE.json config 5).  Phases:
 
 1. build the CUDA kernels from ``holo_tpu_torch/csrc`` with nvcc;
 2. run each kernel once on real mid-fixpoint inputs at the main path's
-   shapes and hold it bit-identical to its plain PyTorch version on the
-   same CUDA tensors; run the relax-only path (``whatif_distances_blocked``)
-   on the card and on the CPU (plain path) and hold them equal;
+   shapes -- 1024 scenarios (``compute_whatif``) and one (``compute``) --
+   and hold it bit-identical to its plain PyTorch version on the same CUDA
+   tensors; run the relax-only path (``whatif_distances_blocked``) on the
+   card and on the CPU (plain path) and hold them equal;
 3. drive the main path with the launch counters at 0, require every kernel
    to have launched, and hold scenarios 0-7 and ``compute()`` bit-identical
    to the scalar oracle on all four planes;
-4. time each kernel (CUDA events), its plain version, the whole batch and
-   ``compute()``, beside the card's name and power limit.
+4. time each kernel (CUDA events; at one scenario also the profiler's
+   device time, which leaves out the host's launch), its plain version, the
+   whole batch and ``compute()``, beside the card's name and power limit.
 
 Every failure raises, so the exit code is not 0.  Without a CUDA device, or
 without the rest of the repository beside it, the script fails before it
@@ -52,8 +54,10 @@ HBM_BYTES_S = 3.35e12
 INT32_OPS_S = 132 * 64 * 1.98e9 * 2
 # int32 operations per (nonzero weight entry, lane) each kernel needs:
 # relax add+min; dmin add, tight test, reached test, min; parent adds the
-# dmin test; nh_or add, tight, reached, gate, or.
-OPS_PER_EDGE_LANE = {"relax": 2, "dmin": 4, "parent": 5, "nh_or": 5}
+# dmin test.  nh_or needs, per (entry, scenario), the DAG test once (add,
+# tight, reached, gate) and a select and an OR per word: 4 + 2W.
+OPS_PER_EDGE_LANE = {"relax": 2, "dmin": 4, "parent": 5}
+NH_OR_TEST_OPS, NH_OR_WORD_OPS = 4, 2
 DEVICE = torch.device("cuda")
 SOURCE = "holo_tpu_torch/csrc/blocked_kernels.cu"
 REPLACES = {
@@ -107,8 +111,8 @@ def fused_minadd_count(lib_path: Path, nvcc: str) -> int:
     return sass.count("VIADDMNMX")
 
 
-def bound(name: str, nnz: int, lanes: int, byte_count: int) -> tuple[float, str]:
-    ops_ms = OPS_PER_EDGE_LANE[name] * nnz * lanes / INT32_OPS_S * 1e3
+def bound(op_count: int, byte_count: int) -> tuple[float, str]:
+    ops_ms = op_count / INT32_OPS_S * 1e3
     bytes_ms = byte_count / HBM_BYTES_S * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
@@ -132,9 +136,94 @@ def device_busy(fn) -> tuple[float, list]:
     return sum(ms for _, ms in per_op), top
 
 
+def device_ms_per_call(fn, reps: int) -> float:
+    """Device milliseconds per call of ``fn`` (profiler, launch excluded)."""
+    busy_ms, _ = device_busy(lambda: [fn() for _ in range(reps)])
+    return busy_ms / reps
+
+
 def require(ok: bool, what: str) -> None:
     if not ok:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
+
+
+def stage_inputs(blk, bspf, g, fdst, fid) -> dict:
+    """Real kernel inputs: the planes each stage of the main path hands
+    its kernel, mid-fixpoint for relax and nh_or."""
+    npad = g.in_src.shape[0]
+    x = {"dist_mid": blk.distance_fixpoint(g, g.rootp, fdst, fid, limit=2)}
+    x["dist"] = blk.distance_fixpoint(g, g.rootp, fdst, fid, limit=npad)
+    x["dmin"], parent_o = bspf.first_parent(g, x["dist"], fdst, fid)
+    hops = bspf.hops_fixpoint(g, parent_o, npad)
+    x["gate"] = (hops > 0).to(torch.int32)
+    x["direct"] = bspf.direct_words(g, x["dist"], hops, fid)
+    x["nh"] = bspf.nexthop_fixpoint(g, x["dist"], hops, x["direct"], fdst, fid, limit=1)
+    return x
+
+
+def kernel_calls(kernels, blk, g, x, nnz: int) -> dict:
+    """name -> (kernel call, plain call, operations, bytes) on inputs ``x``.
+
+    A kernel needs only the nonzero weights: an int32 value and an int32
+    index each (the dense planes are mostly CAP filler); each vertex plane
+    is read once and the output written once.
+    """
+    pl = (g.w, g.bsrc, g.bdst)
+    edges = blk.edges_of(g)
+    wbytes = nnz * 8
+    batch = x["dist"].shape[1]
+    words = x["direct"].shape[1] // batch
+    dist, dist_mid, dmin = x["dist"], x["dist_mid"], x["dmin"]
+    gate, nh, direct = x["gate"], x["nh"], x["direct"]
+    nh_ops = (NH_OR_TEST_OPS + NH_OR_WORD_OPS * words) * nnz * batch
+    return {
+        "relax": (
+            lambda: kernels.relax(*pl, g.seg, dist_mid, edges=edges),
+            lambda: kernels.relax_plain(*pl, dist_mid),
+            OPS_PER_EDGE_LANE["relax"] * nnz * batch,
+            wbytes + nbytes(dist_mid) + dist_mid.numel() * 4,
+        ),
+        "dmin": (
+            lambda: kernels.dmin(*pl, g.seg, dist),
+            lambda: kernels.dmin_plain(*pl, dist),
+            OPS_PER_EDGE_LANE["dmin"] * nnz * batch,
+            wbytes + nbytes(dist) + dist.numel() * 4,
+        ),
+        "parent": (
+            lambda: kernels.parent(*pl, g.seg, dist, dmin, g.orig_id),
+            lambda: kernels.parent_plain(*pl, dist, dmin, g.orig_id),
+            OPS_PER_EDGE_LANE["parent"] * nnz * batch,
+            wbytes + nbytes(dist, dmin, g.orig_id) + dist.numel() * 4,
+        ),
+        "nh_or": (
+            lambda: kernels.nh_or(*pl, g.seg, dist, gate, nh, direct, edges=edges),
+            lambda: kernels.nh_or_plain(*pl, dist, gate, nh, direct),
+            nh_ops,
+            wbytes + nbytes(dist, gate, nh, direct) + direct.numel() * 4,
+        ),
+    }
+
+
+def hold_to_plain(calls: dict, label: str) -> dict:
+    """Run each kernel and its plain version once on the same tensors and
+    require equal bits: name -> row of max_abs_err, plain_ms, bound."""
+    rows = {}
+    for name, (card, plain, op_count, byte_count) in calls.items():
+        got = card()
+        torch.cuda.synchronize()
+        ref, plain_ms = cuda_call(plain)
+        require(got.shape == ref.shape and got.dtype == ref.dtype,
+                f"{name} {label} shape/dtype")
+        err = int((got.long() - ref.long()).abs().max())
+        same = torch.equal(got, ref)
+        print(f"kernel {name} {label}: out {tuple(got.shape)} bit-identical to plain: "
+              f"{same} (max_abs_err {err})", flush=True)
+        require(same, f"{name} disagrees with its plain version {label}")
+        b_ms, b_by = bound(op_count, byte_count)
+        rows[name] = {"max_abs_err": err, "plain_ms": plain_ms, "bound_ms": b_ms,
+                      "bound_by": b_by, "ops": op_count, "bytes": byte_count}
+        del got, ref
+    return rows
 
 
 def main() -> None:
@@ -173,58 +262,16 @@ def main() -> None:
     fdst, fid = bspf.failed_edges_perm(perm_of, topo, masks, device=dev)
     npad = g.in_src.shape[0]
     nnz = int((g.w < blk.CAP).sum())
-    # A kernel needs only the nonzero weights: an int32 value and an int32
-    # index each.  The dense planes are mostly CAP filler.
-    wbytes = nnz * 8
+    require(nnz == g.crow.shape[0], "compact edge planes miss entries of w")
     print(f"planes: {g.w.shape[0]} block pairs, N_pad {npad}, K {g.in_src.shape[1]}, "
           f"W {g.n_words}, nonzero weights {nnz}", flush=True)
 
-    dist_mid = blk.distance_fixpoint(g, g.rootp, fdst, fid, limit=2)
-    dist = blk.distance_fixpoint(g, g.rootp, fdst, fid, limit=npad)
-    dmin, parent_o = bspf.first_parent(g, dist, fdst, fid)
-    hops = bspf.hops_fixpoint(g, parent_o, npad)
-    gate = (hops > 0).to(torch.int32)
-    direct = bspf.direct_words(g, dist, hops, fid)
-    nh_mid = bspf.nexthop_fixpoint(g, dist, hops, direct, fdst, fid, limit=1)
-    pl = (g.w, g.bsrc, g.bdst)
-    calls = {
-        "relax": (
-            lambda: kernels.relax(*pl, g.seg, dist_mid),
-            lambda: kernels.relax_plain(*pl, dist_mid),
-            BATCH, wbytes + nbytes(dist_mid) + dist_mid.numel() * 4,
-        ),
-        "dmin": (
-            lambda: kernels.dmin(*pl, g.seg, dist),
-            lambda: kernels.dmin_plain(*pl, dist),
-            BATCH, wbytes + nbytes(dist) + dist.numel() * 4,
-        ),
-        "parent": (
-            lambda: kernels.parent(*pl, g.seg, dist, dmin, g.orig_id),
-            lambda: kernels.parent_plain(*pl, dist, dmin, g.orig_id),
-            BATCH, wbytes + nbytes(dist, dmin, g.orig_id) + dist.numel() * 4,
-        ),
-        "nh_or": (
-            lambda: kernels.nh_or(*pl, g.seg, dist, gate, nh_mid, direct),
-            lambda: kernels.nh_or_plain(*pl, dist, gate, nh_mid, direct),
-            direct.shape[1],
-            wbytes + nbytes(dist, gate, nh_mid, direct) + direct.numel() * 4,
-        ),
-    }
-    rows = {}
-    for name, (card, plain, lanes, byte_count) in calls.items():
-        got = card()
-        torch.cuda.synchronize()
-        ref, plain_ms = cuda_call(plain)
-        require(got.shape == ref.shape and got.dtype == ref.dtype, f"{name} shape/dtype")
-        err = int((got.long() - ref.long()).abs().max())
-        same = torch.equal(got, ref)
-        print(f"kernel {name}: out {tuple(got.shape)} bit-identical to plain: {same} "
-              f"(max_abs_err {err})", flush=True)
-        require(same, f"{name} disagrees with its plain version")
-        b_ms, b_by = bound(name, nnz, lanes, byte_count)
-        rows[name] = {"max_abs_err": err, "plain_ms": plain_ms, "bound_ms": b_ms,
-                      "bound_by": b_by, "lanes": lanes, "bytes": byte_count}
-        del got, ref
+    calls = kernel_calls(kernels, blk, g, stage_inputs(blk, bspf, g, fdst, fid), nnz)
+    rows = hold_to_plain(calls, f"at B={BATCH}")
+    # compute()'s shapes: one scenario, no failed edge.
+    none = torch.full((1, fdst.shape[1]), -1, dtype=torch.int32, device=dev)
+    calls1 = kernel_calls(kernels, blk, g, stage_inputs(blk, bspf, g, none, none), nnz)
+    rows1 = hold_to_plain(calls1, "at B=1")
 
     # K1's path: relax-only what-if distances, card against the CPU path.
     bg = blk.marshal_blocks(topo, device=dev)
@@ -276,32 +323,49 @@ def main() -> None:
           f"dist/parent/hops/nexthop_words ({reached}/{n} reached in scenario "
           f"{ORACLE_SCENARIOS - 1})", flush=True)
 
-    # -- 4. timing
-    for name, (card, _plain, _lanes, _b) in calls.items():
+    # -- 4. timing (the profiler last: once it has run, host launches are
+    # slower, which the host-clock times below would count)
+    for name, (card, *_rest) in calls.items():
         card()  # warm-up
         rows[name]["ms"] = cuda_ms(card, KERNEL_REPS)
+    for name, (card, *_rest) in calls1.items():
+        card()
+        rows1[name]["ms"] = cuda_ms(card, KERNEL_REPS)
     batch_ms = host_ms(lambda: be.compute_whatif(topo, masks), BATCH_REPS)
     compute_ms = host_ms(lambda: be.compute(topo), COMPUTE_REPS)
     scan_ms = host_ms(
         lambda: bspf.failed_edges_perm(perm_of, topo, masks, device=dev), BATCH_REPS
     )
     spf_ms = host_ms(lambda: bspf.whatif_spf_blocked(g, fdst, fid), BATCH_REPS)
+    for name, (card, *_rest) in calls1.items():
+        rows1[name]["device_ms"] = device_ms_per_call(card, KERNEL_REPS)
     busy_ms, top = device_busy(lambda: bspf.whatif_spf_blocked(g, fdst, fid))
+    compute_busy_ms, compute_top = device_busy(lambda: be.compute(topo))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip()
 
     for name, row in rows.items():
-        print(f"time {name}: {row['ms']:.3f} ms/launch (plain {row['plain_ms']:.3f} ms, "
-              f"bound {row['bound_ms']:.4f} ms by {row['bound_by']}, "
-              f"{row['bytes']} bytes, {row['lanes']} lanes); launches per "
-              f"compute_whatif {per_whatif[name]}, per compute {per_compute[name]}",
-              flush=True)
+        print(f"time {name}: {row['ms']:.3f} ms/launch at B={BATCH} (plain "
+              f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms by "
+              f"{row['bound_by']}, {row['ops']} operations, {row['bytes']} bytes); "
+              f"launches per compute_whatif {per_whatif[name]}", flush=True)
+    for name, row in rows1.items():
+        dev_ms = f"{row['device_ms']:.4f} ms" if row["device_ms"] > 0 else "not measured"
+        print(f"time {name}: {row['ms']:.4f} ms/launch at B=1 by CUDA events "
+              f"(host launch included), {dev_ms} on the device "
+              f"(profiler); plain {row['plain_ms']:.3f} ms, bound "
+              f"{row['bound_ms']:.5f} ms by {row['bound_by']}; launches per compute "
+              f"{per_compute[name]}", flush=True)
     print(f"time compute_whatif: {batch_ms:.3f} ms per {BATCH}-scenario batch "
           f"({BATCH / batch_ms * 1e3:.1f} scenario-SPFs/s; first call with "
           f"marshal {cold_ms:.1f} ms)", flush=True)
     print(f"time compute: {compute_ms:.3f} ms", flush=True)
+    kernel1_ms = sum(per_compute[k] * rows1[k]["device_ms"] for k in rows1)
+    print(f"breakdown compute: block kernels {kernel1_ms:.3f} ms on the device "
+          f"(launches x device ms/launch at B=1); device busy {compute_busy_ms:.3f} ms "
+          f"of {compute_ms:.3f} ms; top device ops: {compute_top}", flush=True)
     kernel_ms = sum(per_whatif[k] * rows[k]["ms"] for k in rows)
     print(f"breakdown compute_whatif: failed-edge scan {scan_ms:.3f} ms, "
           f"whatif_spf_blocked {spf_ms:.3f} ms (block kernels {kernel_ms:.3f} ms = "
@@ -316,7 +380,8 @@ def main() -> None:
               "idle share not measured", flush=True)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
-         "launches": launched[name], "max_abs_err": row["max_abs_err"],
+         "launches": launched[name],
+         "max_abs_err": max(row["max_abs_err"], rows1[name]["max_abs_err"]),
          "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
          "bound_by": row["bound_by"], "library_ms": None}
         for name, row in rows.items()

@@ -13,18 +13,25 @@ from collections.abc import Mapping
 import numpy as np
 
 from holo_tpu_torch.device import resolve_device
-from holo_tpu_torch.ops.blocked import BlockGraph, block_graph
+from holo_tpu_torch.ops.blocked import BlockGraph, block_graph, edge_planes
 from holo_tpu_torch.ops.blocked_spf import BlockSpfGraph, block_spf_graph
+
+
+def _port_arrays(fields: Mapping) -> dict:
+    """numpy copies of the fields plus the port's compact edge planes,
+    which the JAX graphs do not carry."""
+    arrays = {k: np.asarray(v) for k, v in fields.items()}
+    arrays.update(edge_planes(arrays["w"]))
+    return arrays
 
 
 def block_spf_graph_from_numpy(fields: Mapping, device=None) -> BlockSpfGraph:
     """Port ``BlockSpfGraph`` from the JAX one's fields (``first`` is dropped;
     the port derives per-block pair offsets from ``bdst``)."""
-    arrays = {k: np.asarray(v) for k, v in fields.items()}
-    return block_spf_graph(arrays, resolve_device(device))
+    return block_spf_graph(_port_arrays(fields), resolve_device(device))
 
 
 def block_graph_from_numpy(fields: Mapping, device=None) -> BlockGraph:
     """Port ``BlockGraph`` from the JAX one's fields."""
-    arrays = {k: np.asarray(v) for k, v in fields.items() if k != "n_real"}
+    arrays = _port_arrays({k: v for k, v in fields.items() if k != "n_real"})
     return block_graph(arrays, int(fields["n_real"]), resolve_device(device))

@@ -10,6 +10,12 @@ Plane conventions (all int32, CAP = 1<<28 as infinity):
 
 - ``w`` [P, S, S]: block pair p holds edge costs (bsrc[p]*S + u) ->
   (bdst[p]*S + v) at ``w[p, u, v]``, CAP where there is no edge;
+- ``edges`` = (cptr [P, S+1], crow [nnz], cw [nnz], border [nb]): the
+  entries < CAP of ``w`` as a per-pair CSC (``ops.blocked.edge_planes``)
+  and the order in which the kernels take the destination blocks
+  (``ops.blocked.block_order``).  :func:`relax` and :func:`nh_or` walk only
+  these on the card and need them there; the plain versions and
+  :func:`dmin` / :func:`parent` read ``w``;
 - ``bsrc``/``bdst`` [P]: source / destination block ids, sorted by
   ``bdst``; ``seg`` [nb + 1]: pairs of destination block bd are
   ``seg[bd] .. seg[bd+1]``;
@@ -63,6 +69,25 @@ def _check_planes(w, seg, dist_rows: int) -> int:
             f"blocks, {dist_rows} vertex rows"
         )
     return nb
+
+
+def _check_edges(w, nb: int, edges) -> tuple:
+    if edges is None:
+        raise ValueError("the card walks the compact edge planes: pass "
+                         "edges=(cptr, crow, cw, border), as ops.blocked.edges_of gives")
+    cptr, crow, cw, border = edges
+    if (
+        cptr.shape != (w.shape[0], S + 1)
+        or crow.dim() != 1
+        or crow.shape != cw.shape
+        or border.shape != (nb,)
+    ):
+        raise ValueError(
+            f"edge planes disagree: w {tuple(w.shape)}, cptr {tuple(cptr.shape)}, "
+            f"crow {tuple(crow.shape)}, cw {tuple(cw.shape)}, border "
+            f"{tuple(border.shape)} for {nb} blocks"
+        )
+    return edges
 
 
 # ---------------------------------------------------------------------------
@@ -150,13 +175,18 @@ def _launch(name: str, *args) -> None:
     launches[name] += 1
 
 
-def relax(w, bsrc, bdst, seg, dist):
-    """out[v, l] = min(dist[v, l], min over pairs and u of w[u, v] + dist[u, l])."""
-    if not _on_card(w, bsrc, bdst, seg, dist):
+def relax(w, bsrc, bdst, seg, dist, edges=None):
+    """out[v, l] = min(dist[v, l], min over pairs and u of w[u, v] + dist[u, l]).
+
+    The kernel adds only the edges (``edges``), which equals the dense sum
+    for ``dist`` in [0, CAP], as every caller passes it (CAP + d >= CAP).
+    """
+    if not _on_card(w, bsrc, bdst, seg, dist, *(edges or ())):
         return relax_plain(w, bsrc, bdst, dist)
     nb = _check_planes(w, seg, dist.shape[0])
+    cptr, crow, cw, border = _check_edges(w, nb, edges)
     out = torch.empty_like(dist)
-    _launch("relax", w, seg, bsrc, dist, out, nb, dist.shape[1])
+    _launch("relax", cptr, crow, cw, border, seg, bsrc, dist, out, nb, dist.shape[1])
     return out
 
 
@@ -186,13 +216,19 @@ def parent(w, bsrc, bdst, seg, dist, dmin_, orig_id):
     return out
 
 
-def nh_or(w, bsrc, bdst, seg, dist, gate, nh, direct):
+def nh_or(w, bsrc, bdst, seg, dist, gate, nh, direct, edges=None):
     """out[v, l] = direct[v, l] | OR nh[u, l] over DAG parents u of v with
     gate[u, b] > 0; lanes pack (word, scenario) as l = word * B + b, while
-    ``dist`` and ``gate`` are [N_pad, B]."""
-    if not _on_card(w, bsrc, bdst, seg, dist, gate, nh, direct):
+    ``dist`` and ``gate`` are [N_pad, B].
+
+    The kernel walks ``edges`` and maps gated and unreached sources to a
+    negative distance, which is the plain test for ``dist`` >= 0, as
+    distances are.
+    """
+    if not _on_card(w, bsrc, bdst, seg, dist, gate, nh, direct, *(edges or ())):
         return nh_or_plain(w, bsrc, bdst, dist, gate, nh, direct)
     nb = _check_planes(w, seg, dist.shape[0])
+    cptr, crow, cw, border = _check_edges(w, nb, edges)
     batch, lanes = dist.shape[1], nh.shape[1]
     if (
         gate.shape != dist.shape
@@ -205,5 +241,7 @@ def nh_or(w, bsrc, bdst, seg, dist, gate, nh, direct):
             f"{tuple(gate.shape)}, nh {tuple(nh.shape)}, direct {tuple(direct.shape)}"
         )
     out = torch.empty_like(nh)
-    _launch("nh_or", w, seg, bsrc, dist, gate, nh, direct, out, nb, batch, lanes)
+    du = torch.empty_like(dist)  # the kernel's gated source distances
+    _launch("nh_or", cptr, crow, cw, border, seg, bsrc, dist, gate, nh, direct, du, out,
+            nb, batch, lanes)
     return out

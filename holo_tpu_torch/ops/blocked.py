@@ -5,7 +5,9 @@ the nonzero S x S blocks of the adjacency matrix,
 
     acc[v, b] = min_u W[u, v] + dist[u, b]        (per nonzero block)
 
-run by the hand-written CUDA kernel :func:`holo_tpu_torch.kernels.blocked.relax`.
+run by the hand-written CUDA kernel :func:`holo_tpu_torch.kernels.blocked.relax`,
+which walks only the block entries that are edges (the per-pair CSC of
+:func:`edge_planes`, built beside the dense planes at marshal).
 What-if link failures stay exact without per-scenario weights: the kernel
 runs on the static graph, then a small correction recomputes the failed
 edges' destination rows from their ELL in-edge lists with the failed slots
@@ -38,6 +40,11 @@ class BlockGraph(NamedTuple):
     bsrc: torch.Tensor  # int32[P] source block ids (sorted by bdst)
     bdst: torch.Tensor  # int32[P]
     seg: torch.Tensor  # int32[nb + 1] pair offsets per destination block
+    # compact edge planes: the entries < CAP of w, per-pair CSC (edge_planes)
+    cptr: torch.Tensor  # int32[P, S + 1]
+    crow: torch.Tensor  # int32[nnz] u_local
+    cw: torch.Tensor  # int32[nnz]
+    border: torch.Tensor  # int32[nb] destination blocks, heaviest walk first
     # ELL planes for the correction pass:
     in_src: torch.Tensor  # int32[N_pad, K]
     in_cost: torch.Tensor  # int32[N_pad, K]
@@ -77,7 +84,27 @@ def block_pairs(src: np.ndarray, dst: np.ndarray, cost: np.ndarray, n: int) -> d
     bdst = (uniq // nb).astype(np.int32)
     w = np.full((max(p, 1), S, S), CAP, np.int32)
     w[inv_all[: len(key)], src % S, dst % S] = np.minimum(cost, CAP)
-    return {"w": w, "bsrc": bsrc, "bdst": bdst}
+    return {"w": w, "bsrc": bsrc, "bdst": bdst, **edge_planes(w)}
+
+
+def edge_planes(w: np.ndarray) -> dict:
+    """Per-pair CSC of the entries < CAP of the dense planes ``w`` [P, S, S].
+
+    Entries are sorted by (pair, v_local, u_local).  Column ``v`` of pair
+    ``p`` holds source rows ``crow[cptr[p, v]:cptr[p, v + 1]]`` with weights
+    ``cw`` at the same offsets; offsets run over all pairs, so
+    ``cptr[p, S] == cptr[p + 1, 0]``.  A pair without edges (the identity
+    pair of a block with no in-edges) has empty columns.
+    """
+    p, u, v = np.nonzero(w < CAP)
+    key = (p.astype(np.int64) * S + v) * S + u
+    order = np.argsort(key)
+    starts = (np.arange(w.shape[0], dtype=np.int64)[:, None] * S + np.arange(S + 1)) * S
+    return {
+        "cptr": np.searchsorted(key[order], starts).astype(np.int32),
+        "crow": u[order].astype(np.int32),
+        "cw": w[p, u, v][order],
+    }
 
 
 def ell_planes(topo: Topology, npad: int, n_atoms: int) -> dict:
@@ -92,13 +119,30 @@ def ell_planes(topo: Topology, npad: int, n_atoms: int) -> dict:
     return out
 
 
+def block_order(cptr: np.ndarray, bdst: np.ndarray, nb: int) -> np.ndarray:
+    """Destination blocks by descending edge-walk work (CSC entries plus S
+    per pair), ties in block order.  The relax and nh_or kernels start the
+    heaviest blocks first, so that the last ones on the card are short."""
+    per_pair = cptr[: len(bdst), S] - cptr[: len(bdst), 0] + S
+    work = np.bincount(bdst, weights=per_pair, minlength=nb)
+    return np.argsort(-work, kind="stable").astype(np.int32)
+
+
+def edges_of(g) -> tuple:
+    """The compact edge planes (cptr, crow, cw, border) that relax and
+    nh_or walk."""
+    return g.cptr, g.crow, g.cw, g.border
+
+
 def tensors_on(arrays: dict, device: torch.device) -> dict:
     """numpy planes -> tensors on ``device``; block-pair offsets ``seg``
-    are derived from ``bdst``."""
+    are derived from ``bdst``, the block order ``border`` from ``cptr``."""
     out = {k: torch.tensor(a, device=device) for k, a in arrays.items()}
     nb = arrays["in_src"].shape[0] // S
     seg = np.searchsorted(arrays["bdst"], np.arange(nb + 1)).astype(np.int32)
     out["seg"] = torch.tensor(seg, device=device)
+    order = block_order(arrays["cptr"], arrays["bdst"], nb)
+    out["border"] = torch.tensor(order, device=device)
     return out
 
 
@@ -155,7 +199,7 @@ def distance_fixpoint(g, root: int, fdst, fid, limit: int) -> torch.Tensor:
     dist[root] = 0
     for _ in range(limit):
         capped = dist.clamp_max(CAP)
-        acc = kernels.relax(g.w, g.bsrc, g.bdst, g.seg, capped)
+        acc = kernels.relax(g.w, g.bsrc, g.bdst, g.seg, capped, edges=edges_of(g))
         acc = correct_dist(g, capped, acc, fdst, fid)
         changed = bool((acc != dist).any())
         dist = acc

@@ -41,6 +41,7 @@ from holo_tpu_torch.ops.blocked import (
     block_pairs,
     check_blocked_preconditions,
     distance_fixpoint,
+    edges_of,
     ell_planes,
     failed_edges,
     row_plan,
@@ -61,6 +62,10 @@ class BlockSpfGraph(NamedTuple):
     bsrc: torch.Tensor  # int32[P]
     bdst: torch.Tensor  # int32[P]
     seg: torch.Tensor  # int32[nb + 1] pair offsets per destination block
+    cptr: torch.Tensor  # int32[P, S + 1] compact edge planes (edge_planes)
+    crow: torch.Tensor  # int32[nnz]
+    cw: torch.Tensor  # int32[nnz]
+    border: torch.Tensor  # int32[nb] destination blocks, heaviest walk first
     # ELL correction planes (permuted vertex space, original edge ids)
     in_src: torch.Tensor  # int32[N_pad, K]
     in_cost: torch.Tensor  # int32[N_pad, K]
@@ -201,9 +206,10 @@ def marshal_arrays(topo: Topology, n_atoms: int = 64, permute: bool | str = "aut
 
 
 def block_spf_graph(arrays: dict, device: torch.device) -> BlockSpfGraph:
-    """Build the device graph from numpy planes (``seg`` derived)."""
+    """Build the device graph from numpy planes (``seg``, ``border`` derived)."""
     scalars = ("n_real", "n_words", "rootp")
-    planes = {k: arrays[k] for k in BlockSpfGraph._fields if k not in scalars and k != "seg"}
+    derived = (*scalars, "seg", "border")
+    planes = {k: arrays[k] for k in BlockSpfGraph._fields if k not in derived}
     return BlockSpfGraph(
         **tensors_on(planes, device), **{k: int(arrays[k]) for k in scalars}
     )
@@ -340,7 +346,9 @@ def nexthop_fixpoint(g: BlockSpfGraph, dist, hops, direct, fdst, fid, limit: int
     gate = (hops > 0).to(torch.int32)
     nh = direct
     for _ in range(limit):
-        acc = kernels.nh_or(g.w, g.bsrc, g.bdst, g.seg, dist, gate, nh, direct)
+        acc = kernels.nh_or(
+            g.w, g.bsrc, g.bdst, g.seg, dist, gate, nh, direct, edges=edges_of(g)
+        )
         acc = _correct_nh(g, dist, gate, direct, acc, fdst, fid)
         changed = bool((acc != nh).any())
         nh = acc

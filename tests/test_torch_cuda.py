@@ -6,8 +6,11 @@ without JAX:
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 
 Each kernel is held bit-identical to its plain PyTorch version on real
-mid-fixpoint inputs at lane counts that cross the kernel's 64-lane tile;
-the backend is held to the scalar oracle with every kernel launched.
+mid-fixpoint inputs at lane counts on both sides of the edge-walk kernels'
+per-row/tile switch (8) and across their 32- and 64-lane tiles, on a fat
+tree, whose uniform degree the edge walk sees in every column, and on a
+block pair with more edges than the kernels stage in shared memory; the
+backend is held to the scalar oracle with every kernel launched.
 """
 
 import numpy as np
@@ -29,8 +32,11 @@ def _card():
     return torch.device("cuda")
 
 
-def _inputs(batch, dev):
-    topo = synth.random_ospf_topology(n_routers=560, n_networks=60, extra_p2p=900, seed=batch)
+def _inputs(batch, dev, topo=None):
+    if topo is None:
+        topo = synth.random_ospf_topology(
+            n_routers=560, n_networks=60, extra_p2p=900, seed=batch
+        )
     masks = synth.whatif_link_failure_masks(topo, batch, seed=batch + 1)
     g = bspf.marshal_block_spf(topo, device=dev)
     fdst, fid = bspf.failed_edges_perm(g.orig2perm.cpu().numpy(), topo, masks, device=dev)
@@ -45,22 +51,38 @@ def _inputs(batch, dev):
     return g, x
 
 
-@pytest.mark.parametrize("batch", [1, 5, 70])
-def test_kernels_match_plain_versions(batch):
-    g, x = _inputs(batch, _card())
+def _assert_kernels_match(g, x):
     pl = (g.w, g.bsrc, g.bdst)
+    edges = blk.edges_of(g)
     pairs = {
-        "relax": (kernels.relax(*pl, g.seg, x["dist_mid"]),
+        "relax": (kernels.relax(*pl, g.seg, x["dist_mid"], edges=edges),
                   kernels.relax_plain(*pl, x["dist_mid"])),
         "dmin": (kernels.dmin(*pl, g.seg, x["dist"]), kernels.dmin_plain(*pl, x["dist"])),
         "parent": (kernels.parent(*pl, g.seg, x["dist"], x["dmin"], g.orig_id),
                    kernels.parent_plain(*pl, x["dist"], x["dmin"], g.orig_id)),
-        "nh_or": (kernels.nh_or(*pl, g.seg, x["dist"], x["gate"], x["nh"], x["direct"]),
+        "nh_or": (kernels.nh_or(*pl, g.seg, x["dist"], x["gate"], x["nh"], x["direct"],
+                                edges=edges),
                   kernels.nh_or_plain(*pl, x["dist"], x["gate"], x["nh"], x["direct"])),
     }
     torch.cuda.synchronize()
     for name, (got, want) in pairs.items():
         assert torch.equal(got, want), name
+
+
+@pytest.mark.parametrize("batch", [1, 5, 33, 70, 257])
+def test_kernels_match_plain_versions(batch):
+    _assert_kernels_match(*_inputs(batch, _card()))
+
+
+def test_kernels_match_plain_versions_on_a_fat_tree():
+    _assert_kernels_match(*_inputs(40, _card(), synth.fat_tree_topology(k=8)))
+
+
+def test_kernels_match_plain_versions_past_the_staged_entries():
+    # One block pair of 7,926 edges: more than relax and nh_or stage in
+    # shared memory, so both also read entries from device memory.
+    topo = synth.random_ospf_topology(n_routers=240, n_networks=10, extra_p2p=4000, seed=3)
+    _assert_kernels_match(*_inputs(40, _card(), topo))
 
 
 def test_backend_on_the_card_matches_scalar():
