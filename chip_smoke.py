@@ -11,9 +11,10 @@ what-if configuration of the repo (BASELINE.json config 5).  Phases:
 1. build the CUDA kernels from ``holo_tpu_torch/csrc`` with nvcc;
 2. run each kernel once on real mid-fixpoint inputs at the main path's
    shapes -- 1024 scenarios (``compute_whatif``) and one (``compute``) --
-   and hold it bit-identical to its plain PyTorch version on the same CUDA
-   tensors; run the relax-only path (``whatif_distances_blocked``) on the
-   card and on the CPU (plain path) and hold them equal;
+   and hold each of its outputs bit-identical to its plain PyTorch version
+   on the same CUDA tensors; run the relax-only path
+   (``whatif_distances_blocked``) on the card and on the CPU (plain path)
+   and hold them equal;
 3. drive the main path with the launch counters at 0, require every kernel
    to have launched, and hold scenarios 0-7 and ``compute()`` bit-identical
    to the scalar oracle on all four planes;
@@ -52,18 +53,25 @@ COMPUTE_REPS = 5
 # phase 1), as an FMA counts as two.
 HBM_BYTES_S = 3.35e12
 INT32_OPS_S = 132 * 64 * 1.98e9 * 2
-# int32 operations per (nonzero weight entry, lane) each kernel needs:
-# relax add+min; dmin add, tight test, reached test, min; parent adds the
-# dmin test.  nh_or needs, per (entry, scenario), the DAG test once (add,
-# tight, reached, gate) and a select and an OR per word: 4 + 2W.
-OPS_PER_EDGE_LANE = {"relax": 2, "dmin": 4, "parent": 5}
-NH_OR_TEST_OPS, NH_OR_WORD_OPS = 4, 2
+# int32 operations each kernel needs, counted over the nonzero weight
+# entries and, where the work depends on the data, over this run's DAG
+# (entry, scenario) pairs -- those where the source is reached and the edge
+# is tight (du < CAP and w + du == dv), counted by dag_pairs:
+# relax: add, min per (entry, lane).
+# dmin_parent: the DAG test per (entry, scenario) -- add, tight test,
+#   reached test -- and, per DAG pair, the lexicographic update of (best
+#   distance, best id): compare, select the distance, min of the id.
+# nh_or: the DAG test per (entry, scenario) -- add, tight, reached, gate --
+#   and, per DAG pair whose source passes the gate, an OR per word.
+RELAX_OPS = 2
+DMIN_PARENT_TEST_OPS, DMIN_PARENT_UPDATE_OPS = 3, 3
+NH_OR_TEST_OPS, NH_OR_WORD_OPS = 4, 1
+DAG_CHUNK = 1 << 16  # edges per step of dag_pairs
 DEVICE = torch.device("cuda")
 SOURCE = "holo_tpu_torch/csrc/blocked_kernels.cu"
 REPLACES = {
     "relax": "holo_tpu/ops/blocked_spf.py:281 and holo_tpu/ops/blocked.py:118",
-    "dmin": "holo_tpu/ops/blocked_spf.py:295",
-    "parent": "holo_tpu/ops/blocked_spf.py:312",
+    "dmin_parent": "holo_tpu/ops/blocked_spf.py:295 and holo_tpu/ops/blocked_spf.py:312",
     "nh_or": "holo_tpu/ops/blocked_spf.py:337",
 }
 
@@ -153,12 +161,39 @@ def stage_inputs(blk, bspf, g, fdst, fid) -> dict:
     npad = g.in_src.shape[0]
     x = {"dist_mid": blk.distance_fixpoint(g, g.rootp, fdst, fid, limit=2)}
     x["dist"] = blk.distance_fixpoint(g, g.rootp, fdst, fid, limit=npad)
-    x["dmin"], parent_o = bspf.first_parent(g, x["dist"], fdst, fid)
+    _, parent_o = bspf.first_parent(g, x["dist"], fdst, fid)
     hops = bspf.hops_fixpoint(g, parent_o, npad)
     x["gate"] = (hops > 0).to(torch.int32)
     x["direct"] = bspf.direct_words(g, x["dist"], hops, fid)
     x["nh"] = bspf.nexthop_fixpoint(g, x["dist"], hops, x["direct"], fdst, fid, limit=1)
     return x
+
+
+def dag_pairs(blk, g, dist, gate) -> tuple[int, int]:
+    """(DAG pairs, DAG pairs whose source passes ``gate``) over the CSC
+    entries and the scenarios of ``dist`` [N_pad, B]: the (entry,
+    scenario) pairs on which dmin_parent and nh_or do their updates."""
+    s = blk.S
+    per_col = (g.cptr[:, 1:] - g.cptr[:, :-1]).reshape(-1).long()
+    col = torch.repeat_interleave(torch.arange(per_col.numel(), device=dist.device), per_col)
+    pair = col // s
+    u = g.bsrc.long()[pair] * s + g.crow.long()
+    v = g.bdst.long()[pair] * s + col % s
+    dag = dag_gated = 0
+    for e0 in range(0, u.numel(), DAG_CHUNK):
+        ue, ve = u[e0 : e0 + DAG_CHUNK], v[e0 : e0 + DAG_CHUNK]
+        du = dist[ue]
+        tight = (du < blk.CAP) & (g.cw[e0 : e0 + DAG_CHUNK, None] + du == dist[ve])
+        dag += int(tight.sum())
+        dag_gated += int((tight & (gate[ue] > 0)).sum())
+    return dag, dag_gated
+
+
+def plain_dmin_parent(kernels, pl, dist, orig_id):
+    """dmin_parent's plain version: K3, then K4 fed K3's own output (not
+    the corrected dmin that first_parent returns)."""
+    dmin = kernels.dmin_plain(*pl, dist)
+    return dmin, kernels.parent_plain(*pl, dist, dmin, orig_id)
 
 
 def kernel_calls(kernels, blk, g, x, nnz: int) -> dict:
@@ -173,27 +208,25 @@ def kernel_calls(kernels, blk, g, x, nnz: int) -> dict:
     wbytes = nnz * 8
     batch = x["dist"].shape[1]
     words = x["direct"].shape[1] // batch
-    dist, dist_mid, dmin = x["dist"], x["dist_mid"], x["dmin"]
+    dist, dist_mid = x["dist"], x["dist_mid"]
     gate, nh, direct = x["gate"], x["nh"], x["direct"]
-    nh_ops = (NH_OR_TEST_OPS + NH_OR_WORD_OPS * words) * nnz * batch
+    dag, dag_gated = dag_pairs(blk, g, dist, gate)
+    print(f"DAG pairs at B={batch}: {dag} of {nnz * batch} (entry, scenario) pairs "
+          f"({dag / (nnz * batch):.4f}), {dag_gated} past the gate", flush=True)
+    dp_ops = DMIN_PARENT_TEST_OPS * nnz * batch + DMIN_PARENT_UPDATE_OPS * dag
+    nh_ops = NH_OR_TEST_OPS * nnz * batch + NH_OR_WORD_OPS * words * dag_gated
     return {
         "relax": (
             lambda: kernels.relax(*pl, g.seg, dist_mid, edges=edges),
             lambda: kernels.relax_plain(*pl, dist_mid),
-            OPS_PER_EDGE_LANE["relax"] * nnz * batch,
+            RELAX_OPS * nnz * batch,
             wbytes + nbytes(dist_mid) + dist_mid.numel() * 4,
         ),
-        "dmin": (
-            lambda: kernels.dmin(*pl, g.seg, dist),
-            lambda: kernels.dmin_plain(*pl, dist),
-            OPS_PER_EDGE_LANE["dmin"] * nnz * batch,
-            wbytes + nbytes(dist) + dist.numel() * 4,
-        ),
-        "parent": (
-            lambda: kernels.parent(*pl, g.seg, dist, dmin, g.orig_id),
-            lambda: kernels.parent_plain(*pl, dist, dmin, g.orig_id),
-            OPS_PER_EDGE_LANE["parent"] * nnz * batch,
-            wbytes + nbytes(dist, dmin, g.orig_id) + dist.numel() * 4,
+        "dmin_parent": (
+            lambda: kernels.dmin_parent(*pl, g.seg, dist, g.orig_id, edges=edges),
+            lambda: plain_dmin_parent(kernels, pl, dist, g.orig_id),
+            dp_ops,
+            wbytes + nbytes(dist, g.orig_id) + 2 * dist.numel() * 4,
         ),
         "nh_or": (
             lambda: kernels.nh_or(*pl, g.seg, dist, gate, nh, direct, edges=edges),
@@ -212,17 +245,21 @@ def hold_to_plain(calls: dict, label: str) -> dict:
         got = card()
         torch.cuda.synchronize()
         ref, plain_ms = cuda_call(plain)
-        require(got.shape == ref.shape and got.dtype == ref.dtype,
-                f"{name} {label} shape/dtype")
-        err = int((got.long() - ref.long()).abs().max())
-        same = torch.equal(got, ref)
-        print(f"kernel {name} {label}: out {tuple(got.shape)} bit-identical to plain: "
-              f"{same} (max_abs_err {err})", flush=True)
-        require(same, f"{name} disagrees with its plain version {label}")
+        gots, refs = (got, ref) if isinstance(got, tuple) else ((got,), (ref,))
+        err = 0
+        for i, (a, b) in enumerate(zip(gots, refs)):
+            require(a.shape == b.shape and a.dtype == b.dtype,
+                    f"{name} {label} output {i} shape/dtype")
+            e = int((a.long() - b.long()).abs().max())
+            same = torch.equal(a, b)
+            print(f"kernel {name} {label}: output {i} {tuple(a.shape)} bit-identical to "
+                  f"plain: {same} (max_abs_err {e})", flush=True)
+            require(same, f"{name} output {i} disagrees with its plain version {label}")
+            err = max(err, e)
         b_ms, b_by = bound(op_count, byte_count)
         rows[name] = {"max_abs_err": err, "plain_ms": plain_ms, "bound_ms": b_ms,
                       "bound_by": b_by, "ops": op_count, "bytes": byte_count}
-        del got, ref
+        del got, ref, gots, refs, a, b
     return rows
 
 

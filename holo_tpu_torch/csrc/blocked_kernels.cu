@@ -2,53 +2,60 @@
 //
 // These replace the Pallas TPU kernels of the blocked SPF engine:
 //
-//   relax   <- holo_tpu/ops/blocked.py:118 _relax_kernel (pallas_call at :144)
-//              and holo_tpu/ops/blocked_spf.py:281 _relax_kernel (same math)
-//   dmin    <- holo_tpu/ops/blocked_spf.py:295 _dmin_kernel
-//   parent  <- holo_tpu/ops/blocked_spf.py:312 _parent_kernel
-//   nh_or   <- holo_tpu/ops/blocked_spf.py:337 _nh_or_kernel
-//   (all four TPU kernels are built by _grid, pallas_call at blocked_spf.py:394)
+//   relax       <- holo_tpu/ops/blocked.py:118 _relax_kernel (pallas_call at
+//                  :144) and holo_tpu/ops/blocked_spf.py:281 _relax_kernel
+//   dmin_parent <- holo_tpu/ops/blocked_spf.py:295 _dmin_kernel and
+//                  holo_tpu/ops/blocked_spf.py:312 _parent_kernel, both
+//                  outputs in one walk
+//   nh_or       <- holo_tpu/ops/blocked_spf.py:337 _nh_or_kernel
+//   (the blocked_spf.py kernels are built by _grid, pallas_call at :394)
 //
 // All work on int32 with CAP = 1<<28 as infinity over the P nonzero S x S
-// block pairs (S = 256) of the adjacency: w[p, u, v] is the cost of edge
-// (bsrc[p]*S + u) -> (bdst[p]*S + v), CAP where there is none.  Pairs are
-// sorted by destination block and seg[bd] .. seg[bd+1] are the pairs of
-// destination block bd.  The compact edge planes hold the entries < CAP of
-// w as a per-pair CSC: column v of pair p is crow[cptr[p*(S+1)+v] ..
-// cptr[p*(S+1)+v+1]] (source rows u) with weights cw at the same offsets.
+// block pairs (S = 256) of the adjacency: edge (bsrc[p]*S + u) ->
+// (bdst[p]*S + v) of pair p.  Pairs are sorted by destination block and
+// seg[bd] .. seg[bd+1] are the pairs of destination block bd.  No kernel
+// reads the dense weight planes: each walks the compact edge planes, a
+// per-pair CSC of the edges, where column v of pair p is
+// crow[cptr[p*(S+1)+v] .. cptr[p*(S+1)+v+1]] (source rows u) with weights cw
+// at the same offsets.
 //
-//   relax : out[v,l] = min(dist[v,l], min_u w[u,v] + dist[u,l])
-//   dmin  : out[v,l] = min dist[u,l] over DAG parents u, CAP if none
-//   parent: out[v,l] = min orig_id[u] over DAG parents u with
-//           dist[u,l] == dmin[v,l], PBIG if none
-//   nh_or : out[v,l] = direct[v,l] | OR nh[u,l] over DAG parents u with
-//           gate[u,b] > 0, where l = word * batch + b
+//   relax      : out[v,l] = min(dist[v,l], min_u w[u,v] + dist[u,l])
+//   dmin_parent: (dmin, parent)[v,l] = lexicographic min of
+//                (dist[u,l], orig_id[u]) over DAG parents u, (CAP, PBIG)
+//                if none
+//   nh_or      : out[v,l] = direct[v,l] | OR nh[u,l] over DAG parents u
+//                with gate[u,b] > 0, where l = word * batch + b
 //
-// u is a DAG parent of v in lane l when w[u,v] < CAP, dist[u] < CAP and
+// u is a DAG parent of v in lane l when dist[u] < CAP and
 // w[u,v] + dist[u] == dist[v].
 //
 // Grid.  The TPU grid walks the block pairs in order and carries the output
 // block across steps ("first" flag).  GPU blocks run in no order, so here
 // one thread block owns one destination block (and a tile of its lanes),
 // loops over that block's run of pairs, starts from its init value (dist,
-// CAP, PBIG or direct) and writes once: no atomics, deterministic.  min and
-// OR are order-free, so any walk order gives the same bits.
+// (CAP, PBIG) or direct) and writes once: no atomics, deterministic.  min,
+// lexicographic min and OR are order-free, so any walk order gives the same
+// bits.
 //
-// relax and nh_or: the edge walk.  96.6% of the dense block entries of the
-// k=90 fat tree are CAP filler, so a dense walk is bound by work the
-// function does not need.  These two walk only the CSC entries, so their
-// work is the bound's: an add+min per (edge, lane) for relax (nvcc fuses it
-// into Hopper's DPX VIADDMNMX), the DAG test once per (edge, scenario) and
-// an OR per (edge, word, scenario) for nh_or.  Every operand is a shared-
-// memory read, so what bounds them on this card is shared-memory
-// throughput (wavefronts per edge) and the per-column overhead of short
-// columns, not device memory.  A thread block of 32 warps takes one
-// destination block x one lane tile; for each pair it copies in, with
-// cp.async (16 bytes a copy where the plane's stride allows), the source
-// block's tile (relax: 256 rows x 64 lanes of dist; nh_or: 256 rows x 32
-// scenarios of the gated distance and of two next-hop words), the pair's
-// column spans and its first CSC entries as (u, w).  Two buffers (227 KB)
-// let pair p + 1's copies run while pair p is walked.
+// The edge walk.  96.6% of the dense block entries of the k=90 fat tree are
+// CAP filler, so a dense walk is bound by work the function does not need.
+// These kernels walk only the CSC entries, so their work is the bound's:
+// an add+min per (edge, lane) for relax (nvcc fuses it into Hopper's DPX
+// VIADDMNMX); for dmin_parent the DAG test (add, tight test, reached test)
+// once per (edge, scenario) and the lexicographic update where it holds; for
+// nh_or the DAG test once per (edge, scenario) and, where it holds, an OR
+// per word.  On the k=90 fat tree the test holds on 11% of the pairs.
+// Every operand is a shared-memory read, so what bounds them on this card
+// is the rate of integer instructions and of shared-memory wavefronts per
+// edge, and the per-column overhead of short columns, not device memory.
+// A thread block of 32 warps takes one destination block x one lane tile;
+// for each pair it copies in, with cp.async (16 bytes a copy where the
+// plane's stride allows), the source block's tile (relax: 256 rows x 64
+// lanes of dist; dmin_parent: 256 rows x 32 scenarios of dist and the 256
+// orig_ids; nh_or: 256 rows x 32 scenarios of the gated distance and of two
+// next-hop words), the pair's column spans and its first CSC entries as (u,
+// w).  Two buffers (227 KB) let pair p + 1's copies run while pair p is
+// walked.
 // Each warp walks the columns of its 8 destination rows (v = warp + 32 i):
 // (u, w) is the same for the whole warp (a broadcast read), the lanes sit
 // on consecutive threads (conflict-free reads), accumulators stay in
@@ -57,25 +64,29 @@
 // Lane tiles vary fastest, so the blocks resident at once share source
 // planes in L2, and destination blocks go heaviest first (border, from the
 // marshal), so the last blocks on the card are short ones.
+// relax's sparse sum equals the dense one for dist in [0, CAP], which every
+// caller passes: a CAP entry adds CAP + dist[u] >= dist[v].
+// dmin_parent: K3 is the min of dist[u] over the DAG parents, K4 the min
+// orig_id over the DAG parents at that distance; together they are the
+// lexicographic min of (dist[u], orig_id[u]), so one walk gives both
+// outputs bit for bit, with half the DAG tests, one staged source plane
+// (one scenario a thread keeps 8 rows x (dist[v], best distance, best id)
+// in 24 registers) and no dmin plane read back.  K4 fed a dmin that a
+// caller corrected in between is a different function; the pipeline's
+// corrections rewrite exactly the cells where the two differ (see
+// ops/blocked_spf.py first_parent).
 // nh_or tests each (edge, scenario) once for a chunk of two words (lane
 // l = word * B + b): the test does not depend on the word.  A first pass
 // (nh_or_gate) folds the gate and the reached test into the source
 // distance: a parent with hops == 0 passes nothing on, nor does one that is
 // not reached, and both become NEG, so the DAG test is w + du == dist[v]
-// alone.  relax's sparse sum equals the dense one for dist in [0, CAP],
-// which every caller passes: a CAP entry adds CAP + dist[u] >= dist[v].
+// alone.
 // At few lanes (compute() runs one scenario) a lane tile would leave most
 // threads idle, so up to SMALL lanes the *_rows kernels give a warp one
 // destination row and one lane: its threads take the row's pairs in turn,
-// read the sources from L1/L2 and meet in a warp min (relax) or OR (nh_or).
-//
-// dmin and parent: the dense walk.  One thread block owns a 64-row x
-// 64-lane tile of one destination block; the source-row loop is streamed in
-// chunks of 32 rows (32 rows of w and of the lane tile's dist to shared
-// memory), each of the 256 threads keeps a 4 x 4 register tile.  Every
-// (u, v, lane) triple of a pair costs an add, compares and a min: they are
-// bound by integer operations over the dense entries, not by the bytes they
-// move.  They are next to walk the CSC.
+// read the sources from L1/L2 and meet in a warp min (relax), a two-step
+// warp min (dmin_parent: the distance, then the id among the threads that
+// hold it) or a warp OR (nh_or).
 
 #include <cuda_runtime.h>
 
@@ -85,12 +96,12 @@ constexpr int S = 256;        // vertex block size
 constexpr int CAP = 1 << 28;  // in-kernel infinity
 constexpr int PBIG = 1 << 27; // "no parent" sentinel
 
-// -- edge walk (relax, nh_or)
 constexpr int SMALL = 8;                // lane counts up to this: *_rows kernels
 constexpr int WARPS = 32;               // warps of a tile kernel
 constexpr int EW_THREADS = WARPS * 32;
 constexpr int ROWS = S / WARPS;         // destination rows per warp
 constexpr int RELAX_TL = 64;            // relax lanes per thread block, 2 a thread
+constexpr int DP_TB = 32;               // dmin_parent scenarios per thread block, 1 a thread
 constexpr int NH_TB = 32;               // nh_or scenarios per thread block, 1 a thread
 constexpr int WC = 2;                   // nh_or words per thread (a chunk of W)
 constexpr int ROW_WARPS = 8;            // warps (destination rows) of a *_rows block
@@ -98,10 +109,13 @@ constexpr int SCP = 2 * S;              // (begin, end) of each column
 // CSC entries of a pair staged in shared memory (the rest are read from
 // device memory), sized so that two buffers fill the 227 KB a block gets.
 constexpr int RELAX_EC = 6016;
+constexpr int DP_EC = 9984;
 constexpr int NH_EC = 1920;
 constexpr int NEG = -(1 << 30);         // nh_or: a source that is no parent
 constexpr int RELAX_BUF = S * RELAX_TL + 2 * RELAX_EC + SCP;  // ints a buffer
+constexpr int DP_BUF = S * DP_TB + S + 2 * DP_EC + SCP;
 constexpr int NH_BUF = S * NH_TB * 3 + 2 * NH_EC + SCP;
+static_assert(2 * DP_BUF * 4 <= 232448 && DP_BUF % 4 == 0, "dmin_parent buffers");
 
 // 4-byte asynchronous copy device memory -> shared memory (cp.async).
 __device__ __forceinline__ void cp_async4(int* dst, const int* src) {
@@ -329,6 +343,80 @@ relax_tile(const int* __restrict__ cptr, const int* __restrict__ crow,
   }
 }
 
+// (d, id) = the lexicographic min of (d, id) and (du, oid).
+__device__ __forceinline__ void lex_min(int& d, int& id, int du, int oid) {
+  if (du < d || (du == d && oid < id)) {
+    d = du;
+    id = oid;
+  }
+}
+
+__global__ void __launch_bounds__(EW_THREADS, 1)
+dmin_parent_tile(const int* __restrict__ cptr, const int* __restrict__ crow,
+                 const int* __restrict__ cw, const int* __restrict__ border,
+                 const int* __restrict__ seg, const int* __restrict__ bsrc,
+                 const int* __restrict__ dist, const int* __restrict__ orig_id,
+                 int* __restrict__ dmin, int* __restrict__ parent, int lanes) {
+  // Two buffers, each: [S][DP_TB] source dist, the S source orig_ids,
+  // DP_EC (u, w), spans.
+  extern __shared__ int4 smem[];
+  const int bd = __ldg(border + blockIdx.y);
+  const int b0 = blockIdx.x * DP_TB;
+  const int warp = threadIdx.x / 32, t = threadIdx.x % 32;
+  const int b = b0 + t;
+  const bool ok = b < lanes;
+
+  int dv[ROWS];  // -1 for a masked scenario: no w + du equals it
+  int best_d[ROWS], best_id[ROWS];
+#pragma unroll
+  for (int i = 0; i < ROWS; ++i) {
+    const long v = (long)bd * S + warp + WARPS * i;
+    dv[i] = ok ? dist[v * lanes + b] : -1;
+    best_d[i] = CAP;
+    best_id[i] = PBIG;
+  }
+
+  pair_loop<DP_BUF>(
+      cptr, bsrc, seg[bd], seg[bd + 1], reinterpret_cast<int*>(smem),
+      [&](const PairInfo& in, int p, int* buf) {
+        stage_tile<DP_TB>(dist, in.src, lanes, b0, lanes, CAP, buf);
+        const int* oid = orig_id + (long)in.src * S;
+        for (int k = threadIdx.x; k < S; k += EW_THREADS)
+          cp_async4(buf + S * DP_TB + k, oid + k);
+        stage_csc(cptr, crow, cw, p, make_int2(in.beg, in.end), DP_EC,
+                  reinterpret_cast<int2*>(buf + DP_BUF - SCP),
+                  reinterpret_cast<int2*>(buf + S * DP_TB + S));
+      },
+      [&](const PairInfo& in, const int* buf) {
+        const int* soid = buf + S * DP_TB;
+        const int2* se = reinterpret_cast<const int2*>(buf + S * DP_TB + S);
+        const int2* scp = reinterpret_cast<const int2*>(buf + DP_BUF - SCP);
+        const bool whole = in.end - in.beg <= DP_EC;
+        const int staged_end = in.beg + min(DP_EC, in.end - in.beg);
+#pragma unroll
+        for (int i = 0; i < ROWS; ++i) {
+          const int dvi = dv[i];
+          int d = best_d[i], id = best_id[i];
+          walk_column(whole, se, in.beg, staged_end, crow, cw,
+                      scp[warp + WARPS * i], [&](int u, int w) {
+                        const int du = buf[u * DP_TB + t];
+                        if (du < CAP && w + du == dvi) lex_min(d, id, du, soid[u]);
+                      });
+          best_d[i] = d;
+          best_id[i] = id;
+        }
+      });
+
+#pragma unroll
+  for (int i = 0; i < ROWS; ++i) {
+    const long v = (long)bd * S + warp + WARPS * i;
+    if (ok) {
+      dmin[v * lanes + b] = best_d[i];
+      parent[v * lanes + b] = best_id[i];
+    }
+  }
+}
+
 // nh_or's first pass: the source distance each DAG test reads.  A parent
 // with hops == 0 passes nothing on, and neither does one that is not
 // reached: both become NEG, for which w + NEG < 0 <= dist[v], so the DAG
@@ -440,6 +528,36 @@ relax_rows(const int* __restrict__ cptr, const int* __restrict__ crow,
   if (t == 0) out[v * lanes + l] = min(dist[v * lanes + l], acc);
 }
 
+// One warp per (destination row, lane), as relax_rows; the warp meets in
+// the min distance, then in the min id over the threads that hold it.
+__global__ void __launch_bounds__(ROW_WARPS * 32)
+dmin_parent_rows(const int* __restrict__ cptr, const int* __restrict__ crow,
+                 const int* __restrict__ cw, const int* __restrict__ seg,
+                 const int* __restrict__ bsrc, const int* __restrict__ dist,
+                 const int* __restrict__ orig_id, int* __restrict__ dmin,
+                 int* __restrict__ parent, int lanes) {
+  const long v = (long)blockIdx.x * ROW_WARPS + threadIdx.x / 32;
+  const int l = blockIdx.y, t = threadIdx.x % 32;
+  const int bd = v / S, vl = v % S;
+  const int dv = dist[v * lanes + l];
+  int d = CAP, id = PBIG;
+  const int p_end = seg[bd + 1];
+  for (int p = seg[bd] + t; p < p_end; p += 32) {
+    const long urow0 = (long)bsrc[p] * S;
+    const int* cp = cptr + (long)p * (S + 1);
+    for_edges(crow, cw, cp[vl], cp[vl + 1], [&](int u, int w) {
+      const int du = __ldg(dist + (urow0 + u) * lanes + l);
+      if (du < CAP && w + du == dv) lex_min(d, id, du, __ldg(orig_id + urow0 + u));
+    });
+  }
+  const int m = __reduce_min_sync(0xffffffffu, d);
+  id = __reduce_min_sync(0xffffffffu, d == m ? id : PBIG);
+  if (t == 0) {
+    dmin[v * lanes + l] = m;
+    parent[v * lanes + l] = id;
+  }
+}
+
 // One warp per (destination row, scenario, word chunk), as relax_rows.
 __global__ void __launch_bounds__(ROW_WARPS * 32)
 nh_or_rows(const int* __restrict__ cptr, const int* __restrict__ crow,
@@ -475,117 +593,6 @@ nh_or_rows(const int* __restrict__ cptr, const int* __restrict__ crow,
     out[v * lanes + l0] = direct[v * lanes + l0] | (int)a0;
     if (two) out[v * lanes + l1] = direct[v * lanes + l1] | (int)a1;
   }
-}
-
-// -- dense walk (dmin, parent)
-constexpr int TV = 64;        // destination rows per thread block
-constexpr int TL = 64;        // lanes per thread block
-constexpr int UC = 32;        // source rows per shared-memory chunk
-constexpr int RV = 4;         // rows per thread
-constexpr int RL = 4;         // lanes per thread
-constexpr int THREADS = 256;  // 16 x 16 threads, each RV x RL outputs
-
-enum Mode { DMIN = 0, PARENT = 1 };
-
-// dmin: PARENT only, [N_pad, lanes]; orig_id: PARENT only, [N_pad].
-template <int MODE>
-__global__ void __launch_bounds__(THREADS)
-dense_kernel(const int* __restrict__ w, const int* __restrict__ seg,
-             const int* __restrict__ bsrc, const int* __restrict__ dist,
-             const int* __restrict__ dmin, const int* __restrict__ orig_id,
-             int* __restrict__ out, int lanes) {
-  __shared__ int ws[UC][TV];
-  __shared__ int ds[UC][TL];
-  __shared__ int oids[UC];
-
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  const int bd = blockIdx.z;
-  const int vcol0 = blockIdx.y * TV;  // first column of the tile in w
-  const int vrow0 = bd * S + vcol0;   // its global row
-  const int l0 = blockIdx.x * TL;
-
-  int acc[RV][RL];
-  int dv[RV][RL];
-  int dm[RV][RL];
-#pragma unroll
-  for (int i = 0; i < RV; ++i) {
-#pragma unroll
-    for (int j = 0; j < RL; ++j) {
-      const long v = vrow0 + ty + 16 * i;
-      const int l = l0 + tx + 16 * j;
-      const bool ok = l < lanes;
-      dv[i][j] = ok ? dist[v * lanes + l] : 0;
-      dm[i][j] = (MODE == PARENT && ok) ? dmin[v * lanes + l] : 0;
-      acc[i][j] = MODE == DMIN ? CAP : PBIG;
-    }
-  }
-
-  const int p_end = seg[bd + 1];
-  for (int p = seg[bd]; p < p_end; ++p) {
-    const long urow0 = (long)bsrc[p] * S;
-    const int* wp = w + (long)p * S * S;
-    for (int u0 = 0; u0 < S; u0 += UC) {
-      __syncthreads();  // the previous chunk is consumed
-      for (int k = threadIdx.x; k < UC * TV; k += THREADS) {
-        const int r = k / TV, c = k % TV;
-        ws[r][c] = wp[(long)(u0 + r) * S + vcol0 + c];
-      }
-      for (int k = threadIdx.x; k < UC * TL; k += THREADS) {
-        const int r = k / TL, c = k % TL;
-        const int l = l0 + c;
-        ds[r][c] = l < lanes ? dist[(urow0 + u0 + r) * lanes + l] : CAP;
-      }
-      if (MODE == PARENT && threadIdx.x < UC) {
-        oids[threadIdx.x] = orig_id[urow0 + u0 + threadIdx.x];
-      }
-      __syncthreads();
-
-#pragma unroll 4
-      for (int r = 0; r < UC; ++r) {
-        int wv[RV];
-        int du[RL];
-#pragma unroll
-        for (int i = 0; i < RV; ++i) wv[i] = ws[r][ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < RL; ++j) du[j] = ds[r][tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < RV; ++i) {
-#pragma unroll
-          for (int j = 0; j < RL; ++j) {
-            const bool dag =
-                wv[i] < CAP && du[j] < CAP && wv[i] + du[j] == dv[i][j];
-            if (MODE == DMIN && dag) acc[i][j] = min(acc[i][j], du[j]);
-            if (MODE == PARENT && dag && du[j] == dm[i][j])
-              acc[i][j] = min(acc[i][j], oids[r]);
-          }
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < RV; ++i) {
-#pragma unroll
-    for (int j = 0; j < RL; ++j) {
-      const long v = vrow0 + ty + 16 * i;
-      const int l = l0 + tx + 16 * j;
-      if (l < lanes) out[v * lanes + l] = acc[i][j];
-    }
-  }
-}
-
-template <int MODE>
-int dense_launch(const void* w, const void* seg, const void* bsrc,
-                 const void* dist, const void* dmin, const void* orig_id,
-                 void* out, int nb, int lanes, void* stream) {
-  if (nb > 0 && lanes > 0) {
-    const dim3 grid((lanes + TL - 1) / TL, S / TV, nb);
-    dense_kernel<MODE><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-        (const int*)w, (const int*)seg, (const int*)bsrc, (const int*)dist,
-        (const int*)dmin, (const int*)orig_id, (int*)out, lanes);
-  }
-  return (int)cudaGetLastError();
 }
 
 // Dynamic shared memory above 48 KB must be allowed per kernel first.
@@ -627,19 +634,29 @@ int holo_blocked_relax(const void* cptr, const void* crow, const void* cw,
   return (int)cudaGetLastError();
 }
 
-int holo_blocked_dmin(const void* w, const void* seg, const void* bsrc,
-                      const void* dist, void* out, int nb, int lanes,
-                      void* stream) {
-  return dense_launch<DMIN>(w, seg, bsrc, dist, nullptr, nullptr, out, nb,
-                            lanes, stream);
-}
-
-int holo_blocked_parent(const void* w, const void* seg, const void* bsrc,
-                        const void* dist, const void* dmin,
-                        const void* orig_id, void* out, int nb, int lanes,
-                        void* stream) {
-  return dense_launch<PARENT>(w, seg, bsrc, dist, dmin, orig_id, out, nb,
-                              lanes, stream);
+int holo_blocked_dmin_parent(const void* cptr, const void* crow,
+                             const void* cw, const void* border,
+                             const void* seg, const void* bsrc,
+                             const void* dist, const void* orig_id,
+                             void* dmin, void* parent, int nb, int lanes,
+                             void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int *cp = (const int*)cptr, *cr = (const int*)crow, *c = (const int*)cw;
+  const int *sg = (const int*)seg, *bs = (const int*)bsrc, *d = (const int*)dist;
+  const int* o = (const int*)orig_id;
+  if (nb > 0 && lanes > 0 && lanes <= SMALL) {
+    dmin_parent_rows<<<dim3(nb * S / ROW_WARPS, lanes), ROW_WARPS * 32, 0, st>>>(
+        cp, cr, c, sg, bs, d, o, (int*)dmin, (int*)parent, lanes);
+  } else if (nb > 0 && lanes > 0) {
+    const int smem = 2 * DP_BUF * (int)sizeof(int);
+    const int rc = allow_smem(dmin_parent_tile, smem);
+    if (rc != 0) return rc;
+    const dim3 grid((lanes + DP_TB - 1) / DP_TB, nb);
+    dmin_parent_tile<<<grid, EW_THREADS, smem, st>>>(
+        cp, cr, c, (const int*)border, sg, bs, d, o, (int*)dmin, (int*)parent,
+        lanes);
+  }
+  return (int)cudaGetLastError();
 }
 
 int holo_blocked_nh_or(const void* cptr, const void* crow, const void* cw,

@@ -1,7 +1,7 @@
 """The blocked SPF engine's CUDA kernels, each beside its plain PyTorch version.
 
-Four wrappers -- :func:`relax`, :func:`dmin`, :func:`parent`, :func:`nh_or`
--- over ``csrc/blocked_kernels.cu`` (which names the TPU kernel each one
+Three wrappers -- :func:`relax`, :func:`dmin_parent`, :func:`nh_or` -- over
+``csrc/blocked_kernels.cu`` (which names the TPU kernels each one
 replaces).  A wrapper given CPU tensors computes the plain version; given
 CUDA tensors it launches the kernel on the current stream or raises.  It
 never falls back.  :data:`launches` counts kernel launches per wrapper.
@@ -13,9 +13,8 @@ Plane conventions (all int32, CAP = 1<<28 as infinity):
 - ``edges`` = (cptr [P, S+1], crow [nnz], cw [nnz], border [nb]): the
   entries < CAP of ``w`` as a per-pair CSC (``ops.blocked.edge_planes``)
   and the order in which the kernels take the destination blocks
-  (``ops.blocked.block_order``).  :func:`relax` and :func:`nh_or` walk only
-  these on the card and need them there; the plain versions and
-  :func:`dmin` / :func:`parent` read ``w``;
+  (``ops.blocked.block_order``).  The kernels walk only these and need
+  them on the card; the plain versions read ``w``;
 - ``bsrc``/``bdst`` [P]: source / destination block ids, sorted by
   ``bdst``; ``seg`` [nb + 1]: pairs of destination block bd are
   ``seg[bd] .. seg[bd+1]``;
@@ -34,7 +33,7 @@ PBIG = 1 << 27
 _UC = 32  # source rows per chunk in the plain versions (bounds memory)
 
 #: kernel launches per wrapper since the last :func:`reset_launches`
-launches = {"relax": 0, "dmin": 0, "parent": 0, "nh_or": 0}
+launches = {"relax": 0, "dmin_parent": 0, "nh_or": 0}
 
 
 def reset_launches() -> None:
@@ -190,30 +189,27 @@ def relax(w, bsrc, bdst, seg, dist, edges=None):
     return out
 
 
-def dmin(w, bsrc, bdst, seg, dist):
-    """out[v, l] = min dist[u, l] over DAG parents u of v (CAP if none)."""
-    if not _on_card(w, bsrc, bdst, seg, dist):
-        return dmin_plain(w, bsrc, bdst, dist)
-    nb = _check_planes(w, seg, dist.shape[0])
-    out = torch.empty_like(dist)
-    _launch("dmin", w, seg, bsrc, dist, out, nb, dist.shape[1])
-    return out
+def dmin_parent(w, bsrc, bdst, seg, dist, orig_id, edges=None):
+    """(dmin, parent) [N_pad, lanes]: dmin[v, l] = min dist[u, l] over DAG
+    parents u of v (CAP if none); parent[v, l] = min orig_id[u] over DAG
+    parents u of v with dist[u, l] == dmin[v, l] (PBIG if none).
 
-
-def parent(w, bsrc, bdst, seg, dist, dmin_, orig_id):
-    """out[v, l] = min orig_id[u] over DAG parents u of v with
-    dist[u, l] == dmin_[v, l] (PBIG if none)."""
-    if not _on_card(w, bsrc, bdst, seg, dist, dmin_, orig_id):
-        return parent_plain(w, bsrc, bdst, dist, dmin_, orig_id)
+    Together they are the lexicographic min of (dist[u, l], orig_id[u]),
+    which the kernel takes in one walk of ``edges``.
+    """
+    if not _on_card(w, bsrc, bdst, seg, dist, orig_id, *(edges or ())):
+        dmin_ = dmin_plain(w, bsrc, bdst, dist)
+        return dmin_, parent_plain(w, bsrc, bdst, dist, dmin_, orig_id)
     nb = _check_planes(w, seg, dist.shape[0])
-    if dmin_.shape != dist.shape or orig_id.shape != (dist.shape[0],):
+    cptr, crow, cw, border = _check_edges(w, nb, edges)
+    if orig_id.shape != (dist.shape[0],):
         raise ValueError(
-            f"dmin {tuple(dmin_.shape)} / orig_id {tuple(orig_id.shape)} "
-            f"do not match dist {tuple(dist.shape)}"
+            f"orig_id {tuple(orig_id.shape)} does not match dist {tuple(dist.shape)}"
         )
-    out = torch.empty_like(dist)
-    _launch("parent", w, seg, bsrc, dist, dmin_, orig_id, out, nb, dist.shape[1])
-    return out
+    dmin_, parent_ = torch.empty_like(dist), torch.empty_like(dist)
+    _launch("dmin_parent", cptr, crow, cw, border, seg, bsrc, dist, orig_id, dmin_,
+            parent_, nb, dist.shape[1])
+    return dmin_, parent_
 
 
 def nh_or(w, bsrc, bdst, seg, dist, gate, nh, direct, edges=None):

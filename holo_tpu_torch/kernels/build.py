@@ -31,8 +31,7 @@ _I = ctypes.c_int
 # exports holo_error_string(int) -> const char*.
 SIGNATURES = {
     "holo_blocked_relax": (*[_P] * 8, _I, _I, _P),
-    "holo_blocked_dmin": (_P, _P, _P, _P, _P, _I, _I, _P),
-    "holo_blocked_parent": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
+    "holo_blocked_dmin_parent": (*[_P] * 10, _I, _I, _P),
     "holo_blocked_nh_or": (*[_P] * 12, _I, _I, _I, _P),
 }
 

@@ -121,16 +121,16 @@ def ell_planes(topo: Topology, npad: int, n_atoms: int) -> dict:
 
 def block_order(cptr: np.ndarray, bdst: np.ndarray, nb: int) -> np.ndarray:
     """Destination blocks by descending edge-walk work (CSC entries plus S
-    per pair), ties in block order.  The relax and nh_or kernels start the
-    heaviest blocks first, so that the last ones on the card are short."""
+    per pair), ties in block order.  The tile kernels start the heaviest
+    blocks first, so that the last ones on the card are short."""
     per_pair = cptr[: len(bdst), S] - cptr[: len(bdst), 0] + S
     work = np.bincount(bdst, weights=per_pair, minlength=nb)
     return np.argsort(-work, kind="stable").astype(np.int32)
 
 
 def edges_of(g) -> tuple:
-    """The compact edge planes (cptr, crow, cw, border) that relax and
-    nh_or walk."""
+    """The compact edge planes (cptr, crow, cw, border) that the kernels
+    walk."""
     return g.cptr, g.crow, g.cw, g.border
 
 

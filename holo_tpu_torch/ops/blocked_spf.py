@@ -1,12 +1,12 @@
 """Full block-sparse SPF: distances + first parent + hops + ECMP next hops.
 
-Port of ``holo_tpu/ops/blocked_spf.py``; the four block kernels are the
+Port of ``holo_tpu/ops/blocked_spf.py``; the block kernels are the
 hand-written CUDA kernels of :mod:`holo_tpu_torch.kernels.blocked`:
 
 - distances: the block relax kernel (Jacobi min-plus fixpoint);
-- first parent: two single-pass kernels -- per-vertex min DAG-parent
-  distance (``dmin``), then min *original id* among parents at that
-  distance (``parent``).  This reproduces the reference's BTreeMap pop
+- first parent: one edge-walk kernel (``dmin_parent``) -- per-vertex min
+  DAG-parent distance and the min *original id* among parents at that
+  distance, together.  This reproduces the reference's BTreeMap pop
   order (holo-ospf/src/spf.rs:614-622, 676-706) even though compute runs
   in a BFS-permuted vertex space;
 - hops: first-parent chain fixpoint (plain torch gathers);
@@ -289,10 +289,21 @@ def _correct_nh(g, dist, gate, direct, acc, fdst, fid):
 
 def first_parent(g: BlockSpfGraph, dist, fdst, fid):
     """(dmin, parent) [N_pad, B]: min DAG-parent distance, then the min
-    original id among parents at that distance (PBIG if none)."""
-    dmin = kernels.dmin(g.w, g.bsrc, g.bdst, g.seg, dist)
+    original id among parents at that distance (PBIG if none).
+
+    One kernel walk gives both on the static graph (their lexicographic
+    min); then ``_correct_dmin`` and ``_correct_parent``, in that order,
+    rewrite the cells of failed-edge destinations.  This equals computing
+    dmin, correcting it, and feeding the corrected dmin to a separate
+    parent pass, bit for bit: ``_correct_dmin`` writes only those cells,
+    ``_correct_parent`` recomputes exactly those cells whole from the ELL
+    with the corrected dmin, and on every other cell the static dmin is
+    the corrected one, so the static parent is too.
+    """
+    dmin, parent_o = kernels.dmin_parent(
+        g.w, g.bsrc, g.bdst, g.seg, dist, g.orig_id, edges=edges_of(g)
+    )
     dmin = _correct_dmin(g, dist, dmin, fdst, fid)
-    parent_o = kernels.parent(g.w, g.bsrc, g.bdst, g.seg, dist, dmin, g.orig_id)
     return dmin, _correct_parent(g, dist, dmin, parent_o, fdst, fid)
 
 

@@ -122,4 +122,4 @@ def test_wrapper_refuses_other_devices():
         kernels.relax(meta, small, small, small, meta)
     cpu = torch.zeros(1, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA device"):
-        kernels.dmin(meta, cpu, cpu, cpu, meta)
+        kernels.dmin_parent(meta, cpu, cpu, cpu, meta, cpu)

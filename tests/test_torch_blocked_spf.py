@@ -3,6 +3,9 @@
 - marshal_block_spf: every plane equal field by field;
 - each kernel's plain PyTorch version against the Pallas kernel run in
   interpret mode on identical planes (brought over with convert.py);
+  dmin_parent's two outputs against K3 and against K4 fed K3's output;
+- first_parent (one fused walk, then the corrections) against the
+  two-pass sequence it replaces, with failed edges that change dmin;
 - whatif_spf_blocked against JAX's whatif_spf_blocked(interpret=True) and
   the scalar oracle, on all four planes (the cases of test_blocked_spf.py).
 
@@ -111,12 +114,14 @@ def test_plain_kernel_matches_pallas(name, seed):
         got = kernels.relax(*pl, x["dist_mid"])
         want = _pallas(jg, jbs._relax_kernel, "", batch, x["dist_mid"], x["dist_mid"])
     elif name == "dmin":
-        got = kernels.dmin(*pl, x["dist"])
+        got, _ = kernels.dmin_parent(*pl, x["dist"], g.orig_id)
         want = _pallas(jg, jbs._dmin_kernel, "", batch, x["dist"], x["dist"])
     elif name == "parent":
-        got = kernels.parent(*pl, x["dist"], x["dmin"], g.orig_id)
+        # K4 fed K3's own (uncorrected) output: the fused walk's function.
+        _, got = kernels.dmin_parent(*pl, x["dist"], g.orig_id)
+        dmin = torch.tensor(_pallas(jg, jbs._dmin_kernel, "", batch, x["dist"], x["dist"]))
         oid = g.orig_id[:, None].expand(-1, batch).contiguous()
-        want = _pallas(jg, jbs._parent_kernel, "ds", batch, x["dist"], x["dist"], x["dmin"], oid)
+        want = _pallas(jg, jbs._parent_kernel, "ds", batch, x["dist"], x["dist"], dmin, oid)
     else:
         words = x["direct"].shape[1] // batch
         got = kernels.nh_or(*pl, x["dist"], x["gate"], x["nh"], x["direct"])
@@ -125,6 +130,62 @@ def test_plain_kernel_matches_pallas(name, seed):
                        dcat, dcat, gcat, x["nh"], x["direct"])
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _first_parent_in_two_passes(g, dist, fdst, fid):
+    """The sequence the fused step replaces: dmin, its correction, parent
+    fed the corrected dmin, the parent correction."""
+    pl = (g.w, g.bsrc, g.bdst)
+    dmin = tbs._correct_dmin(g, dist, kernels.dmin_plain(*pl, dist), fdst, fid)
+    parent_o = kernels.parent_plain(*pl, dist, dmin, g.orig_id)
+    return dmin, tbs._correct_parent(g, dist, dmin, parent_o, fdst, fid)
+
+
+def _fails_a_min_parent(t, g):
+    """Masks [2, E]: no failure, then one failed edge u -> v whose source
+    is the only parent of v at its min DAG-parent distance while v keeps a
+    farther DAG parent, so v's distance stays and its static min parent
+    distance (failed edge included) is below the corrected one."""
+    none = torch.full((1, 4), -1, dtype=torch.int32)
+    dist = tblk.distance_fixpoint(g, g.rootp, none, none, limit=g.in_src.shape[0])[:, 0]
+    d = dist.numpy()
+    perm = g.orig2perm.numpy()
+    src, dst = perm[t.edge_src], perm[t.edge_dst]
+    dag = (d[src] < tblk.CAP) & (d[src] + t.edge_cost == d[dst])
+    for e in np.nonzero(dag)[0]:
+        parents = d[src[dag & (dst == dst[e])]]
+        if (parents == d[src[e]]).sum() == 1 and d[src[e]] == parents.min() < parents.max():
+            masks = np.ones((2, t.n_edges), bool)
+            masks[1, e] = False
+            return masks, int(dst[e])
+    raise AssertionError("no edge removes its destination's min-distance parent")
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_fused_first_parent_equals_the_two_pass_sequence(seed):
+    tt = tsynth.random_ospf_topology(
+        n_routers=200, n_networks=30, extra_p2p=300, max_cost=3, seed=seed
+    )
+    g = tbs.marshal_block_spf(tt, device="cpu")
+    npad = g.in_src.shape[0]
+    cases = [tsynth.whatif_link_failure_masks(tt, 7, seed=seed + 3)]
+    masks, v = _fails_a_min_parent(tt, g)
+    cases.append(masks)
+    for m in cases:
+        fdst, fid = tbs.failed_edges_perm(g.orig2perm.numpy(), tt, m, device="cpu")
+        dist = tblk.distance_fixpoint(g, g.rootp, fdst, fid, limit=npad)
+        got = tbs.first_parent(g, dist, fdst, fid)
+        want = _first_parent_in_two_passes(g, dist, fdst, fid)
+        for a, b in zip(got, want):
+            assert a.dtype == torch.int32
+            assert torch.equal(a, b)
+    # The failed edge removed v's min-distance parent: the static dmin
+    # (the kernel's) and the corrected one differ there, and so do the
+    # static and corrected parents.
+    static_dmin, static_parent = kernels.dmin_parent(g.w, g.bsrc, g.bdst, g.seg, dist, g.orig_id)
+    assert static_dmin[v, 1] < got[0][v, 1]
+    assert static_parent[v, 1] != got[1][v, 1]
+    assert torch.equal(static_dmin[:, 0], got[0][:, 0])
 
 
 def _assert_parity(kw, masks_fn, permute=True, n_atoms=64):

@@ -8,9 +8,12 @@ without JAX:
 Each kernel is held bit-identical to its plain PyTorch version on real
 mid-fixpoint inputs at lane counts on both sides of the edge-walk kernels'
 per-row/tile switch (8) and across their 32- and 64-lane tiles, on a fat
-tree, whose uniform degree the edge walk sees in every column, and on a
-block pair with more edges than the kernels stage in shared memory; the
-backend is held to the scalar oracle with every kernel launched.
+tree, whose uniform degree the edge walk sees in every column, on a block
+pair with more edges than the kernels stage in shared memory, where many
+parents tie on distance, and where a block has no in-edges; dmin_parent's
+parent output is held against the plain parent fed the plain, uncorrected
+dmin.  The backend is held to the scalar oracle with every kernel
+launched.
 """
 
 import numpy as np
@@ -20,6 +23,7 @@ import torch
 from holo_tpu_torch.kernels import blocked as kernels
 from holo_tpu_torch.ops import blocked as blk
 from holo_tpu_torch.ops import blocked_spf as bspf
+from holo_tpu_torch.ops.graph import Topology
 from holo_tpu_torch.spf import synth
 from holo_tpu_torch.spf.backend import ScalarSpfBackend, TorchSpfBackend
 
@@ -32,13 +36,13 @@ def _card():
     return torch.device("cuda")
 
 
-def _inputs(batch, dev, topo=None):
+def _inputs(batch, dev, topo=None, permute="auto"):
     if topo is None:
         topo = synth.random_ospf_topology(
             n_routers=560, n_networks=60, extra_p2p=900, seed=batch
         )
     masks = synth.whatif_link_failure_masks(topo, batch, seed=batch + 1)
-    g = bspf.marshal_block_spf(topo, device=dev)
+    g = bspf.marshal_block_spf(topo, permute=permute, device=dev)
     fdst, fid = bspf.failed_edges_perm(g.orig2perm.cpu().numpy(), topo, masks, device=dev)
     npad = g.in_src.shape[0]
     x = {"dist_mid": blk.distance_fixpoint(g, g.rootp, fdst, fid, limit=2)}
@@ -54,12 +58,16 @@ def _inputs(batch, dev, topo=None):
 def _assert_kernels_match(g, x):
     pl = (g.w, g.bsrc, g.bdst)
     edges = blk.edges_of(g)
+    # dmin_parent is K3 and K4 fed K3's output: the uncorrected dmin, not
+    # the corrected x["dmin"] that first_parent returns.
+    dmin, parent = kernels.dmin_parent(*pl, g.seg, x["dist"], g.orig_id, edges=edges)
+    dmin_ref = kernels.dmin_plain(*pl, x["dist"])
     pairs = {
         "relax": (kernels.relax(*pl, g.seg, x["dist_mid"], edges=edges),
                   kernels.relax_plain(*pl, x["dist_mid"])),
-        "dmin": (kernels.dmin(*pl, g.seg, x["dist"]), kernels.dmin_plain(*pl, x["dist"])),
-        "parent": (kernels.parent(*pl, g.seg, x["dist"], x["dmin"], g.orig_id),
-                   kernels.parent_plain(*pl, x["dist"], x["dmin"], g.orig_id)),
+        "dmin_parent.dmin": (dmin, dmin_ref),
+        "dmin_parent.parent": (parent, kernels.parent_plain(*pl, x["dist"], dmin_ref,
+                                                            g.orig_id)),
         "nh_or": (kernels.nh_or(*pl, g.seg, x["dist"], x["gate"], x["nh"], x["direct"],
                                 edges=edges),
                   kernels.nh_or_plain(*pl, x["dist"], x["gate"], x["nh"], x["direct"])),
@@ -79,10 +87,35 @@ def test_kernels_match_plain_versions_on_a_fat_tree():
 
 
 def test_kernels_match_plain_versions_past_the_staged_entries():
-    # One block pair of 7,926 edges: more than relax and nh_or stage in
-    # shared memory, so both also read entries from device memory.
-    topo = synth.random_ospf_topology(n_routers=240, n_networks=10, extra_p2p=4000, seed=3)
+    # One block pair of 11,302 edges: more than any tile kernel stages in
+    # shared memory (at most 9,984), so each also reads entries from
+    # device memory.
+    topo = synth.random_ospf_topology(n_routers=240, n_networks=10, extra_p2p=6000, seed=3)
     _assert_kernels_match(*_inputs(40, _card(), topo))
+
+
+@pytest.mark.parametrize("batch", [1, 40])
+def test_kernels_match_plain_versions_where_parents_tie(batch):
+    # Costs 1-2: many vertices have several DAG parents at the min distance.
+    topo = synth.random_ospf_topology(
+        n_routers=560, n_networks=60, extra_p2p=900, max_cost=2, seed=5
+    )
+    _assert_kernels_match(*_inputs(batch, _card(), topo))
+
+
+@pytest.mark.parametrize("batch", [1, 40])
+def test_kernels_match_plain_versions_with_an_unreached_block(batch):
+    # 600 vertices = 3 blocks; block 2 has no in-edges (its one pair has
+    # empty columns), so each of its rows keeps (CAP, PBIG).
+    src = np.r_[np.arange(0, 511), np.arange(512, 600)]
+    dst = np.r_[np.arange(1, 512), np.arange(0, 88)]
+    topo = Topology(n_vertices=600, is_router=np.ones(600, bool), edge_src=src,
+                    edge_dst=dst, edge_cost=np.arange(src.size) % 7 + 1, root=0)
+    g, x = _inputs(batch, _card(), topo, permute=False)
+    _assert_kernels_match(g, x)
+    dmin, parent = kernels.dmin_parent(g.w, g.bsrc, g.bdst, g.seg, x["dist"], g.orig_id,
+                                       edges=blk.edges_of(g))
+    assert (dmin[512:] == blk.CAP).all() and (parent[512:] == bspf.PBIG).all()
 
 
 def test_backend_on_the_card_matches_scalar():
@@ -103,9 +136,18 @@ def test_wrappers_refuse_bad_planes():
     idx = torch.zeros(1, dtype=torch.int32, device=dev)
     seg = torch.tensor([0, 1], dtype=torch.int32, device=dev)
     dist = torch.zeros((256, 4), dtype=torch.int32, device=dev)
+    oid = torch.zeros(256, dtype=torch.int32, device=dev)
+    cptr = torch.zeros((1, 257), dtype=torch.int32, device=dev)
+    edges = (cptr, idx, idx, idx)
     with pytest.raises(ValueError, match="int32"):
-        kernels.dmin(w, idx, idx, seg, dist.long())
+        kernels.dmin_parent(w, idx, idx, seg, dist.long(), oid, edges=edges)
     with pytest.raises(ValueError, match="contiguous"):
-        kernels.dmin(w, idx, idx, seg, dist.T)
+        kernels.dmin_parent(w, idx, idx, seg, dist.T, oid, edges=edges)
     with pytest.raises(ValueError, match="shapes disagree"):
-        kernels.dmin(w, idx, idx, seg, dist[:128])
+        kernels.dmin_parent(w, idx, idx, seg, dist[:128], oid, edges=edges)
+    with pytest.raises(ValueError, match="orig_id"):
+        kernels.dmin_parent(w, idx, idx, seg, dist, oid[:128], edges=edges)
+    with pytest.raises(ValueError, match="edges="):
+        kernels.dmin_parent(w, idx, idx, seg, dist, oid)
+    with pytest.raises(ValueError, match="edge planes"):
+        kernels.dmin_parent(w, idx, idx, seg, dist, oid, edges=(cptr[:, :256], idx, idx, idx))

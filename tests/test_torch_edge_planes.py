@@ -1,13 +1,16 @@
 """The compact edge planes (per-pair CSC of the entries < CAP of ``w``) that
-the relax and nh_or kernels walk on the card.
+the kernels walk on the card.
 
 - scattered back into a CAP-filled [P, S, S] they equal ``w`` exactly;
 - entries are sorted by (pair, v_local, u_local) and ``cptr`` is monotone;
 - the identity pair of a block with no in-edges has empty columns;
 - convert.py derives the same planes from the JAX package's graph;
 - a numpy walk of the CSC in the kernels' order (relax: add+min per edge;
-  nh_or: gated source distance, the DAG test once per edge and scenario,
-  then an OR per word) equals the plain dense versions bit for bit.
+  dmin_parent: the DAG test once per edge and scenario, then the
+  lexicographic min of (distance, original id), also where many parents tie
+  and where a block has no in-edges; nh_or: gated source distance, the DAG
+  test once per edge and scenario, then an OR per word) equals the plain
+  dense versions bit for bit.
 
 Tolerance: exact equality everywhere (the computation is integer-only).
 """
@@ -26,7 +29,7 @@ from holo_tpu_torch.ops import blocked_spf as tbs
 from holo_tpu_torch.ops.graph import Topology
 from holo_tpu_torch.spf import synth as tsynth
 
-S, CAP = tblk.S, tblk.CAP
+S, CAP, PBIG = tblk.S, tblk.CAP, tbs.PBIG
 
 
 def _check_planes(w, cptr, crow, cw):
@@ -64,13 +67,17 @@ def test_planes_of_fat_tree():
     assert g.crow.shape[0] == t.n_edges
 
 
-def test_block_without_in_edges_has_empty_columns():
+def _unreached_block_topology():
     # 600 vertices = 3 blocks; a chain inside blocks 0-1 and edges from
     # block 2 into block 0, none into block 2.
     src = np.r_[np.arange(0, 511), np.arange(512, 600)]
     dst = np.r_[np.arange(1, 512), np.arange(0, 88)]
-    t = Topology(n_vertices=600, is_router=np.ones(600, bool), edge_src=src,
-                 edge_dst=dst, edge_cost=np.arange(src.size) % 7 + 1, root=0)
+    return Topology(n_vertices=600, is_router=np.ones(600, bool), edge_src=src,
+                    edge_dst=dst, edge_cost=np.arange(src.size) % 7 + 1, root=0)
+
+
+def test_block_without_in_edges_has_empty_columns():
+    t = _unreached_block_topology()
     arrays = tblk.block_pairs(t.edge_src, t.edge_dst, t.edge_cost, t.n_vertices)
     counts = _check_planes(arrays["w"], arrays["cptr"], arrays["crow"], arrays["cw"])
     ident = np.nonzero((arrays["bsrc"] == 2) & (arrays["bdst"] == 2))[0]
@@ -124,8 +131,10 @@ def _edges_global(g):
     return bsrc.astype(np.int64) * S + crow, bdst.astype(np.int64) * S + col, cw
 
 
-def _inputs(seed, batch):
-    t = tsynth.random_ospf_topology(n_routers=200, n_networks=30, extra_p2p=300, seed=seed)
+def _inputs(seed, batch, max_cost=20):
+    t = tsynth.random_ospf_topology(
+        n_routers=200, n_networks=30, extra_p2p=300, max_cost=max_cost, seed=seed
+    )
     masks = tsynth.whatif_link_failure_masks(t, batch, seed=seed + 5)
     g = tbs.marshal_block_spf(t, device="cpu")
     fdst, fid = tbs.failed_edges_perm(g.orig2perm.numpy(), t, masks, device="cpu")
@@ -167,6 +176,54 @@ def test_csc_walk_equals_dense_nh_or(seed, batch):
     np.testing.assert_array_equal(out.reshape(want.shape), want)
 
 
+def _lex_min_walk(g, dist):
+    """numpy walk of the CSC: per (v, b) the lexicographic min of
+    (dist[u, b], orig_id[u]) over the DAG parents u, (CAP, PBIG) if none."""
+    src, dst, w = _edges_global(g)
+    d, oid = dist.numpy(), g.orig_id.numpy()
+    du = d[src]
+    dag = (du < CAP) & (w[:, None] + du == d[dst])  # [nnz, B], once per edge
+    key = np.where(dag, du.astype(np.int64) << 32 | oid[src, None], CAP << 32 | PBIG)
+    best = np.full(d.shape, CAP << 32 | PBIG, np.int64)
+    np.minimum.at(best, dst, key)
+    return (best >> 32).astype(np.int32), (best & 0xFFFFFFFF).astype(np.int32), dag
+
+
+def _assert_lex_min_walk_equals_plain(g, dist):
+    pl = (g.w, g.bsrc, g.bdst)
+    dmin, parent, dag = _lex_min_walk(g, dist)
+    want_dmin = kernels.dmin_plain(*pl, dist)
+    np.testing.assert_array_equal(dmin, want_dmin.numpy())
+    want_parent = kernels.parent_plain(*pl, dist, want_dmin, g.orig_id)
+    np.testing.assert_array_equal(parent, want_parent.numpy())
+    return dag
+
+
+@pytest.mark.parametrize("seed,batch,max_cost", [(0, 1, 20), (1, 5, 20), (2, 9, 2), (3, 4, 2)])
+def test_csc_walk_equals_dense_dmin_parent(seed, batch, max_cost):
+    g, _, dist, *_ = _inputs(seed, batch, max_cost)
+    dag = _assert_lex_min_walk_equals_plain(g, dist)
+    if max_cost == 2:
+        # tie-heavy: many (v, b) have several DAG parents at the min distance
+        src, dst, _ = _edges_global(g)
+        d = dist.numpy()
+        dmin, _, _ = _lex_min_walk(g, dist)
+        at_min = dag & (d[src] == dmin[dst])
+        ties = np.zeros(d.shape, np.int64)
+        np.add.at(ties, dst, at_min.astype(np.int64))
+        assert (ties >= 2).sum() > 50
+
+
+def test_csc_walk_equals_dense_dmin_parent_with_an_unreached_block():
+    t = _unreached_block_topology()
+    g = tbs.marshal_block_spf(t, permute=False, device="cpu")
+    dist = tblk.distance_fixpoint(g, g.rootp, *(torch.full((3, 4), -1, dtype=torch.int32),) * 2,
+                                  limit=g.in_src.shape[0])
+    _assert_lex_min_walk_equals_plain(g, dist)
+    dmin, parent = kernels.dmin_parent(g.w, g.bsrc, g.bdst, g.seg, dist, g.orig_id)
+    assert (dmin[2 * S:] == CAP).all() and (parent[2 * S:] == PBIG).all()
+
+
 def test_card_wrappers_need_the_edge_planes():
     meta = torch.empty((1, S, S), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="CUDA device"):
@@ -177,6 +234,11 @@ def test_card_wrappers_need_the_edge_planes():
     dist = torch.zeros((S, 3), dtype=torch.int32)
     # On the CPU the plain version reads w and needs no edge planes.
     assert torch.equal(kernels.relax(w, idx, idx, seg, dist), dist)
+    oid = torch.arange(S, dtype=torch.int32)
+    dmin, parent = kernels.dmin_parent(w, idx, idx, seg, dist, oid)
+    assert (dmin == CAP).all() and (parent == PBIG).all()
+    with pytest.raises(ValueError, match="CUDA device"):
+        kernels.dmin_parent(meta, meta, meta, meta, meta, meta, edges=(meta,) * 4)
     cptr = torch.zeros((1, S + 1), dtype=torch.int32)
     assert kernels._check_edges(w, 1, (cptr, idx, idx, idx)) is not None
     with pytest.raises(ValueError, match="edge planes"):
