@@ -3,24 +3,29 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path -- ``TorchSpfBackend(engine="blocked")``,
-``compute_whatif`` over 1024 link-failure scenarios and ``compute`` -- on
-a k=90 fat tree (10,125 vertices, 729,000 directed edges), the headline
-what-if configuration of the repo (BASELINE.json config 5).  Phases:
+Drives the port's two engines on a k=90 fat tree (10,125 vertices, 729,000
+directed edges), the headline what-if configuration of the repo
+(BASELINE.json config 5): ``TorchSpfBackend(engine="blocked")`` and the
+default ``TorchSpfBackend()`` (``engine="gather"``), each through
+``compute_whatif`` over 1024 link-failure scenarios and ``compute``, the
+gather engine also through ``compute_multiroot`` over 64 roots.  Phases:
 
 1. build the CUDA kernels from ``holo_tpu_torch/csrc`` with nvcc;
-2. run each kernel once on real mid-fixpoint inputs at the main path's
-   shapes -- 1024 scenarios (``compute_whatif``) and one (``compute``) --
-   and hold each of its outputs bit-identical to its plain PyTorch version
-   on the same CUDA tensors; run the relax-only path
-   (``whatif_distances_blocked``) on the card and on the CPU (plain path)
-   and hold them equal;
-3. drive the main path with the launch counters at 0, require every kernel
-   to have launched, and hold scenarios 0-7 and ``compute()`` bit-identical
-   to the scalar oracle on all four planes;
+2. run each kernel once on real mid-fixpoint inputs at the main paths'
+   shapes -- 1024 scenarios (``compute_whatif``), one (``compute``) and,
+   for the gather kernels, 64 roots (``compute_multiroot``) -- and hold
+   each of its outputs bit-identical to its plain PyTorch version on the
+   same CUDA tensors; run the relax-only path (``whatif_distances_blocked``)
+   on the card and on the CPU (plain path) and hold them equal;
+3. drive each engine's main path with its launch counters at 0, require
+   every kernel of that path to have launched (and the blocked engine to
+   have sent nothing to the gather engine), and hold scenarios 0-7,
+   ``compute()`` and roots 0-7 bit-identical to the scalar oracle on every
+   plane;
 4. time each kernel (CUDA events; at one scenario also the profiler's
    device time, which leaves out the host's launch), its plain version, the
-   whole batch and ``compute()``, beside the card's name and power limit.
+   whole batch, ``compute()`` and the gather batch's stages, beside the
+   card's name and power limit.
 
 Every failure raises, so the exit code is not 0.  Without a CUDA device, or
 without the rest of the repository beside it, the script fails before it
@@ -74,6 +79,33 @@ REPLACES = {
     "dmin_parent": "holo_tpu/ops/blocked_spf.py:295 and holo_tpu/ops/blocked_spf.py:312",
     "nh_or": "holo_tpu/ops/blocked_spf.py:337",
 }
+MULTIROOT = 64  # roots of compute_multiroot, drawn from ROOT_SEED
+ROOT_SEED = 2
+ORACLE_ROOTS = 8
+ELL_SOURCE = "holo_tpu_torch/csrc/ell_kernels.cu"
+# The gather kernels stand for XLA loop fusions of holo_tpu's spf_one; the
+# JAX package has no Pallas kernel on that path.
+ELL_REPLACES = {
+    "ell_relax": "holo_tpu/ops/spf_engine.py:860-866 (XLA fusion, no Pallas kernel)",
+    "ell_first_parent": "holo_tpu/ops/spf_engine.py:872-894 (XLA fusion, no Pallas kernel)",
+    "ell_nh_seed": "holo_tpu/ops/spf_engine.py:976-991 (XLA fusion, no Pallas kernel)",
+    "ell_nh_round": "holo_tpu/ops/spf_engine.py:993-1005 (XLA fusion, no Pallas kernel)",
+}
+# int32 operations of the gather kernels, counted over the usable (slot,
+# lane) pairs -- a valid slot whose edge is up in the lane -- and, where the
+# work depends on the data, over this run's DAG pairs (source reached, edge
+# tight, destination reached and not the lane's root):
+# ell_relax: add, min per usable pair.
+# ell_first_parent: the DAG test per usable pair (add, tight, reached) and,
+#   per DAG pair, the lexicographic update (compare, select, min).
+# ell_nh_seed: the DAG test per usable pair, the hops test per DAG pair and
+#   an OR per word per DAG pair whose source has hops 0.
+# ell_nh_round: the inherit-bit test per usable pair, an OR per word per
+#   DAG pair whose source has hops != 0, and per (vertex, word, lane) the OR
+#   into the old word and the changed test.
+ELL_RELAX_OPS = 2
+ELL_TEST_OPS, ELL_UPDATE_OPS = 3, 3
+ELL_ROUND_OPS = 2
 
 
 def cuda_call(fn):
@@ -263,15 +295,83 @@ def hold_to_plain(calls: dict, label: str) -> dict:
     return rows
 
 
+def ell_inputs(ell, se, g, roots, mask) -> tuple:
+    """(planes, x): the real inputs each gather kernel gets on the main path,
+    mid-fixpoint for ell_relax (2 rounds) and ell_nh_round (1 round)."""
+    p = se.lane_planes(g, mask)
+    n = g.in_src.shape[0]
+    x = {"dist_mid": se.distance_fixpoint(p, roots, 2),
+         "dist": se.distance_fixpoint(p, roots, n)}
+    parent = ell.ell_first_parent(*p, x["dist"], roots)
+    x["hops"] = se.hops_fixpoint(g, parent, roots, n)
+    seed, x["inherit"] = ell.ell_nh_seed(*p, x["dist"], x["hops"], roots, g.direct_nh_words)
+    x["nh"] = ell.ell_nh_round(p.src, x["inherit"], seed)[0]
+    return p, x
+
+
+def ell_dag_pairs(ell, p, dist, hops, roots) -> tuple[int, int]:
+    """(DAG pairs, DAG pairs whose source has hops 0) over the (slot, lane)
+    pairs of ``dist`` [N, B]."""
+    dag = direct = 0
+    for sl in ell.lane_chunks(*p.src.shape, dist.shape[1]):
+        d, _ = ell.dag_slots(*p, dist, roots, sl)
+        dag += int(d.sum())
+        direct += int((d & (hops[:, sl][p.src.long()] == 0)).sum())
+    return dag, direct
+
+
+def ell_calls(ell, g, p, x, roots, failed: int, label: str) -> dict:
+    """name -> (kernel call, plain call, operations, bytes) on inputs ``x``;
+    ``failed`` = (valid slot, lane) pairs whose edge is down."""
+    n, lanes = x["dist"].shape
+    d = g.direct_nh_words
+    words = d.shape[2]
+    usable = int((p.slot >= 0).sum()) * lanes - failed
+    dag, direct = ell_dag_pairs(ell, p, x["dist"], x["hops"], roots)
+    print(f"gather pairs {label}: {usable} usable (slot, lane) pairs, {dag} DAG pairs "
+          f"({dag / max(usable, 1):.4f}), {direct} with a hops-0 source", flush=True)
+    planes = nbytes(p.src, p.cost, p.slot, *([] if p.mask is None else [p.mask]))
+    plane = n * lanes * 4
+    return {
+        "ell_relax": (
+            lambda: ell.ell_relax(*p, x["dist_mid"]),
+            lambda: ell.relax_plain(*p, x["dist_mid"]),
+            ELL_RELAX_OPS * usable,
+            planes + 2 * plane,
+        ),
+        "ell_first_parent": (
+            lambda: ell.ell_first_parent(*p, x["dist"], roots),
+            lambda: ell.first_parent_plain(*p, x["dist"], roots),
+            ELL_TEST_OPS * usable + ELL_UPDATE_OPS * dag,
+            planes + nbytes(x["dist"], roots) + plane,
+        ),
+        "ell_nh_seed": (
+            lambda: ell.ell_nh_seed(*p, x["dist"], x["hops"], roots, d),
+            lambda: ell.nh_seed_plain(*p, x["dist"], x["hops"], roots, d),
+            ELL_TEST_OPS * usable + dag + words * direct,
+            planes + nbytes(x["dist"], x["hops"], roots, d) + words * plane
+            + x["inherit"].numel() * 4,
+        ),
+        "ell_nh_round": (
+            lambda: ell.ell_nh_round(p.src, x["inherit"], x["nh"]),
+            lambda: ell.nh_round_plain(p.src, x["inherit"], x["nh"]),
+            usable + words * (dag - direct) + ELL_ROUND_OPS * words * n * lanes,
+            nbytes(p.src, x["inherit"], x["nh"]) + words * plane,
+        ),
+    }
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device available")
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from holo_tpu_torch.kernels import blocked as kernels
-    from holo_tpu_torch.kernels import build
+    from holo_tpu_torch.kernels import build, ell
     from holo_tpu_torch.ops import blocked as blk
     from holo_tpu_torch.ops import blocked_spf as bspf
-    from holo_tpu_torch.spf.backend import TorchSpfBackend
+    from holo_tpu_torch.ops import spf_engine as se
+    from holo_tpu_torch.ops.graph import build_ell
+    from holo_tpu_torch.spf.backend import ScalarSpfBackend, TorchSpfBackend
     from holo_tpu_torch.spf.scalar import spf_reference
     from holo_tpu_torch.spf.synth import fat_tree_topology, whatif_link_failure_masks
 
@@ -321,6 +421,29 @@ def main() -> None:
           f"to the CPU plain path", flush=True)
     del bg, bg_cpu
 
+    # The gather kernels, at the same three shapes as its main path.
+    n_atoms = max(64, topo.n_atoms())
+    eg = se.device_graph_from_ell(build_ell(topo, n_atoms=n_atoms), dev)
+    print(f"ELL planes: N {eg.in_src.shape[0]}, K {eg.in_src.shape[1]}, W "
+          f"{eg.direct_nh_words.shape[2]}, valid slots {int(eg.in_valid.sum())} of "
+          f"{eg.in_valid.numel()}", flush=True)
+    mask_w = se.pack_edge_masks(masks, dev)
+    lane_roots = torch.full((BATCH,), topo.root, dtype=torch.int32, device=dev)
+    failed = int((~masks).sum())
+    p, x = ell_inputs(ell, se, eg, lane_roots, mask_w)
+    ecalls = ell_calls(ell, eg, p, x, lane_roots, failed, f"at B={BATCH}")
+    erows = hold_to_plain(ecalls, f"at B={BATCH}")
+    root1 = lane_roots[:1].clone()
+    p1, x1 = ell_inputs(ell, se, eg, root1, None)
+    ecalls1 = ell_calls(ell, eg, p1, x1, root1, 0, "at B=1")
+    erows1 = hold_to_plain(ecalls1, "at B=1")
+    mr_roots = np.sort(np.random.default_rng(ROOT_SEED).choice(
+        topo.n_vertices, MULTIROOT, replace=False)).astype(np.int32)
+    mr_t = torch.from_numpy(mr_roots).to(dev)
+    pr, xr = ell_inputs(ell, se, eg, mr_t, None)
+    ecallsr = ell_calls(ell, eg, pr, xr, mr_t, 0, f"at {MULTIROOT} roots")
+    erowsr = hold_to_plain(ecallsr, f"at {MULTIROOT} roots")
+
     # -- 3. the main path, counted
     kernels.reset_launches()
     be = TorchSpfBackend(engine="blocked", device=dev)
@@ -343,10 +466,10 @@ def main() -> None:
         require(r.dist.shape == (n,) and r.nexthop_words.shape == (n, g.n_words),
                 "output shapes")
         require(bool((r.dist >= 0).all()), "negative distance")
-    n_atoms = max(64, topo.n_atoms())
     oracle = [spf_reference(topo, masks[b]) for b in range(ORACLE_SCENARIOS)]
     checks = [(f"scenario {b}", res[b], oracle[b]) for b in range(ORACLE_SCENARIOS)]
-    checks.append(("compute()", one, spf_reference(topo)))
+    compute_ref = spf_reference(topo)
+    checks.append(("compute()", one, compute_ref))
     for label, got, ref in checks:
         for field, want in (("dist", ref.dist), ("parent", ref.parent), ("hops", ref.hops),
                             ("nexthop_words", ref.nexthop_words(n_atoms))):
@@ -359,6 +482,42 @@ def main() -> None:
     print(f"oracle: scenarios 0-{ORACLE_SCENARIOS - 1} and compute() bit-identical on "
           f"dist/parent/hops/nexthop_words ({reached}/{n} reached in scenario "
           f"{ORACLE_SCENARIOS - 1})", flush=True)
+    require(be.routed_to_gather == 0, "the blocked engine sent a dispatch to the gather engine")
+    print(f"blocked route to gather: {be.routed_to_gather} dispatches", flush=True)
+
+    # -- 3b. the gather main path (the default engine), counted
+    ell.reset_launches()
+    gbe = TorchSpfBackend(device=dev)
+    require(gbe.engine == "gather", "the default engine is not the gather engine")
+    t0 = time.perf_counter()
+    gres = gbe.compute_whatif(topo, masks)
+    g_cold_ms = (time.perf_counter() - t0) * 1e3
+    g_whatif = dict(ell.launches)
+    gone = gbe.compute(topo)
+    g_after = dict(ell.launches)
+    gmr = gbe.compute_multiroot(topo, mr_roots)
+    torch.cuda.synchronize()
+    g_launched = dict(ell.launches)
+    g_compute = {k: g_after[k] - g_whatif[k] for k in g_launched}
+    g_multiroot = {k: g_launched[k] - g_after[k] for k in g_launched}
+    print(f"gather main path launches: {g_launched} (compute_whatif {g_whatif}, compute "
+          f"{g_compute}, compute_multiroot {g_multiroot})", flush=True)
+    for name in ell.launches:
+        require(g_launched[name] > 0, f"kernel {name} never launched on the gather main path")
+    require(len(gres) == BATCH and gmr.dist.shape == (MULTIROOT, n), "gather batch sizes")
+    checks = [(f"gather scenario {b}", gres[b], oracle[b]) for b in range(ORACLE_SCENARIOS)]
+    checks.append(("gather compute()", gone, compute_ref))
+    for label, got, ref in checks:
+        for field, want in (("dist", ref.dist), ("parent", ref.parent), ("hops", ref.hops),
+                            ("nexthop_words", ref.nexthop_words(n_atoms))):
+            require(np.array_equal(getattr(got, field), want),
+                    f"{label} {field} differs from the scalar oracle")
+    mr_ref = ScalarSpfBackend().compute_multiroot(topo, mr_roots[:ORACLE_ROOTS])
+    for field in ("dist", "parent", "hops"):
+        require(np.array_equal(getattr(gmr, field)[:ORACLE_ROOTS], getattr(mr_ref, field)),
+                f"gather multiroot {field} differs from the scalar oracle")
+    print(f"gather oracle: scenarios 0-{ORACLE_SCENARIOS - 1}, compute() and roots "
+          f"{mr_roots[:ORACLE_ROOTS].tolist()} bit-identical on every plane", flush=True)
 
     # -- 4. timing (the profiler last: once it has run, host launches are
     # slower, which the host-clock times below would count)
@@ -374,10 +533,23 @@ def main() -> None:
         lambda: bspf.failed_edges_perm(perm_of, topo, masks, device=dev), BATCH_REPS
     )
     spf_ms = host_ms(lambda: bspf.whatif_spf_blocked(g, fdst, fid), BATCH_REPS)
+    for table, gcalls in ((erows, ecalls), (erows1, ecalls1), (erowsr, ecallsr)):
+        for name, (card, *_rest) in gcalls.items():
+            card()
+            table[name]["ms"] = cuda_ms(card, KERNEL_REPS)
+    g_batch_ms = host_ms(lambda: gbe.compute_whatif(topo, masks), BATCH_REPS)
+    g_compute_ms = host_ms(lambda: gbe.compute(topo), COMPUTE_REPS)
+    g_mr_ms = host_ms(lambda: gbe.compute_multiroot(topo, mr_roots), BATCH_REPS)
+    g_pack_ms = host_ms(lambda: se.pack_edge_masks(masks, dev), BATCH_REPS)
+    g_spf_ms = host_ms(lambda: se.spf_lanes(eg, lane_roots, mask_w), BATCH_REPS)
     for name, (card, *_rest) in calls1.items():
         rows1[name]["device_ms"] = device_ms_per_call(card, KERNEL_REPS)
+    for name, (card, *_rest) in ecalls1.items():
+        erows1[name]["device_ms"] = device_ms_per_call(card, KERNEL_REPS)
     busy_ms, top = device_busy(lambda: bspf.whatif_spf_blocked(g, fdst, fid))
     compute_busy_ms, compute_top = device_busy(lambda: be.compute(topo))
+    g_busy_ms, g_top = device_busy(lambda: se.spf_lanes(eg, lane_roots, mask_w))
+    g_compute_busy_ms, g_compute_top = device_busy(lambda: gbe.compute(topo))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -415,13 +587,60 @@ def main() -> None:
     else:
         print("profile whatif_spf_blocked: the profiler saw no device time; "
               "idle share not measured", flush=True)
+    for name, row in erows.items():
+        print(f"time {name}: {row['ms']:.3f} ms/launch at B={BATCH} (plain "
+              f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms by "
+              f"{row['bound_by']}, {row['ops']} operations, {row['bytes']} bytes); "
+              f"launches per compute_whatif {g_whatif[name]}", flush=True)
+    for name, row in erows1.items():
+        dev_ms = f"{row['device_ms']:.4f} ms" if row["device_ms"] > 0 else "not measured"
+        print(f"time {name}: {row['ms']:.4f} ms/launch at B=1 by CUDA events "
+              f"(host launch included), {dev_ms} on the device "
+              f"(profiler); plain {row['plain_ms']:.3f} ms, bound "
+              f"{row['bound_ms']:.5f} ms by {row['bound_by']}; launches per compute "
+              f"{g_compute[name]}", flush=True)
+    for name, row in erowsr.items():
+        print(f"time {name}: {row['ms']:.4f} ms/launch at {MULTIROOT} roots (plain "
+              f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.5f} ms by "
+              f"{row['bound_by']}); launches per compute_multiroot {g_multiroot[name]}",
+              flush=True)
+    print(f"time gather compute_whatif: {g_batch_ms:.3f} ms per {BATCH}-scenario batch "
+          f"({BATCH / g_batch_ms * 1e3:.1f} scenario-SPFs/s; first call with marshal "
+          f"{g_cold_ms:.1f} ms)", flush=True)
+    print(f"time gather compute: {g_compute_ms:.3f} ms", flush=True)
+    print(f"time gather compute_multiroot: {g_mr_ms:.3f} ms for {MULTIROOT} roots",
+          flush=True)
+    g_kernel1_ms = sum(g_compute[k] * erows1[k]["device_ms"] for k in erows1)
+    print(f"breakdown gather compute: ELL kernels {g_kernel1_ms:.3f} ms on the device "
+          f"(launches x device ms/launch at B=1); device busy {g_compute_busy_ms:.3f} ms "
+          f"of {g_compute_ms:.3f} ms; top device ops: {g_compute_top}", flush=True)
+    g_kernel_ms = sum(g_whatif[k] * erows[k]["ms"] for k in erows)
+    print(f"breakdown gather compute_whatif: mask upload and packing {g_pack_ms:.3f} ms, "
+          f"fixpoint driver (spf_lanes) {g_spf_ms:.3f} ms (ELL kernels {g_kernel_ms:.3f} "
+          f"ms = launches x ms/launch), transpose, readback and results "
+          f"{g_batch_ms - g_pack_ms - g_spf_ms:.3f} ms", flush=True)
+    if g_busy_ms > 0:
+        print(f"profile gather spf_lanes: device busy {g_busy_ms:.3f} ms of "
+              f"{g_spf_ms:.3f} ms wall (idle share {1 - g_busy_ms / g_spf_ms:.3f}); "
+              f"top device ops: {g_top}", flush=True)
+    else:
+        print("profile gather spf_lanes: the profiler saw no device time; "
+              "idle share not measured", flush=True)
+    entries = [
+        (name, SOURCE, REPLACES[name], launched[name], row, (rows1[name],))
+        for name, row in rows.items()
+    ] + [
+        (name, ELL_SOURCE, ELL_REPLACES[name], g_launched[name], row,
+         (erows1[name], erowsr[name]))
+        for name, row in erows.items()
+    ]
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
-         "launches": launched[name],
-         "max_abs_err": max(row["max_abs_err"], rows1[name]["max_abs_err"]),
+        {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+         "launches": count,
+         "max_abs_err": max(row["max_abs_err"], *(r["max_abs_err"] for r in others)),
          "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
          "bound_by": row["bound_by"], "library_ms": None}
-        for name, row in rows.items()
+        for name, source, replaces, count, row, others in entries
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

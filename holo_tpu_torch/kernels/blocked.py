@@ -41,25 +41,6 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
-def _on_card(*tensors: torch.Tensor) -> bool:
-    """True for CUDA inputs (validated for the kernel), False for CPU ones."""
-    dev = tensors[0].device
-    if dev.type == "cpu" and all(t.device.type == "cpu" for t in tensors):
-        return False
-    for t in tensors:
-        if t.device != dev or dev.type != "cuda":
-            raise ValueError(
-                f"kernel inputs must all lie on one CUDA device or all on the "
-                f"CPU, got {t.device} beside {dev}"
-            )
-        if t.dtype != torch.int32 or not t.is_contiguous():
-            raise ValueError(
-                f"kernel inputs must be contiguous int32, got {t.dtype} "
-                f"(contiguous={t.is_contiguous()})"
-            )
-    return True
-
-
 def _check_planes(w, seg, dist_rows: int) -> int:
     nb = seg.shape[0] - 1
     if w.shape[1:] != (S, S) or dist_rows != nb * S:
@@ -165,12 +146,8 @@ def nh_or_plain(w, bsrc, bdst, dist, gate, nh, direct):
 
 
 def _launch(name: str, *args) -> None:
-    """Call ``holo_blocked_<name>`` with tensors passed as pointers and the
-    current stream last; raise on a CUDA error, else count the launch."""
-    lib = build.load()
-    fn = getattr(lib, f"holo_blocked_{name}")
-    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    build.check(lib, fn(*ptrs, torch.cuda.current_stream().cuda_stream), name)
+    """Launch ``holo_blocked_<name>`` (raises on a CUDA error) and count it."""
+    build.launch(f"holo_blocked_{name}", *args)
     launches[name] += 1
 
 
@@ -180,7 +157,7 @@ def relax(w, bsrc, bdst, seg, dist, edges=None):
     The kernel adds only the edges (``edges``), which equals the dense sum
     for ``dist`` in [0, CAP], as every caller passes it (CAP + d >= CAP).
     """
-    if not _on_card(w, bsrc, bdst, seg, dist, *(edges or ())):
+    if not build.on_card(w, bsrc, bdst, seg, dist, *(edges or ())):
         return relax_plain(w, bsrc, bdst, dist)
     nb = _check_planes(w, seg, dist.shape[0])
     cptr, crow, cw, border = _check_edges(w, nb, edges)
@@ -197,7 +174,7 @@ def dmin_parent(w, bsrc, bdst, seg, dist, orig_id, edges=None):
     Together they are the lexicographic min of (dist[u, l], orig_id[u]),
     which the kernel takes in one walk of ``edges``.
     """
-    if not _on_card(w, bsrc, bdst, seg, dist, orig_id, *(edges or ())):
+    if not build.on_card(w, bsrc, bdst, seg, dist, orig_id, *(edges or ())):
         dmin_ = dmin_plain(w, bsrc, bdst, dist)
         return dmin_, parent_plain(w, bsrc, bdst, dist, dmin_, orig_id)
     nb = _check_planes(w, seg, dist.shape[0])
@@ -221,7 +198,7 @@ def nh_or(w, bsrc, bdst, seg, dist, gate, nh, direct, edges=None):
     negative distance, which is the plain test for ``dist`` >= 0, as
     distances are.
     """
-    if not _on_card(w, bsrc, bdst, seg, dist, gate, nh, direct, *(edges or ())):
+    if not build.on_card(w, bsrc, bdst, seg, dist, gate, nh, direct, *(edges or ())):
         return nh_or_plain(w, bsrc, bdst, dist, gate, nh, direct)
     nb = _check_planes(w, seg, dist.shape[0])
     cptr, crow, cw, border = _check_edges(w, nb, edges)

@@ -1,10 +1,12 @@
 """Build and bind the port's CUDA kernels (nvcc -> shared library -> ctypes).
 
-``holo_tpu_torch/csrc/blocked_kernels.cu`` is compiled at first use for
-``sm_90a`` into ``holo_tpu_torch/build/`` (listed in ``.gitignore``), as a
-library named by a hash of the source so an edit rebuilds it.  Each C
-entry point takes ``void*`` pointers, ``int`` sizes and the CUDA
-stream, launches on that stream and returns ``cudaGetLastError()``.
+The sources under ``holo_tpu_torch/csrc/`` (the blocked engine's and the
+gather engine's kernels) are compiled at first use for ``sm_90a``, one
+``nvcc`` per source, all started together, and linked into one library in
+``holo_tpu_torch/build/`` (listed in ``.gitignore``), named by a hash of the
+sources so an edit rebuilds it.  Each C entry point takes ``void*``
+pointers (NULL for an absent plane), ``int`` sizes and the CUDA stream,
+launches on that stream and returns ``cudaGetLastError()``.
 """
 
 from __future__ import annotations
@@ -17,12 +19,14 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "blocked_kernels.cu"
+SOURCES = (_PKG / "csrc" / "blocked_kernels.cu", _PKG / "csrc" / "ell_kernels.cu")
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
@@ -33,6 +37,10 @@ SIGNATURES = {
     "holo_blocked_relax": (*[_P] * 8, _I, _I, _P),
     "holo_blocked_dmin_parent": (*[_P] * 10, _I, _I, _P),
     "holo_blocked_nh_or": (*[_P] * 12, _I, _I, _I, _P),
+    "holo_ell_relax": (*[_P] * 7, _I, _I, _I, _P),
+    "holo_ell_first_parent": (*[_P] * 7, _I, _I, _I, _P),
+    "holo_ell_nh_seed": (*[_P] * 10, _I, _I, _I, _I, _P),
+    "holo_ell_nh_round": (*[_P] * 5, _I, _I, _I, _I, _P),
 }
 
 _LIB: ctypes.CDLL | None = None
@@ -51,12 +59,25 @@ def nvcc() -> str:
 
 
 def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"{SOURCE.stem}-{digest}.so"
+    digest = hashlib.sha256(b"".join(s.read_bytes() for s in SOURCES)).hexdigest()[:12]
+    return BUILD_DIR / f"holo_kernels-{digest}.so"
+
+
+def _run(procs: list) -> str:
+    """Wait for every (name, process); raise naming the first that failed."""
+    out, failed = "", None
+    for name, proc in procs:
+        stdout, stderr = proc.communicate()
+        out += stdout + stderr
+        if proc.returncode != 0 and failed is None:
+            failed = f"nvcc failed on {name} (rc {proc.returncode}):\n{stdout}{stderr}"
+    if failed:
+        raise RuntimeError(failed)
+    return out
 
 
 def build(verbose: bool = False) -> Path:
-    """Compile the kernel source unless its library is already built.
+    """Compile the kernel sources unless their library is already built.
 
     ``verbose`` adds ``-Xptxas -v`` and returns with the compiler's report
     printed (registers, shared memory and spills per kernel).
@@ -65,24 +86,25 @@ def build(verbose: bool = False) -> Path:
     if out.exists() and not verbose:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)]
-    if verbose:
-        cmd[1:1] = ["-Xptxas", "-v"]
+    tmp = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    flags = [*NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ())]
+    objs = [tmp / f"{src.stem}.o" for src in SOURCES]
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed on {SOURCE.name} (rc {proc.returncode}):\n"
-                f"{proc.stdout}{proc.stderr}"
-            )
+        report = _run([
+            (src.name, subprocess.Popen([nvcc(), *flags, "-c", "-o", str(obj), str(src)],
+                                        stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                        text=True))
+            for src, obj in zip(SOURCES, objs)
+        ])
+        lib = tmp / "lib.so"
+        link = [nvcc(), *NVCC_FLAGS, "-shared", "-o", str(lib), *map(str, objs)]
+        report += _run([("the link", subprocess.Popen(
+            link, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))])
         if verbose:
-            print(proc.stdout + proc.stderr, end="", flush=True)
-        os.replace(tmp, out)
+            print(report, end="", flush=True)
+        os.replace(lib, out)
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        shutil.rmtree(tmp, ignore_errors=True)
     return out
 
 
@@ -106,3 +128,33 @@ def check(lib: ctypes.CDLL, rc: int, name: str) -> None:
     if rc != 0:
         msg = lib.holo_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA error {rc} at launch: {msg}")
+
+
+def on_card(*tensors) -> bool:
+    """True for CUDA inputs (validated for a kernel), False for CPU ones;
+    None entries (an absent plane) are skipped.  Raises on inputs split
+    across devices or not contiguous int32."""
+    ts = [t for t in tensors if t is not None]
+    dev = ts[0].device
+    if all(t.device.type == "cpu" for t in ts):
+        return False
+    for t in ts:
+        if t.device != dev or dev.type != "cuda":
+            raise ValueError(
+                f"kernel inputs must all lie on one CUDA device or all on the "
+                f"CPU, got {t.device} beside {dev}"
+            )
+        if t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError(
+                f"kernel inputs must be contiguous int32, got {t.dtype} "
+                f"(contiguous={t.is_contiguous()})"
+            )
+    return True
+
+
+def launch(symbol: str, *args) -> None:
+    """Call the C entry point ``symbol`` with tensors passed as pointers
+    (None as NULL) and the current stream last; raise on a CUDA error."""
+    lib = load()
+    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    check(lib, getattr(lib, symbol)(*ptrs, torch.cuda.current_stream().cuda_stream), symbol)

@@ -1,6 +1,9 @@
-"""TorchSpfBackend against holo_tpu's TpuSpfBackend(engine="blocked") and
-ScalarSpfBackend on all four planes (exact equality), its refusals, and its
-device rules: CPU only on request, never a silent fallback."""
+"""TorchSpfBackend(engine="blocked") against holo_tpu's
+TpuSpfBackend(engine="blocked") and ScalarSpfBackend on all four planes
+(exact equality), the blocked engine's preconditions (outside them the
+backend sends the topology to the gather engine, tests/
+test_torch_gather_backend.py), and its device rules: CPU only on request,
+never a silent fallback."""
 
 import numpy as np
 import pytest
@@ -10,6 +13,7 @@ from holo_tpu.spf import synth as jsynth
 from holo_tpu.spf.backend import ScalarSpfBackend as JScalar
 from holo_tpu.spf.backend import TpuSpfBackend
 from holo_tpu_torch.kernels import blocked as kernels
+from holo_tpu_torch.ops.blocked_spf import failed_edges_perm, marshal_block_spf
 from holo_tpu_torch.ops.graph import Topology
 from holo_tpu_torch.spf import synth as tsynth
 from holo_tpu_torch.spf.backend import ScalarSpfBackend, TorchSpfBackend
@@ -29,7 +33,7 @@ def test_whatif_and_compute_match_jax_and_scalar(seed):
     kw = dict(n_routers=150, n_networks=30, seed=seed)
     tt, jt = tsynth.random_ospf_topology(**kw), jsynth.random_ospf_topology(**kw)
     masks = jsynth.whatif_link_failure_masks(jt, n_scenarios=4, seed=seed + 1)
-    be = TorchSpfBackend(device="cpu")
+    be = TorchSpfBackend(engine="blocked", device="cpu")
     got = be.compute_whatif(tt, masks)
     jax_res = TpuSpfBackend(engine="blocked").compute_whatif(jt, masks)
     scalar = JScalar().compute_whatif(jt, masks)
@@ -41,6 +45,7 @@ def test_whatif_and_compute_match_jax_and_scalar(seed):
     _same(one, TpuSpfBackend(engine="blocked").compute(jt), "compute jax")
     _same(one, JScalar().compute(jt), "compute scalar")
     _same(be.compute(tt, masks[2]), scalar[2], "compute masked")
+    assert be.routed_to_gather == 0
 
 
 def test_port_scalar_backend_matches_jax_scalar():
@@ -54,13 +59,13 @@ def test_port_scalar_backend_matches_jax_scalar():
 def test_fat_tree_matches_scalar():
     t = tsynth.fat_tree_topology(k=8)
     masks = tsynth.whatif_link_failure_masks(t, 5, seed=1)
-    for a, b in zip(TorchSpfBackend(device="cpu").compute_whatif(t, masks),
+    for a, b in zip(TorchSpfBackend(engine="blocked", device="cpu").compute_whatif(t, masks),
                     ScalarSpfBackend().compute_whatif(t, masks)):
         _same(a, b)
 
 
 def test_marshal_cache_is_per_topology_and_bounded():
-    be = TorchSpfBackend(device="cpu")
+    be = TorchSpfBackend(engine="blocked", device="cpu")
     topos = [tsynth.random_ospf_topology(n_routers=20, seed=s) for s in range(6)]
     g0 = be.prepare_blocked(topos[0])
     assert be.prepare_blocked(topos[0]) is g0
@@ -82,11 +87,12 @@ def test_parallel_edges_raise():
         edge_cost=np.array([1, 2, 1, 1, 1, 9], np.int32),
         root=0,
     )
-    be = TorchSpfBackend(device="cpu")
     with pytest.raises(ValueError, match="parallel"):
-        be.compute(par)
-    with pytest.raises(ValueError, match="parallel"):
-        be.compute_whatif(par, np.ones((2, par.n_edges), bool))
+        marshal_block_spf(par, device="cpu")
+    be = TorchSpfBackend(engine="blocked", device="cpu")
+    assert be.prepare_blocked(par) is None  # the gather engine serves it
+    _same(be.compute(par), ScalarSpfBackend().compute(par))
+    assert be.routed_to_gather == 1
 
 
 def test_too_many_failures_raise():
@@ -94,7 +100,11 @@ def test_too_many_failures_raise():
     masks = np.ones((2, t.n_edges), bool)
     masks[1, :5] = False
     with pytest.raises(ValueError, match="scenario 1: 5 failures > 4"):
-        TorchSpfBackend(device="cpu").compute_whatif(t, masks)
+        failed_edges_perm(np.arange(t.n_vertices), t, masks, device="cpu")
+    be = TorchSpfBackend(engine="blocked", device="cpu")
+    for a, b in zip(be.compute_whatif(t, masks), ScalarSpfBackend().compute_whatif(t, masks)):
+        _same(a, b)
+    assert be.routed_to_gather == 1
 
 
 def test_no_device_and_no_gpu_raises(monkeypatch):
@@ -104,14 +114,16 @@ def test_no_device_and_no_gpu_raises(monkeypatch):
 
 
 def test_only_blocked_engine():
-    with pytest.raises(ValueError, match="blocked"):
-        TorchSpfBackend(engine="gather", device="cpu")
+    # Besides 'blocked' the port runs only the gather engine.
+    with pytest.raises(ValueError, match="'gather' and 'blocked'"):
+        TorchSpfBackend(engine="tropical", device="cpu")
+    assert TorchSpfBackend(device="cpu").engine == "gather"
 
 
 def test_cpu_path_launches_no_kernel():
     kernels.reset_launches()
     t = tsynth.random_ospf_topology(n_routers=30, seed=2)
-    TorchSpfBackend(device="cpu").compute(t)
+    TorchSpfBackend(engine="blocked", device="cpu").compute(t)
     assert all(v == 0 for v in kernels.launches.values())
 
 

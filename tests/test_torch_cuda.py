@@ -14,6 +14,12 @@ parents tie on distance, and where a block has no in-edges; dmin_parent's
 parent output is held against the plain parent fed the plain, uncorrected
 dmin.  The backend is held to the scalar oracle with every kernel
 launched.
+
+The gather engine's kernels (kernels/ell.py) are held bit-identical to their
+plain versions on real mid-fixpoint inputs at 1, 8, 33 and 1024 lanes
+(scenario masks) and at 64 roots (no mask), on a k=8 fat tree and on a
+graph whose K (40) is not a multiple of 32; the card driver is held to the
+CPU path under max_iters truncation; the gather backend to the oracle.
 """
 
 import numpy as np
@@ -21,9 +27,11 @@ import pytest
 import torch
 
 from holo_tpu_torch.kernels import blocked as kernels
+from holo_tpu_torch.kernels import ell
 from holo_tpu_torch.ops import blocked as blk
 from holo_tpu_torch.ops import blocked_spf as bspf
-from holo_tpu_torch.ops.graph import Topology
+from holo_tpu_torch.ops import spf_engine as se
+from holo_tpu_torch.ops.graph import Topology, build_ell
 from holo_tpu_torch.spf import synth
 from holo_tpu_torch.spf.backend import ScalarSpfBackend, TorchSpfBackend
 
@@ -123,7 +131,7 @@ def test_backend_on_the_card_matches_scalar():
     topo = synth.random_ospf_topology(n_routers=260, n_networks=40, extra_p2p=400, seed=0)
     masks = synth.whatif_link_failure_masks(topo, 6, seed=7)
     kernels.reset_launches()
-    got = TorchSpfBackend().compute_whatif(topo, masks)
+    got = TorchSpfBackend(engine="blocked").compute_whatif(topo, masks)
     assert all(v > 0 for v in kernels.launches.values()), kernels.launches
     for a, b in zip(got, ScalarSpfBackend().compute_whatif(topo, masks)):
         for f in ("dist", "parent", "hops", "nexthop_words"):
@@ -151,3 +159,115 @@ def test_wrappers_refuse_bad_planes():
         kernels.dmin_parent(w, idx, idx, seg, dist, oid)
     with pytest.raises(ValueError, match="edge planes"):
         kernels.dmin_parent(w, idx, idx, seg, dist, oid, edges=(cptr[:, :256], idx, idx, idx))
+
+
+# ---------------------------------------------------------------------------
+# The gather engine's kernels.
+
+
+def _k40_topology():
+    # Vertex 0 fans out to 40 routers that all reach vertex 41: K = 40.
+    src = np.r_[np.zeros(40, int), np.arange(1, 41), np.arange(1, 41), np.full(40, 41)]
+    dst = np.r_[np.arange(1, 41), np.zeros(40, int), np.full(40, 41), np.arange(1, 41)]
+    cost = np.r_[np.ones(80, int), np.arange(40) % 3 + 1, np.ones(40, int)]
+    topo = Topology(n_vertices=42, is_router=np.ones(42, bool), edge_src=src, edge_dst=dst,
+                    edge_cost=cost, root=0)
+    synth.assign_direct_atoms(topo)
+    return topo
+
+
+def _ell_inputs(topo, lanes, dev, roots=None):
+    g = se.device_graph_from_ell(build_ell(topo, n_atoms=64), dev)
+    if roots is None:
+        masks = synth.whatif_link_failure_masks(topo, lanes, seed=lanes)
+        mask = se.pack_edge_masks(masks, dev)
+        roots = torch.full((lanes,), topo.root, dtype=torch.int32, device=dev)
+    else:
+        mask = None
+        roots = torch.as_tensor(roots, dtype=torch.int32, device=dev)
+    p = se.lane_planes(g, mask)
+    n = topo.n_vertices
+    x = {"dist_mid": se.distance_fixpoint(p, roots, 2), "dist": se.distance_fixpoint(p, roots, n)}
+    parent = ell.ell_first_parent(*p, x["dist"], roots)
+    x["hops"] = se.hops_fixpoint(g, parent, roots, n)
+    seed, x["inherit"] = ell.ell_nh_seed(*p, x["dist"], x["hops"], roots, g.direct_nh_words)
+    x["nh"] = ell.ell_nh_round(p.src, x["inherit"], seed)[0]
+    return g, p, roots, x
+
+
+def _assert_ell_kernels_match(g, p, roots, x):
+    d = g.direct_nh_words
+    pairs = {
+        "ell_relax": (ell.ell_relax(*p, x["dist_mid"]), ell.relax_plain(*p, x["dist_mid"])),
+        "ell_first_parent": (ell.ell_first_parent(*p, x["dist"], roots),
+                             ell.first_parent_plain(*p, x["dist"], roots)),
+        "ell_nh_seed": (ell.ell_nh_seed(*p, x["dist"], x["hops"], roots, d),
+                        ell.nh_seed_plain(*p, x["dist"], x["hops"], roots, d)),
+        "ell_nh_round": (ell.ell_nh_round(p.src, x["inherit"], x["nh"]),
+                         ell.nh_round_plain(p.src, x["inherit"], x["nh"])),
+    }
+    torch.cuda.synchronize()
+    for name, (got, want) in pairs.items():
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        for i, (a, b) in enumerate(zip(got, want)):
+            assert torch.equal(a, b), f"{name} output {i}"
+
+
+@pytest.mark.parametrize("lanes", [1, 8, 33, 1024])
+@pytest.mark.parametrize("shape", ["fat_tree_k8", "k40"])
+def test_ell_kernels_match_plain_versions(shape, lanes):
+    topo = synth.fat_tree_topology(k=8) if shape == "fat_tree_k8" else _k40_topology()
+    _assert_ell_kernels_match(*_ell_inputs(topo, lanes, _card()))
+
+
+@pytest.mark.parametrize("shape", ["fat_tree_k8", "k40"])
+def test_ell_kernels_match_plain_versions_on_root_lanes(shape):
+    topo = synth.fat_tree_topology(k=8) if shape == "fat_tree_k8" else _k40_topology()
+    roots = np.random.default_rng(0).integers(0, topo.n_vertices, 64)
+    _assert_ell_kernels_match(*_ell_inputs(topo, 64, _card(), roots=roots))
+
+
+@pytest.mark.parametrize("max_iters", [1, 2, 3])
+def test_ell_driver_on_the_card_matches_cpu_when_truncated(max_iters):
+    dev = _card()
+    topo = synth.random_ospf_topology(n_routers=260, n_networks=40, extra_p2p=400, seed=2)
+    masks = synth.whatif_link_failure_masks(topo, 40, seed=3)
+    g = se.device_graph_from_ell(build_ell(topo, n_atoms=64), "cpu")
+    gc = se.DeviceGraph(*(t.to(dev) for t in g))
+    for one, cpu in ((se.spf_whatif_batch(gc, topo.root, masks, max_iters),
+                      se.spf_whatif_batch(g, topo.root, masks, max_iters)),
+                     (se.spf_one(gc, topo.root, None, max_iters),
+                      se.spf_one(g, topo.root, None, max_iters))):
+        for a, b in zip(one, cpu):
+            assert torch.equal(a.cpu(), b)
+
+
+def test_ell_wrappers_refuse_mixed_devices():
+    dev = _card()
+    g, p, roots, x = _ell_inputs(synth.fat_tree_topology(k=8), 4, dev)
+    with pytest.raises(ValueError, match="CUDA device"):
+        ell.ell_relax(*p, x["dist"].cpu())
+    with pytest.raises(ValueError, match="CUDA device"):
+        ell.ell_first_parent(p.src.cpu(), p.cost, p.slot, p.mask, x["dist"], roots)
+    with pytest.raises(ValueError, match="int32"):
+        ell.ell_nh_round(p.src, x["inherit"], x["nh"].long())
+    with pytest.raises(ValueError, match="planes disagree"):
+        ell.ell_relax(*p, x["dist"][:-1].contiguous())
+
+
+def test_gather_backend_on_the_card_matches_scalar():
+    _card()
+    topo = synth.random_ospf_topology(n_routers=260, n_networks=40, extra_p2p=400, seed=0)
+    masks = synth.whatif_link_failure_masks(topo, 40, seed=7)
+    ell.reset_launches()
+    be, sc = TorchSpfBackend(), ScalarSpfBackend()
+    got = be.compute_whatif(topo, masks)
+    one = be.compute(topo)
+    assert all(v > 0 for v in ell.launches.values()), ell.launches
+    for a, b in zip([*got, one], [*sc.compute_whatif(topo, masks), sc.compute(topo)]):
+        for f in ("dist", "parent", "hops", "nexthop_words"):
+            np.testing.assert_array_equal(getattr(a, f), getattr(b, f), err_msg=f)
+    roots = [0, 5, 77, 259]
+    mr, mr_ref = be.compute_multiroot(topo, roots), sc.compute_multiroot(topo, roots)
+    for f in ("dist", "parent", "hops"):
+        np.testing.assert_array_equal(getattr(mr, f), getattr(mr_ref, f), err_msg=f)

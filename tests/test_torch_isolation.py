@@ -34,7 +34,8 @@ def _forbidden(name: str) -> bool:
 def test_every_module_is_found():
     mods = _modules()
     for want in ("holo_tpu_torch.spf.backend", "holo_tpu_torch.kernels.blocked",
-                 "holo_tpu_torch.ops.blocked_spf", "holo_tpu_torch.convert"):
+                 "holo_tpu_torch.ops.blocked_spf", "holo_tpu_torch.convert",
+                 "holo_tpu_torch.ops.spf_engine", "holo_tpu_torch.kernels.ell"):
         assert want in mods
 
 
