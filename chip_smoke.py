@@ -16,7 +16,12 @@ gather engine also through ``compute_multiroot`` over 64 roots.  Phases:
    for the gather kernels, 64 roots (``compute_multiroot``) -- and hold
    each of its outputs bit-identical to its plain PyTorch version on the
    same CUDA tensors; run the relax-only path (``whatif_distances_blocked``)
-   on the card and on the CPU (plain path) and hold them equal;
+   on the card and on the CPU (plain path) and hold them equal; hold every
+   launch of one gather dispatch of the two frontier kernels (``ell_relax``,
+   ``ell_nh_round``), and their full round (an all-ones frontier), to the
+   plain full round at the three shapes and time each (CUDA events); time
+   their design steps and two diagnostics of the base design (the per-slot
+   loop, no frontier);
 3. drive each engine's main path with its launch counters at 0, require
    every kernel of that path to have launched (and the blocked engine to
    have sent nothing to the gather engine), and hold scenarios 0-7,
@@ -95,17 +100,21 @@ ELL_REPLACES = {
 # lane) pairs -- a valid slot whose edge is up in the lane -- and, where the
 # work depends on the data, over this run's DAG pairs (source reached, edge
 # tight, destination reached and not the lane's root):
-# ell_relax: add, min per usable pair.
+# ell_relax: add, min per active pair (usable, and the source changed in
+#   that lane in the previous round: the launch's frontier).
 # ell_first_parent: the DAG test per usable pair (add, tight, reached) and,
 #   per DAG pair, the lexicographic update (compare, select, min).
 # ell_nh_seed: the DAG test per usable pair, the hops test per DAG pair and
 #   an OR per word per DAG pair whose source has hops 0.
-# ell_nh_round: the inherit-bit test per usable pair, an OR per word per
-#   DAG pair whose source has hops != 0, and per (vertex, word, lane) the OR
-#   into the old word and the changed test.
+# ell_nh_round: an OR per word per active inherit pair (inherit bit set,
+#   source changed), and per (vertex, word, lane) the OR into the old word
+#   and the changed test.
 ELL_RELAX_OPS = 2
 ELL_TEST_OPS, ELL_UPDATE_OPS = 3, 3
 ELL_ROUND_OPS = 2
+# The main launch of each frontier kernel: ell_relax's third round, ell_nh_round's
+# second (the first of each gathers from almost no changed source).
+MID_RELAX, MID_ROUND = 2, 1
 
 
 def cuda_call(fn):
@@ -296,17 +305,175 @@ def hold_to_plain(calls: dict, label: str) -> dict:
 
 
 def ell_inputs(ell, se, g, roots, mask) -> tuple:
-    """(planes, x): the real inputs each gather kernel gets on the main path,
-    mid-fixpoint for ell_relax (2 rounds) and ell_nh_round (1 round)."""
+    """(planes, x): one gather dispatch on the card with every input its
+    kernels got: x["relax"] / x["round"] list the (plane, frontier) input of
+    each ell_relax / ell_nh_round launch (the last one reported no change),
+    x["relax_mid"] / x["round_mid"] the main ones (third relax launch,
+    second next-hop launch)."""
     p = se.lane_planes(g, mask)
     n = g.in_src.shape[0]
-    x = {"dist_mid": se.distance_fixpoint(p, roots, 2),
-         "dist": se.distance_fixpoint(p, roots, n)}
-    parent = ell.ell_first_parent(*p, x["dist"], roots)
+    dist, front = se.distance_seed(n, roots)
+    x = {"relax": []}
+    while True:
+        x["relax"].append((dist, front))
+        dist, changed, front = ell.ell_relax(*p, dist, front)
+        if not bool(changed):
+            break
+    x["dist"] = dist
+    parent = ell.ell_first_parent(*p, dist, roots)
     x["hops"] = se.hops_fixpoint(g, parent, roots, n)
-    seed, x["inherit"] = ell.ell_nh_seed(*p, x["dist"], x["hops"], roots, g.direct_nh_words)
-    x["nh"] = ell.ell_nh_round(p.src, x["inherit"], seed)[0]
+    nh, x["inherit"] = ell.ell_nh_seed(*p, dist, x["hops"], roots, g.direct_nh_words)
+    front = se.nexthop_frontier(nh)
+    x["round"] = []
+    while True:
+        x["round"].append((nh, front))
+        nh, changed, front = ell.ell_nh_round(p.src, x["inherit"], nh, front)
+        if not bool(changed):
+            break
+    x["relax_mid"] = x["relax"][min(MID_RELAX, len(x["relax"]) - 1)]
+    x["round_mid"] = x["round"][min(MID_ROUND, len(x["round"]) - 1)]
     return p, x
+
+
+def popcount(words: torch.Tensor) -> int:
+    """Set bits in an int32 tensor."""
+    x = words.long() & 0xFFFFFFFF
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return int((((x * 0x01010101) & 0xFFFFFFFF) >> 24).sum())
+
+
+def frontier_work(p, bits: torch.Tensor, front: torch.Tensor) -> tuple[int, int]:
+    """(active pairs, loaded words) of one frontier launch: the (slot, lane)
+    pairs whose ``bits`` word (mask [E, words] by edge, or inherit [N, K,
+    words] by slot; None: every lane) and the source's frontier bit are set,
+    and the (valid slot, tile) words it must load, those whose source's
+    frontier word is not 0."""
+    valid = p.slot >= 0
+    f = front[p.src.long()]  # [N, K, words]
+    if bits is None:
+        act = f
+    elif bits.dim() == 2:
+        act = f & bits[p.slot.clamp_min(0).long()]
+    else:
+        act = f & bits
+    act = torch.where(valid[:, :, None], act, 0)
+    return popcount(act), int(((f != 0) & valid[:, :, None]).sum())
+
+
+def launch_bound(p, x, kind: str, plane, front) -> tuple[float, str, int, int]:
+    """(bound ms, by, operations, bytes) of one frontier launch on ``plane``
+    (dist [N, B] or next hops [N, W, B]) with ``front``: the slot planes,
+    the frontier in and out, the plane in and out, and the mask (inherit)
+    words of the slots whose source changed in some lane of the tile;
+    operations per active pair (relax: add, min; next hops: an OR per
+    word) and, for next hops, the OR into the old word and its test."""
+    fbytes = 2 * front.numel() * 4
+    if kind == "ell_relax":
+        act, loads = frontier_work(p, p.mask, front)
+        ops = ELL_RELAX_OPS * act
+        byte_count = nbytes(p.src, p.cost, p.slot) + fbytes + 2 * plane.numel() * 4
+        byte_count += 0 if p.mask is None else 4 * loads
+    else:
+        act, loads = frontier_work(p, x["inherit"], front)
+        words = plane.shape[1]
+        ops = words * act + ELL_ROUND_OPS * plane.numel()
+        byte_count = nbytes(p.src) + fbytes + 2 * plane.numel() * 4 + 4 * loads
+    return (*bound(ops, byte_count), ops, byte_count)
+
+
+def frontier_launch(ell, p, x, kind: str):
+    """(kernel call, plain call) of one ell_relax / ell_nh_round launch on
+    (plane, frontier)."""
+    if kind == "ell_relax":
+        return (lambda d, f, design=ell.DESIGN: ell.ell_relax(*p, d, f, design=design),
+                lambda d, f: ell.relax_plain(*p, d, f))
+    return (lambda h, f, design=ell.DESIGN: ell.ell_nh_round(p.src, x["inherit"], h, f,
+                                                             design=design),
+            lambda h, f: ell.nh_round_plain(p.src, x["inherit"], h, f))
+
+
+def all_ones(ell, front: torch.Tensor, lanes: int) -> torch.Tensor:
+    """A frontier with every lane's bit set."""
+    return ell.pack_lane_bits(torch.ones((front.shape[0], lanes), dtype=torch.bool,
+                                         device=front.device))
+
+
+# The frontier kernels: their launches' inputs in ell_inputs' x, and the main one.
+FRONTIER_KERNELS = {"ell_relax": ("relax", "relax_mid"), "ell_nh_round": ("round", "round_mid")}
+
+
+def hold_rounds(ell, p, x, label: str) -> dict:
+    """Every launch of the dispatch, and the full round (an all-ones
+    frontier on the main input), of ell_relax and ell_nh_round: each output
+    (out, changed, frontier_out) held bit-identical to the plain full round
+    on the same input, then timed (CUDA events) beside its bound.  name ->
+    row of per-round ms and bounds, dispatch sums and the full round."""
+    rows = {}
+    for kind, (key, mid_key) in FRONTIER_KERNELS.items():
+        card, plain = frontier_launch(ell, p, x, kind)
+        plane_mid, front_mid = x[mid_key]
+        full = (plane_mid, all_ones(ell, front_mid, plane_mid.shape[-1]))
+        timed = []
+        for i, (plane, front) in enumerate([*x[key], full]):
+            what = f"round {i + 1}" if i < len(x[key]) else "full round"
+            got = card(plane, front)
+            torch.cuda.synchronize()
+            for j, (a, b) in enumerate(zip(got, plain(plane, front))):
+                require(torch.equal(a, b),
+                        f"{kind} {what} output {j} disagrees with its plain version {label}")
+            timed.append((cuda_ms(lambda: card(plane, front), KERNEL_REPS),
+                          launch_bound(p, x, kind, plane, front)[0]))
+        (full_ms, full_bound), timed = timed[-1], timed[:-1]
+        row = {"round_ms": [t for t, _ in timed], "round_bound_ms": [b for _, b in timed],
+               "full_round_ms": full_ms, "full_round_bound_ms": full_bound}
+        row["dispatch_ms"] = sum(row["round_ms"])
+        row["dispatch_bound_ms"] = sum(row["round_bound_ms"])
+        print(f"rounds {kind} {label}: every launch's out, changed and frontier_out "
+              f"bit-identical to the plain full round; ms per round "
+              f"{[round(t, 4) for t in row['round_ms']]} (bounds "
+              f"{[round(t, 5) for t in row['round_bound_ms']]}), dispatch "
+              f"{row['dispatch_ms']:.4f} ms (bound {row['dispatch_bound_ms']:.5f}), full "
+              f"round {full_ms:.4f} ms (bound {full_bound:.5f})", flush=True)
+        rows[kind] = row
+    return rows
+
+
+DESIGN_STEPS = ("base (per-slot loop)", "frontier", "+ slabs", "+ hints", "+ pipelined loads")
+
+
+def design_steps(ell, se, p, x) -> None:
+    """Each design step of the two frontier kernels, added one at a time, on
+    the full round and on the dispatch; and two diagnostics of the base
+    (design 0: the per-slot loop) at the full round: with mask=None, and launched
+    one 256-lane group at a time."""
+    steps = (0, ell.FRONTIER, ell.FRONTIER | ell.SLABS,
+             ell.FRONTIER | ell.SLABS | ell.HINTS, ell.DESIGN)
+    for kind, (key, mid_key) in FRONTIER_KERNELS.items():
+        card, _ = frontier_launch(ell, p, x, kind)
+        plane_mid, front_mid = x[mid_key]
+        ones = all_ones(ell, front_mid, plane_mid.shape[-1])
+        for name, design in zip(DESIGN_STEPS, steps):
+            full_ms = cuda_ms(lambda: card(plane_mid, ones, design), KERNEL_REPS)
+            per = [cuda_ms(lambda: card(h, f, design), KERNEL_REPS) for h, f in x[key]]
+            print(f"design {kind} {name} (bits {design}): full round {full_ms:.4f} ms, "
+                  f"dispatch {sum(per):.4f} ms {[round(t, 4) for t in per]}", flush=True)
+    dist, front = x["relax_mid"]
+    lanes = dist.shape[1]
+    ones = all_ones(ell, front, lanes)
+    bare = se.LanePlanes(p.src, p.cost, p.slot, None)
+    none_ms = cuda_ms(lambda: ell.ell_relax(*bare, dist, ones, design=0), KERNEL_REPS)
+    group = 256
+    slabs = [(se.LanePlanes(p.src, p.cost, p.slot,
+                            p.mask[:, b0 // 32:(b0 + group) // 32].contiguous()),
+              dist[:, b0:b0 + group].contiguous(), ones[:, b0 // 32:(b0 + group) // 32]
+              .contiguous()) for b0 in range(0, lanes, group)]
+    slab_ms = cuda_ms(lambda: [ell.ell_relax(*q, d, f, design=0) for q, d, f in slabs],
+                      KERNEL_REPS)
+    print(f"diagnostic ell_relax base (per-slot loop), full round at B={lanes}: mask=None "
+          f"{none_ms:.4f} ms; one {group}-lane group at a time ({len(slabs)} launches) "
+          f"{slab_ms:.4f} ms in all", flush=True)
 
 
 def ell_dag_pairs(ell, p, dist, hops, roots) -> tuple[int, int]:
@@ -322,7 +489,8 @@ def ell_dag_pairs(ell, p, dist, hops, roots) -> tuple[int, int]:
 
 def ell_calls(ell, g, p, x, roots, failed: int, label: str) -> dict:
     """name -> (kernel call, plain call, operations, bytes) on inputs ``x``;
-    ``failed`` = (valid slot, lane) pairs whose edge is down."""
+    ``failed`` = (valid slot, lane) pairs whose edge is down.  The frontier
+    kernels run their main launch with its real frontier."""
     n, lanes = x["dist"].shape
     d = g.direct_nh_words
     words = d.shape[2]
@@ -332,13 +500,7 @@ def ell_calls(ell, g, p, x, roots, failed: int, label: str) -> dict:
           f"({dag / max(usable, 1):.4f}), {direct} with a hops-0 source", flush=True)
     planes = nbytes(p.src, p.cost, p.slot, *([] if p.mask is None else [p.mask]))
     plane = n * lanes * 4
-    return {
-        "ell_relax": (
-            lambda: ell.ell_relax(*p, x["dist_mid"]),
-            lambda: ell.relax_plain(*p, x["dist_mid"]),
-            ELL_RELAX_OPS * usable,
-            planes + 2 * plane,
-        ),
+    calls = {
         "ell_first_parent": (
             lambda: ell.ell_first_parent(*p, x["dist"], roots),
             lambda: ell.first_parent_plain(*p, x["dist"], roots),
@@ -352,13 +514,14 @@ def ell_calls(ell, g, p, x, roots, failed: int, label: str) -> dict:
             planes + nbytes(x["dist"], x["hops"], roots, d) + words * plane
             + x["inherit"].numel() * 4,
         ),
-        "ell_nh_round": (
-            lambda: ell.ell_nh_round(p.src, x["inherit"], x["nh"]),
-            lambda: ell.nh_round_plain(p.src, x["inherit"], x["nh"]),
-            usable + words * (dag - direct) + ELL_ROUND_OPS * words * n * lanes,
-            nbytes(p.src, x["inherit"], x["nh"]) + words * plane,
-        ),
     }
+    for kind, (_, mid_key) in FRONTIER_KERNELS.items():
+        card, plain = frontier_launch(ell, p, x, kind)
+        plane_in, front = x[mid_key]
+        _, _, ops, byte_count = launch_bound(p, x, kind, plane_in, front)
+        calls[kind] = (lambda c=card, a=plane_in, f=front: c(a, f),
+                       lambda c=plain, a=plane_in, f=front: c(a, f), ops, byte_count)
+    return {k: calls[k] for k in ELL_REPLACES}
 
 
 def main() -> None:
@@ -433,16 +596,20 @@ def main() -> None:
     p, x = ell_inputs(ell, se, eg, lane_roots, mask_w)
     ecalls = ell_calls(ell, eg, p, x, lane_roots, failed, f"at B={BATCH}")
     erows = hold_to_plain(ecalls, f"at B={BATCH}")
+    frows = hold_rounds(ell, p, x, f"at B={BATCH}")
+    design_steps(ell, se, p, x)
     root1 = lane_roots[:1].clone()
     p1, x1 = ell_inputs(ell, se, eg, root1, None)
     ecalls1 = ell_calls(ell, eg, p1, x1, root1, 0, "at B=1")
     erows1 = hold_to_plain(ecalls1, "at B=1")
+    hold_rounds(ell, p1, x1, "at B=1")
     mr_roots = np.sort(np.random.default_rng(ROOT_SEED).choice(
         topo.n_vertices, MULTIROOT, replace=False)).astype(np.int32)
     mr_t = torch.from_numpy(mr_roots).to(dev)
     pr, xr = ell_inputs(ell, se, eg, mr_t, None)
     ecallsr = ell_calls(ell, eg, pr, xr, mr_t, 0, f"at {MULTIROOT} roots")
     erowsr = hold_to_plain(ecallsr, f"at {MULTIROOT} roots")
+    hold_rounds(ell, pr, xr, f"at {MULTIROOT} roots")
 
     # -- 3. the main path, counted
     kernels.reset_launches()
@@ -546,6 +713,14 @@ def main() -> None:
         rows1[name]["device_ms"] = device_ms_per_call(card, KERNEL_REPS)
     for name, (card, *_rest) in ecalls1.items():
         erows1[name]["device_ms"] = device_ms_per_call(card, KERNEL_REPS)
+    # The row form (compute()) with and without the frontier skip.
+    for kind, (_, mid_key) in FRONTIER_KERNELS.items():
+        card, _ = frontier_launch(ell, p1, x1, kind)
+        plane1, front1 = x1[mid_key]
+        skip, full = (device_ms_per_call(lambda d=d: card(plane1, front1, d), KERNEL_REPS)
+                      for d in (ell.DESIGN, ell.DESIGN & ~ell.FRONTIER))
+        print(f"design {kind} row form at B=1, main launch: {skip:.4f} ms on the device "
+              f"with the frontier skip, {full:.4f} ms without (profiler)", flush=True)
     busy_ms, top = device_busy(lambda: bspf.whatif_spf_blocked(g, fdst, fid))
     compute_busy_ms, compute_top = device_busy(lambda: be.compute(topo))
     g_busy_ms, g_top = device_busy(lambda: se.spf_lanes(eg, lane_roots, mask_w))
@@ -614,10 +789,12 @@ def main() -> None:
     print(f"breakdown gather compute: ELL kernels {g_kernel1_ms:.3f} ms on the device "
           f"(launches x device ms/launch at B=1); device busy {g_compute_busy_ms:.3f} ms "
           f"of {g_compute_ms:.3f} ms; top device ops: {g_compute_top}", flush=True)
-    g_kernel_ms = sum(g_whatif[k] * erows[k]["ms"] for k in erows)
+    # The frontier kernels' launches differ round by round: their dispatch sums.
+    g_kernel_ms = sum(frows[k]["dispatch_ms"] if k in frows else g_whatif[k] * erows[k]["ms"]
+                      for k in erows)
     print(f"breakdown gather compute_whatif: mask upload and packing {g_pack_ms:.3f} ms, "
           f"fixpoint driver (spf_lanes) {g_spf_ms:.3f} ms (ELL kernels {g_kernel_ms:.3f} "
-          f"ms = launches x ms/launch), transpose, readback and results "
+          f"ms = dispatch sums, launches x ms/launch), transpose, readback and results "
           f"{g_batch_ms - g_pack_ms - g_spf_ms:.3f} ms", flush=True)
     if g_busy_ms > 0:
         print(f"profile gather spf_lanes: device busy {g_busy_ms:.3f} ms of "
@@ -634,14 +811,19 @@ def main() -> None:
          (erows1[name], erowsr[name]))
         for name, row in erows.items()
     ]
-    print(json.dumps({"kernels": [
+    kernel_rows = [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": count,
          "max_abs_err": max(row["max_abs_err"], *(r["max_abs_err"] for r in others)),
          "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
          "bound_by": row["bound_by"], "library_ms": None}
         for name, source, replaces, count, row, others in entries
-    ]}), flush=True)
+    ]
+    for krow in kernel_rows:
+        if krow["name"] in frows:  # the frontier kernels: a whole dispatch, a full round
+            krow["dispatch_ms"] = frows[krow["name"]]["dispatch_ms"]
+            krow["full_round_ms"] = frows[krow["name"]]["full_round_ms"]
+    print(json.dumps({"kernels": kernel_rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -27,45 +27,85 @@
 // dist[v], and v is not lane b's root.  Adds wrap as JAX's int32 adds do
 // (done in unsigned arithmetic).
 //
-// What bounds them.  Every slot's source row is gathered for every lane:
-// 729,000 valid slots x 1024 lanes x 4 bytes = 3.0 GB of gathers a relax
-// round at the k=90 fat tree, from L2 (the 41 MB dist plane mostly stays
-// there), against 0.19 GB that the function must move (mask bits, dist in
-// and out, the slot planes).  So these simple kernels are bound by the L2
-// and load-issue rate of the gathers, not by device memory or by the int32
-// rate; staging source rows in shared memory does not apply to an arbitrary
-// ELL graph the way it does to the blocked engine's 256-vertex blocks.
+// What bounds them.  A round that gathered every usable slot's source row in
+// every lane would move 729,000 valid slots x 1024 lanes x 4 bytes = 3.0 GB
+// at the k=90 fat tree, against ~0.19 GB that the function must move (mask
+// bits, dist in and out, the slot planes).  ell_first_parent and ell_nh_seed
+// still do that, once a dispatch each, bound by the rate of their gathers.
+//
+// ell_relax and ell_nh_round, which run every round, gather only from
+// sources that changed (frontier words):
+//
+// - Each writes a frontier plane [N, ceil(B/32)] beside its output: bit b%32
+//   of word [v, b/32] set where lane b of row v changed in this launch,
+//   written whole by __ballot_sync (no atomics, no zero fill).  The next
+//   launch takes it and skips a (slot, tile) where the source's frontier word
+//   AND the slot's mask (or inherit) word is 0; it loads the mask or inherit
+//   word only where the frontier word is not 0.  Exact: after a round
+//   computed from prev, cur[v] <= prev[u] + cost (relax) and cur[v] is a
+//   superset of prev[u] (next hops) for every usable or inherit source u, so
+//   a source with cur[u] == prev[u] offers nothing; a frontier bit set where
+//   nothing changed only costs work.  The driver builds the first frontier
+//   (the roots; the nonzero seed words).
+// - Lane slabs: the lane group is the slowest grid axis (SLABS), so the
+//   rows being gathered at any moment are one 256-lane slab of dist (128
+//   lanes of both next-hop words), 10.4 MB at k=90, not the whole plane.
+// - Cache hints (HINTS): slot planes, mask and inherit words and the row's
+//   own old value are streamed with evict-first loads (__ldcs), outputs with
+//   __stcs; the gathers carry an L2 evict_last policy.
+// - Pipelined loads (PIPELINED): per 32-slot chunk each thread loads its
+//   slot's planes, then its frontier words and mask (inherit) words as
+//   vectors; the next chunk's slot planes are in flight meanwhile.  The warp
+//   then walks each tile's active slots (a ballot) eight gathers at a time,
+//   so no gather waits on a load of its own iteration.
+//
+// What bounds them now.  Over a 6-round dispatch at k=90 x 1024 the active
+// (slot, tile) pairs add up to about one full round of gathers; the rest is
+// a fixed cost a round (dist in and out and the slot planes, ~96 MB; both
+// next-hop words in and out, ~170 MB), which the rounds with few active
+// pairs show at 3.5-5.5x its time at the HBM rate: each warp waits on a chain
+// of dependent loads (slot planes, then frontier words, then mask or
+// inherit words, per chunk, then its row's old values), and too few bytes
+// are in flight.  Holding three chunks' words in registers (124 registers
+// a thread, half the warps resident) and staging them in shared memory
+// with cp.async (frontier words no longer read through L1) both measured
+// slower.  The design bits (FRONTIER, HINTS, PIPELINED, SLABS) select each
+// step for measurement; the wrappers pass all of them.
 //
 // Tile form (more than SMALL lanes).  A warp owns one destination row and a
-// group of TG 32-lane tiles (256 lanes), one lane of each tile a thread, so
-// each accumulator lives in a register.  The warp loads 32 slots at a time
-// (one a thread) and broadcasts each with __shfl_sync; a slot's mask words
-// for the group's tiles are 32 contiguous bytes (one sector), read by the
-// first TG threads and broadcast per tile.  Every edge has exactly one slot,
-// so each mask word is read once per launch.  A tile whose mask word (or
-// inherit word) is 0 skips its gather.  Lane groups vary fastest in the
-// grid, so the blocks of one row group run together and share its slot
-// planes in L2.
+// group of 32-lane tiles (TG = 8 tiles, 256 lanes; ell_nh_round TGN = 4, 128
+// lanes of every next-hop word), one lane of each tile a thread, so each
+// accumulator lives in a register.  Every edge has exactly one slot, so each
+// mask word is read at most once per launch.  ell_first_parent and
+// ell_nh_seed load 32 slots at a time (one a thread), broadcast each with
+// __shfl_sync and read a slot's mask words for the group's tiles (32
+// contiguous bytes) in the first TG threads; their lane groups vary fastest
+// in the grid.
 //
 // Row form (up to SMALL lanes: compute() is one lane, small multi-root
 // batches a few).  A tile would leave most threads idle, so a warp owns one
 // destination row and all its lanes, each thread takes slots k = t, t + 32,
 // ... (three at K = 96) and the warp meets in __reduce_min_sync (relax, and
-// a two-step min for the (distance, id) argmin) or __reduce_or_sync.
+// a two-step min for the (distance, id) argmin) or __reduce_or_sync.  The
+// frontier plane is one word a row; ell_relax_rows and ell_nh_round_rows
+// skip a slot whose source's word AND mask (inherit) word is 0.
 //
 // ell_nh_seed writes, besides the seed, the inherit bits [N, K, ceil(B/32)]
 // (bit b of word [v, k, b/32]: DAG slot whose source has hops != 0), which
-// every ell_nh_round then reads instead of repeating the DAG test: a round
-// reads 4 bytes per (slot, 32 lanes) and gathers next hops only for the
-// inherit pairs.  The words of a slot are written whole (a __ballot_sync of
-// the tile, or one thread's word in the row form), so no atomics and no
-// zero fill are needed.  Next-hop words go in chunks of WC per block
-// (gridDim.z); the inherit bits are written by chunk 0.
+// every ell_nh_round then reads instead of repeating the DAG test.  The
+// words of a slot are written whole (a __ballot_sync of the tile, or one
+// thread's word in the row form), so no atomics and no zero fill are
+// needed.  ell_nh_seed takes next-hop words in chunks of WC per block
+// (gridDim.z; the inherit bits are written by chunk 0); ell_nh_round walks
+// the chunks inside the block, so that one block writes a row's frontier
+// word.
 //
 // Changed flags: a warp that changed any element votes (__any_sync) and its
 // first thread stores 1; the wrapper zeroes the flag before the launch.
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
@@ -73,8 +113,13 @@ constexpr int INF = 1 << 30;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int SMALL = 8;   // lane counts up to this: *_rows kernels
 constexpr int TG = 8;      // 32-lane tiles a warp of a *_tile kernel takes
+constexpr int TGN = 4;     // ... of ell_nh_round_tile (both words of 128 lanes)
 constexpr int WARPS = 8;   // warps (destination rows) per thread block
-constexpr int WC = 2;      // next-hop words per block (a chunk of W)
+constexpr int WC = 2;      // next-hop words per pass (a chunk of W)
+constexpr int GATHERS = 8; // gathers a warp issues together (PIPELINED)
+
+// Design bits of holo_ell_relax / holo_ell_nh_round (kernels/ell.py DESIGN).
+constexpr int FRONTIER = 1, HINTS = 2, PIPELINED = 4, SLABS = 8;
 
 __device__ __forceinline__ int add32(int a, int b) {
   return (int)((unsigned)a + (unsigned)b);
@@ -86,44 +131,183 @@ __device__ __forceinline__ unsigned mask_word(const int* __restrict__ mask,
   return mask == nullptr ? FULL : (unsigned)__ldg(mask + (long)e * words + tile);
 }
 
-// One Bellman-Ford round, tile form: blockIdx.x = lane group, blockIdx.y =
-// row block.
+// A load of data read once (evict-first in L1 and L2 under HINTS).
+template <bool H>
+__device__ __forceinline__ int ld_once(const int* p) {
+  if constexpr (H) return __ldcs(p);
+  else return __ldg(p);
+}
+
+template <bool H>
+__device__ __forceinline__ void st_once(int* p, int x) {
+  if constexpr (H) __stcs(p, x);
+  else *p = x;
+}
+
+// The L2 policy of the gathers: keep the rows in L2 (evict_last).
+__device__ __forceinline__ uint64_t keep_policy() {
+  uint64_t pol;
+  asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(pol));
+  return pol;
+}
+
+template <bool H>
+__device__ __forceinline__ int ld_gather(const int* p, uint64_t pol) {
+  if constexpr (H) {
+    int x;
+    asm("ld.global.nc.L2::cache_hint.b32 %0, [%1], %2;" : "=r"(x) : "l"(p), "l"(pol));
+    return x;
+  } else {
+    return __ldg(p);
+  }
+}
+
+// Words p[0 .. N) of which the first n exist (0 past them); `vec` (n == N,
+// p 16-byte aligned) loads them as N / 4 int4 vectors.  CS streams them.
+template <int N, bool CS>
+__device__ __forceinline__ void ld_words(const int* p, int n, bool vec, unsigned (&w)[N]) {
+  if (vec) {
+#pragma unroll
+    for (int i = 0; i < N; i += 4) {
+      const int4* q = reinterpret_cast<const int4*>(p + i);
+      int4 x;
+      if constexpr (CS) x = __ldcs(q);
+      else x = __ldg(q);
+      w[i] = (unsigned)x.x;
+      w[i + 1] = (unsigned)x.y;
+      w[i + 2] = (unsigned)x.z;
+      w[i + 3] = (unsigned)x.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) w[i] = i < n ? (unsigned)(CS ? __ldcs(p + i) : __ldg(p + i)) : 0u;
+  }
+}
+
+// The grid's row block and lane group: under SLABS the lane group is the
+// slowest axis (blockIdx.y), else the fastest (blockIdx.x).
+__device__ __forceinline__ void grid_place(bool slabs, int& rb, int& lg) {
+  rb = slabs ? blockIdx.x : blockIdx.y;
+  lg = slabs ? blockIdx.y : blockIdx.x;
+}
+
+// One Bellman-Ford round, tile form.  FR: skip by the frontier; H: cache
+// hints; PP: pipelined chunk loads and batched gathers.
+template <bool FR, bool H, bool PP>
 __global__ void __launch_bounds__(WARPS * 32)
 ell_relax_tile(const int* __restrict__ src, const int* __restrict__ cost,
                const int* __restrict__ slot, const int* __restrict__ mask,
-               const int* __restrict__ dist, int* __restrict__ out,
-               int* __restrict__ changed, int n, int k, int lanes) {
+               const int* __restrict__ dist, const int* __restrict__ front,
+               int* __restrict__ out, int* __restrict__ changed,
+               int* __restrict__ front_out, int n, int k, int lanes, bool slabs,
+               bool vec) {
   const int t = threadIdx.x % 32;
-  const long v = (long)blockIdx.y * WARPS + threadIdx.x / 32;
+  int rb, lg;
+  grid_place(slabs, rb, lg);
+  const long v = (long)rb * WARPS + threadIdx.x / 32;
   if (v >= n) return;
   const int words = (lanes + 31) / 32;
-  const int tile0 = blockIdx.x * TG;
+  const int tile0 = lg * TG;
   const int ntiles = min(TG, words - tile0);
+  const uint64_t pol = H ? keep_policy() : 0;
   int acc[TG];
 #pragma unroll
   for (int g = 0; g < TG; ++g) acc[g] = INF;
   const long row = v * k;
-  for (int k0 = 0; k0 < k; k0 += 32) {
+  if constexpr (PP) {
     int s = 0, c = 0, e = -1;
-    if (k0 + t < k) {
-      s = __ldg(src + row + k0 + t);
-      c = __ldg(cost + row + k0 + t);
-      e = __ldg(slot + row + k0 + t);
+    if (t < k) {
+      s = ld_once<H>(src + row + t);
+      c = ld_once<H>(cost + row + t);
+      e = ld_once<H>(slot + row + t);
     }
-    const int cnt = min(32, k - k0);
-    for (int j = 0; j < cnt; ++j) {
-      const int ej = __shfl_sync(FULL, e, j);
-      if (ej < 0) continue;  // the same for the whole warp
-      const int sj = __shfl_sync(FULL, s, j);
-      const int cj = __shfl_sync(FULL, c, j);
-      const unsigned mw = t < ntiles ? mask_word(mask, ej, words, tile0 + t) : 0u;
+    for (int k0 = 0; k0 < k; k0 += 32) {
+      int sn = 0, cn = 0, en = -1;  // the next chunk's slot, in flight
+      if (k0 + 32 + t < k) {
+        sn = ld_once<H>(src + row + k0 + 32 + t);
+        cn = ld_once<H>(cost + row + k0 + 32 + t);
+        en = ld_once<H>(slot + row + k0 + 32 + t);
+      }
+      // act[g]: lanes of tile g in which this thread's slot is usable and
+      // its source changed.
+      unsigned act[TG];
+#pragma unroll
+      for (int g = 0; g < TG; ++g) act[g] = 0u;
+      if (e >= 0) {
+        if constexpr (FR) {
+          ld_words<TG, false>(front + (long)s * words + tile0, ntiles, vec, act);
+        } else {
+#pragma unroll
+          for (int g = 0; g < TG; ++g) act[g] = g < ntiles ? FULL : 0u;
+        }
+        unsigned any = 0u;
+#pragma unroll
+        for (int g = 0; g < TG; ++g) any |= act[g];
+        if (any != 0u && mask != nullptr) {
+          unsigned m[TG];
+          ld_words<TG, H>(mask + (long)e * words + tile0, ntiles, vec, m);
+#pragma unroll
+          for (int g = 0; g < TG; ++g) act[g] &= m[g];
+        }
+      }
 #pragma unroll
       for (int g = 0; g < TG; ++g) {
-        const unsigned m = __shfl_sync(FULL, mw, g);
         const int b = (tile0 + g) * 32 + t;
-        if (g < ntiles && ((m >> t) & 1u) && b < lanes) {
-          const int du = __ldg(dist + (long)sj * lanes + b);
-          if (du < INF) acc[g] = min(acc[g], add32(du, cj));
+        unsigned todo = __ballot_sync(FULL, act[g] != 0u);  // this tile's active slots
+        while (todo != 0u) {
+          int du[GATHERS], cq[GATHERS];
+#pragma unroll
+          for (int q = 0; q < GATHERS; ++q) {
+            du[q] = INF;
+            cq[q] = 0;
+            if (todo != 0u) {  // the same for the whole warp
+              const int j = __ffs(todo) - 1;
+              todo &= todo - 1u;
+              const unsigned a = __shfl_sync(FULL, act[g], j);
+              const int sj = __shfl_sync(FULL, s, j);
+              cq[q] = __shfl_sync(FULL, c, j);
+              if (((a >> t) & 1u) && b < lanes) du[q] = ld_gather<H>(dist + (long)sj * lanes + b, pol);
+            }
+          }
+#pragma unroll
+          for (int q = 0; q < GATHERS; ++q)
+            if (du[q] < INF) acc[g] = min(acc[g], add32(du[q], cq[q]));
+        }
+      }
+      s = sn;
+      c = cn;
+      e = en;
+    }
+  } else {
+    for (int k0 = 0; k0 < k; k0 += 32) {
+      int s = 0, c = 0, e = -1;
+      if (k0 + t < k) {
+        s = ld_once<H>(src + row + k0 + t);
+        c = ld_once<H>(cost + row + k0 + t);
+        e = ld_once<H>(slot + row + k0 + t);
+      }
+      const int cnt = min(32, k - k0);
+      for (int j = 0; j < cnt; ++j) {
+        const int ej = __shfl_sync(FULL, e, j);
+        if (ej < 0) continue;  // the same for the whole warp
+        const int sj = __shfl_sync(FULL, s, j);
+        const int cj = __shfl_sync(FULL, c, j);
+        unsigned mw = 0u;
+        if (t < ntiles) {
+          const unsigned f = FR ? (unsigned)__ldg(front + (long)sj * words + tile0 + t) : FULL;
+          if (f != 0u)
+            mw = f & (mask == nullptr ? FULL
+                                      : (unsigned)ld_once<H>(mask + (long)ej * words + tile0 + t));
+        }
+        if (FR && !__any_sync(FULL, mw != 0u)) continue;
+#pragma unroll
+        for (int g = 0; g < TG; ++g) {
+          const unsigned m = __shfl_sync(FULL, mw, g);
+          const int b = (tile0 + g) * 32 + t;
+          if (g < ntiles && ((m >> t) & 1u) && b < lanes) {
+            const int du = ld_gather<H>(dist + (long)sj * lanes + b, pol);
+            if (du < INF) acc[g] = min(acc[g], add32(du, cj));
+          }
         }
       }
     }
@@ -132,23 +316,31 @@ ell_relax_tile(const int* __restrict__ src, const int* __restrict__ cost,
 #pragma unroll
   for (int g = 0; g < TG; ++g) {
     const int b = (tile0 + g) * 32 + t;
-    if (g < ntiles && b < lanes) {
+    const bool ok = g < ntiles && b < lanes;
+    bool moved = false;
+    if (ok) {
       const long o = v * lanes + b;
-      const int d = dist[o];
+      const int d = ld_once<H>(dist + o);
       const int nv = min(d, acc[g]);
-      out[o] = nv;
-      ch |= nv != d;
+      st_once<H>(out + o, nv);
+      moved = nv != d;
     }
+    const unsigned word = __ballot_sync(FULL, moved);
+    if (t == g && g < ntiles) st_once<H>(front_out + v * words + tile0 + g, (int)word);
+    ch |= moved;
   }
   if (__any_sync(FULL, ch) && t == 0) *changed = 1;
 }
 
-// One Bellman-Ford round, row form: blockIdx.x = row block.
+// One Bellman-Ford round, row form: blockIdx.x = row block; one frontier
+// word a row.
+template <bool FR>
 __global__ void __launch_bounds__(WARPS * 32)
 ell_relax_rows(const int* __restrict__ src, const int* __restrict__ cost,
                const int* __restrict__ slot, const int* __restrict__ mask,
-               const int* __restrict__ dist, int* __restrict__ out,
-               int* __restrict__ changed, int n, int k, int lanes) {
+               const int* __restrict__ dist, const int* __restrict__ front,
+               int* __restrict__ out, int* __restrict__ changed,
+               int* __restrict__ front_out, int n, int k, int lanes) {
   const int t = threadIdx.x % 32;
   const long v = (long)blockIdx.x * WARPS + threadIdx.x / 32;
   if (v >= n) return;
@@ -159,8 +351,13 @@ ell_relax_rows(const int* __restrict__ src, const int* __restrict__ cost,
   for (int kk = t; kk < k; kk += 32) {
     const int e = __ldg(slot + row + kk);
     if (e < 0) continue;
-    const int s = __ldg(src + row + kk), c = __ldg(cost + row + kk);
-    const unsigned m = mask_word(mask, e, 1, 0);
+    const int s = __ldg(src + row + kk);
+    unsigned m = mask_word(mask, e, 1, 0);
+    if constexpr (FR) {
+      m &= (unsigned)__ldg(front + s);
+      if (m == 0u) continue;
+    }
+    const int c = __ldg(cost + row + kk);
 #pragma unroll
     for (int b = 0; b < SMALL; ++b) {
       if (b < lanes && ((m >> b) & 1u)) {
@@ -182,7 +379,11 @@ ell_relax_rows(const int* __restrict__ src, const int* __restrict__ cost,
       }
     }
   }
-  if (__any_sync(FULL, ch) && t == 0) *changed = 1;
+  const unsigned word = __ballot_sync(FULL, ch);  // bit b: lane b (thread b)
+  if (t == 0) {
+    front_out[v] = (int)word;
+    if (word != 0u) *changed = 1;
+  }
 }
 
 // The (distance, id) lexicographic min of the DAG parents, tile form.
@@ -438,134 +639,256 @@ ell_nh_seed_rows(const int* __restrict__ src, const int* __restrict__ cost,
   }
 }
 
-// One next-hop inherit round, tile form: blockIdx.z = word chunk.
+// One next-hop inherit round, tile form: a warp takes one row and TGN tiles
+// of every word, the word chunks (WC words) one after another.  FR, H, PP
+// as ell_relax_tile.
+template <bool FR, bool H, bool PP>
 __global__ void __launch_bounds__(WARPS * 32)
 ell_nh_round_tile(const int* __restrict__ src, const int* __restrict__ inherit,
-                  const int* __restrict__ nh, int* __restrict__ out,
-                  int* __restrict__ changed, int n, int k, int lanes,
-                  int nwords) {
+                  const int* __restrict__ nh, const int* __restrict__ front,
+                  int* __restrict__ out, int* __restrict__ changed,
+                  int* __restrict__ front_out, int n, int k, int lanes, int nwords,
+                  bool slabs, bool vec) {
   const int t = threadIdx.x % 32;
-  const long v = (long)blockIdx.y * WARPS + threadIdx.x / 32;
+  int rb, lg;
+  grid_place(slabs, rb, lg);
+  const long v = (long)rb * WARPS + threadIdx.x / 32;
   if (v >= n) return;
   const int words = (lanes + 31) / 32;
-  const int tile0 = blockIdx.x * TG;
-  const int ntiles = min(TG, words - tile0);
-  const int w0 = blockIdx.z * WC;
-  const bool two = w0 + 1 < nwords;
+  const int tile0 = lg * TGN;
+  const int ntiles = min(TGN, words - tile0);
   const long plane = (long)lanes;  // stride of one word plane in a row
-  unsigned a0[TG], a1[TG];
-#pragma unroll
-  for (int g = 0; g < TG; ++g) a0[g] = a1[g] = 0u;
+  const uint64_t pol = H ? keep_policy() : 0;
   const long row = v * k;
-  for (int k0 = 0; k0 < k; k0 += 32) {
-    const int s = k0 + t < k ? __ldg(src + row + k0 + t) : 0;
-    const int cnt = min(32, k - k0);
-    for (int j = 0; j < cnt; ++j) {
-      const int sj = __shfl_sync(FULL, s, j);
-      const unsigned iw =
-          t < ntiles ? (unsigned)__ldg(inherit + (row + k0 + j) * words + tile0 + t) : 0u;
-      if (!__any_sync(FULL, iw != 0u)) continue;
-      const long base = ((long)sj * nwords + w0) * plane;
+  bool moved[TGN];
 #pragma unroll
-      for (int g = 0; g < TG; ++g) {
-        const unsigned m = __shfl_sync(FULL, iw, g);
-        if ((m >> t) & 1u) {
+  for (int g = 0; g < TGN; ++g) moved[g] = false;
+  for (int w0 = 0; w0 < nwords; w0 += WC) {
+    const bool two = w0 + 1 < nwords;
+    unsigned a0[TGN], a1[TGN];
+#pragma unroll
+    for (int g = 0; g < TGN; ++g) a0[g] = a1[g] = 0u;
+    if constexpr (PP) {
+      int s = t < k ? ld_once<H>(src + row + t) : -1;
+      for (int k0 = 0; k0 < k; k0 += 32) {
+        const int sn = k0 + 32 + t < k ? ld_once<H>(src + row + k0 + 32 + t) : -1;
+        // act[g]: lanes of tile g that inherit through this thread's slot
+        // from a source that changed.
+        unsigned act[TGN];
+#pragma unroll
+        for (int g = 0; g < TGN; ++g) act[g] = s >= 0 ? FULL : 0u;
+        if (s >= 0) {
+          if constexpr (FR) ld_words<TGN, false>(front + (long)s * words + tile0, ntiles, vec, act);
+          unsigned any = 0u;
+#pragma unroll
+          for (int g = 0; g < TGN; ++g) any |= act[g];
+          if (any != 0u) {
+            unsigned iw[TGN];
+            ld_words<TGN, H>(inherit + (row + k0 + t) * words + tile0, ntiles, vec, iw);
+#pragma unroll
+            for (int g = 0; g < TGN; ++g) act[g] &= iw[g];
+          }
+        }
+#pragma unroll
+        for (int g = 0; g < TGN; ++g) {
           const int b = (tile0 + g) * 32 + t;
-          a0[g] |= (unsigned)__ldg(nh + base + b);
-          if (two) a1[g] |= (unsigned)__ldg(nh + base + plane + b);
+          unsigned todo = __ballot_sync(FULL, act[g] != 0u);
+          while (todo != 0u) {
+            unsigned x0[GATHERS / 2], x1[GATHERS / 2];
+#pragma unroll
+            for (int q = 0; q < GATHERS / 2; ++q) {
+              x0[q] = x1[q] = 0u;
+              if (todo != 0u) {  // the same for the whole warp
+                const int j = __ffs(todo) - 1;
+                todo &= todo - 1u;
+                const unsigned a = __shfl_sync(FULL, act[g], j);
+                const int sj = __shfl_sync(FULL, s, j);
+                if (((a >> t) & 1u) && b < lanes) {
+                  const int* p = nh + ((long)sj * nwords + w0) * plane + b;
+                  x0[q] = (unsigned)ld_gather<H>(p, pol);
+                  if (two) x1[q] = (unsigned)ld_gather<H>(p + plane, pol);
+                }
+              }
+            }
+#pragma unroll
+            for (int q = 0; q < GATHERS / 2; ++q) {
+              a0[g] |= x0[q];
+              a1[g] |= x1[q];
+            }
+          }
+        }
+        s = sn;
+      }
+    } else {
+      for (int k0 = 0; k0 < k; k0 += 32) {
+        const int s = k0 + t < k ? ld_once<H>(src + row + k0 + t) : 0;
+        const int cnt = min(32, k - k0);
+        for (int j = 0; j < cnt; ++j) {
+          const int sj = __shfl_sync(FULL, s, j);
+          unsigned iw = 0u;
+          if (t < ntiles) {
+            const unsigned f = FR ? (unsigned)__ldg(front + (long)sj * words + tile0 + t) : FULL;
+            if (f != 0u) iw = f & (unsigned)ld_once<H>(inherit + (row + k0 + j) * words + tile0 + t);
+          }
+          if (!__any_sync(FULL, iw != 0u)) continue;
+          const long base = ((long)sj * nwords + w0) * plane;
+#pragma unroll
+          for (int g = 0; g < TGN; ++g) {
+            const unsigned m = __shfl_sync(FULL, iw, g);
+            const int b = (tile0 + g) * 32 + t;
+            if (((m >> t) & 1u) && b < lanes) {
+              a0[g] |= (unsigned)ld_gather<H>(nh + base + b, pol);
+              if (two) a1[g] |= (unsigned)ld_gather<H>(nh + base + plane + b, pol);
+            }
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < TGN; ++g) {
+      const int b = (tile0 + g) * 32 + t;
+      if (g < ntiles && b < lanes) {
+        const long o = (v * nwords + w0) * plane + b;
+        const unsigned x0 = (unsigned)ld_once<H>(nh + o), n0 = x0 | a0[g];
+        st_once<H>(out + o, (int)n0);
+        moved[g] |= n0 != x0;
+        if (two) {
+          const unsigned x1 = (unsigned)ld_once<H>(nh + o + plane), n1 = x1 | a1[g];
+          st_once<H>(out + o + plane, (int)n1);
+          moved[g] |= n1 != x1;
         }
       }
     }
   }
   bool ch = false;
 #pragma unroll
-  for (int g = 0; g < TG; ++g) {
-    const int b = (tile0 + g) * 32 + t;
-    if (g < ntiles && b < lanes) {
-      const long o = (v * nwords + w0) * plane + b;
-      const unsigned x0 = (unsigned)nh[o], n0 = x0 | a0[g];
-      out[o] = (int)n0;
-      ch |= n0 != x0;
-      if (two) {
-        const unsigned x1 = (unsigned)nh[o + plane], n1 = x1 | a1[g];
-        out[o + plane] = (int)n1;
-        ch |= n1 != x1;
-      }
-    }
+  for (int g = 0; g < TGN; ++g) {
+    const unsigned word = __ballot_sync(FULL, moved[g]);
+    if (t == g && g < ntiles) st_once<H>(front_out + v * words + tile0 + g, (int)word);
+    ch |= moved[g];
   }
   if (__any_sync(FULL, ch) && t == 0) *changed = 1;
 }
 
-// One next-hop inherit round, row form: blockIdx.y = word chunk.
+// One next-hop inherit round, row form: blockIdx.x = row block, the word
+// chunks one after another; one inherit and one frontier word a slot / row.
+template <bool FR>
 __global__ void __launch_bounds__(WARPS * 32)
 ell_nh_round_rows(const int* __restrict__ src, const int* __restrict__ inherit,
-                  const int* __restrict__ nh, int* __restrict__ out,
-                  int* __restrict__ changed, int n, int k, int lanes,
-                  int nwords) {
+                  const int* __restrict__ nh, const int* __restrict__ front,
+                  int* __restrict__ out, int* __restrict__ changed,
+                  int* __restrict__ front_out, int n, int k, int lanes, int nwords) {
   const int t = threadIdx.x % 32;
   const long v = (long)blockIdx.x * WARPS + threadIdx.x / 32;
   if (v >= n) return;
-  const int w0 = blockIdx.y * WC;
-  const bool two = w0 + 1 < nwords;
   const long plane = (long)lanes;
-  unsigned a0[SMALL], a1[SMALL];
-#pragma unroll
-  for (int b = 0; b < SMALL; ++b) a0[b] = a1[b] = 0u;
   const long row = v * k;
-  for (int kk = t; kk < k; kk += 32) {
-    const unsigned iw = (unsigned)__ldg(inherit + row + kk);
-    if (iw == 0u) continue;
-    const long base = ((long)__ldg(src + row + kk) * nwords + w0) * plane;
+  bool ch = false;  // thread b: lane b changed in some word
+  for (int w0 = 0; w0 < nwords; w0 += WC) {
+    const bool two = w0 + 1 < nwords;
+    unsigned a0[SMALL], a1[SMALL];
 #pragma unroll
-    for (int b = 0; b < SMALL; ++b) {
-      if ((iw >> b) & 1u) {
-        a0[b] |= (unsigned)__ldg(nh + base + b);
-        if (two) a1[b] |= (unsigned)__ldg(nh + base + plane + b);
+    for (int b = 0; b < SMALL; ++b) a0[b] = a1[b] = 0u;
+    for (int kk = t; kk < k; kk += 32) {
+      const int s = __ldg(src + row + kk);
+      unsigned iw;
+      if constexpr (FR) {
+        iw = (unsigned)__ldg(front + s);
+        if (iw == 0u) continue;
+        iw &= (unsigned)__ldg(inherit + row + kk);
+      } else {
+        iw = (unsigned)__ldg(inherit + row + kk);
+      }
+      if (iw == 0u) continue;
+      const long base = ((long)s * nwords + w0) * plane;
+#pragma unroll
+      for (int b = 0; b < SMALL; ++b) {
+        if (b < lanes && ((iw >> b) & 1u)) {
+          a0[b] |= (unsigned)__ldg(nh + base + b);
+          if (two) a1[b] |= (unsigned)__ldg(nh + base + plane + b);
+        }
       }
     }
-  }
-  bool ch = false;
 #pragma unroll
-  for (int b = 0; b < SMALL; ++b) {
-    if (b < lanes) {
-      const unsigned r0 = __reduce_or_sync(FULL, a0[b]);
-      const unsigned r1 = __reduce_or_sync(FULL, a1[b]);
-      if (t == b) {
-        const long o = (v * nwords + w0) * plane + b;
-        const unsigned x0 = (unsigned)nh[o], n0 = x0 | r0;
-        out[o] = (int)n0;
-        ch = n0 != x0;
-        if (two) {
-          const unsigned x1 = (unsigned)nh[o + plane], n1 = x1 | r1;
-          out[o + plane] = (int)n1;
-          ch |= n1 != x1;
+    for (int b = 0; b < SMALL; ++b) {
+      if (b < lanes) {
+        const unsigned r0 = __reduce_or_sync(FULL, a0[b]);
+        const unsigned r1 = __reduce_or_sync(FULL, a1[b]);
+        if (t == b) {
+          const long o = (v * nwords + w0) * plane + b;
+          const unsigned x0 = (unsigned)nh[o], n0 = x0 | r0;
+          out[o] = (int)n0;
+          ch |= n0 != x0;
+          if (two) {
+            const unsigned x1 = (unsigned)nh[o + plane], n1 = x1 | r1;
+            out[o + plane] = (int)n1;
+            ch |= n1 != x1;
+          }
         }
       }
     }
   }
-  if (__any_sync(FULL, ch) && t == 0) *changed = 1;
+  const unsigned word = __ballot_sync(FULL, ch);
+  if (t == 0) {
+    front_out[v] = (int)word;
+    if (word != 0u) *changed = 1;
+  }
 }
 
 unsigned row_blocks(int n) { return (unsigned)((n + WARPS - 1) / WARPS); }
-unsigned lane_groups(int lanes) { return (unsigned)(((lanes + 31) / 32 + TG - 1) / TG); }
+unsigned lane_groups(int lanes, int tiles = TG) {
+  return (unsigned)(((lanes + 31) / 32 + tiles - 1) / tiles);
+}
 unsigned word_chunks(int nwords) { return (unsigned)((nwords + WC - 1) / WC); }
+bool aligned16(const void* p) { return p == nullptr || (uintptr_t)p % 16 == 0; }
+
+// The grid of a tile kernel: (lane groups, row blocks), or under SLABS
+// (row blocks, lane groups).
+dim3 tile_grid(int n, int groups, int design) {
+  return design & SLABS ? dim3(row_blocks(n), groups) : dim3(groups, row_blocks(n));
+}
+
+using RelaxTile = void (*)(const int*, const int*, const int*, const int*, const int*,
+                           const int*, int*, int*, int*, int, int, int, bool, bool);
+using RoundTile = void (*)(const int*, const int*, const int*, const int*, int*, int*,
+                           int*, int, int, int, int, bool, bool);
+
+// Instances by design & 7: FRONTIER (bit 0), HINTS (bit 1), PIPELINED (bit 2).
+const RelaxTile RELAX_TILE[8] = {
+    ell_relax_tile<false, false, false>, ell_relax_tile<true, false, false>,
+    ell_relax_tile<false, true, false>,  ell_relax_tile<true, true, false>,
+    ell_relax_tile<false, false, true>,  ell_relax_tile<true, false, true>,
+    ell_relax_tile<false, true, true>,   ell_relax_tile<true, true, true>};
+const RoundTile ROUND_TILE[8] = {
+    ell_nh_round_tile<false, false, false>, ell_nh_round_tile<true, false, false>,
+    ell_nh_round_tile<false, true, false>,  ell_nh_round_tile<true, true, false>,
+    ell_nh_round_tile<false, false, true>,  ell_nh_round_tile<true, false, true>,
+    ell_nh_round_tile<false, true, true>,   ell_nh_round_tile<true, true, true>};
 
 }  // namespace
 
 extern "C" {
 
 int holo_ell_relax(const void* src, const void* cost, const void* slot,
-                   const void* mask, const void* dist, void* out,
-                   void* changed, int n, int k, int lanes, void* stream) {
+                   const void* mask, const void* dist, const void* front, void* out,
+                   void* changed, void* front_out, int n, int k, int lanes, int design,
+                   void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   const int *s = (const int*)src, *c = (const int*)cost, *e = (const int*)slot;
-  const int *m = (const int*)mask, *d = (const int*)dist;
+  const int *m = (const int*)mask, *d = (const int*)dist, *f = (const int*)front;
   if (n > 0 && lanes > 0 && lanes <= SMALL) {
-    ell_relax_rows<<<row_blocks(n), WARPS * 32, 0, st>>>(
-        s, c, e, m, d, (int*)out, (int*)changed, n, k, lanes);
+    if (design & FRONTIER)
+      ell_relax_rows<true><<<row_blocks(n), WARPS * 32, 0, st>>>(
+          s, c, e, m, d, f, (int*)out, (int*)changed, (int*)front_out, n, k, lanes);
+    else
+      ell_relax_rows<false><<<row_blocks(n), WARPS * 32, 0, st>>>(
+          s, c, e, m, d, f, (int*)out, (int*)changed, (int*)front_out, n, k, lanes);
   } else if (n > 0 && lanes > 0) {
-    ell_relax_tile<<<dim3(lane_groups(lanes), row_blocks(n)), WARPS * 32, 0, st>>>(
-        s, c, e, m, d, (int*)out, (int*)changed, n, k, lanes);
+    const bool vec = (lanes + 31) / 32 % TG == 0 && aligned16(mask) && aligned16(front);
+    const RelaxTile kernel = RELAX_TILE[design & 7];
+    kernel<<<tile_grid(n, lane_groups(lanes), design), WARPS * 32, 0, st>>>(
+        s, c, e, m, d, f, (int*)out, (int*)changed, (int*)front_out, n, k, lanes,
+        (design & SLABS) != 0, vec);
   }
   return (int)cudaGetLastError();
 }
@@ -608,17 +931,24 @@ int holo_ell_nh_seed(const void* src, const void* cost, const void* slot,
 }
 
 int holo_ell_nh_round(const void* src, const void* inherit, const void* nh,
-                      void* out, void* changed, int n, int k, int lanes,
-                      int nwords, void* stream) {
+                      const void* front, void* out, void* changed, void* front_out,
+                      int n, int k, int lanes, int nwords, int design, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   const int *s = (const int*)src, *i = (const int*)inherit, *x = (const int*)nh;
+  const int* f = (const int*)front;
   if (n > 0 && lanes > 0 && nwords > 0 && lanes <= SMALL) {
-    ell_nh_round_rows<<<dim3(row_blocks(n), word_chunks(nwords)), WARPS * 32, 0, st>>>(
-        s, i, x, (int*)out, (int*)changed, n, k, lanes, nwords);
+    if (design & FRONTIER)
+      ell_nh_round_rows<true><<<row_blocks(n), WARPS * 32, 0, st>>>(
+          s, i, x, f, (int*)out, (int*)changed, (int*)front_out, n, k, lanes, nwords);
+    else
+      ell_nh_round_rows<false><<<row_blocks(n), WARPS * 32, 0, st>>>(
+          s, i, x, f, (int*)out, (int*)changed, (int*)front_out, n, k, lanes, nwords);
   } else if (n > 0 && lanes > 0 && nwords > 0) {
-    ell_nh_round_tile<<<dim3(lane_groups(lanes), row_blocks(n), word_chunks(nwords)),
-                        WARPS * 32, 0, st>>>(s, i, x, (int*)out, (int*)changed, n, k,
-                                             lanes, nwords);
+    const bool vec = (lanes + 31) / 32 % TGN == 0 && aligned16(inherit) && aligned16(front);
+    const RoundTile kernel = ROUND_TILE[design & 7];
+    kernel<<<tile_grid(n, lane_groups(lanes, TGN), design), WARPS * 32, 0, st>>>(
+        s, i, x, f, (int*)out, (int*)changed, (int*)front_out, n, k, lanes, nwords,
+        (design & SLABS) != 0, vec);
   }
   return (int)cudaGetLastError();
 }

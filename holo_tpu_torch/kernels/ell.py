@@ -23,7 +23,13 @@ Plane conventions (all int32, INF = 1 << 30 as unreachable):
 - vertex planes are [N, B] with the lanes (scenarios or roots) minor;
   next-hop planes are [N, W, B] (uint32 words as int32 bit patterns);
 - ``inherit`` [N, K, ceil(B / 32)]: bit b of word [v, k, b // 32] set where
-  slot (v, k) is a DAG in-edge of v in lane b whose source has hops != 0.
+  slot (v, k) is a DAG in-edge of v in lane b whose source has hops != 0;
+- ``frontier`` [N, ceil(B / 32)]: bit b % 32 of word [v, b // 32] set where
+  lane b of row v changed in the previous round (or may have: a bit set
+  where nothing changed only costs the kernel work).  :func:`ell_relax` and
+  :func:`ell_nh_round` take one and return the next; their kernels gather
+  only from the sources it marks, their plain versions ignore it and
+  return exactly the changes of the full round.
 """
 
 from __future__ import annotations
@@ -37,6 +43,11 @@ INF = 1 << 30
 SMALL = 8  # lane counts up to this run the kernels' per-row form
 _TEMP = 1 << 26  # elements of the largest [N, K, lanes] temporary of a plain version
 
+#: design steps of the frontier kernels (bits of their C entries' ``design``):
+#: skip by the frontier, cache hints, pipelined loads, lane slabs
+FRONTIER, HINTS, PIPELINED, SLABS = 1, 2, 4, 8
+DESIGN = FRONTIER | HINTS | PIPELINED | SLABS
+
 #: kernel launches per wrapper since the last :func:`reset_launches`
 launches = {"ell_relax": 0, "ell_first_parent": 0, "ell_nh_seed": 0, "ell_nh_round": 0}
 
@@ -49,6 +60,14 @@ def reset_launches() -> None:
 def mask_words(lanes: int) -> int:
     """Bit words per edge (or slot) for ``lanes`` lanes."""
     return (lanes + 31) // 32
+
+
+def _check_frontier(frontier, n: int, lanes: int) -> None:
+    if frontier.shape != (n, mask_words(lanes)):
+        raise ValueError(
+            f"frontier {tuple(frontier.shape)} is not [{n}, {mask_words(lanes)}] "
+            f"for {n} rows and {lanes} lanes"
+        )
 
 
 def _check_planes(src, cost, slot, mask, lanes: int, plane=None, roots=None) -> None:
@@ -130,15 +149,22 @@ def _unpack(words, sl: slice):
     return ((words[..., lane // 32] >> (lane % 32)) & 1) != 0
 
 
-def relax_plain(src, cost, slot, mask, dist):
-    """One Jacobi Bellman-Ford round and its changed flag (int32 [1])."""
+def _round_result(moved: torch.Tensor):
+    """(changed int32 [1], frontier [N, ceil(B / 32)]) of a round whose
+    changed elements are ``moved`` (bool [N, B])."""
+    return moved.any().to(torch.int32).reshape(1), pack_lane_bits(moved)
+
+
+def relax_plain(src, cost, slot, mask, dist, frontier=None):
+    """One full Jacobi Bellman-Ford round: (out, changed int32 [1],
+    frontier_out).  ``frontier`` is ignored: every source is gathered."""
     out = dist.clone()
     for sl in lane_chunks(*src.shape, dist.shape[1]):
         d_nbr = dist[:, sl][src.long()]
         ok = _usable(slot, mask, sl) & (d_nbr < INF)
         cand = torch.where(ok, d_nbr + cost[:, :, None], INF).amin(1)
         out[:, sl] = torch.minimum(dist[:, sl], cand)
-    return out, (out != dist).any().to(torch.int32).reshape(1)
+    return out, *_round_result(out != dist)
 
 
 def first_parent_plain(src, cost, slot, mask, dist, roots):
@@ -169,16 +195,17 @@ def nh_seed_plain(src, cost, slot, mask, dist, hops, roots, direct):
     return seed, inherit
 
 
-def nh_round_plain(src, inherit, nh):
-    """One Jacobi round ``nh | OR nh[src]`` over the inherit slots, and its
-    changed flag (int32 [1])."""
+def nh_round_plain(src, inherit, nh, frontier=None):
+    """One full Jacobi round ``nh | OR nh[src]`` over the inherit slots:
+    (out, changed int32 [1], frontier_out, the OR over words of out != nh).
+    ``frontier`` is ignored: every inherit source is gathered."""
     out = nh.clone()
     for sl in lane_chunks(*src.shape, nh.shape[2]):
         use = _unpack(inherit, sl)
         for w in range(nh.shape[1]):
             gathered = nh[:, w, sl][src.long()]
             out[:, w, sl] |= or_reduce(torch.where(use, gathered, 0), 1)
-    return out, (out != nh).any().to(torch.int32).reshape(1)
+    return out, *_round_result((out != nh).any(1))
 
 
 # ---------------------------------------------------------------------------
@@ -191,17 +218,24 @@ def _launch(name: str, *args) -> None:
     launches[name] += 1
 
 
-def ell_relax(src, cost, slot, mask, dist):
-    """(new [N, B], changed int32 [1]): new[v, b] = min(dist[v, b], min over
-    usable slots with dist[src] < INF of dist[src, b] + cost)
-    (``spf_engine.py:860-866``)."""
-    if not build.on_card(src, cost, slot, mask, dist):
-        return relax_plain(src, cost, slot, mask, dist)
-    _check_planes(src, cost, slot, mask, dist.shape[1], plane=dist)
+def ell_relax(src, cost, slot, mask, dist, frontier, *, design=DESIGN):
+    """(new [N, B], changed int32 [1], frontier_out): new[v, b] = min(dist[v,
+    b], min over usable slots with dist[src] < INF of dist[src, b] + cost)
+    (``spf_engine.py:860-866``); the kernel gathers only sources marked in
+    ``frontier``, which must hold every change of the round that made
+    ``dist``.  ``design`` picks the kernel's design steps (chip_smoke.py
+    measures each); every choice gives the same bits."""
+    if not build.on_card(src, cost, slot, mask, dist, frontier):
+        return relax_plain(src, cost, slot, mask, dist, frontier)
+    n, lanes = dist.shape
+    _check_planes(src, cost, slot, mask, lanes, plane=dist)
+    _check_frontier(frontier, n, lanes)
     out = torch.empty_like(dist)
     changed = torch.zeros(1, dtype=torch.int32, device=dist.device)
-    _launch("ell_relax", src, cost, slot, mask, dist, out, changed, *src.shape, dist.shape[1])
-    return out, changed
+    front_out = torch.empty_like(frontier)
+    _launch("ell_relax", src, cost, slot, mask, dist, frontier, out, changed, front_out,
+            *src.shape, lanes, design)
+    return out, changed, front_out
 
 
 def ell_first_parent(src, cost, slot, mask, dist, roots):
@@ -239,12 +273,14 @@ def ell_nh_seed(src, cost, slot, mask, dist, hops, roots, direct):
     return seed, inherit
 
 
-def ell_nh_round(src, inherit, nh):
-    """(new [N, W, B], changed int32 [1]): new = nh | OR of nh[src] over the
-    slots whose ``inherit`` bit is set, all words in one round
-    (``spf_engine.py:993-1005``)."""
-    if not build.on_card(src, inherit, nh):
-        return nh_round_plain(src, inherit, nh)
+def ell_nh_round(src, inherit, nh, frontier, *, design=DESIGN):
+    """(new [N, W, B], changed int32 [1], frontier_out): new = nh | OR of
+    nh[src] over the slots whose ``inherit`` bit is set, all words in one
+    round (``spf_engine.py:993-1005``); the kernel gathers only sources
+    marked in ``frontier`` (changes in any word).  ``design`` as in
+    :func:`ell_relax`."""
+    if not build.on_card(src, inherit, nh, frontier):
+        return nh_round_plain(src, inherit, nh, frontier)
     n, k = src.shape
     words, lanes = nh.shape[1], nh.shape[2]
     if nh.shape[0] != n or inherit.shape != (n, k, mask_words(lanes)):
@@ -252,7 +288,10 @@ def ell_nh_round(src, inherit, nh):
             f"nh_round planes disagree: src {tuple(src.shape)}, inherit "
             f"{tuple(inherit.shape)}, nh {tuple(nh.shape)}"
         )
+    _check_frontier(frontier, n, lanes)
     out = torch.empty_like(nh)
     changed = torch.zeros(1, dtype=torch.int32, device=nh.device)
-    _launch("ell_nh_round", src, inherit, nh, out, changed, n, k, lanes, words)
-    return out, changed
+    front_out = torch.empty_like(frontier)
+    _launch("ell_nh_round", src, inherit, nh, frontier, out, changed, front_out, n, k,
+            lanes, words, design)
+    return out, changed, front_out

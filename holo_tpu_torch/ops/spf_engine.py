@@ -5,7 +5,9 @@ Port of the default engine of ``holo_tpu/ops/spf_engine.py`` (``spf_one``,
 carry scenario edge masks) and ``spf_multiroot`` (lanes carry roots).  The
 fixpoints over the ELL in-edge layout are the same:
 
-1. distances: Jacobi Bellman-Ford rounds (kernel ``ell_relax``);
+1. distances: Jacobi Bellman-Ford rounds (kernel ``ell_relax``), each of
+   which gathers only from the sources the previous round changed (a
+   frontier plane of lane bits carried from round to round);
 2. first parent: the DAG in-edge source minimizing (dist[u], u), the
    reference's candidate pop order (holo-ospf/src/spf.rs:614-622)
    (``ell_first_parent``);
@@ -13,7 +15,7 @@ fixpoints over the ELL in-edge layout are the same:
    ``hops[parent]`` a round);
 4. ECMP next-hop words: the direct atoms of DAG parents with hops 0 seed
    the words (``ell_nh_seed``), then Jacobi OR rounds inherit the sets of
-   the other DAG parents (``ell_nh_round``).
+   the other DAG parents (``ell_nh_round``, with its own frontier).
 
 ``torch.vmap`` cannot carry the data-dependent loops, so one program runs
 every lane at once, with the lanes on the minor axis of [N, B] planes (the
@@ -122,13 +124,27 @@ def lane_planes(g: DeviceGraph, mask: torch.Tensor | None) -> LanePlanes:
     return LanePlanes(g.in_src, g.in_cost, slot, mask)
 
 
+def distance_seed(n: int, roots: torch.Tensor):
+    """(dist, frontier): 0 at each lane's root, INF elsewhere, and the
+    lanes' first frontier, the roots (no other source is usable in round
+    1)."""
+    lanes = roots.shape[0]
+    dist = torch.full((n, lanes), INF, dtype=torch.int32, device=roots.device)
+    dist[roots.long(), torch.arange(lanes, device=roots.device)] = 0
+    return dist, ell.pack_lane_bits(dist < INF)
+
+
+def nexthop_frontier(seed: torch.Tensor) -> torch.Tensor:
+    """The first next-hop frontier: lanes of a row with a nonzero seed word
+    (a source whose words are all 0 gives nothing)."""
+    return ell.pack_lane_bits((seed != 0).any(1))
+
+
 def distance_fixpoint(p: LanePlanes, roots: torch.Tensor, limit: int) -> torch.Tensor:
     """``sssp_distances`` for every lane: int32 [N, B], INF unreachable."""
-    lanes = roots.shape[0]
-    dist = torch.full((p.src.shape[0], lanes), INF, dtype=torch.int32, device=roots.device)
-    dist[roots.long(), torch.arange(lanes, device=roots.device)] = 0
+    dist, front = distance_seed(p.src.shape[0], roots)
     for _ in range(limit):
-        dist, changed = ell.ell_relax(*p, dist)
+        dist, changed, front = ell.ell_relax(*p, dist, front)
         if not bool(changed):
             break
     return dist
@@ -166,11 +182,13 @@ def nexthop_fixpoint(g: DeviceGraph, p: LanePlanes, dist, hops, roots, limit: in
     round.  Word w's round reads word w alone, so each word still follows
     its own Jacobi sequence; the shared loop runs until no word changed (or
     ``limit``), and a round leaves a word at its fixpoint unchanged, so each
-    word ends where its own loop would have stopped.
+    word ends where its own loop would have stopped.  The frontier carries
+    the lanes that changed in any word.
     """
     nh, inherit = ell.ell_nh_seed(*p, dist, hops, roots, g.direct_nh_words)
+    front = nexthop_frontier(nh)
     for _ in range(limit):
-        nh, changed = ell.ell_nh_round(p.src, inherit, nh)
+        nh, changed, front = ell.ell_nh_round(p.src, inherit, nh, front)
         if not bool(changed):
             break
     return nh

@@ -18,8 +18,12 @@ launched.
 The gather engine's kernels (kernels/ell.py) are held bit-identical to their
 plain versions on real mid-fixpoint inputs at 1, 8, 33 and 1024 lanes
 (scenario masks) and at 64 roots (no mask), on a k=8 fat tree and on a
-graph whose K (40) is not a multiple of 32; the card driver is held to the
-CPU path under max_iters truncation; the gather backend to the oracle.
+graph whose K (40) is not a multiple of 32; ell_relax and ell_nh_round in
+every round of a real dispatch, with its frontier and with an all-ones one,
+at 1, 8, 33, 257 and 1024 lanes with and without masks, also on a graph
+whose K (136) spans five 32-slot chunks, and under every design step; the
+card driver is held to the CPU path under max_iters
+truncation; the gather backend to the oracle.
 """
 
 import numpy as np
@@ -176,41 +180,99 @@ def _k40_topology():
     return topo
 
 
-def _ell_inputs(topo, lanes, dev, roots=None):
+def _k130_topology():
+    # Root 0 -- hub 1, which fans out to 130 routers that all reach vertex
+    # 132: K = 136 (padded), five 32-slot chunks of the round kernels.
+    fan = np.arange(2, 132)
+    src = np.r_[0, 1, np.ones(130, int), fan, fan, np.full(130, 132)]
+    dst = np.r_[1, 0, fan, np.ones(130, int), np.full(130, 132), fan]
+    cost = np.r_[1, 1, np.ones(260, int), fan % 3 + 1, np.ones(130, int)]
+    topo = Topology(n_vertices=133, is_router=np.ones(133, bool), edge_src=src, edge_dst=dst,
+                    edge_cost=cost, root=0)
+    synth.assign_direct_atoms(topo)
+    return topo
+
+
+_SHAPES = {"fat_tree_k8": lambda: synth.fat_tree_topology(k=8), "k40": _k40_topology,
+           "k130": _k130_topology}
+
+
+def _ell_inputs(topo, lanes, dev, roots=None, masked=True):
+    """(graph, planes, roots, x): one gather dispatch on the card, with each
+    ell_relax / ell_nh_round launch's (plane, frontier) input in
+    x["relax"] / x["round"]; scenario masks unless ``roots`` or not
+    ``masked``."""
     g = se.device_graph_from_ell(build_ell(topo, n_atoms=64), dev)
+    mask = None
     if roots is None:
-        masks = synth.whatif_link_failure_masks(topo, lanes, seed=lanes)
-        mask = se.pack_edge_masks(masks, dev)
+        if masked:
+            masks = synth.whatif_link_failure_masks(topo, lanes, seed=lanes)
+            mask = se.pack_edge_masks(masks, dev)
         roots = torch.full((lanes,), topo.root, dtype=torch.int32, device=dev)
     else:
-        mask = None
         roots = torch.as_tensor(roots, dtype=torch.int32, device=dev)
     p = se.lane_planes(g, mask)
     n = topo.n_vertices
-    x = {"dist_mid": se.distance_fixpoint(p, roots, 2), "dist": se.distance_fixpoint(p, roots, n)}
-    parent = ell.ell_first_parent(*p, x["dist"], roots)
+    dist, front = se.distance_seed(n, roots)
+    x = {"relax": []}
+    while True:
+        x["relax"].append((dist, front))
+        dist, changed, front = ell.ell_relax(*p, dist, front)
+        if not bool(changed):
+            break
+    x["dist"] = dist
+    parent = ell.ell_first_parent(*p, dist, roots)
     x["hops"] = se.hops_fixpoint(g, parent, roots, n)
-    seed, x["inherit"] = ell.ell_nh_seed(*p, x["dist"], x["hops"], roots, g.direct_nh_words)
-    x["nh"] = ell.ell_nh_round(p.src, x["inherit"], seed)[0]
+    nh, x["inherit"] = ell.ell_nh_seed(*p, dist, x["hops"], roots, g.direct_nh_words)
+    front = se.nexthop_frontier(nh)
+    x["round"] = []
+    while True:
+        x["round"].append((nh, front))
+        nh, changed, front = ell.ell_nh_round(p.src, x["inherit"], nh, front)
+        if not bool(changed):
+            break
     return g, p, roots, x
 
 
 def _assert_ell_kernels_match(g, p, roots, x):
     d = g.direct_nh_words
+    dist_mid, front_mid = x["relax"][min(2, len(x["relax"]) - 1)]
+    nh_mid, nh_front = x["round"][min(1, len(x["round"]) - 1)]
     pairs = {
-        "ell_relax": (ell.ell_relax(*p, x["dist_mid"]), ell.relax_plain(*p, x["dist_mid"])),
+        "ell_relax": (ell.ell_relax(*p, dist_mid, front_mid),
+                      ell.relax_plain(*p, dist_mid, front_mid)),
         "ell_first_parent": (ell.ell_first_parent(*p, x["dist"], roots),
                              ell.first_parent_plain(*p, x["dist"], roots)),
         "ell_nh_seed": (ell.ell_nh_seed(*p, x["dist"], x["hops"], roots, d),
                         ell.nh_seed_plain(*p, x["dist"], x["hops"], roots, d)),
-        "ell_nh_round": (ell.ell_nh_round(p.src, x["inherit"], x["nh"]),
-                         ell.nh_round_plain(p.src, x["inherit"], x["nh"])),
+        "ell_nh_round": (ell.ell_nh_round(p.src, x["inherit"], nh_mid, nh_front),
+                         ell.nh_round_plain(p.src, x["inherit"], nh_mid, nh_front)),
     }
     torch.cuda.synchronize()
     for name, (got, want) in pairs.items():
         got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
         for i, (a, b) in enumerate(zip(got, want)):
             assert torch.equal(a, b), f"{name} output {i}"
+
+
+def _assert_every_round_matches(p, x, design=ell.DESIGN):
+    """Each launch of the dispatch, with its real frontier and with an
+    all-ones one: (out, changed, frontier_out) equal to the plain full
+    round."""
+    for kind in ("relax", "round"):
+        for r, (plane, front) in enumerate(x[kind]):
+            ones = ell.pack_lane_bits(torch.ones((plane.shape[0], plane.shape[-1]),
+                                                 dtype=torch.bool, device=plane.device))
+            for label, f in (("real", front), ("all-ones", ones)):
+                if kind == "relax":
+                    got = ell.ell_relax(*p, plane, f, design=design)
+                    want = ell.relax_plain(*p, plane, f)
+                else:
+                    got = ell.ell_nh_round(p.src, x["inherit"], plane, f, design=design)
+                    want = ell.nh_round_plain(p.src, x["inherit"], plane, f)
+                torch.cuda.synchronize()
+                for i, (a, b) in enumerate(zip(got, want)):
+                    assert torch.equal(a, b), f"{kind} round {r + 1} {label} output {i}"
 
 
 @pytest.mark.parametrize("lanes", [1, 8, 33, 1024])
@@ -242,17 +304,51 @@ def test_ell_driver_on_the_card_matches_cpu_when_truncated(max_iters):
             assert torch.equal(a.cpu(), b)
 
 
+@pytest.mark.parametrize("lanes", [1, 8, 33, 257, 1024])
+@pytest.mark.parametrize("shape", ["fat_tree_k8", "k40", "k130"])
+@pytest.mark.parametrize("masked", [True, False])
+def test_frontier_rounds_match_the_full_round(shape, lanes, masked):
+    g, p, roots, x = _ell_inputs(_SHAPES[shape](), lanes, _card(), masked=masked)
+    _assert_every_round_matches(p, x)
+
+
+@pytest.mark.parametrize("design", range(16))
+@pytest.mark.parametrize("shape", ["fat_tree_k8", "k130"])
+def test_every_design_step_gives_the_same_bits(shape, design):
+    _, p, _, x = _ell_inputs(_SHAPES[shape](), 257, _card())
+    _assert_every_round_matches(p, x, design)
+
+
 def test_ell_wrappers_refuse_mixed_devices():
     dev = _card()
     g, p, roots, x = _ell_inputs(synth.fat_tree_topology(k=8), 4, dev)
+    dist, front = x["relax"][1]
+    nh, nh_front = x["round"][0]
     with pytest.raises(ValueError, match="CUDA device"):
-        ell.ell_relax(*p, x["dist"].cpu())
+        ell.ell_relax(*p, dist.cpu(), front)
     with pytest.raises(ValueError, match="CUDA device"):
         ell.ell_first_parent(p.src.cpu(), p.cost, p.slot, p.mask, x["dist"], roots)
     with pytest.raises(ValueError, match="int32"):
-        ell.ell_nh_round(p.src, x["inherit"], x["nh"].long())
+        ell.ell_nh_round(p.src, x["inherit"], nh.long(), nh_front)
     with pytest.raises(ValueError, match="planes disagree"):
-        ell.ell_relax(*p, x["dist"][:-1].contiguous())
+        ell.ell_relax(*p, dist[:-1].contiguous(), front[:-1].contiguous())
+
+
+def test_ell_wrappers_refuse_a_bad_frontier():
+    dev = _card()
+    g, p, roots, x = _ell_inputs(synth.fat_tree_topology(k=8), 40, dev)
+    dist, front = x["relax"][1]
+    nh, nh_front = x["round"][0]
+    for call, f in ((lambda f: ell.ell_relax(*p, dist, f), front),
+                    (lambda f: ell.ell_nh_round(p.src, x["inherit"], nh, f), nh_front)):
+        with pytest.raises(ValueError, match="frontier"):
+            call(f[:, :1].contiguous())  # one word where 40 lanes need two
+        with pytest.raises(ValueError, match="frontier"):
+            call(f[:-1].contiguous())
+        with pytest.raises(ValueError, match="int32"):
+            call(f.long())
+        with pytest.raises(ValueError, match="CUDA device"):
+            call(f.cpu())
 
 
 def test_gather_backend_on_the_card_matches_scalar():

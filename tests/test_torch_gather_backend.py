@@ -176,11 +176,11 @@ def test_ell_wrappers_refuse_other_devices():
     meta = torch.empty((4, 8), dtype=torch.int32, device="meta")
     cpu = torch.zeros((4, 8), dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA device"):
-        ell.ell_relax(meta, meta, meta, None, meta)
+        ell.ell_relax(meta, meta, meta, None, meta, meta)
     with pytest.raises(ValueError, match="CUDA device"):
         ell.ell_first_parent(cpu, cpu, cpu, None, meta, cpu[0])
     with pytest.raises(ValueError, match="CUDA device"):
-        ell.ell_nh_round(cpu, meta, cpu)
+        ell.ell_nh_round(cpu, meta, cpu, cpu)
 
 
 def _causal_digest(timelines):

@@ -248,7 +248,7 @@ def _np_dag(v, k, b, src, cost, valid, eid, masks, dist, roots):
 def test_relax_plain_matches_numpy_walk(lanes):
     tg, p, masks, roots, _, src, cost, valid, eid = _walk_inputs(lanes)
     dist = te.distance_fixpoint(p, roots, 2).numpy()  # mid-fixpoint
-    out, changed = ell.relax_plain(*p, torch.from_numpy(dist))
+    out, changed, front = ell.relax_plain(*p, torch.from_numpy(dist))
     want = dist.copy()
     n, k = src.shape
     for v in range(n):
@@ -259,6 +259,10 @@ def test_relax_plain_matches_numpy_walk(lanes):
                     want[v, b] = min(want[v, b], dist[u, b] + cost[v, j])
     np.testing.assert_array_equal(out.numpy(), want)
     assert int(changed) == int((want != dist).any())
+    moved = np.zeros((n, 32 * front.shape[1]), bool)
+    moved[:, :lanes] = want != dist
+    np.testing.assert_array_equal(np.packbits(moved, axis=1, bitorder="little").view(np.int32),
+                                  front.numpy())
 
 
 @pytest.mark.parametrize("lanes", [1, 40])
@@ -283,7 +287,7 @@ def test_nh_seed_and_round_plain_match_numpy_walk(lanes):
     hops = te.hops_fixpoint(tg, parent, roots, tg.in_src.shape[0])
     direct = tg.direct_nh_words
     seed, inherit = ell.nh_seed_plain(*p, dist, hops, roots, direct)
-    nh1, changed = ell.nh_round_plain(p.src, inherit, seed)
+    nh1, changed, front = ell.nh_round_plain(p.src, inherit, seed)
     d, h, r, dw = dist.numpy(), hops.numpy(), roots.numpy(), direct.numpy()
     n, k = src.shape
     words = dw.shape[2]
@@ -308,6 +312,10 @@ def test_nh_seed_and_round_plain_match_numpy_walk(lanes):
                     want_nh[v, :, b] |= want_seed[src[v, j], :, b]
     np.testing.assert_array_equal(nh1.numpy(), want_nh)
     assert int(changed) == int((want_nh != want_seed).any())
+    moved = (want_nh != want_seed).any(1)
+    for b in range(lanes):
+        assert ((front.numpy()[:, b // 32].view(np.uint32) >> (b % 32)) & 1 == 1).tolist() == \
+            moved[:, b].tolist(), b
 
 
 @pytest.mark.parametrize("lanes", [1, 31, 32, 33, 100])
