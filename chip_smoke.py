@@ -19,9 +19,7 @@ gather engine also through ``compute_multiroot`` over 64 roots.  Phases:
    on the card and on the CPU (plain path) and hold them equal; hold every
    launch of one gather dispatch of the two frontier kernels (``ell_relax``,
    ``ell_nh_round``), and their full round (an all-ones frontier), to the
-   plain full round at the three shapes and time each (CUDA events); time
-   their design steps and two diagnostics of the base design (the per-slot
-   loop, no frontier);
+   plain full round at the three shapes and time each (CUDA events);
 3. drive each engine's main path with its launch counters at 0, require
    every kernel of that path to have launched (and the blocked engine to
    have sent nothing to the gather engine), and hold scenarios 0-7,
@@ -387,10 +385,9 @@ def frontier_launch(ell, p, x, kind: str):
     """(kernel call, plain call) of one ell_relax / ell_nh_round launch on
     (plane, frontier)."""
     if kind == "ell_relax":
-        return (lambda d, f, design=ell.DESIGN: ell.ell_relax(*p, d, f, design=design),
+        return (lambda d, f: ell.ell_relax(*p, d, f),
                 lambda d, f: ell.relax_plain(*p, d, f))
-    return (lambda h, f, design=ell.DESIGN: ell.ell_nh_round(p.src, x["inherit"], h, f,
-                                                             design=design),
+    return (lambda h, f: ell.ell_nh_round(p.src, x["inherit"], h, f),
             lambda h, f: ell.nh_round_plain(p.src, x["inherit"], h, f))
 
 
@@ -438,42 +435,6 @@ def hold_rounds(ell, p, x, label: str) -> dict:
               f"round {full_ms:.4f} ms (bound {full_bound:.5f})", flush=True)
         rows[kind] = row
     return rows
-
-
-DESIGN_STEPS = ("base (per-slot loop)", "frontier", "+ slabs", "+ hints", "+ pipelined loads")
-
-
-def design_steps(ell, se, p, x) -> None:
-    """Each design step of the two frontier kernels, added one at a time, on
-    the full round and on the dispatch; and two diagnostics of the base
-    (design 0: the per-slot loop) at the full round: with mask=None, and launched
-    one 256-lane group at a time."""
-    steps = (0, ell.FRONTIER, ell.FRONTIER | ell.SLABS,
-             ell.FRONTIER | ell.SLABS | ell.HINTS, ell.DESIGN)
-    for kind, (key, mid_key) in FRONTIER_KERNELS.items():
-        card, _ = frontier_launch(ell, p, x, kind)
-        plane_mid, front_mid = x[mid_key]
-        ones = all_ones(ell, front_mid, plane_mid.shape[-1])
-        for name, design in zip(DESIGN_STEPS, steps):
-            full_ms = cuda_ms(lambda: card(plane_mid, ones, design), KERNEL_REPS)
-            per = [cuda_ms(lambda: card(h, f, design), KERNEL_REPS) for h, f in x[key]]
-            print(f"design {kind} {name} (bits {design}): full round {full_ms:.4f} ms, "
-                  f"dispatch {sum(per):.4f} ms {[round(t, 4) for t in per]}", flush=True)
-    dist, front = x["relax_mid"]
-    lanes = dist.shape[1]
-    ones = all_ones(ell, front, lanes)
-    bare = se.LanePlanes(p.src, p.cost, p.slot, None)
-    none_ms = cuda_ms(lambda: ell.ell_relax(*bare, dist, ones, design=0), KERNEL_REPS)
-    group = 256
-    slabs = [(se.LanePlanes(p.src, p.cost, p.slot,
-                            p.mask[:, b0 // 32:(b0 + group) // 32].contiguous()),
-              dist[:, b0:b0 + group].contiguous(), ones[:, b0 // 32:(b0 + group) // 32]
-              .contiguous()) for b0 in range(0, lanes, group)]
-    slab_ms = cuda_ms(lambda: [ell.ell_relax(*q, d, f, design=0) for q, d, f in slabs],
-                      KERNEL_REPS)
-    print(f"diagnostic ell_relax base (per-slot loop), full round at B={lanes}: mask=None "
-          f"{none_ms:.4f} ms; one {group}-lane group at a time ({len(slabs)} launches) "
-          f"{slab_ms:.4f} ms in all", flush=True)
 
 
 def ell_dag_pairs(ell, p, dist, hops, roots) -> tuple[int, int]:
@@ -597,7 +558,6 @@ def main() -> None:
     ecalls = ell_calls(ell, eg, p, x, lane_roots, failed, f"at B={BATCH}")
     erows = hold_to_plain(ecalls, f"at B={BATCH}")
     frows = hold_rounds(ell, p, x, f"at B={BATCH}")
-    design_steps(ell, se, p, x)
     root1 = lane_roots[:1].clone()
     p1, x1 = ell_inputs(ell, se, eg, root1, None)
     ecalls1 = ell_calls(ell, eg, p1, x1, root1, 0, "at B=1")
@@ -713,14 +673,6 @@ def main() -> None:
         rows1[name]["device_ms"] = device_ms_per_call(card, KERNEL_REPS)
     for name, (card, *_rest) in ecalls1.items():
         erows1[name]["device_ms"] = device_ms_per_call(card, KERNEL_REPS)
-    # The row form (compute()) with and without the frontier skip.
-    for kind, (_, mid_key) in FRONTIER_KERNELS.items():
-        card, _ = frontier_launch(ell, p1, x1, kind)
-        plane1, front1 = x1[mid_key]
-        skip, full = (device_ms_per_call(lambda d=d: card(plane1, front1, d), KERNEL_REPS)
-                      for d in (ell.DESIGN, ell.DESIGN & ~ell.FRONTIER))
-        print(f"design {kind} row form at B=1, main launch: {skip:.4f} ms on the device "
-              f"with the frontier skip, {full:.4f} ms without (profiler)", flush=True)
     busy_ms, top = device_busy(lambda: bspf.whatif_spf_blocked(g, fdst, fid))
     compute_busy_ms, compute_top = device_busy(lambda: be.compute(topo))
     g_busy_ms, g_top = device_busy(lambda: se.spf_lanes(eg, lane_roots, mask_w))

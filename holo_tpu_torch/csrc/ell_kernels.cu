@@ -47,17 +47,18 @@
 //   a source with cur[u] == prev[u] offers nothing; a frontier bit set where
 //   nothing changed only costs work.  The driver builds the first frontier
 //   (the roots; the nonzero seed words).
-// - Lane slabs: the lane group is the slowest grid axis (SLABS), so the
-//   rows being gathered at any moment are one 256-lane slab of dist (128
-//   lanes of both next-hop words), 10.4 MB at k=90, not the whole plane.
-// - Cache hints (HINTS): slot planes, mask and inherit words and the row's
-//   own old value are streamed with evict-first loads (__ldcs), outputs with
+// - Lane slabs (ell_nh_round): the lane group is the slowest grid axis, so
+//   the next-hop rows being gathered at any moment are one 128-lane slab of
+//   both words (10.4 MB at k=90), not the whole 83 MB plane.  ell_relax
+//   keeps the lane groups fastest: there the slab order measured slower.
+// - Cache hints: slot planes, mask and inherit words and the row's own old
+//   value are streamed with evict-first loads (__ldcs), outputs with
 //   __stcs; the gathers carry an L2 evict_last policy.
-// - Pipelined loads (PIPELINED): per 32-slot chunk each thread loads its
-//   slot's planes, then its frontier words and mask (inherit) words as
-//   vectors; the next chunk's slot planes are in flight meanwhile.  The warp
-//   then walks each tile's active slots (a ballot) eight gathers at a time,
-//   so no gather waits on a load of its own iteration.
+// - Pipelined loads: per 32-slot chunk each thread loads its slot's planes,
+//   then its frontier words and mask (inherit) words as vectors; the next
+//   chunk's slot planes are in flight meanwhile.  The warp then walks each
+//   tile's active slots (a ballot) eight gathers at a time, so no gather
+//   waits on a load of its own iteration.
 //
 // What bounds them now.  Over a 6-round dispatch at k=90 x 1024 the active
 // (slot, tile) pairs add up to about one full round of gathers; the rest is
@@ -67,20 +68,17 @@
 // of dependent loads (slot planes, then frontier words, then mask or
 // inherit words, per chunk, then its row's old values), and too few bytes
 // are in flight.  Holding three chunks' words in registers (124 registers
-// a thread, half the warps resident) and staging them in shared memory
-// with cp.async (frontier words no longer read through L1) both measured
-// slower.  The design bits (FRONTIER, HINTS, PIPELINED, SLABS) select each
-// step for measurement; the wrappers pass all of them.
-//
+// a thread, half the warps resident) and staging them in shared memory with
+// cp.async (frontier words no longer read through L1) both measured slower.
+
 // Tile form (more than SMALL lanes).  A warp owns one destination row and a
 // group of 32-lane tiles (TG = 8 tiles, 256 lanes; ell_nh_round TGN = 4, 128
 // lanes of every next-hop word), one lane of each tile a thread, so each
-// accumulator lives in a register.  Every edge has exactly one slot, so each
-// mask word is read at most once per launch.  ell_first_parent and
-// ell_nh_seed load 32 slots at a time (one a thread), broadcast each with
-// __shfl_sync and read a slot's mask words for the group's tiles (32
-// contiguous bytes) in the first TG threads; their lane groups vary fastest
-// in the grid.
+// accumulator lives in a register.  Every edge has exactly one slot, so each mask word is read at most
+// once per launch.  ell_first_parent and ell_nh_seed load 32 slots at a
+// time (one a thread), broadcast each with __shfl_sync and read a slot's
+// mask words for the group's tiles (32 contiguous bytes) in the first TG
+// threads.
 //
 // Row form (up to SMALL lanes: compute() is one lane, small multi-root
 // batches a few).  A tile would leave most threads idle, so a warp owns one
@@ -116,10 +114,7 @@ constexpr int TG = 8;      // 32-lane tiles a warp of a *_tile kernel takes
 constexpr int TGN = 4;     // ... of ell_nh_round_tile (both words of 128 lanes)
 constexpr int WARPS = 8;   // warps (destination rows) per thread block
 constexpr int WC = 2;      // next-hop words per pass (a chunk of W)
-constexpr int GATHERS = 8; // gathers a warp issues together (PIPELINED)
-
-// Design bits of holo_ell_relax / holo_ell_nh_round (kernels/ell.py DESIGN).
-constexpr int FRONTIER = 1, HINTS = 2, PIPELINED = 4, SLABS = 8;
+constexpr int GATHERS = 8; // gathers a warp issues together
 
 __device__ __forceinline__ int add32(int a, int b) {
   return (int)((unsigned)a + (unsigned)b);
@@ -131,19 +126,6 @@ __device__ __forceinline__ unsigned mask_word(const int* __restrict__ mask,
   return mask == nullptr ? FULL : (unsigned)__ldg(mask + (long)e * words + tile);
 }
 
-// A load of data read once (evict-first in L1 and L2 under HINTS).
-template <bool H>
-__device__ __forceinline__ int ld_once(const int* p) {
-  if constexpr (H) return __ldcs(p);
-  else return __ldg(p);
-}
-
-template <bool H>
-__device__ __forceinline__ void st_once(int* p, int x) {
-  if constexpr (H) __stcs(p, x);
-  else *p = x;
-}
-
 // The L2 policy of the gathers: keep the rows in L2 (evict_last).
 __device__ __forceinline__ uint64_t keep_policy() {
   uint64_t pol;
@@ -151,15 +133,10 @@ __device__ __forceinline__ uint64_t keep_policy() {
   return pol;
 }
 
-template <bool H>
 __device__ __forceinline__ int ld_gather(const int* p, uint64_t pol) {
-  if constexpr (H) {
-    int x;
-    asm("ld.global.nc.L2::cache_hint.b32 %0, [%1], %2;" : "=r"(x) : "l"(p), "l"(pol));
-    return x;
-  } else {
-    return __ldg(p);
-  }
+  int x;
+  asm("ld.global.nc.L2::cache_hint.b32 %0, [%1], %2;" : "=r"(x) : "l"(p), "l"(pol));
+  return x;
 }
 
 // Words p[0 .. N) of which the first n exist (0 past them); `vec` (n == N,
@@ -184,133 +161,82 @@ __device__ __forceinline__ void ld_words(const int* p, int n, bool vec, unsigned
   }
 }
 
-// The grid's row block and lane group: under SLABS the lane group is the
-// slowest axis (blockIdx.y), else the fastest (blockIdx.x).
-__device__ __forceinline__ void grid_place(bool slabs, int& rb, int& lg) {
-  rb = slabs ? blockIdx.x : blockIdx.y;
-  lg = slabs ? blockIdx.y : blockIdx.x;
-}
-
-// One Bellman-Ford round, tile form.  FR: skip by the frontier; H: cache
-// hints; PP: pipelined chunk loads and batched gathers.
-template <bool FR, bool H, bool PP>
+// One Bellman-Ford round, tile form: blockIdx.x = lane group, blockIdx.y =
+// row block.
 __global__ void __launch_bounds__(WARPS * 32)
 ell_relax_tile(const int* __restrict__ src, const int* __restrict__ cost,
                const int* __restrict__ slot, const int* __restrict__ mask,
                const int* __restrict__ dist, const int* __restrict__ front,
                int* __restrict__ out, int* __restrict__ changed,
-               int* __restrict__ front_out, int n, int k, int lanes, bool slabs,
-               bool vec) {
+               int* __restrict__ front_out, int n, int k, int lanes, bool vec) {
   const int t = threadIdx.x % 32;
-  int rb, lg;
-  grid_place(slabs, rb, lg);
-  const long v = (long)rb * WARPS + threadIdx.x / 32;
+  const long v = (long)blockIdx.y * WARPS + threadIdx.x / 32;
   if (v >= n) return;
   const int words = (lanes + 31) / 32;
-  const int tile0 = lg * TG;
+  const int tile0 = blockIdx.x * TG;
   const int ntiles = min(TG, words - tile0);
-  const uint64_t pol = H ? keep_policy() : 0;
+  const uint64_t pol = keep_policy();
   int acc[TG];
 #pragma unroll
   for (int g = 0; g < TG; ++g) acc[g] = INF;
   const long row = v * k;
-  if constexpr (PP) {
-    int s = 0, c = 0, e = -1;
-    if (t < k) {
-      s = ld_once<H>(src + row + t);
-      c = ld_once<H>(cost + row + t);
-      e = ld_once<H>(slot + row + t);
+  int s = 0, c = 0, e = -1;
+  if (t < k) {
+    s = __ldcs(src + row + t);
+    c = __ldcs(cost + row + t);
+    e = __ldcs(slot + row + t);
+  }
+  for (int k0 = 0; k0 < k; k0 += 32) {
+    int sn = 0, cn = 0, en = -1;  // the next chunk's slot, in flight
+    if (k0 + 32 + t < k) {
+      sn = __ldcs(src + row + k0 + 32 + t);
+      cn = __ldcs(cost + row + k0 + 32 + t);
+      en = __ldcs(slot + row + k0 + 32 + t);
     }
-    for (int k0 = 0; k0 < k; k0 += 32) {
-      int sn = 0, cn = 0, en = -1;  // the next chunk's slot, in flight
-      if (k0 + 32 + t < k) {
-        sn = ld_once<H>(src + row + k0 + 32 + t);
-        cn = ld_once<H>(cost + row + k0 + 32 + t);
-        en = ld_once<H>(slot + row + k0 + 32 + t);
+    // act[g]: lanes of tile g in which this thread's slot is usable and its
+    // source changed.
+    unsigned act[TG];
+#pragma unroll
+    for (int g = 0; g < TG; ++g) act[g] = 0u;
+    if (e >= 0) {
+      ld_words<TG, false>(front + (long)s * words + tile0, ntiles, vec, act);
+      unsigned any = 0u;
+#pragma unroll
+      for (int g = 0; g < TG; ++g) any |= act[g];
+      if (any != 0u && mask != nullptr) {
+        unsigned m[TG];
+        ld_words<TG, true>(mask + (long)e * words + tile0, ntiles, vec, m);
+#pragma unroll
+        for (int g = 0; g < TG; ++g) act[g] &= m[g];
       }
-      // act[g]: lanes of tile g in which this thread's slot is usable and
-      // its source changed.
-      unsigned act[TG];
-#pragma unroll
-      for (int g = 0; g < TG; ++g) act[g] = 0u;
-      if (e >= 0) {
-        if constexpr (FR) {
-          ld_words<TG, false>(front + (long)s * words + tile0, ntiles, vec, act);
-        } else {
-#pragma unroll
-          for (int g = 0; g < TG; ++g) act[g] = g < ntiles ? FULL : 0u;
-        }
-        unsigned any = 0u;
-#pragma unroll
-        for (int g = 0; g < TG; ++g) any |= act[g];
-        if (any != 0u && mask != nullptr) {
-          unsigned m[TG];
-          ld_words<TG, H>(mask + (long)e * words + tile0, ntiles, vec, m);
-#pragma unroll
-          for (int g = 0; g < TG; ++g) act[g] &= m[g];
-        }
-      }
-#pragma unroll
-      for (int g = 0; g < TG; ++g) {
-        const int b = (tile0 + g) * 32 + t;
-        unsigned todo = __ballot_sync(FULL, act[g] != 0u);  // this tile's active slots
-        while (todo != 0u) {
-          int du[GATHERS], cq[GATHERS];
-#pragma unroll
-          for (int q = 0; q < GATHERS; ++q) {
-            du[q] = INF;
-            cq[q] = 0;
-            if (todo != 0u) {  // the same for the whole warp
-              const int j = __ffs(todo) - 1;
-              todo &= todo - 1u;
-              const unsigned a = __shfl_sync(FULL, act[g], j);
-              const int sj = __shfl_sync(FULL, s, j);
-              cq[q] = __shfl_sync(FULL, c, j);
-              if (((a >> t) & 1u) && b < lanes) du[q] = ld_gather<H>(dist + (long)sj * lanes + b, pol);
-            }
-          }
-#pragma unroll
-          for (int q = 0; q < GATHERS; ++q)
-            if (du[q] < INF) acc[g] = min(acc[g], add32(du[q], cq[q]));
-        }
-      }
-      s = sn;
-      c = cn;
-      e = en;
     }
-  } else {
-    for (int k0 = 0; k0 < k; k0 += 32) {
-      int s = 0, c = 0, e = -1;
-      if (k0 + t < k) {
-        s = ld_once<H>(src + row + k0 + t);
-        c = ld_once<H>(cost + row + k0 + t);
-        e = ld_once<H>(slot + row + k0 + t);
-      }
-      const int cnt = min(32, k - k0);
-      for (int j = 0; j < cnt; ++j) {
-        const int ej = __shfl_sync(FULL, e, j);
-        if (ej < 0) continue;  // the same for the whole warp
-        const int sj = __shfl_sync(FULL, s, j);
-        const int cj = __shfl_sync(FULL, c, j);
-        unsigned mw = 0u;
-        if (t < ntiles) {
-          const unsigned f = FR ? (unsigned)__ldg(front + (long)sj * words + tile0 + t) : FULL;
-          if (f != 0u)
-            mw = f & (mask == nullptr ? FULL
-                                      : (unsigned)ld_once<H>(mask + (long)ej * words + tile0 + t));
-        }
-        if (FR && !__any_sync(FULL, mw != 0u)) continue;
 #pragma unroll
-        for (int g = 0; g < TG; ++g) {
-          const unsigned m = __shfl_sync(FULL, mw, g);
-          const int b = (tile0 + g) * 32 + t;
-          if (g < ntiles && ((m >> t) & 1u) && b < lanes) {
-            const int du = ld_gather<H>(dist + (long)sj * lanes + b, pol);
-            if (du < INF) acc[g] = min(acc[g], add32(du, cj));
+    for (int g = 0; g < TG; ++g) {
+      const int b = (tile0 + g) * 32 + t;
+      unsigned todo = __ballot_sync(FULL, act[g] != 0u);  // this tile's active slots
+      while (todo != 0u) {
+        int du[GATHERS], cq[GATHERS];
+#pragma unroll
+        for (int q = 0; q < GATHERS; ++q) {
+          du[q] = INF;
+          cq[q] = 0;
+          if (todo != 0u) {  // the same for the whole warp
+            const int j = __ffs(todo) - 1;
+            todo &= todo - 1u;
+            const unsigned a = __shfl_sync(FULL, act[g], j);
+            const int sj = __shfl_sync(FULL, s, j);
+            cq[q] = __shfl_sync(FULL, c, j);
+            if (((a >> t) & 1u) && b < lanes) du[q] = ld_gather(dist + (long)sj * lanes + b, pol);
           }
         }
+#pragma unroll
+        for (int q = 0; q < GATHERS; ++q)
+          if (du[q] < INF) acc[g] = min(acc[g], add32(du[q], cq[q]));
       }
     }
+    s = sn;
+    c = cn;
+    e = en;
   }
   bool ch = false;
 #pragma unroll
@@ -320,13 +246,13 @@ ell_relax_tile(const int* __restrict__ src, const int* __restrict__ cost,
     bool moved = false;
     if (ok) {
       const long o = v * lanes + b;
-      const int d = ld_once<H>(dist + o);
+      const int d = __ldcs(dist + o);
       const int nv = min(d, acc[g]);
-      st_once<H>(out + o, nv);
+      __stcs(out + o, nv);
       moved = nv != d;
     }
     const unsigned word = __ballot_sync(FULL, moved);
-    if (t == g && g < ntiles) st_once<H>(front_out + v * words + tile0 + g, (int)word);
+    if (t == g && g < ntiles) __stcs(front_out + v * words + tile0 + g, (int)word);
     ch |= moved;
   }
   if (__any_sync(FULL, ch) && t == 0) *changed = 1;
@@ -334,7 +260,6 @@ ell_relax_tile(const int* __restrict__ src, const int* __restrict__ cost,
 
 // One Bellman-Ford round, row form: blockIdx.x = row block; one frontier
 // word a row.
-template <bool FR>
 __global__ void __launch_bounds__(WARPS * 32)
 ell_relax_rows(const int* __restrict__ src, const int* __restrict__ cost,
                const int* __restrict__ slot, const int* __restrict__ mask,
@@ -352,11 +277,8 @@ ell_relax_rows(const int* __restrict__ src, const int* __restrict__ cost,
     const int e = __ldg(slot + row + kk);
     if (e < 0) continue;
     const int s = __ldg(src + row + kk);
-    unsigned m = mask_word(mask, e, 1, 0);
-    if constexpr (FR) {
-      m &= (unsigned)__ldg(front + s);
-      if (m == 0u) continue;
-    }
+    const unsigned m = mask_word(mask, e, 1, 0) & (unsigned)__ldg(front + s);
+    if (m == 0u) continue;
     const int c = __ldg(cost + row + kk);
 #pragma unroll
     for (int b = 0; b < SMALL; ++b) {
@@ -639,26 +561,23 @@ ell_nh_seed_rows(const int* __restrict__ src, const int* __restrict__ cost,
   }
 }
 
-// One next-hop inherit round, tile form: a warp takes one row and TGN tiles
-// of every word, the word chunks (WC words) one after another.  FR, H, PP
-// as ell_relax_tile.
-template <bool FR, bool H, bool PP>
+// One next-hop inherit round, tile form: blockIdx.x = row block,
+// blockIdx.y = lane slab; a warp takes one row and TGN tiles of every word,
+// the word chunks (WC words) one after another.
 __global__ void __launch_bounds__(WARPS * 32)
 ell_nh_round_tile(const int* __restrict__ src, const int* __restrict__ inherit,
                   const int* __restrict__ nh, const int* __restrict__ front,
                   int* __restrict__ out, int* __restrict__ changed,
                   int* __restrict__ front_out, int n, int k, int lanes, int nwords,
-                  bool slabs, bool vec) {
+                  bool vec) {
   const int t = threadIdx.x % 32;
-  int rb, lg;
-  grid_place(slabs, rb, lg);
-  const long v = (long)rb * WARPS + threadIdx.x / 32;
+  const long v = (long)blockIdx.x * WARPS + threadIdx.x / 32;
   if (v >= n) return;
   const int words = (lanes + 31) / 32;
-  const int tile0 = lg * TGN;
+  const int tile0 = blockIdx.y * TGN;
   const int ntiles = min(TGN, words - tile0);
   const long plane = (long)lanes;  // stride of one word plane in a row
-  const uint64_t pol = H ? keep_policy() : 0;
+  const uint64_t pol = keep_policy();
   const long row = v * k;
   bool moved[TGN];
 #pragma unroll
@@ -668,93 +587,67 @@ ell_nh_round_tile(const int* __restrict__ src, const int* __restrict__ inherit,
     unsigned a0[TGN], a1[TGN];
 #pragma unroll
     for (int g = 0; g < TGN; ++g) a0[g] = a1[g] = 0u;
-    if constexpr (PP) {
-      int s = t < k ? ld_once<H>(src + row + t) : -1;
-      for (int k0 = 0; k0 < k; k0 += 32) {
-        const int sn = k0 + 32 + t < k ? ld_once<H>(src + row + k0 + 32 + t) : -1;
-        // act[g]: lanes of tile g that inherit through this thread's slot
-        // from a source that changed.
-        unsigned act[TGN];
+    int s = t < k ? __ldcs(src + row + t) : -1;
+    for (int k0 = 0; k0 < k; k0 += 32) {
+      const int sn = k0 + 32 + t < k ? __ldcs(src + row + k0 + 32 + t) : -1;
+      // act[g]: lanes of tile g that inherit through this thread's slot from
+      // a source that changed.
+      unsigned act[TGN];
 #pragma unroll
-        for (int g = 0; g < TGN; ++g) act[g] = s >= 0 ? FULL : 0u;
-        if (s >= 0) {
-          if constexpr (FR) ld_words<TGN, false>(front + (long)s * words + tile0, ntiles, vec, act);
-          unsigned any = 0u;
+      for (int g = 0; g < TGN; ++g) act[g] = 0u;
+      if (s >= 0) {
+        ld_words<TGN, false>(front + (long)s * words + tile0, ntiles, vec, act);
+        unsigned any = 0u;
 #pragma unroll
-          for (int g = 0; g < TGN; ++g) any |= act[g];
-          if (any != 0u) {
-            unsigned iw[TGN];
-            ld_words<TGN, H>(inherit + (row + k0 + t) * words + tile0, ntiles, vec, iw);
+        for (int g = 0; g < TGN; ++g) any |= act[g];
+        if (any != 0u) {
+          unsigned iw[TGN];
+          ld_words<TGN, true>(inherit + (row + k0 + t) * words + tile0, ntiles, vec, iw);
 #pragma unroll
-            for (int g = 0; g < TGN; ++g) act[g] &= iw[g];
-          }
+          for (int g = 0; g < TGN; ++g) act[g] &= iw[g];
         }
+      }
 #pragma unroll
-        for (int g = 0; g < TGN; ++g) {
-          const int b = (tile0 + g) * 32 + t;
-          unsigned todo = __ballot_sync(FULL, act[g] != 0u);
-          while (todo != 0u) {
-            unsigned x0[GATHERS / 2], x1[GATHERS / 2];
+      for (int g = 0; g < TGN; ++g) {
+        const int b = (tile0 + g) * 32 + t;
+        unsigned todo = __ballot_sync(FULL, act[g] != 0u);
+        while (todo != 0u) {
+          unsigned x0[GATHERS / 2], x1[GATHERS / 2];
 #pragma unroll
-            for (int q = 0; q < GATHERS / 2; ++q) {
-              x0[q] = x1[q] = 0u;
-              if (todo != 0u) {  // the same for the whole warp
-                const int j = __ffs(todo) - 1;
-                todo &= todo - 1u;
-                const unsigned a = __shfl_sync(FULL, act[g], j);
-                const int sj = __shfl_sync(FULL, s, j);
-                if (((a >> t) & 1u) && b < lanes) {
-                  const int* p = nh + ((long)sj * nwords + w0) * plane + b;
-                  x0[q] = (unsigned)ld_gather<H>(p, pol);
-                  if (two) x1[q] = (unsigned)ld_gather<H>(p + plane, pol);
-                }
+          for (int q = 0; q < GATHERS / 2; ++q) {
+            x0[q] = x1[q] = 0u;
+            if (todo != 0u) {  // the same for the whole warp
+              const int j = __ffs(todo) - 1;
+              todo &= todo - 1u;
+              const unsigned a = __shfl_sync(FULL, act[g], j);
+              const int sj = __shfl_sync(FULL, s, j);
+              if (((a >> t) & 1u) && b < lanes) {
+                const int* p = nh + ((long)sj * nwords + w0) * plane + b;
+                x0[q] = (unsigned)ld_gather(p, pol);
+                if (two) x1[q] = (unsigned)ld_gather(p + plane, pol);
               }
             }
-#pragma unroll
-            for (int q = 0; q < GATHERS / 2; ++q) {
-              a0[g] |= x0[q];
-              a1[g] |= x1[q];
-            }
           }
-        }
-        s = sn;
-      }
-    } else {
-      for (int k0 = 0; k0 < k; k0 += 32) {
-        const int s = k0 + t < k ? ld_once<H>(src + row + k0 + t) : 0;
-        const int cnt = min(32, k - k0);
-        for (int j = 0; j < cnt; ++j) {
-          const int sj = __shfl_sync(FULL, s, j);
-          unsigned iw = 0u;
-          if (t < ntiles) {
-            const unsigned f = FR ? (unsigned)__ldg(front + (long)sj * words + tile0 + t) : FULL;
-            if (f != 0u) iw = f & (unsigned)ld_once<H>(inherit + (row + k0 + j) * words + tile0 + t);
-          }
-          if (!__any_sync(FULL, iw != 0u)) continue;
-          const long base = ((long)sj * nwords + w0) * plane;
 #pragma unroll
-          for (int g = 0; g < TGN; ++g) {
-            const unsigned m = __shfl_sync(FULL, iw, g);
-            const int b = (tile0 + g) * 32 + t;
-            if (((m >> t) & 1u) && b < lanes) {
-              a0[g] |= (unsigned)ld_gather<H>(nh + base + b, pol);
-              if (two) a1[g] |= (unsigned)ld_gather<H>(nh + base + plane + b, pol);
-            }
+          for (int q = 0; q < GATHERS / 2; ++q) {
+            a0[g] |= x0[q];
+            a1[g] |= x1[q];
           }
         }
       }
+      s = sn;
     }
 #pragma unroll
     for (int g = 0; g < TGN; ++g) {
       const int b = (tile0 + g) * 32 + t;
       if (g < ntiles && b < lanes) {
         const long o = (v * nwords + w0) * plane + b;
-        const unsigned x0 = (unsigned)ld_once<H>(nh + o), n0 = x0 | a0[g];
-        st_once<H>(out + o, (int)n0);
+        const unsigned x0 = (unsigned)__ldcs(nh + o), n0 = x0 | a0[g];
+        __stcs(out + o, (int)n0);
         moved[g] |= n0 != x0;
         if (two) {
-          const unsigned x1 = (unsigned)ld_once<H>(nh + o + plane), n1 = x1 | a1[g];
-          st_once<H>(out + o + plane, (int)n1);
+          const unsigned x1 = (unsigned)__ldcs(nh + o + plane), n1 = x1 | a1[g];
+          __stcs(out + o + plane, (int)n1);
           moved[g] |= n1 != x1;
         }
       }
@@ -764,7 +657,7 @@ ell_nh_round_tile(const int* __restrict__ src, const int* __restrict__ inherit,
 #pragma unroll
   for (int g = 0; g < TGN; ++g) {
     const unsigned word = __ballot_sync(FULL, moved[g]);
-    if (t == g && g < ntiles) st_once<H>(front_out + v * words + tile0 + g, (int)word);
+    if (t == g && g < ntiles) __stcs(front_out + v * words + tile0 + g, (int)word);
     ch |= moved[g];
   }
   if (__any_sync(FULL, ch) && t == 0) *changed = 1;
@@ -772,7 +665,6 @@ ell_nh_round_tile(const int* __restrict__ src, const int* __restrict__ inherit,
 
 // One next-hop inherit round, row form: blockIdx.x = row block, the word
 // chunks one after another; one inherit and one frontier word a slot / row.
-template <bool FR>
 __global__ void __launch_bounds__(WARPS * 32)
 ell_nh_round_rows(const int* __restrict__ src, const int* __restrict__ inherit,
                   const int* __restrict__ nh, const int* __restrict__ front,
@@ -791,14 +683,9 @@ ell_nh_round_rows(const int* __restrict__ src, const int* __restrict__ inherit,
     for (int b = 0; b < SMALL; ++b) a0[b] = a1[b] = 0u;
     for (int kk = t; kk < k; kk += 32) {
       const int s = __ldg(src + row + kk);
-      unsigned iw;
-      if constexpr (FR) {
-        iw = (unsigned)__ldg(front + s);
-        if (iw == 0u) continue;
-        iw &= (unsigned)__ldg(inherit + row + kk);
-      } else {
-        iw = (unsigned)__ldg(inherit + row + kk);
-      }
+      unsigned iw = (unsigned)__ldg(front + s);
+      if (iw == 0u) continue;
+      iw &= (unsigned)__ldg(inherit + row + kk);
       if (iw == 0u) continue;
       const long base = ((long)s * nwords + w0) * plane;
 #pragma unroll
@@ -842,53 +729,23 @@ unsigned lane_groups(int lanes, int tiles = TG) {
 unsigned word_chunks(int nwords) { return (unsigned)((nwords + WC - 1) / WC); }
 bool aligned16(const void* p) { return p == nullptr || (uintptr_t)p % 16 == 0; }
 
-// The grid of a tile kernel: (lane groups, row blocks), or under SLABS
-// (row blocks, lane groups).
-dim3 tile_grid(int n, int groups, int design) {
-  return design & SLABS ? dim3(row_blocks(n), groups) : dim3(groups, row_blocks(n));
-}
-
-using RelaxTile = void (*)(const int*, const int*, const int*, const int*, const int*,
-                           const int*, int*, int*, int*, int, int, int, bool, bool);
-using RoundTile = void (*)(const int*, const int*, const int*, const int*, int*, int*,
-                           int*, int, int, int, int, bool, bool);
-
-// Instances by design & 7: FRONTIER (bit 0), HINTS (bit 1), PIPELINED (bit 2).
-const RelaxTile RELAX_TILE[8] = {
-    ell_relax_tile<false, false, false>, ell_relax_tile<true, false, false>,
-    ell_relax_tile<false, true, false>,  ell_relax_tile<true, true, false>,
-    ell_relax_tile<false, false, true>,  ell_relax_tile<true, false, true>,
-    ell_relax_tile<false, true, true>,   ell_relax_tile<true, true, true>};
-const RoundTile ROUND_TILE[8] = {
-    ell_nh_round_tile<false, false, false>, ell_nh_round_tile<true, false, false>,
-    ell_nh_round_tile<false, true, false>,  ell_nh_round_tile<true, true, false>,
-    ell_nh_round_tile<false, false, true>,  ell_nh_round_tile<true, false, true>,
-    ell_nh_round_tile<false, true, true>,   ell_nh_round_tile<true, true, true>};
-
 }  // namespace
 
 extern "C" {
 
 int holo_ell_relax(const void* src, const void* cost, const void* slot,
                    const void* mask, const void* dist, const void* front, void* out,
-                   void* changed, void* front_out, int n, int k, int lanes, int design,
-                   void* stream) {
+                   void* changed, void* front_out, int n, int k, int lanes, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   const int *s = (const int*)src, *c = (const int*)cost, *e = (const int*)slot;
   const int *m = (const int*)mask, *d = (const int*)dist, *f = (const int*)front;
   if (n > 0 && lanes > 0 && lanes <= SMALL) {
-    if (design & FRONTIER)
-      ell_relax_rows<true><<<row_blocks(n), WARPS * 32, 0, st>>>(
-          s, c, e, m, d, f, (int*)out, (int*)changed, (int*)front_out, n, k, lanes);
-    else
-      ell_relax_rows<false><<<row_blocks(n), WARPS * 32, 0, st>>>(
-          s, c, e, m, d, f, (int*)out, (int*)changed, (int*)front_out, n, k, lanes);
+    ell_relax_rows<<<row_blocks(n), WARPS * 32, 0, st>>>(
+        s, c, e, m, d, f, (int*)out, (int*)changed, (int*)front_out, n, k, lanes);
   } else if (n > 0 && lanes > 0) {
     const bool vec = (lanes + 31) / 32 % TG == 0 && aligned16(mask) && aligned16(front);
-    const RelaxTile kernel = RELAX_TILE[design & 7];
-    kernel<<<tile_grid(n, lane_groups(lanes), design), WARPS * 32, 0, st>>>(
-        s, c, e, m, d, f, (int*)out, (int*)changed, (int*)front_out, n, k, lanes,
-        (design & SLABS) != 0, vec);
+    ell_relax_tile<<<dim3(lane_groups(lanes), row_blocks(n)), WARPS * 32, 0, st>>>(
+        s, c, e, m, d, f, (int*)out, (int*)changed, (int*)front_out, n, k, lanes, vec);
   }
   return (int)cudaGetLastError();
 }
@@ -932,23 +789,17 @@ int holo_ell_nh_seed(const void* src, const void* cost, const void* slot,
 
 int holo_ell_nh_round(const void* src, const void* inherit, const void* nh,
                       const void* front, void* out, void* changed, void* front_out,
-                      int n, int k, int lanes, int nwords, int design, void* stream) {
+                      int n, int k, int lanes, int nwords, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   const int *s = (const int*)src, *i = (const int*)inherit, *x = (const int*)nh;
   const int* f = (const int*)front;
   if (n > 0 && lanes > 0 && nwords > 0 && lanes <= SMALL) {
-    if (design & FRONTIER)
-      ell_nh_round_rows<true><<<row_blocks(n), WARPS * 32, 0, st>>>(
-          s, i, x, f, (int*)out, (int*)changed, (int*)front_out, n, k, lanes, nwords);
-    else
-      ell_nh_round_rows<false><<<row_blocks(n), WARPS * 32, 0, st>>>(
-          s, i, x, f, (int*)out, (int*)changed, (int*)front_out, n, k, lanes, nwords);
+    ell_nh_round_rows<<<row_blocks(n), WARPS * 32, 0, st>>>(
+        s, i, x, f, (int*)out, (int*)changed, (int*)front_out, n, k, lanes, nwords);
   } else if (n > 0 && lanes > 0 && nwords > 0) {
     const bool vec = (lanes + 31) / 32 % TGN == 0 && aligned16(inherit) && aligned16(front);
-    const RoundTile kernel = ROUND_TILE[design & 7];
-    kernel<<<tile_grid(n, lane_groups(lanes, TGN), design), WARPS * 32, 0, st>>>(
-        s, i, x, f, (int*)out, (int*)changed, (int*)front_out, n, k, lanes, nwords,
-        (design & SLABS) != 0, vec);
+    ell_nh_round_tile<<<dim3(row_blocks(n), lane_groups(lanes, TGN)), WARPS * 32, 0, st>>>(
+        s, i, x, f, (int*)out, (int*)changed, (int*)front_out, n, k, lanes, nwords, vec);
   }
   return (int)cudaGetLastError();
 }

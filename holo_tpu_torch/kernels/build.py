@@ -37,10 +37,10 @@ SIGNATURES = {
     "holo_blocked_relax": (*[_P] * 8, _I, _I, _P),
     "holo_blocked_dmin_parent": (*[_P] * 10, _I, _I, _P),
     "holo_blocked_nh_or": (*[_P] * 12, _I, _I, _I, _P),
-    "holo_ell_relax": (*[_P] * 9, _I, _I, _I, _I, _P),
+    "holo_ell_relax": (*[_P] * 9, _I, _I, _I, _P),
     "holo_ell_first_parent": (*[_P] * 7, _I, _I, _I, _P),
     "holo_ell_nh_seed": (*[_P] * 10, _I, _I, _I, _I, _P),
-    "holo_ell_nh_round": (*[_P] * 7, _I, _I, _I, _I, _I, _P),
+    "holo_ell_nh_round": (*[_P] * 7, _I, _I, _I, _I, _P),
 }
 
 _LIB: ctypes.CDLL | None = None

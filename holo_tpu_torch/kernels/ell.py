@@ -43,11 +43,6 @@ INF = 1 << 30
 SMALL = 8  # lane counts up to this run the kernels' per-row form
 _TEMP = 1 << 26  # elements of the largest [N, K, lanes] temporary of a plain version
 
-#: design steps of the frontier kernels (bits of their C entries' ``design``):
-#: skip by the frontier, cache hints, pipelined loads, lane slabs
-FRONTIER, HINTS, PIPELINED, SLABS = 1, 2, 4, 8
-DESIGN = FRONTIER | HINTS | PIPELINED | SLABS
-
 #: kernel launches per wrapper since the last :func:`reset_launches`
 launches = {"ell_relax": 0, "ell_first_parent": 0, "ell_nh_seed": 0, "ell_nh_round": 0}
 
@@ -218,13 +213,12 @@ def _launch(name: str, *args) -> None:
     launches[name] += 1
 
 
-def ell_relax(src, cost, slot, mask, dist, frontier, *, design=DESIGN):
+def ell_relax(src, cost, slot, mask, dist, frontier):
     """(new [N, B], changed int32 [1], frontier_out): new[v, b] = min(dist[v,
     b], min over usable slots with dist[src] < INF of dist[src, b] + cost)
     (``spf_engine.py:860-866``); the kernel gathers only sources marked in
     ``frontier``, which must hold every change of the round that made
-    ``dist``.  ``design`` picks the kernel's design steps (chip_smoke.py
-    measures each); every choice gives the same bits."""
+    ``dist``."""
     if not build.on_card(src, cost, slot, mask, dist, frontier):
         return relax_plain(src, cost, slot, mask, dist, frontier)
     n, lanes = dist.shape
@@ -234,7 +228,7 @@ def ell_relax(src, cost, slot, mask, dist, frontier, *, design=DESIGN):
     changed = torch.zeros(1, dtype=torch.int32, device=dist.device)
     front_out = torch.empty_like(frontier)
     _launch("ell_relax", src, cost, slot, mask, dist, frontier, out, changed, front_out,
-            *src.shape, lanes, design)
+            *src.shape, lanes)
     return out, changed, front_out
 
 
@@ -273,12 +267,11 @@ def ell_nh_seed(src, cost, slot, mask, dist, hops, roots, direct):
     return seed, inherit
 
 
-def ell_nh_round(src, inherit, nh, frontier, *, design=DESIGN):
+def ell_nh_round(src, inherit, nh, frontier):
     """(new [N, W, B], changed int32 [1], frontier_out): new = nh | OR of
     nh[src] over the slots whose ``inherit`` bit is set, all words in one
     round (``spf_engine.py:993-1005``); the kernel gathers only sources
-    marked in ``frontier`` (changes in any word).  ``design`` as in
-    :func:`ell_relax`."""
+    marked in ``frontier`` (changes in any word)."""
     if not build.on_card(src, inherit, nh, frontier):
         return nh_round_plain(src, inherit, nh, frontier)
     n, k = src.shape
@@ -293,5 +286,5 @@ def ell_nh_round(src, inherit, nh, frontier, *, design=DESIGN):
     changed = torch.zeros(1, dtype=torch.int32, device=nh.device)
     front_out = torch.empty_like(frontier)
     _launch("ell_nh_round", src, inherit, nh, frontier, out, changed, front_out, n, k,
-            lanes, words, design)
+            lanes, words)
     return out, changed, front_out
