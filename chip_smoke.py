@@ -24,7 +24,8 @@ gather engine also through ``compute_multiroot`` over 64 roots.  Phases:
    every kernel of that path to have launched (and the blocked engine to
    have sent nothing to the gather engine), and hold scenarios 0-7,
    ``compute()`` and roots 0-7 bit-identical to the scalar oracle on every
-   plane;
+   plane; require an empty ``compute_whatif`` / ``compute_multiroot`` on the
+   card to return the empty result and launch no kernel;
 4. time each kernel (CUDA events; at one scenario also the profiler's
    device time, which leaves out the host's launch), its plain version, the
    whole batch, ``compute()`` and the gather batch's stages, beside the
@@ -102,13 +103,15 @@ ELL_REPLACES = {
 #   that lane in the previous round: the launch's frontier).
 # ell_first_parent: the DAG test per usable pair (add, tight, reached) and,
 #   per DAG pair, the lexicographic update (compare, select, min).
-# ell_nh_seed: the DAG test per usable pair, the hops test per DAG pair and
-#   an OR per word per DAG pair whose source has hops 0.
+# ell_nh_seed (from the DAG bits): per (slot, tile) whose DAG word is not 0
+#   an AND (the lanes whose source has hops 0) and an ANDN (the inherit
+#   word), and an OR per word per DAG pair whose source has hops 0.
 # ell_nh_round: an OR per word per active inherit pair (inherit bit set,
 #   source changed), and per (vertex, word, lane) the OR into the old word
 #   and the changed test.
 ELL_RELAX_OPS = 2
 ELL_TEST_OPS, ELL_UPDATE_OPS = 3, 3
+ELL_SPLIT_OPS = 2
 ELL_ROUND_OPS = 2
 # The main launch of each frontier kernel: ell_relax's third round, ell_nh_round's
 # second (the first of each gathers from almost no changed source).
@@ -318,9 +321,11 @@ def ell_inputs(ell, se, g, roots, mask) -> tuple:
         if not bool(changed):
             break
     x["dist"] = dist
-    parent = ell.ell_first_parent(*p, dist, roots)
+    parent, x["dag"] = ell.ell_first_parent(*p, dist, roots)
     x["hops"] = se.hops_fixpoint(g, parent, roots, n)
-    nh, x["inherit"] = ell.ell_nh_seed(*p, dist, x["hops"], roots, g.direct_nh_words)
+    x["hop0"] = ell.pack_lane_bits(x["hops"] == 0)
+    nh, x["inherit"] = ell.ell_nh_seed(p.src, x["dag"], x["hop0"], g.direct_nh_words,
+                                       roots.shape[0])
     front = se.nexthop_frontier(nh)
     x["round"] = []
     while True:
@@ -437,15 +442,12 @@ def hold_rounds(ell, p, x, label: str) -> dict:
     return rows
 
 
-def ell_dag_pairs(ell, p, dist, hops, roots) -> tuple[int, int]:
-    """(DAG pairs, DAG pairs whose source has hops 0) over the (slot, lane)
-    pairs of ``dist`` [N, B]."""
-    dag = direct = 0
-    for sl in ell.lane_chunks(*p.src.shape, dist.shape[1]):
-        d, _ = ell.dag_slots(*p, dist, roots, sl)
-        dag += int(d.sum())
-        direct += int((d & (hops[:, sl][p.src.long()] == 0)).sum())
-    return dag, direct
+def seed_work(p, x) -> tuple[int, int, int, int]:
+    """(DAG pairs, nonzero DAG words, DAG pairs whose source has hops 0,
+    slots holding such a pair) of the DAG bits x["dag"] [N, K, words]."""
+    direct_bits = x["dag"] & x["hop0"][p.src.long()]
+    return (popcount(x["dag"]), int((x["dag"] != 0).sum()), popcount(direct_bits),
+            int((direct_bits != 0).any(2).sum()))
 
 
 def ell_calls(ell, g, p, x, roots, failed: int, label: str) -> dict:
@@ -456,24 +458,27 @@ def ell_calls(ell, g, p, x, roots, failed: int, label: str) -> dict:
     d = g.direct_nh_words
     words = d.shape[2]
     usable = int((p.slot >= 0).sum()) * lanes - failed
-    dag, direct = ell_dag_pairs(ell, p, x["dist"], x["hops"], roots)
+    dag, dag_words, direct, direct_slots = seed_work(p, x)
     print(f"gather pairs {label}: {usable} usable (slot, lane) pairs, {dag} DAG pairs "
-          f"({dag / max(usable, 1):.4f}), {direct} with a hops-0 source", flush=True)
+          f"({dag / max(usable, 1):.4f}) in {dag_words} nonzero DAG words, {direct} with "
+          f"a hops-0 source in {direct_slots} slots", flush=True)
     planes = nbytes(p.src, p.cost, p.slot, *([] if p.mask is None else [p.mask]))
     plane = n * lanes * 4
+    bits = x["dag"].numel() * 4  # the DAG bits, and the inherit bits, [N, K, words]
+    seed_in = (p.src, x["dag"], x["hop0"], d, lanes)
     calls = {
         "ell_first_parent": (
             lambda: ell.ell_first_parent(*p, x["dist"], roots),
             lambda: ell.first_parent_plain(*p, x["dist"], roots),
             ELL_TEST_OPS * usable + ELL_UPDATE_OPS * dag,
-            planes + nbytes(x["dist"], roots) + plane,
+            planes + nbytes(x["dist"], roots) + plane + bits,
         ),
         "ell_nh_seed": (
-            lambda: ell.ell_nh_seed(*p, x["dist"], x["hops"], roots, d),
-            lambda: ell.nh_seed_plain(*p, x["dist"], x["hops"], roots, d),
-            ELL_TEST_OPS * usable + dag + words * direct,
-            planes + nbytes(x["dist"], x["hops"], roots, d) + words * plane
-            + x["inherit"].numel() * 4,
+            lambda: ell.ell_nh_seed(*seed_in),
+            lambda: ell.nh_seed_plain(*seed_in),
+            ELL_SPLIT_OPS * dag_words + words * direct,
+            nbytes(p.src, x["dag"], x["hop0"]) + 4 * words * direct_slots + words * plane
+            + bits,
         ),
     }
     for kind, (_, mid_key) in FRONTIER_KERNELS.items():
@@ -646,6 +651,21 @@ def main() -> None:
     print(f"gather oracle: scenarios 0-{ORACLE_SCENARIOS - 1}, compute() and roots "
           f"{mr_roots[:ORACLE_ROOTS].tolist()} bit-identical on every plane", flush=True)
 
+    # -- 3c. empty batches on the card: the empty result, no kernel launched
+    ell.reset_launches()
+    kernels.reset_launches()
+    for ebe in (gbe, be):
+        require(ebe.compute_whatif(topo, masks[:0]) == [],
+                f"empty compute_whatif ({ebe.engine}) is not []")
+        emr = ebe.compute_multiroot(topo, mr_roots[:0])
+        require(all(getattr(emr, f).shape == (0, n) for f in ("dist", "parent", "hops")),
+                f"empty compute_multiroot ({ebe.engine}) is not (0, N)")
+    torch.cuda.synchronize()
+    require(not any(ell.launches.values()) and not any(kernels.launches.values()),
+            "an empty batch launched a kernel")
+    print("empty batches: compute_whatif [] and compute_multiroot (0, N) on both engines, "
+          "no kernel launched", flush=True)
+
     # -- 4. timing (the profiler last: once it has run, host launches are
     # slower, which the host-clock times below would count)
     for name, (card, *_rest) in calls.items():
@@ -664,6 +684,7 @@ def main() -> None:
         for name, (card, *_rest) in gcalls.items():
             card()
             table[name]["ms"] = cuda_ms(card, KERNEL_REPS)
+    hop0_ms = cuda_ms(lambda: ell.pack_lane_bits(x["hops"] == 0), KERNEL_REPS)
     g_batch_ms = host_ms(lambda: gbe.compute_whatif(topo, masks), BATCH_REPS)
     g_compute_ms = host_ms(lambda: gbe.compute(topo), COMPUTE_REPS)
     g_mr_ms = host_ms(lambda: gbe.compute_multiroot(topo, mr_roots), BATCH_REPS)
@@ -731,6 +752,11 @@ def main() -> None:
               f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.5f} ms by "
               f"{row['bound_by']}); launches per compute_multiroot {g_multiroot[name]}",
               flush=True)
+    fp, ns = erows["ell_first_parent"], erows["ell_nh_seed"]
+    print(f"time ell_first_parent + hop0 pack + ell_nh_seed: "
+          f"{fp['ms'] + hop0_ms + ns['ms']:.3f} ms per dispatch at B={BATCH} ({fp['ms']:.3f} "
+          f"+ {hop0_ms:.4f} + {ns['ms']:.3f}; kernel bounds {fp['bound_ms']:.4f} + "
+          f"{ns['bound_ms']:.4f} ms)", flush=True)
     print(f"time gather compute_whatif: {g_batch_ms:.3f} ms per {BATCH}-scenario batch "
           f"({BATCH / g_batch_ms * 1e3:.1f} scenario-SPFs/s; first call with marshal "
           f"{g_cold_ms:.1f} ms)", flush=True)

@@ -10,10 +10,11 @@
 //   ell_relax        <- holo_tpu/ops/spf_engine.py:860-866, the body of
 //                       sssp_distances: one Bellman-Ford round
 //   ell_first_parent <- :872-894, _sp_dag + _first_parent: the DAG test
-//                       and the lexicographic argmin of (dist[u], u)
+//                       and the lexicographic argmin of (dist[u], u); it
+//                       writes the DAG as bits
 //   ell_nh_seed      <- :976-991, the next-hop seed of spf_one: the OR of
 //                       the direct atom words over DAG slots whose source
-//                       has hops 0
+//                       has hops 0, and the bits of the other DAG slots
 //   ell_nh_round     <- :993-1005, one round of the next-hop inherit
 //                       fixpoint, every word at once
 //
@@ -30,8 +31,17 @@
 // What bounds them.  A round that gathered every usable slot's source row in
 // every lane would move 729,000 valid slots x 1024 lanes x 4 bytes = 3.0 GB
 // at the k=90 fat tree, against ~0.19 GB that the function must move (mask
-// bits, dist in and out, the slot planes).  ell_first_parent and ell_nh_seed
-// still do that, once a dispatch each, bound by the rate of their gathers.
+// bits, dist in and out, the slot planes).  ell_first_parent still does
+// that, once a dispatch, bound by the rate of its gathers.  It is the only
+// kernel that runs the DAG test: it writes the DAG bits [N, K, ceil(B/32)]
+// (bit b of word [v, k, b/32]: slot k is a DAG in-edge of v in lane b; 124 MB
+// at k=90 x 1024), and ell_nh_seed gathers no distance and no hops.  Per
+// (slot, tile) whose DAG word d is not 0 it loads one word h = hop0[src,
+// tile] (lanes in which the source has hops 0, [N, ceil(B/32)], packed by
+// nexthop_fixpoint, 1.3 MB: it stays in L2), writes the inherit word d & ~h,
+// and ORs the slot's direct words into the seed of the lanes of d & h (46,080
+// of 83 million DAG pairs at k=90 x 1024).  So it moves ~0.34 GB, bound by bytes:
+// DAG bits in, inherit bits and seed out.
 //
 // ell_relax and ell_nh_round, which run every round, gather only from
 // sources that changed (frontier words):
@@ -58,7 +68,9 @@
 //   then its frontier words and mask (inherit) words as vectors; the next
 //   chunk's slot planes are in flight meanwhile.  The warp then walks each
 //   tile's active slots (a ballot) eight gathers at a time, so no gather
-//   waits on a load of its own iteration.
+//   waits on a load of its own iteration.  ell_first_parent walks its slots
+//   the same way, with the lanes in which v is reached and not the root in
+//   place of the frontier.
 //
 // What bounds them now.  Over a 6-round dispatch at k=90 x 1024 the active
 // (slot, tile) pairs add up to about one full round of gathers; the rest is
@@ -73,12 +85,13 @@
 
 // Tile form (more than SMALL lanes).  A warp owns one destination row and a
 // group of 32-lane tiles (TG = 8 tiles, 256 lanes; ell_nh_round TGN = 4, 128
-// lanes of every next-hop word), one lane of each tile a thread, so each
-// accumulator lives in a register.  Every edge has exactly one slot, so each mask word is read at most
-// once per launch.  ell_first_parent and ell_nh_seed load 32 slots at a
-// time (one a thread), broadcast each with __shfl_sync and read a slot's
-// mask words for the group's tiles (32 contiguous bytes) in the first TG
-// threads.
+// lanes of every next-hop word; ell_first_parent TGP = 4, where 8 tiles took
+// 128 registers a thread and half the resident warps, and ran 1.5x slower
+// than 4 tiles held to 64), one lane of each tile a thread, so each
+// accumulator lives in a register.  Every edge has exactly one slot, so each
+// mask word is read at most once per launch.  Thread j of a chunk owns slot
+// j's words (mask, DAG, inherit) for the group's tiles: 32 contiguous bytes,
+// loaded and stored as two 16-byte vectors where the planes allow.
 //
 // Row form (up to SMALL lanes: compute() is one lane, small multi-root
 // batches a few).  A tile would leave most threads idle, so a warp owns one
@@ -90,13 +103,13 @@
 //
 // ell_nh_seed writes, besides the seed, the inherit bits [N, K, ceil(B/32)]
 // (bit b of word [v, k, b/32]: DAG slot whose source has hops != 0), which
-// every ell_nh_round then reads instead of repeating the DAG test.  The
-// words of a slot are written whole (a __ballot_sync of the tile, or one
-// thread's word in the row form), so no atomics and no zero fill are
-// needed.  ell_nh_seed takes next-hop words in chunks of WC per block
-// (gridDim.z; the inherit bits are written by chunk 0); ell_nh_round walks
-// the chunks inside the block, so that one block writes a row's frontier
-// word.
+// every ell_nh_round then reads instead of repeating the DAG test.  The DAG
+// and inherit words of every slot, padding and lanes past B included, are
+// written whole (a __ballot_sync of the tile, or one thread's word in the row
+// form), so no atomics and no zero fill are needed.  ell_nh_seed takes
+// next-hop words in chunks of WC per block (gridDim.z; the inherit bits are
+// written by chunk 0); ell_nh_round walks the chunks inside the block, so
+// that one block writes a row's frontier word.
 //
 // Changed flags: a warp that changed any element votes (__any_sync) and its
 // first thread stores 1; the wrapper zeroes the flag before the launch.
@@ -112,6 +125,7 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr int SMALL = 8;   // lane counts up to this: *_rows kernels
 constexpr int TG = 8;      // 32-lane tiles a warp of a *_tile kernel takes
 constexpr int TGN = 4;     // ... of ell_nh_round_tile (both words of 128 lanes)
+constexpr int TGP = 4;     // ... of ell_first_parent_tile (128 lanes)
 constexpr int WARPS = 8;   // warps (destination rows) per thread block
 constexpr int WC = 2;      // next-hop words per pass (a chunk of W)
 constexpr int GATHERS = 8; // gathers a warp issues together
@@ -158,6 +172,22 @@ __device__ __forceinline__ void ld_words(const int* p, int n, bool vec, unsigned
   } else {
 #pragma unroll
     for (int i = 0; i < N; ++i) w[i] = i < n ? (unsigned)(CS ? __ldcs(p + i) : __ldg(p + i)) : 0u;
+  }
+}
+
+// Words w[0 .. n) to p[0 .. n), streamed (__stcs); `vec` (n == N, p 16-byte
+// aligned) stores them as N / 4 int4 vectors.
+template <int N>
+__device__ __forceinline__ void st_words(int* p, int n, bool vec, const unsigned (&w)[N]) {
+  if (vec) {
+#pragma unroll
+    for (int i = 0; i < N; i += 4)
+      __stcs(reinterpret_cast<int4*>(p + i),
+             make_int4((int)w[i], (int)w[i + 1], (int)w[i + 2], (int)w[i + 3]));
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+      if (i < n) __stcs(p + i, (int)w[i]);
   }
 }
 
@@ -308,74 +338,122 @@ ell_relax_rows(const int* __restrict__ src, const int* __restrict__ cost,
   }
 }
 
-// The (distance, id) lexicographic min of the DAG parents, tile form.
-__global__ void __launch_bounds__(WARPS * 32)
+// The (distance, id) lexicographic min of the DAG parents and the DAG bits,
+// tile form: blockIdx.x = lane group, blockIdx.y = row block.  The slots are
+// walked as in ell_relax_tile, with `live` (v reached and not the lane's
+// root) in place of the frontier; thread j keeps slot j's DAG words.  At most
+// 64 registers a thread (4 blocks resident per SM; ptxas spills a few words).
+__global__ void __launch_bounds__(WARPS * 32, 4)
 ell_first_parent_tile(const int* __restrict__ src, const int* __restrict__ cost,
                       const int* __restrict__ slot, const int* __restrict__ mask,
                       const int* __restrict__ dist, const int* __restrict__ roots,
-                      int* __restrict__ parent, int n, int k, int lanes) {
+                      int* __restrict__ parent, int* __restrict__ dag, int n, int k,
+                      int lanes, bool vec) {
   const int t = threadIdx.x % 32;
   const long v = (long)blockIdx.y * WARPS + threadIdx.x / 32;
   if (v >= n) return;
   const int words = (lanes + 31) / 32;
-  const int tile0 = blockIdx.x * TG;
-  const int ntiles = min(TG, words - tile0);
-  int dv[TG], bd[TG], bs[TG];
-  bool live[TG];
+  const int tile0 = blockIdx.x * TGP;
+  const int ntiles = min(TGP, words - tile0);
+  const uint64_t pol = keep_policy();
+  int dv[TGP], bd[TGP], bs[TGP];
+  unsigned live[TGP];  // lanes of tile g in which v is reached and not the root
+  unsigned any_live = 0u;
 #pragma unroll
-  for (int g = 0; g < TG; ++g) {
+  for (int g = 0; g < TGP; ++g) {
     const int b = (tile0 + g) * 32 + t;
     const bool ok = g < ntiles && b < lanes;
-    dv[g] = ok ? dist[v * lanes + b] : INF;
-    live[g] = ok && dv[g] < INF && roots[b] != v;
+    dv[g] = ok ? __ldg(dist + v * lanes + b) : INF;
+    live[g] = __ballot_sync(FULL, ok && dv[g] < INF && __ldg(roots + b) != v);
+    any_live |= live[g];
     bd[g] = INF;
     bs[g] = n;
   }
   const long row = v * k;
+  int s = 0, c = 0, e = -1;
+  if (t < k) {
+    s = __ldcs(src + row + t);
+    c = __ldcs(cost + row + t);
+    e = __ldcs(slot + row + t);
+  }
   for (int k0 = 0; k0 < k; k0 += 32) {
-    int s = 0, c = 0, e = -1;
-    if (k0 + t < k) {
-      s = __ldg(src + row + k0 + t);
-      c = __ldg(cost + row + k0 + t);
-      e = __ldg(slot + row + k0 + t);
+    int sn = 0, cn = 0, en = -1;  // the next chunk's slot, in flight
+    if (k0 + 32 + t < k) {
+      sn = __ldcs(src + row + k0 + 32 + t);
+      cn = __ldcs(cost + row + k0 + 32 + t);
+      en = __ldcs(slot + row + k0 + 32 + t);
     }
-    const int cnt = min(32, k - k0);
-    for (int j = 0; j < cnt; ++j) {
-      const int ej = __shfl_sync(FULL, e, j);
-      if (ej < 0) continue;
-      const int sj = __shfl_sync(FULL, s, j);
-      const int cj = __shfl_sync(FULL, c, j);
-      const unsigned mw = t < ntiles ? mask_word(mask, ej, words, tile0 + t) : 0u;
+    // act[g]: lanes of tile g in which this thread's slot is usable and v live.
+    unsigned act[TGP];
 #pragma unroll
-      for (int g = 0; g < TG; ++g) {
-        const unsigned m = __shfl_sync(FULL, mw, g);
-        const int b = (tile0 + g) * 32 + t;
-        if (live[g] && ((m >> t) & 1u)) {
-          const int du = __ldg(dist + (long)sj * lanes + b);
-          if (du < INF && add32(du, cj) == dv[g] &&
-              (du < bd[g] || (du == bd[g] && sj < bs[g]))) {
-            bd[g] = du;
-            bs[g] = sj;
+    for (int g = 0; g < TGP; ++g) act[g] = 0u;
+    if (e >= 0 && any_live != 0u) {
+      if (mask != nullptr) {
+        ld_words<TGP, true>(mask + (long)e * words + tile0, ntiles, vec, act);
+      } else {
+#pragma unroll
+        for (int g = 0; g < TGP; ++g) act[g] = FULL;
+      }
+#pragma unroll
+      for (int g = 0; g < TGP; ++g) act[g] &= live[g];
+    }
+    unsigned mine[TGP];  // this thread's slot's DAG words
+#pragma unroll
+    for (int g = 0; g < TGP; ++g) {
+      const int b = (tile0 + g) * 32 + t;
+      mine[g] = 0u;
+      unsigned todo = __ballot_sync(FULL, act[g] != 0u);  // this tile's active slots
+      while (todo != 0u) {
+        int du[GATHERS], sq[GATHERS], cq[GATHERS], jq[GATHERS];
+#pragma unroll
+        for (int q = 0; q < GATHERS; ++q) {
+          du[q] = INF;
+          sq[q] = cq[q] = 0;
+          jq[q] = -1;
+          if (todo != 0u) {  // the same for the whole warp
+            const int j = __ffs(todo) - 1;
+            todo &= todo - 1u;
+            const unsigned a = __shfl_sync(FULL, act[g], j);
+            sq[q] = __shfl_sync(FULL, s, j);
+            cq[q] = __shfl_sync(FULL, c, j);
+            jq[q] = j;
+            if ((a >> t) & 1u) du[q] = ld_gather(dist + (long)sq[q] * lanes + b, pol);
           }
+        }
+#pragma unroll
+        for (int q = 0; q < GATHERS; ++q) {
+          const bool tight = du[q] < INF && add32(du[q], cq[q]) == dv[g];
+          if (tight && (du[q] < bd[g] || (du[q] == bd[g] && sq[q] < bs[g]))) {
+            bd[g] = du[q];
+            bs[g] = sq[q];
+          }
+          const unsigned word = __ballot_sync(FULL, tight);
+          if (t == jq[q]) mine[g] = word;
         }
       }
     }
+    if (k0 + t < k) st_words<TGP>(dag + (row + k0 + t) * words + tile0, ntiles, vec, mine);
+    s = sn;
+    c = cn;
+    e = en;
   }
 #pragma unroll
-  for (int g = 0; g < TG; ++g) {
+  for (int g = 0; g < TGP; ++g) {
     const int b = (tile0 + g) * 32 + t;
-    if (g < ntiles && b < lanes) parent[v * lanes + b] = bs[g];
+    if (g < ntiles && b < lanes) __stcs(parent + v * lanes + b, bs[g]);
   }
 }
 
-// The (distance, id) lexicographic min of the DAG parents, row form: the
-// warp meets in the min distance, then in the min id among the threads
-// that hold it.
+// The (distance, id) lexicographic min of the DAG parents and the DAG bits,
+// row form: each thread writes its slots' DAG words (one a slot); the warp
+// meets in the min distance, then in the min id among the threads that hold
+// it.
 __global__ void __launch_bounds__(WARPS * 32)
 ell_first_parent_rows(const int* __restrict__ src, const int* __restrict__ cost,
                       const int* __restrict__ slot, const int* __restrict__ mask,
                       const int* __restrict__ dist, const int* __restrict__ roots,
-                      int* __restrict__ parent, int n, int k, int lanes) {
+                      int* __restrict__ parent, int* __restrict__ dag, int n, int k,
+                      int lanes) {
   const int t = threadIdx.x % 32;
   const long v = (long)blockIdx.x * WARPS + threadIdx.x / 32;
   if (v >= n) return;
@@ -391,20 +469,25 @@ ell_first_parent_rows(const int* __restrict__ src, const int* __restrict__ cost,
   const long row = v * k;
   for (int kk = t; kk < k; kk += 32) {
     const int e = __ldg(slot + row + kk);
-    if (e < 0) continue;
-    const int s = __ldg(src + row + kk), c = __ldg(cost + row + kk);
-    const unsigned m = mask_word(mask, e, 1, 0);
+    unsigned word = 0u;
+    if (e >= 0) {
+      const int s = __ldg(src + row + kk), c = __ldg(cost + row + kk);
+      const unsigned m = mask_word(mask, e, 1, 0);
 #pragma unroll
-    for (int b = 0; b < SMALL; ++b) {
-      if (live[b] && ((m >> b) & 1u)) {
-        const int du = __ldg(dist + (long)s * lanes + b);
-        if (du < INF && add32(du, c) == dv[b] &&
-            (du < bd[b] || (du == bd[b] && s < bs[b]))) {
-          bd[b] = du;
-          bs[b] = s;
+      for (int b = 0; b < SMALL; ++b) {
+        if (live[b] && ((m >> b) & 1u)) {
+          const int du = __ldg(dist + (long)s * lanes + b);
+          if (du < INF && add32(du, c) == dv[b]) {
+            word |= 1u << b;
+            if (du < bd[b] || (du == bd[b] && s < bs[b])) {
+              bd[b] = du;
+              bs[b] = s;
+            }
+          }
         }
       }
     }
+    dag[row + kk] = (int)word;
   }
 #pragma unroll
   for (int b = 0; b < SMALL; ++b) {
@@ -416,14 +499,15 @@ ell_first_parent_rows(const int* __restrict__ src, const int* __restrict__ cost,
   }
 }
 
-// Next-hop seed and inherit bits, tile form: blockIdx.z = word chunk.
+// Next-hop seed and inherit bits from the DAG bits, tile form: blockIdx.x =
+// lane group, blockIdx.y = row block, blockIdx.z = word chunk.  Thread j
+// takes slot j of each 32-slot chunk; the next chunk's src and DAG words are
+// in flight while a chunk is split.
 __global__ void __launch_bounds__(WARPS * 32)
-ell_nh_seed_tile(const int* __restrict__ src, const int* __restrict__ cost,
-                 const int* __restrict__ slot, const int* __restrict__ mask,
-                 const int* __restrict__ dist, const int* __restrict__ hops,
-                 const int* __restrict__ roots, const int* __restrict__ direct,
-                 int* __restrict__ seed, int* __restrict__ inherit, int n,
-                 int k, int lanes, int nwords) {
+ell_nh_seed_tile(const int* __restrict__ src, const int* __restrict__ dag,
+                 const int* __restrict__ hop0, const int* __restrict__ direct,
+                 int* __restrict__ seed, int* __restrict__ inherit, int n, int k,
+                 int lanes, int nwords, bool vec) {
   const int t = threadIdx.x % 32;
   const long v = (long)blockIdx.y * WARPS + threadIdx.x / 32;
   if (v >= n) return;
@@ -433,120 +517,105 @@ ell_nh_seed_tile(const int* __restrict__ src, const int* __restrict__ cost,
   const int w0 = blockIdx.z * WC;
   const bool two = w0 + 1 < nwords;
   const bool bits_out = blockIdx.z == 0;
-  int dv[TG];
-  bool live[TG];
   unsigned a0[TG], a1[TG];
 #pragma unroll
-  for (int g = 0; g < TG; ++g) {
-    const int b = (tile0 + g) * 32 + t;
-    const bool ok = g < ntiles && b < lanes;
-    dv[g] = ok ? dist[v * lanes + b] : INF;
-    live[g] = ok && dv[g] < INF && roots[b] != v;
-    a0[g] = a1[g] = 0u;
-  }
+  for (int g = 0; g < TG; ++g) a0[g] = a1[g] = 0u;
   const long row = v * k;
-  for (int k0 = 0; k0 < k; k0 += 32) {
-    int s = 0, c = 0, e = -1;
-    if (k0 + t < k) {
-      s = __ldg(src + row + k0 + t);
-      c = __ldg(cost + row + k0 + t);
-      e = __ldg(slot + row + k0 + t);
-    }
-    const int cnt = min(32, k - k0);
-    for (int j = 0; j < cnt; ++j) {
-      const long sl = row + k0 + j;
-      const int ej = __shfl_sync(FULL, e, j);
-      if (ej < 0) {
-        if (bits_out && t < ntiles) inherit[sl * words + tile0 + t] = 0;
-        continue;
-      }
-      const int sj = __shfl_sync(FULL, s, j);
-      const int cj = __shfl_sync(FULL, c, j);
-      const unsigned mw = t < ntiles ? mask_word(mask, ej, words, tile0 + t) : 0u;
-      const unsigned d0 = (unsigned)__ldg(direct + sl * nwords + w0);
-      const unsigned d1 = two ? (unsigned)__ldg(direct + sl * nwords + w0 + 1) : 0u;
-      unsigned mine = 0u;  // thread g keeps tile g's inherit word
+  int s = 0;
+  unsigned d[TG];  // this thread's slot's DAG words
 #pragma unroll
-      for (int g = 0; g < TG; ++g) {
-        const unsigned m = __shfl_sync(FULL, mw, g);
-        const int b = (tile0 + g) * 32 + t;
-        bool inh = false;
-        if (live[g] && ((m >> t) & 1u)) {
-          const int du = __ldg(dist + (long)sj * lanes + b);
-          if (du < INF && add32(du, cj) == dv[g]) {
-            if (__ldg(hops + (long)sj * lanes + b) == 0) {
-              a0[g] |= d0;
-              a1[g] |= d1;
-            } else {
-              inh = true;
-            }
-          }
-        }
-        const unsigned bal = __ballot_sync(FULL, inh);
-        if (t == g) mine = bal;
-      }
-      if (bits_out && t < ntiles) inherit[sl * words + tile0 + t] = (int)mine;
+  for (int g = 0; g < TG; ++g) d[g] = 0u;
+  if (t < k) {
+    s = __ldcs(src + row + t);
+    ld_words<TG, true>(dag + (row + t) * words + tile0, ntiles, vec, d);
+  }
+  for (int k0 = 0; k0 < k; k0 += 32) {
+    int sn = 0;  // the next chunk's slot, in flight
+    unsigned dn[TG];
+#pragma unroll
+    for (int g = 0; g < TG; ++g) dn[g] = 0u;
+    if (k0 + 32 + t < k) {
+      sn = __ldcs(src + row + k0 + 32 + t);
+      ld_words<TG, true>(dag + (row + k0 + 32 + t) * words + tile0, ntiles, vec, dn);
     }
+    unsigned any = 0u, h[TG];
+#pragma unroll
+    for (int g = 0; g < TG; ++g) {
+      any |= d[g];
+      h[g] = 0u;
+    }
+    if (any != 0u) ld_words<TG, false>(hop0 + (long)s * words + tile0, ntiles, vec, h);
+    unsigned dir[TG];  // DAG lanes whose source has hops 0; d keeps the others
+#pragma unroll
+    for (int g = 0; g < TG; ++g) {
+      dir[g] = d[g] & h[g];
+      d[g] &= ~h[g];
+    }
+    if (bits_out && k0 + t < k)
+      st_words<TG>(inherit + (row + k0 + t) * words + tile0, ntiles, vec, d);
+#pragma unroll
+    for (int g = 0; g < TG; ++g) {
+      unsigned todo = __ballot_sync(FULL, dir[g] != 0u);  // rare
+      while (todo != 0u) {
+        const int j = __ffs(todo) - 1;
+        todo &= todo - 1u;
+        const unsigned a = __shfl_sync(FULL, dir[g], j);
+        const long sl = row + k0 + j;
+        const unsigned x0 = (unsigned)__ldg(direct + sl * nwords + w0);
+        const unsigned x1 = two ? (unsigned)__ldg(direct + sl * nwords + w0 + 1) : 0u;
+        if ((a >> t) & 1u) {
+          a0[g] |= x0;
+          a1[g] |= x1;
+        }
+      }
+    }
+    s = sn;
+#pragma unroll
+    for (int g = 0; g < TG; ++g) d[g] = dn[g];
   }
 #pragma unroll
   for (int g = 0; g < TG; ++g) {
     const int b = (tile0 + g) * 32 + t;
     if (g < ntiles && b < lanes) {
-      seed[(v * nwords + w0) * lanes + b] = (int)a0[g];
-      if (two) seed[(v * nwords + w0 + 1) * lanes + b] = (int)a1[g];
+      __stcs(seed + (v * nwords + w0) * lanes + b, (int)a0[g]);
+      if (two) __stcs(seed + (v * nwords + w0 + 1) * lanes + b, (int)a1[g]);
     }
   }
 }
 
-// Next-hop seed and inherit bits, row form: blockIdx.y = word chunk; one
-// inherit word per slot (at most SMALL lanes), written by its thread.
+// Next-hop seed and inherit bits from the DAG bits, row form: blockIdx.y =
+// word chunk; one DAG and one inherit word per slot (at most SMALL lanes).
 __global__ void __launch_bounds__(WARPS * 32)
-ell_nh_seed_rows(const int* __restrict__ src, const int* __restrict__ cost,
-                 const int* __restrict__ slot, const int* __restrict__ mask,
-                 const int* __restrict__ dist, const int* __restrict__ hops,
-                 const int* __restrict__ roots, const int* __restrict__ direct,
-                 int* __restrict__ seed, int* __restrict__ inherit, int n,
-                 int k, int lanes, int nwords) {
+ell_nh_seed_rows(const int* __restrict__ src, const int* __restrict__ dag,
+                 const int* __restrict__ hop0, const int* __restrict__ direct,
+                 int* __restrict__ seed, int* __restrict__ inherit, int n, int k,
+                 int lanes, int nwords) {
   const int t = threadIdx.x % 32;
   const long v = (long)blockIdx.x * WARPS + threadIdx.x / 32;
   if (v >= n) return;
   const int w0 = blockIdx.y * WC;
   const bool two = w0 + 1 < nwords;
-  int dv[SMALL];
-  bool live[SMALL];
   unsigned a0[SMALL], a1[SMALL];
 #pragma unroll
-  for (int b = 0; b < SMALL; ++b) {
-    dv[b] = b < lanes ? dist[v * lanes + b] : INF;
-    live[b] = b < lanes && dv[b] < INF && roots[b] != v;
-    a0[b] = a1[b] = 0u;
-  }
+  for (int b = 0; b < SMALL; ++b) a0[b] = a1[b] = 0u;
   const long row = v * k;
   for (int kk = t; kk < k; kk += 32) {
     const long sl = row + kk;
-    const int e = __ldg(slot + sl);
-    unsigned inh = 0u;
-    if (e >= 0) {
-      const int s = __ldg(src + sl), c = __ldg(cost + sl);
-      const unsigned m = mask_word(mask, e, 1, 0);
-      const unsigned d0 = (unsigned)__ldg(direct + sl * nwords + w0);
-      const unsigned d1 = two ? (unsigned)__ldg(direct + sl * nwords + w0 + 1) : 0u;
+    const unsigned d = (unsigned)__ldg(dag + sl);
+    const unsigned h = d != 0u ? (unsigned)__ldg(hop0 + __ldg(src + sl)) : 0u;
+    if (blockIdx.y == 0) inherit[sl] = (int)(d & ~h);
+    const unsigned dir = d & h;
+    if (dir != 0u) {
+      const unsigned x0 = (unsigned)__ldg(direct + sl * nwords + w0);
+      const unsigned x1 = two ? (unsigned)__ldg(direct + sl * nwords + w0 + 1) : 0u;
 #pragma unroll
       for (int b = 0; b < SMALL; ++b) {
-        if (live[b] && ((m >> b) & 1u)) {
-          const int du = __ldg(dist + (long)s * lanes + b);
-          if (du < INF && add32(du, c) == dv[b]) {
-            if (__ldg(hops + (long)s * lanes + b) == 0) {
-              a0[b] |= d0;
-              a1[b] |= d1;
-            } else {
-              inh |= 1u << b;
-            }
-          }
+        if ((dir >> b) & 1u) {
+          a0[b] |= x0;
+          a1[b] |= x1;
         }
       }
     }
-    if (blockIdx.y == 0) inherit[sl] = (int)inh;
   }
 #pragma unroll
   for (int b = 0; b < SMALL; ++b) {
@@ -751,38 +820,37 @@ int holo_ell_relax(const void* src, const void* cost, const void* slot,
 }
 
 int holo_ell_first_parent(const void* src, const void* cost, const void* slot,
-                          const void* mask, const void* dist,
-                          const void* roots, void* parent, int n, int k,
-                          int lanes, void* stream) {
+                          const void* mask, const void* dist, const void* roots,
+                          void* parent, void* dag, int n, int k, int lanes, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   const int *s = (const int*)src, *c = (const int*)cost, *e = (const int*)slot;
   const int *m = (const int*)mask, *d = (const int*)dist, *r = (const int*)roots;
   if (n > 0 && lanes > 0 && lanes <= SMALL) {
     ell_first_parent_rows<<<row_blocks(n), WARPS * 32, 0, st>>>(
-        s, c, e, m, d, r, (int*)parent, n, k, lanes);
+        s, c, e, m, d, r, (int*)parent, (int*)dag, n, k, lanes);
   } else if (n > 0 && lanes > 0) {
-    ell_first_parent_tile<<<dim3(lane_groups(lanes), row_blocks(n)), WARPS * 32, 0,
-                            st>>>(s, c, e, m, d, r, (int*)parent, n, k, lanes);
+    const bool vec = (lanes + 31) / 32 % TGP == 0 && aligned16(mask) && aligned16(dag);
+    ell_first_parent_tile<<<dim3(lane_groups(lanes, TGP), row_blocks(n)), WARPS * 32, 0, st>>>(
+        s, c, e, m, d, r, (int*)parent, (int*)dag, n, k, lanes, vec);
   }
   return (int)cudaGetLastError();
 }
 
-int holo_ell_nh_seed(const void* src, const void* cost, const void* slot,
-                     const void* mask, const void* dist, const void* hops,
-                     const void* roots, const void* direct, void* seed,
-                     void* inherit, int n, int k, int lanes, int nwords,
+int holo_ell_nh_seed(const void* src, const void* dag, const void* hop0, const void* direct,
+                     void* seed, void* inherit, int n, int k, int lanes, int nwords,
                      void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
-  const int *s = (const int*)src, *c = (const int*)cost, *e = (const int*)slot;
-  const int *m = (const int*)mask, *d = (const int*)dist, *h = (const int*)hops;
-  const int *r = (const int*)roots, *dr = (const int*)direct;
+  const int *s = (const int*)src, *d = (const int*)dag, *h = (const int*)hop0;
+  const int* dr = (const int*)direct;
   if (n > 0 && lanes > 0 && nwords > 0 && lanes <= SMALL) {
     ell_nh_seed_rows<<<dim3(row_blocks(n), word_chunks(nwords)), WARPS * 32, 0, st>>>(
-        s, c, e, m, d, h, r, dr, (int*)seed, (int*)inherit, n, k, lanes, nwords);
+        s, d, h, dr, (int*)seed, (int*)inherit, n, k, lanes, nwords);
   } else if (n > 0 && lanes > 0 && nwords > 0) {
+    const bool vec = (lanes + 31) / 32 % TG == 0 && aligned16(dag) && aligned16(hop0) &&
+                     aligned16(inherit);
     ell_nh_seed_tile<<<dim3(lane_groups(lanes), row_blocks(n), word_chunks(nwords)),
-                       WARPS * 32, 0, st>>>(s, c, e, m, d, h, r, dr, (int*)seed,
-                                            (int*)inherit, n, k, lanes, nwords);
+                       WARPS * 32, 0, st>>>(s, d, h, dr, (int*)seed, (int*)inherit, n, k,
+                                            lanes, nwords, vec);
   }
   return (int)cudaGetLastError();
 }

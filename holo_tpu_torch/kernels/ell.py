@@ -22,8 +22,13 @@ Plane conventions (all int32, INF = 1 << 30 as unreachable):
   (JAX's ``_slot_mask``);
 - vertex planes are [N, B] with the lanes (scenarios or roots) minor;
   next-hop planes are [N, W, B] (uint32 words as int32 bit patterns);
-- ``inherit`` [N, K, ceil(B / 32)]: bit b of word [v, k, b // 32] set where
-  slot (v, k) is a DAG in-edge of v in lane b whose source has hops != 0;
+- ``dag`` [N, K, ceil(B / 32)]: bit b of word [v, k, b // 32] set where
+  slot (v, k) is a DAG in-edge of v in lane b (JAX's ``_sp_dag``), written
+  by :func:`ell_first_parent`; bits past B are 0;
+- ``hop0`` [N, ceil(B / 32)]: bit b of word [u, b // 32] set where vertex u
+  has hops 0 in lane b (``pack_lane_bits(hops == 0)``);
+- ``inherit`` [N, K, ceil(B / 32)]: ``dag & ~hop0[src]``, the DAG slots
+  whose source has hops != 0 (written by :func:`ell_nh_seed`);
 - ``frontier`` [N, ceil(B / 32)]: bit b % 32 of word [v, b // 32] set where
   lane b of row v changed in the previous round (or may have: a bit set
   where nothing changed only costs the kernel work).  :func:`ell_relax` and
@@ -122,20 +127,20 @@ def dag_slots(src, cost, slot, mask, dist, roots, sl: slice):
 def pack_lane_bits(bits: torch.Tensor) -> torch.Tensor:
     """bool [..., L] -> int32 [..., ceil(L / 32)]: bit l % 32 of word l // 32.
 
-    Bytes are assembled with shifts and read as little-endian int32 words
-    (byte j of a word holds its bits 8j .. 8j + 7), as both the host and the
-    card store them.
+    Bytes are assembled as the sum of their bits shifted into place and read
+    as little-endian int32 words (byte j of a word holds its bits 8j .. 8j +
+    7), as both the host and the card store them.
     """
     *lead, lanes = bits.shape
+    if lanes == 0:
+        return torch.zeros((*lead, 0), dtype=torch.int32, device=bits.device)
     padded = mask_words(lanes) * 32
     b = bits.to(torch.uint8)
     if padded != lanes:
         b = torch.cat([b, b.new_zeros((*lead, padded - lanes))], dim=-1)
-    b = b.reshape(*lead, padded // 8, 8)
-    byte = b[..., 0].clone()
-    for i in range(1, 8):
-        byte |= b[..., i] << i
-    return byte.contiguous().view(torch.int32)
+    shift = torch.arange(8, dtype=torch.uint8, device=bits.device)
+    byte = (b.reshape(*lead, padded // 8, 8) << shift).sum(-1, dtype=torch.uint8)
+    return byte.view(torch.int32)
 
 
 def _unpack(words, sl: slice):
@@ -163,31 +168,35 @@ def relax_plain(src, cost, slot, mask, dist, frontier=None):
 
 
 def first_parent_plain(src, cost, slot, mask, dist, roots):
-    """The DAG parent minimizing (dist[u], u) per lane, N where none."""
-    n = src.shape[0]
+    """(parent [N, B], dag [N, K, ceil(B / 32)]): the DAG parent minimizing
+    (dist[u], u) per lane, N where none, and the DAG bits."""
+    n, k = src.shape
+    lanes = dist.shape[1]
     parent = torch.empty_like(dist)
-    for sl in lane_chunks(*src.shape, dist.shape[1]):
+    bits = torch.empty((n, k, mask_words(lanes)), dtype=torch.int32, device=dist.device)
+    for sl in lane_chunks(n, k, lanes):
         dag, d_nbr = dag_slots(src, cost, slot, mask, dist, roots, sl)
         dmin = torch.where(dag, d_nbr, INF).amin(1)
         at_min = dag & (d_nbr == dmin[:, None, :])
         parent[:, sl] = torch.where(at_min, src[:, :, None], n).amin(1)
-    return parent
+        bits[:, :, sl.start // 32 : mask_words(sl.stop)] = pack_lane_bits(dag)
+    return parent, bits
 
 
-def nh_seed_plain(src, cost, slot, mask, dist, hops, roots, direct):
-    """(seed [N, W, B], inherit [N, K, ceil(B / 32)]): the OR of the direct
-    words over DAG slots whose source has hops 0, and the other DAG slots."""
+def nh_seed_plain(src, dag, hop0, direct, lanes: int):
+    """(seed [N, W, lanes], inherit [N, K, ceil(lanes / 32)]): per lane, the
+    OR of the direct words over the DAG slots whose source has hops 0
+    (``dag & hop0[src]``), and the bits of the other DAG slots."""
     n, k = src.shape
-    lanes, words = dist.shape[1], direct.shape[2]
-    seed = torch.empty((n, words, lanes), dtype=torch.int32, device=dist.device)
-    inherit = torch.empty((n, k, mask_words(lanes)), dtype=torch.int32, device=dist.device)
+    words = direct.shape[2]
+    h = hop0[src.long()]  # [N, K, ceil(lanes / 32)]
+    direct_bits = dag & h
+    seed = torch.empty((n, words, lanes), dtype=torch.int32, device=dag.device)
     for sl in lane_chunks(n, k, lanes):
-        dag, _ = dag_slots(src, cost, slot, mask, dist, roots, sl)
-        direct_slot = dag & (hops[:, sl][src.long()] == 0)
+        direct_slot = _unpack(direct_bits, sl)
         for w in range(words):
             seed[:, w, sl] = or_reduce(torch.where(direct_slot, direct[:, :, w, None], 0), 1)
-        inherit[:, :, sl.start // 32 : mask_words(sl.stop)] = pack_lane_bits(dag & ~direct_slot)
-    return seed, inherit
+    return seed, dag & ~h
 
 
 def nh_round_plain(src, inherit, nh, frontier=None):
@@ -233,37 +242,40 @@ def ell_relax(src, cost, slot, mask, dist, frontier):
 
 
 def ell_first_parent(src, cost, slot, mask, dist, roots):
-    """parent [N, B]: the DAG in-edge source u minimizing (dist[u, b], u),
-    N where v has none or is lane b's root (``_sp_dag`` + ``_first_parent``,
-    ``spf_engine.py:872-894``)."""
+    """(parent [N, B], dag [N, K, ceil(B / 32)]): the DAG in-edge source u
+    minimizing (dist[u, b], u), N where v has none or is lane b's root, and
+    the DAG bits (``_sp_dag`` + ``_first_parent``, ``spf_engine.py:872-894``)."""
     if not build.on_card(src, cost, slot, mask, dist, roots):
         return first_parent_plain(src, cost, slot, mask, dist, roots)
-    _check_planes(src, cost, slot, mask, dist.shape[1], plane=dist, roots=roots)
-    parent = torch.empty_like(dist)
-    _launch("ell_first_parent", src, cost, slot, mask, dist, roots, parent, *src.shape,
-            dist.shape[1])
-    return parent
-
-
-def ell_nh_seed(src, cost, slot, mask, dist, hops, roots, direct):
-    """(seed [N, W, B], inherit [N, K, ceil(B / 32)]): per lane, the OR of
-    ``direct`` [N, K, W] over DAG slots whose source has hops 0, and the bits
-    of the other DAG slots (``spf_engine.py:976-991``)."""
-    if not build.on_card(src, cost, slot, mask, dist, hops, roots, direct):
-        return nh_seed_plain(src, cost, slot, mask, dist, hops, roots, direct)
     n, k = src.shape
     lanes = dist.shape[1]
     _check_planes(src, cost, slot, mask, lanes, plane=dist, roots=roots)
-    if hops.shape != dist.shape or direct.dim() != 3 or direct.shape[:2] != (n, k):
+    parent = torch.empty_like(dist)
+    dag = torch.empty((n, k, mask_words(lanes)), dtype=torch.int32, device=dist.device)
+    _launch("ell_first_parent", src, cost, slot, mask, dist, roots, parent, dag, n, k, lanes)
+    return parent, dag
+
+
+def ell_nh_seed(src, dag, hop0, direct, lanes: int):
+    """(seed [N, W, lanes], inherit [N, K, ceil(lanes / 32)]): per lane, the
+    OR of ``direct`` [N, K, W] over the DAG slots whose source has hops 0,
+    and the bits of the other DAG slots, ``dag & ~hop0[src]``
+    (``spf_engine.py:976-991``).  ``lanes`` is B, which the bit planes round
+    up to words."""
+    if not build.on_card(src, dag, hop0, direct):
+        return nh_seed_plain(src, dag, hop0, direct, lanes)
+    n, k = src.shape
+    words = mask_words(lanes)
+    if (dag.shape != (n, k, words) or hop0.shape != (n, words) or direct.dim() != 3
+            or direct.shape[:2] != (n, k)):
         raise ValueError(
-            f"nh_seed planes disagree: dist {tuple(dist.shape)}, hops "
-            f"{tuple(hops.shape)}, direct {tuple(direct.shape)}"
+            f"nh_seed planes disagree: src {tuple(src.shape)}, dag {tuple(dag.shape)}, "
+            f"hop0 {tuple(hop0.shape)}, direct {tuple(direct.shape)} for {lanes} lanes"
         )
-    words = direct.shape[2]
-    seed = torch.empty((n, words, lanes), dtype=torch.int32, device=dist.device)
-    inherit = torch.empty((n, k, mask_words(lanes)), dtype=torch.int32, device=dist.device)
-    _launch("ell_nh_seed", src, cost, slot, mask, dist, hops, roots, direct, seed, inherit,
-            n, k, lanes, words)
+    nwords = direct.shape[2]
+    seed = torch.empty((n, nwords, lanes), dtype=torch.int32, device=dag.device)
+    inherit = torch.empty_like(dag)
+    _launch("ell_nh_seed", src, dag, hop0, direct, seed, inherit, n, k, lanes, nwords)
     return seed, inherit
 
 

@@ -10,12 +10,14 @@ fixpoints over the ELL in-edge layout are the same:
    frontier plane of lane bits carried from round to round);
 2. first parent: the DAG in-edge source minimizing (dist[u], u), the
    reference's candidate pop order (holo-ospf/src/spf.rs:614-622)
-   (``ell_first_parent``);
+   (``ell_first_parent``, which also returns the DAG as lane bits: the DAG
+   test runs once a dispatch);
 3. hops along the first-parent chain (plain torch: one gather of
    ``hops[parent]`` a round);
 4. ECMP next-hop words: the direct atoms of DAG parents with hops 0 seed
-   the words (``ell_nh_seed``), then Jacobi OR rounds inherit the sets of
-   the other DAG parents (``ell_nh_round``, with its own frontier).
+   the words and the other DAG parents become inherit bits (``ell_nh_seed``,
+   from the DAG bits and the lane bits of hops 0), then Jacobi OR rounds
+   inherit their sets (``ell_nh_round``, with its own frontier).
 
 ``torch.vmap`` cannot carry the data-dependent loops, so one program runs
 every lane at once, with the lanes on the minor axis of [N, B] planes (the
@@ -175,20 +177,24 @@ def hops_fixpoint(g: DeviceGraph, parent, roots, limit: int) -> torch.Tensor:
     return ext[:n].clone()
 
 
-def nexthop_fixpoint(g: DeviceGraph, p: LanePlanes, dist, hops, roots, limit: int):
-    """ECMP next-hop words, int32 [N, W, B].
+def nexthop_fixpoint(g: DeviceGraph, dag, hops, limit: int):
+    """ECMP next-hop words, int32 [N, W, B], from the DAG bits ``dag`` [N, K,
+    ceil(B / 32)] of ``ell_first_parent`` and the hops [N, B].
 
-    JAX runs one ``while_loop`` per word; here every word moves in the same
-    round.  Word w's round reads word w alone, so each word still follows
-    its own Jacobi sequence; the shared loop runs until no word changed (or
-    ``limit``), and a round leaves a word at its fixpoint unchanged, so each
-    word ends where its own loop would have stopped.  The frontier carries
-    the lanes that changed in any word.
+    The seed splits the DAG slots by ``hop0`` (lane bits of hops == 0), as
+    JAX's ``dag & use_direct`` / ``dag & ~use_direct``.  JAX runs one
+    ``while_loop`` per word; here every word moves in the same round.  Word
+    w's round reads word w alone, so each word still follows its own Jacobi
+    sequence; the shared loop runs until no word changed (or ``limit``), and
+    a round leaves a word at its fixpoint unchanged, so each word ends where
+    its own loop would have stopped.  The frontier carries the lanes that
+    changed in any word.
     """
-    nh, inherit = ell.ell_nh_seed(*p, dist, hops, roots, g.direct_nh_words)
+    hop0 = ell.pack_lane_bits(hops == 0)
+    nh, inherit = ell.ell_nh_seed(g.in_src, dag, hop0, g.direct_nh_words, hops.shape[1])
     front = nexthop_frontier(nh)
     for _ in range(limit):
-        nh, changed, front = ell.ell_nh_round(p.src, inherit, nh, front)
+        nh, changed, front = ell.ell_nh_round(g.in_src, inherit, nh, front)
         if not bool(changed):
             break
     return nh
@@ -201,9 +207,9 @@ def spf_lanes(g: DeviceGraph, roots: torch.Tensor, mask, max_iters=None, nexthop
     limit = n if max_iters is None else max_iters
     p = lane_planes(g, mask)
     dist = distance_fixpoint(p, roots, limit)
-    parent = ell.ell_first_parent(*p, dist, roots)
+    parent, dag = ell.ell_first_parent(*p, dist, roots)
     hops = hops_fixpoint(g, parent, roots, limit)
-    nh = nexthop_fixpoint(g, p, dist, hops, roots, limit) if nexthops else None
+    nh = nexthop_fixpoint(g, dag, hops, limit) if nexthops else None
     return dist, parent, torch.where(dist < INF, hops, n + 1), nh
 
 
@@ -234,7 +240,8 @@ def first_parent(g: DeviceGraph, dist: torch.Tensor, root: int, edge_mask=None):
     dev = g.in_src.device
     mask = None if edge_mask is None else pack_edge_masks(np.asarray(edge_mask)[None], dev)
     p = lane_planes(g, mask)
-    return ell.ell_first_parent(*p, dist[:, None].contiguous(), _roots(root, 1, dev))[:, 0]
+    parent, _ = ell.ell_first_parent(*p, dist[:, None].contiguous(), _roots(root, 1, dev))
+    return parent[:, 0]
 
 
 def spf_one(g: DeviceGraph, root: int, edge_mask=None, max_iters=None) -> SpfTensors:

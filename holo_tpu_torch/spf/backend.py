@@ -182,6 +182,8 @@ class TorchSpfBackend(SpfBackend):
     def compute_whatif(self, topo, edge_masks, multipath_k: int = 1):
         _single_path(multipath_k)
         masks = np.asarray(edge_masks, bool)
+        if len(masks) == 0:
+            return []
         if self.engine == "blocked":
             res = self._whatif_blocked(topo, masks)
             if res is not None:
@@ -200,8 +202,11 @@ class TorchSpfBackend(SpfBackend):
         No next-hop plane: direct atoms are marshaled relative to
         ``topo.root``, so next hops mean nothing for another root.
         """
-        out = spf_multiroot(self.prepare(topo), np.asarray(roots, np.int32),
-                            max_iters=self.max_iters)
+        roots = np.asarray(roots, np.int32)
+        if len(roots) == 0:
+            empty = np.zeros((0, topo.n_vertices), np.int32)
+            return MultiRootResult(dist=empty, parent=empty.copy(), hops=empty.copy())
+        out = spf_multiroot(self.prepare(topo), roots, max_iters=self.max_iters)
         dist, parent, hops, _ = _host_tensors(out, topo.n_vertices)
         return MultiRootResult(dist=dist, parent=parent, hops=hops)
 

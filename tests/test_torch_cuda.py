@@ -18,7 +18,11 @@ launched.
 The gather engine's kernels (kernels/ell.py) are held bit-identical to their
 plain versions on real mid-fixpoint inputs at 1, 8, 33 and 1024 lanes
 (scenario masks) and at 64 roots (no mask), on a k=8 fat tree and on a
-graph whose K (40) is not a multiple of 32; ell_relax and ell_nh_round in
+graph whose K (40) is not a multiple of 32; ell_first_parent (parent and
+DAG bits) and ell_nh_seed (seed and inherit bits) also at 1, 5, 33, 64 and
+1024 lanes with lanes reached only at their root, at K up to 136, and on a
+graph with hops-0 networks and a row of only padding slots; ell_relax and
+ell_nh_round in
 every round of a real dispatch, with its frontier and with an all-ones one,
 at 1, 8, 33, 257 and 1024 lanes with and without masks, also on a graph
 whose K (136) spans five 32-slot chunks; the card driver is held to the CPU
@@ -39,6 +43,7 @@ from holo_tpu_torch.spf import synth
 from holo_tpu_torch.spf.backend import ScalarSpfBackend, TorchSpfBackend
 
 pytestmark = pytest.mark.cuda
+INF = 1 << 30
 
 
 def _card():
@@ -192,20 +197,45 @@ def _k130_topology():
     return topo
 
 
+def _networks_topology():
+    # A random OSPF topology whose root neighbours three transit networks
+    # (hops-0 sources other than the root), plus a router with only
+    # out-edges: a row of only padding slots.
+    t = synth.random_ospf_topology(n_routers=60, n_networks=15, extra_p2p=80, max_cost=3,
+                                   seed=10)
+    n = t.n_vertices
+    topo = Topology(n_vertices=n + 1, is_router=np.r_[t.is_router, True],
+                    edge_src=np.r_[t.edge_src, n, n], edge_dst=np.r_[t.edge_dst, t.root, n - 1],
+                    edge_cost=np.r_[t.edge_cost, 1, 2], root=t.root)
+    synth.assign_direct_atoms(topo)
+    return topo
+
+
 _SHAPES = {"fat_tree_k8": lambda: synth.fat_tree_topology(k=8), "k40": _k40_topology,
-           "k130": _k130_topology}
+           "k130": _k130_topology, "networks": _networks_topology}
 
 
-def _ell_inputs(topo, lanes, dev, roots=None, masked=True):
+def _dark_masks(topo, lanes):
+    """What-if masks in which some lanes have every edge down (reached only
+    at the root): every third lane, lanes 32-63 (a whole tile) and 256-511
+    (a whole 256-lane group)."""
+    masks = synth.whatif_link_failure_masks(topo, lanes, seed=lanes)
+    b = np.arange(lanes)
+    masks[(b % 3 == 1) | ((b >= 32) & (b < 64)) | ((b >= 256) & (b < 512))] = False
+    return masks
+
+
+def _ell_inputs(topo, lanes, dev, roots=None, masked=True, masks=None):
     """(graph, planes, roots, x): one gather dispatch on the card, with each
     ell_relax / ell_nh_round launch's (plane, frontier) input in
-    x["relax"] / x["round"]; scenario masks unless ``roots`` or not
-    ``masked``."""
+    x["relax"] / x["round"]; scenario masks (``masks``, or drawn) unless
+    ``roots`` or not ``masked``."""
     g = se.device_graph_from_ell(build_ell(topo, n_atoms=64), dev)
     mask = None
     if roots is None:
         if masked:
-            masks = synth.whatif_link_failure_masks(topo, lanes, seed=lanes)
+            if masks is None:
+                masks = synth.whatif_link_failure_masks(topo, lanes, seed=lanes)
             mask = se.pack_edge_masks(masks, dev)
         roots = torch.full((lanes,), topo.root, dtype=torch.int32, device=dev)
     else:
@@ -220,9 +250,11 @@ def _ell_inputs(topo, lanes, dev, roots=None, masked=True):
         if not bool(changed):
             break
     x["dist"] = dist
-    parent = ell.ell_first_parent(*p, dist, roots)
+    parent, x["dag"] = ell.ell_first_parent(*p, dist, roots)
     x["hops"] = se.hops_fixpoint(g, parent, roots, n)
-    nh, x["inherit"] = ell.ell_nh_seed(*p, dist, x["hops"], roots, g.direct_nh_words)
+    x["hop0"] = ell.pack_lane_bits(x["hops"] == 0)
+    nh, x["inherit"] = ell.ell_nh_seed(p.src, x["dag"], x["hop0"], g.direct_nh_words,
+                                       roots.shape[0])
     front = se.nexthop_frontier(nh)
     x["round"] = []
     while True:
@@ -234,7 +266,7 @@ def _ell_inputs(topo, lanes, dev, roots=None, masked=True):
 
 
 def _assert_ell_kernels_match(g, p, roots, x):
-    d = g.direct_nh_words
+    seed_in = (p.src, x["dag"], x["hop0"], g.direct_nh_words, roots.shape[0])
     dist_mid, front_mid = x["relax"][min(2, len(x["relax"]) - 1)]
     nh_mid, nh_front = x["round"][min(1, len(x["round"]) - 1)]
     pairs = {
@@ -242,8 +274,7 @@ def _assert_ell_kernels_match(g, p, roots, x):
                       ell.relax_plain(*p, dist_mid, front_mid)),
         "ell_first_parent": (ell.ell_first_parent(*p, x["dist"], roots),
                              ell.first_parent_plain(*p, x["dist"], roots)),
-        "ell_nh_seed": (ell.ell_nh_seed(*p, x["dist"], x["hops"], roots, d),
-                        ell.nh_seed_plain(*p, x["dist"], x["hops"], roots, d)),
+        "ell_nh_seed": (ell.ell_nh_seed(*seed_in), ell.nh_seed_plain(*seed_in)),
         "ell_nh_round": (ell.ell_nh_round(p.src, x["inherit"], nh_mid, nh_front),
                          ell.nh_round_plain(p.src, x["inherit"], nh_mid, nh_front)),
     }
@@ -281,11 +312,29 @@ def test_ell_kernels_match_plain_versions(shape, lanes):
     _assert_ell_kernels_match(*_ell_inputs(topo, lanes, _card()))
 
 
-@pytest.mark.parametrize("shape", ["fat_tree_k8", "k40"])
+@pytest.mark.parametrize("shape", ["fat_tree_k8", "k40", "networks"])
 def test_ell_kernels_match_plain_versions_on_root_lanes(shape):
-    topo = synth.fat_tree_topology(k=8) if shape == "fat_tree_k8" else _k40_topology()
+    topo = _SHAPES[shape]()
     roots = np.random.default_rng(0).integers(0, topo.n_vertices, 64)
     _assert_ell_kernels_match(*_ell_inputs(topo, 64, _card(), roots=roots))
+
+
+@pytest.mark.parametrize("lanes", [1, 5, 33, 64, 1024])
+@pytest.mark.parametrize("shape", ["k40", "k130", "networks"])
+def test_dag_kernels_match_plain_versions(shape, lanes):
+    # ell_first_parent's parent and DAG bits and ell_nh_seed's seed and
+    # inherit bits, with lanes reached only at the root (dark in every
+    # other row), K up to five 32-slot chunks, and, on "networks", hops-0
+    # sources other than the root and a row of only padding slots.
+    topo = _SHAPES[shape]()
+    g, p, roots, x = _ell_inputs(topo, lanes, _card(), masks=_dark_masks(topo, lanes))
+    _assert_ell_kernels_match(g, p, roots, x)
+    dark = torch.from_numpy(_dark_masks(topo, lanes).sum(1) == 0).to(x["dist"].device)
+    assert bool((x["dist"][:, dark] < INF).sum(0).le(1).all())  # the root alone
+    if shape == "networks":
+        n = topo.n_vertices
+        assert not bool(p.slot[n - 1].ge(0).any())  # the padding row
+        assert bool(x["hop0"][:n - 1][~g.is_router[:n - 1]].ne(0).any())
 
 
 @pytest.mark.parametrize("max_iters", [1, 2, 3])
@@ -324,6 +373,8 @@ def test_ell_wrappers_refuse_mixed_devices():
         ell.ell_nh_round(p.src, x["inherit"], nh.long(), nh_front)
     with pytest.raises(ValueError, match="planes disagree"):
         ell.ell_relax(*p, dist[:-1].contiguous(), front[:-1].contiguous())
+    with pytest.raises(ValueError, match="planes disagree"):
+        ell.ell_nh_seed(p.src, x["dag"], x["hop0"][:-1].contiguous(), g.direct_nh_words, 4)
 
 
 def test_ell_wrappers_refuse_a_bad_frontier():

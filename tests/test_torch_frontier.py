@@ -128,8 +128,10 @@ def test_nh_round_frontier_walk_equals_the_full_round(shape, masked, lanes):
     g, p, roots = _setup(shape, masked, lanes)
     n = p.src.shape[0]
     dist = te.distance_fixpoint(p, roots, n)
-    hops = te.hops_fixpoint(g, ell.first_parent_plain(*p, dist, roots), roots, n)
-    nh, inherit = ell.nh_seed_plain(*p, dist, hops, roots, g.direct_nh_words)
+    parent, dag = ell.first_parent_plain(*p, dist, roots)
+    hops = te.hops_fixpoint(g, parent, roots, n)
+    nh, inherit = ell.nh_seed_plain(p.src, dag, ell.pack_lane_bits(hops == 0),
+                                    g.direct_nh_words, lanes)
     front = te.nexthop_frontier(nh)
     assert torch.equal(front, ell.pack_lane_bits((nh != 0).any(1)))
     for r in range(1, ROUNDS + 1):
@@ -151,12 +153,14 @@ def test_drivers_stop_where_the_walk_does(max_iters):
             break
     got = te.distance_fixpoint(p, roots, max_iters)
     np.testing.assert_array_equal(got.numpy(), d)
-    hops = te.hops_fixpoint(g, ell.first_parent_plain(*p, got, roots), roots, n)
-    seed, inherit = ell.nh_seed_plain(*p, got, hops, roots, g.direct_nh_words)
+    parent, dag = ell.first_parent_plain(*p, got, roots)
+    hops = te.hops_fixpoint(g, parent, roots, n)
+    seed, inherit = ell.nh_seed_plain(p.src, dag, ell.pack_lane_bits(hops == 0),
+                                      g.direct_nh_words, 33)
     h, f = seed.numpy(), te.nexthop_frontier(seed).numpy()
     for _ in range(max_iters):
         h, changed, f = walk_nh_round(p, inherit.numpy(), h, f)
         if not changed:
             break
-    nh = te.nexthop_fixpoint(g, p, got, hops, roots, max_iters)
+    nh = te.nexthop_fixpoint(g, dag, hops, max_iters)
     np.testing.assert_array_equal(nh.numpy(), h)

@@ -160,6 +160,23 @@ def test_gather_cache_is_per_topology_and_bounded():
     assert be.prepare(topos[5]) is not before
 
 
+@pytest.mark.parametrize("engine", ["gather", "blocked"])
+def test_empty_whatif_batch_matches_jax(engine):
+    tt, jt = _topos(n_routers=24, n_networks=8, extra_p2p=40, seed=3)
+    masks = np.zeros((0, tt.n_edges), bool)
+    got = TorchSpfBackend(engine=engine, device="cpu").compute_whatif(tt, masks)
+    assert got == [] and TpuSpfBackend().compute_whatif(jt, masks) == []
+
+
+@pytest.mark.parametrize("engine", ["gather", "blocked"])
+def test_empty_multiroot_matches_jax(engine):
+    tt, jt = _topos(n_routers=24, n_networks=8, extra_p2p=40, seed=3)
+    roots = np.zeros(0, np.int32)
+    got = TorchSpfBackend(engine=engine, device="cpu").compute_multiroot(tt, roots)
+    assert got.dist.shape == (0, tt.n_vertices)
+    _same(got, TpuSpfBackend().compute_multiroot(jt, roots), "jax", MR_FIELDS)
+
+
 def test_cpu_path_launches_no_kernel():
     ell.reset_launches()
     bkernels.reset_launches()
@@ -179,6 +196,8 @@ def test_ell_wrappers_refuse_other_devices():
         ell.ell_relax(meta, meta, meta, None, meta, meta)
     with pytest.raises(ValueError, match="CUDA device"):
         ell.ell_first_parent(cpu, cpu, cpu, None, meta, cpu[0])
+    with pytest.raises(ValueError, match="CUDA device"):
+        ell.ell_nh_seed(cpu, meta, cpu, cpu, 8)
     with pytest.raises(ValueError, match="CUDA device"):
         ell.ell_nh_round(cpu, meta, cpu, cpu)
 

@@ -268,25 +268,28 @@ def test_relax_plain_matches_numpy_walk(lanes):
 @pytest.mark.parametrize("lanes", [1, 40])
 def test_first_parent_plain_matches_numpy_walk(lanes):
     tg, p, masks, roots, dist, src, cost, valid, eid = _walk_inputs(lanes)
-    got = ell.first_parent_plain(*p, dist, roots).numpy()
+    got, dag = ell.first_parent_plain(*p, dist, roots)
     d, r = dist.numpy(), roots.numpy()
     n, k = src.shape
+    want_bits = np.zeros(dag.shape, np.int64)
     for v in range(n):
         for b in range(lanes):
             best = (INF, n)
             for j in range(k):
                 if _np_dag(v, j, b, src, cost, valid, eid, masks, d, r):
                     best = min(best, (d[src[v, j], b], src[v, j]))
+                    want_bits[v, j, b // 32] |= 1 << (b % 32)
             assert got[v, b] == best[1], (v, b)
+    np.testing.assert_array_equal(dag.numpy().view(np.uint32), want_bits.astype(np.uint32))
 
 
 @pytest.mark.parametrize("lanes", [1, 40])
 def test_nh_seed_and_round_plain_match_numpy_walk(lanes):
     tg, p, masks, roots, dist, src, cost, valid, eid = _walk_inputs(lanes)
-    parent = ell.first_parent_plain(*p, dist, roots)
+    parent, dag = ell.first_parent_plain(*p, dist, roots)
     hops = te.hops_fixpoint(tg, parent, roots, tg.in_src.shape[0])
     direct = tg.direct_nh_words
-    seed, inherit = ell.nh_seed_plain(*p, dist, hops, roots, direct)
+    seed, inherit = ell.nh_seed_plain(p.src, dag, ell.pack_lane_bits(hops == 0), direct, lanes)
     nh1, changed, front = ell.nh_round_plain(p.src, inherit, seed)
     d, h, r, dw = dist.numpy(), hops.numpy(), roots.numpy(), direct.numpy()
     n, k = src.shape
@@ -330,16 +333,24 @@ def test_mask_bits_round_trip(lanes):
     assert torch.equal(lane_words, words)
 
 
+def test_pack_lane_bits_of_no_lanes():
+    words = ell.pack_lane_bits(torch.zeros((5, 0), dtype=torch.bool))
+    assert words.shape == (5, 0) and words.dtype == torch.int32
+    assert te.pack_edge_masks(np.zeros((0, 7), bool), "cpu").shape == (7, 0)
+
+
 def test_plain_versions_chunk_the_lanes(monkeypatch):
     # A chunk of 32 lanes: 64 lanes take two chunks, with equal results.
     tg, p, masks, roots, dist, *_ = _walk_inputs(64)
-    parent = ell.first_parent_plain(*p, dist, roots)
+    parent, _ = ell.first_parent_plain(*p, dist, roots)
     hops = te.hops_fixpoint(tg, parent, roots, tg.in_src.shape[0])
+    hop0 = ell.pack_lane_bits(hops == 0)
 
     def run():
-        seed, inherit = ell.nh_seed_plain(*p, dist, hops, roots, tg.direct_nh_words)
-        return (*ell.relax_plain(*p, dist), ell.first_parent_plain(*p, dist, roots), seed,
-                inherit, *ell.nh_round_plain(p.src, inherit, seed))
+        parent, dag = ell.first_parent_plain(*p, dist, roots)
+        seed, inherit = ell.nh_seed_plain(p.src, dag, hop0, tg.direct_nh_words, 64)
+        return (*ell.relax_plain(*p, dist), parent, dag, seed, inherit,
+                *ell.nh_round_plain(p.src, inherit, seed))
 
     full = run()
     monkeypatch.setattr(ell, "_TEMP", 1)
