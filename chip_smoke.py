@@ -8,7 +8,9 @@ directed edges), the headline what-if configuration of the repo
 (BASELINE.json config 5): ``TorchSpfBackend(engine="blocked")`` and the
 default ``TorchSpfBackend()`` (``engine="gather"``), each through
 ``compute_whatif`` over 1024 link-failure scenarios and ``compute``, the
-gather engine also through ``compute_multiroot`` over 64 roots.  Phases:
+gather engine also through ``compute_multiroot`` over 64 roots, and
+DeltaPath: a chain of eight topology events, each linked to the one before
+(``Topology.link_delta``), through ``compute``.  Phases:
 
 1. build the CUDA kernels from ``holo_tpu_torch/csrc`` with nvcc;
 2. run each kernel once on real mid-fixpoint inputs at the main paths'
@@ -26,10 +28,21 @@ gather engine also through ``compute_multiroot`` over 64 roots.  Phases:
    ``compute()`` and roots 0-7 bit-identical to the scalar oracle on every
    plane; require an empty ``compute_whatif`` / ``compute_multiroot`` on the
    card to return the empty result and launch no kernel;
+3d. DeltaPath: after one warm ``compute``, drive the chain (cost raise and
+   fall on a core-aggregation link, its removal and restoration, an overload
+   strike of an aggregation switch, three cost changes) with the ELL launch
+   counters at 0, require every step to take the incremental path with
+   ``ell_relax`` and ``ell_first_parent`` launched, and hold each step's four
+   planes to the full path (``incremental=False``, a fresh clone) and steps
+   0-1 to the scalar oracle; then require ``compute_whatif`` to rebuild after
+   a structural delta and to apply a weight delta in place, equal to the full
+   path both times;
 4. time each kernel (CUDA events; at one scenario also the profiler's
    device time, which leaves out the host's launch), its plain version, the
-   whole batch, ``compute()`` and the gather batch's stages, beside the
-   card's name and power limit.
+   whole batch, ``compute()`` and the gather batch's stages, and DeltaPath's
+   delta-linked ``compute()`` against a re-marshal and a cached call, with
+   the host's delta lowering and scatter against the incremental SPF's
+   device time, beside the card's name and power limit.
 
 Every failure raises, so the exit code is not 0.  Without a CUDA device, or
 without the rest of the repository beside it, the script fails before it
@@ -40,6 +53,7 @@ from __future__ import annotations
 
 import json
 import statistics
+from collections import Counter
 import subprocess
 import sys
 import time
@@ -116,6 +130,9 @@ ELL_ROUND_OPS = 2
 # The main launch of each frontier kernel: ell_relax's third round, ell_nh_round's
 # second (the first of each gathers from almost no changed source).
 MID_RELAX, MID_ROUND = 2, 1
+DELTA_TOGGLES = 9  # delta-linked compute() calls timed, each toggling one link's cost
+REMARSHAL_REPS = 3
+WHATIF_AFTER_DELTA = 64  # scenarios of the what-if after each kind of delta
 
 
 def cuda_call(fn):
@@ -490,6 +507,87 @@ def ell_calls(ell, g, p, x, roots, failed: int, label: str) -> dict:
     return {k: calls[k] for k in ELL_REPLACES}
 
 
+def link_ids(topo, a: int, b: int) -> tuple[int, int]:
+    """Edge ids of a -> b and b -> a."""
+    fwd = np.nonzero((topo.edge_src == a) & (topo.edge_dst == b))[0]
+    rev = np.nonzero((topo.edge_src == b) & (topo.edge_dst == a))[0]
+    require(fwd.size == 1 and rev.size == 1, f"link {a}-{b} is not one edge each way")
+    return int(fwd[0]), int(rev[0])
+
+
+def linked(graph, base, nxt, delta=None):
+    """``nxt`` with DeltaPath lineage from ``base``."""
+    d = graph.diff_topologies(base, nxt) if delta is None else delta
+    require(d is not None, "a chain step is not delta-representable")
+    nxt.link_delta(d)
+    return nxt
+
+
+def set_link_cost(graph, synth, topo, a: int, b: int, cost: int):
+    """A linked clone of ``topo`` whose a-b link costs ``cost`` both ways."""
+    f, r = link_ids(topo, a, b)
+    return linked(graph, topo, synth.clone_topology(topo, cost={f: cost, r: cost}))
+
+
+def delta_chain(graph, synth, topo, k: int) -> list:
+    """[(event, topology linked to the one before)]: the DeltaPath chain on
+    the fat tree of radix ``k``."""
+    half = k // 2
+    n_core = half * half
+
+    def agg(p, i):
+        return n_core + p * half + i
+
+    def edge(p, i):
+        return n_core + k * half + p * half + i
+
+    chain = []
+    cur = topo
+    a, c = agg(3, 0), 0  # agg(3, 0) <-> core 0
+    f, r = link_ids(cur, a, c)
+    old = [(int(cur.edge_cost[e]), int(cur.edge_direct_atom[e])) for e in (f, r)]
+    cur = set_link_cost(graph, synth, cur, a, c, old[0][0] + 4)
+    chain.append(("cost raise agg(3,0)-core 0", cur))
+    cur = set_link_cost(graph, synth, cur, a, c, 1)
+    chain.append(("cost fall agg(3,0)-core 0", cur))
+    f, r = link_ids(cur, a, c)
+    keep = np.ones(cur.n_edges, bool)
+    keep[[f, r]] = False
+    cur = linked(graph, cur, synth.clone_topology(cur, keep=keep))
+    chain.append(("link removal agg(3,0)-core 0", cur))
+    cur = linked(graph, cur, synth.clone_topology(
+        cur, extra=[[a, c, 1, old[0][1]], [c, a, 1, old[1][1]]]))
+    chain.append(("link restored agg(3,0)-core 0", cur))
+    v = agg(5, 0)
+    struck = synth.clone_topology(cur, keep=cur.edge_src != v)
+    cur = linked(graph, cur, struck, graph.TopologyDelta(
+        base_key=cur.cache_key, overload=np.int32([v]), ids_stable=False))
+    chain.append(("overload agg(5,0)", cur))
+    for label, (x, y, cost) in (("agg(7,1)-edge(7,3)", (agg(7, 1), edge(7, 3), 9)),
+                                (f"agg(10,4)-core {4 * half + 2}", (agg(10, 4), 4 * half + 2, 6)),
+                                ("agg(0,5)-edge(0,0)", (agg(0, 5), edge(0, 0), 4))):
+        cur = set_link_cost(graph, synth, cur, x, y, cost)
+        chain.append((f"cost change {label}", cur))
+    return chain
+
+
+def toggles(graph, synth, topo, k: int, count: int) -> list:
+    """``count`` topologies, each linked to the one before (the first to
+    ``topo``), toggling one core-aggregation link's cost between 7 and 2."""
+    a, c = k * k // 4 + 6 * (k // 2) + 1, k // 2  # agg(6, 1) <-> core k/2
+    out, cur = [], topo
+    for _ in range(count):
+        cost = 2 if int(cur.edge_cost[link_ids(cur, a, c)[0]]) == 7 else 7
+        cur = set_link_cost(graph, synth, cur, a, c, cost)
+        out.append(cur)
+    return out
+
+
+def same_planes(got, want) -> bool:
+    return all(np.array_equal(getattr(got, f), getattr(want, f))
+               for f in ("dist", "parent", "hops", "nexthop_words"))
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device available")
@@ -498,10 +596,12 @@ def main() -> None:
     from holo_tpu_torch.kernels import build, ell
     from holo_tpu_torch.ops import blocked as blk
     from holo_tpu_torch.ops import blocked_spf as bspf
+    from holo_tpu_torch.ops import graph
     from holo_tpu_torch.ops import spf_engine as se
     from holo_tpu_torch.ops.graph import build_ell
     from holo_tpu_torch.spf.backend import ScalarSpfBackend, TorchSpfBackend
     from holo_tpu_torch.spf.scalar import spf_reference
+    from holo_tpu_torch.spf import synth
     from holo_tpu_torch.spf.synth import fat_tree_topology, whatif_link_failure_masks
 
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -666,6 +766,68 @@ def main() -> None:
     print("empty batches: compute_whatif [] and compute_multiroot (0, N) on both engines, "
           "no kernel launched", flush=True)
 
+    # -- 3d. DeltaPath: the chain of events, counted
+    dbe = TorchSpfBackend(device=dev)
+    dbe.compute(topo)  # warm: keeps the run the first delta seeds from
+    chain = delta_chain(graph, synth, topo, K)
+    dbe.delta_stats = {}
+    d_steps = []
+    ell.reset_launches()
+    for label, t in chain:
+        paths = Counter(dbe.delta_paths)
+        t0 = time.perf_counter()
+        res = dbe.compute(t)
+        ms = (time.perf_counter() - t0) * 1e3
+        d_steps.append((label, t, res, ms, dict(dbe.delta_stats),
+                        Counter(dbe.delta_paths) - paths))
+    torch.cuda.synchronize()
+    d_launched = dict(ell.launches)
+    print(f"delta chain launches: {d_launched}", flush=True)
+    for name in ("ell_relax", "ell_first_parent"):
+        require(d_launched[name] > 0, f"kernel {name} never launched on the DeltaPath chain")
+    full_be = TorchSpfBackend(device=dev, incremental=False)
+    for i, (label, t, res, ms, st, paths) in enumerate(d_steps):
+        kind = graph.delta_kind(t.delta_base)
+        require(paths == Counter({(kind, "apply"): 1, (kind, "incremental"): 1}),
+                f"delta step {i} ({label}) did not take the incremental path: {dict(paths)}")
+        require(same_planes(res, full_be.compute(synth.clone_topology(t))),
+                f"delta step {i} ({label}) differs from the full path")
+        if i < 2:
+            require(same_planes(res, ScalarSpfBackend().compute(t)),
+                    f"delta step {i} ({label}) differs from the scalar oracle")
+        print(f"delta step {i} {label} ({kind}, {t.delta_base.n_ops} ops, "
+              f"{len(graph.delta_seed_rows(t.delta_base))} seed rows): incremental, "
+              f"bit-identical to the full path{' and the oracle' if i < 2 else ''}; affected "
+              f"{st['affected_rows']} rows in {st['affected']} rounds ({st['affected_ms']:.3f} "
+              f"ms), relax {st['relax']} rounds ({st['relax_ms']:.3f} ms), parent + hops/next "
+              f"hops {st['hops_nh']} rounds ({st['hops_nh_ms']:.3f} ms); compute() "
+              f"{ms:.3f} ms", flush=True)
+    last = chain[-1][1]
+    # A structural delta, then a what-if batch: the entry's edge ids are
+    # stale, so the what-if rebuilds; a weight delta then applies in place.
+    a, c = K * K // 4 + 8 * (K // 2), 0  # agg(8, 0) <-> core 0
+    f, r = link_ids(last, a, c)
+    keep = np.ones(last.n_edges, bool)
+    keep[[f, r]] = False
+    t_struct = linked(graph, last, synth.clone_topology(last, keep=keep))
+    wmasks = whatif_link_failure_masks(t_struct, WHATIF_AFTER_DELTA, seed=MASK_SEED)
+    t_weight = set_link_cost(graph, synth, t_struct, a + 1, K // 2, 8)  # agg(8,1) <-> core K/2
+    for t, kind, want in ((t_struct, "struct", "full-edge-ids"), (t_weight, "weight", "apply")):
+        paths, looks = Counter(dbe.delta_paths), Counter(dbe._gather_cache.lookups)
+        got = dbe.compute_whatif(t, wmasks)
+        paths = Counter(dbe.delta_paths) - paths
+        looks = Counter(dbe._gather_cache.lookups) - looks
+        require(paths == Counter({(kind, want): 1}),
+                f"what-if after a {kind} delta: dispositions {dict(paths)}, not {want}")
+        require(looks == Counter({"miss" if kind == "struct" else "delta": 1}),
+                f"what-if after a {kind} delta: lookups {dict(looks)}")
+        ref = full_be.compute_whatif(synth.clone_topology(t), wmasks)
+        require(all(same_planes(x, y) for x, y in zip(got, ref)) and len(got) == len(ref),
+                f"what-if after a {kind} delta differs from the full path")
+        print(f"what-if after a {kind} delta: {dict(paths)}, graph lookup {dict(looks)}; "
+              f"{len(got)} scenarios bit-identical to the full path", flush=True)
+    del full_be
+
     # -- 4. timing (the profiler last: once it has run, host launches are
     # slower, which the host-clock times below would count)
     for name, (card, *_rest) in calls.items():
@@ -690,6 +852,51 @@ def main() -> None:
     g_mr_ms = host_ms(lambda: gbe.compute_multiroot(topo, mr_roots), BATCH_REPS)
     g_pack_ms = host_ms(lambda: se.pack_edge_masks(masks, dev), BATCH_REPS)
     g_spf_ms = host_ms(lambda: se.spf_lanes(eg, lane_roots, mask_w), BATCH_REPS)
+    # DeltaPath: delta-linked compute() calls, each toggling one link's
+    # cost, against a re-marshal (fresh clones) and a cached call.
+    chain_t = toggles(graph, synth, t_weight, K, DELTA_TOGGLES)
+    dbe.compute(t_weight)  # the toggles' base: its run is kept
+    delta_times, toggle_stats = [], []
+    for t in chain_t:
+        t0 = time.perf_counter()
+        dbe.compute(t)
+        torch.cuda.synchronize()
+        delta_times.append((time.perf_counter() - t0) * 1e3)
+        toggle_stats.append(dict(dbe.delta_stats))
+    require(dbe.delta_paths[("weight", "incremental")] >= DELTA_TOGGLES,
+            "a timed delta-linked compute() left the incremental path")
+    d_delta_ms = statistics.median(delta_times)
+    fresh = [synth.clone_topology(chain_t[-1]) for _ in range(REMARSHAL_REPS)]
+    remarshal_times = []
+    for t in fresh:
+        t0 = time.perf_counter()
+        dbe.compute(t)
+        torch.cuda.synchronize()
+        remarshal_times.append((time.perf_counter() - t0) * 1e3)
+    d_remarshal_ms = statistics.median(remarshal_times)
+    d_cached_ms = host_ms(lambda: dbe.compute(fresh[-1]), COMPUTE_REPS)
+    # The same toggles split into the host's delta lowering + slot scatter
+    # (DeviceGraphCache.get) and the incremental SPF (host clock and CUDA
+    # events), on a cache and a run of their own.
+    split_base = synth.clone_topology(t_weight)
+    split_chain = toggles(graph, synth, split_base, K, DELTA_TOGGLES)
+    cache = se.DeviceGraphCache(dev, capacity=2)
+    g_split, _ = cache.get(split_base, n_atoms)
+    prev = se.spf_one(g_split, split_base.root)
+    lower_ms, incr_ms, incr_ev_ms = [], [], []
+    for t in split_chain:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g_split, how = cache.get(t, n_atoms)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        require(how == "delta", "the split toggles' cache did not apply the delta")
+        seeds = graph.delta_seed_rows(t.delta_base)
+        last_in = (g_split, t.root, prev, seeds)
+        prev, ev_ms = cuda_call(lambda: se.spf_one_incremental(*last_in))
+        incr_ms.append((time.perf_counter() - t1) * 1e3)
+        lower_ms.append((t1 - t0) * 1e3)
+        incr_ev_ms.append(ev_ms)
     for name, (card, *_rest) in calls1.items():
         rows1[name]["device_ms"] = device_ms_per_call(card, KERNEL_REPS)
     for name, (card, *_rest) in ecalls1.items():
@@ -698,6 +905,12 @@ def main() -> None:
     compute_busy_ms, compute_top = device_busy(lambda: be.compute(topo))
     g_busy_ms, g_top = device_busy(lambda: se.spf_lanes(eg, lane_roots, mask_w))
     g_compute_busy_ms, g_compute_top = device_busy(lambda: gbe.compute(topo))
+    incr_busy_ms, incr_top = device_busy(lambda: se.spf_one_incremental(*last_in))
+    extra = toggles(graph, synth, fresh[-1], K, 1)[0]
+    served = dbe.delta_paths[("weight", "incremental")]
+    d_busy_ms, _ = device_busy(lambda: dbe.compute(extra))
+    require(dbe.delta_paths[("weight", "incremental")] == served + 1,
+            "the profiled delta-linked compute() left the incremental path")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -781,6 +994,29 @@ def main() -> None:
     else:
         print("profile gather spf_lanes: the profiler saw no device time; "
               "idle share not measured", flush=True)
+    print(f"time gather compute delta: {d_delta_ms:.3f} ms (median of {DELTA_TOGGLES} "
+          f"delta-linked compute() calls toggling one link's cost; "
+          f"{[round(t, 3) for t in delta_times]})", flush=True)
+    phase = {key: statistics.median(st[key] for st in toggle_stats)
+             for key in ("affected", "affected_ms", "relax", "relax_ms", "hops_nh", "hops_nh_ms",
+                         "affected_rows")}
+    print(f"breakdown gather compute delta phases (medians over the toggles): affected set "
+          f"{phase['affected_rows']} rows, {phase['affected']} rounds, "
+          f"{phase['affected_ms']:.3f} ms; relax {phase['relax']} rounds, "
+          f"{phase['relax_ms']:.3f} ms; parent + hops/next hops {phase['hops_nh']} rounds, "
+          f"{phase['hops_nh_ms']:.3f} ms (host clock, each phase ends on a host sync)",
+          flush=True)
+    print(f"time gather compute remarshal: {d_remarshal_ms:.3f} ms (median of "
+          f"{REMARSHAL_REPS} compute() calls of fresh clones: build_ell, upload, full SPF; "
+          f"{[round(t, 3) for t in remarshal_times]})", flush=True)
+    print(f"time gather compute cached: {d_cached_ms:.3f} ms (the last clone again, "
+          f"median of {COMPUTE_REPS})", flush=True)
+    print(f"breakdown gather compute delta: lower_delta + slot scatter "
+          f"{statistics.median(lower_ms):.3f} ms (host clock, median of {DELTA_TOGGLES}), "
+          f"spf_one_incremental {statistics.median(incr_ms):.3f} ms host clock / "
+          f"{statistics.median(incr_ev_ms):.3f} ms between CUDA events; device busy "
+          f"{incr_busy_ms:.3f} ms in one spf_one_incremental, {d_busy_ms:.3f} ms in one "
+          f"delta-linked compute(); top device ops: {incr_top}", flush=True)
     entries = [
         (name, SOURCE, REPLACES[name], launched[name], row, (rows1[name],))
         for name, row in rows.items()
@@ -801,6 +1037,8 @@ def main() -> None:
         if krow["name"] in frows:  # the frontier kernels: a whole dispatch, a full round
             krow["dispatch_ms"] = frows[krow["name"]]["dispatch_ms"]
             krow["full_round_ms"] = frows[krow["name"]]["full_round_ms"]
+        if krow["name"] in d_launched:  # launches on the DeltaPath chain
+            krow["delta_chain_launches"] = d_launched[krow["name"]]
     print(json.dumps({"kernels": kernel_rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -24,6 +24,15 @@ INF = np.int32(1 << 30)
 _TOPOLOGY_UIDS = itertools.count()
 
 
+def topology_namespace(topo) -> tuple:
+    """The class of ``topo`` as (module, qualified name).  Marshaling caches
+    key on it beside ``cache_key``: each Topology class (this package's and
+    ``holo_tpu``'s) counts its uids from 0, so two classes' topologies can
+    share a ``(uid, generation)`` pair."""
+    cls = type(topo)
+    return (cls.__module__, cls.__qualname__)
+
+
 @dataclass
 class Topology:
     """Host-side directed graph in SPF vertex space.
@@ -60,10 +69,19 @@ class Topology:
         # MUST call touch() or cached device planes go stale.
         self._uid = next(_TOPOLOGY_UIDS)
         self.generation = 0
+        # DeltaPath lineage: a TopologyDelta from a previously marshaled
+        # base topology (link_delta), which lets the SPF backend update the
+        # base's resident device graph in place instead of re-marshaling.
+        self.delta_base: TopologyDelta | None = None
 
     def touch(self) -> None:
-        """Invalidate marshaling caches after an in-place mutation."""
+        """Invalidate marshaling caches after an in-place mutation.
+
+        Also drops the delta lineage: a delta describes the arrays as they
+        were when it was diffed, so applying it after a mutation would
+        serve a graph that misses the mutation."""
         self.generation += 1
+        self.delta_base = None
 
     @property
     def cache_key(self) -> tuple:
@@ -78,6 +96,11 @@ class Topology:
     @property
     def n_edges(self) -> int:
         return int(self.edge_src.shape[0])
+
+    def link_delta(self, delta: TopologyDelta) -> None:
+        """Attach DeltaPath lineage: this topology equals the base topology
+        of ``delta.base_key`` with ``delta`` applied."""
+        self.delta_base = delta
 
     def filter_mutual(self) -> "Topology":
         """Drop edges whose reverse edge does not exist (the reference's
@@ -181,4 +204,165 @@ def build_ell(
         in_direct_atom=in_direct_atom,
         is_router=topo.is_router.copy(),
         n_atoms=n_atoms,
+    )
+
+
+def _i32(values) -> np.ndarray:
+    return np.asarray(list(values), np.int32).reshape(-1)
+
+
+def delta_kind(delta) -> str:
+    """The delta's taxonomy bucket (the ``kind`` label of the disposition
+    counter): the single op class present, ``mixed`` when several combine,
+    ``empty`` for a content-identical alias.  Reads the fields alone, so a
+    ``holo_tpu`` delta gets the same answer as this package's."""
+    present = [
+        name
+        for name, n in (
+            ("struct", len(delta.r_src) + len(delta.a_src)),
+            ("weight", len(delta.w_src)),
+            ("overload", len(delta.overload)),
+        )
+        if n
+    ]
+    if not present:
+        return "empty"
+    return present[0] if len(present) == 1 else "mixed"
+
+
+def delta_seed_rows(delta) -> np.ndarray:
+    """int32[S] vertices whose previous distance may now be too small:
+    targets of removed edges, targets of cost increases, and the overloaded
+    vertices (every path through them passes them).  Reads the fields
+    alone, as :func:`delta_kind`."""
+    w_dst, w_old, w_new = (np.asarray(x) for x in (delta.w_dst, delta.w_old, delta.w_new))
+    rows = [delta.r_dst, w_dst[w_new > w_old], delta.overload]
+    return np.unique(np.concatenate([_i32(r) for r in rows]))
+
+
+@dataclass
+class TopologyDelta:
+    """How a target topology differs from an already marshaled base
+    topology (``base_key``, the base's ``cache_key``), in terms the resident
+    ELL planes absorb as in-place slot writes (DeltaPath, arXiv:1808.06893):
+
+    - weight changes: the same directed edge (src, dst, atom) with a new
+      cost; edge indices stay valid (``ids_stable``);
+    - edge removals and additions: a removal invalidates its slot, an
+      addition takes padding slack in its destination row (none left: full
+      rebuild).  Edge indices shift, so the updated graph no longer serves
+      edge-mask consumers (``ids_stable`` False);
+    - overload: every slot whose source is an ``overload`` vertex goes
+      invalid (no transit through it; it stays reachable).
+    """
+
+    base_key: tuple  # (uid, generation) of the base Topology
+    # cost changes: directed edge (src, dst, atom), old -> new cost
+    w_src: np.ndarray = field(default_factory=lambda: _i32(()))
+    w_dst: np.ndarray = field(default_factory=lambda: _i32(()))
+    w_old: np.ndarray = field(default_factory=lambda: _i32(()))
+    w_new: np.ndarray = field(default_factory=lambda: _i32(()))
+    w_atom: np.ndarray = field(default_factory=lambda: _i32(()))
+    # removed directed edges
+    r_src: np.ndarray = field(default_factory=lambda: _i32(()))
+    r_dst: np.ndarray = field(default_factory=lambda: _i32(()))
+    r_cost: np.ndarray = field(default_factory=lambda: _i32(()))
+    r_atom: np.ndarray = field(default_factory=lambda: _i32(()))
+    # added directed edges
+    a_src: np.ndarray = field(default_factory=lambda: _i32(()))
+    a_dst: np.ndarray = field(default_factory=lambda: _i32(()))
+    a_cost: np.ndarray = field(default_factory=lambda: _i32(()))
+    a_atom: np.ndarray = field(default_factory=lambda: _i32(()))
+    # vertices struck from transit (overload bit set since the base)
+    overload: np.ndarray = field(default_factory=lambda: _i32(()))
+    # True iff the base's edge order (in_edge_id) still holds for the
+    # target: pure weight deltas only.
+    ids_stable: bool = True
+
+    @property
+    def n_ops(self) -> int:
+        return (
+            self.w_src.shape[0]
+            + self.r_src.shape[0]
+            + self.a_src.shape[0]
+            + self.overload.shape[0]
+        )
+
+    @property
+    def kind(self) -> str:
+        return delta_kind(self)
+
+    def seed_rows(self) -> np.ndarray:
+        return delta_seed_rows(self)
+
+
+def diff_topologies(base: Topology, new: Topology, max_ops: int = 512) -> TopologyDelta | None:
+    """The :class:`TopologyDelta` taking ``base`` to ``new``, or None when
+    the change is not delta-representable: another vertex model or root, a
+    changed partition hint (``holo_tpu`` topologies carry one), or more than
+    ``max_ops`` edge operations.
+
+    Vertex identity is positional: diff only topologies built over the same
+    vertex order and next-hop atom table.
+    """
+    if (
+        base.n_vertices != new.n_vertices
+        or base.root != new.root
+        or not np.array_equal(base.is_router, new.is_router)
+    ):
+        return None
+    bh, nh = getattr(base, "partition_hint", None), getattr(new, "partition_hint", None)
+    if (bh is None) != (nh is None) or (bh is not None and not np.array_equal(bh, nh)):
+        return None
+    if base.n_edges == new.n_edges and (
+        np.array_equal(base.edge_src, new.edge_src)
+        and np.array_equal(base.edge_dst, new.edge_dst)
+        and np.array_equal(base.edge_direct_atom, new.edge_direct_atom)
+    ):
+        # The same edge list in the same order: a pure weight delta, whose
+        # edge ids stay valid for mask consumers.
+        changed = np.nonzero(base.edge_cost != new.edge_cost)[0]
+        if changed.shape[0] > max_ops:
+            return None
+        return TopologyDelta(
+            base_key=base.cache_key,
+            w_src=base.edge_src[changed].copy(),
+            w_dst=base.edge_dst[changed].copy(),
+            w_old=base.edge_cost[changed].copy(),
+            w_new=new.edge_cost[changed].copy(),
+            w_atom=base.edge_direct_atom[changed].copy(),
+            ids_stable=True,
+        )
+    # Otherwise the multiset difference of the (src, dst, cost, atom) rows:
+    # a moved or re-costed edge is one removal plus one addition.  The
+    # edge-count gap is a lower bound on the op count.
+    if abs(base.n_edges - new.n_edges) > max_ops:
+        return None
+
+    def rows(t) -> np.ndarray:
+        out = np.empty((t.n_edges, 4), np.int32)
+        out[:, 0] = t.edge_src
+        out[:, 1] = t.edge_dst
+        out[:, 2] = t.edge_cost
+        out[:, 3] = t.edge_direct_atom
+        return out
+
+    both = np.concatenate([rows(base), rows(new)], axis=0)
+    uniq, inv = np.unique(both, axis=0, return_inverse=True)
+    inv = inv.reshape(-1)
+    count = np.zeros(uniq.shape[0], np.int64)
+    np.add.at(count, inv[: base.n_edges], 1)
+    np.add.at(count, inv[base.n_edges:], -1)
+    rem_mask = count > 0
+    add_mask = count < 0
+    n_ops = int(count[rem_mask].sum() - count[add_mask].sum())
+    if n_ops > max_ops:
+        return None
+    r = np.repeat(uniq[rem_mask], count[rem_mask], axis=0)
+    a = np.repeat(uniq[add_mask], -count[add_mask], axis=0)
+    return TopologyDelta(
+        base_key=base.cache_key,
+        r_src=r[:, 0], r_dst=r[:, 1], r_cost=r[:, 2], r_atom=r[:, 3],
+        a_src=a[:, 0], a_dst=a[:, 1], a_cost=a[:, 2], a_atom=a[:, 3],
+        ids_stable=False,
     )

@@ -35,6 +35,9 @@ bit patterns carried as int32 (torch has no uint32 min or OR reduction).
 
 from __future__ import annotations
 
+import time
+from collections import Counter
+from dataclasses import dataclass
 from typing import NamedTuple
 
 import numpy as np
@@ -42,8 +45,15 @@ import torch
 
 from holo_tpu_torch.device import resolve_device
 from holo_tpu_torch.kernels import ell
+from holo_tpu_torch.kernels.blocked import or_reduce
 from holo_tpu_torch.ops.graph import INF as _INF
-from holo_tpu_torch.ops.graph import EllGraph
+from holo_tpu_torch.ops.graph import (
+    EllGraph,
+    build_ell,
+    delta_kind,
+    delta_seed_rows,
+    topology_namespace,
+)
 
 INF = int(_INF)
 
@@ -260,7 +270,7 @@ def spf_whatif_batch(
     if engine != "seq":
         raise ValueError(
             f"one_engine {engine!r}: the port runs only 'seq' (the fused, packed "
-            f"and hybrid formulations are ROADMAP queue A item 8)"
+            f"and hybrid formulations are ROADMAP queue A item 6)"
         )
     dev = g.in_src.device
     mask = pack_edge_masks(edge_masks, dev)
@@ -282,3 +292,391 @@ def spf_multiroot(g: DeviceGraph, roots, edge_mask=None, max_iters=None) -> SpfT
         shared = np.repeat(np.asarray(edge_mask, bool)[None], roots_t.shape[0], axis=0)
         mask = pack_edge_masks(shared, dev)
     return _batch_major(*spf_lanes(g, roots_t, mask, max_iters, nexthops=False))
+
+
+# ---------------------------------------------------------------------------
+# DeltaPath: resident graphs updated in place, and the seeded incremental SPF
+# (``holo_tpu/ops/spf_engine.py:171-829``, ``:1185-1232``, ``:1521-1605``).
+
+
+class _EllMirror:
+    """Host copy of a cached entry's ELL slot occupancy: the delta lowering
+    resolves edge-level ops to (row, slot) targets and finds padding slack
+    from it, without reading the device planes back.  It owns copies of
+    the marshal-time arrays (on the CPU the planes alias them)."""
+
+    def __init__(self, ell_graph: EllGraph):
+        self.in_src = ell_graph.in_src.copy()
+        self.in_cost = ell_graph.in_cost.copy()
+        self.in_valid = ell_graph.in_valid.copy()
+        self.in_atom = ell_graph.in_direct_atom.copy()
+        self.n_atoms = int(ell_graph.n_atoms)
+        self.n_valid = int(ell_graph.in_valid.sum())
+
+    @property
+    def occupancy(self) -> float:
+        return self.n_valid / max(self.in_valid.size, 1)
+
+
+@dataclass
+class _CacheEntry:
+    graph: DeviceGraph
+    mirror: _EllMirror
+    depth: int = 0  # delta-chain length since the last full marshal
+    # in_edge_id no longer matches the serving topology's edge list (a
+    # structural delta shifted edge indices): the entry serves mask-free
+    # SPF but not edge-mask consumers (what-if, a masked compute).
+    ids_stale: bool = False
+
+
+class _DeltaUnappliable(Exception):
+    def __init__(self, reason: str):
+        super().__init__(reason)
+        self.reason = reason
+
+
+class DeltaSlots(NamedTuple):
+    """A lowered delta: the final state of every touched slot, and the
+    overload strike."""
+
+    rows: np.ndarray  # int64[T]
+    cols: np.ndarray  # int64[T]
+    src: np.ndarray  # int32[T]
+    cost: np.ndarray  # int32[T]
+    valid: np.ndarray  # bool[T]
+    words: np.ndarray  # int32[T, W] one-hot atom words (uint32 bits)
+    strike: np.ndarray | None  # bool[N] overloaded vertices, None if none
+
+
+def lower_delta(mirror: _EllMirror, delta, n_vertices: int) -> DeltaSlots:
+    """Resolve a delta's edge-level ops to slot writes, moving the mirror to
+    the post-delta state (``_lower_delta``).  Raises
+    :class:`_DeltaUnappliable` on padding overflow, atom overflow, or an op
+    that matches no mirrored slot.  Only the touched slots are written, each
+    once with its final state: torch compiles nothing per shape, so the ops
+    need no padding to a fixed bucket."""
+
+    def find(dst, src, cost, atom) -> int:
+        m = (
+            mirror.in_valid[dst]
+            & (mirror.in_src[dst] == src)
+            & (mirror.in_cost[dst] == cost)
+            & (mirror.in_atom[dst] == atom)
+        )
+        hit = np.nonzero(m)[0]
+        if hit.shape[0] == 0:
+            raise _DeltaUnappliable("missing-edge")
+        return int(hit[0])
+
+    touched: set[tuple[int, int]] = set()
+    d = delta
+    # Removals first: they free the padding slack additions reuse.
+    for src, dst, cost, atom in zip(d.r_src, d.r_dst, d.r_cost, d.r_atom):
+        col = find(dst, src, cost, atom)
+        mirror.in_valid[dst, col] = False
+        mirror.in_src[dst, col] = 0
+        mirror.in_cost[dst, col] = 0
+        mirror.in_atom[dst, col] = -1
+        mirror.n_valid -= 1
+        touched.add((int(dst), col))
+    for src, dst, old, new, atom in zip(d.w_src, d.w_dst, d.w_old, d.w_new, d.w_atom):
+        col = find(dst, src, old, atom)
+        mirror.in_cost[dst, col] = new
+        touched.add((int(dst), col))
+    for src, dst, cost, atom in zip(d.a_src, d.a_dst, d.a_cost, d.a_atom):
+        if atom >= mirror.n_atoms:
+            raise _DeltaUnappliable("atom-overflow")
+        free = np.nonzero(~mirror.in_valid[dst])[0]
+        if free.shape[0] == 0:
+            raise _DeltaUnappliable("padding-overflow")
+        col = int(free[0])
+        mirror.in_valid[dst, col] = True
+        mirror.in_src[dst, col] = src
+        mirror.in_cost[dst, col] = cost
+        mirror.in_atom[dst, col] = atom
+        mirror.n_valid += 1
+        touched.add((int(dst), col))
+    # Overload strikes are masked on the device through in_src; the mirror
+    # keeps the struck slots invalid so later deltas see the occupancy.
+    strike = None
+    if len(d.overload):
+        strike = np.zeros(n_vertices, bool)
+        strike[np.asarray(d.overload)] = True
+        hit = strike[mirror.in_src] & mirror.in_valid
+        mirror.n_valid -= int(hit.sum())
+        mirror.in_valid[hit] = False
+    rc = np.array(sorted(touched), np.int64).reshape(-1, 2)
+    rows, cols = rc[:, 0], rc[:, 1]
+    atom = mirror.in_atom[rows, cols]
+    w = max((mirror.n_atoms + 31) // 32, 1)
+    words = np.zeros((rows.shape[0], w), np.uint32)
+    has = np.nonzero(atom >= 0)[0]
+    words[has, atom[has] // 32] = np.uint32(1) << (atom[has] % 32).astype(np.uint32)
+    return DeltaSlots(
+        rows=rows,
+        cols=cols,
+        src=mirror.in_src[rows, cols],
+        cost=mirror.in_cost[rows, cols],
+        valid=mirror.in_valid[rows, cols],
+        words=words.view(np.int32),
+        strike=strike,
+    )
+
+
+def apply_delta_slots(g: DeviceGraph, ops: DeltaSlots) -> DeviceGraph:
+    """Write a lowered delta into the resident planes in place
+    (``_apply_delta_slots``): ``in_src``, ``in_cost``, ``in_valid`` and
+    ``direct_nh_words`` at the touched slots, then ``in_valid &=
+    ~strike[in_src]``.  The slot ops go up in one int32 copy.  Returns
+    ``g``, whose tensors every holder of them now sees updated."""
+    dev = g.in_src.device
+    t = ops.rows.shape[0]
+    if t:
+        packed = np.empty((5 + ops.words.shape[1], t), np.int32)
+        packed[0], packed[1] = ops.rows, ops.cols
+        packed[2], packed[3], packed[4] = ops.src, ops.cost, ops.valid
+        packed[5:] = ops.words.T
+        up = torch.from_numpy(packed).to(dev)
+        at = (up[0].long(), up[1].long())
+        g.in_src.index_put_(at, up[2])
+        g.in_cost.index_put_(at, up[3])
+        g.in_valid.index_put_(at, up[4] != 0)
+        g.direct_nh_words.index_put_(at, up[5:].T)
+    if ops.strike is not None:
+        strike = torch.from_numpy(ops.strike).to(dev)
+        g.in_valid.logical_and_(~strike[g.in_src.long()])
+    return g
+
+
+class DeviceGraphCache:
+    """LRU of marshaled DeviceGraphs on one device, keyed by ``(topology
+    class, uid, generation, n_atoms)`` (``holo_tpu``'s ``DeviceGraphCache``
+    without the tropical, partitioned and mesh parts).  In-place topology
+    mutators must ``touch()``.
+
+    DeltaPath: when a lookup misses but the topology carries delta lineage
+    (``Topology.link_delta``) to a resident base entry of its own class, the
+    delta is lowered to slot writes and applied to the base's planes in
+    place; the claimed entry leaves the cache under its old key and serves
+    the new one.  Chains deeper than ``max_delta_depth``, padding or atom
+    overflow, a missing edge, or an edge-mask consumer asking for an entry
+    with stale edge ids fall back to a full rebuild.  Each disposition
+    counts in ``delta_paths[(kind, path)]`` (``holo_spf_delta_total``);
+    each lookup in ``lookups[hit | delta | miss]``.
+
+    A graph obtained from an earlier ``get()`` changes when a delta is later
+    applied to its entry: nothing but the cache may hold one across calls.
+    One cache serves one backend, from one thread at a time.
+    """
+
+    def __init__(self, device, capacity: int = 16, max_delta_depth: int = 256):
+        self.device = resolve_device(device)
+        self.capacity = int(capacity)
+        self.max_delta_depth = int(max_delta_depth)
+        self.delta_paths: Counter = Counter()
+        self.lookups: Counter = Counter()
+        self._cache: dict[tuple, _CacheEntry] = {}
+        self._evictions = 0
+        self._deltas_applied = 0
+
+    @staticmethod
+    def key(topo, n_atoms: int) -> tuple:
+        return (*topology_namespace(topo), *topo.cache_key, int(n_atoms))
+
+    def get(self, topo, n_atoms: int, need_edge_ids: bool = False,
+            allow_delta: bool = True) -> tuple[DeviceGraph, str]:
+        """(device graph, 'hit' | 'delta' | 'miss').  ``need_edge_ids``:
+        the caller gathers through ``in_edge_id`` (edge masks), so an entry
+        whose edge ids went stale under a structural delta is rebuilt."""
+        key = self.key(topo, n_atoms)
+        e = self._cache.pop(key, None)
+        if e is not None and not (need_edge_ids and e.ids_stale):
+            self._cache[key] = e  # the LRU's newest
+            self.lookups["hit"] += 1
+            return e.graph, "hit"
+        if allow_delta:
+            g = self._try_delta(topo, n_atoms, need_edge_ids)
+            if g is not None:
+                self.lookups["delta"] += 1
+                return g, "delta"
+        self.lookups["miss"] += 1
+        ell_graph = build_ell(topo, n_atoms=n_atoms)
+        g = device_graph_from_ell(ell_graph, self.device)
+        self._insert(key, _CacheEntry(graph=g, mirror=_EllMirror(ell_graph)))
+        return g, "miss"
+
+    def _try_delta(self, topo, n_atoms: int, need_edge_ids: bool) -> DeviceGraph | None:
+        delta = getattr(topo, "delta_base", None)
+        if delta is None:
+            return None
+        kind = delta_kind(delta)
+        # The base is a topology of the delta carrier's own class.
+        base_key = (*topology_namespace(topo), *delta.base_key, int(n_atoms))
+        base = self._cache.get(base_key)
+        if base is None:
+            path = "full-no-base"
+        elif base.depth + 1 > self.max_delta_depth:
+            path, base = "full-depth", None
+        elif need_edge_ids and (base.ids_stale or not delta.ids_stable):
+            path, base = "full-edge-ids", None
+        else:
+            del self._cache[base_key]  # claimed: its planes change in place
+            path = "apply"
+        if base is None:
+            self.delta_paths[(kind, path)] += 1
+            return None
+        try:
+            ops = lower_delta(base.mirror, delta, topo.n_vertices)
+        except _DeltaUnappliable as exc:
+            # The mirror may be half-updated: the claimed entry is dropped
+            # and the caller re-marshals.
+            self.delta_paths[(kind, f"full-{exc.reason}")] += 1
+            return None
+        g = apply_delta_slots(base.graph, ops)
+        self._insert(self.key(topo, n_atoms), _CacheEntry(
+            graph=g, mirror=base.mirror, depth=base.depth + 1,
+            ids_stale=base.ids_stale or not delta.ids_stable,
+        ), applied=True)
+        self.delta_paths[(kind, "apply")] += 1
+        return g
+
+    def _insert(self, key: tuple, entry: _CacheEntry, applied: bool = False) -> None:
+        self._cache[key] = entry
+        while len(self._cache) > self.capacity:
+            self._cache.pop(next(iter(self._cache)))
+            self._evictions += 1
+        self._deltas_applied += applied
+
+    def stats(self) -> dict:
+        """Eviction, chain and occupancy summary."""
+        entries = list(self._cache.values())
+        depths = [e.depth for e in entries]
+        occ = [e.mirror.occupancy for e in entries]
+        return {
+            "entries": len(entries),
+            "capacity": self.capacity,
+            "evictions": self._evictions,
+            "deltas-applied": self._deltas_applied,
+            "delta-entries": sum(1 for d in depths if d > 0),
+            "max-chain-depth": max(depths, default=0),
+            "stale-id-entries": sum(1 for e in entries if e.ids_stale),
+            "occupancy": round(sum(occ) / len(occ), 4) if occ else 0.0,
+        }
+
+    def __len__(self) -> int:
+        return len(self._cache)
+
+    def clear(self) -> None:
+        self._cache.clear()
+
+
+def hops_nh_recompute(g: DeviceGraph, root: int, dag, parent, hops0, nh0, limit: int):
+    """Jacobi hops + next-hop fixpoint over a settled DAG, seeded with
+    ``hops0`` [N] and ``nh0`` [N, W] (``_hops_nh_fixpoint``): (hops, next
+    hops, rounds).  Each round gathers ``[hops | nh]`` once and recomputes
+    every value from it -- the parent's hops plus one at a router, and per
+    word the OR of the direct words of DAG slots whose source has hops 0
+    with the words of the other DAG slots' sources (``_nh_words_round``) --
+    so a stale seed value can fall, which ``ell_nh_round`` (OR into its
+    input) could not do.  ``dag`` is bool [N, K].  The seeds are only
+    read."""
+    n = g.in_src.shape[0]
+    big = n + 1
+    dev = g.in_src.device
+    is_root = torch.arange(n, device=dev) == int(root)
+    inc = g.is_router.to(torch.int32)
+    has_parent = parent < n
+    pidx = torch.where(has_parent, parent, 0).long()
+    src = g.in_src.long()
+    direct = g.direct_nh_words
+    hops, nh = hops0, nh0
+    it = 0
+    changed = True
+    while changed and it < limit:
+        state = torch.cat([hops[:, None], nh], dim=1)  # int32 [N, 1 + W]
+        nbr = state[src]  # [N, K, 1 + W], the one gather of the round
+        h_nbr = nbr[:, :, 0]
+        ph = torch.where(has_parent, hops[pidx], big)  # every parent slot holds hops[parent]
+        hops_new = torch.where(is_root, 0, torch.where(has_parent & (ph < big), ph + inc, big))
+        direct_slot = (dag & (h_nbr == 0))[:, :, None]
+        inherit_slot = (dag & (h_nbr != 0))[:, :, None]
+        take = torch.where(direct_slot, direct, torch.where(inherit_slot, nbr[:, :, 1:], 0))
+        nh_new = or_reduce(take, 1)
+        changed = bool((hops_new != hops).any() | (nh_new != nh).any())
+        hops, nh = hops_new, nh_new
+        it += 1
+    return hops, nh, it
+
+
+def spf_one_incremental(g: DeviceGraph, root: int, prev: SpfTensors, seed_rows,
+                        max_iters=None, stats: dict | None = None) -> SpfTensors:
+    """Incremental full SPF (``spf_one_incremental``, one lane): recompute
+    only what a delta can have changed, seeded from the previous run.
+
+    ``g`` is the delta-updated graph, ``prev`` the previous run's tensors
+    on the base graph (only read), ``seed_rows`` the vertices whose
+    previous distance may now be too small (``TopologyDelta.seed_rows``).
+
+    1. The affected set: the seed rows and their descendants in the
+       previous first-parent tree (one gather of ``aff[parent]`` a round).
+    2. The seeded relax on ``ell_relax``, from the previous distances with
+       the affected rows at INF and the root at 0.  Its first frontier marks
+       every row with a finite seed: a seed is not the output of a round,
+       so no source of it may be skipped.
+    3. ``ell_first_parent`` (parent and DAG bits), then
+       :func:`hops_nh_recompute` seeded with the previous hops and next
+       hops, as JAX seeds it.
+
+    Every loop runs JAX's rounds (while changed and fewer than ``max_iters``
+    or N), so the bits equal JAX's incremental path under truncation too.
+    ``stats``, when given, receives each phase's rounds and host
+    milliseconds (each phase ends on a host sync) and the affected set's
+    size (one more sync).
+    """
+    n = g.in_src.shape[0]
+    dev = g.in_src.device
+    limit = n if max_iters is None else max_iters
+    t0 = time.perf_counter()
+    # 1. affected = seeds + their previous first-parent-tree descendants.
+    has_par = prev.parent < n
+    pidx = torch.where(has_par, prev.parent, 0).long()
+    aff = torch.zeros(n, dtype=torch.bool, device=dev)
+    aff[torch.as_tensor(np.asarray(seed_rows, np.int64)).to(dev)] = True
+    aff_rounds = 0
+    changed = True
+    while changed and aff_rounds < limit:
+        new = aff | (has_par & aff[pidx])
+        changed = bool((new != aff).any())
+        aff = new
+        aff_rounds += 1
+    t1 = time.perf_counter()
+    # 2. seeded relaxation on the updated graph.
+    dist = torch.where(aff, INF, prev.dist)
+    dist[int(root)] = 0
+    dist = dist[:, None].contiguous()
+    front = ell.pack_lane_bits(dist < INF)
+    p = lane_planes(g, None)
+    relax_rounds = 0
+    changed = True
+    while changed and relax_rounds < limit:
+        dist, flag, front = ell.ell_relax(*p, dist, front)
+        changed = bool(flag)
+        relax_rounds += 1
+    t2 = time.perf_counter()
+    # 3. closed-form DAG and first parent, then hops and next hops seeded
+    # from the previous arrays.
+    parent, dag = ell.ell_first_parent(*p, dist, _roots(root, 1, dev))
+    hops, nh, hn_rounds = hops_nh_recompute(g, root, (dag[:, :, 0] & 1) != 0, parent[:, 0],
+                                            prev.hops, prev.nexthops, limit)
+    if stats is not None:
+        stats.update(affected=aff_rounds, affected_ms=(t1 - t0) * 1e3,
+                     affected_rows=int(aff.sum()), relax=relax_rounds,
+                     relax_ms=(t2 - t1) * 1e3, hops_nh=hn_rounds,
+                     hops_nh_ms=(time.perf_counter() - t2) * 1e3)
+    dist = dist[:, 0]
+    return SpfTensors(
+        dist=dist,
+        parent=parent[:, 0],
+        hops=torch.where(dist < INF, hops, n + 1),
+        nexthops=nh,
+    )

@@ -15,14 +15,21 @@ are hand-written CUDA, with two engines:
   than 4 failed edges in a scenario) goes to the gather engine, as in
   ``holo_tpu``; ``routed_to_gather`` counts those dispatches.
 
-Unlike ``holo_tpu``'s backend there is no scalar fallback, no breaker and
-no DeltaPath (``incremental``): a topology's ``delta_base`` is ignored,
-which gives the bits of JAX's full path.  ``multipath_k > 1`` raises.
+DeltaPath (``incremental=True``, the default, as in ``holo_tpu``): a
+mask-free ``compute`` of a topology that carries delta lineage
+(``Topology.link_delta``, this package's delta or ``holo_tpu``'s, read by
+its fields) to a topology whose run this backend kept updates the resident
+graph in place and runs ``spf_one_incremental`` seeded from that run.
+Each disposition counts in ``delta_paths[(kind, path)]``.
+
+Unlike ``holo_tpu``'s backend there is no scalar fallback and no breaker.
+``multipath_k > 1`` raises.
 """
 
 from __future__ import annotations
 
 import copy
+from collections import Counter
 from dataclasses import dataclass
 
 import numpy as np
@@ -33,11 +40,17 @@ from holo_tpu_torch.ops.blocked_spf import (
     marshal_block_spf,
     whatif_spf_blocked,
 )
-from holo_tpu_torch.ops.graph import Topology, build_ell
+from holo_tpu_torch.ops.graph import (
+    Topology,
+    delta_kind,
+    delta_seed_rows,
+    topology_namespace,
+)
 from holo_tpu_torch.ops.spf_engine import (
-    device_graph_from_ell,
+    DeviceGraphCache,
     spf_multiroot,
     spf_one,
+    spf_one_incremental,
     spf_whatif_batch,
 )
 from holo_tpu_torch.spf.scalar import spf_reference
@@ -53,6 +66,13 @@ class SpfResult:
     parent: np.ndarray  # int32[N]
     hops: np.ndarray  # int32[N]
     nexthop_words: np.ndarray  # uint32[N, W]
+    # holo_tpu's multipath planes (multipath_k > 1), None here: the port
+    # runs only multipath_k = 1.
+    parents: np.ndarray | None = None  # int32[N, Kp]; sentinel N
+    pdist: np.ndarray | None = None  # int32[N, Kp]; INF past the set
+    pweight: np.ndarray | None = None  # int32[N, Kp]
+    npaths: np.ndarray | None = None  # int32[N]
+    nh_weights: np.ndarray | None = None  # int32[N, A]
 
 
 @dataclass
@@ -68,7 +88,7 @@ def _single_path(multipath_k: int) -> None:
     if multipath_k > 1:
         raise ValueError(
             f"multipath_k={multipath_k}: multipath is a later slice of the port "
-            f"(ROADMAP queue A item 9); only multipath_k=1 runs"
+            f"(ROADMAP queue A item 5); only multipath_k=1 runs"
         )
 
 
@@ -138,7 +158,10 @@ class TorchSpfBackend(SpfBackend):
 
     Marshaling (Topology -> device planes) happens once per topology
     generation (and root, for the blocked planes, which bake it in); up to
-    four marshaled graphs of each engine are cached.
+    four marshaled graphs of each engine are cached, keyed by the
+    topology's class beside its ``cache_key``.  ``incremental`` arms
+    DeltaPath; ``prev_capacity`` bounds the kept previous runs, one per
+    (topology, root) chain.
     """
 
     name = "torch"
@@ -150,22 +173,39 @@ class TorchSpfBackend(SpfBackend):
         device=None,
         n_atoms: int = 64,
         max_iters: int | None = None,
+        incremental: bool = True,
+        prev_capacity: int = 32,
     ):
         if engine not in ("gather", "blocked"):
             raise ValueError(f"engine {engine!r}: the port runs 'gather' and 'blocked'")
         if one_engine != "seq":
             raise ValueError(
                 f"one_engine {one_engine!r}: the port runs only 'seq' (fused, packed "
-                f"and hybrid are ROADMAP queue A item 8, tropical item 12)"
+                f"and hybrid are ROADMAP queue A item 6, tropical item 9)"
             )
         self.engine = engine
         self.one_engine = one_engine
         self.device = resolve_device(device)
         self.n_atoms = n_atoms
         self.max_iters = max_iters
+        self.incremental = incremental
+        self.prev_capacity = int(prev_capacity)
         self.routed_to_gather = 0  # blocked dispatches the gather engine served
         self._blocked_cache: dict = {}
-        self._gather_cache: dict = {}
+        self._gather_cache = DeviceGraphCache(self.device, capacity=_CACHE_ENTRIES)
+        # DeltaPath dispositions, (delta kind, path) -> dispatches: the
+        # cache's (apply, full-no-base, full-depth, ...) and the backend's
+        # (incremental, full-no-prev), as holo_spf_delta_total{kind,path}.
+        self.delta_paths: Counter = self._gather_cache.delta_paths
+        # Set to a dict to receive each incremental dispatch's rounds per
+        # phase and affected-set size (spf_one_incremental's ``stats``).
+        self.delta_stats: dict | None = None
+        # The previous run's device tensors per (topology class, uid,
+        # generation, n_atoms, root): the seed of the next delta's run.
+        self._prev_one: dict[tuple, object] = {}
+
+    def _n_atoms(self, topo) -> int:
+        return max(self.n_atoms, topo.n_atoms())
 
     def compute(self, topo, edge_mask=None, multipath_k: int = 1):
         _single_path(multipath_k)
@@ -173,11 +213,60 @@ class TorchSpfBackend(SpfBackend):
             res = self._whatif_blocked(topo, self._full_mask(topo, edge_mask)[None, :])
             if res is not None:
                 return res[0]
-        g = self.prepare(topo)
-        dist, parent, hops, nh = _host_tensors(
-            spf_one(g, topo.root, edge_mask, self.max_iters), topo.n_vertices
-        )
+        if edge_mask is None:
+            res = self._try_incremental(topo)
+            if res is not None:
+                return res
+        # A scenario mask gathers through in_edge_id: an entry whose ids went
+        # stale under a structural delta is rebuilt for it.
+        g = self.prepare(topo, need_edge_ids=edge_mask is not None)
+        out = spf_one(g, topo.root, edge_mask, self.max_iters)
+        if edge_mask is None and self.incremental:
+            self._remember(topo, out)
+        return self._result(out, topo.n_vertices)
+
+    @staticmethod
+    def _result(out, n: int) -> SpfResult:
+        dist, parent, hops, nh = _host_tensors(out, n)
         return SpfResult(dist=dist, parent=parent, hops=hops, nexthop_words=nh)
+
+    def _prev_key(self, topo, topo_key: tuple) -> tuple:
+        return (*topology_namespace(topo), *topo_key, self._n_atoms(topo), int(topo.root))
+
+    def _remember(self, topo, out) -> None:
+        """Keep this run's device tensors as the next delta's seed (once per
+        key: a repeated run of one generation and root gives the same
+        bits)."""
+        key = self._prev_key(topo, topo.cache_key)
+        if key in self._prev_one:
+            return
+        self._prev_one[key] = out
+        while len(self._prev_one) > self.prev_capacity:
+            self._prev_one.pop(next(iter(self._prev_one)))
+
+    def _try_incremental(self, topo) -> SpfResult | None:
+        """The DeltaPath dispatch (``holo_tpu``'s ``_try_incremental``): the
+        resident graph absorbs the delta in place and the incremental SPF
+        runs seeded from the kept run of the delta's base.  None sends the
+        dispatch to the full path: no lineage, no kept run (``full-no-prev``)
+        or a cache that rebuilt the graph (its reason already counted)."""
+        delta = getattr(topo, "delta_base", None)
+        if delta is None or not self.incremental:
+            return None
+        kind = delta_kind(delta)
+        prev_key = self._prev_key(topo, tuple(delta.base_key))
+        if prev_key not in self._prev_one:
+            self.delta_paths[(kind, "full-no-prev")] += 1
+            return None
+        g, how = self._gather_cache.get(topo, self._n_atoms(topo))
+        if how == "miss":
+            return None
+        prev = self._prev_one.pop(prev_key)
+        out = spf_one_incremental(g, topo.root, prev, delta_seed_rows(delta), self.max_iters,
+                                  self.delta_stats)
+        self.delta_paths[(kind, "incremental")] += 1
+        self._remember(topo, out)
+        return self._result(out, topo.n_vertices)
 
     def compute_whatif(self, topo, edge_masks, multipath_k: int = 1):
         _single_path(multipath_k)
@@ -188,7 +277,7 @@ class TorchSpfBackend(SpfBackend):
             res = self._whatif_blocked(topo, masks)
             if res is not None:
                 return res
-        g = self.prepare(topo)
+        g = self.prepare(topo, need_edge_ids=True)
         out = spf_whatif_batch(g, topo.root, masks, self.max_iters, self.one_engine)
         dist, parent, hops, nh = _host_tensors(out, topo.n_vertices)
         return [
@@ -217,20 +306,20 @@ class TorchSpfBackend(SpfBackend):
         return np.asarray(edge_mask, bool)
 
     @staticmethod
-    def _remember(cache: dict, key, value):
+    def _cache_put(cache: dict, key, value):
         cache[key] = value
         while len(cache) > _CACHE_ENTRIES:
             cache.pop(next(iter(cache)))
         return value
 
-    def prepare(self, topo: Topology):
-        """Marshal (and cache) the gather engine's ELL planes on the device."""
-        n_atoms = max(self.n_atoms, topo.n_atoms())
-        key = (*topo.cache_key, n_atoms)
-        if key in self._gather_cache:
-            return self._gather_cache[key]
-        g = device_graph_from_ell(build_ell(topo, n_atoms=n_atoms), self.device)
-        return self._remember(self._gather_cache, key, g)
+    def prepare(self, topo: Topology, need_edge_ids: bool = False):
+        """The gather engine's ELL planes on the device, from the cache: a
+        hit, a delta applied in place to the base's planes (DeltaPath, when
+        ``incremental``), or a full marshal.  ``need_edge_ids``: the caller
+        reads ``in_edge_id`` (edge masks)."""
+        g, _how = self._gather_cache.get(topo, self._n_atoms(topo), need_edge_ids=need_edge_ids,
+                                         allow_delta=self.incremental)
+        return g
 
     def prepare_blocked(self, topo: Topology):
         """Marshal (and cache) the blocked planes: (graph, host perm_of), or
@@ -240,7 +329,7 @@ class TorchSpfBackend(SpfBackend):
         The cache key includes the root: the planes bake the root in (BFS
         permutation + rootp).
         """
-        key = (*topo.cache_key, topo.root)
+        key = (*topology_namespace(topo), *topo.cache_key, topo.root)
         if key in self._blocked_cache:
             return self._blocked_cache[key]
         try:
@@ -248,8 +337,8 @@ class TorchSpfBackend(SpfBackend):
                 topo, n_atoms=max(self.n_atoms, topo.n_atoms()), device=self.device
             )
         except ValueError:
-            return self._remember(self._blocked_cache, key, None)
-        return self._remember(self._blocked_cache, key, (g, g.orig2perm.cpu().numpy()))
+            return self._cache_put(self._blocked_cache, key, None)
+        return self._cache_put(self._blocked_cache, key, (g, g.orig2perm.cpu().numpy()))
 
     def _whatif_blocked(self, topo, edge_masks) -> list[SpfResult] | None:
         """The blocked engine's results, or None (counted in

@@ -18,6 +18,34 @@ import numpy as np
 from holo_tpu_torch.ops.graph import Topology
 
 
+def clone_topology(topo: Topology, keep=None, extra=None, cost: dict | None = None) -> Topology:
+    """Fresh-identity copy of ``topo`` with optional edge mutations, for
+    DeltaPath chains: ``keep`` a bool[E] edge filter, ``extra`` rows of
+    (src, dst, cost, atom) to append, ``cost`` {edge index: new cost} over
+    the filtered edge array.  The copy has its own uid and no delta
+    lineage."""
+    src, dst, c, atom = topo.edge_src, topo.edge_dst, topo.edge_cost, topo.edge_direct_atom
+    if keep is not None:
+        src, dst, c, atom = src[keep], dst[keep], c[keep], atom[keep]
+    else:
+        src, dst, c, atom = src.copy(), dst.copy(), c.copy(), atom.copy()
+    if cost is not None:
+        for i, v in cost.items():
+            c[i] = v
+    if extra is not None:
+        e = np.asarray(extra, np.int32).reshape(-1, 4)
+        src = np.concatenate([src, e[:, 0]])
+        dst = np.concatenate([dst, e[:, 1]])
+        c = np.concatenate([c, e[:, 2]])
+        atom = np.concatenate([atom, e[:, 3]])
+    return Topology(
+        n_vertices=topo.n_vertices,
+        is_router=topo.is_router.copy(),
+        edge_src=src, edge_dst=dst, edge_cost=c, edge_direct_atom=atom,
+        root=topo.root,
+    )
+
+
 def assign_direct_atoms(topo: Topology) -> int:
     """Assign next-hop atom ids in place; returns the atom count.
 

@@ -27,6 +27,12 @@ every round of a real dispatch, with its frontier and with an all-ones one,
 at 1, 8, 33, 257 and 1024 lanes with and without masks, also on a graph
 whose K (136) spans five 32-slot chunks; the card driver is held to the CPU
 path under max_iters truncation; the gather backend to the oracle.
+
+DeltaPath: a delta chain on a k=24 fat tree (cost changes, link removals and
+restorations, an overload strike) is held to the CPU path step by step,
+with ell_relax and ell_first_parent launched; apply_delta_slots writes CUDA
+planes in place equal to the CPU planes; an entry whose edge ids went stale
+rebuilds for a what-if batch and for a masked compute on the card.
 """
 
 import numpy as np
@@ -37,6 +43,7 @@ from holo_tpu_torch.kernels import blocked as kernels
 from holo_tpu_torch.kernels import ell
 from holo_tpu_torch.ops import blocked as blk
 from holo_tpu_torch.ops import blocked_spf as bspf
+from holo_tpu_torch.ops import graph
 from holo_tpu_torch.ops import spf_engine as se
 from holo_tpu_torch.ops.graph import Topology, build_ell
 from holo_tpu_torch.spf import synth
@@ -410,3 +417,116 @@ def test_gather_backend_on_the_card_matches_scalar():
     mr, mr_ref = be.compute_multiroot(topo, roots), sc.compute_multiroot(topo, roots)
     for f in ("dist", "parent", "hops"):
         np.testing.assert_array_equal(getattr(mr, f), getattr(mr_ref, f), err_msg=f)
+
+
+def _linked(base, nxt, delta=None):
+    nxt.link_delta(graph.diff_topologies(base, nxt) if delta is None else delta)
+    return nxt
+
+
+def _link(topo, e):
+    """bool[E]: both directions of edge e's link."""
+    s, d = int(topo.edge_src[e]), int(topo.edge_dst[e])
+    return ((topo.edge_src == s) & (topo.edge_dst == d)) | (
+        (topo.edge_src == d) & (topo.edge_dst == s))
+
+
+def _delta_chain(topo, steps, seed, strike_at=None):
+    """Topologies, each linked to the one before: cost changes, link
+    removals and restorations, and an overload strike at ``strike_at``."""
+    rng = np.random.default_rng(seed)
+    cur, removed, out = topo, [], []
+    for i in range(steps):
+        e = int(rng.integers(0, cur.n_edges))
+        s, d = int(cur.edge_src[e]), int(cur.edge_dst[e])
+        link = _link(cur, e)
+        if i == strike_at:
+            v = s if s != cur.root else d
+            nxt = _linked(cur, synth.clone_topology(cur, keep=cur.edge_src != v),
+                          graph.TopologyDelta(base_key=cur.cache_key, overload=np.int32([v]),
+                                              ids_stable=False))
+        elif i % 3 == 1:
+            removed.append([[int(cur.edge_src[x]), int(cur.edge_dst[x]), int(cur.edge_cost[x]),
+                             int(cur.edge_direct_atom[x])] for x in np.nonzero(link)[0]])
+            nxt = _linked(cur, synth.clone_topology(cur, keep=~link))
+        elif i % 3 == 2 and removed:
+            nxt = _linked(cur, synth.clone_topology(cur, extra=removed.pop()))
+        else:
+            cost = {int(x): int(rng.integers(1, 9)) for x in np.nonzero(link)[0]}
+            nxt = _linked(cur, synth.clone_topology(cur, cost=cost))
+        out.append(nxt)
+        cur = nxt
+    return out
+
+
+def _same_result(a, b, label):
+    for f in ("dist", "parent", "hops", "nexthop_words"):
+        np.testing.assert_array_equal(getattr(a, f), getattr(b, f), err_msg=f"{label} {f}")
+
+
+def test_delta_chain_on_the_card_matches_the_cpu_path():
+    _card()
+    topo = synth.fat_tree_topology(k=24)
+    card, cpu = TorchSpfBackend(), TorchSpfBackend(device="cpu")
+    _same_result(card.compute(topo), cpu.compute(topo), "base")
+    chain = _delta_chain(topo, 9, seed=1, strike_at=4)
+    ell.reset_launches()
+    got = [card.compute(t) for t in chain]
+    torch.cuda.synchronize()
+    assert ell.launches["ell_relax"] > 0 and ell.launches["ell_first_parent"] > 0, ell.launches
+    for i, (t, res) in enumerate(zip(chain, got)):
+        _same_result(res, cpu.compute(t), f"step {i}")
+    _same_result(got[-1], ScalarSpfBackend().compute(chain[-1]), "last step, oracle")
+    assert card.delta_paths == cpu.delta_paths
+    assert sum(v for (_, p), v in card.delta_paths.items() if p == "incremental") == len(chain)
+
+
+def test_apply_delta_slots_in_place_on_the_card():
+    dev = _card()
+    topo = synth.random_ospf_topology(n_routers=260, n_networks=40, extra_p2p=400, seed=4)
+    eg = build_ell(topo, n_atoms=64)
+    card = se.device_graph_from_ell(eg, dev)
+    cpu = se.device_graph_from_ell(eg, "cpu")
+    mirror = se._EllMirror(eg)
+    ptrs = [t.data_ptr() for t in card]
+    v = int(topo.edge_src[np.nonzero(topo.edge_src != topo.root)[0][3]])
+    t1 = synth.clone_topology(topo, cost={3: 40, 9: 1, 20: 7})
+    t2 = synth.clone_topology(t1, keep=~_link(t1, 30))
+    # an added edge carrying atom 31: bit 31 of word 0, the sign bit
+    t3 = synth.clone_topology(t2, extra=[[topo.root, 5, 2, 31]])
+    deltas = [graph.diff_topologies(topo, t1), graph.diff_topologies(t1, t2),
+              graph.diff_topologies(t2, t3),
+              graph.TopologyDelta(base_key=t3.cache_key, overload=np.int32([v]),
+                                  ids_stable=False)]
+    for d in deltas:
+        ops = se.lower_delta(mirror, d, topo.n_vertices)
+        se.apply_delta_slots(card, ops)
+        se.apply_delta_slots(cpu, ops)
+        for f in se.DeviceGraph._fields:
+            assert torch.equal(getattr(card, f).cpu(), getattr(cpu, f)), (d.kind, f)
+    assert [t.data_ptr() for t in card] == ptrs
+    assert int(card.direct_nh_words.min()) == -(1 << 31)
+    np.testing.assert_array_equal(card.in_valid.cpu().numpy(), mirror.in_valid)
+
+
+def test_stale_edge_ids_rebuild_for_masked_dispatches_on_the_card():
+    _card()
+    topo = synth.random_ospf_topology(n_routers=260, n_networks=40, extra_p2p=400, seed=6)
+    be, sc = TorchSpfBackend(), ScalarSpfBackend()
+    be.compute(topo)
+    chain = _delta_chain(topo, 5, seed=3)
+    for i, t in enumerate(chain):
+        be.compute(t)  # incremental; after a link removal the entry's ids are stale
+        if i not in (1, 4):  # the two link removals
+            continue
+        assert be._gather_cache.stats()["stale-id-entries"] == 1
+        misses = be._gather_cache.lookups["miss"]
+        masks = synth.whatif_link_failure_masks(t, 8, seed=4)
+        if i == 1:
+            got, want = be.compute_whatif(t, masks), sc.compute_whatif(t, masks)
+        else:
+            got, want = [be.compute(t, masks[5])], [sc.compute(t, masks[5])]
+        assert be._gather_cache.lookups["miss"] == misses + 1
+        for j, (a, b) in enumerate(zip(got, want)):
+            _same_result(a, b, f"step {i} scenario {j}")
+    assert be.delta_paths[("struct", "incremental")] >= 2

@@ -134,7 +134,7 @@ def test_multipath_raises():
     tt, _ = _topos(n_routers=20, seed=1)
     for be in (TorchSpfBackend(device="cpu"), TorchSpfBackend(engine="blocked", device="cpu"),
                ScalarSpfBackend()):
-        with pytest.raises(ValueError, match="queue A item 9"):
+        with pytest.raises(ValueError, match="queue A item 5"):
             be.compute(tt, multipath_k=2)
         with pytest.raises(ValueError, match="multipath"):
             be.compute_whatif(tt, np.ones((1, tt.n_edges), bool), multipath_k=8)

@@ -218,7 +218,7 @@ def test_edgeless_graph_matches_jax():
 @pytest.mark.parametrize("engine", ["fused", "packed", "hybrid"])
 def test_other_one_engines_raise(engine):
     _, tt, _, tg = _pair(n_routers=20, seed=1)
-    with pytest.raises(ValueError, match="queue A item 8"):
+    with pytest.raises(ValueError, match="queue A item 6"):
         te.spf_whatif_batch(tg, tt.root, np.ones((2, tt.n_edges), bool), engine=engine)
 
 
