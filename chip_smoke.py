@@ -8,9 +8,11 @@ directed edges), the headline what-if configuration of the repo
 (BASELINE.json config 5): ``TorchSpfBackend(engine="blocked")`` and the
 default ``TorchSpfBackend()`` (``engine="gather"``), each through
 ``compute_whatif`` over 1024 link-failure scenarios and ``compute``, the
-gather engine also through ``compute_multiroot`` over 64 roots, and
-DeltaPath: a chain of eight topology events, each linked to the one before
-(``Topology.link_delta``), through ``compute``.  Phases:
+gather engine also through ``compute_multiroot`` over 64 roots, DeltaPath:
+a chain of eight topology events, each linked to the one before
+(``Topology.link_delta``), through ``compute``, and multipath (max-paths 4
+and 8: ECMP/UCMP parent sets, path counts, per-atom weights) through
+``compute``, ``compute_whatif`` and the DeltaPath chain.  Phases:
 
 1. build the CUDA kernels from ``holo_tpu_torch/csrc`` with nvcc;
 2. run each kernel once on real mid-fixpoint inputs at the main paths'
@@ -37,6 +39,19 @@ DeltaPath: a chain of eight topology events, each linked to the one before
    0-1 to the scalar oracle; then require ``compute_whatif`` to rebuild after
    a structural delta and to apply a weight delta in place, equal to the full
    path both times;
+3e. multipath: hold the two multipath kernels to their plain versions --
+   every ``ell_mp_round`` launch of a 64-scenario dispatch and of a
+   one-lane dispatch, the first two and the last of the 1024-scenario
+   dispatch, and ``ell_parent_sets`` at 1, 64 and 1024 lanes -- then, with
+   the ELL launch counters at 0, drive ``compute(multipath_k=4 and 8)``
+   (all nine planes equal to the port's multipath oracle;
+   ``multipath_k=1`` equal to the single-path ``compute()``, its multipath
+   fields None), ``compute_whatif(multipath_k=4)`` over the 1024 scenarios
+   (scenarios 0-3 equal to the oracle, every scenario's single-path planes
+   equal to the single-path batch) and the DeltaPath chain at
+   ``multipath_k=4`` (every step incremental and equal to a full multipath
+   ``compute()`` of a clone, steps 0-1 also to the oracle), and require both
+   kernels launched;
 4. time each kernel (CUDA events; at one scenario also the profiler's
    device time, which leaves out the host's launch), its plain version, the
    whole batch, ``compute()`` and the gather batch's stages, and DeltaPath's
@@ -133,6 +148,32 @@ MID_RELAX, MID_ROUND = 2, 1
 DELTA_TOGGLES = 9  # delta-linked compute() calls timed, each toggling one link's cost
 REMARSHAL_REPS = 3
 WHATIF_AFTER_DELTA = 64  # scenarios of the what-if after each kind of delta
+# Multipath (phase 3e): the widths of the compute() checks and of the batch
+# and chain, the lanes of the fully held dispatch, the oracle's scenarios.
+MP_KS = (4, 8)
+MP_K = 4
+MP_HOLD_LANES = 64
+MP_ORACLE_SCENARIOS = 4
+MP_ORACLE_STEPS = 2
+MP_SOURCE = "holo_tpu_torch/csrc/mp_kernels.cu"
+MP_REPLACES = {
+    "ell_mp_round": "holo_tpu/ops/spf_engine.py:1246-1324 _mp_fixpoint "
+                    "(XLA fusion, no Pallas kernel)",
+    "ell_parent_sets": "holo_tpu/ops/spf_engine.py:1327-1372 _mp_parent_sets "
+                       "(XLA fusion, no Pallas kernel)",
+}
+# int32 operations of the multipath kernels:
+# ell_mp_round: per DAG pair an add per atom lane (A), an OR per next-hop
+#   word (W), the path-count add and the hops-0 test; per (vertex, lane) a
+#   clamp and a changed test per atom and per count, a changed test per
+#   word, and the hops update (parent gather, add, select, test).
+# ell_parent_sets: per usable pair the admissibility test (add, tight test,
+#   downward test, INF test) and per admissible pair an offer to the sorted
+#   set (a source and a (cost, source) compare per entry).
+MP_PAIR_OPS = 2  # + A + W
+MP_CELL_OPS = 4  # + 2 A + W
+PS_TEST_OPS = 4
+PS_OFFER_OPS = 2  # x kp
 
 
 def cuda_call(fn):
@@ -588,6 +629,119 @@ def same_planes(got, want) -> bool:
                for f in ("dist", "parent", "hops", "nexthop_words"))
 
 
+MP_FIELDS = ("parents", "pdist", "pweight", "npaths", "nh_weights")
+
+
+def same_nine(got, want) -> bool:
+    """All nine SpfResult planes equal (the multipath fields present)."""
+    return same_planes(got, want) and all(
+        getattr(got, f) is not None and np.array_equal(getattr(got, f), getattr(want, f))
+        for f in MP_FIELDS)
+
+
+def held(name: str, label: str, got, want) -> int:
+    """Require each output of a kernel call bit-identical to its plain
+    version's; the max_abs_err over them."""
+    err = 0
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a is None and b is None:
+            continue
+        require(a.shape == b.shape and a.dtype == b.dtype, f"{name} {label} output {i} shape")
+        err = max(err, int((a.long() - b.long()).abs().max()))
+        require(torch.equal(a, b), f"{name} {label} output {i} disagrees with its plain version")
+    return err
+
+
+def mp_dispatch(ell, se, g, roots, mask, kp: int, hold_all: bool, label: str) -> dict:
+    """One multipath dispatch on the card, step by step as ``se.mp_lanes``
+    runs it.  Each ell_mp_round launch is timed (CUDA events) and held
+    bit-identical to mp_round_plain on its input: every launch with
+    ``hold_all``, else the first two and the last.  Then ell_parent_sets
+    (width ``kp``) is held to parent_sets_plain.  Returns the fixed planes,
+    the DAG pair count, the first launch's input state, the final path
+    counts, per-launch times and the plain versions' times and errors."""
+    n = g.in_src.shape[0]
+    lanes = roots.shape[0]
+    words = g.direct_nh_words.shape[2]
+    p = se.lane_planes(g, mask)
+    dist = se.distance_fixpoint(p, roots, n)
+    parent, dag = ell.ell_first_parent(*p, dist, roots)
+    at_root = torch.arange(n, device=roots.device)[:, None] == roots.long()[None, :]
+    state = (torch.where(at_root, 0, n + 1).to(torch.int32),
+             torch.zeros((n, words, lanes), dtype=torch.int32, device=roots.device),
+             at_root.to(torch.int32),
+             torch.zeros((n, 32 * words, lanes), dtype=torch.int32, device=roots.device))
+    fixed = (p.src, dag, g.direct_nh_words, g.is_router.to(torch.int32), roots, parent)
+    x = {"p": p, "fixed": fixed, "dist": dist, "first": state, "round_ms": [],
+         "plain_ms": [], "err": 0, "held": []}
+    r = 0
+    while True:
+        out, ms = cuda_call(lambda st=state: ell.ell_mp_round(*fixed, *st))
+        x["round_ms"].append(ms)
+        last = not bool(out[4])
+        if hold_all or r < 2 or last:
+            want, plain_ms = cuda_call(lambda st=state: ell.mp_round_plain(*fixed, *st))
+            x["err"] = max(x["err"], held("ell_mp_round", f"{label} launch {r + 1}", out, want))
+            x["plain_ms"].append(plain_ms)
+            x["held"].append(r + 1)
+            del want
+        if last:
+            break
+        state = out[:4]
+        r += 1
+    x["npaths"] = out[2]
+    x["dag_pairs"] = popcount(dag)
+    print(f"kernel ell_mp_round {label}: launches {x['held']} of {r + 1} bit-identical to "
+          f"plain (max_abs_err {x['err']}); {x['dag_pairs']} DAG pairs; ms per launch "
+          f"{[round(t, 4) for t in x['round_ms']]}", flush=True)
+    ps_in = (*p, dist, x["npaths"], roots, kp)
+    got = ell.ell_parent_sets(*ps_in)
+    torch.cuda.synchronize()
+    want, x["ps_plain_ms"] = cuda_call(lambda: ell.parent_sets_plain(*ps_in))
+    x["ps_err"] = held("ell_parent_sets", f"{label} kp={kp}", got, want)
+    x["ps_in"] = ps_in
+    print(f"kernel ell_parent_sets {label} kp={kp}: parents, pdist, pweight "
+          f"{tuple(got[0].shape)} bit-identical to plain", flush=True)
+    return x
+
+
+def admissible_pairs(ell, p, dist, roots) -> int:
+    """(slot, lane) pairs that ell_parent_sets offers to a set: usable,
+    source reached, v reached and not the lane's root, and tight or
+    strictly downward."""
+    n, k = p.src.shape
+    count = 0
+    for sl in ell.lane_chunks(n, k, dist.shape[1]):
+        d_nbr = dist[:, sl][p.src.long()]
+        dv = dist[:, sl][:, None, :]
+        live = (dv < ell.INF) & (torch.arange(n, device=dist.device)[:, None, None]
+                                 != roots[sl][None, None, :])
+        ok = ell._usable(p.slot, p.mask, sl) & (d_nbr < ell.INF) & live
+        count += int((ok & ((d_nbr + p.cost[:, :, None] == dv) | (d_nbr < dv))).sum())
+    return count
+
+
+def mp_bounds(ell, x, kp: int, usable: int) -> dict:
+    """Bounds of one ell_mp_round launch and of ell_parent_sets on the
+    dispatch ``x``: the bytes of every plane read once and every output
+    written once, the operations of this run's DAG and admissible pairs."""
+    hops, nh, npaths, aw = x["first"]
+    n, lanes = hops.shape
+    words = nh.shape[1]
+    atoms = 32 * words
+    state = nbytes(hops, nh, npaths, aw)
+    mp_ops = (x["dag_pairs"] * (atoms + words + MP_PAIR_OPS)
+              + n * lanes * (2 * atoms + words + MP_CELL_OPS))
+    mp_bytes = nbytes(*x["fixed"]) + 2 * state
+    p = x["p"]
+    adm = admissible_pairs(ell, p, x["dist"], x["fixed"][4])
+    ps_ops = PS_TEST_OPS * usable + PS_OFFER_OPS * kp * adm
+    ps_bytes = (nbytes(p.src, p.cost, p.slot, *([] if p.mask is None else [p.mask]))
+                + nbytes(x["dist"], x["npaths"], x["fixed"][4]) + 3 * n * kp * lanes * 4)
+    return {"ell_mp_round": (*bound(mp_ops, mp_bytes), mp_ops, mp_bytes),
+            "ell_parent_sets": (*bound(ps_ops, ps_bytes), ps_ops, ps_bytes), "admissible": adm}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device available")
@@ -734,7 +888,7 @@ def main() -> None:
     g_multiroot = {k: g_launched[k] - g_after[k] for k in g_launched}
     print(f"gather main path launches: {g_launched} (compute_whatif {g_whatif}, compute "
           f"{g_compute}, compute_multiroot {g_multiroot})", flush=True)
-    for name in ell.launches:
+    for name in ELL_REPLACES:
         require(g_launched[name] > 0, f"kernel {name} never launched on the gather main path")
     require(len(gres) == BATCH and gmr.dist.shape == (MULTIROOT, n), "gather batch sizes")
     checks = [(f"gather scenario {b}", gres[b], oracle[b]) for b in range(ORACLE_SCENARIOS)]
@@ -828,6 +982,92 @@ def main() -> None:
               f"{len(got)} scenarios bit-identical to the full path", flush=True)
     del full_be
 
+    # -- 3e. multipath: the kernels held to their plain versions, then the
+    # multipath paths counted
+    t_mp = time.perf_counter()
+    mx64 = mp_dispatch(ell, se, eg, lane_roots[:MP_HOLD_LANES].clone(),
+                       se.pack_edge_masks(masks[:MP_HOLD_LANES], dev), MP_K, True,
+                       f"at B={MP_HOLD_LANES}")
+    del mx64
+    mx = mp_dispatch(ell, se, eg, lane_roots, mask_w, MP_K, False, f"at B={BATCH}")
+    mb = mp_bounds(ell, mx, MP_K, int((p.slot >= 0).sum()) * BATCH - failed)
+    mx1 = mp_dispatch(ell, se, eg, root1, None, MP_K, True, "at B=1")
+    mb1 = mp_bounds(ell, mx1, MP_K, int((p1.slot >= 0).sum()))
+    ps8_in = (*mx1["ps_in"][:-1], 8)
+    ps8_err = held("ell_parent_sets", "at B=1 kp=8", ell.ell_parent_sets(*ps8_in),
+                   ell.parent_sets_plain(*ps8_in))
+    print(f"multipath kernels held in {time.perf_counter() - t_mp:.1f} s; admissible pairs "
+          f"{mb['admissible']} at B={BATCH}, {mb1['admissible']} at B=1", flush=True)
+
+    t_mp = time.perf_counter()
+    ell.reset_launches()
+    mbe = TorchSpfBackend(device=dev)
+    m_one = {k: mbe.compute(topo, multipath_k=k) for k in MP_KS}
+    m_k1 = mbe.compute(topo, multipath_k=1)
+    torch.cuda.synchronize()
+    m_compute = dict(ell.launches)
+    m_batch = mbe.compute_whatif(topo, masks, multipath_k=MP_K)
+    torch.cuda.synchronize()
+    m_whatif = {k: ell.launches[k] - m_compute[k] for k in ell.launches}
+    mdbe = TorchSpfBackend(device=dev)
+    mdbe.compute(topo, multipath_k=MP_K)
+    mdbe.delta_stats = {}
+    m_steps = []
+    before = dict(ell.launches)
+    for label, t in delta_chain(graph, synth, topo, K):
+        paths = Counter(mdbe.delta_paths)
+        t0 = time.perf_counter()
+        res = mdbe.compute(t, multipath_k=MP_K)
+        m_steps.append((label, t, res, (time.perf_counter() - t0) * 1e3,
+                        dict(mdbe.delta_stats), Counter(mdbe.delta_paths) - paths))
+    torch.cuda.synchronize()
+    m_launched = dict(ell.launches)
+    m_chain = {k: m_launched[k] - before[k] for k in m_launched}
+    print(f"multipath path launches: {m_launched} (compute x{len(MP_KS) + 1} {m_compute}, "
+          f"compute_whatif {m_whatif}, delta chain {m_chain})", flush=True)
+    for name in MP_REPLACES:
+        require(m_launched[name] > 0, f"kernel {name} never launched on the multipath path")
+        require(m_whatif[name] > 0 and m_chain[name] > 0,
+                f"kernel {name} missed the multipath what-if or the chain")
+    mp_oracle = ScalarSpfBackend()
+    for k, res in m_one.items():
+        require(res.parents.shape == (n, k) and res.nh_weights.shape == (n, n_atoms),
+                f"multipath compute(k={k}) shapes")
+        require(same_nine(res, mp_oracle.compute(topo, multipath_k=k)),
+                f"multipath compute(k={k}) differs from the multipath oracle")
+    require(same_planes(m_k1, gone) and all(getattr(m_k1, f) is None for f in MP_FIELDS),
+            "multipath_k=1 is not the single-path compute()")
+    require(len(m_batch) == BATCH, "multipath batch size")
+    for b in range(MP_ORACLE_SCENARIOS):
+        require(same_nine(m_batch[b], mp_oracle.compute(topo, masks[b], multipath_k=MP_K)),
+                f"multipath scenario {b} differs from the multipath oracle")
+    require(all(same_planes(a, b) for a, b in zip(m_batch, gres)),
+            "a multipath scenario's single-path planes differ from the single-path batch")
+    npaths_max = max(int(r.npaths.max()) for r in m_batch[:MP_ORACLE_SCENARIOS])
+    print(f"multipath oracle: compute(k={list(MP_KS)}) and scenarios "
+          f"0-{MP_ORACLE_SCENARIOS - 1} bit-identical in all nine planes (max npaths "
+          f"{npaths_max}, {int((m_one[MP_K].parents < n).sum())} parent entries at k={MP_K}); "
+          f"k=1 equals compute(); all {BATCH} scenarios' single-path planes equal the "
+          f"single-path batch", flush=True)
+    del m_batch
+    m_full = TorchSpfBackend(device=dev, incremental=False)
+    for i, (label, t, res, ms, st, paths) in enumerate(m_steps):
+        kind = graph.delta_kind(t.delta_base)
+        require(paths == Counter({(kind, "apply"): 1, (kind, "incremental"): 1}),
+                f"multipath delta step {i} ({label}) did not take the incremental path: "
+                f"{dict(paths)}")
+        require(same_nine(res, m_full.compute(synth.clone_topology(t), multipath_k=MP_K)),
+                f"multipath delta step {i} ({label}) differs from the full path")
+        if i < MP_ORACLE_STEPS:
+            require(same_nine(res, mp_oracle.compute(t, multipath_k=MP_K)),
+                    f"multipath delta step {i} ({label}) differs from the oracle")
+        print(f"multipath delta step {i} {label}: incremental, bit-identical to the full "
+              f"path{' and the oracle' if i < MP_ORACLE_STEPS else ''}; affected "
+              f"{st['affected_rows']} rows, relax {st['relax']} rounds, joint fixpoint "
+              f"{st['hops_nh']} rounds; compute() {ms:.3f} ms", flush=True)
+    del m_full
+    print(f"multipath paths checked in {time.perf_counter() - t_mp:.1f} s", flush=True)
+
     # -- 4. timing (the profiler last: once it has run, host launches are
     # slower, which the host-clock times below would count)
     for name, (card, *_rest) in calls.items():
@@ -897,6 +1137,43 @@ def main() -> None:
         incr_ms.append((time.perf_counter() - t1) * 1e3)
         lower_ms.append((t1 - t0) * 1e3)
         incr_ev_ms.append(ev_ms)
+    # Multipath: the kernels on their held inputs, compute(), the batch and
+    # its program, delta toggles at multipath_k=4.
+    m_rows = {}
+    for name, b_bounds, b1_bounds, x, x1 in (
+            ("ell_mp_round", mb["ell_mp_round"], mb1["ell_mp_round"], mx, mx1),
+            ("ell_parent_sets", mb["ell_parent_sets"], mb1["ell_parent_sets"], mx, mx1)):
+        if name == "ell_mp_round":
+            ms = statistics.mean(x["round_ms"])
+            ms1 = cuda_ms(lambda: ell.ell_mp_round(*x1["fixed"], *x1["first"]), KERNEL_REPS)
+            plain_ms = statistics.mean(x["plain_ms"])
+            err = max(x["err"], x1["err"])
+        else:
+            ms = cuda_ms(lambda: ell.ell_parent_sets(*x["ps_in"]), KERNEL_REPS)
+            ms1 = cuda_ms(lambda: ell.ell_parent_sets(*x1["ps_in"]), KERNEL_REPS)
+            plain_ms = x["ps_plain_ms"]
+            err = max(x["ps_err"], x1["ps_err"], ps8_err)
+        m_rows[name] = {"ms": ms, "ms_b1": ms1, "plain_ms": plain_ms, "max_abs_err": err,
+                        "bound_ms": b_bounds[0], "bound_by": b_bounds[1], "ops": b_bounds[2],
+                        "bytes": b_bounds[3], "bound_ms_b1": b1_bounds[0],
+                        "bound_by_b1": b1_bounds[1]}
+    m_compute_ms = host_ms(lambda: mbe.compute(topo, multipath_k=MP_K), COMPUTE_REPS)
+    m_compute8_ms = host_ms(lambda: mbe.compute(topo, multipath_k=8), COMPUTE_REPS)
+    m_batch_ms = host_ms(lambda: mbe.compute_whatif(topo, masks, multipath_k=MP_K), BATCH_REPS)
+    m_lanes_ms = host_ms(lambda: se.mp_lanes(eg, lane_roots, mask_w, MP_K), BATCH_REPS)
+    m_toggle_base = m_steps[-1][1]
+    m_toggles = toggles(graph, synth, m_toggle_base, K, DELTA_TOGGLES)
+    m_served = mdbe.delta_paths[("weight", "incremental")]
+    m_delta_times, m_toggle_stats = [], []
+    for t in m_toggles:
+        t0 = time.perf_counter()
+        mdbe.compute(t, multipath_k=MP_K)
+        torch.cuda.synchronize()
+        m_delta_times.append((time.perf_counter() - t0) * 1e3)
+        m_toggle_stats.append(dict(mdbe.delta_stats))
+    require(mdbe.delta_paths[("weight", "incremental")] == m_served + DELTA_TOGGLES,
+            "a timed multipath delta-linked compute() left the incremental path")
+    m_delta_ms = statistics.median(m_delta_times)
     for name, (card, *_rest) in calls1.items():
         rows1[name]["device_ms"] = device_ms_per_call(card, KERNEL_REPS)
     for name, (card, *_rest) in ecalls1.items():
@@ -906,6 +1183,12 @@ def main() -> None:
     g_busy_ms, g_top = device_busy(lambda: se.spf_lanes(eg, lane_roots, mask_w))
     g_compute_busy_ms, g_compute_top = device_busy(lambda: gbe.compute(topo))
     incr_busy_ms, incr_top = device_busy(lambda: se.spf_one_incremental(*last_in))
+    m_rows["ell_mp_round"]["device_ms_b1"] = device_ms_per_call(
+        lambda: ell.ell_mp_round(*mx1["fixed"], *mx1["first"]), KERNEL_REPS)
+    m_rows["ell_parent_sets"]["device_ms_b1"] = device_ms_per_call(
+        lambda: ell.ell_parent_sets(*mx1["ps_in"]), KERNEL_REPS)
+    m_busy_ms, m_top = device_busy(lambda: se.mp_lanes(eg, lane_roots, mask_w, MP_K))
+    m_compute_busy_ms, m_compute_top = device_busy(lambda: mbe.compute(topo, multipath_k=MP_K))
     extra = toggles(graph, synth, fresh[-1], K, 1)[0]
     served = dbe.delta_paths[("weight", "incremental")]
     d_busy_ms, _ = device_busy(lambda: dbe.compute(extra))
@@ -1017,6 +1300,38 @@ def main() -> None:
           f"{statistics.median(incr_ev_ms):.3f} ms between CUDA events; device busy "
           f"{incr_busy_ms:.3f} ms in one spf_one_incremental, {d_busy_ms:.3f} ms in one "
           f"delta-linked compute(); top device ops: {incr_top}", flush=True)
+    for name, row in m_rows.items():
+        dev_b1 = (f"{row['device_ms_b1']:.4f} ms" if row["device_ms_b1"] > 0
+                  else "not measured")
+        print(f"time {name}: {row['ms']:.3f} ms/launch at B={BATCH} (plain "
+              f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms by "
+              f"{row['bound_by']}, {row['ops']} operations, {row['bytes']} bytes); "
+              f"{row['ms_b1']:.4f} ms/launch at B=1 by CUDA events, {dev_b1} on the device "
+              f"(profiler), bound {row['bound_ms_b1']:.5f} ms by {row['bound_by_b1']}; "
+              f"launches per multipath compute_whatif {m_whatif[name]}, per "
+              f"{len(MP_KS) + 1} compute() calls {m_compute[name]}, on the delta chain "
+              f"{m_chain[name]}", flush=True)
+    m_kernel_ms = (m_whatif["ell_mp_round"] * m_rows["ell_mp_round"]["ms"]
+                   + m_whatif["ell_parent_sets"] * m_rows["ell_parent_sets"]["ms"])
+    print(f"time multipath compute: {m_compute_ms:.3f} ms at multipath_k={MP_K}, "
+          f"{m_compute8_ms:.3f} ms at 8 (single-path gather compute {g_compute_ms:.3f} ms); "
+          f"device busy {m_compute_busy_ms:.3f} ms; top device ops: {m_compute_top}",
+          flush=True)
+    print(f"time multipath compute_whatif: {m_batch_ms:.3f} ms per {BATCH}-scenario batch at "
+          f"multipath_k={MP_K} ({BATCH / m_batch_ms * 1e3:.1f} scenario-SPFs/s; single-path "
+          f"gather batch {g_batch_ms:.3f} ms)", flush=True)
+    print(f"breakdown multipath compute_whatif: program (mp_lanes) {m_lanes_ms:.3f} ms (multipath "
+          f"kernels {m_kernel_ms:.3f} ms = launches x ms/launch; device busy {m_busy_ms:.3f} ms, "
+          f"idle share {1 - m_busy_ms / m_lanes_ms:.3f}), mask packing, transposes, readback "
+          f"and results {m_batch_ms - m_lanes_ms:.3f} ms; top device ops: {m_top}", flush=True)
+    m_phase = {key: statistics.median(st[key] for st in m_toggle_stats)
+               for key in ("affected", "relax", "hops_nh", "hops_nh_ms")}
+    print(f"time multipath compute delta: {m_delta_ms:.3f} ms (median of {DELTA_TOGGLES} "
+          f"delta-linked compute(multipath_k={MP_K}) calls toggling one link's cost; "
+          f"{[round(t, 3) for t in m_delta_times]}; single-path {d_delta_ms:.3f} ms); phase "
+          f"medians: affected {m_phase['affected']} rounds, relax {m_phase['relax']} rounds, "
+          f"first parent + joint fixpoint ({m_phase['hops_nh']} rounds) + parent sets "
+          f"{m_phase['hops_nh_ms']:.3f} ms", flush=True)
     entries = [
         (name, SOURCE, REPLACES[name], launched[name], row, (rows1[name],))
         for name, row in rows.items()
@@ -1039,6 +1354,15 @@ def main() -> None:
             krow["full_round_ms"] = frows[krow["name"]]["full_round_ms"]
         if krow["name"] in d_launched:  # launches on the DeltaPath chain
             krow["delta_chain_launches"] = d_launched[krow["name"]]
+    for name, row in m_rows.items():
+        kernel_rows.append({
+            "name": name, "route": "cuda", "source": MP_SOURCE, "replaces": MP_REPLACES[name],
+            "launches": m_launched[name], "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": None, "ms_b1": row["ms_b1"],
+            "launches_whatif": m_whatif[name], "launches_compute": m_compute[name],
+            "delta_chain_launches": m_chain[name],
+        })
     print(json.dumps({"kernels": kernel_rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,11 @@
 """Bring the JAX package's engine state across to the port.
 
 The arguments are the fields of a ``holo_tpu`` ``BlockSpfGraph`` /
-``BlockGraph`` / ``DeviceGraph`` as a mapping of numpy arrays and ints
-(``np.asarray`` of each), so this module needs neither JAX nor
-``holo_tpu``.  The tests use it to run both packages on identical planes.
+``BlockGraph`` / ``DeviceGraph`` / ``SpfTensors`` / ``MultipathTensors`` as
+a mapping of numpy arrays and ints (``np.asarray`` of each), so this module
+needs neither JAX nor ``holo_tpu``.  The tests use it to run both packages
+on identical planes, and to seed both packages' incremental paths with the
+same previous run.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import torch
 from holo_tpu_torch.device import resolve_device
 from holo_tpu_torch.ops.blocked import BlockGraph, block_graph, edge_planes
 from holo_tpu_torch.ops.blocked_spf import BlockSpfGraph, block_spf_graph
-from holo_tpu_torch.ops.spf_engine import DeviceGraph
+from holo_tpu_torch.ops.spf_engine import DeviceGraph, MultipathTensors, SpfTensors
 
 
 def _port_arrays(fields: Mapping) -> dict:
@@ -46,3 +48,27 @@ def device_graph_from_numpy(fields: Mapping, device=None) -> DeviceGraph:
     planes = {k: np.array(fields[k]) for k in DeviceGraph._fields}  # writable copies
     planes["direct_nh_words"] = planes["direct_nh_words"].view(np.int32)
     return DeviceGraph(**{k: torch.from_numpy(v).to(dev) for k, v in planes.items()})
+
+
+def _int32_planes(fields: Mapping, names, device) -> dict:
+    """Writable int32 copies of ``fields[name]`` on ``device``; uint32 bit
+    patterns (next-hop words) are reinterpreted, not converted."""
+    dev = resolve_device(device)
+    out = {}
+    for k in names:
+        x = np.array(fields[k])
+        out[k] = torch.from_numpy(x.view(np.int32) if x.dtype == np.uint32 else
+                                  x.astype(np.int32)).to(dev)
+    return out
+
+
+def spf_tensors_from_numpy(fields: Mapping, device=None) -> SpfTensors:
+    """Port ``SpfTensors`` from the JAX one's four fields (one run or a
+    batch); ``nexthops`` become int32 bit patterns."""
+    return SpfTensors(**_int32_planes(fields, SpfTensors._fields, device))
+
+
+def multipath_tensors_from_numpy(fields: Mapping, device=None) -> MultipathTensors:
+    """Port ``MultipathTensors`` from the JAX one's five fields (one run or
+    a batch)."""
+    return MultipathTensors(**_int32_planes(fields, MultipathTensors._fields, device))

@@ -1,10 +1,10 @@
 """Build and bind the port's CUDA kernels (nvcc -> shared library -> ctypes).
 
-The sources under ``holo_tpu_torch/csrc/`` (the blocked engine's and the
-gather engine's kernels) are compiled at first use for ``sm_90a``, one
-``nvcc`` per source, all started together, and linked into one library in
-``holo_tpu_torch/build/`` (listed in ``.gitignore``), named by a hash of the
-sources so an edit rebuilds it.  Each C entry point takes ``void*``
+The sources under ``holo_tpu_torch/csrc/`` (the blocked engine's kernels,
+the gather engine's and its multipath kernels) are compiled at first use for
+``sm_90a``, one ``nvcc`` per source, all started together, and linked into
+one library in ``holo_tpu_torch/build/`` (listed in ``.gitignore``), named
+by a hash of the sources so an edit rebuilds it.  Each C entry point takes ``void*``
 pointers (NULL for an absent plane), ``int`` sizes and the CUDA stream,
 launches on that stream and returns ``cudaGetLastError()``.
 """
@@ -22,7 +22,8 @@ from pathlib import Path
 import torch
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = (_PKG / "csrc" / "blocked_kernels.cu", _PKG / "csrc" / "ell_kernels.cu")
+SOURCES = (_PKG / "csrc" / "blocked_kernels.cu", _PKG / "csrc" / "ell_kernels.cu",
+           _PKG / "csrc" / "mp_kernels.cu")
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -41,6 +42,8 @@ SIGNATURES = {
     "holo_ell_first_parent": (*[_P] * 8, _I, _I, _I, _P),
     "holo_ell_nh_seed": (*[_P] * 6, _I, _I, _I, _I, _P),
     "holo_ell_nh_round": (*[_P] * 7, _I, _I, _I, _I, _P),
+    "holo_ell_mp_round": (*[_P] * 15, _I, _I, _I, _I, _P),
+    "holo_ell_parent_sets": (*[_P] * 10, _I, _I, _I, _I, _P),
 }
 
 _LIB: ctypes.CDLL | None = None

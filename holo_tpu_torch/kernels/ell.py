@@ -2,9 +2,13 @@
 
 Four wrappers over ``csrc/ell_kernels.cu`` -- :func:`ell_relax`,
 :func:`ell_first_parent`, :func:`ell_nh_seed`, :func:`ell_nh_round` -- one
-per ``[N, K] x lanes`` step of the fixpoints in ``spf_one``.  In the JAX
-package each step is an XLA loop fusion, not a Pallas kernel: the source
-file names the lines each one stands for.  A wrapper given CPU tensors
+per ``[N, K] x lanes`` step of the fixpoints in ``spf_one``, and two over
+``csrc/mp_kernels.cu`` for the multipath program (``spf_one_multipath``):
+:func:`ell_mp_round`, one Jacobi round of hops, next hops, path counts and
+per-atom weights (without the last two it is the hops + next-hop round of
+the incremental path), and :func:`ell_parent_sets`.  In the JAX package
+each step is an XLA loop fusion, not a Pallas kernel: the source files
+name the lines each one stands for.  A wrapper given CPU tensors
 computes the plain version; given CUDA tensors it launches the kernel on the
 current stream or raises.  It never falls back.  :data:`launches` counts
 kernel launches per wrapper.
@@ -29,6 +33,8 @@ Plane conventions (all int32, INF = 1 << 30 as unreachable):
   has hops 0 in lane b (``pack_lane_bits(hops == 0)``);
 - ``inherit`` [N, K, ceil(B / 32)]: ``dag & ~hop0[src]``, the DAG slots
   whose source has hops != 0 (written by :func:`ell_nh_seed`);
+- path counts [N, B] and per-atom weights [N, A, B] (A = 32 W), saturated
+  at ``MP_SAT``; parent-set planes [N, Kp, B];
 - ``frontier`` [N, ceil(B / 32)]: bit b % 32 of word [v, b // 32] set where
   lane b of row v changed in the previous round (or may have: a bit set
   where nothing changed only costs the kernel work).  :func:`ell_relax` and
@@ -45,11 +51,13 @@ from holo_tpu_torch.kernels import build
 from holo_tpu_torch.kernels.blocked import or_reduce
 
 INF = 1 << 30
+MP_SAT = 1 << 17  # ops.graph.MP_SAT
 SMALL = 8  # lane counts up to this run the kernels' per-row form
 _TEMP = 1 << 26  # elements of the largest [N, K, lanes] temporary of a plain version
 
 #: kernel launches per wrapper since the last :func:`reset_launches`
-launches = {"ell_relax": 0, "ell_first_parent": 0, "ell_nh_seed": 0, "ell_nh_round": 0}
+launches = {"ell_relax": 0, "ell_first_parent": 0, "ell_nh_seed": 0, "ell_nh_round": 0,
+            "ell_mp_round": 0, "ell_parent_sets": 0}
 
 
 def reset_launches() -> None:
@@ -212,6 +220,105 @@ def nh_round_plain(src, inherit, nh, frontier=None):
     return out, *_round_result((out != nh).any(1))
 
 
+def mp_round_plain(src, dag, direct, inc, roots, parent, hops, nh, npaths=None, aw=None):
+    """One Jacobi round of the multipath fixpoint (``_mp_fixpoint``'s body),
+    every value recomputed from the previous round's planes: (hops, nh,
+    npaths, aw, changed int32 [1]); without ``npaths`` and ``aw`` the hops +
+    next-hop round (``_hops_nh_fixpoint``), their outputs None.
+
+    - hops: the first parent's hops plus ``inc`` (1 at a router), 0 at the
+      lane's root, N + 1 without a parent or where the parent has N + 1;
+    - next-hop words: per word, the OR of the slot's direct words over the
+      DAG slots whose source has hops 0 and of the source's words over the
+      other DAG slots (``_nh_words_round``);
+    - npaths: ``min(sum over DAG slots of npaths[src], MP_SAT)``, 1 at the
+      root;
+    - aw: ``min(sum over DAG slots of (hops[src] == 0 ? npaths[src] on the
+      slot's direct atoms : aw[src]), MP_SAT)``.
+
+    The per-atom sums walk the slots one at a time, so no temporary is
+    larger than [N, max(K, A), chunk] (chunk from :func:`lane_chunks`)."""
+    n, k = src.shape
+    lanes = hops.shape[1]
+    words = direct.shape[2]
+    big = n + 1
+    dev = src.device
+    s = src.long()
+    is_root = torch.arange(n, device=dev)[:, None] == roots.long()[None, :]
+    ext = torch.cat([hops, hops.new_full((1, lanes), big)])
+    ph = torch.gather(ext, 0, torch.where((parent >= 0) & (parent < n), parent, n).long())
+    hops_new = torch.where(is_root, 0, torch.where(ph < big, ph + inc[:, None], big))
+    nh_new = torch.empty_like(nh)
+    np_new = None if npaths is None else torch.empty_like(npaths)
+    aw_new = None if aw is None else torch.empty_like(aw)
+    atoms = 0 if aw is None else aw.shape[1]
+    shift = torch.arange(32, dtype=torch.int32, device=dev)
+    for sl in lane_chunks(n, max(k, atoms), lanes):
+        dag_sl = _unpack(dag, sl)
+        h_nbr = hops[:, sl][s]
+        direct_slot = dag_sl & (h_nbr == 0)
+        inherit_slot = dag_sl & (h_nbr != 0)
+        for w in range(words):
+            take = torch.where(direct_slot, direct[:, :, w, None],
+                               torch.where(inherit_slot, nh[:, w, sl][s], 0))
+            nh_new[:, w, sl] = or_reduce(take, 1)
+        if npaths is None:
+            continue
+        np_nbr = torch.where(dag_sl, npaths[:, sl][s], 0)
+        np_sum = np_nbr.sum(1, dtype=torch.int32)
+        np_new[:, sl] = torch.where(is_root[:, sl], 1, torch.clamp_max(np_sum, MP_SAT))
+        direct_np = torch.where(direct_slot, np_nbr, 0)
+        aw_sl = aw[:, :, sl]
+        acc = torch.zeros((n, atoms, sl.stop - sl.start), dtype=torch.int32, device=dev)
+        for kk in range(k):
+            onehot = ((direct[:, kk, :, None] >> shift) & 1).reshape(n, atoms)
+            acc += onehot[:, :, None] * direct_np[:, kk, None, :]
+            acc += torch.where(inherit_slot[:, kk, None, :], aw_sl[s[:, kk]], 0)
+        aw_new[:, :, sl] = torch.clamp_max(acc, MP_SAT)
+    moved = (hops_new != hops).any() | (nh_new != nh).any()
+    if npaths is not None:
+        moved = moved | (np_new != npaths).any() | (aw_new != aw).any()
+    return hops_new, nh_new, np_new, aw_new, moved.to(torch.int32).reshape(1)
+
+
+def parent_sets_plain(src, cost, slot, mask, dist, npaths, roots, kp: int):
+    """(parents, pdist, pweight) [N, kp, B]: ``_mp_parent_sets`` per lane.
+    ``kp`` rounds of a masked lexicographic min of (path cost, source) over
+    the admissible slots (usable, source reached, v reached and not the
+    lane's root, and either tight, ``dist[src] + cost == dist[v]``, or
+    strictly downward, ``dist[src] < dist[v]``); each round retires every
+    slot of the source it emits.  Past the set: N, INF, 0."""
+    n, k = src.shape
+    lanes = dist.shape[1]
+    dev = src.device
+    shape = (n, kp, lanes)
+    parents = torch.empty(shape, dtype=torch.int32, device=dev)
+    pdist = torch.empty(shape, dtype=torch.int32, device=dev)
+    pweight = torch.empty(shape, dtype=torch.int32, device=dev)
+    src3 = src[:, :, None]
+    for sl in lane_chunks(n, k, lanes):
+        d_nbr = dist[:, sl][src.long()]
+        dv = dist[:, sl][:, None, :]
+        not_root = torch.arange(n, device=dev)[:, None, None] != roots[sl][None, None, :]
+        ok = _usable(slot, mask, sl) & (d_nbr < INF) & (dv < INF) & not_root
+        pathcost = d_nbr + cost[:, :, None]
+        adm = ok & ((pathcost == dv) | (d_nbr < dv))
+        pathcost = torch.where(adm, pathcost, INF)
+        np_nbr = npaths[:, sl][src.long()]
+        remaining = adm
+        for r in range(kp):
+            cmin = torch.where(remaining, pathcost, INF).amin(1)
+            tie = remaining & (pathcost == cmin[:, None, :])
+            smin = torch.where(tie, src3, n).amin(1)
+            has = cmin < INF
+            parents[:, r, sl] = torch.where(has, smin, n)
+            pdist[:, r, sl] = torch.where(has, cmin, INF)
+            sel = tie & (src3 == smin[:, None, :])
+            pweight[:, r, sl] = torch.where(has, torch.where(sel, np_nbr, 0).amax(1), 0)
+            remaining = remaining & (src3 != smin[:, None, :])
+    return parents, pdist, pweight
+
+
 # ---------------------------------------------------------------------------
 # Wrappers: CPU tensors -> plain version; CUDA tensors -> the kernel.
 
@@ -300,3 +407,64 @@ def ell_nh_round(src, inherit, nh, frontier):
     _launch("ell_nh_round", src, inherit, nh, frontier, out, changed, front_out, n, k,
             lanes, words)
     return out, changed, front_out
+
+
+def ell_mp_round(src, dag, direct, inc, roots, parent, hops, nh, npaths=None, aw=None):
+    """(hops, nh, npaths, aw, changed int32 [1]): one Jacobi round of the
+    multipath fixpoint over the DAG bits ``dag`` (``_mp_fixpoint``'s body,
+    ``holo_tpu/ops/spf_engine.py:1281-1322``); without ``npaths`` and ``aw``
+    the hops + next-hop round (``:1211-1227``), their outputs None.  See
+    :func:`mp_round_plain`.  ``inc`` [N] is 1 at a router, ``parent`` [N, B]
+    the first parent (N for none)."""
+    if (npaths is None) != (aw is None):
+        raise ValueError("ell_mp_round takes both npaths and aw, or neither")
+    if not build.on_card(src, dag, direct, inc, roots, parent, hops, nh, npaths, aw):
+        return mp_round_plain(src, dag, direct, inc, roots, parent, hops, nh, npaths, aw)
+    n, k = src.shape
+    lanes = hops.shape[1]
+    words = direct.shape[2] if direct.dim() == 3 else -1
+    bad = dag.shape != (n, k, mask_words(lanes)) or direct.shape != (n, k, words)
+    bad |= inc.shape != (n,) or roots.shape != (lanes,) or parent.shape != (n, lanes)
+    bad |= hops.shape != (n, lanes) or nh.shape != (n, words, lanes)
+    if npaths is not None:
+        bad |= npaths.shape != (n, lanes) or aw.shape != (n, 32 * words, lanes)
+    if bad:
+        raise ValueError(
+            f"mp_round planes disagree: src {tuple(src.shape)}, dag {tuple(dag.shape)}, "
+            f"direct {tuple(direct.shape)}, inc {tuple(inc.shape)}, roots "
+            f"{tuple(roots.shape)}, parent {tuple(parent.shape)}, hops {tuple(hops.shape)}, "
+            f"nh {tuple(nh.shape)}, npaths "
+            f"{None if npaths is None else tuple(npaths.shape)}, aw "
+            f"{None if aw is None else tuple(aw.shape)}"
+        )
+    hops_out, nh_out = torch.empty_like(hops), torch.empty_like(nh)
+    np_out = None if npaths is None else torch.empty_like(npaths)
+    aw_out = None if aw is None else torch.empty_like(aw)
+    changed = torch.zeros(1, dtype=torch.int32, device=hops.device)
+    _launch("ell_mp_round", src, dag, direct, inc, roots, parent, hops, nh, npaths, aw,
+            hops_out, nh_out, np_out, aw_out, changed, n, k, lanes, words)
+    return hops_out, nh_out, np_out, aw_out, changed
+
+
+def ell_parent_sets(src, cost, slot, mask, dist, npaths, roots, kp: int):
+    """(parents, pdist, pweight) [N, kp, B]: per (vertex, lane) the ``kp``
+    smallest (path cost, source) pairs over the admissible slots, one per
+    source at its cheapest slot, and ``npaths[source]``; N, INF, 0 past the
+    set (``_mp_parent_sets``, ``holo_tpu/ops/spf_engine.py:1327-1372``).
+    See :func:`parent_sets_plain`."""
+    if kp not in (1, 2, 4, 8):
+        raise ValueError(f"kp={kp}: parent sets are 1, 2, 4 or 8 wide (mp_pad)")
+    if not build.on_card(src, cost, slot, mask, dist, npaths, roots):
+        return parent_sets_plain(src, cost, slot, mask, dist, npaths, roots, kp)
+    n, k = src.shape
+    lanes = dist.shape[1]
+    _check_planes(src, cost, slot, mask, lanes, plane=dist, roots=roots)
+    if npaths.shape != (n, lanes):
+        raise ValueError(f"npaths {tuple(npaths.shape)} is not [{n}, {lanes}]")
+    shape = (n, kp, lanes)
+    parents = torch.empty(shape, dtype=torch.int32, device=dist.device)
+    pdist = torch.empty_like(parents)
+    pweight = torch.empty_like(parents)
+    _launch("ell_parent_sets", src, cost, slot, mask, dist, npaths, roots, parents, pdist,
+            pweight, n, k, lanes, kp)
+    return parents, pdist, pweight

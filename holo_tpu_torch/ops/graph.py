@@ -21,6 +21,13 @@ import numpy as np
 # Distances are exact int32; INF marks unreachable in host-facing planes.
 INF = np.int32(1 << 30)
 
+# Multipath path-count saturation (UCMP weights): every engine and the
+# scalar oracle compute the same clamped recursion
+#   npaths[v] = min(sum over DAG parents u of npaths[u], MP_SAT)
+# over already-clamped parent values, which keeps a row sum exact in int32
+# for any in-degree below 16384.
+MP_SAT = np.int32(1 << 17)
+
 _TOPOLOGY_UIDS = itertools.count()
 
 

@@ -19,6 +19,13 @@ fixpoints over the ELL in-edge layout are the same:
    from the DAG bits and the lane bits of hops 0), then Jacobi OR rounds
    inherit their sets (``ell_nh_round``, with its own frontier).
 
+The multipath program (``spf_one_multipath``, ``spf_multipath_batch``,
+``spf_one_incremental_multipath``) runs steps 1-2, then one joint Jacobi
+fixpoint of hops, next-hop words, saturated path counts and per-atom UCMP
+weights (``ell_mp_round``, JAX's ``_mp_fixpoint``: one changed flag over
+the four planes, so truncated runs stop where JAX's do), then the parent
+sets (``ell_parent_sets``).
+
 ``torch.vmap`` cannot carry the data-dependent loops, so one program runs
 every lane at once, with the lanes on the minor axis of [N, B] planes (the
 reverse of JAX's [B, N]); the public functions return JAX's layout.  Each
@@ -45,7 +52,6 @@ import torch
 
 from holo_tpu_torch.device import resolve_device
 from holo_tpu_torch.kernels import ell
-from holo_tpu_torch.kernels.blocked import or_reduce
 from holo_tpu_torch.ops.graph import INF as _INF
 from holo_tpu_torch.ops.graph import (
     EllGraph,
@@ -76,6 +82,40 @@ class SpfTensors(NamedTuple):
     parent: torch.Tensor  # int32[N]; first parent, N (sentinel) if none
     hops: torch.Tensor  # int32[N]; router hops from root, N+1 if unreachable
     nexthops: torch.Tensor | None  # int32[N, W] atom words (uint32 bits)
+
+
+class MultipathTensors(NamedTuple):
+    """Multi-parent frontier planes of one SPF run (or a batch, with a
+    leading axis), ``holo_tpu``'s ``MultipathTensors``.  ``Kp`` is the
+    padded parent-set width (:func:`mp_pad`), ``A`` the atom lanes (32 W).
+
+    - ``parents``: up to Kp admissible parents in ascending (path cost via
+      the parent, parent id) order, N past the set.  Admissible: the
+      shortest-path DAG parents and the loop-free diversity parents,
+      sources of usable in-edges with ``dist[u] < dist[v]`` strictly;
+    - ``pdist``: the path cost via that parent, INF past the set;
+    - ``pweight``: the parent's saturated path count, 0 past the set;
+    - ``npaths``: the vertex's saturated shortest-path count (0 where
+      unreachable);
+    - ``nh_weights``: per atom the saturated number of shortest paths whose
+      first hop is that atom.
+    """
+
+    parents: torch.Tensor  # int32[N, Kp]
+    pdist: torch.Tensor  # int32[N, Kp]
+    pweight: torch.Tensor  # int32[N, Kp]
+    npaths: torch.Tensor  # int32[N]; saturated at MP_SAT
+    nh_weights: torch.Tensor  # int32[N, A]; saturated at MP_SAT
+
+
+def mp_pad(k: int) -> int:
+    """The padded parent-set width of a ``max-paths`` k: the power of two
+    at or above k, within 1..8 (``holo_tpu``'s shape buckets)."""
+    k = max(1, min(int(k), 8))
+    kp = 1
+    while kp < k:
+        kp *= 2
+    return kp
 
 
 def device_graph_from_ell(ell_graph: EllGraph, device=None) -> DeviceGraph:
@@ -223,6 +263,51 @@ def spf_lanes(g: DeviceGraph, roots: torch.Tensor, mask, max_iters=None, nexthop
     return dist, parent, torch.where(dist < INF, hops, n + 1), nh
 
 
+def mp_fixpoint(g: DeviceGraph, roots, dag, parent, hops, nh, npaths, aw, limit: int):
+    """JAX's ``_mp_fixpoint`` for every lane: (hops, nh, npaths, aw, rounds)
+    from the seeds, over the DAG bits ``dag`` [N, K, ceil(B / 32)] and the
+    first parents [N, B].  Each round recomputes every value from the last
+    (``ell_mp_round``); the loop runs while any value of any plane changed
+    and fewer than ``limit`` rounds ran.  Without ``npaths`` and ``aw`` it is
+    ``_hops_nh_fixpoint``.  The seeds are only read."""
+    inc = g.is_router.to(torch.int32)
+    rounds = 0
+    changed = True
+    while changed and rounds < limit:
+        hops, nh, npaths, aw, flag = ell.ell_mp_round(
+            g.in_src, dag, g.direct_nh_words, inc, roots, parent, hops, nh, npaths, aw)
+        changed = bool(flag)
+        rounds += 1
+    return hops, nh, npaths, aw, rounds
+
+
+def mp_lanes(g: DeviceGraph, roots: torch.Tensor, mask, kp: int, max_iters=None):
+    """The lane-batched ``spf_one_multipath``: ((dist, parent, hops [N, B],
+    nexthops [N, W, B]), (parents, pdist, pweight [N, kp, B], npaths [N, B],
+    nh_weights [N, A, B])), lane b rooted at ``roots[b]`` under mask bit b."""
+    n = g.in_src.shape[0]
+    lanes = roots.shape[0]
+    words = g.direct_nh_words.shape[2]
+    dev = g.in_src.device
+    limit = n if max_iters is None else max_iters
+    p = lane_planes(g, mask)
+    dist = distance_fixpoint(p, roots, limit)
+    parent, dag = ell.ell_first_parent(*p, dist, roots)
+    at_root = torch.arange(n, device=dev)[:, None] == roots.long()[None, :]
+    hops, nh, npaths, aw, _ = mp_fixpoint(
+        g, roots, dag, parent,
+        torch.where(at_root, 0, n + 1).to(torch.int32),
+        torch.zeros((n, words, lanes), dtype=torch.int32, device=dev),
+        at_root.to(torch.int32),
+        torch.zeros((n, 32 * words, lanes), dtype=torch.int32, device=dev),
+        limit,
+    )
+    parents, pdist, pweight = ell.ell_parent_sets(*p, dist, npaths, roots, kp)
+    reach = dist < INF
+    return ((dist, parent, torch.where(reach, hops, n + 1), nh),
+            (parents, pdist, pweight, torch.where(reach, npaths, 0), aw))
+
+
 def _roots(root, batch: int, device) -> torch.Tensor:
     return torch.full((batch,), int(root), dtype=torch.int32, device=device)
 
@@ -234,6 +319,17 @@ def _batch_major(dist, parent, hops, nh) -> SpfTensors:
         parent=parent.T.contiguous(),
         hops=hops.T.contiguous(),
         nexthops=None if nh is None else nh.permute(2, 0, 1).contiguous(),
+    )
+
+
+def _mp_batch_major(parents, pdist, pweight, npaths, aw) -> MultipathTensors:
+    """Lane-minor multipath planes -> JAX's [B, N, ...] layout."""
+    return MultipathTensors(
+        parents=parents.permute(2, 0, 1).contiguous(),
+        pdist=pdist.permute(2, 0, 1).contiguous(),
+        pweight=pweight.permute(2, 0, 1).contiguous(),
+        npaths=npaths.T.contiguous(),
+        nh_weights=aw.permute(2, 0, 1).contiguous(),
     )
 
 
@@ -276,6 +372,28 @@ def spf_whatif_batch(
     mask = pack_edge_masks(edge_masks, dev)
     batch = int(np.shape(edge_masks)[0])
     return _batch_major(*spf_lanes(g, _roots(root, batch, dev), mask, max_iters))
+
+
+def spf_one_multipath(g: DeviceGraph, root: int, kp: int, edge_mask=None, max_iters=None):
+    """Full SPF and the multi-parent frontier: (SpfTensors, MultipathTensors)
+    of one run.  The SpfTensors half comes from the joint fixpoint, as in
+    JAX; it equals :func:`spf_one` wherever the fixpoints converge."""
+    dev = g.in_src.device
+    mask = None if edge_mask is None else pack_edge_masks(np.asarray(edge_mask)[None], dev)
+    sp, mp = mp_lanes(g, _roots(root, 1, dev), mask, kp, max_iters)
+    return (SpfTensors(*(x[0] for x in _batch_major(*sp))),
+            MultipathTensors(*(x[0] for x in _mp_batch_major(*mp))))
+
+
+def spf_multipath_batch(g: DeviceGraph, root: int, edge_masks, kp: int, max_iters=None):
+    """The multipath what-if over scenario edge masks (bool [B, E]), one
+    lane-batched program: (SpfTensors, MultipathTensors) with a leading
+    batch axis."""
+    dev = g.in_src.device
+    mask = pack_edge_masks(edge_masks, dev)
+    batch = int(np.shape(edge_masks)[0])
+    sp, mp = mp_lanes(g, _roots(root, batch, dev), mask, kp, max_iters)
+    return _batch_major(*sp), _mp_batch_major(*mp)
 
 
 def spf_multiroot(g: DeviceGraph, roots, edge_mask=None, max_iters=None) -> SpfTensors:
@@ -571,51 +689,22 @@ class DeviceGraphCache:
 
 
 def hops_nh_recompute(g: DeviceGraph, root: int, dag, parent, hops0, nh0, limit: int):
-    """Jacobi hops + next-hop fixpoint over a settled DAG, seeded with
-    ``hops0`` [N] and ``nh0`` [N, W] (``_hops_nh_fixpoint``): (hops, next
-    hops, rounds).  Each round gathers ``[hops | nh]`` once and recomputes
-    every value from it -- the parent's hops plus one at a router, and per
-    word the OR of the direct words of DAG slots whose source has hops 0
-    with the words of the other DAG slots' sources (``_nh_words_round``) --
-    so a stale seed value can fall, which ``ell_nh_round`` (OR into its
-    input) could not do.  ``dag`` is bool [N, K].  The seeds are only
+    """Jacobi hops + next-hop fixpoint of one lane over a settled DAG (bits
+    [N, K, 1]), seeded with ``hops0`` [N] and ``nh0`` [N, W]
+    (``_hops_nh_fixpoint``): (hops, next hops, rounds).  Each round
+    recomputes every value from the last (``ell_mp_round`` without the
+    count and weight planes), so a stale seed value can fall, which
+    ``ell_nh_round`` (OR into its input) could not do.  The seeds are only
     read."""
-    n = g.in_src.shape[0]
-    big = n + 1
-    dev = g.in_src.device
-    is_root = torch.arange(n, device=dev) == int(root)
-    inc = g.is_router.to(torch.int32)
-    has_parent = parent < n
-    pidx = torch.where(has_parent, parent, 0).long()
-    src = g.in_src.long()
-    direct = g.direct_nh_words
-    hops, nh = hops0, nh0
-    it = 0
-    changed = True
-    while changed and it < limit:
-        state = torch.cat([hops[:, None], nh], dim=1)  # int32 [N, 1 + W]
-        nbr = state[src]  # [N, K, 1 + W], the one gather of the round
-        h_nbr = nbr[:, :, 0]
-        ph = torch.where(has_parent, hops[pidx], big)  # every parent slot holds hops[parent]
-        hops_new = torch.where(is_root, 0, torch.where(has_parent & (ph < big), ph + inc, big))
-        direct_slot = (dag & (h_nbr == 0))[:, :, None]
-        inherit_slot = (dag & (h_nbr != 0))[:, :, None]
-        take = torch.where(direct_slot, direct, torch.where(inherit_slot, nbr[:, :, 1:], 0))
-        nh_new = or_reduce(take, 1)
-        changed = bool((hops_new != hops).any() | (nh_new != nh).any())
-        hops, nh = hops_new, nh_new
-        it += 1
-    return hops, nh, it
+    roots = _roots(root, 1, g.in_src.device)
+    hops, nh, _, _, rounds = mp_fixpoint(g, roots, dag, parent[:, None], hops0[:, None],
+                                         nh0[:, :, None], None, None, limit)
+    return hops[:, 0], nh[:, :, 0], rounds
 
 
-def spf_one_incremental(g: DeviceGraph, root: int, prev: SpfTensors, seed_rows,
-                        max_iters=None, stats: dict | None = None) -> SpfTensors:
-    """Incremental full SPF (``spf_one_incremental``, one lane): recompute
-    only what a delta can have changed, seeded from the previous run.
-
-    ``g`` is the delta-updated graph, ``prev`` the previous run's tensors
-    on the base graph (only read), ``seed_rows`` the vertices whose
-    previous distance may now be too small (``TopologyDelta.seed_rows``).
+def _incremental_dag(g: DeviceGraph, root: int, prev: SpfTensors, seed_rows, limit: int):
+    """Phases 1-2 of the incremental SPF and the DAG: (planes, dist [N, 1],
+    parent [N, 1], dag bits, phase record).
 
     1. The affected set: the seed rows and their descendants in the
        previous first-parent tree (one gather of ``aff[parent]`` a round).
@@ -623,21 +712,11 @@ def spf_one_incremental(g: DeviceGraph, root: int, prev: SpfTensors, seed_rows,
        the affected rows at INF and the root at 0.  Its first frontier marks
        every row with a finite seed: a seed is not the output of a round,
        so no source of it may be skipped.
-    3. ``ell_first_parent`` (parent and DAG bits), then
-       :func:`hops_nh_recompute` seeded with the previous hops and next
-       hops, as JAX seeds it.
 
-    Every loop runs JAX's rounds (while changed and fewer than ``max_iters``
-    or N), so the bits equal JAX's incremental path under truncation too.
-    ``stats``, when given, receives each phase's rounds and host
-    milliseconds (each phase ends on a host sync) and the affected set's
-    size (one more sync).
-    """
+    Then ``ell_first_parent`` (parent and DAG bits)."""
     n = g.in_src.shape[0]
     dev = g.in_src.device
-    limit = n if max_iters is None else max_iters
     t0 = time.perf_counter()
-    # 1. affected = seeds + their previous first-parent-tree descendants.
     has_par = prev.parent < n
     pidx = torch.where(has_par, prev.parent, 0).long()
     aff = torch.zeros(n, dtype=torch.bool, device=dev)
@@ -650,7 +729,6 @@ def spf_one_incremental(g: DeviceGraph, root: int, prev: SpfTensors, seed_rows,
         aff = new
         aff_rounds += 1
     t1 = time.perf_counter()
-    # 2. seeded relaxation on the updated graph.
     dist = torch.where(aff, INF, prev.dist)
     dist[int(root)] = 0
     dist = dist[:, None].contiguous()
@@ -663,16 +741,47 @@ def spf_one_incremental(g: DeviceGraph, root: int, prev: SpfTensors, seed_rows,
         changed = bool(flag)
         relax_rounds += 1
     t2 = time.perf_counter()
-    # 3. closed-form DAG and first parent, then hops and next hops seeded
-    # from the previous arrays.
     parent, dag = ell.ell_first_parent(*p, dist, _roots(root, 1, dev))
-    hops, nh, hn_rounds = hops_nh_recompute(g, root, (dag[:, :, 0] & 1) != 0, parent[:, 0],
-                                            prev.hops, prev.nexthops, limit)
+    record = dict(affected=aff_rounds, affected_ms=(t1 - t0) * 1e3, aff=aff,
+                  relax=relax_rounds, relax_ms=(t2 - t1) * 1e3, t2=t2)
+    return p, dist, parent, dag, record
+
+
+def _note_phases(stats: dict | None, record: dict, rounds: int) -> None:
+    """Fill ``stats`` (when given) with each phase's rounds and host
+    milliseconds and the affected set's size (one more sync)."""
     if stats is not None:
-        stats.update(affected=aff_rounds, affected_ms=(t1 - t0) * 1e3,
-                     affected_rows=int(aff.sum()), relax=relax_rounds,
-                     relax_ms=(t2 - t1) * 1e3, hops_nh=hn_rounds,
-                     hops_nh_ms=(time.perf_counter() - t2) * 1e3)
+        stats.update(affected=record["affected"], affected_ms=record["affected_ms"],
+                     affected_rows=int(record["aff"].sum()), relax=record["relax"],
+                     relax_ms=record["relax_ms"], hops_nh=rounds,
+                     hops_nh_ms=(time.perf_counter() - record["t2"]) * 1e3)
+
+
+def spf_one_incremental(g: DeviceGraph, root: int, prev: SpfTensors, seed_rows,
+                        max_iters=None, stats: dict | None = None) -> SpfTensors:
+    """Incremental full SPF (``spf_one_incremental``, one lane): recompute
+    only what a delta can have changed, seeded from the previous run.
+
+    ``g`` is the delta-updated graph, ``prev`` the previous run's tensors
+    on the base graph (only read), ``seed_rows`` the vertices whose
+    previous distance may now be too small (``TopologyDelta.seed_rows``).
+    Phases 1-2 and the DAG are :func:`_incremental_dag`'s; phase 3 is
+    :func:`hops_nh_recompute` seeded with the previous hops and next hops,
+    as JAX seeds it.
+
+    Every loop runs JAX's rounds (while changed and fewer than ``max_iters``
+    or N), so the bits equal JAX's incremental path under truncation too.
+    ``stats``, when given, receives each phase's rounds and host
+    milliseconds (each phase ends on a host sync; the last, ``hops_nh``,
+    includes ``ell_first_parent``) and the affected set's size (one more
+    sync).
+    """
+    n = g.in_src.shape[0]
+    limit = n if max_iters is None else max_iters
+    _, dist, parent, dag, record = _incremental_dag(g, root, prev, seed_rows, limit)
+    hops, nh, rounds = hops_nh_recompute(g, root, dag, parent[:, 0], prev.hops, prev.nexthops,
+                                         limit)
+    _note_phases(stats, record, rounds)
     dist = dist[:, 0]
     return SpfTensors(
         dist=dist,
@@ -680,3 +789,33 @@ def spf_one_incremental(g: DeviceGraph, root: int, prev: SpfTensors, seed_rows,
         hops=torch.where(dist < INF, hops, n + 1),
         nexthops=nh,
     )
+
+
+def spf_one_incremental_multipath(g: DeviceGraph, root: int, prev: SpfTensors, prev_npaths,
+                                  prev_nh_weights, seed_rows, kp: int, max_iters=None,
+                                  stats: dict | None = None):
+    """Incremental multipath SPF (``spf_one_incremental_multipath``):
+    :func:`spf_one_incremental`'s phases 1-2 and DAG, then the joint
+    fixpoint seeded with the previous run's hops, next hops, ``npaths`` [N]
+    and ``nh_weights`` [N, A], then the parent sets, recomputed (they are
+    closed-form in the settled distances).  (SpfTensors,
+    MultipathTensors); the seeds are only read; ``stats`` as in
+    :func:`spf_one_incremental` (its ``hops_nh`` phase also holds the
+    parent sets)."""
+    n = g.in_src.shape[0]
+    limit = n if max_iters is None else max_iters
+    p, dist, parent, dag, record = _incremental_dag(g, root, prev, seed_rows, limit)
+    roots = _roots(root, 1, g.in_src.device)
+    hops, nh, npaths, aw, rounds = mp_fixpoint(
+        g, roots, dag, parent, prev.hops[:, None], prev.nexthops[:, :, None],
+        prev_npaths[:, None], prev_nh_weights[:, :, None], limit)
+    parents, pdist, pweight = ell.ell_parent_sets(*p, dist, npaths, roots, kp)
+    _note_phases(stats, record, rounds)
+    reach = dist[:, 0] < INF
+    sp = SpfTensors(dist=dist[:, 0], parent=parent[:, 0],
+                    hops=torch.where(reach, hops[:, 0], n + 1), nexthops=nh[:, :, 0])
+    mp = MultipathTensors(parents=parents[:, :, 0], pdist=pdist[:, :, 0],
+                          pweight=pweight[:, :, 0],
+                          npaths=torch.where(reach, npaths[:, 0], 0),
+                          nh_weights=aw[:, :, 0])
+    return sp, mp

@@ -22,8 +22,15 @@ its fields) to a topology whose run this backend kept updates the resident
 graph in place and runs ``spf_one_incremental`` seeded from that run.
 Each disposition counts in ``delta_paths[(kind, path)]``.
 
+Multipath (``multipath_k`` 2..8, padded to ``kp`` = 2, 4 or 8 by
+``mp_pad``): ``compute`` and ``compute_whatif`` run the multipath program
+of :mod:`holo_tpu_torch.ops.spf_engine` and fill the five multipath fields
+of :class:`SpfResult`; ``kp == 1`` is the single-path program, those fields
+None.  The blocked engine has no multipath planes: ``kp > 1`` goes to the
+gather engine's program, as in ``holo_tpu``.  DeltaPath keeps the run's
+``kp`` in its key, so a change of width mid-chain gives ``full-no-prev``.
+
 Unlike ``holo_tpu``'s backend there is no scalar fallback and no breaker.
-``multipath_k > 1`` raises.
 """
 
 from __future__ import annotations
@@ -48,12 +55,16 @@ from holo_tpu_torch.ops.graph import (
 )
 from holo_tpu_torch.ops.spf_engine import (
     DeviceGraphCache,
+    mp_pad,
+    spf_multipath_batch,
     spf_multiroot,
     spf_one,
     spf_one_incremental,
+    spf_one_incremental_multipath,
+    spf_one_multipath,
     spf_whatif_batch,
 )
-from holo_tpu_torch.spf.scalar import spf_reference
+from holo_tpu_torch.spf.scalar import spf_multipath_reference, spf_reference
 
 _CACHE_ENTRIES = 4
 
@@ -66,8 +77,7 @@ class SpfResult:
     parent: np.ndarray  # int32[N]
     hops: np.ndarray  # int32[N]
     nexthop_words: np.ndarray  # uint32[N, W]
-    # holo_tpu's multipath planes (multipath_k > 1), None here: the port
-    # runs only multipath_k = 1.
+    # Multipath planes (multipath_k > 1), None for a single-path run.
     parents: np.ndarray | None = None  # int32[N, Kp]; sentinel N
     pdist: np.ndarray | None = None  # int32[N, Kp]; INF past the set
     pweight: np.ndarray | None = None  # int32[N, Kp]
@@ -84,14 +94,6 @@ class MultiRootResult:
     hops: np.ndarray  # int32[R, N]
 
 
-def _single_path(multipath_k: int) -> None:
-    if multipath_k > 1:
-        raise ValueError(
-            f"multipath_k={multipath_k}: multipath is a later slice of the port "
-            f"(ROADMAP queue A item 5); only multipath_k=1 runs"
-        )
-
-
 def _host_tensors(out, n: int):
     """Device SPF tensors -> the host contract, one bulk copy a plane: the
     vertex axis sliced back to N and the sentinels renormalized to N (no
@@ -104,6 +106,18 @@ def _host_tensors(out, n: int):
     if out.nexthops is not None:
         nh = out.nexthops.cpu().numpy().view(np.uint32)[..., :n, :]
     return dist, parent, hops, nh
+
+
+def _host_mp(mp, n: int) -> dict:
+    """Device multipath planes -> the five SpfResult fields, under
+    :func:`_host_tensors`' contract (parents' sentinel renormalized to N)."""
+    return {
+        "parents": np.minimum(mp.parents.cpu().numpy()[..., :n, :], np.int32(n)),
+        "pdist": mp.pdist.cpu().numpy()[..., :n, :],
+        "pweight": mp.pweight.cpu().numpy()[..., :n, :],
+        "npaths": mp.npaths.cpu().numpy()[..., :n],
+        "nh_weights": mp.nh_weights.cpu().numpy()[..., :n, :],
+    }
 
 
 class SpfBackend:
@@ -127,13 +141,20 @@ class ScalarSpfBackend(SpfBackend):
         self.n_atoms = n_atoms
 
     def compute(self, topo, edge_mask=None, multipath_k: int = 1):
-        _single_path(multipath_k)
-        out = spf_reference(topo, edge_mask)
+        n_atoms = max(self.n_atoms, topo.n_atoms())
+        kp = mp_pad(multipath_k)
+        if kp > 1:
+            out, omp = spf_multipath_reference(topo, kp, edge_mask,
+                                               n_lanes=((n_atoms + 31) // 32) * 32)
+            mp = vars(omp)  # the five multipath fields
+        else:
+            out, mp = spf_reference(topo, edge_mask), {}
         return SpfResult(
             dist=out.dist,
             parent=out.parent,
             hops=out.hops,
-            nexthop_words=out.nexthop_words(max(self.n_atoms, topo.n_atoms())),
+            nexthop_words=out.nexthop_words(n_atoms),
+            **mp,
         )
 
     def compute_whatif(self, topo, edge_masks, multipath_k: int = 1):
@@ -208,43 +229,51 @@ class TorchSpfBackend(SpfBackend):
         return max(self.n_atoms, topo.n_atoms())
 
     def compute(self, topo, edge_mask=None, multipath_k: int = 1):
-        _single_path(multipath_k)
-        if self.engine == "blocked":
+        kp = mp_pad(multipath_k)
+        if self.engine == "blocked" and kp == 1:
             res = self._whatif_blocked(topo, self._full_mask(topo, edge_mask)[None, :])
             if res is not None:
                 return res[0]
         if edge_mask is None:
-            res = self._try_incremental(topo)
+            res = self._try_incremental(topo, kp)
             if res is not None:
                 return res
         # A scenario mask gathers through in_edge_id: an entry whose ids went
         # stale under a structural delta is rebuilt for it.
         g = self.prepare(topo, need_edge_ids=edge_mask is not None)
-        out = spf_one(g, topo.root, edge_mask, self.max_iters)
+        if kp > 1:
+            out = spf_one_multipath(g, topo.root, kp, edge_mask, self.max_iters)
+        else:
+            out = spf_one(g, topo.root, edge_mask, self.max_iters)
         if edge_mask is None and self.incremental:
-            self._remember(topo, out)
-        return self._result(out, topo.n_vertices)
+            self._remember(topo, out, kp)
+        return self._result(out, topo.n_vertices, kp)
 
     @staticmethod
-    def _result(out, n: int) -> SpfResult:
-        dist, parent, hops, nh = _host_tensors(out, n)
-        return SpfResult(dist=dist, parent=parent, hops=hops, nexthop_words=nh)
+    def _result(out, n: int, kp: int) -> SpfResult:
+        """``out``: SpfTensors, or (SpfTensors, MultipathTensors) for kp > 1."""
+        sp = out[0] if kp > 1 else out
+        dist, parent, hops, nh = _host_tensors(sp, n)
+        mp = _host_mp(out[1], n) if kp > 1 else {}
+        return SpfResult(dist=dist, parent=parent, hops=hops, nexthop_words=nh, **mp)
 
-    def _prev_key(self, topo, topo_key: tuple) -> tuple:
-        return (*topology_namespace(topo), *topo_key, self._n_atoms(topo), int(topo.root))
+    def _prev_key(self, topo, topo_key: tuple, kp: int) -> tuple:
+        return (*topology_namespace(topo), *topo_key, self._n_atoms(topo), int(topo.root),
+                int(kp))
 
-    def _remember(self, topo, out) -> None:
+    def _remember(self, topo, out, kp: int) -> None:
         """Keep this run's device tensors as the next delta's seed (once per
         key: a repeated run of one generation and root gives the same
-        bits)."""
-        key = self._prev_key(topo, topo.cache_key)
+        bits).  ``kp`` is in the key: a kp=1 chain keeps SpfTensors, a
+        multipath chain the (SpfTensors, MultipathTensors) pair."""
+        key = self._prev_key(topo, topo.cache_key, kp)
         if key in self._prev_one:
             return
         self._prev_one[key] = out
         while len(self._prev_one) > self.prev_capacity:
             self._prev_one.pop(next(iter(self._prev_one)))
 
-    def _try_incremental(self, topo) -> SpfResult | None:
+    def _try_incremental(self, topo, kp: int) -> SpfResult | None:
         """The DeltaPath dispatch (``holo_tpu``'s ``_try_incremental``): the
         resident graph absorbs the delta in place and the incremental SPF
         runs seeded from the kept run of the delta's base.  None sends the
@@ -254,7 +283,7 @@ class TorchSpfBackend(SpfBackend):
         if delta is None or not self.incremental:
             return None
         kind = delta_kind(delta)
-        prev_key = self._prev_key(topo, tuple(delta.base_key))
+        prev_key = self._prev_key(topo, tuple(delta.base_key), kp)
         if prev_key not in self._prev_one:
             self.delta_paths[(kind, "full-no-prev")] += 1
             return None
@@ -262,26 +291,38 @@ class TorchSpfBackend(SpfBackend):
         if how == "miss":
             return None
         prev = self._prev_one.pop(prev_key)
-        out = spf_one_incremental(g, topo.root, prev, delta_seed_rows(delta), self.max_iters,
-                                  self.delta_stats)
+        seeds = delta_seed_rows(delta)
+        if kp > 1:
+            sp, mp = prev
+            out = spf_one_incremental_multipath(g, topo.root, sp, mp.npaths, mp.nh_weights,
+                                                seeds, kp, self.max_iters, self.delta_stats)
+        else:
+            out = spf_one_incremental(g, topo.root, prev, seeds, self.max_iters,
+                                      self.delta_stats)
         self.delta_paths[(kind, "incremental")] += 1
-        self._remember(topo, out)
-        return self._result(out, topo.n_vertices)
+        self._remember(topo, out, kp)
+        return self._result(out, topo.n_vertices, kp)
 
     def compute_whatif(self, topo, edge_masks, multipath_k: int = 1):
-        _single_path(multipath_k)
+        kp = mp_pad(multipath_k)
         masks = np.asarray(edge_masks, bool)
         if len(masks) == 0:
             return []
-        if self.engine == "blocked":
+        if self.engine == "blocked" and kp == 1:
             res = self._whatif_blocked(topo, masks)
             if res is not None:
                 return res
         g = self.prepare(topo, need_edge_ids=True)
-        out = spf_whatif_batch(g, topo.root, masks, self.max_iters, self.one_engine)
-        dist, parent, hops, nh = _host_tensors(out, topo.n_vertices)
+        if kp > 1:
+            sp, mp = spf_multipath_batch(g, topo.root, masks, kp, self.max_iters)
+            mp = _host_mp(mp, topo.n_vertices)
+        else:
+            sp = spf_whatif_batch(g, topo.root, masks, self.max_iters, self.one_engine)
+            mp = {}
+        dist, parent, hops, nh = _host_tensors(sp, topo.n_vertices)
         return [
-            SpfResult(dist=dist[i], parent=parent[i], hops=hops[i], nexthop_words=nh[i])
+            SpfResult(dist=dist[i], parent=parent[i], hops=hops[i], nexthop_words=nh[i],
+                      **{f: x[i] for f, x in mp.items()})
             for i in range(len(masks))
         ]
 

@@ -28,6 +28,14 @@ at 1, 8, 33, 257 and 1024 lanes with and without masks, also on a graph
 whose K (136) spans five 32-slot chunks; the card driver is held to the CPU
 path under max_iters truncation; the gather backend to the oracle.
 
+Multipath: ell_mp_round (with the count and weight planes and without them)
+is held bit-identical to its plain version on every launch of a real
+multipath dispatch, and ell_parent_sets for kp 1, 2, 4 and 8, at 1, 5, 8, 33
+and 64 lanes (row and tile forms) on a k=8 fat tree, K 40 and 136, the hops-0
+networks graph (also with four next-hop words), the saturating ladder and a
+graph with parallel links; the backend's multipath compute, what-if and a
+delta chain at multipath_k=4 are held to the CPU path and the oracle.
+
 DeltaPath: a delta chain on a k=24 fat tree (cost changes, link removals and
 restorations, an overload strike) is held to the CPU path step by step,
 with ell_relax and ell_first_parent launched; apply_delta_slots writes CUDA
@@ -409,7 +417,8 @@ def test_gather_backend_on_the_card_matches_scalar():
     be, sc = TorchSpfBackend(), ScalarSpfBackend()
     got = be.compute_whatif(topo, masks)
     one = be.compute(topo)
-    assert all(v > 0 for v in ell.launches.values()), ell.launches
+    single_path = ("ell_relax", "ell_first_parent", "ell_nh_seed", "ell_nh_round")
+    assert all(ell.launches[k] > 0 for k in single_path), ell.launches
     for a, b in zip([*got, one], [*sc.compute_whatif(topo, masks), sc.compute(topo)]):
         for f in ("dist", "parent", "hops", "nexthop_words"):
             np.testing.assert_array_equal(getattr(a, f), getattr(b, f), err_msg=f)
@@ -530,3 +539,162 @@ def test_stale_edge_ids_rebuild_for_masked_dispatches_on_the_card():
         for j, (a, b) in enumerate(zip(got, want)):
             _same_result(a, b, f"step {i} scenario {j}")
     assert be.delta_paths[("struct", "incremental")] >= 2
+
+
+# ---------------------------------------------------------------------------
+# Multipath
+
+
+def _ladder_topology():
+    # Parallel equal-cost ladders: path counts reach MP_SAT (2^17).
+    n = 44
+    src, dst = [], []
+    for i in range(0, n - 2, 2):
+        for a in (i, i + 1):
+            for b in (i + 2, i + 3):
+                src += [a, b]
+                dst += [b, a]
+    topo = Topology(n_vertices=n, is_router=np.ones(n, bool), edge_src=np.array(src),
+                    edge_dst=np.array(dst), edge_cost=np.ones(len(src), int), root=0)
+    synth.assign_direct_atoms(topo)
+    return topo
+
+
+def _parallel_topology():
+    # A tied random topology with a second edge beside every fifth one.
+    t = synth.random_ospf_topology(60, n_networks=10, extra_p2p=90, max_cost=4, seed=3)
+    e = np.arange(0, t.n_edges, 5)
+    topo = Topology(n_vertices=t.n_vertices, is_router=t.is_router,
+                    edge_src=np.r_[t.edge_src, t.edge_src[e]],
+                    edge_dst=np.r_[t.edge_dst, t.edge_dst[e]],
+                    edge_cost=np.r_[t.edge_cost, t.edge_cost[e] + (e // 5) % 2], root=t.root)
+    synth.assign_direct_atoms(topo)
+    return topo
+
+
+_MP_SHAPES = {**_SHAPES, "ladder": _ladder_topology, "parallel": _parallel_topology}
+
+
+def _mp_inputs(topo, lanes, dev, n_atoms=64):
+    """(planes, fixed planes, dist, launches, npaths): one multipath
+    dispatch on the card (scenario masks past one lane), with each
+    ell_mp_round launch's input state (hops, nh, npaths, aw) in launches."""
+    g = se.device_graph_from_ell(build_ell(topo, n_atoms=n_atoms), dev)
+    mask = None
+    if lanes > 1:
+        mask = se.pack_edge_masks(_dark_masks(topo, lanes), dev)
+    roots = torch.full((lanes,), topo.root, dtype=torch.int32, device=dev)
+    p = se.lane_planes(g, mask)
+    n = topo.n_vertices
+    dist = se.distance_fixpoint(p, roots, n)
+    parent, dag = ell.ell_first_parent(*p, dist, roots)
+    at_root = torch.arange(n, device=dev)[:, None] == roots.long()[None, :]
+    w = g.direct_nh_words.shape[2]
+    state = (torch.where(at_root, 0, n + 1).to(torch.int32),
+             torch.zeros((n, w, lanes), dtype=torch.int32, device=dev),
+             at_root.to(torch.int32),
+             torch.zeros((n, 32 * w, lanes), dtype=torch.int32, device=dev))
+    inc = g.is_router.to(torch.int32)
+    fixed = (p.src, dag, g.direct_nh_words, inc, roots, parent)
+    launches = []
+    while True:
+        launches.append(state)
+        *state, changed = ell.ell_mp_round(*fixed, *state)
+        if not bool(changed):
+            break
+    return p, fixed, dist, launches, state[2]
+
+
+@pytest.mark.parametrize("lanes", [1, 5, 8, 33, 64])
+@pytest.mark.parametrize("shape", sorted(_MP_SHAPES) + ["networks_w4"])
+def test_mp_kernels_match_plain_versions(shape, lanes):
+    # networks_w4: 100 atoms, four next-hop words and 128 weight lanes.
+    topo = _MP_SHAPES[shape.removesuffix("_w4")]()
+    p, fixed, dist, launches, npaths = _mp_inputs(topo, lanes, _card(),
+                                                  100 if shape.endswith("_w4") else 64)
+    assert fixed[2].shape[2] == (4 if shape.endswith("_w4") else 2)
+    assert len(launches) >= 2
+    for r, state in enumerate(launches):
+        for label, st in (("mp", state), ("hops+nh", (*state[:2], None, None))):
+            got = ell.ell_mp_round(*fixed, *st)
+            want = ell.mp_round_plain(*fixed, *st)
+            torch.cuda.synchronize()
+            for i, (a, b) in enumerate(zip(got, want)):
+                assert (a is None and b is None) or torch.equal(a, b), \
+                    f"ell_mp_round {label} round {r + 1} output {i}"
+    roots = fixed[4]
+    for kp in (1, 2, 4, 8):
+        got = ell.ell_parent_sets(*p, dist, npaths, roots, kp)
+        want = ell.parent_sets_plain(*p, dist, npaths, roots, kp)
+        torch.cuda.synchronize()
+        for i, (a, b) in enumerate(zip(got, want)):
+            assert torch.equal(a, b), f"ell_parent_sets kp={kp} output {i}"
+    if shape == "ladder":
+        assert int(npaths.max()) == 1 << 17  # saturated
+
+
+def test_mp_wrappers_refuse_bad_planes():
+    dev = _card()
+    p, fixed, dist, launches, npaths = _mp_inputs(synth.fat_tree_topology(k=8), 40, dev)
+    hops, nh, np_, aw = launches[0]
+    with pytest.raises(ValueError, match="both npaths and aw"):
+        ell.ell_mp_round(*fixed, hops, nh, np_, None)
+    with pytest.raises(ValueError, match="planes disagree"):
+        ell.ell_mp_round(*fixed, hops, nh, np_, aw[:, :32].contiguous())
+    with pytest.raises(ValueError, match="CUDA device"):
+        ell.ell_mp_round(*fixed, hops.cpu(), nh, np_, aw)
+    with pytest.raises(ValueError, match="kp=3"):
+        ell.ell_parent_sets(*p, dist, npaths, fixed[4], 3)
+    with pytest.raises(ValueError, match="npaths"):
+        ell.ell_parent_sets(*p, dist, npaths[:, :1].contiguous(), fixed[4], 4)
+
+
+_MP_FIELDS = ("dist", "parent", "hops", "nexthop_words", "parents", "pdist", "pweight",
+              "npaths", "nh_weights")
+
+
+def test_multipath_backend_on_the_card_matches_cpu_and_oracle():
+    _card()
+    topo = synth.random_ospf_topology(n_routers=260, n_networks=40, extra_p2p=400, max_cost=4,
+                                      seed=1)
+    masks = synth.whatif_link_failure_masks(topo, 40, seed=2)
+    ell.reset_launches()
+    card, cpu, sc = TorchSpfBackend(), TorchSpfBackend(device="cpu"), ScalarSpfBackend()
+    got = [card.compute(topo, multipath_k=k) for k in (2, 3, 8)]
+    batch = card.compute_whatif(topo, masks, multipath_k=4)
+    torch.cuda.synchronize()
+    assert ell.launches["ell_mp_round"] > 0 and ell.launches["ell_parent_sets"] == 4
+    for k, res in zip((2, 3, 8), got):
+        for want, label in ((cpu.compute(topo, multipath_k=k), "cpu"),
+                            (sc.compute(topo, multipath_k=k), "oracle")):
+            for f in _MP_FIELDS:
+                np.testing.assert_array_equal(getattr(res, f), getattr(want, f),
+                                              err_msg=f"k={k} {label} {f}")
+    want = cpu.compute_whatif(topo, masks, multipath_k=4)
+    for b, (x, y) in enumerate(zip(batch, want)):
+        for f in _MP_FIELDS:
+            np.testing.assert_array_equal(getattr(x, f), getattr(y, f), err_msg=f"b={b} {f}")
+    for b in range(3):
+        ref = sc.compute(topo, masks[b], multipath_k=4)
+        for f in _MP_FIELDS:
+            np.testing.assert_array_equal(getattr(batch[b], f), getattr(ref, f), err_msg=f)
+
+
+def test_multipath_delta_chain_on_the_card_matches_the_cpu_path():
+    _card()
+    topo = synth.fat_tree_topology(k=12)
+    card, cpu = TorchSpfBackend(), TorchSpfBackend(device="cpu")
+    card.compute(topo, multipath_k=4)
+    cpu.compute(topo, multipath_k=4)
+    chain = _delta_chain(topo, 7, seed=2, strike_at=3)
+    ell.reset_launches()
+    got = [card.compute(t, multipath_k=4) for t in chain]
+    torch.cuda.synchronize()
+    assert ell.launches["ell_mp_round"] > 0 and ell.launches["ell_parent_sets"] == len(chain)
+    for i, (t, res) in enumerate(zip(chain, got)):
+        want = cpu.compute(t, multipath_k=4)
+        for f in _MP_FIELDS:
+            np.testing.assert_array_equal(getattr(res, f), getattr(want, f),
+                                          err_msg=f"step {i} {f}")
+    assert card.delta_paths == cpu.delta_paths
+    assert sum(v for (_, p), v in card.delta_paths.items() if p == "incremental") == len(chain)

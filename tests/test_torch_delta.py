@@ -349,7 +349,7 @@ def test_hops_nh_recompute_lowers_stale_seeds():
     roots = torch.tensor([tt.root], dtype=torch.int32)
     parent, dag = ell.ell_first_parent(*p, full.dist[:, None].contiguous(), roots)
     n = tt.n_vertices
-    hops, nh, _ = te.hops_nh_recompute(tg, tt.root, (dag[:, :, 0] & 1) != 0, parent[:, 0],
+    hops, nh, _ = te.hops_nh_recompute(tg, tt.root, dag, parent[:, 0],
                                     torch.full((n,), 3, dtype=torch.int32),
                                     torch.full_like(full.nexthops, -1), n)
     assert torch.equal(torch.where(full.dist < te.INF, hops, n + 1), full.hops)
@@ -672,11 +672,15 @@ def test_cache_stats_and_lru():
 
 
 def test_spf_result_has_the_multipath_fields_as_none():
+    """A single-path run (multipath_k=1, the default) leaves the five
+    multipath fields None; multipath_k > 1 fills them
+    (tests/test_torch_multipath.py)."""
     tt, _ = _pair(17)
-    res = TorchSpfBackend(device="cpu").compute(tt)
-    assert isinstance(res, SpfResult)
-    for f in ("parents", "pdist", "pweight", "npaths", "nh_weights"):
-        assert getattr(res, f) is None, f
+    be = TorchSpfBackend(device="cpu")
+    for res in (be.compute(tt), be.compute(tt, multipath_k=1)):
+        assert isinstance(res, SpfResult)
+        for f in ("parents", "pdist", "pweight", "npaths", "nh_weights"):
+            assert getattr(res, f) is None, f
 
 
 # ---------------------------------------------------------------------------

@@ -131,14 +131,26 @@ def test_blocked_sends_five_failures_to_gather():
 
 
 def test_multipath_raises():
-    tt, _ = _topos(n_routers=20, seed=1)
-    for be in (TorchSpfBackend(device="cpu"), TorchSpfBackend(engine="blocked", device="cpu"),
-               ScalarSpfBackend()):
-        with pytest.raises(ValueError, match="queue A item 5"):
-            be.compute(tt, multipath_k=2)
-        with pytest.raises(ValueError, match="multipath"):
-            be.compute_whatif(tt, np.ones((1, tt.n_edges), bool), multipath_k=8)
-        assert be.compute(tt, multipath_k=1).dist.shape == (tt.n_vertices,)
+    """No entry point raises on multipath_k 2..8 any more: both engines and
+    the port's oracle return the multipath planes at the padded width
+    (the blocked engine through the gather engine's multipath program), and
+    multipath_k=1 leaves them None."""
+    tt, jt = _topos(n_routers=20, seed=1)
+    n = tt.n_vertices
+    masks = np.ones((2, tt.n_edges), bool)
+    masks[1, :3] = False
+    blocked = TorchSpfBackend(engine="blocked", device="cpu")
+    for be in (TorchSpfBackend(device="cpu"), blocked, ScalarSpfBackend()):
+        one = be.compute(tt, multipath_k=2)
+        batch = be.compute_whatif(tt, masks, multipath_k=8)
+        for res, kp in ((one, 2), (batch[0], 8), (batch[1], 8)):
+            assert res.parents.shape == res.pdist.shape == res.pweight.shape == (n, kp)
+            assert res.npaths.shape == (n,) and res.nh_weights.shape == (n, 64)
+        _same(one, JScalar().compute(jt, multipath_k=2), "multipath_k=2",
+              FIELDS + ("parents", "pdist", "pweight", "npaths", "nh_weights"))
+        single = be.compute(tt, multipath_k=1)
+        assert single.dist.shape == (n,) and single.parents is None
+    assert blocked.routed_to_gather == 0  # kp > 1 never tries the blocked planes
 
 
 @pytest.mark.parametrize("one_engine", ["fused", "packed", "hybrid", "tropical"])
