@@ -34,7 +34,10 @@ and 8: ECMP/UCMP parent sets, path counts, per-atom weights) through
    fall on a core-aggregation link, its removal and restoration, an overload
    strike of an aggregation switch, three cost changes) with the ELL launch
    counters at 0, require every step to take the incremental path with
-   ``ell_relax`` and ``ell_first_parent`` launched, and hold each step's four
+   ``ell_relax``, ``ell_first_parent`` and ``ell_mp_round`` (the hops and
+   next-hop recompute, one lane, no count or weight planes) launched, hold
+   every ``ell_mp_round`` launch of the chain bit-identical to its plain
+   version on its recorded inputs, and hold each step's four
    planes to the full path (``incremental=False``, a fresh clone) and steps
    0-1 to the scalar oracle; then require ``compute_whatif`` to rebuild after
    a structural delta and to apply a weight delta in place, equal to the full
@@ -50,8 +53,9 @@ and 8: ECMP/UCMP parent sets, path counts, per-atom weights) through
    (scenarios 0-3 equal to the oracle, every scenario's single-path planes
    equal to the single-path batch) and the DeltaPath chain at
    ``multipath_k=4`` (every step incremental and equal to a full multipath
-   ``compute()`` of a clone, steps 0-1 also to the oracle), and require both
-   kernels launched;
+   ``compute()`` of a clone, steps 0-1 also to the oracle, every launch of
+   both kernels on the chain held to its plain version on its recorded
+   inputs), and require both kernels launched;
 4. time each kernel (CUDA events; at one scenario also the profiler's
    device time, which leaves out the host's launch), its plain version, the
    whole batch, ``compute()`` and the gather batch's stages, and DeltaPath's
@@ -66,6 +70,7 @@ prints any result.  The last line is the device summary as JSON.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 from collections import Counter
@@ -652,6 +657,40 @@ def held(name: str, label: str, got, want) -> int:
     return err
 
 
+def _copy(x):
+    return x.clone() if isinstance(x, torch.Tensor) else x
+
+
+@contextlib.contextmanager
+def recording(module, name: str, calls: list):
+    """Within the block, every call of ``module.<name>`` runs (and counts)
+    as before and appends (inputs, outputs), copied on the card, to
+    ``calls``: a delta applied later updates the graph's planes in place."""
+    fn = getattr(module, name)
+
+    def rec(*args):
+        out = fn(*args)
+        calls.append((tuple(_copy(a) for a in args), tuple(_copy(o) for o in out)))
+        return out
+
+    setattr(module, name, rec)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def hold_recorded(ell, calls: dict, label: str) -> int:
+    """Hold every recorded launch of the multipath kernels bit-identical to
+    its plain version on the same inputs; the max_abs_err over them."""
+    plain = {"ell_mp_round": ell.mp_round_plain, "ell_parent_sets": ell.parent_sets_plain}
+    err = 0
+    for name, launched in calls.items():
+        for i, (args, out) in enumerate(launched):
+            err = max(err, held(name, f"{label} launch {i + 1}", out, plain[name](*args)))
+    return err
+
+
 def mp_dispatch(ell, se, g, roots, mask, kp: int, hold_all: bool, label: str) -> dict:
     """One multipath dispatch on the card, step by step as ``se.mp_lanes``
     runs it.  Each ell_mp_round launch is timed (CUDA events) and held
@@ -661,16 +700,10 @@ def mp_dispatch(ell, se, g, roots, mask, kp: int, hold_all: bool, label: str) ->
     the DAG pair count, the first launch's input state, the final path
     counts, per-launch times and the plain versions' times and errors."""
     n = g.in_src.shape[0]
-    lanes = roots.shape[0]
-    words = g.direct_nh_words.shape[2]
     p = se.lane_planes(g, mask)
     dist = se.distance_fixpoint(p, roots, n)
     parent, dag = ell.ell_first_parent(*p, dist, roots)
-    at_root = torch.arange(n, device=roots.device)[:, None] == roots.long()[None, :]
-    state = (torch.where(at_root, 0, n + 1).to(torch.int32),
-             torch.zeros((n, words, lanes), dtype=torch.int32, device=roots.device),
-             at_root.to(torch.int32),
-             torch.zeros((n, 32 * words, lanes), dtype=torch.int32, device=roots.device))
+    state = se.mp_seeds(n, g.direct_nh_words.shape[2], roots)
     fixed = (p.src, dag, g.direct_nh_words, g.is_router.to(torch.int32), roots, parent)
     x = {"p": p, "fixed": fixed, "dist": dist, "first": state, "round_ms": [],
          "plain_ms": [], "err": 0, "held": []}
@@ -926,19 +959,31 @@ def main() -> None:
     chain = delta_chain(graph, synth, topo, K)
     dbe.delta_stats = {}
     d_steps = []
+    d_calls = {"ell_mp_round": []}  # the hops + next-hop recompute's launches
     ell.reset_launches()
-    for label, t in chain:
-        paths = Counter(dbe.delta_paths)
-        t0 = time.perf_counter()
-        res = dbe.compute(t)
-        ms = (time.perf_counter() - t0) * 1e3
-        d_steps.append((label, t, res, ms, dict(dbe.delta_stats),
-                        Counter(dbe.delta_paths) - paths))
+    with recording(ell, "ell_mp_round", d_calls["ell_mp_round"]):
+        for label, t in chain:
+            paths = Counter(dbe.delta_paths)
+            t0 = time.perf_counter()
+            res = dbe.compute(t)
+            ms = (time.perf_counter() - t0) * 1e3
+            d_steps.append((label, t, res, ms, dict(dbe.delta_stats),
+                            Counter(dbe.delta_paths) - paths))
     torch.cuda.synchronize()
     d_launched = dict(ell.launches)
     print(f"delta chain launches: {d_launched}", flush=True)
-    for name in ("ell_relax", "ell_first_parent"):
+    for name in ("ell_relax", "ell_first_parent", "ell_mp_round"):
         require(d_launched[name] > 0, f"kernel {name} never launched on the DeltaPath chain")
+    require(len(d_calls["ell_mp_round"]) == d_launched["ell_mp_round"],
+            "a DeltaPath ell_mp_round launch was not recorded")
+    require(all(args[4].shape == (1,) and args[8] is None and args[9] is None
+                for args, _ in d_calls["ell_mp_round"]),
+            "the single-path chain ran ell_mp_round with more than one lane or with counts")
+    d_mp_err = hold_recorded(ell, d_calls, "single-path chain")
+    print(f"kernel ell_mp_round single-path chain: all {d_launched['ell_mp_round']} launches "
+          f"(one lane, no count or weight planes) bit-identical to plain (max_abs_err "
+          f"{d_mp_err})", flush=True)
+    del d_calls
     full_be = TorchSpfBackend(device=dev, incremental=False)
     for i, (label, t, res, ms, st, paths) in enumerate(d_steps):
         kind = graph.delta_kind(t.delta_base)
@@ -1013,16 +1058,26 @@ def main() -> None:
     mdbe.compute(topo, multipath_k=MP_K)
     mdbe.delta_stats = {}
     m_steps = []
+    m_calls = {name: [] for name in MP_REPLACES}
     before = dict(ell.launches)
-    for label, t in delta_chain(graph, synth, topo, K):
-        paths = Counter(mdbe.delta_paths)
-        t0 = time.perf_counter()
-        res = mdbe.compute(t, multipath_k=MP_K)
-        m_steps.append((label, t, res, (time.perf_counter() - t0) * 1e3,
-                        dict(mdbe.delta_stats), Counter(mdbe.delta_paths) - paths))
+    with recording(ell, "ell_mp_round", m_calls["ell_mp_round"]), \
+            recording(ell, "ell_parent_sets", m_calls["ell_parent_sets"]):
+        for label, t in delta_chain(graph, synth, topo, K):
+            paths = Counter(mdbe.delta_paths)
+            t0 = time.perf_counter()
+            res = mdbe.compute(t, multipath_k=MP_K)
+            m_steps.append((label, t, res, (time.perf_counter() - t0) * 1e3,
+                            dict(mdbe.delta_stats), Counter(mdbe.delta_paths) - paths))
     torch.cuda.synchronize()
     m_launched = dict(ell.launches)
     m_chain = {k: m_launched[k] - before[k] for k in m_launched}
+    require(all(len(m_calls[name]) == m_chain[name] for name in MP_REPLACES),
+            "a multipath chain launch was not recorded")
+    m_chain_err = hold_recorded(ell, m_calls, "multipath chain")
+    print(f"kernels ell_mp_round / ell_parent_sets multipath chain: all {m_chain['ell_mp_round']}"
+          f" / {m_chain['ell_parent_sets']} launches bit-identical to plain (max_abs_err "
+          f"{m_chain_err})", flush=True)
+    del m_calls
     print(f"multipath path launches: {m_launched} (compute x{len(MP_KS) + 1} {m_compute}, "
           f"compute_whatif {m_whatif}, delta chain {m_chain})", flush=True)
     for name in MP_REPLACES:
@@ -1147,12 +1202,12 @@ def main() -> None:
             ms = statistics.mean(x["round_ms"])
             ms1 = cuda_ms(lambda: ell.ell_mp_round(*x1["fixed"], *x1["first"]), KERNEL_REPS)
             plain_ms = statistics.mean(x["plain_ms"])
-            err = max(x["err"], x1["err"])
+            err = max(x["err"], x1["err"], d_mp_err, m_chain_err)
         else:
             ms = cuda_ms(lambda: ell.ell_parent_sets(*x["ps_in"]), KERNEL_REPS)
             ms1 = cuda_ms(lambda: ell.ell_parent_sets(*x1["ps_in"]), KERNEL_REPS)
             plain_ms = x["ps_plain_ms"]
-            err = max(x["ps_err"], x1["ps_err"], ps8_err)
+            err = max(x["ps_err"], x1["ps_err"], ps8_err, m_chain_err)
         m_rows[name] = {"ms": ms, "ms_b1": ms1, "plain_ms": plain_ms, "max_abs_err": err,
                         "bound_ms": b_bounds[0], "bound_by": b_bounds[1], "ops": b_bounds[2],
                         "bytes": b_bounds[3], "bound_ms_b1": b1_bounds[0],
@@ -1362,6 +1417,7 @@ def main() -> None:
             "bound_by": row["bound_by"], "library_ms": None, "ms_b1": row["ms_b1"],
             "launches_whatif": m_whatif[name], "launches_compute": m_compute[name],
             "delta_chain_launches": m_chain[name],
+            "single_path_chain_launches": d_launched[name],
         })
     print(json.dumps({"kernels": kernel_rows}), flush=True)
     print(smi, flush=True)

@@ -486,8 +486,7 @@ int holo_ell_parent_sets(const void* src, const void* cost, const void* slot, co
   const int *m = (const int*)mask, *d = (const int*)dist, *w = (const int*)np;
   const int* r = (const int*)roots;
   int *pa = (int*)parents, *pd = (int*)pdist, *pw = (int*)pweight;
-  switch (kp) {  // the widths mp_pad gives
-    case 1: launch_parent_sets<1>(s, c, e, m, d, w, r, pa, pd, pw, n, k, lanes, st); break;
+  switch (kp) {  // the widths mp_pad gives past single path
     case 2: launch_parent_sets<2>(s, c, e, m, d, w, r, pa, pd, pw, n, k, lanes, st); break;
     case 4: launch_parent_sets<4>(s, c, e, m, d, w, r, pa, pd, pw, n, k, lanes, st); break;
     case 8: launch_parent_sets<8>(s, c, e, m, d, w, r, pa, pd, pw, n, k, lanes, st); break;

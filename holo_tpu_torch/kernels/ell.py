@@ -452,8 +452,8 @@ def ell_parent_sets(src, cost, slot, mask, dist, npaths, roots, kp: int):
     source at its cheapest slot, and ``npaths[source]``; N, INF, 0 past the
     set (``_mp_parent_sets``, ``holo_tpu/ops/spf_engine.py:1327-1372``).
     See :func:`parent_sets_plain`."""
-    if kp not in (1, 2, 4, 8):
-        raise ValueError(f"kp={kp}: parent sets are 1, 2, 4 or 8 wide (mp_pad)")
+    if kp not in (2, 4, 8):
+        raise ValueError(f"kp={kp}: parent sets are 2, 4 or 8 wide (mp_pad past single path)")
     if not build.on_card(src, cost, slot, mask, dist, npaths, roots):
         return parent_sets_plain(src, cost, slot, mask, dist, npaths, roots, kp)
     n, k = src.shape

@@ -281,27 +281,31 @@ def mp_fixpoint(g: DeviceGraph, roots, dag, parent, hops, nh, npaths, aw, limit:
     return hops, nh, npaths, aw, rounds
 
 
+def mp_seeds(n: int, words: int, roots: torch.Tensor):
+    """The fresh seeds of the joint fixpoint for lanes rooted at ``roots``
+    [B]: (hops [N, B], 0 at the root and N + 1 elsewhere; next hops
+    [N, words, B], 0; npaths [N, B], 1 at the root and 0 elsewhere;
+    nh_weights [N, 32 * words, B], 0), int32 on the roots' device."""
+    lanes = roots.shape[0]
+    dev = roots.device
+    at_root = torch.arange(n, device=dev)[:, None] == roots.long()[None, :]
+    return (torch.where(at_root, 0, n + 1).to(torch.int32),
+            torch.zeros((n, words, lanes), dtype=torch.int32, device=dev),
+            at_root.to(torch.int32),
+            torch.zeros((n, 32 * words, lanes), dtype=torch.int32, device=dev))
+
+
 def mp_lanes(g: DeviceGraph, roots: torch.Tensor, mask, kp: int, max_iters=None):
     """The lane-batched ``spf_one_multipath``: ((dist, parent, hops [N, B],
     nexthops [N, W, B]), (parents, pdist, pweight [N, kp, B], npaths [N, B],
     nh_weights [N, A, B])), lane b rooted at ``roots[b]`` under mask bit b."""
     n = g.in_src.shape[0]
-    lanes = roots.shape[0]
-    words = g.direct_nh_words.shape[2]
-    dev = g.in_src.device
     limit = n if max_iters is None else max_iters
     p = lane_planes(g, mask)
     dist = distance_fixpoint(p, roots, limit)
     parent, dag = ell.ell_first_parent(*p, dist, roots)
-    at_root = torch.arange(n, device=dev)[:, None] == roots.long()[None, :]
     hops, nh, npaths, aw, _ = mp_fixpoint(
-        g, roots, dag, parent,
-        torch.where(at_root, 0, n + 1).to(torch.int32),
-        torch.zeros((n, words, lanes), dtype=torch.int32, device=dev),
-        at_root.to(torch.int32),
-        torch.zeros((n, 32 * words, lanes), dtype=torch.int32, device=dev),
-        limit,
-    )
+        g, roots, dag, parent, *mp_seeds(n, g.direct_nh_words.shape[2], roots), limit)
     parents, pdist, pweight = ell.ell_parent_sets(*p, dist, npaths, roots, kp)
     reach = dist < INF
     return ((dist, parent, torch.where(reach, hops, n + 1), nh),
