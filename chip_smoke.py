@@ -36,8 +36,9 @@ and 8: ECMP/UCMP parent sets, path counts, per-atom weights) through
    counters at 0, require every step to take the incremental path with
    ``ell_relax``, ``ell_first_parent`` and ``ell_mp_round`` (the hops and
    next-hop recompute, one lane, no count or weight planes) launched, hold
-   every ``ell_mp_round`` launch of the chain bit-identical to its plain
-   version on its recorded inputs, and hold each step's four
+   every ``ell_mp_round`` launch of the chain, as it runs, bit-identical to
+   ``mp_round_plain`` (same frontier, same out buffer) and to the plain full
+   round from the same in-state, and hold each step's four
    planes to the full path (``incremental=False``, a fresh clone) and steps
    0-1 to the scalar oracle; then require ``compute_whatif`` to rebuild after
    a structural delta and to apply a weight delta in place, equal to the full
@@ -45,17 +46,22 @@ and 8: ECMP/UCMP parent sets, path counts, per-atom weights) through
 3e. multipath: hold the two multipath kernels to their plain versions --
    every ``ell_mp_round`` launch of a 64-scenario dispatch and of a
    one-lane dispatch, the first two and the last of the 1024-scenario
-   dispatch, and ``ell_parent_sets`` at 1, 64 and 1024 lanes -- then, with
-   the ELL launch counters at 0, drive ``compute(multipath_k=4 and 8)``
-   (all nine planes equal to the port's multipath oracle;
-   ``multipath_k=1`` equal to the single-path ``compute()``, its multipath
-   fields None), ``compute_whatif(multipath_k=4)`` over the 1024 scenarios
-   (scenarios 0-3 equal to the oracle, every scenario's single-path planes
-   equal to the single-path batch) and the DeltaPath chain at
-   ``multipath_k=4`` (every step incremental and equal to a full multipath
-   ``compute()`` of a clone, steps 0-1 also to the oracle, every launch of
-   both kernels on the chain held to its plain version on its recorded
-   inputs), and require both kernels launched;
+   dispatch, each against its frontier bound, and the fused
+   ``ell_parent_sets`` (first parent, DAG bits, parent sets) at 1, 64 and
+   1024 lanes; time a first touch of fresh device memory -- then, with the
+   ELL launch counters at 0, drive ``compute(multipath_k=4 and 8)`` (all
+   nine planes equal to the port's multipath oracle),
+   ``compute_whatif(multipath_k=4)`` over the 1024 scenarios (scenarios
+   0-3 equal to the oracle, every scenario's single-path planes equal to
+   the single-path batch) and the DeltaPath chain at ``multipath_k=4``
+   (every step incremental and equal to a full multipath ``compute()`` of a
+   clone, steps 0-1 also to the oracle), holding every launch of both
+   kernels as it runs (``ell_mp_round`` to ``mp_round_plain`` with the same
+   frontier and out buffer and to the plain full round, ``ell_parent_sets``
+   to ``first_parent_plain`` plus ``parent_sets_plain``), and require both
+   kernels launched on each path and ``ell_first_parent`` on none;
+   ``multipath_k=1`` equals the single-path ``compute()``, its multipath
+   fields None;
 4. time each kernel (CUDA events; at one scenario also the profiler's
    device time, which leaves out the host's launch), its plain version, the
    whole batch, ``compute()`` and the gather batch's stages, and DeltaPath's
@@ -164,17 +170,21 @@ MP_SOURCE = "holo_tpu_torch/csrc/mp_kernels.cu"
 MP_REPLACES = {
     "ell_mp_round": "holo_tpu/ops/spf_engine.py:1246-1324 _mp_fixpoint "
                     "(XLA fusion, no Pallas kernel)",
-    "ell_parent_sets": "holo_tpu/ops/spf_engine.py:1327-1372 _mp_parent_sets "
-                       "(XLA fusion, no Pallas kernel)",
+    "ell_parent_sets": "holo_tpu/ops/spf_engine.py:1327-1372 _mp_parent_sets and, on the "
+                       "multipath paths, :872-894 _sp_dag + _first_parent "
+                       "(XLA fusions, no Pallas kernel)",
+    "ell_parent_weights": "holo_tpu/ops/spf_engine.py:1361-1366 pweight of _mp_parent_sets "
+                          "(XLA fusion, no Pallas kernel)",
 }
 # int32 operations of the multipath kernels:
 # ell_mp_round: per DAG pair an add per atom lane (A), an OR per next-hop
 #   word (W), the path-count add and the hops-0 test; per (vertex, lane) a
 #   clamp and a changed test per atom and per count, a changed test per
 #   word, and the hops update (parent gather, add, select, test).
-# ell_parent_sets: per usable pair the admissibility test (add, tight test,
-#   downward test, INF test) and per admissible pair an offer to the sorted
-#   set (a source and a (cost, source) compare per entry).
+# ell_parent_sets: per usable pair the DAG and admissibility tests (add,
+#   tight test, downward test, INF test), per DAG pair the (dist, id)
+#   argmin update (compare, select, min) and per admissible pair an offer to
+#   the sorted set (a source and a (cost, source) compare per entry).
 MP_PAIR_OPS = 2  # + A + W
 MP_CELL_OPS = 4  # + 2 A + W
 PS_TEST_OPS = 4
@@ -230,21 +240,23 @@ def bound(op_count: int, byte_count: int) -> tuple[float, str]:
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
-def device_busy(fn) -> tuple[float, list]:
-    """Device milliseconds of every kernel ``fn`` runs (torch.profiler,
-    CUPTI), and the five largest by name."""
+def device_times(fn) -> dict:
+    """Device milliseconds of each kernel ``fn`` runs, by name
+    (torch.profiler, CUPTI)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    per_op = [
-        (e.key, e.self_device_time_total / 1e3)
-        for e in prof.key_averages()
-        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
-    ]
-    per_op.sort(key=lambda kv: -kv[1])
+    return {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+
+
+def device_busy(fn) -> tuple[float, list]:
+    """Device milliseconds of every kernel ``fn`` runs, and the five
+    largest by name."""
+    per_op = sorted(device_times(fn).items(), key=lambda kv: -kv[1])
     top = [(name[:60], round(ms, 3)) for name, ms in per_op[:5]]
     return sum(ms for _, ms in per_op), top
 
@@ -459,12 +471,6 @@ def frontier_launch(ell, p, x, kind: str):
             lambda h, f: ell.nh_round_plain(p.src, x["inherit"], h, f))
 
 
-def all_ones(ell, front: torch.Tensor, lanes: int) -> torch.Tensor:
-    """A frontier with every lane's bit set."""
-    return ell.pack_lane_bits(torch.ones((front.shape[0], lanes), dtype=torch.bool,
-                                         device=front.device))
-
-
 # The frontier kernels: their launches' inputs in ell_inputs' x, and the main one.
 FRONTIER_KERNELS = {"ell_relax": ("relax", "relax_mid"), "ell_nh_round": ("round", "round_mid")}
 
@@ -479,7 +485,8 @@ def hold_rounds(ell, p, x, label: str) -> dict:
     for kind, (key, mid_key) in FRONTIER_KERNELS.items():
         card, plain = frontier_launch(ell, p, x, kind)
         plane_mid, front_mid = x[mid_key]
-        full = (plane_mid, all_ones(ell, front_mid, plane_mid.shape[-1]))
+        full = (plane_mid, ell.full_frontier(front_mid.shape[0], plane_mid.shape[-1],
+                                             front_mid.device))
         timed = []
         for i, (plane, front) in enumerate([*x[key], full]):
             what = f"round {i + 1}" if i < len(x[key]) else "full round"
@@ -657,85 +664,232 @@ def held(name: str, label: str, got, want) -> int:
     return err
 
 
-def _copy(x):
-    return x.clone() if isinstance(x, torch.Tensor) else x
+def _clone(planes):
+    return tuple(None if x is None else x.clone() for x in planes)
+
+
+class Holder:
+    """Within ``holding()``, every launch of the two multipath kernels runs
+    (and counts) as before and is held at once on its own inputs: each
+    ell_mp_round launch's out buffer, changed flag and frontier_out
+    bit-identical to both mp_round_plain (same frontier, a copy of the out
+    buffer as it was before the launch) and the plain full round from the
+    same in-state; each fused ell_parent_sets launch to first_parent_plain
+    plus parent_sets_plain's parents and pdist; each ell_parent_weights
+    launch to parent_weights_plain.  The plain calls launch no kernel."""
+
+    def __init__(self, ell):
+        self.ell = ell
+        self.err = {"ell_mp_round": 0, "ell_parent_sets": 0, "ell_parent_weights": 0}
+        self.held = Counter()
+        self.lanes = Counter()  # (kernel, lanes, with counts) -> launches
+
+    def mp_round(self, fn):
+        ell = self.ell
+
+        def held_round(src, dag, direct, inc, roots, parent, state, front, out):
+            fixed = (src, dag, direct, inc, roots, parent)
+            want = _clone(out)
+            res = fn(*fixed, state, front, out)
+            ref = ell.mp_round_plain(*fixed, state, front, want)
+            full = ell.mp_round_full(*fixed, state)
+            label = f"launch {self.held['ell_mp_round'] + 1}"
+            got = (*out, *res)
+            self.err["ell_mp_round"] = max(self.err["ell_mp_round"],
+                                           held("ell_mp_round", label, got, (*want, *ref)),
+                                           held("ell_mp_round", f"{label} (full round)", got,
+                                                full))
+            self.held["ell_mp_round"] += 1
+            self.lanes[("ell_mp_round", state[0].shape[1], state[2] is not None)] += 1
+            return res
+
+        return held_round
+
+    def parent_sets(self, fn):
+        ell = self.ell
+
+        def held_sets(src, cost, slot, mask, dist, roots, kp):
+            got = fn(src, cost, slot, mask, dist, roots, kp)
+            zero = torch.zeros_like(dist)
+            want = (*ell.first_parent_plain(src, cost, slot, mask, dist, roots),
+                    *ell.parent_sets_plain(src, cost, slot, mask, dist, zero, roots, kp)[:2])
+            self.err["ell_parent_sets"] = max(
+                self.err["ell_parent_sets"],
+                held("ell_parent_sets", f"launch {self.held['ell_parent_sets'] + 1}", got, want))
+            self.held["ell_parent_sets"] += 1
+            self.lanes[("ell_parent_sets", dist.shape[1], kp)] += 1
+            return got
+
+        return held_sets
+
+    def parent_weights(self, fn):
+        ell = self.ell
+
+        def held_weights(parents, npaths):
+            got = fn(parents, npaths)
+            self.err["ell_parent_weights"] = max(
+                self.err["ell_parent_weights"],
+                held("ell_parent_weights", f"launch {self.held['ell_parent_weights'] + 1}",
+                     (got,), (ell.parent_weights_plain(parents, npaths),)))
+            self.held["ell_parent_weights"] += 1
+            return got
+
+        return held_weights
 
 
 @contextlib.contextmanager
-def recording(module, name: str, calls: list):
-    """Within the block, every call of ``module.<name>`` runs (and counts)
-    as before and appends (inputs, outputs), copied on the card, to
-    ``calls``: a delta applied later updates the graph's planes in place."""
-    fn = getattr(module, name)
-
-    def rec(*args):
-        out = fn(*args)
-        calls.append((tuple(_copy(a) for a in args), tuple(_copy(o) for o in out)))
-        return out
-
-    setattr(module, name, rec)
+def holding(ell, holder: Holder):
+    """Hold every multipath kernel launch within the block (Holder)."""
+    fns = ell.ell_mp_round, ell.ell_parent_sets, ell.ell_parent_weights
+    ell.ell_mp_round = holder.mp_round(fns[0])
+    ell.ell_parent_sets = holder.parent_sets(fns[1])
+    ell.ell_parent_weights = holder.parent_weights(fns[2])
     try:
-        yield
+        yield holder
     finally:
-        setattr(module, name, fn)
+        ell.ell_mp_round, ell.ell_parent_sets, ell.ell_parent_weights = fns
 
 
-def hold_recorded(ell, calls: dict, label: str) -> int:
-    """Hold every recorded launch of the multipath kernels bit-identical to
-    its plain version on the same inputs; the max_abs_err over them."""
-    plain = {"ell_mp_round": ell.mp_round_plain, "ell_parent_sets": ell.parent_sets_plain}
-    err = 0
-    for name, launched in calls.items():
-        for i, (args, out) in enumerate(launched):
-            err = max(err, held(name, f"{label} launch {i + 1}", out, plain[name](*args)))
-    return err
+def gathered_sources(ell, src, use) -> torch.Tensor:
+    """bool [N, B]: the (source, lane) entries that some slot of ``use``
+    (DAG bits of the recomputed lanes, [N, K, words]) gathers."""
+    n, k = src.shape
+    lanes = use.shape[2] * 32
+    out = torch.zeros((n, lanes), dtype=torch.bool, device=src.device)
+    flat = src.reshape(-1).long()
+    for sl in ell.lane_chunks(n, k, lanes):
+        hits = torch.zeros((n, sl.stop - sl.start), dtype=torch.int32, device=src.device)
+        hits.index_put_((flat,), ell._unpack(use, sl).reshape(n * k, -1).to(torch.int32),
+                        accumulate=True)
+        out[:, sl] = hits > 0
+    return out
+
+
+def mp_launch_bound(ell, fixed, state, front) -> dict:
+    """The bound of one ell_mp_round launch by what its frontier leaves it,
+    and its work: the slot and DAG-bit planes, the frontier plane in and
+    out, and the (vertex, lane) entries of the four state planes it must
+    read (the recomputed and copied entries and the sources the recomputed
+    ones gather, each once) and write (the recomputed and copied ones),
+    the parents of the recomputed entries, the direct words of the slots
+    with a hops-0 source and, in the tile form, the plan of each (row,
+    tile); operations per gathered DAG pair A + W + 2 and per recomputed
+    entry 2 A + W + 4."""
+    src, dag = fixed[0], fixed[1]
+    n, k = src.shape
+    hops, nh, npaths, aw = state
+    lanes = hops.shape[1]
+    words, atoms = nh.shape[1], (0 if aw is None else aw.shape[1])
+    entry = 4 * (1 + words + (0 if npaths is None else 1 + atoms))
+    rec, copy = ell.mp_row_frontier(src, dag, front)
+    use = dag & rec[:, None, :]
+    pairs = popcount(use)
+    use0 = use & ell.pack_lane_bits(hops == 0)[src.long()]
+    n_rec, n_copy = popcount(rec), popcount(copy)
+    touched = ell._unpack(rec | copy, slice(0, lanes)) | gathered_sources(ell, src, use)[:, :lanes]
+    reads = int(touched.sum())
+    byte_count = (nbytes(src, dag) + 2 * front.numel() * 4 + reads * entry
+                  + (n_rec + n_copy) * entry + 4 * n_rec
+                  + 4 * words * int((use0 != 0).any(2).sum()))
+    if lanes > ell.SMALL:  # the tile form's plan, written and read: 8 bytes a (row, tile)
+        byte_count += 16 * front.numel()
+    ops = pairs * (atoms + words + MP_PAIR_OPS) + n_rec * (2 * atoms + words + MP_CELL_OPS)
+    ms, by = bound(ops, byte_count)
+    return {"bound_ms": ms, "bound_by": by, "ops": ops, "bytes": byte_count,
+            "recomputed": n_rec, "copied": n_copy, "pairs": pairs}
 
 
 def mp_dispatch(ell, se, g, roots, mask, kp: int, hold_all: bool, label: str) -> dict:
     """One multipath dispatch on the card, step by step as ``se.mp_lanes``
-    runs it.  Each ell_mp_round launch is timed (CUDA events) and held
-    bit-identical to mp_round_plain on its input: every launch with
-    ``hold_all``, else the first two and the last.  Then ell_parent_sets
-    (width ``kp``) is held to parent_sets_plain.  Returns the fixed planes,
-    the DAG pair count, the first launch's input state, the final path
-    counts, per-launch times and the plain versions' times and errors."""
+    runs it: the fused ell_parent_sets (width ``kp``) held to
+    first_parent_plain plus parent_sets_plain, then each ell_mp_round
+    launch timed (CUDA events), measured against its frontier bound and
+    held bit-identical to mp_round_plain (same frontier and out buffer) and
+    to the plain full round (every launch with ``hold_all``, else the first
+    two and the last), then the parent weights held to parent_sets_plain's
+    pweight.  Returns the inputs, per-launch times, bounds and errors."""
     n = g.in_src.shape[0]
     p = se.lane_planes(g, mask)
     dist = se.distance_fixpoint(p, roots, n)
-    parent, dag = ell.ell_first_parent(*p, dist, roots)
-    state = se.mp_seeds(n, g.direct_nh_words.shape[2], roots)
+    ps_in = (*p, dist, roots, kp)
+    (parent, dag, parents, pdist), ps_ms = cuda_call(lambda: ell.ell_parent_sets(*ps_in))
+    want = (*ell.first_parent_plain(*p, dist, roots),
+            *ell.parent_sets_plain(*p, dist, torch.zeros_like(dist), roots, kp)[:2])
+    x = {"p": p, "dist": dist, "ps_in": ps_in, "ps_first_ms": ps_ms,
+         "ps_err": held("ell_parent_sets", f"{label} kp={kp}", (parent, dag, parents, pdist),
+                        want)}
+    del want
+    x["ps_plain_ms"] = cuda_call(lambda: ell.first_parent_sets_plain(*ps_in))[1]
     fixed = (p.src, dag, g.direct_nh_words, g.is_router.to(torch.int32), roots, parent)
-    x = {"p": p, "fixed": fixed, "dist": dist, "first": state, "round_ms": [],
-         "plain_ms": [], "err": 0, "held": []}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (state, before, front), start_ms = cuda_call(
+        lambda: se.mp_start(n, g.direct_nh_words.shape[2], roots))
+    x.update(fixed=fixed, start_ms=start_ms, start_host_ms=(time.perf_counter() - t0) * 1e3,
+             round_ms=[], plain_ms=[], err=0, held=[], work=[], dag_pairs=popcount(dag))
+    x["full_bound"] = full_round_bound(fixed, state, x["dag_pairs"])
     r = 0
     while True:
-        out, ms = cuda_call(lambda st=state: ell.ell_mp_round(*fixed, *st))
+        saved = _clone(before)  # the out buffer before the launch
+        x["work"].append(mp_launch_bound(ell, fixed, state, front))
+        (changed, front_out), ms = cuda_call(
+            lambda: ell.ell_mp_round(*fixed, state, front, before))
         x["round_ms"].append(ms)
-        last = not bool(out[4])
+        last = not bool(changed)
         if hold_all or r < 2 or last:
-            want, plain_ms = cuda_call(lambda st=state: ell.mp_round_plain(*fixed, *st))
-            x["err"] = max(x["err"], held("ell_mp_round", f"{label} launch {r + 1}", out, want))
+            ref, plain_ms = cuda_call(lambda: ell.mp_round_plain(*fixed, state, front, saved))
+            full = ell.mp_round_full(*fixed, state)
+            got = (*before, changed, front_out)
+            x["err"] = max(x["err"], held("ell_mp_round", f"{label} launch {r + 1}", got,
+                                          (*saved, *ref)),
+                           held("ell_mp_round", f"{label} launch {r + 1} (full round)", got,
+                                full))
             x["plain_ms"].append(plain_ms)
             x["held"].append(r + 1)
-            del want
+            del ref, full
+        del saved
+        state, before, front = before, state, front_out
+        r += 1
         if last:
             break
-        state = out[:4]
-        r += 1
-    x["npaths"] = out[2]
-    x["dag_pairs"] = popcount(dag)
-    print(f"kernel ell_mp_round {label}: launches {x['held']} of {r + 1} bit-identical to "
-          f"plain (max_abs_err {x['err']}); {x['dag_pairs']} DAG pairs; ms per launch "
-          f"{[round(t, 4) for t in x['round_ms']]}", flush=True)
-    ps_in = (*p, dist, x["npaths"], roots, kp)
-    got = ell.ell_parent_sets(*ps_in)
-    torch.cuda.synchronize()
-    want, x["ps_plain_ms"] = cuda_call(lambda: ell.parent_sets_plain(*ps_in))
-    x["ps_err"] = held("ell_parent_sets", f"{label} kp={kp}", got, want)
-    x["ps_in"] = ps_in
-    print(f"kernel ell_parent_sets {label} kp={kp}: parents, pdist, pweight "
-          f"{tuple(got[0].shape)} bit-identical to plain", flush=True)
+    x["npaths"] = state[2]
+    del state, before
+    pw_in = (parents, x["npaths"])
+    pweight, x["pw_ms"] = cuda_call(lambda: ell.ell_parent_weights(*pw_in))
+    x["pw_in"] = pw_in
+    ref = ell.parent_sets_plain(*p, dist, x["npaths"], roots, kp)[2:]
+    x["pw_err"] = max(held("ell_parent_weights", label, (pweight,), ref),
+                      held("ell_parent_weights", f"{label} (plain)", (pweight,),
+                           (ell.parent_weights_plain(*pw_in),)))
+    x["pw_plain_ms"] = cuda_call(lambda: ell.parent_weights_plain(*pw_in))[1]
+    del ref
+    print(f"kernel ell_parent_sets {label} kp={kp}: parent, DAG bits, parents, pdist "
+          f"bit-identical to first_parent_plain + parent_sets_plain, pweight to "
+          f"parent_sets_plain ({ps_ms:.3f} ms first launch, ell_parent_weights "
+          f"{x['pw_ms']:.3f} ms)", flush=True)
+    print(f"kernel ell_mp_round {label}: launches {x['held']} of {r} bit-identical to "
+          f"mp_round_plain and the full round (max_abs_err {x['err']}); {x['dag_pairs']} DAG "
+          f"pairs; ms per launch {[round(t, 4) for t in x['round_ms']]}; frontier bounds "
+          f"{[round(w['bound_ms'], 4) for w in x['work']]}; recomputed entries "
+          f"{[w['recomputed'] for w in x['work']]}, copied "
+          f"{[w['copied'] for w in x['work']]}, gathered DAG pairs "
+          f"{[w['pairs'] for w in x['work']]}; mp_start {start_ms:.3f} ms "
+          f"({x['start_host_ms']:.3f} host)", flush=True)
     return x
+
+
+def full_round_bound(fixed, state, dag_pairs: int) -> tuple[float, str, int, int]:
+    """The bound of a full round (every entry recomputed): the fixed planes
+    and the four state planes read once and written once; operations per
+    DAG pair and per entry."""
+    hops, nh, npaths, aw = state
+    n, lanes = hops.shape
+    words = nh.shape[1]
+    atoms = 32 * words
+    mp_ops = (dag_pairs * (atoms + words + MP_PAIR_OPS)
+              + n * lanes * (2 * atoms + words + MP_CELL_OPS))
+    mp_bytes = nbytes(*fixed) + 2 * nbytes(hops, nh, npaths, aw)
+    return (*bound(mp_ops, mp_bytes), mp_ops, mp_bytes)
 
 
 def admissible_pairs(ell, p, dist, roots) -> int:
@@ -754,25 +908,27 @@ def admissible_pairs(ell, p, dist, roots) -> int:
     return count
 
 
-def mp_bounds(ell, x, kp: int, usable: int) -> dict:
-    """Bounds of one ell_mp_round launch and of ell_parent_sets on the
-    dispatch ``x``: the bytes of every plane read once and every output
-    written once, the operations of this run's DAG and admissible pairs."""
-    hops, nh, npaths, aw = x["first"]
-    n, lanes = hops.shape
-    words = nh.shape[1]
-    atoms = 32 * words
-    state = nbytes(hops, nh, npaths, aw)
-    mp_ops = (x["dag_pairs"] * (atoms + words + MP_PAIR_OPS)
-              + n * lanes * (2 * atoms + words + MP_CELL_OPS))
-    mp_bytes = nbytes(*x["fixed"]) + 2 * state
-    p = x["p"]
-    adm = admissible_pairs(ell, p, x["dist"], x["fixed"][4])
-    ps_ops = PS_TEST_OPS * usable + PS_OFFER_OPS * kp * adm
-    ps_bytes = (nbytes(p.src, p.cost, p.slot, *([] if p.mask is None else [p.mask]))
-                + nbytes(x["dist"], x["npaths"], x["fixed"][4]) + 3 * n * kp * lanes * 4)
-    return {"ell_mp_round": (*bound(mp_ops, mp_bytes), mp_ops, mp_bytes),
-            "ell_parent_sets": (*bound(ps_ops, ps_bytes), ps_ops, ps_bytes), "admissible": adm}
+def parent_sets_bound(ell, x, kp: int, usable: int) -> dict:
+    """Bounds of the fused ell_parent_sets and of ell_parent_weights on the
+    dispatch ``x``.  ell_parent_sets reads the slot planes, mask words,
+    dist and roots and writes the first parent, the DAG bits and the
+    parents and pdist planes; operations: the DAG and admissibility tests
+    per usable pair, the argmin update per DAG pair, an offer per admissible
+    pair.  ell_parent_weights reads the parents and npaths and writes
+    pweight (an operation a entry: the select past the set)."""
+    p, dist = x["p"], x["dist"]
+    n, lanes = dist.shape
+    roots, dag = x["fixed"][4], x["fixed"][1]
+    adm = admissible_pairs(ell, p, dist, roots)
+    ops = (PS_TEST_OPS * usable + ELL_UPDATE_OPS * x["dag_pairs"]
+           + PS_OFFER_OPS * kp * adm)
+    byte_count = (nbytes(p.src, p.cost, p.slot, *([] if p.mask is None else [p.mask]))
+                  + nbytes(dist, roots) + n * lanes * 4 + dag.numel() * 4
+                  + 2 * n * kp * lanes * 4)
+    pw_bytes = nbytes(*x["pw_in"]) + n * kp * lanes * 4
+    return {"ell_parent_sets": (*bound(ops, byte_count), ops, byte_count),
+            "ell_parent_weights": (*bound(n * kp * lanes, pw_bytes), n * kp * lanes, pw_bytes),
+            "admissible": adm}
 
 
 def main() -> None:
@@ -959,9 +1115,9 @@ def main() -> None:
     chain = delta_chain(graph, synth, topo, K)
     dbe.delta_stats = {}
     d_steps = []
-    d_calls = {"ell_mp_round": []}  # the hops + next-hop recompute's launches
+    d_hold = Holder(ell)
     ell.reset_launches()
-    with recording(ell, "ell_mp_round", d_calls["ell_mp_round"]):
+    with holding(ell, d_hold):
         for label, t in chain:
             paths = Counter(dbe.delta_paths)
             t0 = time.perf_counter()
@@ -974,16 +1130,15 @@ def main() -> None:
     print(f"delta chain launches: {d_launched}", flush=True)
     for name in ("ell_relax", "ell_first_parent", "ell_mp_round"):
         require(d_launched[name] > 0, f"kernel {name} never launched on the DeltaPath chain")
-    require(len(d_calls["ell_mp_round"]) == d_launched["ell_mp_round"],
-            "a DeltaPath ell_mp_round launch was not recorded")
-    require(all(args[4].shape == (1,) and args[8] is None and args[9] is None
-                for args, _ in d_calls["ell_mp_round"]),
+    require(d_hold.held["ell_mp_round"] == d_launched["ell_mp_round"]
+            and d_launched["ell_parent_sets"] == 0,
+            "a DeltaPath ell_mp_round launch was not held, or the fused walk ran")
+    require(set(d_hold.lanes) == {("ell_mp_round", 1, False)},
             "the single-path chain ran ell_mp_round with more than one lane or with counts")
-    d_mp_err = hold_recorded(ell, d_calls, "single-path chain")
+    d_mp_err = d_hold.err["ell_mp_round"]
     print(f"kernel ell_mp_round single-path chain: all {d_launched['ell_mp_round']} launches "
-          f"(one lane, no count or weight planes) bit-identical to plain (max_abs_err "
-          f"{d_mp_err})", flush=True)
-    del d_calls
+          f"(one lane, no count or weight planes) bit-identical to mp_round_plain and the full "
+          f"round (max_abs_err {d_mp_err})", flush=True)
     full_be = TorchSpfBackend(device=dev, incremental=False)
     for i, (label, t, res, ms, st, paths) in enumerate(d_steps):
         kind = graph.delta_kind(t.delta_base)
@@ -1028,40 +1183,50 @@ def main() -> None:
     del full_be
 
     # -- 3e. multipath: the kernels held to their plain versions, then the
-    # multipath paths counted
+    # multipath paths counted, every launch held
     t_mp = time.perf_counter()
     mx64 = mp_dispatch(ell, se, eg, lane_roots[:MP_HOLD_LANES].clone(),
                        se.pack_edge_masks(masks[:MP_HOLD_LANES], dev), MP_K, True,
                        f"at B={MP_HOLD_LANES}")
     del mx64
+    # What a first touch of device memory costs: a fresh allocation the size
+    # of the weight plane, taken from the CUDA runtime, filled; then filled again.
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    aw_shape = (eg.in_src.shape[0], 32 * eg.direct_nh_words.shape[2], BATCH)
+    fresh, touch_ms = cuda_call(lambda: torch.zeros(aw_shape, dtype=torch.int32, device=dev))
+    touch_again_ms = cuda_call(lambda: fresh.zero_())[1]
+    del fresh
     mx = mp_dispatch(ell, se, eg, lane_roots, mask_w, MP_K, False, f"at B={BATCH}")
-    mb = mp_bounds(ell, mx, MP_K, int((p.slot >= 0).sum()) * BATCH - failed)
+    mb = parent_sets_bound(ell, mx, MP_K, int((p.slot >= 0).sum()) * BATCH - failed)
     mx1 = mp_dispatch(ell, se, eg, root1, None, MP_K, True, "at B=1")
-    mb1 = mp_bounds(ell, mx1, MP_K, int((p1.slot >= 0).sum()))
+    mb1 = parent_sets_bound(ell, mx1, MP_K, int((p1.slot >= 0).sum()))
     ps8_in = (*mx1["ps_in"][:-1], 8)
+    p1_, d1_, r1_ = mx1["p"], mx1["dist"], mx1["fixed"][4]
     ps8_err = held("ell_parent_sets", "at B=1 kp=8", ell.ell_parent_sets(*ps8_in),
-                   ell.parent_sets_plain(*ps8_in))
+                   (*ell.first_parent_plain(*p1_, d1_, r1_),
+                    *ell.parent_sets_plain(*p1_, d1_, torch.zeros_like(d1_), r1_, 8)[:2]))
+    print(f"first touch: a fresh {aw_shape} int32 plane filled in {touch_ms:.3f} ms (CUDA "
+          f"allocation included), again in {touch_again_ms:.3f} ms", flush=True)
     print(f"multipath kernels held in {time.perf_counter() - t_mp:.1f} s; admissible pairs "
           f"{mb['admissible']} at B={BATCH}, {mb1['admissible']} at B=1", flush=True)
 
     t_mp = time.perf_counter()
     ell.reset_launches()
     mbe = TorchSpfBackend(device=dev)
-    m_one = {k: mbe.compute(topo, multipath_k=k) for k in MP_KS}
-    m_k1 = mbe.compute(topo, multipath_k=1)
-    torch.cuda.synchronize()
-    m_compute = dict(ell.launches)
-    m_batch = mbe.compute_whatif(topo, masks, multipath_k=MP_K)
-    torch.cuda.synchronize()
-    m_whatif = {k: ell.launches[k] - m_compute[k] for k in ell.launches}
-    mdbe = TorchSpfBackend(device=dev)
-    mdbe.compute(topo, multipath_k=MP_K)
-    mdbe.delta_stats = {}
-    m_steps = []
-    m_calls = {name: [] for name in MP_REPLACES}
-    before = dict(ell.launches)
-    with recording(ell, "ell_mp_round", m_calls["ell_mp_round"]), \
-            recording(ell, "ell_parent_sets", m_calls["ell_parent_sets"]):
+    m_hold = Holder(ell)
+    with holding(ell, m_hold):
+        m_one = {k: mbe.compute(topo, multipath_k=k) for k in MP_KS}
+        torch.cuda.synchronize()
+        m_compute = dict(ell.launches)
+        m_batch = mbe.compute_whatif(topo, masks, multipath_k=MP_K)
+        torch.cuda.synchronize()
+        m_whatif = {k: ell.launches[k] - m_compute[k] for k in ell.launches}
+        mdbe = TorchSpfBackend(device=dev)
+        mdbe.compute(topo, multipath_k=MP_K)
+        mdbe.delta_stats = {}
+        m_steps = []
+        before = dict(ell.launches)
         for label, t in delta_chain(graph, synth, topo, K):
             paths = Counter(mdbe.delta_paths)
             t0 = time.perf_counter()
@@ -1071,19 +1236,22 @@ def main() -> None:
     torch.cuda.synchronize()
     m_launched = dict(ell.launches)
     m_chain = {k: m_launched[k] - before[k] for k in m_launched}
-    require(all(len(m_calls[name]) == m_chain[name] for name in MP_REPLACES),
-            "a multipath chain launch was not recorded")
-    m_chain_err = hold_recorded(ell, m_calls, "multipath chain")
-    print(f"kernels ell_mp_round / ell_parent_sets multipath chain: all {m_chain['ell_mp_round']}"
-          f" / {m_chain['ell_parent_sets']} launches bit-identical to plain (max_abs_err "
-          f"{m_chain_err})", flush=True)
-    del m_calls
-    print(f"multipath path launches: {m_launched} (compute x{len(MP_KS) + 1} {m_compute}, "
+    require(all(m_hold.held[name] == m_launched[name] for name in MP_REPLACES),
+            "a multipath launch was not held")
+    m_chain_err = max(m_hold.err["ell_mp_round"], m_hold.err["ell_parent_sets"])
+    print(f"kernels ell_mp_round / ell_parent_sets / ell_parent_weights on the multipath "
+          f"paths: all {m_launched['ell_mp_round']} / {m_launched['ell_parent_sets']} / "
+          f"{m_launched['ell_parent_weights']} launches (lanes, counts or kp: "
+          f"{dict(m_hold.lanes)}) bit-identical to their plain versions (max_abs_err "
+          f"{max(m_hold.err.values())})", flush=True)
+    print(f"multipath path launches: {m_launched} (compute x{len(MP_KS)} {m_compute}, "
           f"compute_whatif {m_whatif}, delta chain {m_chain})", flush=True)
     for name in MP_REPLACES:
-        require(m_launched[name] > 0, f"kernel {name} never launched on the multipath path")
-        require(m_whatif[name] > 0 and m_chain[name] > 0,
-                f"kernel {name} missed the multipath what-if or the chain")
+        require(m_compute[name] > 0 and m_whatif[name] > 0 and m_chain[name] > 0,
+                f"kernel {name} missed multipath compute(), the what-if or the chain")
+    require(m_launched["ell_first_parent"] == 0,
+            "ell_first_parent launched on a multipath path (the fused walk replaces it)")
+    m_k1 = mbe.compute(topo, multipath_k=1)
     mp_oracle = ScalarSpfBackend()
     for k, res in m_one.items():
         require(res.parents.shape == (n, k) and res.nh_weights.shape == (n, n_atoms),
@@ -1194,24 +1362,49 @@ def main() -> None:
         incr_ev_ms.append(ev_ms)
     # Multipath: the kernels on their held inputs, compute(), the batch and
     # its program, delta toggles at multipath_k=4.
-    m_rows = {}
-    for name, b_bounds, b1_bounds, x, x1 in (
-            ("ell_mp_round", mb["ell_mp_round"], mb1["ell_mp_round"], mx, mx1),
-            ("ell_parent_sets", mb["ell_parent_sets"], mb1["ell_parent_sets"], mx, mx1)):
-        if name == "ell_mp_round":
-            ms = statistics.mean(x["round_ms"])
-            ms1 = cuda_ms(lambda: ell.ell_mp_round(*x1["fixed"], *x1["first"]), KERNEL_REPS)
-            plain_ms = statistics.mean(x["plain_ms"])
-            err = max(x["err"], x1["err"], d_mp_err, m_chain_err)
-        else:
-            ms = cuda_ms(lambda: ell.ell_parent_sets(*x["ps_in"]), KERNEL_REPS)
-            ms1 = cuda_ms(lambda: ell.ell_parent_sets(*x1["ps_in"]), KERNEL_REPS)
-            plain_ms = x["ps_plain_ms"]
-            err = max(x["ps_err"], x1["ps_err"], ps8_err, m_chain_err)
-        m_rows[name] = {"ms": ms, "ms_b1": ms1, "plain_ms": plain_ms, "max_abs_err": err,
-                        "bound_ms": b_bounds[0], "bound_by": b_bounds[1], "ops": b_bounds[2],
-                        "bytes": b_bounds[3], "bound_ms_b1": b1_bounds[0],
-                        "bound_by_b1": b1_bounds[1]}
+    work, work1 = mx["work"], mx1["work"]
+    m_ops, m_bytes = sum(w["ops"] for w in work), sum(w["bytes"] for w in work)
+    m_dispatch_bound = sum(w["bound_ms"] for w in work)
+    m_rows = {"ell_mp_round": {
+        "ms": statistics.mean(mx["round_ms"]), "dispatch_ms": sum(mx["round_ms"]),
+        "launch_ms": mx["round_ms"], "ms_b1": statistics.mean(mx1["round_ms"]),
+        "plain_ms": statistics.mean(mx["plain_ms"]),
+        "max_abs_err": max(mx["err"], mx1["err"], d_mp_err, m_chain_err),
+        "bound_ms": m_dispatch_bound / len(work), "bound_by": bound(m_ops, m_bytes)[1],
+        "ops": m_ops, "bytes": m_bytes, "dispatch_bound_ms": m_dispatch_bound,
+        "launch_bound_ms": [w["bound_ms"] for w in work],
+        "recomputed_entries": [w["recomputed"] for w in work],
+        "copied_entries": [w["copied"] for w in work],
+        "full_round_bound_ms": mx["full_bound"][0],
+        "bound_ms_b1": statistics.mean(w["bound_ms"] for w in work1),
+        "bound_by_b1": bound(sum(w["ops"] for w in work1), sum(w["bytes"] for w in work1))[1],
+    }}
+    ps_b, ps_b1 = mb["ell_parent_sets"], mb1["ell_parent_sets"]
+    pw_b, pw_b1 = mb["ell_parent_weights"], mb1["ell_parent_weights"]
+    m_rows["ell_parent_sets"] = {
+        "ms": cuda_ms(lambda: ell.ell_parent_sets(*mx["ps_in"]), KERNEL_REPS),
+        "ms_b1": cuda_ms(lambda: ell.ell_parent_sets(*mx1["ps_in"]), KERNEL_REPS),
+        "plain_ms": mx["ps_plain_ms"],
+        "max_abs_err": max(mx["ps_err"], mx1["ps_err"], ps8_err, m_chain_err),
+        "bound_ms": ps_b[0], "bound_by": ps_b[1], "ops": ps_b[2], "bytes": ps_b[3],
+        "bound_ms_b1": ps_b1[0], "bound_by_b1": ps_b1[1],
+    }
+    # The library call: torch.gather of the padded path counts at the
+    # parents (its int64 index built beforehand).
+    pw_parents, pw_np = mx["pw_in"]
+    pw_n, pw_kp, pw_lanes = pw_parents.shape
+    pw_ext = torch.cat([pw_np, pw_np.new_zeros((1, pw_lanes))])
+    pw_idx = pw_parents.reshape(pw_n * pw_kp, pw_lanes).long()
+    m_rows["ell_parent_weights"] = {
+        "ms": cuda_ms(lambda: ell.ell_parent_weights(*mx["pw_in"]), KERNEL_REPS),
+        "ms_b1": cuda_ms(lambda: ell.ell_parent_weights(*mx1["pw_in"]), KERNEL_REPS),
+        "plain_ms": mx["pw_plain_ms"],
+        "library_ms": cuda_ms(lambda: torch.gather(pw_ext, 0, pw_idx), KERNEL_REPS),
+        "max_abs_err": max(mx["pw_err"], mx1["pw_err"], m_hold.err["ell_parent_weights"]),
+        "bound_ms": pw_b[0], "bound_by": pw_b[1], "ops": pw_b[2], "bytes": pw_b[3],
+        "bound_ms_b1": pw_b1[0], "bound_by_b1": pw_b1[1],
+    }
+    del pw_ext, pw_idx
     m_compute_ms = host_ms(lambda: mbe.compute(topo, multipath_k=MP_K), COMPUTE_REPS)
     m_compute8_ms = host_ms(lambda: mbe.compute(topo, multipath_k=8), COMPUTE_REPS)
     m_batch_ms = host_ms(lambda: mbe.compute_whatif(topo, masks, multipath_k=MP_K), BATCH_REPS)
@@ -1238,12 +1431,22 @@ def main() -> None:
     g_busy_ms, g_top = device_busy(lambda: se.spf_lanes(eg, lane_roots, mask_w))
     g_compute_busy_ms, g_compute_top = device_busy(lambda: gbe.compute(topo))
     incr_busy_ms, incr_top = device_busy(lambda: se.spf_one_incremental(*last_in))
-    m_rows["ell_mp_round"]["device_ms_b1"] = device_ms_per_call(
-        lambda: ell.ell_mp_round(*mx1["fixed"], *mx1["first"]), KERNEL_REPS)
     m_rows["ell_parent_sets"]["device_ms_b1"] = device_ms_per_call(
         lambda: ell.ell_parent_sets(*mx1["ps_in"]), KERNEL_REPS)
+    m_rows["ell_parent_weights"]["device_ms_b1"] = device_ms_per_call(
+        lambda: ell.ell_parent_weights(*mx1["pw_in"]), KERNEL_REPS)
     m_busy_ms, m_top = device_busy(lambda: se.mp_lanes(eg, lane_roots, mask_w, MP_K))
-    m_compute_busy_ms, m_compute_top = device_busy(lambda: mbe.compute(topo, multipath_k=MP_K))
+    # One multipath compute(): its device busy, and M1's device time over
+    # the dispatch's launches (row form, one lane).
+    m1_before = ell.launches["ell_mp_round"]
+    m_compute_times = device_times(lambda: mbe.compute(topo, multipath_k=MP_K))
+    m1_b1_launches = ell.launches["ell_mp_round"] - m1_before
+    m1_b1_ms = sum(ms for key, ms in m_compute_times.items() if "ell_mp_round" in key)
+    m_rows["ell_mp_round"]["device_ms_b1"] = m1_b1_ms / max(m1_b1_launches, 1)
+    m_rows["ell_mp_round"]["device_dispatch_ms_b1"] = m1_b1_ms
+    m_compute_busy_ms = sum(m_compute_times.values())
+    m_compute_top = [(key[:60], round(ms, 3)) for key, ms in
+                     sorted(m_compute_times.items(), key=lambda kv: -kv[1])[:5]]
     extra = toggles(graph, synth, fresh[-1], K, 1)[0]
     served = dbe.delta_paths[("weight", "incremental")]
     d_busy_ms, _ = device_busy(lambda: dbe.compute(extra))
@@ -1364,10 +1567,21 @@ def main() -> None:
               f"{row['ms_b1']:.4f} ms/launch at B=1 by CUDA events, {dev_b1} on the device "
               f"(profiler), bound {row['bound_ms_b1']:.5f} ms by {row['bound_by_b1']}; "
               f"launches per multipath compute_whatif {m_whatif[name]}, per "
-              f"{len(MP_KS) + 1} compute() calls {m_compute[name]}, on the delta chain "
+              f"{len(MP_KS)} compute() calls {m_compute[name]}, on the delta chain "
               f"{m_chain[name]}", flush=True)
-    m_kernel_ms = (m_whatif["ell_mp_round"] * m_rows["ell_mp_round"]["ms"]
-                   + m_whatif["ell_parent_sets"] * m_rows["ell_parent_sets"]["ms"])
+    m1, m2, m3 = (m_rows[k] for k in MP_REPLACES)
+    print(f"time ell_mp_round dispatch: {m1['dispatch_ms']:.3f} ms over {len(m1['launch_ms'])} "
+          f"launches at B={BATCH} (frontier bound {m1['dispatch_bound_ms']:.4f} ms, a full "
+          f"round's bound {m1['full_round_bound_ms']:.4f} ms); at B=1 "
+          f"{m1['device_dispatch_ms_b1']:.4f} ms on the device over {m1_b1_launches} launches "
+          f"of one multipath compute()", flush=True)
+    print(f"time ell_parent_sets + ell_parent_weights: {m2['ms'] + m3['ms']:.3f} ms at "
+          f"B={BATCH} kp={MP_K} ({m2['ms']:.3f} + {m3['ms']:.4f}; bounds "
+          f"{m2['bound_ms']:.4f} + {m3['bound_ms']:.4f} ms; torch.gather "
+          f"{m3['library_ms']:.4f} ms)", flush=True)
+    m_kernel_ms = (m_rows["ell_mp_round"]["dispatch_ms"]
+                   + m_whatif["ell_parent_sets"] * m_rows["ell_parent_sets"]["ms"]
+                   + m_whatif["ell_parent_weights"] * m_rows["ell_parent_weights"]["ms"])
     print(f"time multipath compute: {m_compute_ms:.3f} ms at multipath_k={MP_K}, "
           f"{m_compute8_ms:.3f} ms at 8 (single-path gather compute {g_compute_ms:.3f} ms); "
           f"device busy {m_compute_busy_ms:.3f} ms; top device ops: {m_compute_top}",
@@ -1376,7 +1590,8 @@ def main() -> None:
           f"multipath_k={MP_K} ({BATCH / m_batch_ms * 1e3:.1f} scenario-SPFs/s; single-path "
           f"gather batch {g_batch_ms:.3f} ms)", flush=True)
     print(f"breakdown multipath compute_whatif: program (mp_lanes) {m_lanes_ms:.3f} ms (multipath "
-          f"kernels {m_kernel_ms:.3f} ms = launches x ms/launch; device busy {m_busy_ms:.3f} ms, "
+          f"kernels {m_kernel_ms:.3f} ms = the M1 dispatch + launches x ms/launch; device "
+          f"busy {m_busy_ms:.3f} ms, "
           f"idle share {1 - m_busy_ms / m_lanes_ms:.3f}), mask packing, transposes, readback "
           f"and results {m_batch_ms - m_lanes_ms:.3f} ms; top device ops: {m_top}", flush=True)
     m_phase = {key: statistics.median(st[key] for st in m_toggle_stats)
@@ -1414,10 +1629,15 @@ def main() -> None:
             "name": name, "route": "cuda", "source": MP_SOURCE, "replaces": MP_REPLACES[name],
             "launches": m_launched[name], "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": None, "ms_b1": row["ms_b1"],
+            "bound_by": row["bound_by"], "library_ms": row.get("library_ms"),
+            "ms_b1": row["ms_b1"],
             "launches_whatif": m_whatif[name], "launches_compute": m_compute[name],
             "delta_chain_launches": m_chain[name],
             "single_path_chain_launches": d_launched[name],
+            **{key: row[key] for key in (
+                "dispatch_ms", "dispatch_bound_ms", "launch_ms", "launch_bound_ms",
+                "recomputed_entries", "copied_entries", "full_round_bound_ms",
+                "device_ms_b1") if key in row},
         })
     print(json.dumps({"kernels": kernel_rows}), flush=True)
     print(smi, flush=True)

@@ -42,8 +42,9 @@ SIGNATURES = {
     "holo_ell_first_parent": (*[_P] * 8, _I, _I, _I, _P),
     "holo_ell_nh_seed": (*[_P] * 6, _I, _I, _I, _I, _P),
     "holo_ell_nh_round": (*[_P] * 7, _I, _I, _I, _I, _P),
-    "holo_ell_mp_round": (*[_P] * 15, _I, _I, _I, _I, _P),
+    "holo_ell_mp_round": (*[_P] * 18, _I, _I, _I, _I, _P),
     "holo_ell_parent_sets": (*[_P] * 10, _I, _I, _I, _I, _P),
+    "holo_ell_parent_weights": (*[_P] * 3, _I, _I, _I, _P),
 }
 
 _LIB: ctypes.CDLL | None = None

@@ -4,9 +4,12 @@ Four wrappers over ``csrc/ell_kernels.cu`` -- :func:`ell_relax`,
 :func:`ell_first_parent`, :func:`ell_nh_seed`, :func:`ell_nh_round` -- one
 per ``[N, K] x lanes`` step of the fixpoints in ``spf_one``, and two over
 ``csrc/mp_kernels.cu`` for the multipath program (``spf_one_multipath``):
-:func:`ell_mp_round`, one Jacobi round of hops, next hops, path counts and
-per-atom weights (without the last two it is the hops + next-hop round of
-the incremental path), and :func:`ell_parent_sets`.  In the JAX package
+:func:`ell_mp_round`, one row-frontier Jacobi round of hops, next hops,
+path counts and per-atom weights over two ping-pong state buffers (without
+the last two planes it is the hops + next-hop round of the incremental
+path), and :func:`ell_parent_sets`, the first parent, the DAG bits and the
+parent sets from one walk, and :func:`ell_parent_weights`, the sets' path
+counts once the fixpoint has them.  In the JAX package
 each step is an XLA loop fusion, not a Pallas kernel: the source files
 name the lines each one stands for.  A wrapper given CPU tensors
 computes the plain version; given CUDA tensors it launches the kernel on the
@@ -40,7 +43,9 @@ Plane conventions (all int32, INF = 1 << 30 as unreachable):
   where nothing changed only costs the kernel work).  :func:`ell_relax` and
   :func:`ell_nh_round` take one and return the next; their kernels gather
   only from the sources it marks, their plain versions ignore it and
-  return exactly the changes of the full round.
+  return exactly the changes of the full round.  :func:`ell_mp_round`
+  takes one too, and its plain version honours it as the kernel does
+  (:func:`mp_round_plain`; :func:`mp_round_full` is the full round).
 """
 
 from __future__ import annotations
@@ -57,7 +62,7 @@ _TEMP = 1 << 26  # elements of the largest [N, K, lanes] temporary of a plain ve
 
 #: kernel launches per wrapper since the last :func:`reset_launches`
 launches = {"ell_relax": 0, "ell_first_parent": 0, "ell_nh_seed": 0, "ell_nh_round": 0,
-            "ell_mp_round": 0, "ell_parent_sets": 0}
+            "ell_mp_round": 0, "ell_parent_sets": 0, "ell_parent_weights": 0}
 
 
 def reset_launches() -> None:
@@ -151,6 +156,15 @@ def pack_lane_bits(bits: torch.Tensor) -> torch.Tensor:
     return byte.view(torch.int32)
 
 
+def full_frontier(n: int, lanes: int, device) -> torch.Tensor:
+    """int32 [n, ceil(lanes / 32)]: every lane's bit set, the bits past
+    ``lanes`` clear (``pack_lane_bits`` of all-true bools, in two ops)."""
+    out = torch.full((n, mask_words(lanes)), -1, dtype=torch.int32, device=device)
+    if lanes % 32:
+        out[:, -1] = (1 << (lanes % 32)) - 1
+    return out
+
+
 def _unpack(words, sl: slice):
     """bool [..., chunk]: the bits of ``sl``'s lanes from int32 [..., words]."""
     lane = torch.arange(sl.start, sl.stop, device=words.device)
@@ -220,11 +234,13 @@ def nh_round_plain(src, inherit, nh, frontier=None):
     return out, *_round_result((out != nh).any(1))
 
 
-def mp_round_plain(src, dag, direct, inc, roots, parent, hops, nh, npaths=None, aw=None):
-    """One Jacobi round of the multipath fixpoint (``_mp_fixpoint``'s body),
-    every value recomputed from the previous round's planes: (hops, nh,
-    npaths, aw, changed int32 [1]); without ``npaths`` and ``aw`` the hops +
-    next-hop round (``_hops_nh_fixpoint``), their outputs None.
+def mp_round_full(src, dag, direct, inc, roots, parent, state):
+    """One full Jacobi round of the multipath fixpoint (``_mp_fixpoint``'s
+    body) from ``state`` = (hops, nh, npaths, aw), every value recomputed:
+    (hops, nh, npaths, aw, changed int32 [1], frontier [N, ceil(B / 32)],
+    the lanes of each row that changed in any plane).  Without ``npaths``
+    and ``aw`` (None) the hops + next-hop round (``_hops_nh_fixpoint``),
+    their outputs None.
 
     - hops: the first parent's hops plus ``inc`` (1 at a router), 0 at the
       lane's root, N + 1 without a parent or where the parent has N + 1;
@@ -238,6 +254,7 @@ def mp_round_plain(src, dag, direct, inc, roots, parent, hops, nh, npaths=None, 
 
     The per-atom sums walk the slots one at a time, so no temporary is
     larger than [N, max(K, A), chunk] (chunk from :func:`lane_chunks`)."""
+    hops, nh, npaths, aw = state
     n, k = src.shape
     lanes = hops.shape[1]
     words = direct.shape[2]
@@ -275,10 +292,50 @@ def mp_round_plain(src, dag, direct, inc, roots, parent, hops, nh, npaths=None, 
             acc += onehot[:, :, None] * direct_np[:, kk, None, :]
             acc += torch.where(inherit_slot[:, kk, None, :], aw_sl[s[:, kk]], 0)
         aw_new[:, :, sl] = torch.clamp_max(acc, MP_SAT)
-    moved = (hops_new != hops).any() | (nh_new != nh).any()
-    if npaths is not None:
-        moved = moved | (np_new != npaths).any() | (aw_new != aw).any()
-    return hops_new, nh_new, np_new, aw_new, moved.to(torch.int32).reshape(1)
+    new = (hops_new, nh_new, np_new, aw_new)
+    moved = torch.zeros((n, lanes), dtype=torch.bool, device=dev)
+    for x, y in zip(state, new):
+        if x is not None:
+            moved |= (y != x) if x.dim() == 2 else (y != x).any(1)
+    return (*new, *_round_result(moved))
+
+
+def mp_row_frontier(src, dag, frontier):
+    """(recompute, copy) int32 [N, ceil(B / 32)]: the lanes of each row that
+    a frontier round of ``ell_mp_round`` recomputes -- some DAG slot's
+    source is marked in ``frontier``, or the row is marked and has no DAG
+    slot in that lane (its value is then a constant: a seed there may be
+    stale) -- and the other marked lanes, which it copies from its input."""
+    has = or_reduce(dag, 1)
+    rec = or_reduce(dag & frontier[src.long()], 1) | (frontier & ~has)
+    return rec, frontier & ~rec
+
+
+def mp_round_plain(src, dag, direct, inc, roots, parent, state, frontier, out):
+    """One row-frontier round of the multipath fixpoint, as ``ell_mp_round``
+    runs it: (changed int32 [1], frontier_out), and ``out`` = (hops, nh,
+    npaths, aw) written in place.
+
+    ``state`` holds the planes S of round r - 1, ``frontier`` the lanes of
+    each row that changed in round r - 1 (or may have), ``out`` the planes
+    of round r - 2.  The lanes that :func:`mp_row_frontier` marks for
+    recompute get the full round's values (:func:`mp_round_full`), the
+    other marked lanes a copy of ``state``; every other entry of ``out`` is
+    left as it is, which is the round's value when ``frontier`` holds every
+    change of round r - 1.  ``frontier_out`` marks the recomputed lanes
+    whose value differs from ``state``."""
+    full = mp_round_full(src, dag, direct, inc, roots, parent, state)
+    lanes = state[0].shape[1]
+    rec_w, copy_w = mp_row_frontier(src, dag, frontier)
+    rec, keep = _unpack(rec_w, slice(0, lanes)), _unpack(copy_w, slice(0, lanes))
+    moved = torch.zeros_like(rec)
+    for x, y, o in zip(state, full[:4], out):
+        if x is None:
+            continue
+        r, c = (rec, keep) if x.dim() == 2 else (rec[:, None, :], keep[:, None, :])
+        moved |= rec & ((y != x) if x.dim() == 2 else (y != x).any(1))
+        o.copy_(torch.where(r, y, torch.where(c, x, o)))
+    return _round_result(moved)
 
 
 def parent_sets_plain(src, cost, slot, mask, dist, npaths, roots, kp: int):
@@ -317,6 +374,51 @@ def parent_sets_plain(src, cost, slot, mask, dist, npaths, roots, kp: int):
             pweight[:, r, sl] = torch.where(has, torch.where(sel, np_nbr, 0).amax(1), 0)
             remaining = remaining & (src3 != smin[:, None, :])
     return parents, pdist, pweight
+
+
+def first_parent_sets_plain(src, cost, slot, mask, dist, roots, kp: int):
+    """(parent [N, B], dag [N, K, ceil(B / 32)], parents, pdist [N, kp, B]):
+    :func:`first_parent_plain`'s two outputs and the first two of
+    :func:`parent_sets_plain`'s from one gather of ``dist[src]`` a lane
+    chunk.  The DAG slots are the tight admissible ones, so both sets come
+    from one test: usable, source reached, v reached and not the lane's
+    root; then tight (the DAG), or strictly downward."""
+    n, k = src.shape
+    lanes = dist.shape[1]
+    dev = src.device
+    parent = torch.empty_like(dist)
+    bits = torch.empty((n, k, mask_words(lanes)), dtype=torch.int32, device=dev)
+    parents = torch.empty((n, kp, lanes), dtype=torch.int32, device=dev)
+    pdist = torch.empty_like(parents)
+    src3 = src[:, :, None]
+    for sl in lane_chunks(n, k, lanes):
+        d_nbr = dist[:, sl][src.long()]
+        dv = dist[:, sl][:, None, :]
+        not_root = torch.arange(n, device=dev)[:, None, None] != roots[sl][None, None, :]
+        ok = _usable(slot, mask, sl) & (d_nbr < INF) & (dv < INF) & not_root
+        pathcost = d_nbr + cost[:, :, None]
+        dag = ok & (pathcost == dv)
+        dmin = torch.where(dag, d_nbr, INF).amin(1)
+        parent[:, sl] = torch.where(dag & (d_nbr == dmin[:, None, :]), src3, n).amin(1)
+        bits[:, :, sl.start // 32 : mask_words(sl.stop)] = pack_lane_bits(dag)
+        remaining = dag | (ok & (d_nbr < dv))
+        pathcost = torch.where(remaining, pathcost, INF)
+        for r in range(kp):
+            cmin = torch.where(remaining, pathcost, INF).amin(1)
+            smin = torch.where(remaining & (pathcost == cmin[:, None, :]), src3, n).amin(1)
+            has = cmin < INF
+            parents[:, r, sl] = torch.where(has, smin, n)
+            pdist[:, r, sl] = torch.where(has, cmin, INF)
+            remaining = remaining & (src3 != smin[:, None, :])
+    return parent, bits, parents, pdist
+
+
+def parent_weights_plain(parents, npaths):
+    """pweight [N, kp, B]: ``npaths`` [N, B] of each parent-set entry in its
+    lane, 0 past the set (parent N)."""
+    n, kp, lanes = parents.shape
+    ext = torch.cat([npaths, npaths.new_zeros((1, lanes))])
+    return torch.gather(ext, 0, parents.reshape(n * kp, lanes).long()).reshape(n, kp, lanes)
 
 
 # ---------------------------------------------------------------------------
@@ -409,22 +511,30 @@ def ell_nh_round(src, inherit, nh, frontier):
     return out, changed, front_out
 
 
-def ell_mp_round(src, dag, direct, inc, roots, parent, hops, nh, npaths=None, aw=None):
-    """(hops, nh, npaths, aw, changed int32 [1]): one Jacobi round of the
-    multipath fixpoint over the DAG bits ``dag`` (``_mp_fixpoint``'s body,
-    ``holo_tpu/ops/spf_engine.py:1281-1322``); without ``npaths`` and ``aw``
-    the hops + next-hop round (``:1211-1227``), their outputs None.  See
+def ell_mp_round(src, dag, direct, inc, roots, parent, state, frontier, out):
+    """One row-frontier round of the multipath fixpoint over the DAG bits
+    ``dag`` (``_mp_fixpoint``'s body, ``holo_tpu/ops/spf_engine.py:1281-1322``;
+    with ``npaths`` and ``aw`` None the hops + next-hop round, ``:1211-1227``):
+    (changed int32 [1], frontier_out), ``out`` written in place.  ``state``
+    and ``out`` are (hops [N, B], nh [N, W, B], npaths [N, B] or None, aw [N,
+    32 W, B] or None): the planes of the last round and of the round before
+    it, where ``frontier`` marks every lane that changed between them.  See
     :func:`mp_round_plain`.  ``inc`` [N] is 1 at a router, ``parent`` [N, B]
     the first parent (N for none)."""
-    if (npaths is None) != (aw is None):
-        raise ValueError("ell_mp_round takes both npaths and aw, or neither")
-    if not build.on_card(src, dag, direct, inc, roots, parent, hops, nh, npaths, aw):
-        return mp_round_plain(src, dag, direct, inc, roots, parent, hops, nh, npaths, aw)
+    if len(state) != 4 or len(out) != 4:
+        raise ValueError("ell_mp_round takes (hops, nh, npaths, aw) in and out")
+    if any((x is None) != (state[2] is None) for x in (*state[2:], *out[2:])):
+        raise ValueError("ell_mp_round takes both npaths and aw, in and out, or neither")
+    if not build.on_card(src, dag, direct, inc, roots, parent, *state, frontier, *out):
+        return mp_round_plain(src, dag, direct, inc, roots, parent, state, frontier, out)
     n, k = src.shape
+    hops, nh, npaths, aw = state
     lanes = hops.shape[1]
     words = direct.shape[2] if direct.dim() == 3 else -1
     bad = dag.shape != (n, k, mask_words(lanes)) or direct.shape != (n, k, words)
     bad |= inc.shape != (n,) or roots.shape != (lanes,) or parent.shape != (n, lanes)
+    for x, o in zip(state, out):
+        bad |= x is not None and o.shape != x.shape
     bad |= hops.shape != (n, lanes) or nh.shape != (n, words, lanes)
     if npaths is not None:
         bad |= npaths.shape != (n, lanes) or aw.shape != (n, 32 * words, lanes)
@@ -432,39 +542,55 @@ def ell_mp_round(src, dag, direct, inc, roots, parent, hops, nh, npaths=None, aw
         raise ValueError(
             f"mp_round planes disagree: src {tuple(src.shape)}, dag {tuple(dag.shape)}, "
             f"direct {tuple(direct.shape)}, inc {tuple(inc.shape)}, roots "
-            f"{tuple(roots.shape)}, parent {tuple(parent.shape)}, hops {tuple(hops.shape)}, "
-            f"nh {tuple(nh.shape)}, npaths "
-            f"{None if npaths is None else tuple(npaths.shape)}, aw "
-            f"{None if aw is None else tuple(aw.shape)}"
+            f"{tuple(roots.shape)}, parent {tuple(parent.shape)}, state "
+            f"{[None if x is None else tuple(x.shape) for x in state]}, out "
+            f"{[None if x is None else tuple(x.shape) for x in out]}"
         )
-    hops_out, nh_out = torch.empty_like(hops), torch.empty_like(nh)
-    np_out = None if npaths is None else torch.empty_like(npaths)
-    aw_out = None if aw is None else torch.empty_like(aw)
+    _check_frontier(frontier, n, lanes)
     changed = torch.zeros(1, dtype=torch.int32, device=hops.device)
-    _launch("ell_mp_round", src, dag, direct, inc, roots, parent, hops, nh, npaths, aw,
-            hops_out, nh_out, np_out, aw_out, changed, n, k, lanes, words)
-    return hops_out, nh_out, np_out, aw_out, changed
+    front_out = torch.empty_like(frontier)
+    # The tile form's plan: the (recompute, copy) words of each (row, tile).
+    plan = torch.empty(2 * frontier.numel() if lanes > SMALL else 0, dtype=torch.int32,
+                       device=hops.device)
+    _launch("ell_mp_round", src, dag, direct, inc, roots, parent, *state, frontier, *out,
+            changed, front_out, plan, n, k, lanes, words)
+    return changed, front_out
 
 
-def ell_parent_sets(src, cost, slot, mask, dist, npaths, roots, kp: int):
-    """(parents, pdist, pweight) [N, kp, B]: per (vertex, lane) the ``kp``
+def ell_parent_sets(src, cost, slot, mask, dist, roots, kp: int):
+    """(parent [N, B], dag [N, K, ceil(B / 32)], parents, pdist [N, kp, B]):
+    :func:`ell_first_parent`'s outputs and, per (vertex, lane), the ``kp``
     smallest (path cost, source) pairs over the admissible slots, one per
-    source at its cheapest slot, and ``npaths[source]``; N, INF, 0 past the
-    set (``_mp_parent_sets``, ``holo_tpu/ops/spf_engine.py:1327-1372``).
-    See :func:`parent_sets_plain`."""
+    source at its cheapest slot; N, INF past the set (``_sp_dag`` +
+    ``_first_parent``, ``holo_tpu/ops/spf_engine.py:872-894``, and
+    ``_mp_parent_sets`` without ``pweight``, ``:1327-1372``), from one walk
+    over the slots.  See :func:`first_parent_sets_plain`."""
     if kp not in (2, 4, 8):
         raise ValueError(f"kp={kp}: parent sets are 2, 4 or 8 wide (mp_pad past single path)")
-    if not build.on_card(src, cost, slot, mask, dist, npaths, roots):
-        return parent_sets_plain(src, cost, slot, mask, dist, npaths, roots, kp)
+    if not build.on_card(src, cost, slot, mask, dist, roots):
+        return first_parent_sets_plain(src, cost, slot, mask, dist, roots, kp)
     n, k = src.shape
     lanes = dist.shape[1]
     _check_planes(src, cost, slot, mask, lanes, plane=dist, roots=roots)
-    if npaths.shape != (n, lanes):
-        raise ValueError(f"npaths {tuple(npaths.shape)} is not [{n}, {lanes}]")
-    shape = (n, kp, lanes)
-    parents = torch.empty(shape, dtype=torch.int32, device=dist.device)
+    parent = torch.empty_like(dist)
+    dag = torch.empty((n, k, mask_words(lanes)), dtype=torch.int32, device=dist.device)
+    parents = torch.empty((n, kp, lanes), dtype=torch.int32, device=dist.device)
     pdist = torch.empty_like(parents)
+    _launch("ell_parent_sets", src, cost, slot, mask, dist, roots, parent, dag, parents, pdist,
+            n, k, lanes, kp)
+    return parent, dag, parents, pdist
+
+
+def ell_parent_weights(parents, npaths):
+    """pweight [N, kp, B]: ``npaths[parents[v, i, b], b]``, 0 past the set
+    (``_mp_parent_sets``' pweight, ``holo_tpu/ops/spf_engine.py:1361-1366``,
+    which needs the fixpoint's path counts).  See :func:`parent_weights_plain`."""
+    if not build.on_card(parents, npaths):
+        return parent_weights_plain(parents, npaths)
+    n, kp, lanes = parents.shape
+    if npaths.shape != (n, lanes):
+        raise ValueError(f"npaths {tuple(npaths.shape)} is not [{n}, {lanes}] for parents "
+                         f"{tuple(parents.shape)}")
     pweight = torch.empty_like(parents)
-    _launch("ell_parent_sets", src, cost, slot, mask, dist, npaths, roots, parents, pdist,
-            pweight, n, k, lanes, kp)
-    return parents, pdist, pweight
+    _launch("ell_parent_weights", parents, npaths, pweight, n, kp, lanes)
+    return pweight

@@ -20,11 +20,14 @@ fixpoints over the ELL in-edge layout are the same:
    inherit their sets (``ell_nh_round``, with its own frontier).
 
 The multipath program (``spf_one_multipath``, ``spf_multipath_batch``,
-``spf_one_incremental_multipath``) runs steps 1-2, then one joint Jacobi
-fixpoint of hops, next-hop words, saturated path counts and per-atom UCMP
-weights (``ell_mp_round``, JAX's ``_mp_fixpoint``: one changed flag over
-the four planes, so truncated runs stop where JAX's do), then the parent
-sets (``ell_parent_sets``).
+``spf_one_incremental_multipath``) runs step 1, then ``ell_parent_sets``
+(step 2's first parent and DAG bits and the parent sets, from one walk),
+then one joint Jacobi fixpoint of hops, next-hop words, saturated path
+counts and per-atom UCMP weights (``ell_mp_round``, JAX's
+``_mp_fixpoint``: one changed flag over the four planes, so truncated runs
+stop where JAX's do; each round recomputes only the rows whose DAG
+sources changed in the round before), then the parent weights
+(``ell_parent_weights``, one gather of the path counts).
 
 ``torch.vmap`` cannot carry the data-dependent loops, so one program runs
 every lane at once, with the lanes on the minor axis of [N, B] planes (the
@@ -263,36 +266,64 @@ def spf_lanes(g: DeviceGraph, roots: torch.Tensor, mask, max_iters=None, nexthop
     return dist, parent, torch.where(dist < INF, hops, n + 1), nh
 
 
-def mp_fixpoint(g: DeviceGraph, roots, dag, parent, hops, nh, npaths, aw, limit: int):
-    """JAX's ``_mp_fixpoint`` for every lane: (hops, nh, npaths, aw, rounds)
-    from the seeds, over the DAG bits ``dag`` [N, K, ceil(B / 32)] and the
-    first parents [N, B].  Each round recomputes every value from the last
-    (``ell_mp_round``); the loop runs while any value of any plane changed
-    and fewer than ``limit`` rounds ran.  Without ``npaths`` and ``aw`` it is
-    ``_hops_nh_fixpoint``.  The seeds are only read."""
+def mp_fixpoint(g: DeviceGraph, roots, dag, parent, state, before, front, limit: int):
+    """JAX's ``_mp_fixpoint`` for every lane: (planes, rounds) over the DAG
+    bits ``dag`` [N, K, ceil(B / 32)] and the first parents [N, B].
+
+    ``state`` and ``before`` are (hops, nh, npaths, aw) buffers owned by the
+    fixpoint: the seeds, and planes that equal them wherever ``front`` has
+    no bit (the round before the seeds, as :func:`mp_start` and
+    :func:`mp_resume` build them).  Each round (``ell_mp_round``) reads one
+    buffer and writes the other, and recomputes only the lanes of the rows
+    that a DAG source's change reaches; the loop runs while any value of
+    any plane changed and fewer than ``limit`` rounds ran.  Without
+    ``npaths`` and ``aw`` it is ``_hops_nh_fixpoint``."""
     inc = g.is_router.to(torch.int32)
     rounds = 0
     changed = True
     while changed and rounds < limit:
-        hops, nh, npaths, aw, flag = ell.ell_mp_round(
-            g.in_src, dag, g.direct_nh_words, inc, roots, parent, hops, nh, npaths, aw)
+        flag, front = ell.ell_mp_round(g.in_src, dag, g.direct_nh_words, inc, roots, parent,
+                                       state, front, before)
+        state, before = before, state
         changed = bool(flag)
         rounds += 1
-    return hops, nh, npaths, aw, rounds
+    return state, rounds
 
 
-def mp_seeds(n: int, words: int, roots: torch.Tensor):
-    """The fresh seeds of the joint fixpoint for lanes rooted at ``roots``
-    [B]: (hops [N, B], 0 at the root and N + 1 elsewhere; next hops
-    [N, words, B], 0; npaths [N, B], 1 at the root and 0 elsewhere;
-    nh_weights [N, 32 * words, B], 0), int32 on the roots' device."""
+def mp_start(n: int, words: int, roots: torch.Tensor):
+    """The fresh start of the joint fixpoint for lanes rooted at ``roots``
+    [B]: (seeds, blank, frontier).  The seeds are hops 0 at the root and N +
+    1 elsewhere, next hops [N, words, B] 0, npaths 1 at the root and 0
+    elsewhere, nh_weights [N, 32 words, B] 0; the blank planes (hops N + 1,
+    all else 0) are the round before them, which differs only at the roots,
+    and a round maps the blank planes to the seeds: the root has no DAG
+    slot, and a blank source offers nothing.  So the first frontier is the
+    roots."""
     lanes = roots.shape[0]
     dev = roots.device
     at_root = torch.arange(n, device=dev)[:, None] == roots.long()[None, :]
-    return (torch.where(at_root, 0, n + 1).to(torch.int32),
-            torch.zeros((n, words, lanes), dtype=torch.int32, device=dev),
-            at_root.to(torch.int32),
-            torch.zeros((n, 32 * words, lanes), dtype=torch.int32, device=dev))
+
+    def planes():
+        return (torch.full((n, lanes), n + 1, dtype=torch.int32, device=dev),
+                torch.zeros((n, words, lanes), dtype=torch.int32, device=dev),
+                torch.zeros((n, lanes), dtype=torch.int32, device=dev),
+                torch.zeros((n, 32 * words, lanes), dtype=torch.int32, device=dev))
+
+    seeds = planes()
+    seeds[0].masked_fill_(at_root, 0)
+    seeds[2].masked_fill_(at_root, 1)
+    return seeds, planes(), ell.pack_lane_bits(at_root)
+
+
+def mp_resume(state):
+    """The start of the joint fixpoint from a previous run's planes (hops,
+    nh, npaths, aw; the last two may be None), which are only read: (their
+    copy, a buffer of the same shapes, an all-ones frontier).  A seed is not
+    the output of a round, so the first round recomputes every lane."""
+    n, lanes = state[0].shape
+    return (tuple(None if x is None else x.clone() for x in state),
+            tuple(None if x is None else torch.empty_like(x) for x in state),
+            ell.full_frontier(n, lanes, state[0].device))
 
 
 def mp_lanes(g: DeviceGraph, roots: torch.Tensor, mask, kp: int, max_iters=None):
@@ -303,11 +334,11 @@ def mp_lanes(g: DeviceGraph, roots: torch.Tensor, mask, kp: int, max_iters=None)
     limit = n if max_iters is None else max_iters
     p = lane_planes(g, mask)
     dist = distance_fixpoint(p, roots, limit)
-    parent, dag = ell.ell_first_parent(*p, dist, roots)
-    hops, nh, npaths, aw, _ = mp_fixpoint(
-        g, roots, dag, parent, *mp_seeds(n, g.direct_nh_words.shape[2], roots), limit)
-    parents, pdist, pweight = ell.ell_parent_sets(*p, dist, npaths, roots, kp)
+    parent, dag, parents, pdist = ell.ell_parent_sets(*p, dist, roots, kp)
+    (hops, nh, npaths, aw), _ = mp_fixpoint(
+        g, roots, dag, parent, *mp_start(n, g.direct_nh_words.shape[2], roots), limit)
     reach = dist < INF
+    pweight = ell.ell_parent_weights(parents, npaths)
     return ((dist, parent, torch.where(reach, hops, n + 1), nh),
             (parents, pdist, pweight, torch.where(reach, npaths, 0), aw))
 
@@ -696,28 +727,27 @@ def hops_nh_recompute(g: DeviceGraph, root: int, dag, parent, hops0, nh0, limit:
     """Jacobi hops + next-hop fixpoint of one lane over a settled DAG (bits
     [N, K, 1]), seeded with ``hops0`` [N] and ``nh0`` [N, W]
     (``_hops_nh_fixpoint``): (hops, next hops, rounds).  Each round
-    recomputes every value from the last (``ell_mp_round`` without the
+    recomputes its values from the last (``ell_mp_round`` without the
     count and weight planes), so a stale seed value can fall, which
     ``ell_nh_round`` (OR into its input) could not do.  The seeds are only
     read."""
     roots = _roots(root, 1, g.in_src.device)
-    hops, nh, _, _, rounds = mp_fixpoint(g, roots, dag, parent[:, None], hops0[:, None],
-                                         nh0[:, :, None], None, None, limit)
+    start = mp_resume((hops0[:, None], nh0[:, :, None], None, None))
+    (hops, nh, _, _), rounds = mp_fixpoint(g, roots, dag, parent[:, None], *start, limit)
     return hops[:, 0], nh[:, :, 0], rounds
 
 
-def _incremental_dag(g: DeviceGraph, root: int, prev: SpfTensors, seed_rows, limit: int):
-    """Phases 1-2 of the incremental SPF and the DAG: (planes, dist [N, 1],
-    parent [N, 1], dag bits, phase record).
+def _incremental_relax(g: DeviceGraph, root: int, prev: SpfTensors, seed_rows, limit: int):
+    """Phases 1-2 of the incremental SPF: (planes, dist [N, 1], phase
+    record).  The caller then runs the DAG step: ``ell_first_parent`` on
+    the single-path path, ``ell_parent_sets`` on the multipath one.
 
     1. The affected set: the seed rows and their descendants in the
        previous first-parent tree (one gather of ``aff[parent]`` a round).
     2. The seeded relax on ``ell_relax``, from the previous distances with
        the affected rows at INF and the root at 0.  Its first frontier marks
        every row with a finite seed: a seed is not the output of a round,
-       so no source of it may be skipped.
-
-    Then ``ell_first_parent`` (parent and DAG bits)."""
+       so no source of it may be skipped."""
     n = g.in_src.shape[0]
     dev = g.in_src.device
     t0 = time.perf_counter()
@@ -745,10 +775,9 @@ def _incremental_dag(g: DeviceGraph, root: int, prev: SpfTensors, seed_rows, lim
         changed = bool(flag)
         relax_rounds += 1
     t2 = time.perf_counter()
-    parent, dag = ell.ell_first_parent(*p, dist, _roots(root, 1, dev))
     record = dict(affected=aff_rounds, affected_ms=(t1 - t0) * 1e3, aff=aff,
                   relax=relax_rounds, relax_ms=(t2 - t1) * 1e3, t2=t2)
-    return p, dist, parent, dag, record
+    return p, dist, record
 
 
 def _note_phases(stats: dict | None, record: dict, rounds: int) -> None:
@@ -769,9 +798,9 @@ def spf_one_incremental(g: DeviceGraph, root: int, prev: SpfTensors, seed_rows,
     ``g`` is the delta-updated graph, ``prev`` the previous run's tensors
     on the base graph (only read), ``seed_rows`` the vertices whose
     previous distance may now be too small (``TopologyDelta.seed_rows``).
-    Phases 1-2 and the DAG are :func:`_incremental_dag`'s; phase 3 is
-    :func:`hops_nh_recompute` seeded with the previous hops and next hops,
-    as JAX seeds it.
+    Phases 1-2 are :func:`_incremental_relax`'s; then ``ell_first_parent``
+    (parent and DAG bits), and phase 3 is :func:`hops_nh_recompute` seeded
+    with the previous hops and next hops, as JAX seeds it.
 
     Every loop runs JAX's rounds (while changed and fewer than ``max_iters``
     or N), so the bits equal JAX's incremental path under truncation too.
@@ -782,7 +811,8 @@ def spf_one_incremental(g: DeviceGraph, root: int, prev: SpfTensors, seed_rows,
     """
     n = g.in_src.shape[0]
     limit = n if max_iters is None else max_iters
-    _, dist, parent, dag, record = _incremental_dag(g, root, prev, seed_rows, limit)
+    p, dist, record = _incremental_relax(g, root, prev, seed_rows, limit)
+    parent, dag = ell.ell_first_parent(*p, dist, _roots(root, 1, g.in_src.device))
     hops, nh, rounds = hops_nh_recompute(g, root, dag, parent[:, 0], prev.hops, prev.nexthops,
                                          limit)
     _note_phases(stats, record, rounds)
@@ -799,21 +829,22 @@ def spf_one_incremental_multipath(g: DeviceGraph, root: int, prev: SpfTensors, p
                                   prev_nh_weights, seed_rows, kp: int, max_iters=None,
                                   stats: dict | None = None):
     """Incremental multipath SPF (``spf_one_incremental_multipath``):
-    :func:`spf_one_incremental`'s phases 1-2 and DAG, then the joint
-    fixpoint seeded with the previous run's hops, next hops, ``npaths`` [N]
-    and ``nh_weights`` [N, A], then the parent sets, recomputed (they are
-    closed-form in the settled distances).  (SpfTensors,
-    MultipathTensors); the seeds are only read; ``stats`` as in
-    :func:`spf_one_incremental` (its ``hops_nh`` phase also holds the
-    parent sets)."""
+    :func:`spf_one_incremental`'s phases 1-2, then ``ell_parent_sets``
+    (first parent, DAG bits and parent sets: closed-form in the settled
+    distances), the joint fixpoint seeded with the previous run's hops,
+    next hops, ``npaths`` [N] and ``nh_weights`` [N, A], and the parent
+    weights.  (SpfTensors, MultipathTensors); the seeds are only read;
+    ``stats`` as in :func:`spf_one_incremental` (its ``hops_nh`` phase also
+    holds the parent sets)."""
     n = g.in_src.shape[0]
     limit = n if max_iters is None else max_iters
-    p, dist, parent, dag, record = _incremental_dag(g, root, prev, seed_rows, limit)
+    p, dist, record = _incremental_relax(g, root, prev, seed_rows, limit)
     roots = _roots(root, 1, g.in_src.device)
-    hops, nh, npaths, aw, rounds = mp_fixpoint(
-        g, roots, dag, parent, prev.hops[:, None], prev.nexthops[:, :, None],
-        prev_npaths[:, None], prev_nh_weights[:, :, None], limit)
-    parents, pdist, pweight = ell.ell_parent_sets(*p, dist, npaths, roots, kp)
+    parent, dag, parents, pdist = ell.ell_parent_sets(*p, dist, roots, kp)
+    start = mp_resume((prev.hops[:, None], prev.nexthops[:, :, None], prev_npaths[:, None],
+                       prev_nh_weights[:, :, None]))
+    (hops, nh, npaths, aw), rounds = mp_fixpoint(g, roots, dag, parent, *start, limit)
+    pweight = ell.ell_parent_weights(parents, npaths)
     _note_phases(stats, record, rounds)
     reach = dist[:, 0] < INF
     sp = SpfTensors(dist=dist[:, 0], parent=parent[:, 0],

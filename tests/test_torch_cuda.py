@@ -29,9 +29,12 @@ whose K (136) spans five 32-slot chunks; the card driver is held to the CPU
 path under max_iters truncation; the gather backend to the oracle.
 
 Multipath: ell_mp_round (with the count and weight planes and without them)
-is held bit-identical to its plain version on every launch of a real
-multipath dispatch, and ell_parent_sets for kp 2, 4 and 8, at 1, 5, 8, 33
-and 64 lanes (row and tile forms) on a k=8 fat tree, K 40 and 136, the hops-0
+is held bit-identical to its plain version (same frontier, same out buffer)
+and to the plain full round on every launch of a real multipath dispatch,
+also under an all-ones frontier, and the fused ell_parent_sets to its plain
+version and to ell_first_parent's and the parent sets' plain versions, and
+ell_parent_weights to its plain version and the parent sets' pweight, for
+kp 2, 4 and 8, at 1, 5, 8, 33 and 64 lanes (row and tile forms) on a k=8 fat tree, K 40 and 136, the hops-0
 networks graph (also with four next-hop words), the saturating ladder and a
 graph with parallel links; the backend's multipath compute, what-if and a
 delta chain at multipath_k=4 are held to the CPU path and the oracle.
@@ -577,8 +580,9 @@ _MP_SHAPES = {**_SHAPES, "ladder": _ladder_topology, "parallel": _parallel_topol
 
 def _mp_inputs(topo, lanes, dev, n_atoms=64):
     """(planes, fixed planes, dist, launches, npaths): one multipath
-    dispatch on the card (scenario masks past one lane), with each
-    ell_mp_round launch's input state (hops, nh, npaths, aw) in launches."""
+    dispatch on the card (scenario masks past one lane); launches lists
+    each ell_mp_round launch's input as copies (state, frontier, the out
+    buffer before the launch)."""
     g = se.device_graph_from_ell(build_ell(topo, n_atoms=n_atoms), dev)
     mask = None
     if lanes > 1:
@@ -588,16 +592,25 @@ def _mp_inputs(topo, lanes, dev, n_atoms=64):
     n = topo.n_vertices
     dist = se.distance_fixpoint(p, roots, n)
     parent, dag = ell.ell_first_parent(*p, dist, roots)
-    state = se.mp_seeds(n, g.direct_nh_words.shape[2], roots)
+    state, before, front = se.mp_start(n, g.direct_nh_words.shape[2], roots)
     inc = g.is_router.to(torch.int32)
     fixed = (p.src, dag, g.direct_nh_words, inc, roots, parent)
     launches = []
     while True:
-        launches.append(state)
-        *state, changed = ell.ell_mp_round(*fixed, *state)
+        launches.append((_clone(state), front.clone(), _clone(before)))
+        changed, front = ell.ell_mp_round(*fixed, state, front, before)
+        state, before = before, state
         if not bool(changed):
             break
     return p, fixed, dist, launches, state[2]
+
+
+def _clone(planes):
+    return tuple(None if x is None else x.clone() for x in planes)
+
+
+def _hops_nh(planes):
+    return (*planes[:2], None, None)
 
 
 @pytest.mark.parametrize("lanes", [1, 5, 8, 33, 64])
@@ -609,21 +622,34 @@ def test_mp_kernels_match_plain_versions(shape, lanes):
                                                   100 if shape.endswith("_w4") else 64)
     assert fixed[2].shape[2] == (4 if shape.endswith("_w4") else 2)
     assert len(launches) >= 2
-    for r, state in enumerate(launches):
-        for label, st in (("mp", state), ("hops+nh", (*state[:2], None, None))):
-            got = ell.ell_mp_round(*fixed, *st)
-            want = ell.mp_round_plain(*fixed, *st)
+    ones = ell.pack_lane_bits(torch.ones(fixed[5].shape, dtype=torch.bool, device=npaths.device))
+    for r, (state, front, before) in enumerate(launches):
+        # The dispatch's frontier, and an all-ones one (a full round).
+        for label, st, f, out in (("mp", state, front, before),
+                                  ("hops+nh", _hops_nh(state), front, _hops_nh(before)),
+                                  ("mp all-ones", state, ones, before)):
+            got, want = _clone(out), _clone(out)
+            res = ell.ell_mp_round(*fixed, st, f, got)
+            ref = ell.mp_round_plain(*fixed, st, f, want)
+            full = ell.mp_round_full(*fixed, st)
             torch.cuda.synchronize()
-            for i, (a, b) in enumerate(zip(got, want)):
-                assert (a is None and b is None) or torch.equal(a, b), \
+            for i, (a, b, c) in enumerate(zip((*got, *res), (*want, *ref), full)):
+                assert (a is None and b is None and c is None) or (
+                    torch.equal(a, b) and torch.equal(a, c)), \
                     f"ell_mp_round {label} round {r + 1} output {i}"
     roots = fixed[4]
     for kp in (2, 4, 8):
-        got = ell.ell_parent_sets(*p, dist, npaths, roots, kp)
-        want = ell.parent_sets_plain(*p, dist, npaths, roots, kp)
+        got = ell.ell_parent_sets(*p, dist, roots, kp)
+        want = ell.first_parent_sets_plain(*p, dist, roots, kp)
+        ref = (*ell.first_parent_plain(*p, dist, roots),
+               *ell.parent_sets_plain(*p, dist, npaths, roots, kp)[:2])
         torch.cuda.synchronize()
-        for i, (a, b) in enumerate(zip(got, want)):
-            assert torch.equal(a, b), f"ell_parent_sets kp={kp} output {i}"
+        for i, (a, b, c) in enumerate(zip(got, want, ref)):
+            assert torch.equal(a, b) and torch.equal(a, c), f"ell_parent_sets kp={kp} output {i}"
+        got = ell.ell_parent_weights(got[2], npaths)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ell.parent_weights_plain(want[2], npaths))
+        assert torch.equal(got, ell.parent_sets_plain(*p, dist, npaths, roots, kp)[2])
     if shape == "ladder":
         assert int(npaths.max()) == 1 << 17  # saturated
 
@@ -631,17 +657,24 @@ def test_mp_kernels_match_plain_versions(shape, lanes):
 def test_mp_wrappers_refuse_bad_planes():
     dev = _card()
     p, fixed, dist, launches, npaths = _mp_inputs(synth.fat_tree_topology(k=8), 40, dev)
-    hops, nh, np_, aw = launches[0]
+    state, front, before = launches[0]
+    hops, nh, np_, aw = state
     with pytest.raises(ValueError, match="both npaths and aw"):
-        ell.ell_mp_round(*fixed, hops, nh, np_, None)
+        ell.ell_mp_round(*fixed, (hops, nh, np_, None), front, before)
     with pytest.raises(ValueError, match="planes disagree"):
-        ell.ell_mp_round(*fixed, hops, nh, np_, aw[:, :32].contiguous())
+        ell.ell_mp_round(*fixed, (hops, nh, np_, aw[:, :32].contiguous()), front,
+                         (*before[:3], before[3][:, :32].contiguous()))
     with pytest.raises(ValueError, match="CUDA device"):
-        ell.ell_mp_round(*fixed, hops.cpu(), nh, np_, aw)
+        ell.ell_mp_round(*fixed, (hops.cpu(), nh, np_, aw), front, before)
+    with pytest.raises(ValueError, match="frontier"):
+        ell.ell_mp_round(*fixed, state, front[:, :1].contiguous(), before)
     with pytest.raises(ValueError, match="kp=3"):
-        ell.ell_parent_sets(*p, dist, npaths, fixed[4], 3)
+        ell.ell_parent_sets(*p, dist, fixed[4], 3)
+    with pytest.raises(ValueError, match="disagree"):
+        ell.ell_parent_sets(*p, dist[:, :1].contiguous(), fixed[4], 4)
+    parents = ell.ell_parent_sets(*p, dist, fixed[4], 4)[2]
     with pytest.raises(ValueError, match="npaths"):
-        ell.ell_parent_sets(*p, dist, npaths[:, :1].contiguous(), fixed[4], 4)
+        ell.ell_parent_weights(parents, npaths[:, :1].contiguous())
 
 
 _MP_FIELDS = ("dist", "parent", "hops", "nexthop_words", "parents", "pdist", "pweight",
@@ -659,6 +692,7 @@ def test_multipath_backend_on_the_card_matches_cpu_and_oracle():
     batch = card.compute_whatif(topo, masks, multipath_k=4)
     torch.cuda.synchronize()
     assert ell.launches["ell_mp_round"] > 0 and ell.launches["ell_parent_sets"] == 4
+    assert ell.launches["ell_first_parent"] == 0  # the fused walk takes its place
     for k, res in zip((2, 3, 8), got):
         for want, label in ((cpu.compute(topo, multipath_k=k), "cpu"),
                             (sc.compute(topo, multipath_k=k), "oracle")):
@@ -686,6 +720,7 @@ def test_multipath_delta_chain_on_the_card_matches_the_cpu_path():
     got = [card.compute(t, multipath_k=4) for t in chain]
     torch.cuda.synchronize()
     assert ell.launches["ell_mp_round"] > 0 and ell.launches["ell_parent_sets"] == len(chain)
+    assert ell.launches["ell_first_parent"] == 0
     for i, (t, res) in enumerate(zip(chain, got)):
         want = cpu.compute(t, multipath_k=4)
         for f in _MP_FIELDS:

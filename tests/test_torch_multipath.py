@@ -1,10 +1,13 @@
 """Multipath in the port against holo_tpu's, bit for bit.
 
 - the round: ``te.mp_fixpoint`` over ``ell_mp_round``'s plain version equals
-  JAX's ``_mp_fixpoint`` at ``limit`` 1, 2 and 3, from fresh seeds and from
-  stale ones brought across with ``convert``;
-- the parent sets: ``ell_parent_sets``' plain version equals JAX's
-  ``_mp_parent_sets`` for kp 2, 4 and 8, with and without a scenario mask;
+  JAX's ``_mp_fixpoint`` at ``limit`` 1, 2 and 3, from fresh seeds (first
+  frontier: the root) and from stale ones brought across with ``convert``
+  (first frontier: every lane);
+- the parent sets: ``ell_parent_sets``' plain version (with
+  ``ell_parent_weights``) and the reference ``parent_sets_plain`` equal
+  JAX's ``_mp_parent_sets`` for kp 2, 4 and 8, with and without a scenario
+  mask;
 - the programs: ``spf_one_multipath`` and ``spf_multipath_batch`` (8 masks)
   equal JAX's at ``max_iters`` None, 1, 2 and 3, and
   ``spf_one_incremental_multipath`` equals JAX's seeded with the same
@@ -182,9 +185,18 @@ def test_mp_round_matches_jax_mp_fixpoint(shape, limit, stale):
         device="cpu")
     bits = ell.pack_lane_bits(torch.from_numpy(np.array(dag))[:, :, None])
     roots = torch.tensor([root], dtype=torch.int32)
-    hops, nh, npaths, aw, rounds = te.mp_fixpoint(
-        tg, roots, bits, sp.parent[:, None], sp.hops[:, None], sp.nexthops[:, :, None],
-        mp.npaths[:, None], mp.nh_weights[:, :, None], limit)
+    seeds = (sp.hops[:, None], sp.nexthops[:, :, None], mp.npaths[:, None],
+             mp.nh_weights[:, :, None])
+    # Fresh seeds start from the blank round before them (first frontier:
+    # the root), stale ones from an all-ones frontier.
+    if stale:
+        start = te.mp_resume(seeds)
+    else:
+        start = te.mp_start(tt.n_vertices, tg.direct_nh_words.shape[2], roots)
+        for a, b in zip(start[0], seeds):
+            assert torch.equal(a, b)
+    (hops, nh, npaths, aw), rounds = te.mp_fixpoint(tg, roots, bits, sp.parent[:, None],
+                                                    *start, limit)
     assert 1 <= rounds <= limit
     _assert_planes({"hops": hops[:, 0], "nh": nh[:, :, 0], "npaths": npaths[:, 0],
                     "aw": aw[:, :, 0]},
@@ -192,9 +204,8 @@ def test_mp_round_matches_jax_mp_fixpoint(shape, limit, stale):
                     "aw": want[3]}, f"{shape} limit={limit} stale={stale}")
     # Without the count and weight planes: _hops_nh_fixpoint.
     want2 = je._hops_nh_fixpoint(jg, root, dag, parent, hops0, nh0.view(np.int32), limit)
-    hops, nh, npaths, aw, _ = te.mp_fixpoint(
-        tg, roots, bits, sp.parent[:, None], sp.hops[:, None], sp.nexthops[:, :, None],
-        None, None, limit)
+    (hops, nh, npaths, aw), _ = te.mp_fixpoint(
+        tg, roots, bits, sp.parent[:, None], *te.mp_resume((*seeds[:2], None, None)), limit)
     assert npaths is None and aw is None
     _assert_planes({"hops": hops[:, 0], "nh": nh[:, :, 0]},
                    {"hops": want2[0], "nh": np.asarray(want2[1])}, "hops_nh")
@@ -215,10 +226,10 @@ def test_mp_round_plain_reads_direct_atom_31():
     nh = torch.zeros((n, 2, 1), dtype=torch.int32)
     npaths = torch.tensor([[1], [1], [1]], dtype=torch.int32)
     aw = torch.zeros((n, 64, 1), dtype=torch.int32)
-    _, nh1, _, aw1, _ = ell.ell_mp_round(src, dag, direct, inc, roots, parent, hops, nh,
-                                         npaths, aw)
-    assert int(nh1[1, 0, 0]) == -(1 << 31)
-    assert aw1[1, :, 0].tolist() == [0] * 31 + [1] + [0] * 32
+    state, out, front = te.mp_resume((hops, nh, npaths, aw))
+    ell.ell_mp_round(src, dag, direct, inc, roots, parent, state, front, out)
+    assert int(out[1][1, 0, 0]) == -(1 << 31)
+    assert out[3][1, :, 0].tolist() == [0] * 31 + [1] + [0] * 32
 
 
 @pytest.mark.parametrize("masked", [False, True])
@@ -238,13 +249,19 @@ def test_parent_sets_match_jax(shape, kp, masked):
     want = je._mp_parent_sets(jg, root, dist, ok, npaths, kp)
     tmask = None if mask is None else te.pack_edge_masks(mask[None], "cpu")
     p = te.lane_planes(tg, tmask)
-    got = ell.ell_parent_sets(*p, torch.from_numpy(np.array(dist))[:, None].contiguous(),
-                              torch.from_numpy(npaths)[:, None], torch.tensor([root],
-                                                                              dtype=torch.int32),
-                              kp)
-    _assert_planes({f: g[:, :, 0] for f, g in zip(("parents", "pdist", "pweight"), got)},
-                   dict(zip(("parents", "pdist", "pweight"), want)), f"{shape} kp={kp}")
-    assert got[0].shape == (tt.n_vertices, kp, 1)
+    dist_t = torch.from_numpy(np.array(dist))[:, None].contiguous()
+    npaths_t = torch.from_numpy(npaths)[:, None]
+    roots = torch.tensor([root], dtype=torch.int32)
+    names = ("parents", "pdist", "pweight")
+    # The fused wrapper (parents, pdist; pweight gathered after the
+    # fixpoint) and the reference it is held to on the card.
+    _, _, parents, pdist = ell.ell_parent_sets(*p, dist_t, roots, kp)
+    fused = (parents, pdist, ell.ell_parent_weights(parents, npaths_t))
+    for label, got in (("fused", fused),
+                       ("reference", ell.parent_sets_plain(*p, dist_t, npaths_t, roots, kp))):
+        _assert_planes({f: g[:, :, 0] for f, g in zip(names, got)}, dict(zip(names, want)),
+                       f"{shape} kp={kp} {label}")
+        assert got[0].shape == (tt.n_vertices, kp, 1)
 
 
 # ---------------------------------------------------------------------------
