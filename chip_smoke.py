@@ -12,7 +12,10 @@ gather engine also through ``compute_multiroot`` over 64 roots, DeltaPath:
 a chain of eight topology events, each linked to the one before
 (``Topology.link_delta``), through ``compute``, and multipath (max-paths 4
 and 8: ECMP/UCMP parent sets, path counts, per-atom weights) through
-``compute``, ``compute_whatif`` and the DeltaPath chain.  Phases:
+``compute``, ``compute_whatif`` and the DeltaPath chain, and fast reroute
+(``FrrEngine("torch").compute``: the all-roots distance matrix, one lane
+per vertex, the per-link post-convergence batch and the LFA / remote-LFA /
+TI-LFA tables).  Phases:
 
 1. build the CUDA kernels from ``holo_tpu_torch/csrc`` with nvcc;
 2. run each kernel once on real mid-fixpoint inputs at the main paths'
@@ -62,12 +65,31 @@ and 8: ECMP/UCMP parent sets, path counts, per-atom weights) through
    kernels launched on each path and ``ell_first_parent`` on none;
    ``multipath_k=1`` equals the single-path ``compute()``, its multipath
    fields None;
+3f. fast reroute (root 6075): with the ELL launch counters at 0, a cold
+   ``FrrEngine("torch").compute`` (every gather kernel but the multipath
+   ones launched), then three warm ones timed per stage (``marshal_frr``,
+   ``D``, the post batch, LFA + remote LFA, TI-LFA, readback) with the peak
+   device memory; one more compute with every launch of the four gather
+   kernels held bit-identical to its plain version on its own inputs (the
+   six ``D`` launches at B = N lanes and every launch of the 48-lane post
+   batch; the same launches as the cold compute's); a ``TorchSpfBackend``
+   on the same topology served by the graph FRR marshaled (one shared
+   cache per device); ``D``'s columns of eight roots equal to
+   ``spf_reference``, the post planes of the first and last
+   link equal to ``ScalarSpfBackend``, all seven tables equal to
+   ``frr_select`` run on the host over the card's ``D`` and post planes; on
+   a 1,000-vertex LAN topology every table plane equal to ``frr_reference``
+   and ``resolve_backup`` equal on every (link, destination), with the
+   policies off and with node protection + SRLG-disjointness; the graft
+   entry on the card equal to the oracle;
 4. time each kernel (CUDA events; at one scenario also the profiler's
    device time, which leaves out the host's launch), its plain version, the
    whole batch, ``compute()`` and the gather batch's stages, and DeltaPath's
    delta-linked ``compute()`` against a re-marshal and a cached call, with
    the host's delta lowering and scatter against the incremental SPF's
-   device time, beside the card's name and power limit.
+   device time, beside the card's name and power limit; the FRR compute's
+   device-busy share; then require that no breaker of the run (every SPF
+   backend and FRR engine) counted a failure, a fallback or a refusal.
 
 Every failure raises, so the exit code is not 0.  Without a CUDA device, or
 without the rest of the repository beside it, the script fails before it
@@ -77,6 +99,7 @@ prints any result.  The last line is the device summary as JSON.
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
 import statistics
 from collections import Counter
@@ -189,6 +212,14 @@ MP_PAIR_OPS = 2  # + A + W
 MP_CELL_OPS = 4  # + 2 A + W
 PS_TEST_OPS = 4
 PS_OFFER_OPS = 2  # x kp
+# Fast reroute (phase 3f): the warm computes timed, the policy of the main
+# path, the LAN topology of the whole-table check and its SRLG seed.
+FRR_WARM_REPS = 3
+FRR_CFG = dict(enabled=True, remote_lfa=True, ti_lfa=True)
+FRR_POLICIES = ({}, {"node_protection": True, "srlg_disjoint": True})
+FRR_LAN = dict(n_routers=800, n_networks=200, extra_p2p=1600, seed=23)
+FRR_SRLG_SEED = 5
+FRR_STAGES = ("marshal_ms", "d_ms", "post_ms", "lfa_rlfa_ms", "tilfa_ms", "readback_ms")
 
 
 def cuda_call(fn):
@@ -750,6 +781,51 @@ def holding(ell, holder: Holder):
         ell.ell_mp_round, ell.ell_parent_sets, ell.ell_parent_weights = fns
 
 
+# The gather kernels (G1-G4) and their plain versions, which take the same
+# arguments.
+GATHER_PLAIN = {"ell_relax": "relax_plain", "ell_first_parent": "first_parent_plain",
+                "ell_nh_seed": "nh_seed_plain", "ell_nh_round": "nh_round_plain"}
+
+
+class GatherHolder:
+    """Within ``holding_gather()``, every launch of the four gather kernels
+    runs (and counts) as before and is held at once bit-identical to its
+    plain version on the same inputs (none of them writes an input).
+    ``err``: kernel -> max_abs_err; ``lanes``: (kernel, lanes) -> held
+    launches.  The plain calls launch no kernel."""
+
+    def __init__(self):
+        self.err = {name: 0 for name in GATHER_PLAIN}
+        self.lanes = Counter()
+
+    def held_count(self, name: str) -> int:
+        return sum(c for (k, _), c in self.lanes.items() if k == name)
+
+
+@contextlib.contextmanager
+def holding_gather(ell, holder: GatherHolder):
+    """Hold every gather kernel launch within the block (GatherHolder)."""
+    fns = {name: getattr(ell, name) for name in GATHER_PLAIN}
+
+    def wrap(name, fn, plain):
+        def held_launch(*args):
+            got = fn(*args)
+            lanes = got[0].shape[-1]
+            label = f"at {lanes} lanes, launch {holder.held_count(name) + 1}"
+            holder.err[name] = max(holder.err[name], held(name, label, got, plain(*args)))
+            holder.lanes[(name, lanes)] += 1
+            return got
+        return held_launch
+
+    for name, fn in fns.items():
+        setattr(ell, name, wrap(name, fn, getattr(ell, GATHER_PLAIN[name])))
+    try:
+        yield holder
+    finally:
+        for name, fn in fns.items():
+            setattr(ell, name, fn)
+
+
 def gathered_sources(ell, src, use) -> torch.Tensor:
     """bool [N, B]: the (source, lane) entries that some slot of ``use``
     (DAG bits of the recomputed lanes, [N, K, words]) gathers."""
@@ -929,6 +1005,217 @@ def parent_sets_bound(ell, x, kp: int, usable: int) -> dict:
     return {"ell_parent_sets": (*bound(ops, byte_count), ops, byte_count),
             "ell_parent_weights": (*bound(n * kp * lanes, pw_bytes), n * kp * lanes, pw_bytes),
             "admissible": adm}
+
+
+@contextlib.contextmanager
+def keeping_relax(ell, kept: list):
+    """Within the block every ell_relax launch runs (and counts) as before,
+    and its (plane, frontier) input is appended to ``kept``."""
+    fn = ell.ell_relax
+
+    def keep(src, cost, slot, mask, dist, frontier):
+        kept.append((dist, frontier))
+        return fn(src, cost, slot, mask, dist, frontier)
+
+    ell.ell_relax = keep
+    try:
+        yield kept
+    finally:
+        ell.ell_relax = fn
+
+
+def frr_phase(ell, se, dev, topo) -> dict:
+    """Phase 3f: (a) a cold and warm FrrEngine("torch").compute at k=90 with
+    the ELL counts at 0, stage times and peak memory; (b) every G1-G4 launch
+    of one more compute held, the graph shared with an SPF backend, D's
+    columns, the post planes and the tables held; (c) the
+    whole table on a LAN topology against the oracle, both policies; (d) the
+    graft entry on the card against the oracle."""
+    from holo_tpu_torch import graft_entry
+    from holo_tpu_torch.frr import kernel as fk
+    from holo_tpu_torch.frr.manager import FrrConfig, FrrEngine, resolve_backup
+    from holo_tpu_torch.frr.scalar import frr_reference
+    from holo_tpu_torch.spf.backend import ScalarSpfBackend, TorchSpfBackend
+    from holo_tpu_torch.spf.scalar import spf_reference
+    from holo_tpu_torch.spf.synth import random_ospf_topology
+
+    def same_table(got, want) -> bool:
+        """All seven BackupTable planes equal, dtypes included."""
+        return all(getattr(got, f).dtype == getattr(want, f).dtype
+                   and np.array_equal(getattr(got, f), getattr(want, f))
+                   for f in fk.TABLE_PLANES)
+
+    t_phase = time.perf_counter()
+    x = {}
+    n, root = topo.n_vertices, int(topo.root)
+    # (a) the main path, counted: one cold compute (graph marshal included:
+    # the device's shared graph cache is emptied first).
+    se.shared_graph_cache(dev).clear()
+    fe = FrrEngine("torch")
+    require(fe.device.type == "cuda", "FrrEngine('torch') does not run on the card")
+    fe.set_policy(FrrConfig(**FRR_CFG))
+    fe.stats = {}
+    torch.cuda.synchronize()
+    ell.reset_launches()
+    t0 = time.perf_counter()
+    table = fe.compute(topo)
+    torch.cuda.synchronize()
+    x["cold_ms"] = (time.perf_counter() - t0) * 1e3
+    x["launches"] = dict(ell.launches)
+    x["cold_stats"] = dict(fe.stats)
+    print(f"FRR path launches: {x['launches']}", flush=True)
+    for name in ("ell_relax", "ell_first_parent", "ell_nh_seed", "ell_nh_round"):
+        require(x["launches"][name] > 0, f"kernel {name} never launched on the FRR path")
+    require(fe.dispatches == Counter({"device": 1}) and fe.graph_cache["miss"] == 1,
+            f"the cold FRR compute was not one device dispatch: {dict(fe.dispatches)}")
+    require(table.lfa_adj.shape == (table.inputs.n_links, n)
+            and table.post_nh.shape[:2] == (table.inputs.n_links, n), "FRR table shapes")
+    warm = []
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(FRR_WARM_REPS):
+        t0 = time.perf_counter()
+        again = fe.compute(topo)
+        torch.cuda.synchronize()
+        warm.append(((time.perf_counter() - t0) * 1e3, dict(fe.stats)))
+        require(same_table(again, table), "a warm FRR compute differs from the cold one")
+    x["peak_mb"] = (torch.cuda.max_memory_allocated() - mem0) / 2**20
+    x["warm_ms"] = statistics.median(ms for ms, _ in warm)
+    x["warm_all_ms"] = [ms for ms, _ in warm]
+    x["stages"] = {k: statistics.median(st[k] for _, st in warm)
+                   for k in (*FRR_STAGES, "d_launches", "tilfa_rounds")}
+    require(fe.graph_cache["hit"] == FRR_WARM_REPS, "a warm FRR compute re-marshaled the graph")
+    x["engine"] = fe
+
+    # (b) exactness at k=90: every gather kernel launch of one more compute
+    # (the cold one's launches: the counts must match) held to its plain
+    # version on its own inputs, D's rows, the post planes, the tables
+    # against frr_select on the host.
+    t0 = time.perf_counter()
+    hold = GatherHolder()
+    with holding_gather(ell, hold):
+        require(same_table(fe.compute(topo), table), "the held FRR compute differs")
+    torch.cuda.synchronize()
+    for name in GATHER_PLAIN:
+        require(hold.held_count(name) == x["launches"][name],
+                f"{name}: {hold.held_count(name)} launches held, the cold compute made "
+                f"{x['launches'][name]}")
+    fin = table.inputs
+    lp = fin.edge_masks.shape[0]
+    require(set(hold.lanes) == {("ell_relax", n), *((k, lp) for k in GATHER_PLAIN)},
+            f"the held FRR launches ran at other widths: {dict(hold.lanes)}")
+    x["held_err"] = hold.err
+    print(f"FRR held compute: every gather kernel launch bit-identical to its plain version "
+          f"on its own inputs, (kernel, lanes) -> launches {dict(hold.lanes)}, max_abs_err "
+          f"{hold.err} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    # One graph per device: SPF on the topology FRR marshaled finds it.
+    g, how = se.shared_graph_cache(dev).get(topo, max(64, topo.n_atoms()), need_edge_ids=True)
+    require(how == "hit", "the FRR graph left the shared cache")
+    sbe = TorchSpfBackend(device=dev)
+    t0 = time.perf_counter()
+    spf_after = sbe.compute(topo)
+    spf_after_ms = (time.perf_counter() - t0) * 1e3
+    require(same_planes(spf_after, ScalarSpfBackend().compute(topo)),
+            "SPF after FRR differs from the oracle")
+    require(sbe._gather_cache.lookups == Counter({"hit": 1}),
+            f"SPF after FRR re-marshaled the graph: {dict(sbe._gather_cache.lookups)}")
+    print(f"shared graph cache: a TorchSpfBackend's first compute() on the FRR topology hit "
+          f"its graph ({spf_after_ms:.3f} ms; no second marshal and no second copy of the "
+          f"{nbytes(*g) / 2**20:.1f} MiB of ELL planes on the card)", flush=True)
+    kept = []
+    with keeping_relax(ell, kept):
+        D = fk.all_roots(g)
+    torch.cuda.synchronize()
+    x["d_rounds"] = len(kept)
+    x["d_ms"] = cuda_ms(lambda: fk.all_roots(g), FRR_WARM_REPS)
+    p = se.lane_planes(g, None)
+    fronts = [popcount(f) for _, f in kept]
+    main = max(range(len(kept)), key=fronts.__getitem__)
+    x["d_main"] = main + 1
+    x["d_fronts"] = fronts
+    x["d_main_ms"] = cuda_ms(lambda: ell.ell_relax(*p, *kept[main]), KERNEL_REPS)
+    x["d_main_bound"] = launch_bound(p, None, "ell_relax", *kept[main])
+    del kept
+    print(f"FRR D dispatch: {x['d_rounds']} ell_relax launches at B={n} lanes, frontier "
+          f"bits by launch {fronts}; launch {main + 1} has the largest frontier", flush=True)
+    roots = [root, *map(int, fin.link_far[:3]), *map(int, fin.adj_nbr[:2]), 0, n - 1]
+    d_host = D.cpu().numpy()
+    for r in roots:
+        t = copy.copy(topo)
+        t.root = r
+        require(np.array_equal(d_host[:, r], spf_reference(t).dist),
+                f"D's column of root {r} differs from spf_reference")
+    oracle = ScalarSpfBackend()
+    post_links = (0, fin.n_links - 1)
+    for link in post_links:
+        ref = oracle.compute(topo, fin.edge_masks[link])
+        require(np.array_equal(table.post_dist[link], ref.dist)
+                and np.array_equal(table.post_nh[link], ref.nexthop_words),
+                f"the post planes of link {link} differ from ScalarSpfBackend")
+    post = se.spf_whatif_batch(g, root, fin.edge_masks)
+    post_host = se.SpfTensors(*(t.cpu() for t in post))
+    sel = fk.frr_select(torch.from_numpy(d_host), post_host, root, g.is_router.cpu(),
+                        fin.link_far, fin.link_cost, fin.link_valid, fin.adj_nbr, fin.adj_cost,
+                        fin.adj_link, fin.adj_valid, *fe._policy_args(fin))
+    require(same_table(fk.backup_table(sel, fin, root, n), table),
+            "the card's FRR tables differ from frr_select on the host over its D and post planes")
+    del d_host, post_host, sel
+    # The selection stages alone on the card, for phase 4's timing.
+    sel_args = (D, post, root, g.is_router, fin.link_far, fin.link_cost, fin.link_valid,
+                fin.adj_nbr, fin.adj_cost, fin.adj_link, fin.adj_valid, *fe._policy_args(fin))
+    x["select"] = lambda: fk.frr_select(*sel_args)
+    kinds = {"lfa": int((table.lfa_adj >= 0).sum()), "rlfa": int((table.rlfa_pq >= 0).sum()),
+             "tilfa": int((table.tilfa_p >= 0).sum())}
+    x["coverage"] = table.coverage()
+    print(f"FRR k={K}: D roots {roots} equal spf_reference; post planes of links "
+          f"{list(post_links)} equal ScalarSpfBackend; all seven tables equal frr_select "
+          f"on the host over the card's D and post planes; {fin.n_links} links, {fin.n_adj} "
+          f"candidates, entries {kinds}, coverage {x['coverage']:.4f}", flush=True)
+
+    # (c) the whole table on a LAN topology, both policies, against the oracle.
+    t0 = time.perf_counter()
+    lan = random_ospf_topology(**FRR_LAN)
+    lan.edge_srlg = np.random.default_rng(FRR_SRLG_SEED).integers(
+        0, 8, lan.n_edges).astype(np.uint32)
+    lan_fin = None
+    for kw in FRR_POLICIES:
+        cfg = FrrConfig(**FRR_CFG, **kw)
+        eng = FrrEngine("torch")
+        eng.set_policy(cfg)
+        got = eng.compute(lan)
+        want = frr_reference(lan, 64, **kw)
+        require(same_table(got, want), f"the LAN FRR table ({kw or 'no policy'}) differs "
+                f"from frr_reference")
+        for link in range(got.n_links):
+            for dest in range(lan.n_vertices):
+                require(resolve_backup(got, cfg, link, dest) == resolve_backup(
+                    want, cfg, link, dest), f"resolve_backup({link}, {dest}) differs ({kw})")
+        lan_fin = got.inputs
+    lan_nets = int((~lan.is_router[lan_fin.link_far[:lan_fin.n_links]]).sum())
+    members = int((~lan.is_router[lan_fin.link_far[lan_fin.adj_link[:lan_fin.n_adj]]]).sum())
+    require(members > 0, "the LAN topology's root has no network link with member candidates")
+    print(f"FRR LAN ({lan.n_vertices} vertices, {int((~lan.is_router).sum())} networks, "
+          f"{lan.n_edges} edges; root {lan.root}: {lan_fin.n_links} links, {lan_nets} to "
+          f"networks, {lan_fin.n_adj} candidates, {members} of them LAN members): every plane equal to frr_reference and "
+          f"resolve_backup equal on every (link, destination), with the policies off and with "
+          f"node_protection + srlg_disjoint ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    # (d) the graft entry on the card.
+    fn, args = graft_entry.entry()
+    require(args[0].in_src.device.type == "cuda", "graft_entry.entry() is not on the card")
+    res = fn(*args)
+    gtopo, _, gmasks = graft_entry._small_problem(device="cpu")
+    host = [t.cpu().numpy() for t in res]
+    for b in range(gmasks.shape[0]):
+        ref = oracle.compute(gtopo, gmasks[b])
+        require(all(np.array_equal(h[b], w) for h, w in zip(
+            host[:3], (ref.dist, ref.parent, ref.hops)))
+            and np.array_equal(host[3][b].view(np.uint32), ref.nexthop_words),
+            f"graft entry scenario {b} differs from the oracle")
+    print(f"graft entry: {gmasks.shape[0]} scenarios on the card equal the oracle", flush=True)
+    print(f"FRR phase checked in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return x
 
 
 def main() -> None:
@@ -1291,6 +1578,9 @@ def main() -> None:
     del m_full
     print(f"multipath paths checked in {time.perf_counter() - t_mp:.1f} s", flush=True)
 
+    # -- 3f. fast reroute: the all-roots matrix and the backup tables
+    fx = frr_phase(ell, se, dev, topo)
+
     # -- 4. timing (the profiler last: once it has run, host launches are
     # slower, which the host-clock times below would count)
     for name, (card, *_rest) in calls.items():
@@ -1411,6 +1701,9 @@ def main() -> None:
     m_lanes_ms = host_ms(lambda: se.mp_lanes(eg, lane_roots, mask_w, MP_K), BATCH_REPS)
     m_toggle_base = m_steps[-1][1]
     m_toggles = toggles(graph, synth, m_toggle_base, K, DELTA_TOGGLES)
+    # The toggles' base: its graph left the shared cache since the chain ran
+    # (3f empties it), so it is marshaled again; its run is kept.
+    mdbe.compute(m_toggle_base, multipath_k=MP_K)
     m_served = mdbe.delta_paths[("weight", "incremental")]
     m_delta_times, m_toggle_stats = [], []
     for t in m_toggles:
@@ -1422,6 +1715,7 @@ def main() -> None:
     require(mdbe.delta_paths[("weight", "incremental")] == m_served + DELTA_TOGGLES,
             "a timed multipath delta-linked compute() left the incremental path")
     m_delta_ms = statistics.median(m_delta_times)
+    sel_ms = host_ms(fx["select"], FRR_WARM_REPS)
     for name, (card, *_rest) in calls1.items():
         rows1[name]["device_ms"] = device_ms_per_call(card, KERNEL_REPS)
     for name, (card, *_rest) in ecalls1.items():
@@ -1447,6 +1741,8 @@ def main() -> None:
     m_compute_busy_ms = sum(m_compute_times.values())
     m_compute_top = [(key[:60], round(ms, 3)) for key, ms in
                      sorted(m_compute_times.items(), key=lambda kv: -kv[1])[:5]]
+    frr_busy_ms, frr_top = device_busy(lambda: fx["engine"].compute(topo))
+    sel_busy_ms, sel_top = device_busy(fx["select"])
     extra = toggles(graph, synth, fresh[-1], K, 1)[0]
     served = dbe.delta_paths[("weight", "incremental")]
     d_busy_ms, _ = device_busy(lambda: dbe.compute(extra))
@@ -1602,6 +1898,29 @@ def main() -> None:
           f"medians: affected {m_phase['affected']} rounds, relax {m_phase['relax']} rounds, "
           f"first parent + joint fixpoint ({m_phase['hops_nh']} rounds) + parent sets "
           f"{m_phase['hops_nh_ms']:.3f} ms", flush=True)
+    st, cst = fx["stages"], fx["cold_stats"]
+    print(f"time FRR compute: {fx['warm_ms']:.3f} ms warm (median of {FRR_WARM_REPS}: "
+          f"{[round(t, 3) for t in fx['warm_all_ms']]}), {fx['cold_ms']:.3f} ms cold (graph "
+          f"marshal included); device busy {frr_busy_ms:.3f} ms (idle share "
+          f"{1 - frr_busy_ms / fx['warm_ms']:.3f}); peak device memory {fx['peak_mb']:.1f} MiB "
+          f"above the resident; top device ops: {frr_top}", flush=True)
+    print(f"breakdown FRR compute (medians of {FRR_WARM_REPS} warm, host clock, each stage "
+          f"ended by a sync): marshal_frr {st['marshal_ms']:.3f} ms, D {st['d_ms']:.3f} ms "
+          f"({st['d_launches']} ell_relax launches at B={topo.n_vertices}), post batch "
+          f"{st['post_ms']:.3f} ms, LFA + remote LFA {st['lfa_rlfa_ms']:.3f} ms, TI-LFA "
+          f"{st['tilfa_ms']:.3f} ms ({st['tilfa_rounds']} rounds), readback "
+          f"{st['readback_ms']:.3f} ms; cold: " + ", ".join(
+              f"{k} {cst[k]:.3f}" for k in FRR_STAGES), flush=True)
+    print(f"time FRR selection (frr_select on the card's D and post planes: LFA, remote LFA, "
+          f"TI-LFA): {sel_ms:.3f} ms host clock (median of {FRR_WARM_REPS}), device busy "
+          f"{sel_busy_ms:.3f} ms (idle share {1 - sel_busy_ms / sel_ms:.3f}); top device ops: "
+          f"{sel_top}", flush=True)
+    del fx["select"]
+    dmb = fx["d_main_bound"]
+    print(f"time FRR D: {fx['d_ms']:.3f} ms by CUDA events (median of {FRR_WARM_REPS}), "
+          f"{fx['d_rounds']} ell_relax launches at B={topo.n_vertices}; launch {fx['d_main']} "
+          f"(largest frontier) {fx['d_main_ms']:.3f} ms, bound {dmb[0]:.4f} ms by {dmb[1]} "
+          f"({dmb[2]} operations, {dmb[3]} bytes)", flush=True)
     entries = [
         (name, SOURCE, REPLACES[name], launched[name], row, (rows1[name],))
         for name, row in rows.items()
@@ -1624,6 +1943,13 @@ def main() -> None:
             krow["full_round_ms"] = frows[krow["name"]]["full_round_ms"]
         if krow["name"] in d_launched:  # launches on the DeltaPath chain
             krow["delta_chain_launches"] = d_launched[krow["name"]]
+        if krow["name"] in fx["held_err"]:  # the cold FRR compute's, each held
+            krow["frr_launches"] = fx["launches"][krow["name"]]
+            krow["max_abs_err"] = max(krow["max_abs_err"], fx["held_err"][krow["name"]])
+        if krow["name"] == "ell_relax":  # the all-roots D dispatch, B = N lanes
+            krow.update(frr_d_launches=fx["d_rounds"], frr_d_ms=fx["d_ms"],
+                        frr_d_main_launch_ms=fx["d_main_ms"],
+                        frr_d_main_launch_bound_ms=dmb[0])
     for name, row in m_rows.items():
         kernel_rows.append({
             "name": name, "route": "cuda", "source": MP_SOURCE, "replaces": MP_REPLACES[name],
@@ -1639,6 +1965,17 @@ def main() -> None:
                 "recomputed_entries", "copied_entries", "full_round_bound_ms",
                 "device_ms_b1") if key in row},
         })
+    # (e) every dispatch of the run ran on the card: every breaker the run
+    # built (every SPF backend and FRR engine) counted no failure, fallback
+    # or refusal.
+    from holo_tpu_torch.resilience import breakers, tallies
+
+    require(not tallies(), f"breaker failures, fallbacks or refusals in the run: {tallies()}")
+    live = breakers()
+    require(all(not any(b.snapshot()[k] for k in ("failures", "fallbacks", "refusals"))
+                for b in live.values()), "a live breaker counted a failure")
+    print(f"breakers: {len(live)} live, no failure, fallback or refusal in the run",
+          flush=True)
     print(json.dumps({"kernels": kernel_rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,17 +5,22 @@ The arguments are the fields of a ``holo_tpu`` ``BlockSpfGraph`` /
 a mapping of numpy arrays and ints (``np.asarray`` of each), so this module
 needs neither JAX nor ``holo_tpu``.  The tests use it to run both packages
 on identical planes, and to seed both packages' incremental paths with the
-same previous run.
+same previous run.  ``frr_inputs_from_jax`` and ``backup_table_from_jax``
+carry ``holo_tpu``'s FRR values across, read by their fields.
 """
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 from collections.abc import Mapping
 
 import numpy as np
 import torch
 
 from holo_tpu_torch.device import resolve_device
+from holo_tpu_torch.frr.inputs import FrrInputs
+from holo_tpu_torch.frr.kernel import TABLE_PLANES, BackupTable
 from holo_tpu_torch.ops.blocked import BlockGraph, block_graph, edge_planes
 from holo_tpu_torch.ops.blocked_spf import BlockSpfGraph, block_spf_graph
 from holo_tpu_torch.ops.spf_engine import DeviceGraph, MultipathTensors, SpfTensors
@@ -72,3 +77,20 @@ def multipath_tensors_from_numpy(fields: Mapping, device=None) -> MultipathTenso
     """Port ``MultipathTensors`` from the JAX one's five fields (one run or
     a batch)."""
     return MultipathTensors(**_int32_planes(fields, MultipathTensors._fields, device))
+
+
+def frr_inputs_from_jax(fin) -> FrrInputs:
+    """Port ``holo_tpu``'s ``FrrInputs`` (read by its fields): copies of its
+    planes, counts and ``atom_link`` map."""
+    fields = {f.name: getattr(fin, f.name) for f in dataclasses.fields(FrrInputs)}
+    return FrrInputs(**{k: (np.array(v) if isinstance(v, np.ndarray) else copy.copy(v))
+                        for k, v in fields.items()})
+
+
+def backup_table_from_jax(table) -> BackupTable:
+    """Port ``holo_tpu``'s ``BackupTable`` (read by its fields), its inputs
+    included."""
+    return BackupTable(
+        inputs=frr_inputs_from_jax(table.inputs), root=int(table.root),
+        **{f: np.array(getattr(table, f)) for f in TABLE_PLANES},
+    )

@@ -1,0 +1,270 @@
+"""FRR engine + backup resolution policy.
+
+The port's counterpart of ``holo_tpu.frr.manager``.  :class:`FrrEngine` is
+the dispatch point the protocol layer calls right after its primary SPF:
+Topology in, :class:`~holo_tpu_torch.frr.kernel.BackupTable` out, through
+the batched path (:func:`holo_tpu_torch.frr.kernel.frr_batch`) on the CUDA
+card (``engine="torch"``) or the scalar oracle (``engine="scalar"``, the
+default, as in ``holo_tpu``).  Both are bit-identical; the batched path runs
+under a :class:`~holo_tpu_torch.resilience.breaker.CircuitBreaker`, which
+counts its device failures.  On the CPU with no ``max_iters`` cap the
+oracle over the same marshaled inputs and policy serves a failed dispatch;
+on the card the failure re-raises (the oracle runs one Python Dijkstra per
+vertex and per protected link, no substitute for the card's work).
+
+``resolve_backup`` applies the configured protection policy to one
+(protected link, destination vertex) query: direct LFA first, then the
+remote-LFA PQ tunnel, then the TI-LFA segment repair.  The result is
+symbolic (atoms + repair vertices); the protocol layer maps atoms to
+(interface, address) next hops and repair vertices to SR labels.
+
+Where ``holo_tpu`` exports metrics, the engine keeps counters:
+``graph_cache`` (marshaled-graph lookups by result) and ``dispatches`` (by
+path: device, fallback, scalar).  ``stats``, when set to a dict, receives
+each device dispatch's stage times.
+"""
+
+from __future__ import annotations
+
+import time
+from collections import Counter
+from dataclasses import dataclass
+
+import numpy as np
+
+from holo_tpu_torch.device import resolve_device
+from holo_tpu_torch.frr.inputs import marshal_frr
+from holo_tpu_torch.frr.kernel import BackupTable, backup_table, frr_batch
+from holo_tpu_torch.frr.scalar import frr_reference
+from holo_tpu_torch.ops.spf_engine import shared_graph_cache
+from holo_tpu_torch.resilience.breaker import CircuitBreaker
+
+
+@dataclass
+class FrrConfig:
+    """The fast-reroute policy (ietf-ospf ``fast-reroute/lfa``, holo's
+    ti-lfa extension leaves):
+
+    - ``node_protection``: only node-protecting LFAs are selectable;
+      uncovered destinations fall through to remote LFA / TI-LFA;
+    - ``srlg_disjoint``: repair candidates sharing any SRLG bit
+      (``Topology.edge_srlg``) with the protected link are excluded;
+    - ``protected_prefixes``: when not None, backups attach only to routes
+      covered by one of these networks.
+    """
+
+    enabled: bool = False  # LFA (RFC 5286)
+    remote_lfa: bool = False  # RFC 7490 (requires enabled)
+    ti_lfa: bool = False  # TI-LFA segment repairs (requires enabled + SR)
+    engine: str = "scalar"  # 'scalar' | 'torch'
+    node_protection: bool = False  # LFA must node-protect
+    srlg_disjoint: bool = False  # backup must be SRLG-disjoint
+    protected_prefixes: tuple | None = None  # None = protect everything
+
+    def active(self) -> bool:
+        return self.enabled
+
+    def protects_prefix(self, prefix) -> bool:
+        """Is ``prefix`` in the protection scope?"""
+        if self.protected_prefixes is None:
+            return True
+        for scope in self.protected_prefixes:
+            try:
+                if prefix == scope or prefix.subnet_of(scope):
+                    return True
+            except (TypeError, ValueError):
+                continue  # mixed address families never match
+        return False
+
+
+@dataclass(frozen=True)
+class BackupEntry:
+    """One resolved repair for (protected link, destination vertex)."""
+
+    kind: str  # 'lfa' | 'rlfa' | 'ti-lfa'
+    atom: int | None  # release next-hop atom (None: the caller falls back
+    # to its primary next hop toward via[0])
+    via: tuple[int, ...] = ()  # repair vertices: () | (pq,) | (p[, q])
+    node_protecting: bool = False
+
+
+def first_atom(words: np.ndarray) -> int | None:
+    """Lowest set atom id in a uint32 bitmask row (deterministic pick)."""
+    for wi, word in enumerate(np.asarray(words, np.uint32)):
+        w = int(word)
+        if w:
+            return wi * 32 + (w & -w).bit_length() - 1
+    return None
+
+
+def resolve_backup(table: BackupTable, cfg: FrrConfig, link: int, dest: int) -> BackupEntry | None:
+    """Pick the repair for (link, dest) under ``cfg``; None = unprotected."""
+    if not cfg.enabled or link < 0 or link >= table.n_links:
+        return None
+    fin = table.inputs
+    a = int(table.lfa_adj[link, dest])
+    if a >= 0:
+        return BackupEntry(
+            kind="lfa",
+            atom=int(fin.adj_atom[a]),
+            via=(int(fin.adj_nbr[a]),),
+            node_protecting=bool(table.lfa_nodeprot[link, dest]),
+        )
+    if cfg.remote_lfa:
+        pq = int(table.rlfa_pq[link, dest])
+        if pq >= 0:
+            # Release toward the PQ node: its own LFA pick when the plain
+            # P-space route would still cross the failed link.
+            rel = int(table.lfa_adj[link, pq])
+            atom = int(fin.adj_atom[rel]) if rel >= 0 else None
+            return BackupEntry(kind="rlfa", atom=atom, via=(pq,))
+    if cfg.ti_lfa:
+        p = int(table.tilfa_p[link, dest])
+        if p >= 0:
+            q = int(table.tilfa_q[link, dest])
+            atom = first_atom(table.post_nh[link, dest])
+            via = (p,) if q < 0 else (p, q)
+            return BackupEntry(kind="ti-lfa", atom=atom, via=via)
+    return None
+
+
+def repair_map(table: BackupTable | None, cfg: FrrConfig, words: np.ndarray,
+               vertex: int) -> dict[int, BackupEntry]:
+    """{primary next-hop atom id -> repair} for one destination vertex.
+
+    Each primary atom rides exactly one protected link (``atom_link``), and
+    the repair for (that link, this destination) is what the router flips to
+    when the link's BFD session or carrier drops.  Entries whose repair has
+    no release atom are omitted: no forwarding entry can be built from
+    them."""
+    out: dict[int, BackupEntry] = {}
+    if table is None or not cfg.active():
+        return out
+    for wi, word in enumerate(np.asarray(words, np.uint32)):
+        w = int(word)
+        while w:
+            low = w & -w
+            a = wi * 32 + low.bit_length() - 1
+            w ^= low
+            link = table.link_of_atom(a)
+            if link is None:
+                continue
+            entry = resolve_backup(table, cfg, link, vertex)
+            if entry is not None and entry.atom is not None:
+                out[a] = entry
+    return out
+
+
+def ensure_engine(current, cfg: FrrConfig) -> "FrrEngine":
+    """Reuse ``current`` when it already runs ``cfg.engine``, else build a
+    fresh engine (its caches are its own); either way adopt ``cfg``'s
+    policy.  The lazy-create step of a protocol instance's ``_frr_engine``
+    slot.  A fresh ``torch`` engine runs on the card."""
+    if current is not None and current.engine == cfg.engine:
+        current.set_policy(cfg)
+        return current
+    engine = FrrEngine(engine=cfg.engine)
+    engine.set_policy(cfg)
+    return engine
+
+
+class FrrEngine:
+    """Backup-table computation behind the SpfBackend-style interface."""
+
+    def __init__(
+        self,
+        engine: str = "scalar",
+        device=None,
+        n_atoms: int = 64,
+        max_iters: int | None = None,
+        breaker: CircuitBreaker | None = None,
+    ):
+        """``engine``: ``"torch"`` (the batched path on ``device``: the card
+        unless ``device="cpu"``) or ``"scalar"`` (the oracle on the host).
+        ``breaker`` guards the device path (see the module docstring for
+        what serves a failed ``frr_batch`` dispatch)."""
+        if engine not in ("scalar", "torch"):
+            raise ValueError(f"engine {engine!r}: the port runs 'scalar' and 'torch'")
+        self.engine = engine
+        self.device = resolve_device(device) if engine == "torch" else None
+        self.n_atoms = n_atoms
+        self.max_iters = max_iters
+        self.breaker = breaker if breaker is not None else CircuitBreaker("frr-dispatch")
+        # Protection policy (node-protection / SRLG-disjoint masks).
+        self.policy = FrrConfig()
+        self.graph_cache: Counter = Counter()  # shared-cache lookups: hit | delta | miss
+        self.dispatches: Counter = Counter()  # device | fallback | scalar
+        # Set to a dict to receive each device dispatch's stage times.
+        self.stats: dict | None = None
+
+    def set_policy(self, cfg: FrrConfig) -> None:
+        """Adopt the instance's protection policy (the ensure_engine seam)."""
+        self.policy = cfg
+
+    def _policy_args(self, fin) -> tuple:
+        """(link_srlg, adj_srlg, require_np) under the current policy.  A
+        disarmed SRLG policy passes all-zero planes, which exclude
+        nothing."""
+        if self.policy.srlg_disjoint:
+            lsr, asr = fin.link_srlg, fin.adj_srlg
+        else:
+            lsr = np.zeros_like(fin.link_srlg)
+            asr = np.zeros_like(fin.adj_srlg)
+        return lsr, asr, np.bool_(self.policy.node_protection)
+
+    def marshal_inputs(self, topo):
+        """The FRR planes of ``topo`` (the front half of :meth:`compute`)."""
+        return marshal_frr(topo)
+
+    def _prepare(self, topo):
+        """The device graph from the per-device shared cache.  The scenario
+        masks gather through ``in_edge_id``, so an entry whose edge ids went
+        stale under a structural delta is rebuilt (``need_edge_ids``)."""
+        g, how = shared_graph_cache(self.device).get(
+            topo, max(self.n_atoms, topo.n_atoms()), need_edge_ids=True)
+        self.graph_cache[how] += 1
+        return g
+
+    def _compute_device(self, topo, fin) -> BackupTable:
+        g = self._prepare(topo)
+        out = frr_batch(
+            g, topo.root, fin.link_far, fin.link_cost, fin.link_valid, fin.edge_masks,
+            fin.adj_nbr, fin.adj_cost, fin.adj_link, fin.adj_valid,
+            *self._policy_args(fin), max_iters=self.max_iters, stats=self.stats,
+        )
+        t0 = time.perf_counter()
+        table = backup_table(out, fin, topo.root, topo.n_vertices)
+        if self.stats is not None:
+            self.stats["readback_ms"] = (time.perf_counter() - t0) * 1e3
+        self.dispatches["device"] += 1
+        return table
+
+    def _scalar(self, topo, fin) -> BackupTable:
+        return frr_reference(
+            topo, self.n_atoms, inputs=fin,
+            srlg_disjoint=self.policy.srlg_disjoint,
+            node_protection=self.policy.node_protection,
+        )
+
+    def _scalar_fallback(self, topo, fin) -> BackupTable:
+        """The breaker's degraded path: the oracle over the same marshaled
+        inputs and policy."""
+        self.dispatches["fallback"] += 1
+        return self._scalar(topo, fin)
+
+    def compute(self, topo) -> BackupTable:
+        """One batched backup-table computation for ``topo.root``."""
+        t0 = time.perf_counter()
+        fin = self.marshal_inputs(topo)
+        if self.stats is not None:
+            self.stats.clear()
+            self.stats["marshal_ms"] = (time.perf_counter() - t0) * 1e3
+        if self.engine == "torch":
+            serves = self.device.type == "cpu" and self.max_iters is None
+            return self.breaker.call(
+                lambda: self._compute_device(topo, fin),
+                (lambda: self._scalar_fallback(topo, fin)) if serves else None,
+                "frr.batch",
+            )
+        self.dispatches["scalar"] += 1
+        return self._scalar(topo, fin)

@@ -7,6 +7,11 @@ one library in ``holo_tpu_torch/build/`` (listed in ``.gitignore``), named
 by a hash of the sources so an edit rebuilds it.  Each C entry point takes ``void*``
 pointers (NULL for an absent plane), ``int`` sizes and the CUDA stream,
 launches on that stream and returns ``cudaGetLastError()``.
+
+A library that cannot be built or loaded raises :class:`KernelBuildError`,
+which the dispatch breaker re-raises without counting it; a CUDA error at
+launch raises ``RuntimeError``, a device failure that the breaker counts
+before it re-raises.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ _PKG = Path(__file__).resolve().parent.parent
 SOURCES = (_PKG / "csrc" / "blocked_kernels.cu", _PKG / "csrc" / "ell_kernels.cu",
            _PKG / "csrc" / "mp_kernels.cu")
 BUILD_DIR = _PKG / "build"
+CUDA_HOME = "/usr/local/cuda"  # where nvcc is looked for after $CUDA_HOME
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -50,21 +56,36 @@ SIGNATURES = {
 _LIB: ctypes.CDLL | None = None
 
 
+class KernelBuildError(RuntimeError):
+    """The kernel library could not be built or loaded (no ``nvcc``, a
+    compile or link that failed, a library that does not load or bind).
+    The device path is missing, not failing."""
+
+
 def nvcc() -> str:
-    """Path of nvcc: $CUDA_HOME/bin, then /usr/local/cuda/bin, then PATH."""
-    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+    """Path of nvcc: $CUDA_HOME/bin, then :data:`CUDA_HOME`/bin, then PATH."""
+    for root in (os.environ.get("CUDA_HOME"), CUDA_HOME):
         if root and (Path(root) / "bin" / "nvcc").is_file():
             return str(Path(root) / "bin" / "nvcc")
     found = shutil.which("nvcc")
     if found is None:
-        raise RuntimeError("nvcc not found: the CUDA kernels build only "
-                           "on a machine with the CUDA toolkit")
+        raise KernelBuildError("nvcc not found: the CUDA kernels build only "
+                               "on a machine with the CUDA toolkit")
     return found
 
 
 def library_path() -> Path:
     digest = hashlib.sha256(b"".join(s.read_bytes() for s in SOURCES)).hexdigest()[:12]
     return BUILD_DIR / f"holo_kernels-{digest}.so"
+
+
+def _start(name: str, cmd: list) -> tuple:
+    """(name, process) of one compiler call."""
+    try:
+        return name, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                      text=True)
+    except OSError as exc:
+        raise KernelBuildError(f"nvcc could not start for {name}: {exc}") from exc
 
 
 def _run(procs: list) -> str:
@@ -76,7 +97,7 @@ def _run(procs: list) -> str:
         if proc.returncode != 0 and failed is None:
             failed = f"nvcc failed on {name} (rc {proc.returncode}):\n{stdout}{stderr}"
     if failed:
-        raise RuntimeError(failed)
+        raise KernelBuildError(failed)
     return out
 
 
@@ -94,16 +115,11 @@ def build(verbose: bool = False) -> Path:
     flags = [*NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ())]
     objs = [tmp / f"{src.stem}.o" for src in SOURCES]
     try:
-        report = _run([
-            (src.name, subprocess.Popen([nvcc(), *flags, "-c", "-o", str(obj), str(src)],
-                                        stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                                        text=True))
-            for src, obj in zip(SOURCES, objs)
-        ])
+        report = _run([_start(src.name, [nvcc(), *flags, "-c", "-o", str(obj), str(src)])
+                       for src, obj in zip(SOURCES, objs)])
         lib = tmp / "lib.so"
         link = [nvcc(), *NVCC_FLAGS, "-shared", "-o", str(lib), *map(str, objs)]
-        report += _run([("the link", subprocess.Popen(
-            link, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))])
+        report += _run([_start("the link", link)])
         if verbose:
             print(report, end="", flush=True)
         os.replace(lib, out)
@@ -113,16 +129,21 @@ def build(verbose: bool = False) -> Path:
 
 
 def load() -> ctypes.CDLL:
-    """The bound kernel library, built at first use."""
+    """The bound kernel library, built at first use.  Raises
+    :class:`KernelBuildError` where it cannot be built, loaded or bound."""
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        lib.holo_error_string.argtypes = (_I,)
-        lib.holo_error_string.restype = ctypes.c_char_p
+        path = build()
+        try:
+            lib = ctypes.CDLL(str(path))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.holo_error_string.argtypes = (_I,)
+            lib.holo_error_string.restype = ctypes.c_char_p
+        except (OSError, AttributeError) as exc:
+            raise KernelBuildError(f"kernel library {path} does not load: {exc}") from exc
         _LIB = lib
     return _LIB
 

@@ -59,6 +59,11 @@ class Topology:
     # relaxation yields a directly computed next hop (parent is the root or
     # a transit network adjacent to it, holo-ospf/src/spf.rs:744-767).
     edge_direct_atom: np.ndarray | None = None
+    # Shared-risk link group membership per edge as a uint32 bitmask (bit g:
+    # the edge is in SRLG g).  Read by the FRR engines' SRLG policy only; it
+    # never enters the device graph, so DeltaPath residents cannot serve it
+    # stale.  Default all-zero (no shared risk).
+    edge_srlg: np.ndarray | None = None
     root: int = 0
     names: list = field(default_factory=list)  # optional, debugging only
 
@@ -71,6 +76,10 @@ class Topology:
             self.edge_direct_atom = np.full(self.edge_src.shape, -1, np.int32)
         else:
             self.edge_direct_atom = np.asarray(self.edge_direct_atom, np.int32)
+        if self.edge_srlg is None:
+            self.edge_srlg = np.zeros(self.edge_src.shape, np.uint32)
+        else:
+            self.edge_srlg = np.asarray(self.edge_srlg, np.uint32)
         # Identity for marshaling caches: a process-unique id plus a
         # generation bumped by touch().  Callers mutating arrays in place
         # MUST call touch() or cached device planes go stale.
@@ -120,6 +129,7 @@ class Topology:
             edge_dst=self.edge_dst[keep],
             edge_cost=self.edge_cost[keep],
             edge_direct_atom=self.edge_direct_atom[keep],
+            edge_srlg=self.edge_srlg[keep],
             root=self.root,
             names=self.names,
         )

@@ -45,6 +45,7 @@ bit patterns carried as int32 (torch has no uint32 min or OR reduction).
 
 from __future__ import annotations
 
+import copy
 import time
 from collections import Counter
 from dataclasses import dataclass
@@ -619,7 +620,7 @@ class DeviceGraphCache:
 
     A graph obtained from an earlier ``get()`` changes when a delta is later
     applied to its entry: nothing but the cache may hold one across calls.
-    One cache serves one backend, from one thread at a time.
+    A cache and its views (:meth:`view`) serve one thread at a time.
     """
 
     def __init__(self, device, capacity: int = 16, max_delta_depth: int = 256):
@@ -700,8 +701,18 @@ class DeviceGraphCache:
             self._evictions += 1
         self._deltas_applied += applied
 
+    def view(self) -> "DeviceGraphCache":
+        """A cache over this one's graphs (the same entries, capacity and
+        depth limit) with lookup, DeltaPath, eviction and delta counts of its
+        own: each engine counts its own lookups while engines on one device
+        marshal a topology once."""
+        v = copy.copy(self)
+        v.delta_paths, v.lookups = Counter(), Counter()
+        v._evictions = v._deltas_applied = 0
+        return v
+
     def stats(self) -> dict:
-        """Eviction, chain and occupancy summary."""
+        """Eviction, chain and occupancy summary (the counts this view's)."""
         entries = list(self._cache.values())
         depths = [e.depth for e in entries]
         occ = [e.mirror.occupancy for e in entries]
@@ -721,6 +732,24 @@ class DeviceGraphCache:
 
     def clear(self) -> None:
         self._cache.clear()
+
+
+_SHARED_CACHES: dict[torch.device, DeviceGraphCache] = {}
+
+
+def shared_graph_cache(device=None) -> DeviceGraphCache:
+    """The process-wide marshaled-graph cache of ``device`` (the card unless
+    ``device="cpu"``), one per device: engines that run on one topology
+    (``TorchSpfBackend`` through a :meth:`~DeviceGraphCache.view`, FRR
+    beside it) marshal it once and keep one copy.  Like every
+    :class:`DeviceGraphCache` it serves one thread at a time
+    (``holo_tpu``'s takes a lock; the port has no threaded caller)."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    if dev not in _SHARED_CACHES:
+        _SHARED_CACHES[dev] = DeviceGraphCache(dev)
+    return _SHARED_CACHES[dev]
 
 
 def hops_nh_recompute(g: DeviceGraph, root: int, dag, parent, hops0, nh0, limit: int):

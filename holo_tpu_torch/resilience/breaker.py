@@ -1,0 +1,219 @@
+"""Device-dispatch circuit breaker.
+
+The port's copy of ``holo_tpu.resilience.breaker``.  The device dispatch
+in ``spf/backend.py`` and ``frr/manager.py`` is where the CUDA runtime can
+fail underneath a routing computation.  The breaker counts those failures
+and stops a failing device from being tried on every dispatch:
+
+- **closed**: dispatches run on the device; a device failure (an exception
+  outside :data:`_PASSTHROUGH`) counts, and ``failure_threshold``
+  consecutive failures open the circuit.
+- **open**: dispatches do not try the device until ``recovery_timeout``
+  elapses.
+- **half-open**: exactly one probe dispatch is allowed through; success
+  closes the circuit, failure re-opens it.
+
+What serves a dispatch the device did not is the caller's choice.  With a
+``fallback`` (the scalar oracle, where it computes the same bits as the
+device path: the CPU path with no iteration cap), the fallback serves it;
+without one (tensors on the card, whose work the host oracle cannot do in
+the same time), the device failure re-raises once counted and an open
+circuit raises :class:`CircuitOpen`.
+
+Where ``holo_tpu`` exports its counts as metrics, the port keeps them on the
+breaker (``failures``, ``fallbacks`` and ``refusals`` by cause, in
+:meth:`snapshot`) and process-wide by breaker name (:func:`tallies`), which
+outlives the breaker.  State mutates under an owning lock; the primary and
+fallback callables run outside it.
+"""
+
+from __future__ import annotations
+
+import logging
+import threading
+import time
+import weakref
+from collections import Counter
+from typing import Callable
+
+from holo_tpu_torch.kernels.build import KernelBuildError
+
+log = logging.getLogger("holo_tpu_torch.resilience.breaker")
+
+CLOSED = "closed"
+OPEN = "open"
+HALF_OPEN = "half-open"
+
+# Live breakers by name; weak values so short-lived backends (tests, chip
+# runs) do not accumulate.  The lock guards the name-uniquify + insert pair.
+_REGISTRY: "weakref.WeakValueDictionary[str, CircuitBreaker]" = weakref.WeakValueDictionary()
+_REGISTRY_LOCK = threading.Lock()
+# (breaker name, "failures" | "fallbacks" | "refusals", cause) -> count.
+_TALLIES: Counter = Counter()
+
+
+def breakers() -> dict[str, "CircuitBreaker"]:
+    """Snapshot of live breakers by name."""
+    return dict(_REGISTRY)
+
+
+def tallies() -> dict[tuple[str, str, str], int]:
+    """Failures, fallbacks and refusals of every breaker built in this
+    process, dead or alive: (breaker name, kind, cause) -> count."""
+    with _REGISTRY_LOCK:
+        return dict(_TALLIES)
+
+
+class CircuitOpen(RuntimeError):
+    """A dispatch with no fallback was refused: the circuit is open."""
+
+
+# Exception types that are never how a device failure presents at this
+# boundary: programming or input errors (``ValueError`` is what the kernel
+# wrappers raise for inputs split across devices, of the wrong type or
+# shape) and a kernel library that does not build.  They re-raise without
+# counting: a fallback would either hit the same bug or hide a missing
+# card path behind a healthy-looking result.
+_PASSTHROUGH = (TypeError, AttributeError, NameError, IndexError, KeyError, ValueError,
+                KernelBuildError)
+
+
+class CircuitBreaker:
+    """Guard one dispatch site; see the module docstring for the FSM."""
+
+    def __init__(self, name: str, failure_threshold: int = 3,
+                 recovery_timeout: float = 30.0):
+        """Two breakers never share a name: a taken name gets a ``#n``
+        suffix."""
+        with _REGISTRY_LOCK:
+            base, n = name, 2
+            while name in _REGISTRY:
+                name = f"{base}#{n}"
+                n += 1
+            self.name = name
+            _REGISTRY[name] = self
+        self.failure_threshold = int(failure_threshold)
+        self.recovery_timeout = float(recovery_timeout)
+        self._lock = threading.Lock()
+        self.state = CLOSED
+        self.consecutive_failures = 0
+        self.last_error: str | None = None
+        self._open_until = 0.0
+        self._probing = False
+        self.failures: Counter = Counter()  # cause -> guarded failures
+        self.fallbacks: Counter = Counter()  # cause -> dispatches the fallback served
+        self.refusals: Counter = Counter()  # cause -> dispatches refused (no fallback)
+
+    # -- bookkeeping
+
+    def _count(self, kind: str, cause: str) -> None:
+        with _REGISTRY_LOCK:
+            getattr(self, kind)[cause] += 1
+            _TALLIES[(self.name, kind, cause)] += 1
+
+    def _transition_locked(self, to: str) -> None:
+        self.state = to
+        if to == OPEN:
+            self._open_until = time.monotonic() + self.recovery_timeout
+
+    def _admit(self) -> bool:
+        """Whether this call may try the device (closed, or the single
+        half-open probe)."""
+        with self._lock:
+            if self.state == OPEN and time.monotonic() >= self._open_until:
+                self._transition_locked(HALF_OPEN)
+                self._probing = False
+            if self.state == CLOSED:
+                return True
+            if self.state == HALF_OPEN and not self._probing:
+                self._probing = True
+                return True
+            return False
+
+    def _on_failure(self, context: str, error: BaseException) -> None:
+        opened = False
+        with self._lock:
+            self.consecutive_failures += 1
+            self.last_error = f"{context or 'dispatch'}: {error!r}"
+            if self.state == HALF_OPEN:
+                # The probe failed: back to open for a fresh timeout.
+                self._probing = False
+                self._transition_locked(OPEN)
+                opened = True
+            elif self.state == CLOSED and self.consecutive_failures >= self.failure_threshold:
+                self._transition_locked(OPEN)
+                opened = True
+        self._count("failures", "exception")
+        if opened:
+            log.error("breaker %s OPEN after %d consecutive failures (%s) for %.1fs",
+                      self.name, self.consecutive_failures, self.last_error,
+                      self.recovery_timeout)
+        else:
+            log.warning("breaker %s: dispatch failure %d/%d (%s)", self.name,
+                        self.consecutive_failures, self.failure_threshold, self.last_error)
+
+    def _abort_probe(self) -> None:
+        """An admitted call exited without a device verdict (a passthrough
+        exception or an interrupt): release the half-open probe slot so the
+        next call may probe again."""
+        with self._lock:
+            self._probing = False
+
+    def _on_success(self) -> None:
+        restored = False
+        with self._lock:
+            self.consecutive_failures = 0
+            if self.state != CLOSED:
+                self._probing = False
+                self._transition_locked(CLOSED)
+                restored = True
+        if restored:
+            log.info("breaker %s: probe dispatch succeeded, device service restored",
+                     self.name)
+
+    # -- the guard
+
+    def call(self, primary: Callable, fallback: Callable | None, context: str = ""):
+        """Run ``primary`` under the breaker.  On a device failure or an
+        open circuit, ``fallback`` serves the dispatch; with no fallback the
+        failure re-raises (counted) and an open circuit raises
+        :class:`CircuitOpen`."""
+        if not self._admit():
+            if fallback is None:
+                self._count("refusals", "open")
+                raise CircuitOpen(f"breaker {self.name} is open ({self.last_error}); "
+                                  f"{context or 'the dispatch'} was not tried")
+            self._count("fallbacks", "open")
+            return fallback()
+        try:
+            result = primary()
+        except _PASSTHROUGH:
+            # A bug or a missing kernel library, not a device failure: never
+            # mask it, but release the probe slot.
+            self._abort_probe()
+            raise
+        except Exception as exc:
+            self._on_failure(context, exc)
+            if fallback is None:
+                raise
+            self._count("fallbacks", "exception")
+            return fallback()
+        except BaseException:
+            self._abort_probe()
+            raise
+        self._on_success()
+        return result
+
+    def snapshot(self) -> dict:
+        """Health view: state, streak, parameters, counts by cause."""
+        with self._lock:
+            return {
+                "state": self.state,
+                "consecutive-failures": self.consecutive_failures,
+                "failure-threshold": self.failure_threshold,
+                "recovery-timeout": self.recovery_timeout,
+                "last-error": self.last_error or "",
+                "failures": dict(self.failures),
+                "fallbacks": dict(self.fallbacks),
+                "refusals": dict(self.refusals),
+            }

@@ -30,7 +30,16 @@ None.  The blocked engine has no multipath planes: ``kp > 1`` goes to the
 gather engine's program, as in ``holo_tpu``.  DeltaPath keeps the run's
 ``kp`` in its key, so a change of width mid-chain gives ``full-no-prev``.
 
-Unlike ``holo_tpu``'s backend there is no scalar fallback and no breaker.
+Every device dispatch (``compute``, ``compute_whatif``,
+``compute_multiroot``) runs under ``breaker``, as in ``holo_tpu``: a device
+failure (a CUDA error at launch, device memory exhausted) is counted, and
+repeated failures open the circuit.  On the card the failure then
+re-raises and an open circuit refuses the dispatch: the host oracle is no
+substitute for the card's work.  On the CPU with no ``max_iters`` cap, where
+:class:`ScalarSpfBackend` computes the same bits, the oracle serves it.  A
+kernel library that does not build and an input the kernels refuse
+re-raise uncounted (``resilience.breaker._PASSTHROUGH``): they are not
+device failures.  DeltaPath runs inside the guarded device path.
 """
 
 from __future__ import annotations
@@ -54,8 +63,8 @@ from holo_tpu_torch.ops.graph import (
     topology_namespace,
 )
 from holo_tpu_torch.ops.spf_engine import (
-    DeviceGraphCache,
     mp_pad,
+    shared_graph_cache,
     spf_multipath_batch,
     spf_multiroot,
     spf_one,
@@ -64,6 +73,7 @@ from holo_tpu_torch.ops.spf_engine import (
     spf_one_multipath,
     spf_whatif_batch,
 )
+from holo_tpu_torch.resilience.breaker import CircuitBreaker
 from holo_tpu_torch.spf.scalar import spf_multipath_reference, spf_reference
 
 _CACHE_ENTRIES = 4
@@ -178,9 +188,12 @@ class TorchSpfBackend(SpfBackend):
     """SPF on the CUDA card (or on the CPU, on request).
 
     Marshaling (Topology -> device planes) happens once per topology
-    generation (and root, for the blocked planes, which bake it in); up to
-    four marshaled graphs of each engine are cached, keyed by the
-    topology's class beside its ``cache_key``.  ``incremental`` arms
+    generation (and root, for the blocked planes, which bake it in).  The
+    gather engine's graphs come from the device's shared cache
+    (``shared_graph_cache``, through a view that counts this backend's
+    lookups and DeltaPath dispositions); up to four of the blocked engine's
+    are cached here.  Both are keyed by the topology's class beside its
+    ``cache_key``.  ``incremental`` arms
     DeltaPath; ``prev_capacity`` bounds the kept previous runs, one per
     (topology, root) chain.
     """
@@ -196,6 +209,7 @@ class TorchSpfBackend(SpfBackend):
         max_iters: int | None = None,
         incremental: bool = True,
         prev_capacity: int = 32,
+        breaker: CircuitBreaker | None = None,
     ):
         if engine not in ("gather", "blocked"):
             raise ValueError(f"engine {engine!r}: the port runs 'gather' and 'blocked'")
@@ -212,8 +226,11 @@ class TorchSpfBackend(SpfBackend):
         self.incremental = incremental
         self.prev_capacity = int(prev_capacity)
         self.routed_to_gather = 0  # blocked dispatches the gather engine served
+        # Guards every device dispatch; _guarded says what serves a failed one.
+        self.breaker = breaker if breaker is not None else CircuitBreaker("spf-dispatch")
+        self._oracle = ScalarSpfBackend(n_atoms)
         self._blocked_cache: dict = {}
-        self._gather_cache = DeviceGraphCache(self.device, capacity=_CACHE_ENTRIES)
+        self._gather_cache = shared_graph_cache(self.device).view()
         # DeltaPath dispositions, (delta kind, path) -> dispatches: the
         # cache's (apply, full-no-base, full-depth, ...) and the backend's
         # (incremental, full-no-prev), as holo_spf_delta_total{kind,path}.
@@ -228,8 +245,41 @@ class TorchSpfBackend(SpfBackend):
     def _n_atoms(self, topo) -> int:
         return max(self.n_atoms, topo.n_atoms())
 
+    def _guarded(self, primary, oracle, context: str):
+        """``primary`` under the breaker, the oracle its fallback only where
+        it computes the same bits: on the CPU, with no ``max_iters`` cap."""
+        serves = self.device.type == "cpu" and self.max_iters is None
+        return self.breaker.call(primary, oracle if serves else None, context)
+
     def compute(self, topo, edge_mask=None, multipath_k: int = 1):
         kp = mp_pad(multipath_k)
+        return self._guarded(
+            lambda: self._device_compute(topo, edge_mask, kp),
+            lambda: self._oracle.compute(topo, edge_mask, multipath_k=kp),
+            "spf.one",
+        )
+
+    def compute_whatif(self, topo, edge_masks, multipath_k: int = 1):
+        kp = mp_pad(multipath_k)
+        return self._guarded(
+            lambda: self._device_whatif(topo, edge_masks, kp),
+            lambda: self._oracle.compute_whatif(topo, edge_masks, multipath_k=kp),
+            "spf.whatif",
+        )
+
+    def compute_multiroot(self, topo, roots) -> MultiRootResult:
+        """Distances, parents and hops from many roots (one device program).
+
+        No next-hop plane: direct atoms are marshaled relative to
+        ``topo.root``, so next hops mean nothing for another root.
+        """
+        return self._guarded(
+            lambda: self._device_multiroot(topo, roots),
+            lambda: self._oracle.compute_multiroot(topo, roots),
+            "spf.multiroot",
+        )
+
+    def _device_compute(self, topo, edge_mask, kp: int) -> SpfResult:
         if self.engine == "blocked" and kp == 1:
             res = self._whatif_blocked(topo, self._full_mask(topo, edge_mask)[None, :])
             if res is not None:
@@ -303,8 +353,7 @@ class TorchSpfBackend(SpfBackend):
         self._remember(topo, out, kp)
         return self._result(out, topo.n_vertices, kp)
 
-    def compute_whatif(self, topo, edge_masks, multipath_k: int = 1):
-        kp = mp_pad(multipath_k)
+    def _device_whatif(self, topo, edge_masks, kp: int) -> list:
         masks = np.asarray(edge_masks, bool)
         if len(masks) == 0:
             return []
@@ -326,12 +375,7 @@ class TorchSpfBackend(SpfBackend):
             for i in range(len(masks))
         ]
 
-    def compute_multiroot(self, topo, roots) -> MultiRootResult:
-        """Distances, parents and hops from many roots (one device program).
-
-        No next-hop plane: direct atoms are marshaled relative to
-        ``topo.root``, so next hops mean nothing for another root.
-        """
+    def _device_multiroot(self, topo, roots) -> MultiRootResult:
         roots = np.asarray(roots, np.int32)
         if len(roots) == 0:
             empty = np.zeros((0, topo.n_vertices), np.int32)

@@ -44,6 +44,11 @@ restorations, an overload strike) is held to the CPU path step by step,
 with ell_relax and ell_first_parent launched; apply_delta_slots writes CUDA
 planes in place equal to the CPU planes; an entry whose edge ids went stale
 rebuilds for a what-if batch and for a masked compute on the card.
+
+Fast reroute: the all-roots matrix (ell_relax at one lane per vertex, 250
+lanes, also truncated at max_iters 1-2) and FrrEngine("torch")'s tables on a
+LAN topology, with the policies off and on, are held to the CPU path and the
+oracle; graft_entry.entry() on the card equals its CPU run.
 """
 
 import numpy as np
@@ -525,6 +530,7 @@ def test_stale_edge_ids_rebuild_for_masked_dispatches_on_the_card():
     _card()
     topo = synth.random_ospf_topology(n_routers=260, n_networks=40, extra_p2p=400, seed=6)
     be, sc = TorchSpfBackend(), ScalarSpfBackend()
+    be._gather_cache.clear()  # the card's shared cache: this test's entries only
     be.compute(topo)
     chain = _delta_chain(topo, 5, seed=3)
     for i, t in enumerate(chain):
@@ -728,3 +734,65 @@ def test_multipath_delta_chain_on_the_card_matches_the_cpu_path():
                                           err_msg=f"step {i} {f}")
     assert card.delta_paths == cpu.delta_paths
     assert sum(v for (_, p), v in card.delta_paths.items() if p == "incremental") == len(chain)
+
+
+# -- fast reroute: the all-roots matrix at B = N lanes and the backup tables
+
+
+def _frr_lan():
+    topo = synth.random_ospf_topology(n_routers=200, n_networks=50, extra_p2p=300, seed=23)
+    topo.edge_srlg = np.random.default_rng(5).integers(0, 8, topo.n_edges).astype(np.uint32)
+    return topo
+
+
+def test_all_roots_matrix_on_the_card_matches_the_cpu_path():
+    """D runs ell_relax with one lane per vertex (250: not a multiple of 32),
+    no mask; every launch equals the CPU path's."""
+    from holo_tpu_torch.frr import kernel as fk
+
+    dev = _card()
+    topo = _frr_lan()
+    g = se.device_graph_from_ell(build_ell(topo), dev)
+    gc = se.device_graph_from_ell(build_ell(topo), "cpu")
+    ell.reset_launches()
+    d = fk.all_roots(g)
+    torch.cuda.synchronize()
+    assert ell.launches["ell_relax"] > 0 and d.shape == (topo.n_vertices, topo.n_vertices)
+    assert torch.equal(d.cpu(), fk.all_roots(gc))
+    for m in (1, 2):
+        assert torch.equal(fk.all_roots(g, m).cpu(), fk.all_roots(gc, m))
+
+
+@pytest.mark.parametrize("policy", [{}, {"node_protection": True, "srlg_disjoint": True}])
+def test_frr_engine_on_the_card_matches_the_cpu_path_and_oracle(policy):
+    from holo_tpu_torch.frr.manager import FrrConfig, FrrEngine
+    from holo_tpu_torch.frr.scalar import frr_reference
+
+    _card()
+    topo = _frr_lan()
+    cfg = FrrConfig(enabled=True, remote_lfa=True, ti_lfa=True, **policy)
+    card, cpu = FrrEngine("torch"), FrrEngine("torch", device="cpu")
+    assert card.device.type == "cuda"
+    for eng in (card, cpu):
+        eng.set_policy(cfg)
+    got, want = card.compute(topo), cpu.compute(topo)
+    oracle = frr_reference(topo, 64, **policy)
+    for f in ("lfa_adj", "lfa_nodeprot", "rlfa_pq", "tilfa_p", "tilfa_q", "post_dist",
+              "post_nh"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f), err_msg=f)
+        np.testing.assert_array_equal(getattr(got, f), getattr(oracle, f), err_msg=f)
+    assert card.dispatches == {"device": 1}
+    assert card.breaker.snapshot()["fallbacks"] == {}
+
+
+def test_graft_entry_on_the_card_matches_the_cpu_path():
+    from holo_tpu_torch import graft_entry
+
+    _card()
+    fn, args = graft_entry.entry()
+    assert args[0].in_src.device.type == "cuda"
+    got = fn(*args)
+    cfn, cargs = graft_entry.entry(device="cpu")
+    want = cfn(*cargs)
+    for f in ("dist", "parent", "hops", "nexthops"):
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f

@@ -161,15 +161,17 @@ def test_other_one_engines_raise(one_engine):
 
 def test_gather_cache_is_per_topology_and_bounded():
     be = TorchSpfBackend(device="cpu")
-    topos = [tsynth.random_ospf_topology(n_routers=20, seed=s) for s in range(6)]
+    cap = be._gather_cache.capacity  # the device's shared cache, seen through a view
+    topos = [tsynth.random_ospf_topology(n_routers=20, seed=s) for s in range(cap + 2)]
     g0 = be.prepare(topos[0])
     assert be.prepare(topos[0]) is g0
     for t in topos[1:]:
         be.prepare(t)
-    assert len(be._gather_cache) == 4
-    before = be.prepare(topos[5])
-    topos[5].touch()  # a new generation marshals anew
-    assert be.prepare(topos[5]) is not before
+    assert len(be._gather_cache) == cap
+    assert be._gather_cache.lookups == {"hit": 1, "miss": cap + 2}
+    before = be.prepare(topos[-1])
+    topos[-1].touch()  # a new generation marshals anew
+    assert be.prepare(topos[-1]) is not before
 
 
 @pytest.mark.parametrize("engine", ["gather", "blocked"])

@@ -35,7 +35,10 @@ def test_every_module_is_found():
     mods = _modules()
     for want in ("holo_tpu_torch.spf.backend", "holo_tpu_torch.kernels.blocked",
                  "holo_tpu_torch.ops.blocked_spf", "holo_tpu_torch.convert",
-                 "holo_tpu_torch.ops.spf_engine", "holo_tpu_torch.kernels.ell"):
+                 "holo_tpu_torch.ops.spf_engine", "holo_tpu_torch.kernels.ell",
+                 "holo_tpu_torch.resilience.breaker", "holo_tpu_torch.frr.inputs",
+                 "holo_tpu_torch.frr.kernel", "holo_tpu_torch.frr.scalar",
+                 "holo_tpu_torch.frr.manager", "holo_tpu_torch.graft_entry"):
         assert want in mods
 
 
