@@ -15,7 +15,13 @@ and 8: ECMP/UCMP parent sets, path counts, per-atom weights) through
 ``compute``, ``compute_whatif`` and the DeltaPath chain, and fast reroute
 (``FrrEngine("torch").compute``: the all-roots distance matrix, one lane
 per vertex, the per-link post-convergence batch and the LFA / remote-LFA /
-TI-LFA tables).  Phases:
+TI-LFA tables); CSPF (``CspfEngine.compute``: 1024 traffic-engineering
+requests as one masked batch, BASELINE.json config 4) on the same fat tree;
+and partitioned SPF (``TorchSpfBackend(partition_threshold=1).compute``) on
+a 100k-vertex multi-area LSDB (25 OSPF areas of 64 x 64 routers), with its
+native area hint and with the flat cut, beside the monolithic ``compute()``,
+and on a 10-area one at ``multipath_k`` 4 and 8 and through DeltaPath.
+Phases:
 
 1. build the CUDA kernels from ``holo_tpu_torch/csrc`` with nvcc;
 2. run each kernel once on real mid-fixpoint inputs at the main paths'
@@ -82,14 +88,36 @@ TI-LFA tables).  Phases:
    and ``resolve_backup`` equal on every (link, destination), with the
    policies off and with node protection + SRLG-disjointness; the graft
    entry on the card equal to the oracle;
+3g. CSPF: 1024 requests drawn as ``bench.py``'s ``stage_cspf10k`` draws them
+   (``default_rng(7)``: affinity from 8 bits, bandwidth 1..10, ``exclude_any``
+   0..3, ``min_bandwidth`` below 2, random destinations); with the ELL
+   counters at 0 a cold batch (G1-G4 must launch), requests 0-7 equal to
+   ``spf_reference`` on their masks (cost and first-parent path), every G1-G4
+   launch of one more batch held to its plain version, 3 warm batches timed;
+3h. partitioned SPF on ``multiarea_topology(25, 64, 64, seed=3)`` (102,400
+   vertices): the oracle, then the monolithic ``compute()`` and a partition-
+   armed backend with the native hint and one with the flat cut (parts of at
+   most 4096), each cold with the ELL counters at 0 (G1, G2 and M1 must
+   launch, G3 and G4 not) and 3 warm, all equal to the oracle on the four
+   planes, with each phase's time and rounds; every kernel launch of one
+   more flat compute held to its plain version; the boundary solve's
+   largest-frontier G1 launch timed against its bound; on
+   ``multiarea_topology(10, 32, 32, seed=3)`` ``multipath_k`` 4 and 8 equal
+   to the multipath oracle (all nine planes; M1-M3 launched and held, G2
+   not launched) and a chain of six linked link-cost events (two on gateway
+   links, which the cut cuts), every step served incrementally with fewer
+   re-solved parts than the cut has, equal to a full partitioned solve
+   (steps 0-1 also to the oracle);
 4. time each kernel (CUDA events; at one scenario also the profiler's
    device time, which leaves out the host's launch), its plain version, the
    whole batch, ``compute()`` and the gather batch's stages, and DeltaPath's
    delta-linked ``compute()`` against a re-marshal and a cached call, with
    the host's delta lowering and scatter against the incremental SPF's
    device time, beside the card's name and power limit; the FRR compute's
-   device-busy share; then require that no breaker of the run (every SPF
-   backend and FRR engine) counted a failure, a fallback or a refusal.
+   device-busy share, the CSPF batch and the 100k partitioned and monolithic
+   computes with their device-busy shares; then require that no breaker of
+   the run (every SPF backend and FRR engine) counted a failure, a fallback
+   or a refusal.
 
 Every failure raises, so the exit code is not 0.  Without a CUDA device, or
 without the rest of the repository beside it, the script fails before it
@@ -162,20 +190,27 @@ ELL_REPLACES = {
 # lane) pairs -- a valid slot whose edge is up in the lane -- and, where the
 # work depends on the data, over this run's DAG pairs (source reached, edge
 # tight, destination reached and not the lane's root):
-# ell_relax: add, min per active pair (usable, and the source changed in
-#   that lane in the previous round: the launch's frontier).
+# ell_relax: the gather of the source's distance, add, min per active pair
+#   (usable, and the source changed in that lane in the previous round: the
+#   launch's frontier).
 # ell_first_parent: the DAG test per usable pair (add, tight, reached) and,
 #   per DAG pair, the lexicographic update (compare, select, min).
 # ell_nh_seed (from the DAG bits): per (slot, tile) whose DAG word is not 0
 #   an AND (the lanes whose source has hops 0) and an ANDN (the inherit
 #   word), and an OR per word per DAG pair whose source has hops 0.
-# ell_nh_round: an OR per word per active inherit pair (inherit bit set,
-#   source changed), and per (vertex, word, lane) the OR into the old word
-#   and the changed test.
-ELL_RELAX_OPS = 2
+# ell_nh_round: a gather and an OR per word per active inherit pair (inherit
+#   bit set, source changed), and per (vertex, word, lane) the OR into the old
+#   word and the changed test.
+# A frontier launch's gathers read at least one 32-byte sector of the source's
+# plane row per active (slot, lane word): a word of 32 lanes whose source
+# changed in some lane where the slot is usable (and, per next-hop word, for
+# ell_nh_round).
+ELL_RELAX_OPS = 3
 ELL_TEST_OPS, ELL_UPDATE_OPS = 3, 3
 ELL_SPLIT_OPS = 2
 ELL_ROUND_OPS = 2
+ELL_GATHER_OPS = 2  # ell_nh_round per word per active pair: gather, OR
+SECTOR_BYTES = 32
 # The main launch of each frontier kernel: ell_relax's third round, ell_nh_round's
 # second (the first of each gathers from almost no changed source).
 MID_RELAX, MID_ROUND = 2, 1
@@ -220,6 +255,21 @@ FRR_POLICIES = ({}, {"node_protection": True, "srlg_disjoint": True})
 FRR_LAN = dict(n_routers=800, n_networks=200, extra_p2p=1600, seed=23)
 FRR_SRLG_SEED = 5
 FRR_STAGES = ("marshal_ms", "d_ms", "post_ms", "lfa_rlfa_ms", "tilfa_ms", "readback_ms")
+# CSPF (phase 3g): TE requests drawn as bench.py's stage_cspf10k draws them
+# (BASELINE.json config 4), the requests held to the oracle, the warm runs.
+CSPF_BATCH = 1024
+CSPF_SEED = 7
+CSPF_ORACLE = 8
+CSPF_WARM_REPS = 3
+# Partitioned SPF (phase 3h): the multi-area LSDBs (bench.py's multiarea_100k
+# and multiarea_10k), the flat cut's part size, the warm runs, the multipath
+# widths and the delta chain at 10k.
+PART_100K = dict(n_areas=25, rows=64, cols=64, seed=3)
+PART_10K = dict(n_areas=10, rows=32, cols=32, seed=3)
+PART_MAX_PART = 4096
+PART_WARM_REPS = 3
+PART_MP_KS = (4, 8)
+PART_PHASES = ("bdist_ms", "stitch_ms", "dist_ms", "exchange_ms", "assemble_ms")
 
 
 def cuda_call(fn):
@@ -453,12 +503,14 @@ def popcount(words: torch.Tensor) -> int:
     return int((((x * 0x01010101) & 0xFFFFFFFF) >> 24).sum())
 
 
-def frontier_work(p, bits: torch.Tensor, front: torch.Tensor) -> tuple[int, int]:
-    """(active pairs, loaded words) of one frontier launch: the (slot, lane)
-    pairs whose ``bits`` word (mask [E, words] by edge, or inherit [N, K,
-    words] by slot; None: every lane) and the source's frontier bit are set,
-    and the (valid slot, tile) words it must load, those whose source's
-    frontier word is not 0."""
+def frontier_work(p, bits: torch.Tensor, front: torch.Tensor) -> tuple[int, int, int]:
+    """(active pairs, loaded words, active words) of one frontier launch: the
+    (slot, lane) pairs whose ``bits`` word (mask [E, words] by edge, or
+    inherit [N, K, words] by slot; None: every lane) and the source's
+    frontier bit are set, the (valid slot, tile) words it must load, those
+    whose source's frontier word is not 0, and the (slot, lane word) pairs
+    holding an active pair, each of which gathers a sector of the source's
+    row."""
     valid = p.slot >= 0
     f = front[p.src.long()]  # [N, K, words]
     if bits is None:
@@ -468,27 +520,31 @@ def frontier_work(p, bits: torch.Tensor, front: torch.Tensor) -> tuple[int, int]
     else:
         act = f & bits
     act = torch.where(valid[:, :, None], act, 0)
-    return popcount(act), int(((f != 0) & valid[:, :, None]).sum())
+    return (popcount(act), int(((f != 0) & valid[:, :, None]).sum()),
+            int((act != 0).sum()))
 
 
 def launch_bound(p, x, kind: str, plane, front) -> tuple[float, str, int, int]:
     """(bound ms, by, operations, bytes) of one frontier launch on ``plane``
     (dist [N, B] or next hops [N, W, B]) with ``front``: the slot planes,
-    the frontier in and out, the plane in and out, and the mask (inherit)
-    words of the slots whose source changed in some lane of the tile;
-    operations per active pair (relax: add, min; next hops: an OR per
-    word) and, for next hops, the OR into the old word and its test."""
+    the frontier in and out, the plane in and out, the mask (inherit) words
+    of the slots whose source changed in some lane of the tile, and the
+    gathers, a sector per active (slot, lane word) (per next-hop word);
+    operations per active pair (relax: gather, add, min; next hops: a
+    gather and an OR per word) and, for next hops, the OR into the old word
+    and its test."""
     fbytes = 2 * front.numel() * 4
     if kind == "ell_relax":
-        act, loads = frontier_work(p, p.mask, front)
+        act, loads, act_words = frontier_work(p, p.mask, front)
         ops = ELL_RELAX_OPS * act
         byte_count = nbytes(p.src, p.cost, p.slot) + fbytes + 2 * plane.numel() * 4
-        byte_count += 0 if p.mask is None else 4 * loads
+        byte_count += (0 if p.mask is None else 4 * loads) + SECTOR_BYTES * act_words
     else:
-        act, loads = frontier_work(p, x["inherit"], front)
+        act, loads, act_words = frontier_work(p, x["inherit"], front)
         words = plane.shape[1]
-        ops = words * act + ELL_ROUND_OPS * plane.numel()
-        byte_count = nbytes(p.src) + fbytes + 2 * plane.numel() * 4 + 4 * loads
+        ops = ELL_GATHER_OPS * words * act + ELL_ROUND_OPS * plane.numel()
+        byte_count = (nbytes(p.src) + fbytes + 2 * plane.numel() * 4 + 4 * loads
+                      + SECTOR_BYTES * words * act_words)
     return (*bound(ops, byte_count), ops, byte_count)
 
 
@@ -707,10 +763,13 @@ class Holder:
     buffer as it was before the launch) and the plain full round from the
     same in-state; each fused ell_parent_sets launch to first_parent_plain
     plus parent_sets_plain's parents and pdist; each ell_parent_weights
-    launch to parent_weights_plain.  The plain calls launch no kernel."""
+    launch to parent_weights_plain.  The plain calls launch no kernel.
+    ``full_round=False`` skips the full round: the partitioned fixpoint's
+    pinned halo rows keep their values where a full round recomputes them."""
 
-    def __init__(self, ell):
+    def __init__(self, ell, full_round: bool = True):
         self.ell = ell
+        self.full_round = full_round
         self.err = {"ell_mp_round": 0, "ell_parent_sets": 0, "ell_parent_weights": 0}
         self.held = Counter()
         self.lanes = Counter()  # (kernel, lanes, with counts) -> launches
@@ -723,13 +782,15 @@ class Holder:
             want = _clone(out)
             res = fn(*fixed, state, front, out)
             ref = ell.mp_round_plain(*fixed, state, front, want)
-            full = ell.mp_round_full(*fixed, state)
             label = f"launch {self.held['ell_mp_round'] + 1}"
             got = (*out, *res)
             self.err["ell_mp_round"] = max(self.err["ell_mp_round"],
-                                           held("ell_mp_round", label, got, (*want, *ref)),
-                                           held("ell_mp_round", f"{label} (full round)", got,
-                                                full))
+                                           held("ell_mp_round", label, got, (*want, *ref)))
+            if self.full_round:
+                full = ell.mp_round_full(*fixed, state)
+                self.err["ell_mp_round"] = max(
+                    self.err["ell_mp_round"],
+                    held("ell_mp_round", f"{label} (full round)", got, full))
             self.held["ell_mp_round"] += 1
             self.lanes[("ell_mp_round", state[0].shape[1], state[2] is not None)] += 1
             return res
@@ -1218,6 +1279,308 @@ def frr_phase(ell, se, dev, topo) -> dict:
     return x
 
 
+def cspf_phase(ell, topo) -> dict:
+    """Phase 3g: 1024 TE requests (bench.py's stage_cspf10k draws) on the
+    k=90 fat tree through ``CspfEngine`` on the card: a cold batch with the
+    ELL counts at 0 (G1-G4 must launch), every G1-G4 launch of one more batch
+    held to its plain version, requests 0-7 held to ``spf_reference`` on
+    their masks (cost and first-parent path), 3 warm batches timed."""
+    from holo_tpu_torch.ops.cspf import (
+        Constraint,
+        CspfEngine,
+        LinkAttrs,
+        constraint_masks,
+        device_constraint_masks,
+    )
+    from holo_tpu_torch.spf.scalar import spf_reference
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(CSPF_SEED)
+    attrs = LinkAttrs(affinity=rng.integers(0, 2**8, topo.n_edges, dtype=np.uint32),
+                      bandwidth=rng.uniform(1.0, 10.0, topo.n_edges))
+    cons = [Constraint(exclude_any=int(rng.integers(0, 4)),
+                       min_bandwidth=float(rng.uniform(0.0, 2.0))) for _ in range(CSPF_BATCH)]
+    dsts = [int(d) for d in rng.integers(0, topo.n_vertices, CSPF_BATCH)]
+    x = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng = CspfEngine(topo, attrs)
+    require(eng.device.type == "cuda", "CspfEngine does not run on the card")
+    torch.cuda.synchronize()
+    x["marshal_ms"] = (time.perf_counter() - t0) * 1e3
+    ell.reset_launches()
+    t0 = time.perf_counter()
+    paths = eng.compute(cons, dsts)
+    torch.cuda.synchronize()
+    x["cold_ms"] = (time.perf_counter() - t0) * 1e3
+    x["launches"] = dict(ell.launches)
+    print(f"CSPF path launches: {x['launches']}", flush=True)
+    for name in GATHER_PLAIN:
+        require(x["launches"][name] > 0, f"kernel {name} never launched on the CSPF path")
+    require(len(paths) == CSPF_BATCH, "CSPF batch size")
+    masks = constraint_masks(topo, attrs, cons[:CSPF_ORACLE])
+    require(np.array_equal(device_constraint_masks(topo, attrs, cons[:CSPF_ORACLE],
+                                                   DEVICE).cpu().numpy(), masks),
+            "CSPF masks built on the card differ from constraint_masks")
+    for b in range(CSPF_ORACLE):
+        ref = spf_reference(topo, masks[b])
+        p, d = paths[b], dsts[b]
+        if ref.dist[d] >= (1 << 30):
+            require(p.cost is None, f"CSPF request {b}: a path where the oracle has none")
+            continue
+        chain = [d]
+        while chain[-1] != topo.root:
+            chain.append(int(ref.parent[chain[-1]]))
+        require(p.cost == int(ref.dist[d]) and p.vertices == chain[::-1],
+                f"CSPF request {b} differs from spf_reference on its mask")
+    x["found"] = sum(p.cost is not None for p in paths)
+    require(x["found"] > 0, "no CSPF request found a path")
+    hold = GatherHolder()
+    with holding_gather(ell, hold):
+        again = eng.compute(cons, dsts)
+    torch.cuda.synchronize()
+    require([(p.cost, p.vertices) for p in again] == [(p.cost, p.vertices) for p in paths],
+            "the held CSPF batch differs")
+    for name in GATHER_PLAIN:
+        require(hold.held_count(name) == x["launches"][name],
+                f"CSPF {name}: {hold.held_count(name)} launches held of {x['launches'][name]}")
+    require(set(hold.lanes) == {(k, CSPF_BATCH) for k in GATHER_PLAIN},
+            f"the held CSPF launches ran at other widths: {dict(hold.lanes)}")
+    x["held_err"] = hold.err
+    warm = []
+    for _ in range(CSPF_WARM_REPS):
+        t0 = time.perf_counter()
+        eng.compute(cons, dsts)
+        torch.cuda.synchronize()
+        warm.append((time.perf_counter() - t0) * 1e3)
+    x["batch_ms"] = statistics.median(warm)
+    x["warm_all_ms"] = warm
+    x["requests_per_sec"] = CSPF_BATCH / x["batch_ms"] * 1e3
+    x["busy"] = lambda: eng.compute(cons, dsts)
+    print(f"CSPF k={K}: {CSPF_BATCH} requests, {x['found']} paths found; requests "
+          f"0-{CSPF_ORACLE - 1} equal spf_reference on their masks (cost and path); every "
+          f"G1-G4 launch of a held batch bit-identical to its plain version "
+          f"({dict(hold.lanes)}); phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return x
+
+
+def part_chain(graph, synth, topo, per: int, cols: int) -> list:
+    """[(event, topology linked to the one before)]: six link-cost events on
+    the 10-area LSDB, two of them on gateway (cut) links."""
+    def v(area, r, c):
+        return area * per + r * cols + c
+
+    events = [("area 3 link", v(3, 5, 7), v(3, 5, 8), 9),
+              ("gateway link area 5 g1", v(5, 1, 0), (cols + 5) % per, 5),
+              ("area 7 link", v(7, 20, 3), v(7, 21, 3), 1),
+              ("gateway link area 2 g2", v(2, 2, 0), (2 * cols + 2) % per, 4),
+              ("area 3 link back", v(3, 5, 7), v(3, 5, 8), 2),
+              ("area 9 link", v(9, 30, 30), v(9, 30, 31), 8)]
+    out, cur = [], topo
+    for label, a, b, cost in events:
+        cur = set_link_cost(graph, synth, cur, a, b, cost)
+        out.append((label, cur))
+    return out
+
+
+def part_timed(be, topo, reps: int) -> dict:
+    """A cold partitioned compute with the ELL counts at 0, then ``reps``
+    warm ones: times (host clock, each ended by a sync), the launches of
+    the cold call, each warm call's phase times and rounds, the result."""
+    from holo_tpu_torch.kernels import ell
+
+    be.part_stats = {}
+    ell.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = be.compute(topo)
+    torch.cuda.synchronize()
+    x = {"cold_ms": (time.perf_counter() - t0) * 1e3, "launches": dict(ell.launches),
+         "cold_stats": copy.deepcopy(be.part_stats), "out": out}
+    require(be.part_stats["path"] == "marshal", "the cold partitioned compute did not marshal")
+    warm, stats = [], []
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        again = be.compute(topo)
+        torch.cuda.synchronize()
+        warm.append((time.perf_counter() - t0) * 1e3)
+        stats.append(copy.deepcopy(be.part_stats))
+        require(be.part_stats["path"] == "full" and same_planes(again, out),
+                "a warm partitioned compute re-marshaled or differs from the cold one")
+    x["peak_mb"] = (torch.cuda.max_memory_allocated() - mem0) / 2**20
+    x["warm_ms"] = statistics.median(warm)
+    x["warm_all_ms"] = warm
+    x["phases"] = {k: statistics.median(st["timings"][k] for st in stats) for k in PART_PHASES}
+    x["rounds"] = stats[-1]["rounds"]
+    return x
+
+
+def partition_phase(ell, se, dev) -> dict:
+    """Phase 3h: (a) the 100k-vertex multi-area LSDB (25 areas of 64 x 64)
+    through a partition-armed ``TorchSpfBackend`` with its native hint and
+    with the flat cut (parts of at most 4096), cold and 3 warm computes with
+    the ELL counts at 0, beside the monolithic ``compute()``; all three equal
+    to the oracle on the four planes; every kernel launch of one more flat
+    compute held to its plain version; the largest-frontier launch of the
+    boundary solve timed against its bound; (b) at 10k (10 areas of 32 x 32):
+    ``multipath_k`` 4 and 8 against the multipath oracle (nine planes),
+    every launch held, and a chain of six linked events served incrementally
+    with fewer re-solved parts than the cut has, each step equal to a full
+    partitioned solve (steps 0-1 also to the oracle)."""
+    from holo_tpu_torch.ops import graph
+    from holo_tpu_torch.ops import partition as tp
+    from holo_tpu_torch.spf import synth
+    from holo_tpu_torch.spf.backend import ScalarSpfBackend, TorchSpfBackend
+
+    t_phase = time.perf_counter()
+    x = {}
+    topo = synth.multiarea_topology(**PART_100K)
+    flat = synth.clone_topology(topo)
+    flat.partition_hint = None
+    n = topo.n_vertices
+    t0 = time.perf_counter()
+    ref = ScalarSpfBackend().compute(topo)
+    x["oracle_s"] = time.perf_counter() - t0
+    print(f"partitioned LSDB: {n} vertices, {topo.n_edges} edges, "
+          f"{len(np.unique(topo.partition_hint))} areas; oracle {x['oracle_s']:.1f} s, max "
+          f"distance {int(ref.dist[ref.dist < (1 << 30)].max())}", flush=True)
+    mono = TorchSpfBackend(device=dev)
+    ell.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m_out = mono.compute(topo)
+    torch.cuda.synchronize()
+    x["mono_cold_ms"] = (time.perf_counter() - t0) * 1e3
+    x["mono_launches"] = dict(ell.launches)
+    require(same_planes(m_out, ref), "the monolithic compute() at 100k differs from the oracle")
+    x["mono_ms"] = host_ms(lambda: mono.compute(topo), PART_WARM_REPS)
+    x["mono_busy"] = lambda: mono.compute(topo)
+    arms = {"hinted": (TorchSpfBackend(device=dev, partition_threshold=1), topo),
+            "flat": (TorchSpfBackend(device=dev, partition_threshold=1,
+                                     partition_max_part=PART_MAX_PART), flat)}
+    x["arms"] = {}
+    for arm, (be, t) in arms.items():
+        r = part_timed(be, t, PART_WARM_REPS)
+        require(same_planes(r["out"], ref), f"the {arm} partitioned compute differs from the "
+                f"oracle")
+        require(same_planes(r["out"], m_out), f"the {arm} partitioned compute differs from the "
+                f"monolithic compute()")
+        for name in ("ell_relax", "ell_first_parent", "ell_mp_round"):
+            require(r["launches"][name] > 0, f"kernel {name} never launched on the {arm} "
+                    f"partitioned path")
+        require(r["launches"]["ell_nh_seed"] == r["launches"]["ell_nh_round"] == 0,
+                f"G3/G4 launched on the {arm} partitioned path")
+        (res,) = be.partition_residents()
+        r["stats"] = res.stats()
+        r["busy"] = (lambda b=be, tt=t: b.compute(tt))
+        x["arms"][arm] = r
+        st = r["stats"]
+        print(f"partitioned {arm}: {st['parts']} parts, {st['rows']} rows, skeleton "
+              f"{st['skeleton']}, {st['cut-edges']} cut edges, {st['boundary-lanes']} boundary "
+              f"lanes (b_pad {st['b-pad']}), l_pad "
+              f"{st['l-pad']}; equal to the oracle and the monolithic compute() on the four "
+              f"planes; launches {r['launches']}; rounds {r['rounds']}", flush=True)
+    # Every kernel launch of one more flat compute, held to its plain version.
+    be, t = arms["flat"]
+    t0 = time.perf_counter()
+    ghold, mhold = GatherHolder(), Holder(ell, full_round=False)
+    with holding_gather(ell, ghold), holding(ell, mhold):
+        require(same_planes(be.compute(t), ref), "the held flat partitioned compute differs")
+    torch.cuda.synchronize()
+    flat_l = x["arms"]["flat"]["launches"]
+    for name in ("ell_relax", "ell_first_parent"):
+        require(ghold.held_count(name) == flat_l[name],
+                f"{name}: {ghold.held_count(name)} partitioned launches held of {flat_l[name]}")
+    require(mhold.held["ell_mp_round"] == flat_l["ell_mp_round"],
+            "an ell_mp_round launch of the flat partitioned compute was not held")
+    x["held_err"] = {**ghold.err, "ell_mp_round": mhold.err["ell_mp_round"]}
+    print(f"partitioned held compute (flat): every launch bit-identical to its plain version, "
+          f"(kernel, lanes) -> launches {dict(ghold.lanes)}, M1 {dict(mhold.lanes)} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    # The boundary solve's largest-frontier G1 launch against its bound.
+    (res,) = be.partition_residents()
+    plan = res.plan
+    stack = tp.part_stack(plan, res.graph, range(plan.n_parts))
+    kept = []
+    with keeping_relax(ell, kept):
+        tp.boundary_tables(plan, stack, plan.l_pad)
+    torch.cuda.synchronize()
+    lp = se.LanePlanes(stack.g.in_src, stack.g.in_cost, stack.slot, None)
+    fronts = [popcount(f) for _, f in kept]
+    main = max(range(len(kept)), key=fronts.__getitem__)
+    x["bdist_launches"] = len(kept)
+    x["bdist_lanes"] = kept[0][0].shape[1]
+    x["bdist_main"] = main + 1
+    x["bdist_main_ms"] = cuda_ms(lambda: ell.ell_relax(*lp, *kept[main]), KERNEL_REPS)
+    x["bdist_main_bound"] = launch_bound(lp, None, "ell_relax", *kept[main])
+    x["bdist_ms"] = cuda_ms(lambda: tp.boundary_tables(plan, stack, plan.l_pad), 1)
+    del kept
+    print(f"partitioned boundary solve (flat): {x['bdist_launches']} ell_relax launches at "
+          f"{x['bdist_lanes']} lanes over {plan.n_rows} rows; launch {main + 1} has the "
+          f"largest frontier ({fronts[main]} bits)", flush=True)
+
+    # (b) 10k: multipath and the delta chain.
+    t10 = synth.multiarea_topology(**PART_10K)
+    per, cols = PART_10K["rows"] * PART_10K["cols"], PART_10K["cols"]
+    mbe = TorchSpfBackend(device=dev, partition_threshold=1)
+    oracle = ScalarSpfBackend()
+    ell.reset_launches()
+    hold = Holder(ell, full_round=False)
+    ghold = GatherHolder()
+    with holding(ell, hold), holding_gather(ell, ghold):
+        for k in PART_MP_KS:
+            require(same_nine(mbe.compute(t10, multipath_k=k),
+                              oracle.compute(t10, multipath_k=k)),
+                    f"partitioned compute(multipath_k={k}) differs from the multipath oracle")
+    torch.cuda.synchronize()
+    x["mp_launches"] = dict(ell.launches)
+    for name in MP_REPLACES:
+        require(x["mp_launches"][name] > 0 and hold.held[name] == x["mp_launches"][name],
+                f"kernel {name} not launched, or not held, on the partitioned multipath path")
+    require(x["mp_launches"]["ell_first_parent"] == 0,
+            "ell_first_parent launched on the partitioned multipath path")
+    x["mp_err"] = dict(hold.err)
+    x["mp_err"]["ell_relax"] = ghold.err["ell_relax"]
+    print(f"partitioned multipath (10k, k={list(PART_MP_KS)}): nine planes equal to the "
+          f"multipath oracle; launches {x['mp_launches']}, every one held "
+          f"({dict(hold.lanes)})", flush=True)
+    cbe = TorchSpfBackend(device=dev, partition_threshold=1)
+    cbe.compute(t10)
+    (res10,) = cbe.partition_residents()
+    n_parts = res10.plan.n_parts
+    full_be = TorchSpfBackend(device=dev, partition_threshold=1, incremental=False)
+    cbe.part_stats = {}
+    x["chain"] = []
+    n_cut = 0
+    for i, (label, t) in enumerate(part_chain(graph, synth, t10, per, cols)):
+        t0 = time.perf_counter()
+        got = cbe.compute(t)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        st = cbe.part_stats
+        require(st["path"] == "incremental" and st["resolved"] < n_parts,
+                f"partitioned delta step {i} ({label}) was not served incrementally with fewer "
+                f"re-solved parts than {n_parts}: {st}")
+        require(same_planes(got, full_be.compute(synth.clone_topology(t))),
+                f"partitioned delta step {i} ({label}) differs from a full partitioned solve")
+        if i < 2:
+            require(same_planes(got, oracle.compute(t)),
+                    f"partitioned delta step {i} ({label}) differs from the oracle")
+        d = t.delta_base
+        on_cut = bool((res10.plan.part_of[d.w_src] != res10.plan.part_of[d.w_dst]).any())
+        n_cut += on_cut
+        x["chain"].append((label, ms, st["resolved"], st["rounds"]["exchange"]))
+        print(f"partitioned delta step {i} {label}{' (cut edge)' if on_cut else ''}: "
+              f"incremental, {st['resolved']} of {n_parts} parts re-solved, "
+              f"{st['rounds']['exchange']} exchange rounds; equal to a full partitioned "
+              f"solve{' and the oracle' if i < 2 else ''}; compute() {ms:.3f} ms", flush=True)
+    require(n_cut >= 2, "fewer than two chain events on cut edges")
+    print(f"partitioned phase checked in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return x
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device available")
@@ -1581,6 +1944,12 @@ def main() -> None:
     # -- 3f. fast reroute: the all-roots matrix and the backup tables
     fx = frr_phase(ell, se, dev, topo)
 
+    # -- 3g. CSPF: 1024 TE requests as one masked batch
+    cx = cspf_phase(ell, topo)
+
+    # -- 3h. partitioned SPF: the 100k multi-area LSDB, hinted and flat, and 10k
+    px = partition_phase(ell, se, dev)
+
     # -- 4. timing (the profiler last: once it has run, host launches are
     # slower, which the host-clock times below would count)
     for name, (card, *_rest) in calls.items():
@@ -1743,6 +2112,9 @@ def main() -> None:
                      sorted(m_compute_times.items(), key=lambda kv: -kv[1])[:5]]
     frr_busy_ms, frr_top = device_busy(lambda: fx["engine"].compute(topo))
     sel_busy_ms, sel_top = device_busy(fx["select"])
+    cspf_busy_ms, cspf_top = device_busy(cx.pop("busy"))
+    part_busy = {arm: device_busy(r.pop("busy")) for arm, r in px["arms"].items()}
+    mono100_busy_ms, mono100_top = device_busy(px.pop("mono_busy"))
     extra = toggles(graph, synth, fresh[-1], K, 1)[0]
     served = dbe.delta_paths[("weight", "incremental")]
     d_busy_ms, _ = device_busy(lambda: dbe.compute(extra))
@@ -1921,6 +2293,37 @@ def main() -> None:
           f"{fx['d_rounds']} ell_relax launches at B={topo.n_vertices}; launch {fx['d_main']} "
           f"(largest frontier) {fx['d_main_ms']:.3f} ms, bound {dmb[0]:.4f} ms by {dmb[1]} "
           f"({dmb[2]} operations, {dmb[3]} bytes)", flush=True)
+    print(f"time CSPF batch: {cx['batch_ms']:.3f} ms per {CSPF_BATCH}-request batch "
+          f"({cx['requests_per_sec']:.1f} requests/s; median of {CSPF_WARM_REPS}: "
+          f"{[round(t, 3) for t in cx['warm_all_ms']]}), first batch {cx['cold_ms']:.3f} ms, "
+          f"engine marshal {cx['marshal_ms']:.3f} ms; device busy {cspf_busy_ms:.3f} ms (idle "
+          f"share {1 - cspf_busy_ms / cx['batch_ms']:.3f}); top device ops: {cspf_top}",
+          flush=True)
+    for arm, r in px["arms"].items():
+        busy_ms, busy_top = part_busy[arm]
+        ph, st = r["phases"], r["stats"]
+        print(f"time partitioned compute {arm} (100k): {r['warm_ms']:.3f} ms warm (median of "
+              f"{PART_WARM_REPS}: {[round(t, 3) for t in r['warm_all_ms']]}), first call "
+              f"{r['cold_ms']:.3f} ms (plan and marshal included); phases (medians, host "
+              f"clock, each ended by a sync): boundary solve {ph['bdist_ms']:.3f} ms "
+              f"({r['rounds']['bdist']} rounds at {st['boundary-lanes']} lanes), stitch "
+              f"{ph['stitch_ms']:.3f} ms, final solve {ph['dist_ms']:.3f} ms "
+              f"({r['rounds']['dist']} rounds), exchange {ph['exchange_ms']:.3f} ms "
+              f"({r['rounds']['exchange']} iterations of {r['rounds']['exchange_inner']} M1 "
+              f"rounds), assemble {ph['assemble_ms']:.3f} ms; device busy {busy_ms:.3f} ms "
+              f"(idle share {1 - busy_ms / r['warm_ms']:.3f}); peak device memory "
+              f"{r['peak_mb']:.1f} MiB above the resident; top device ops: {busy_top}",
+              flush=True)
+    print(f"time monolithic compute (100k): {px['mono_ms']:.3f} ms warm (median of "
+          f"{PART_WARM_REPS}), first call {px['mono_cold_ms']:.3f} ms (marshal included); "
+          f"launches {px['mono_launches']}; device busy {mono100_busy_ms:.3f} ms (idle share "
+          f"{1 - mono100_busy_ms / px['mono_ms']:.3f}); top device ops: {mono100_top}",
+          flush=True)
+    pb = px["bdist_main_bound"]
+    print(f"time partitioned boundary solve (flat): {px['bdist_ms']:.3f} ms by CUDA events, "
+          f"{px['bdist_launches']} ell_relax launches at {px['bdist_lanes']} lanes; launch "
+          f"{px['bdist_main']} (largest frontier) {px['bdist_main_ms']:.4f} ms, bound "
+          f"{pb[0]:.4f} ms by {pb[1]} ({pb[2]} operations, {pb[3]} bytes)", flush=True)
     entries = [
         (name, SOURCE, REPLACES[name], launched[name], row, (rows1[name],))
         for name, row in rows.items()
@@ -1950,16 +2353,34 @@ def main() -> None:
             krow.update(frr_d_launches=fx["d_rounds"], frr_d_ms=fx["d_ms"],
                         frr_d_main_launch_ms=fx["d_main_ms"],
                         frr_d_main_launch_bound_ms=dmb[0])
+        if krow["name"] in cx["held_err"]:  # the cold CSPF batch's, each held
+            krow["cspf_launches"] = cx["launches"][krow["name"]]
+            krow["max_abs_err"] = max(krow["max_abs_err"], cx["held_err"][krow["name"]])
+        if krow["name"] in px["held_err"]:  # the cold partitioned computes' (hinted + flat)
+            krow["partitioned_launches"] = sum(r["launches"][krow["name"]]
+                                               for r in px["arms"].values())
+            krow["max_abs_err"] = max(krow["max_abs_err"], px["held_err"][krow["name"]],
+                                      px["mp_err"].get(krow["name"], 0))
+        if krow["name"] == "ell_relax":  # the flat boundary solve's largest launch
+            krow.update(partitioned_bdist_launches=px["bdist_launches"],
+                        partitioned_bdist_lanes=px["bdist_lanes"],
+                        partitioned_bdist_main_launch_ms=px["bdist_main_ms"],
+                        partitioned_bdist_main_launch_bound_ms=pb[0])
     for name, row in m_rows.items():
         kernel_rows.append({
             "name": name, "route": "cuda", "source": MP_SOURCE, "replaces": MP_REPLACES[name],
-            "launches": m_launched[name], "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "launches": m_launched[name],
+            "max_abs_err": max(row["max_abs_err"], px["mp_err"][name],
+                               px["held_err"].get(name, 0)),
+            "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row.get("library_ms"),
             "ms_b1": row["ms_b1"],
             "launches_whatif": m_whatif[name], "launches_compute": m_compute[name],
             "delta_chain_launches": m_chain[name],
             "single_path_chain_launches": d_launched[name],
+            "partitioned_launches": sum(r["launches"][name] for r in px["arms"].values()),
+            "partitioned_mp_launches": px["mp_launches"][name],
             **{key: row[key] for key in (
                 "dispatch_ms", "dispatch_bound_ms", "launch_ms", "launch_bound_ms",
                 "recomputed_entries", "copied_entries", "full_round_bound_ms",

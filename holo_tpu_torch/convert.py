@@ -6,7 +6,10 @@ a mapping of numpy arrays and ints (``np.asarray`` of each), so this module
 needs neither JAX nor ``holo_tpu``.  The tests use it to run both packages
 on identical planes, and to seed both packages' incremental paths with the
 same previous run.  ``frr_inputs_from_jax`` and ``backup_table_from_jax``
-carry ``holo_tpu``'s FRR values across, read by their fields.
+carry ``holo_tpu``'s FRR values across, read by their fields;
+``partition_from_numpy`` turns a ``holo_tpu`` ``PartitionPlan`` and its
+``PartPlanes`` into the port's plan and stacked planes, so both engines can
+run one cut.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from holo_tpu_torch.frr.inputs import FrrInputs
 from holo_tpu_torch.frr.kernel import TABLE_PLANES, BackupTable
 from holo_tpu_torch.ops.blocked import BlockGraph, block_graph, edge_planes
 from holo_tpu_torch.ops.blocked_spf import BlockSpfGraph, block_spf_graph
+from holo_tpu_torch.ops.partition import PartitionPlan, stack_layout
 from holo_tpu_torch.ops.spf_engine import DeviceGraph, MultipathTensors, SpfTensors
 
 
@@ -94,3 +98,53 @@ def backup_table_from_jax(table) -> BackupTable:
         inputs=frr_inputs_from_jax(table.inputs), root=int(table.root),
         **{f: np.array(getattr(table, f)) for f in TABLE_PLANES},
     )
+
+
+def partition_from_numpy(plan_fields: Mapping, plane_fields: Mapping,
+                         device=None) -> tuple[PartitionPlan, DeviceGraph]:
+    """The port's (plan, stacked planes) of ``holo_tpu``'s ``PartitionPlan``
+    fields and ``PartPlanes`` fields [P, L, K] (numpy arrays, lists and
+    ints).  JAX keeps each part's rows in RCM order with its halo after
+    them; the port keeps them in ascending vertex id, so every row moves to
+    the port's row of its vertex (``gid``) and every slot's local source to
+    the port's row of that vertex in the same part.  Slots keep their order;
+    an invalid slot's source becomes its own row, its cost, edge id and
+    words 0.  The ``uint32`` next-hop words become int32 bit patterns."""
+    f = plan_fields
+    as32 = lambda x: np.array(x, np.int32)  # noqa: E731
+    plan = PartitionPlan(
+        n_vertices=int(f["n_vertices"]), n_parts=int(f["n_parts"]), root=int(f["root"]),
+        part_of=as32(f["part_of"]), verts=[np.sort(as32(v)) for v in f["verts"]],
+        halo=[as32(h) for h in f["halo"]], skel=as32(f["skel"]), skel_pos=as32(f["skel_pos"]),
+        bnd=[as32(b) for b in f["bnd"]], cut_src=as32(f["cut_src"]),
+        cut_dst=as32(f["cut_dst"]), cut_cost=as32(f["cut_cost"]), cut_eid=as32(f["cut_eid"]),
+        l_pad=int(f["l_pad"]), k_pad=int(f["k_pad"]), b_pad=int(f["b_pad"]),
+        bnd_skel=[as32(b) for b in f["bnd_skel"]], halo_skel=[as32(h) for h in f["halo_skel"]],
+    )
+    stack_layout(plan)
+    pl = {k: np.asarray(v) for k, v in plane_fields.items()}
+    n, r, k = plan.n_vertices, plan.n_rows, pl["in_src"].shape[2]
+    words = pl["direct_words"].view(np.int32)
+    keys = plan.row_keys()
+    out = {
+        "in_src": np.repeat(np.arange(r, dtype=np.int32)[:, None], k, axis=1),
+        "in_cost": np.zeros((r, k), np.int32),
+        "in_valid": np.zeros((r, k), bool),
+        "in_edge_id": np.zeros((r, k), np.int32),
+        "direct_nh_words": np.zeros((r, k, words.shape[3]), np.int32),
+        "is_router": np.zeros(r, bool),
+    }
+    for p in range(plan.n_parts):
+        gid = pl["gid"][p]
+        local = np.nonzero(gid < n)[0]
+        rows = np.searchsorted(keys, p * n + gid[local].astype(np.int64))
+        valid = pl["in_valid"][p, local]
+        src = np.searchsorted(keys, p * n + gid[pl["in_src"][p, local]].astype(np.int64))
+        out["in_src"][rows] = np.where(valid, src, rows[:, None])
+        out["in_cost"][rows] = np.where(valid, pl["in_cost"][p, local], 0)
+        out["in_valid"][rows] = valid
+        out["in_edge_id"][rows] = np.where(valid, pl["in_edge_id"][p, local], 0)
+        out["direct_nh_words"][rows] = np.where(valid[:, :, None], words[p, local], 0)
+        out["is_router"][rows] = pl["is_router"][p, local]
+    dev = resolve_device(device)
+    return plan, DeviceGraph(**{name: torch.from_numpy(x).to(dev) for name, x in out.items()})

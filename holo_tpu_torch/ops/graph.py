@@ -66,6 +66,12 @@ class Topology:
     edge_srlg: np.ndarray | None = None
     root: int = 0
     names: list = field(default_factory=list)  # optional, debugging only
+    # Native partition hint: a group id per vertex (OSPF area, IS-IS
+    # level), stamped by the protocol layer or a multi-area generator.
+    # :func:`partition_topology` honours it verbatim; None means flat (the
+    # BFS/greedy cut decides).  It never enters the device planes; a
+    # changed hint is not delta-representable (:func:`diff_topologies`).
+    partition_hint: np.ndarray | None = None
 
     def __post_init__(self) -> None:
         self.is_router = np.asarray(self.is_router, dtype=bool)
@@ -80,6 +86,8 @@ class Topology:
             self.edge_srlg = np.zeros(self.edge_src.shape, np.uint32)
         else:
             self.edge_srlg = np.asarray(self.edge_srlg, np.uint32)
+        if self.partition_hint is not None:
+            self.partition_hint = np.asarray(self.partition_hint, np.int32)
         # Identity for marshaling caches: a process-unique id plus a
         # generation bumped by touch().  Callers mutating arrays in place
         # MUST call touch() or cached device planes go stale.
@@ -132,6 +140,7 @@ class Topology:
             edge_srlg=self.edge_srlg[keep],
             root=self.root,
             names=self.names,
+            partition_hint=self.partition_hint,
         )
 
 
@@ -316,7 +325,7 @@ class TopologyDelta:
 def diff_topologies(base: Topology, new: Topology, max_ops: int = 512) -> TopologyDelta | None:
     """The :class:`TopologyDelta` taking ``base`` to ``new``, or None when
     the change is not delta-representable: another vertex model or root, a
-    changed partition hint (``holo_tpu`` topologies carry one), or more than
+    changed partition hint (both packages' topologies carry one), or more than
     ``max_ops`` edge operations.
 
     Vertex identity is positional: diff only topologies built over the same
@@ -383,3 +392,93 @@ def diff_topologies(base: Topology, new: Topology, max_ops: int = 512) -> Topolo
         a_src=a[:, 0], a_dst=a[:, 1], a_cost=a[:, 2], a_atom=a[:, 3],
         ids_stable=False,
     )
+
+
+def _undirected_adjacency(n: int, edge_src, edge_dst) -> tuple[np.ndarray, np.ndarray]:
+    """CSR (indptr, indices) of the undirected structure, neighbour lists
+    ascending (the deterministic basis of :func:`partition_topology`)."""
+    src = np.concatenate([edge_src, edge_dst]).astype(np.int64)
+    dst = np.concatenate([edge_dst, edge_src]).astype(np.int64)
+    order = np.lexsort((dst, src))
+    src, dst = src[order], dst[order]
+    if src.shape[0]:  # drop parallel and mirrored duplicates
+        keep = np.ones(src.shape[0], bool)
+        keep[1:] = (src[1:] != src[:-1]) | (dst[1:] != dst[:-1])
+        src, dst = src[keep], dst[keep]
+    indptr = np.zeros(n + 1, np.int64)
+    np.add.at(indptr, src + 1, 1)
+    np.cumsum(indptr, out=indptr)
+    return indptr, dst.astype(np.int32)
+
+
+def partition_topology(topo: Topology, n_parts: int | None = None,
+                       max_part: int | None = None) -> np.ndarray:
+    """int32[N] partition of the vertices (ids 0..P-1, none empty), the cut
+    of ``holo_tpu.ops.graph.partition_topology``.
+
+    A ``partition_hint`` is honoured verbatim: its distinct values map to
+    dense ids in ascending order.  A flat graph gets a deterministic greedy
+    cut: BFS-grown regions of ``ceil(N / n_parts)`` (or ``max_part``)
+    vertices, each from the lowest unassigned vertex, neighbours in
+    ascending order; then every region smaller than ``max(2, max_part //
+    4)`` merges into the neighbour region it has most edges to (lowest id
+    on a tie), smallest first.
+    """
+    n = topo.n_vertices
+    hint = topo.partition_hint
+    if hint is not None:
+        if hint.shape[0] != n:
+            raise ValueError(
+                f"partition_hint has {hint.shape[0]} entries, topology has {n} vertices")
+        return np.unique(hint, return_inverse=True)[1].reshape(-1).astype(np.int32)
+    if max_part is None:
+        if n_parts is None or n_parts < 1:
+            raise ValueError("need n_parts or max_part for a flat cut")
+        max_part = -(-n // int(n_parts))
+    max_part = max(int(max_part), 1)
+    indptr, nbrs = _undirected_adjacency(n, topo.edge_src, topo.edge_dst)
+    part = np.full(n, -1, np.int32)
+    next_part = 0
+    cursor = 0  # the lowest vertex that may be unassigned
+    while cursor < n:
+        if part[cursor] >= 0:
+            cursor += 1
+            continue
+        frontier = [cursor]
+        part[cursor] = next_part
+        size = 1
+        while frontier and size < max_part:
+            nxt: list[int] = []
+            for v in frontier:
+                for u in nbrs[indptr[v]: indptr[v + 1]]:
+                    if part[u] < 0:
+                        part[u] = next_part
+                        nxt.append(int(u))
+                        size += 1
+                        if size >= max_part:
+                            break
+                if size >= max_part:
+                    break
+            frontier = nxt
+        next_part += 1
+    min_size = max(2, max_part // 4)
+    sizes = np.bincount(part, minlength=next_part).astype(np.int64)
+    esrc_p, edst_p = part[topo.edge_src], part[topo.edge_dst]
+    alive = sizes > 0
+    for _ in range(next_part):
+        small = [p for p in range(next_part) if alive[p] and sizes[p] < min_size]
+        if not small:
+            break
+        p = min(small, key=lambda q: (sizes[q], q))
+        cut = esrc_p != edst_p
+        touch = np.concatenate([edst_p[cut & (esrc_p == p)], esrc_p[cut & (edst_p == p)]])
+        if touch.shape[0] == 0:  # an isolated component: kept as it is
+            alive[p] = False
+            continue
+        target = int(np.argmax(np.bincount(touch, minlength=next_part)))
+        part[part == p] = target
+        esrc_p, edst_p = part[topo.edge_src], part[topo.edge_dst]
+        sizes[target] += sizes[p]
+        sizes[p] = 0
+        alive[p] = False
+    return np.unique(part, return_inverse=True)[1].reshape(-1).astype(np.int32)

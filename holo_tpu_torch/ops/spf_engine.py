@@ -621,7 +621,14 @@ class DeviceGraphCache:
     A graph obtained from an earlier ``get()`` changes when a delta is later
     applied to its entry: nothing but the cache may hold one across calls.
     A cache and its views (:meth:`view`) serve one thread at a time.
+
+    Partitioned residents (``ops.partition.PartResident``) live beside the
+    graphs, keyed by their backend (key[0] the backend's namespace), up to
+    ``PART_CAPACITY`` of them (``holo_tpu``'s), LRU; a resident carries its
+    own chain identity (``topo_key``), which its caller checks.
     """
+
+    PART_CAPACITY = 8
 
     def __init__(self, device, capacity: int = 16, max_delta_depth: int = 256):
         self.device = resolve_device(device)
@@ -630,6 +637,7 @@ class DeviceGraphCache:
         self.delta_paths: Counter = Counter()
         self.lookups: Counter = Counter()
         self._cache: dict[tuple, _CacheEntry] = {}
+        self._part: dict[tuple, object] = {}
         self._evictions = 0
         self._deltas_applied = 0
 
@@ -727,11 +735,31 @@ class DeviceGraphCache:
             "occupancy": round(sum(occ) / len(occ), 4) if occ else 0.0,
         }
 
+    def get_partitioned(self, key: tuple):
+        """The partitioned resident under ``key`` (made the LRU's newest), or
+        None."""
+        res = self._part.pop(key, None)
+        if res is not None:
+            self._part[key] = res
+        return res
+
+    def put_partitioned(self, key: tuple, res) -> None:
+        self._part.pop(key, None)
+        self._part[key] = res
+        while len(self._part) > self.PART_CAPACITY:
+            self._part.pop(next(iter(self._part)))
+            self._evictions += 1
+
+    def partitioned_entries(self, namespace=None) -> dict:
+        """key -> resident, of one backend's ``namespace`` (key[0]) or all."""
+        return {k: v for k, v in self._part.items() if namespace is None or k[0] == namespace}
+
     def __len__(self) -> int:
         return len(self._cache)
 
     def clear(self) -> None:
         self._cache.clear()
+        self._part.clear()
 
 
 _SHARED_CACHES: dict[torch.device, DeviceGraphCache] = {}

@@ -40,11 +40,25 @@ substitute for the card's work.  On the CPU with no ``max_iters`` cap, where
 kernel library that does not build and an input the kernels refuse
 re-raise uncounted (``resilience.breaker._PASSTHROUGH``): they are not
 device failures.  DeltaPath runs inside the guarded device path.
+
+Partitioned SPF (``partition_threshold``, as in ``holo_tpu``): ``compute``,
+``compute_whatif`` and ``compute_partitioned`` of a topology with at least
+that many vertices run :class:`~holo_tpu_torch.ops.partition.PartitionedSpfEngine`
+(not under ``engine="blocked"``): the cut is the topology's
+``partition_hint``, else the greedy cut into ``partition_parts`` parts or
+parts of at most ``partition_max_part`` vertices.  Its residents live in the
+device's shared graph cache, one per (backend, topology class, root, atoms);
+a delta-linked mask-free ``compute`` re-solves only the affected parts
+(``delta_paths[(kind, "partitioned-incremental")]``, else
+``"partitioned-full"``); ``part_stats``, when a dict, receives each
+partitioned dispatch's path, re-solved parts, rounds and phase times.  The
+what-if batch solves one mask at a time, as in ``holo_tpu``.
 """
 
 from __future__ import annotations
 
 import copy
+import itertools
 from collections import Counter
 from dataclasses import dataclass
 
@@ -62,6 +76,7 @@ from holo_tpu_torch.ops.graph import (
     delta_seed_rows,
     topology_namespace,
 )
+from holo_tpu_torch.ops.partition import PartitionedSpfEngine
 from holo_tpu_torch.ops.spf_engine import (
     mp_pad,
     shared_graph_cache,
@@ -77,6 +92,9 @@ from holo_tpu_torch.resilience.breaker import CircuitBreaker
 from holo_tpu_torch.spf.scalar import spf_multipath_reference, spf_reference
 
 _CACHE_ENTRIES = 4
+# Namespaces of the backends' partitioned residents: never reused in a
+# process (an id() can be, after a collection).
+_PART_NS_IDS = itertools.count()
 
 
 @dataclass
@@ -195,7 +213,9 @@ class TorchSpfBackend(SpfBackend):
     are cached here.  Both are keyed by the topology's class beside its
     ``cache_key``.  ``incremental`` arms
     DeltaPath; ``prev_capacity`` bounds the kept previous runs, one per
-    (topology, root) chain.
+    (topology, root) chain.  ``partition_threshold`` (None: never),
+    ``partition_parts`` and ``partition_max_part`` arm and shape the
+    partitioned path (module docstring).
     """
 
     name = "torch"
@@ -210,6 +230,9 @@ class TorchSpfBackend(SpfBackend):
         incremental: bool = True,
         prev_capacity: int = 32,
         breaker: CircuitBreaker | None = None,
+        partition_threshold: int | None = None,
+        partition_parts: int | None = None,
+        partition_max_part: int = 4096,
     ):
         if engine not in ("gather", "blocked"):
             raise ValueError(f"engine {engine!r}: the port runs 'gather' and 'blocked'")
@@ -241,6 +264,12 @@ class TorchSpfBackend(SpfBackend):
         # The previous run's device tensors per (topology class, uid,
         # generation, n_atoms, root): the seed of the next delta's run.
         self._prev_one: dict[tuple, object] = {}
+        self.partition_threshold = partition_threshold
+        self.partition_parts = partition_parts
+        self.partition_max_part = int(partition_max_part)
+        self._part_engine = PartitionedSpfEngine(self.device, max_iters)
+        self._part_ns = f"part:{next(_PART_NS_IDS)}"
+        self.part_stats: dict | None = None
 
     def _n_atoms(self, topo) -> int:
         return max(self.n_atoms, topo.n_atoms())
@@ -253,6 +282,8 @@ class TorchSpfBackend(SpfBackend):
 
     def compute(self, topo, edge_mask=None, multipath_k: int = 1):
         kp = mp_pad(multipath_k)
+        if self._use_partitioned(topo):
+            return self.compute_partitioned(topo, edge_mask, multipath_k=kp)
         return self._guarded(
             lambda: self._device_compute(topo, edge_mask, kp),
             lambda: self._oracle.compute(topo, edge_mask, multipath_k=kp),
@@ -261,6 +292,12 @@ class TorchSpfBackend(SpfBackend):
 
     def compute_whatif(self, topo, edge_masks, multipath_k: int = 1):
         kp = mp_pad(multipath_k)
+        if self._use_partitioned(topo):
+            return self._guarded(
+                lambda: [self._device_partitioned(topo, m, kp) for m in edge_masks],
+                lambda: self._oracle.compute_whatif(topo, edge_masks, multipath_k=kp),
+                "spf.whatif",
+            )
         return self._guarded(
             lambda: self._device_whatif(topo, edge_masks, kp),
             lambda: self._oracle.compute_whatif(topo, edge_masks, multipath_k=kp),
@@ -278,6 +315,72 @@ class TorchSpfBackend(SpfBackend):
             lambda: self._oracle.compute_multiroot(topo, roots),
             "spf.multiroot",
         )
+
+    def compute_partitioned(self, topo, edge_mask=None, multipath_k: int = 1) -> SpfResult:
+        """One partitioned dispatch (``compute`` routes here past
+        ``partition_threshold``), under the breaker as every dispatch."""
+        kp = mp_pad(multipath_k)
+        return self._guarded(
+            lambda: self._device_partitioned(topo, edge_mask, kp),
+            lambda: self._oracle.compute(topo, edge_mask, multipath_k=kp),
+            "spf.partitioned",
+        )
+
+    def _use_partitioned(self, topo) -> bool:
+        return (self.partition_threshold is not None
+                and topo.n_vertices >= self.partition_threshold
+                and self.engine != "blocked")
+
+    def _part_key(self, topo) -> tuple:
+        return (self._part_ns, *topology_namespace(topo), int(topo.root), self._n_atoms(topo))
+
+    def partition_residents(self) -> list:
+        """This backend's partitioned residents (tests, chip_smoke)."""
+        return list(shared_graph_cache(self.device).partitioned_entries(self._part_ns).values())
+
+    def partition_stats(self) -> dict:
+        """Each resident's summary, by its key past the namespace."""
+        entries = shared_graph_cache(self.device).partitioned_entries(self._part_ns)
+        return {str(k[1:]): r.stats() for k, r in entries.items()}
+
+    def _device_partitioned(self, topo, edge_mask, kp: int) -> SpfResult:
+        """A delta-linked mask-free dispatch re-solves the affected parts of
+        the resident (DeltaPath); otherwise the resident, marshaled again
+        unless it serves this topology (its cut, and its edge ids for a
+        mask), solves in full."""
+        eng = self._part_engine
+        cache = shared_graph_cache(self.device)
+        key = self._part_key(topo)
+        delta = getattr(topo, "delta_base", None)
+        res = cache.get_partitioned(key)
+        out, info, path = None, {}, "full"
+        if edge_mask is None and delta is not None and self.incremental and res is not None:
+            out, info = eng.try_delta(topo, res, kp)
+            if out is not None:
+                path = "incremental"
+                self.delta_paths[(delta_kind(delta), "partitioned-incremental")] += 1
+        if out is None:
+            if not (res is not None and res.serves(topo)
+                    and not (edge_mask is not None and res.ids_stale)):
+                res = eng.marshal(topo, self._n_atoms(topo), n_parts=self.partition_parts,
+                                  max_part=(None if self.partition_parts is not None
+                                            else self.partition_max_part))
+                cache.put_partitioned(key, res)
+                path = "marshal"
+            out = eng.solve(topo, res, edge_mask, kp)
+            if delta is not None and edge_mask is None:
+                self.delta_paths[(delta_kind(delta), "partitioned-full")] += 1
+        if self.part_stats is not None:
+            self.part_stats.clear()
+            self.part_stats.update(
+                path=path, masked=edge_mask is not None, parts=res.plan.n_parts,
+                resolved=info.get("resolved", res.plan.n_parts), rounds=dict(res.rounds),
+                timings=dict(res.timings), **({"refused": info["reason"]} if "reason" in info
+                                              else {}))
+        mp = {f: out[f] for f in ("parents", "pdist", "pweight", "npaths", "nh_weights")
+              if f in out}
+        return SpfResult(dist=out["dist"], parent=out["parent"], hops=out["hops"],
+                         nexthop_words=out["nexthop_words"], **mp)
 
     def _device_compute(self, topo, edge_mask, kp: int) -> SpfResult:
         if self.engine == "blocked" and kp == 1:

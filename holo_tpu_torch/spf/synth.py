@@ -23,7 +23,8 @@ def clone_topology(topo: Topology, keep=None, extra=None, cost: dict | None = No
     DeltaPath chains: ``keep`` a bool[E] edge filter, ``extra`` rows of
     (src, dst, cost, atom) to append, ``cost`` {edge index: new cost} over
     the filtered edge array.  The copy has its own uid and no delta
-    lineage."""
+    lineage; it keeps the partition hint (per-vertex state, without which
+    ``diff_topologies`` would not link the two)."""
     src, dst, c, atom = topo.edge_src, topo.edge_dst, topo.edge_cost, topo.edge_direct_atom
     if keep is not None:
         src, dst, c, atom = src[keep], dst[keep], c[keep], atom[keep]
@@ -43,6 +44,7 @@ def clone_topology(topo: Topology, keep=None, extra=None, cost: dict | None = No
         is_router=topo.is_router.copy(),
         edge_src=src, edge_dst=dst, edge_cost=c, edge_direct_atom=atom,
         root=topo.root,
+        partition_hint=None if topo.partition_hint is None else topo.partition_hint.copy(),
     )
 
 
@@ -187,6 +189,78 @@ def fat_tree_topology(k: int = 20, seed: int = 0) -> Topology:
         edge_dst=np.array(dst, np.int32),
         edge_cost=np.array(cost, np.int32),
         root=edge(0, 0),
+    )
+    assign_direct_atoms(topo)
+    return topo
+
+
+def grid_topology(rows: int, cols: int, max_cost: int = 10, seed: int = 0) -> Topology:
+    """rows x cols router grid with per-direction random costs."""
+    rng = np.random.default_rng(seed)
+    n = rows * cols
+    src, dst, cost = [], [], []
+
+    def add2(a, b):
+        src.extend((a, b))
+        dst.extend((b, a))
+        cost.extend((int(rng.integers(1, max_cost + 1)), int(rng.integers(1, max_cost + 1))))
+
+    for r in range(rows):
+        for c in range(cols):
+            if c + 1 < cols:
+                add2(r * cols + c, r * cols + c + 1)
+            if r + 1 < rows:
+                add2(r * cols + c, (r + 1) * cols + c)
+    topo = Topology(
+        n_vertices=n,
+        is_router=np.ones(n, bool),
+        edge_src=np.array(src, np.int32),
+        edge_dst=np.array(dst, np.int32),
+        edge_cost=np.array(cost, np.int32),
+        root=0,
+    )
+    assign_direct_atoms(topo)
+    return topo
+
+
+def multiarea_topology(n_areas: int, rows: int, cols: int, gateways: int = 4,
+                       max_cost: int = 10, inter_cost: int = 5, seed: int = 0,
+                       hint: bool = True) -> Topology:
+    """Hub-and-spoke multi-area LSDB: ``n_areas`` grid areas of ``rows x
+    cols`` routers, area 0 the backbone, every other area joined to it by
+    ``gateways`` gateway pairs (area a's vertex g * cols <-> backbone vertex
+    g * cols + a, costs 1..``inter_cost``): the OSPF area-0 shape, with cut
+    edges only at the gateways.  Vertex ids are area-major, so the flat cut
+    finds the areas again when the hint is withheld (``hint=False``).  Root
+    is backbone vertex 0.  Vectorized: usable at 100k+ vertices."""
+    rng = np.random.default_rng(seed)
+    per = rows * cols
+    n = n_areas * per
+    vid = np.arange(per).reshape(rows, cols)
+    h_src, h_dst = vid[:, :-1].ravel(), vid[:, 1:].ravel()
+    v_src, v_dst = vid[:-1, :].ravel(), vid[1:, :].ravel()
+    a_src = np.concatenate([h_src, h_dst, v_src, v_dst])
+    a_dst = np.concatenate([h_dst, h_src, v_dst, v_src])
+    offset = (np.arange(n_areas) * per)[:, None]
+    src = (a_src[None, :] + offset).ravel()
+    dst = (a_dst[None, :] + offset).ravel()
+    cost = rng.integers(1, max_cost + 1, src.shape[0])
+    g = np.arange(min(gateways, rows))
+    gs, gd, gc = [src], [dst], [cost]
+    for a in range(1, n_areas):
+        leaf = a * per + g * cols
+        hub = (g * cols + a) % per
+        gs.append(np.concatenate([leaf, hub]))
+        gd.append(np.concatenate([hub, leaf]))
+        gc.append(rng.integers(1, inter_cost + 1, 2 * g.shape[0]))
+    topo = Topology(
+        n_vertices=n,
+        is_router=np.ones(n, bool),
+        edge_src=np.concatenate(gs).astype(np.int32),
+        edge_dst=np.concatenate(gd).astype(np.int32),
+        edge_cost=np.concatenate(gc).astype(np.int32),
+        root=0,
+        partition_hint=np.repeat(np.arange(n_areas, dtype=np.int32), per) if hint else None,
     )
     assign_direct_atoms(topo)
     return topo

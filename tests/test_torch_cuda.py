@@ -49,6 +49,12 @@ Fast reroute: the all-roots matrix (ell_relax at one lane per vertex, 250
 lanes, also truncated at max_iters 1-2) and FrrEngine("torch")'s tables on a
 LAN topology, with the policies off and on, are held to the CPU path and the
 oracle; graft_entry.entry() on the card equals its CPU run.
+
+Partitioned SPF and CSPF: a partition-armed backend on a 6-area LSDB, with
+its hint and with a flat cut, at multipath_k 1 and 4, under max_iters 2, and
+through a delta chain across gateway links, is held to the CPU path (its
+dispositions too) and the oracle; CspfEngine's batch on a k=12 fat tree is
+held to the CPU path.
 """
 
 import numpy as np
@@ -796,3 +802,69 @@ def test_graft_entry_on_the_card_matches_the_cpu_path():
     want = cfn(*cargs)
     for f in ("dist", "parent", "hops", "nexthops"):
         assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+
+
+# -- partitioned SPF and CSPF
+
+
+_PART_FIELDS = ("dist", "parent", "hops", "nexthop_words")
+
+
+@pytest.mark.parametrize("cut", ["hinted", "flat"])
+def test_partitioned_backend_on_the_card_matches_cpu_and_oracle(cut):
+    _card()
+    topo = synth.multiarea_topology(6, 16, 16, seed=7)
+    if cut == "flat":
+        topo.partition_hint = None
+    kw = dict(partition_threshold=1, partition_max_part=256)
+    card, cpu = TorchSpfBackend(**kw), TorchSpfBackend(device="cpu", **kw)
+    ell.reset_launches()
+    for k in (1, 4):
+        got, want = card.compute(topo, multipath_k=k), cpu.compute(topo, multipath_k=k)
+        ref = ScalarSpfBackend().compute(topo, multipath_k=k)
+        for f in _PART_FIELDS + (_MP_FIELDS if k > 1 else ()):
+            np.testing.assert_array_equal(getattr(got, f), getattr(want, f), err_msg=f)
+            np.testing.assert_array_equal(getattr(got, f), getattr(ref, f), err_msg=f)
+    torch.cuda.synchronize()
+    assert ell.launches["ell_relax"] > 0 and ell.launches["ell_mp_round"] > 0
+    assert ell.launches["ell_first_parent"] == 1 and ell.launches["ell_parent_sets"] == 1
+    short = TorchSpfBackend(max_iters=2, **kw).compute(topo)
+    want = TorchSpfBackend(device="cpu", max_iters=2, **kw).compute(topo)
+    for f in _PART_FIELDS:
+        np.testing.assert_array_equal(getattr(short, f), getattr(want, f), err_msg=f)
+    card.compute(topo)  # the chain's base, at multipath_k=1
+    cpu.compute(topo)
+    per, cur = 256, topo
+    for i, (a, b) in enumerate([(3 * per + 17, 3 * per + 18), (5 * per + 16, 16 + 5),
+                                (2 * per + 40, 2 * per + 56)]):
+        fwd = int(np.nonzero((cur.edge_src == a) & (cur.edge_dst == b))[0][0])
+        rev = int(np.nonzero((cur.edge_src == b) & (cur.edge_dst == a))[0][0])
+        nxt = synth.clone_topology(cur, cost={fwd: 9 + i, rev: 9 + i})
+        nxt.link_delta(graph.diff_topologies(cur, nxt))
+        got, want = card.compute(nxt), cpu.compute(nxt)
+        for f in _PART_FIELDS:
+            np.testing.assert_array_equal(getattr(got, f), getattr(want, f),
+                                          err_msg=f"step {i} {f}")
+        cur = nxt
+    assert card.delta_paths == cpu.delta_paths
+    assert card.delta_paths[("weight", "partitioned-incremental")] == 3
+
+
+def test_cspf_on_the_card_matches_the_cpu_path():
+    from holo_tpu_torch.ops.cspf import Constraint, CspfEngine, LinkAttrs
+
+    _card()
+    topo = synth.fat_tree_topology(k=12)
+    rng = np.random.default_rng(7)
+    attrs = LinkAttrs(affinity=rng.integers(0, 2**8, topo.n_edges, dtype=np.uint32),
+                      bandwidth=rng.uniform(1.0, 10.0, topo.n_edges))
+    cons = [Constraint(exclude_any=int(rng.integers(0, 4)),
+                       min_bandwidth=float(rng.uniform(0.0, 2.0))) for _ in range(64)]
+    dsts = [int(d) for d in rng.integers(0, topo.n_vertices, 64)]
+    ell.reset_launches()
+    got = CspfEngine(topo, attrs).compute(cons, dsts)
+    torch.cuda.synchronize()
+    assert ell.launches["ell_relax"] > 0 and ell.launches["ell_nh_round"] > 0
+    want = CspfEngine(topo, attrs, device="cpu").compute(cons, dsts)
+    assert [(p.cost, p.vertices) for p in got] == [(p.cost, p.vertices) for p in want]
+    assert any(p.cost is not None for p in got)

@@ -38,7 +38,8 @@ def test_every_module_is_found():
                  "holo_tpu_torch.ops.spf_engine", "holo_tpu_torch.kernels.ell",
                  "holo_tpu_torch.resilience.breaker", "holo_tpu_torch.frr.inputs",
                  "holo_tpu_torch.frr.kernel", "holo_tpu_torch.frr.scalar",
-                 "holo_tpu_torch.frr.manager", "holo_tpu_torch.graft_entry"):
+                 "holo_tpu_torch.frr.manager", "holo_tpu_torch.graft_entry",
+                 "holo_tpu_torch.ops.partition", "holo_tpu_torch.ops.cspf"):
         assert want in mods
 
 
