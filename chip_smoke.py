@@ -20,8 +20,11 @@ requests as one masked batch, BASELINE.json config 4) on the same fat tree;
 and partitioned SPF (``TorchSpfBackend(partition_threshold=1).compute``) on
 a 100k-vertex multi-area LSDB (25 OSPF areas of 64 x 64 routers), with its
 native area hint and with the flat cut, beside the monolithic ``compute()``,
-and on a 10-area one at ``multipath_k`` 4 and 8 and through DeltaPath.
-Phases:
+and on a 10-area one at ``multipath_k`` 4 and 8 and through DeltaPath; and
+the BGP table (``DecisionEngine`` on ``TorchBgpTableBackend()``: the RFC 4271
+decision process over a 32,768-prefix x 16-peer feed, cold, an UPDATE burst
+and next-hop churn; the fold alone over a full table of 524,288 prefixes x
+64 peers).  Phases:
 
 1. build the CUDA kernels from ``holo_tpu_torch/csrc`` with nvcc;
 2. run each kernel once on real mid-fixpoint inputs at the main paths'
@@ -108,6 +111,24 @@ Phases:
    links, which the cut cuts), every step served incrementally with fewer
    re-solved parts than the cut has, equal to a full partitioned solve
    (steps 0-1 also to the oracle);
+3i. the BGP table: the feed of ``bench.py``'s ``stage_bgp_table`` parity
+   gate (``default_rng(17)``) at its ``--small`` size (32,768 prefixes x 16
+   peers, 314,401 routes, multipath eBGP 4 / iBGP 2), decided by the port's
+   ``DecisionEngine`` on ``TorchBgpTableBackend()`` and with no backend (the
+   oracle) with the ``bgp_fold`` count at 0 before it: cold, an UPDATE burst
+   (1,024 prefixes re-announced with fresh attributes, noted) and NHT churn
+   (``nexthop_update`` on two next hops, no scatter), each equal to the oracle
+   (Loc-RIB: best route, next-hop set, every candidate's reasons and
+   ``igp_cost``; the ibus stream), one launch a batch held bit-identical to
+   ``decide_plain`` on its own inputs, every prefix of the batch decided on
+   the card (the backend's ``served``), no fallback or poisoned prefix, both arms timed with the card arm's marshal and device batch; the
+   full table synthesized at the lane level as the stage does
+   (``default_rng(16)``, 1.745 GB on the card), ``bgp_fold``'s four outputs
+   held bit-identical to ``fold_plain`` and timed (CUDA events, median of 5)
+   against its byte bound, the readback of the outputs timed; 40 UPDATE rounds
+   (a 1,024-row ``scatter_rows`` + a 4,096-row ``decide``; p99 on the host
+   clock) with the last decide held to ``decide_plain``; ``DeviceRankBackend``
+   on 4,096 seeded tuples with duplicates equal to ``sorted()``;
 4. time each kernel (CUDA events; at one scenario also the profiler's
    device time, which leaves out the host's launch), its plain version, the
    whole batch, ``compute()`` and the gather batch's stages, and DeltaPath's
@@ -115,9 +136,9 @@ Phases:
    the host's delta lowering and scatter against the incremental SPF's
    device time, beside the card's name and power limit; the FRR compute's
    device-busy share, the CSPF batch and the 100k partitioned and monolithic
-   computes with their device-busy shares; then require that no breaker of
-   the run (every SPF backend and FRR engine) counted a failure, a fallback
-   or a refusal.
+   computes with their device-busy shares, ``bgp_fold``'s device time at the
+   update shape; then require that no breaker of the run (every SPF backend,
+   FRR engine and BGP backend) counted a failure, a fallback or a refusal.
 
 Every failure raises, so the exit code is not 0.  Without a CUDA device, or
 without the rest of the repository beside it, the script fails before it
@@ -270,6 +291,30 @@ PART_MAX_PART = 4096
 PART_WARM_REPS = 3
 PART_MP_KS = (4, 8)
 PART_PHASES = ("bdist_ms", "stitch_ms", "dist_ms", "exchange_ms", "assemble_ms")
+# BGP table (phase 3i): the engine feed of bench.py's stage_bgp_table at its
+# --small size (:3335, the parity feed of :3340-3388 from default_rng(17)),
+# the UPDATE burst and the next hops of the NHT churn, the full table folded
+# alone (:3430-3470, default_rng(16)), the UPDATE rounds (:3496-3518) and the
+# rank tuples.
+BGP_AFS = "ipv4-unicast"
+BGP_PREFIXES, BGP_PEERS = 32_768, 16
+BGP_MP = {"enabled": True, "ebgp_max": 4, "ibgp_max": 2, "allow_multiple_as": True}
+BGP_FEED_SEED = 17
+BGP_BURST, BGP_BURST_SEED = 1024, 18
+BGP_CHURN = (("9.9.1.1", 40), ("9.9.5.1", 7))  # a metric change; an unresolved hop resolves
+BGP_FULL_ROWS, BGP_FULL_COLS, BGP_NH_IDS = 524_288, 64, 64
+BGP_PLANE_SEED = 16
+BGP_UPDATE_ROWS, BGP_RADIUS, BGP_ROUNDS, BGP_ROUNDS_DROPPED = 1024, 4096, 40, 2
+BGP_FOLD_REPS = 5
+BGP_RANK_N, BGP_RANK_SEED = 4096, 19
+BGP_SOURCE = "holo_tpu_torch/csrc/bgp_kernels.cu"
+BGP_REPLACES = ("holo_tpu/ops/bgp_table.py:294-415 _fold_planes through :423-426 _decide_fn "
+                "(XLA fusion, no Pallas kernel)")
+# int32 operations bgp_fold does for every cell whatever the data, from its
+# staging loop (csrc/bgp_kernels.cu): the next-hop clamp's min and max, the
+# four tests of eligibility and the IGP select.  The ladder and the
+# multipath test of eligible cells are left out, so the count is a floor.
+BGP_CELL_OPS = 7
 
 
 def cuda_call(fn):
@@ -1581,6 +1626,374 @@ def partition_phase(ell, se, dev) -> dict:
     return x
 
 
+def bgp_attrs(be, rng, n_peers: int):
+    """One route's attributes, drawn as bench.py's parity feed draws them
+    (:3355-3375; the MED is drawn first)."""
+    med = None if rng.random() < 0.2 else int(rng.integers(0, 1000))
+    return be.BaseAttrs(
+        origin=("Igp", "Egp", "Incomplete")[int(rng.integers(0, 3))],
+        as_path=(be.AsSegment("Sequence", tuple(
+            int(a) for a in rng.integers(1, 500, size=int(rng.integers(1, 5))))),),
+        nexthop=f"9.9.{int(rng.integers(0, n_peers))}.1",
+        med=med,
+        local_pref=int(rng.integers(50, 300)) if rng.random() < 0.5 else None,
+    )
+
+
+def bgp_feed(be, n_prefixes: int, n_peers: int, seed: int = BGP_FEED_SEED):
+    """(nht, feed): bench.py's parity feed (:3340-3388) in its draw order.
+    Every 5th next hop is unresolved; each peer announces a prefix with
+    probability 0.6, odd peers as eBGP; ``feed`` is [(prefix, [(peer, attrs,
+    route type, router id)])], prefixes with no route included."""
+    rng = np.random.default_rng(seed)
+    nht = {f"9.9.{nh}.1": (int(rng.integers(1, 64)) if nh % 5 else None)
+           for nh in range(n_peers)}
+    feed = []
+    for i in range(n_prefixes):
+        routes = []
+        for p in range(n_peers):
+            if rng.random() < 0.4:
+                continue
+            routes.append((f"1.1.1.{p + 1}", bgp_attrs(be, rng, n_peers),
+                           "External" if p % 2 else "Internal", f"0.0.0.{p + 1}"))
+        feed.append((f"10.{(i >> 8) & 255}.{i & 255}.0/24", routes))
+    return nht, feed
+
+
+def bgp_burst(be, feed, n_peers: int, count: int, seed: int = BGP_BURST_SEED):
+    """An UPDATE burst: ``count`` prefixes, each re-announced by every peer
+    that announces it with fresh attributes."""
+    rng = np.random.default_rng(seed)
+    return [(feed[i][0], [(addr, bgp_attrs(be, rng, n_peers), rt, rid)
+                          for addr, _attrs, rt, rid in feed[i][1]])
+            for i in sorted(int(i) for i in rng.choice(len(feed), size=count, replace=False))]
+
+
+def bgp_announce(be, eng, prefix: str, routes, backend) -> None:
+    """Install ``routes`` as the peers' Adj-RIB-In routes of ``prefix``
+    (next hops tracked), queue the prefix and note it to the backend."""
+    table = eng.tables[BGP_AFS]
+    dest = table.prefixes.setdefault(prefix, be.Destination())
+    for addr, attrs, route_type, rid in routes:
+        adj = dest.adj_rib.setdefault(addr, be.AdjRib())
+        if adj.in_post is not None:
+            eng._nexthop_untrack(table, prefix, adj.in_post)
+        adj.in_post = be.Route(origin=be.RouteOrigin(identifier=rid, remote_addr=addr),
+                               attrs=attrs, route_type=route_type)
+        eng._nexthop_track(table, prefix, adj.in_post)
+    table.queued.add(prefix)
+    if backend is not None:
+        backend.note_route_change(BGP_AFS, prefix)
+
+
+def bgp_snap(eng) -> dict:
+    """The Loc-RIB as bench.py's parity gate takes it (:3390-3404), with the
+    best route's origin: best route, next-hop set, every candidate's reject
+    and ineligible reasons and igp_cost."""
+    out = {}
+    for prefix, dest in eng.tables[BGP_AFS].prefixes.items():
+        loc = dest.local
+        out[prefix] = (
+            None if loc is None else (loc.origin, loc.attrs, loc.route_type, loc.igp_cost),
+            dest.local_nexthops,
+            tuple(sorted((a, adj.in_post.reject_reason, adj.in_post.ineligible_reason,
+                          adj.in_post.igp_cost)
+                         for a, adj in dest.adj_rib.items() if adj.in_post)),
+        )
+    return out
+
+
+def nbias(a) -> np.ndarray:
+    """u32 values as the BGP lanes hold them: ``u - 2**31`` as int32."""
+    return (np.asarray(a, np.int64) - (1 << 31)).astype(np.int32)
+
+
+def bgp_full_planes(rng, rows: int, cols: int, k: int) -> np.ndarray:
+    """The full table at the lane level, as bench.py synthesizes it
+    (:3430-3458): half the peer cells occupied and one more per row, the
+    local column empty, 2% AS loops; empty cells all zero."""
+    from holo_tpu_torch.ops import bgp_table as bt
+
+    planes = np.zeros((bt.N_LANES, rows, cols), np.int32)
+    occ = (rng.random((rows, cols)) < 0.5).astype(np.int32)
+    occ[:, bt.LOCAL_COL] = 0
+    occ[np.arange(rows), 1 + rng.integers(0, cols - 1, size=rows)] = 1
+    planes[bt.L_OCC] = occ
+    planes[bt.L_LP] = nbias(0xFFFFFFFF - rng.integers(50, 300, size=(rows, cols), dtype=np.int64))
+    planes[bt.L_L1] = (rng.integers(1, 6, size=(rows, cols)) << 2) | rng.integers(
+        0, 3, size=(rows, cols))
+    planes[bt.L_MED] = nbias(rng.integers(0, 1000, size=(rows, cols), dtype=np.int64))
+    planes[bt.L_FAS] = rng.integers(1, 64, size=(rows, cols))
+    planes[bt.L_RT] = rng.integers(0, 2, size=(rows, cols))
+    planes[bt.L_RID] = nbias(rng.integers(0, 1 << 32, size=(rows, cols), dtype=np.int64))
+    planes[bt.L_HASRID] = 1
+    planes[bt.L_NH] = rng.integers(0, k, size=(rows, cols))
+    planes[bt.L_PATH] = rng.integers(0, 4096, size=(rows, cols))
+    planes[bt.L_LOOP] = (rng.random((rows, cols)) < 0.02).astype(np.int32)
+    planes *= occ
+    planes[bt.L_OCC] = occ
+    return planes
+
+
+def fold_err(got, want) -> int:
+    """Largest absolute difference over the fold's four outputs; raises
+    where a dtype or shape differs."""
+    err = 0
+    for name, g, w in zip(("best_col", "reasons", "elig", "mp_sel"), got, want):
+        require(g.dtype == w.dtype and g.shape == w.shape,
+                f"bgp_fold {name}: {g.dtype} {tuple(g.shape)} against {w.dtype} "
+                f"{tuple(w.shape)}")
+        err = max(err, int((g.to(torch.int64) - w.to(torch.int64)).abs().max().item())
+                  if g.numel() else 0)
+    return err
+
+
+@contextlib.contextmanager
+def keeping_decides(kept: list):
+    """Within the block every ``ops.bgp_table.decide`` runs (and counts) as
+    before, and its (inputs, outputs) are appended to ``kept``."""
+    from holo_tpu_torch.ops import bgp_table as bt
+
+    fn = bt.decide
+
+    def keep(*args):
+        out = fn(*args)
+        kept.append((args, out))
+        return out
+
+    bt.decide = keep
+    try:
+        yield kept
+    finally:
+        bt.decide = fn
+
+
+def fold_bound(in_bytes: int, out) -> tuple[float, str, int, int]:
+    """(ms, by, operations, bytes) of one fold: ``in_bytes`` of inputs read
+    once, its outputs written once; BGP_CELL_OPS a cell."""
+    ops = out[1].numel() * BGP_CELL_OPS
+    byte_count = in_bytes + nbytes(*out)
+    return (*bound(ops, byte_count), ops, byte_count)
+
+
+def bgp_phase() -> dict:
+    """Phase 3i: the BGP table.  The engine path (the parity feed at 32,768
+    prefixes x 16 peers) decided by ``DecisionEngine`` on
+    ``TorchBgpTableBackend()`` and by the oracle: cold, an UPDATE burst and
+    NHT churn, each equal to the oracle (Loc-RIB and ibus stream), with the
+    fold's launch count at 0 before it; the full table (524,288 x 64) folded
+    alone and held to ``fold_plain``, timed; 40 UPDATE rounds (scatter +
+    4,096-row decide), the last held; the rank sort against ``sorted``."""
+    from holo_tpu_torch.kernels import bgp as kb
+    from holo_tpu_torch.ops import bgp_table as bt
+    from holo_tpu_torch.protocols import bgp_engine as be
+
+    t_phase = time.perf_counter()
+    x = {}
+    t0 = time.perf_counter()
+    nht, feed = bgp_feed(be, BGP_PREFIXES, BGP_PEERS)
+    burst = bgp_burst(be, feed, BGP_PEERS, BGP_BURST)
+    backend = bt.TorchBgpTableBackend()
+    require(backend.device.type == "cuda", "TorchBgpTableBackend() does not run on the card")
+    arms = {}
+    for arm, tb in (("oracle", None), ("card", backend)):
+        calls = []
+        eng = be.DecisionEngine(asn=65000, table_backend=tb,
+                                ibus_cb=lambda kind, payload, c=calls: c.append((kind, payload)))
+        eng.multipath[BGP_AFS] = dict(BGP_MP)
+        for addr, metric in nht.items():
+            eng.tables[BGP_AFS].nht[addr] = be.NhtEntry(metric=metric)
+        for prefix, routes in feed:
+            bgp_announce(be, eng, prefix, routes, tb)
+        arms[arm] = (eng, calls)
+    n_routes = sum(len(routes) for _, routes in feed)
+    print(f"BGP feed: {BGP_PREFIXES} prefixes x {BGP_PEERS} peers, {n_routes} routes, "
+          f"built twice in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    x["engine_ms"] = {arm: {} for arm in arms}
+    x["batch_prefixes"] = {}
+    x["breakdown"] = {}
+    # The card arm's batch split on the host clock: the lane marshal of the
+    # noted rows, and the device batch (marshal, scatter, uploads, fold,
+    # readback); the rest of a batch is the per-prefix replay.
+    timers = Counter()
+
+    def timed(name: str, fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                timers[name] += (time.perf_counter() - t0) * 1e3
+        return run
+
+    backend._marshal_rows = timed("marshal_ms", backend._marshal_rows)
+    backend._device_batch = timed("device_batch_ms", backend._device_batch)
+    x["engine_err"] = 0
+    x["served"] = {}
+    kb.reset_launches()
+
+    def batch(kind: str, change) -> None:
+        served = Counter(backend.served)
+        # The batch's decide is kept with its inputs and held to decide_plain
+        # after the batch, before the next scatter changes the planes: the
+        # kernel checked at the engine's own shapes.
+        kept = []
+        for arm, (eng, _calls) in arms.items():
+            change(eng, arm)
+            x["batch_prefixes"][kind] = len(eng.tables[BGP_AFS].queued)
+            torch.cuda.synchronize()
+            timers.clear()
+            with keeping_decides(kept):
+                t0 = time.perf_counter()
+                eng.run_decision_process()
+                torch.cuda.synchronize()
+                x["engine_ms"][arm][kind] = (time.perf_counter() - t0) * 1e3
+        x["breakdown"][kind] = dict(timers)
+        require(len(kept) == 1, f"the {kind} batch launched {len(kept)} decides (one a batch)")
+        (args, out), = kept
+        err = fold_err(out, kb.decide_plain(*args))
+        require(err == 0, f"bgp_fold of the {kind} batch differs from decide_plain on its "
+                f"inputs ({args[1].shape[0]} rows x {args[0].shape[2]} columns)")
+        x["engine_err"] = max(x["engine_err"], err)
+        # The card decided every prefix of the batch: none but the poisoned
+        # came from the oracle (off the CPU the backend raises on any other).
+        d = {k: v - served[k] for k, v in backend.served.items() if v != served[k]}
+        x["served"][kind] = d
+        want = x["batch_prefixes"][kind] - d.get("best-poisoned", 0)
+        require(d.get("best-device", 0) == want and not d.get("best-host")
+                and not d.get("nexthops-host") and d.get("nexthops-device", 0) > 0,
+                f"the {kind} batch's prefixes were not all decided on the card ({want} "
+                f"expected): {d}")
+        require(bgp_snap(arms["card"][0]) == bgp_snap(arms["oracle"][0]),
+                f"BGP Loc-RIB after the {kind} batch differs from the oracle")
+        require(arms["card"][1] == arms["oracle"][1],
+                f"BGP ibus stream after the {kind} batch differs from the oracle")
+
+    def scatters() -> int:
+        return backend.stats()["tables"][BGP_AFS]["scatters"]
+
+    batch("cold", lambda eng, arm: None)
+    before = scatters()
+    batch("burst", lambda eng, arm: [
+        bgp_announce(be, eng, prefix, routes, eng.table_backend) for prefix, routes in burst])
+    require(scatters() == before + 1, "the UPDATE burst did not scatter its rows once")
+    before = scatters()
+    batch("churn", lambda eng, arm: [eng.nexthop_update(a, m) for a, m in BGP_CHURN])
+    require(scatters() == before, "NHT churn re-marshaled rows")
+    x["launches"] = kb.launches["bgp_fold"]
+    require(x["launches"] == 3, f"bgp_fold launched {x['launches']} times on the engine path "
+            f"(one a batch: 3)")
+    st = backend.stats()
+    x["backend"] = st
+    require(st["fallbacks"] == 0 and st["tables"][BGP_AFS]["poisoned"] == 0,
+            f"BGP backend fallbacks or poisoned prefixes: {st}")
+    for arm in arms:
+        print(f"time BGP engine ({arm}): cold {x['engine_ms'][arm]['cold']:.3f} ms "
+              f"({x['batch_prefixes']['cold']} prefixes), UPDATE burst "
+              f"{x['engine_ms'][arm]['burst']:.3f} ms ({x['batch_prefixes']['burst']}), NHT "
+              f"churn {x['engine_ms'][arm]['churn']:.3f} ms ({x['batch_prefixes']['churn']})",
+              flush=True)
+    print("breakdown BGP engine (card; host clock): " + "; ".join(
+        f"{kind}: marshal {b.get('marshal_ms', 0.0):.3f} ms, device batch "
+        f"{b['device_batch_ms']:.3f} ms (with the marshal), replay "
+        f"{x['engine_ms']['card'][kind] - b['device_batch_ms']:.3f} ms"
+        for kind, b in x["breakdown"].items()), flush=True)
+    print(f"BGP engine path: Loc-RIB and ibus stream equal to the oracle cold, after the burst "
+          f"and after the churn; bgp_fold launches {x['launches']}, each held bit-identical to "
+          f"decide_plain on its inputs; backend {st['dispatches']} dispatches, "
+          f"{st['tables'][BGP_AFS]['scatters']} scatters, 0 fallbacks, 0 poisoned; prefixes "
+          f"served a batch: {x['served']}", flush=True)
+    del arms, feed, burst
+
+    # -- the full table folded alone
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(BGP_PLANE_SEED)
+    R, C, K = BGP_FULL_ROWS, BGP_FULL_COLS, BGP_NH_IDS
+    planes_np = bgp_full_planes(rng, R, C, K)
+    nht_enc = nbias(rng.integers(1, 65, size=K, dtype=np.int64))
+    nht_res = (rng.random(K) < 0.9).astype(np.int32)
+    nht_res[0] = 1
+    vecs = (np.concatenate([np.arange(1, C), [0]]).astype(np.int32),  # order
+            np.arange(C, dtype=np.int32),  # addr_rank
+            (np.arange(C) != 0).astype(np.int32),  # has_addr
+            nht_enc, nht_res, np.array([1, 2, 4], np.int32))
+    args = [torch.from_numpy(v).to(DEVICE) for v in vecs]
+    planes = torch.from_numpy(planes_np).to(DEVICE)
+    torch.cuda.synchronize()
+    print(f"BGP full table: {R} x {C} lanes synthesized and resident "
+          f"({planes.numel() * 4 / 1e9:.3f} GB) in {time.perf_counter() - t0:.1f} s", flush=True)
+    out = bt.fold_planes(planes, *args)
+    plain = kb.fold_plain(planes, *args)
+    torch.cuda.synchronize()
+    x["max_abs_err"] = fold_err(out, plain)
+    require(x["max_abs_err"] == 0, "bgp_fold differs from fold_plain on the full table")
+    del plain
+    x["ms"] = cuda_ms(lambda: bt.fold_planes(planes, *args), BGP_FOLD_REPS)
+    x["plain_ms"] = cuda_ms(lambda: kb.fold_plain(planes, *args), 3)
+    x["readback_ms"] = host_ms(lambda: [o.cpu() for o in out], 3)
+    x["bound"] = fold_bound(nbytes(planes, *args), out)
+    x["prefixes_per_s"] = R / x["ms"] * 1e3
+    eligible = int(out[2].sum().item())
+    print(f"time bgp_fold {R} x {C}: {x['ms']:.4f} ms (CUDA events, median of "
+          f"{BGP_FOLD_REPS}), {x['prefixes_per_s']:.1f} prefixes/s; bound "
+          f"{x['bound'][0]:.4f} ms by {x['bound'][1]} ({x['bound'][2]} operations, "
+          f"{x['bound'][3]} bytes), {x['bound'][0] / x['ms']:.3f} of it; plain "
+          f"{x['plain_ms']:.3f} ms; readback of the four outputs {x['readback_ms']:.3f} ms; "
+          f"{eligible} eligible cells, held bit-identical to fold_plain", flush=True)
+    del out
+
+    # -- UPDATE rounds: a 1,024-row scatter and a 4,096-row decide
+    rounds = []
+    for _ in range(BGP_ROUNDS):
+        rows = torch.from_numpy(
+            rng.choice(R, size=BGP_UPDATE_ROWS, replace=False).astype(np.int32)).to(DEVICE)
+        fresh = torch.from_numpy(
+            planes_np[:, rng.integers(0, R, size=BGP_UPDATE_ROWS), :]).to(DEVICE)
+        sub = torch.from_numpy(np.sort(rng.choice(R, size=BGP_RADIUS, replace=False))
+                               .astype(np.int32)).to(DEVICE)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bt.scatter_rows(planes, rows, fresh)
+        res = bt.decide(planes, sub, *args)
+        torch.cuda.synchronize()
+        rounds.append((time.perf_counter() - t0) * 1e3)
+    kept = sorted(rounds[BGP_ROUNDS_DROPPED:])
+    x["update_p99_ms"] = kept[min(len(kept) - 1, int(0.99 * len(kept)))]
+    x["update_median_ms"] = statistics.median(kept)
+    x["update_err"] = fold_err(res, kb.decide_plain(planes, sub, *args))
+    require(x["update_err"] == 0, "the last UPDATE round's bgp_fold differs from decide_plain")
+    x["update_ms"] = cuda_ms(lambda: bt.decide(planes, sub, *args), BGP_FOLD_REPS)
+    x["update_plain_ms"] = cuda_ms(lambda: kb.decide_plain(planes, sub, *args), 3)
+    # The decide reads only the queued rows of the planes.
+    x["update_bound"] = fold_bound(kb.N_LANES * BGP_RADIUS * C * 4 + nbytes(sub, *args), res)
+    print(f"time BGP UPDATE round ({BGP_UPDATE_ROWS}-row scatter + {BGP_RADIUS}-row decide, "
+          f"host clock, {BGP_ROUNDS} rounds, first {BGP_ROUNDS_DROPPED} dropped): p99 "
+          f"{x['update_p99_ms']:.3f} ms, median {x['update_median_ms']:.3f} ms; bgp_fold at "
+          f"{BGP_RADIUS} x {C}: {x['update_ms']:.4f} ms (CUDA events), bound "
+          f"{x['update_bound'][0]:.5f} ms by {x['update_bound'][1]}, plain "
+          f"{x['update_plain_ms']:.3f} ms; last round held to decide_plain", flush=True)
+    x["update_busy"] = lambda: bt.decide(planes, sub, *args)  # phase 4: device time
+    del planes_np
+
+    # -- the decision-rank sort
+    rng = np.random.default_rng(BGP_RANK_SEED)
+    base = [(-int(rng.integers(50, 300)), int(rng.integers(1, 6)), int(rng.integers(0, 3)),
+             int(rng.integers(0, 1000)), int(rng.integers(0, 3)), int(rng.integers(0, 1 << 32)))
+            for _ in range(BGP_RANK_N // 2)]
+    ranks = base + [base[int(i)] for i in rng.integers(0, len(base), BGP_RANK_N - len(base))]
+    ranks = [ranks[int(i)] for i in rng.permutation(len(ranks))]
+    rb = bt.DeviceRankBackend()
+    require(rb.rank_order(ranks) == sorted(range(len(ranks)), key=ranks.__getitem__),
+            "DeviceRankBackend's order differs from sorted()")
+    x["rank_ms"] = host_ms(lambda: rb.rank_order(ranks), 3)
+    require(rb.refusals == 0, "the rank backend refused a tuple of the feed")
+    print(f"BGP rank sort: {BGP_RANK_N} tuples ({BGP_RANK_N - len(base)} duplicates drawn) "
+          f"equal to sorted(); {x['rank_ms']:.3f} ms a call (host clock), 0 refusals; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return x
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device available")
@@ -1950,6 +2363,9 @@ def main() -> None:
     # -- 3h. partitioned SPF: the 100k multi-area LSDB, hinted and flat, and 10k
     px = partition_phase(ell, se, dev)
 
+    # -- 3i. the BGP table: the engine path, the full-table fold, UPDATE rounds
+    bx = bgp_phase()
+
     # -- 4. timing (the profiler last: once it has run, host launches are
     # slower, which the host-clock times below would count)
     for name, (card, *_rest) in calls.items():
@@ -2115,6 +2531,10 @@ def main() -> None:
     cspf_busy_ms, cspf_top = device_busy(cx.pop("busy"))
     part_busy = {arm: device_busy(r.pop("busy")) for arm, r in px["arms"].items()}
     mono100_busy_ms, mono100_top = device_busy(px.pop("mono_busy"))
+    bx["update_device_ms"] = device_ms_per_call(bx.pop("update_busy"), KERNEL_REPS)
+    print(f"time bgp_fold {BGP_RADIUS} x {BGP_FULL_COLS} device: {bx['update_device_ms']:.4f} ms "
+          f"(profiler, launch excluded; {bx['update_ms']:.4f} ms by CUDA events), bound "
+          f"{bx['update_bound'][0]:.5f} ms", flush=True)
     extra = toggles(graph, synth, fresh[-1], K, 1)[0]
     served = dbe.delta_paths[("weight", "incremental")]
     d_busy_ms, _ = device_busy(lambda: dbe.compute(extra))
@@ -2386,9 +2806,20 @@ def main() -> None:
                 "recomputed_entries", "copied_entries", "full_round_bound_ms",
                 "device_ms_b1") if key in row},
         })
+    ub = bx["update_bound"]
+    kernel_rows.append({
+        "name": "bgp_fold", "route": "cuda", "source": BGP_SOURCE, "replaces": BGP_REPLACES,
+        "launches": bx["launches"], "max_abs_err": max(bx["max_abs_err"], bx["update_err"], bx["engine_err"]),
+        "ms": bx["ms"], "plain_ms": bx["plain_ms"], "bound_ms": bx["bound"][0],
+        "bound_by": bx["bound"][1], "library_ms": None,
+        "prefixes_per_s": bx["prefixes_per_s"], "readback_ms": bx["readback_ms"],
+        "ms_update": bx["update_ms"], "plain_ms_update": bx["update_plain_ms"],
+        "bound_ms_update": ub[0], "device_ms_update": bx["update_device_ms"],
+        "update_round_p99_ms": bx["update_p99_ms"],
+    })
     # (e) every dispatch of the run ran on the card: every breaker the run
-    # built (every SPF backend and FRR engine) counted no failure, fallback
-    # or refusal.
+    # built (every SPF backend, FRR engine and BGP table and rank backend)
+    # counted no failure, fallback or refusal.
     from holo_tpu_torch.resilience import breakers, tallies
 
     require(not tallies(), f"breaker failures, fallbacks or refusals in the run: {tallies()}")

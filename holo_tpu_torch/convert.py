@@ -9,7 +9,8 @@ same previous run.  ``frr_inputs_from_jax`` and ``backup_table_from_jax``
 carry ``holo_tpu``'s FRR values across, read by their fields;
 ``partition_from_numpy`` turns a ``holo_tpu`` ``PartitionPlan`` and its
 ``PartPlanes`` into the port's plan and stacked planes, so both engines can
-run one cut.
+run one cut; ``bgp_table_from_numpy`` carries a ``holo_tpu`` BGP table
+backend's resident table (planes and interners) into the port's.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import torch
 from holo_tpu_torch.device import resolve_device
 from holo_tpu_torch.frr.inputs import FrrInputs
 from holo_tpu_torch.frr.kernel import TABLE_PLANES, BackupTable
+from holo_tpu_torch.ops.bgp_table import _DevTable, _Interner
 from holo_tpu_torch.ops.blocked import BlockGraph, block_graph, edge_planes
 from holo_tpu_torch.ops.blocked_spf import BlockSpfGraph, block_spf_graph
 from holo_tpu_torch.ops.partition import PartitionPlan, stack_layout
@@ -148,3 +150,28 @@ def partition_from_numpy(plan_fields: Mapping, plane_fields: Mapping,
         out["is_router"][rows] = pl["is_router"][p, local]
     dev = resolve_device(device)
     return plan, DeviceGraph(**{name: torch.from_numpy(x).to(dev) for name, x in out.items()})
+
+
+def _interner(values) -> _Interner:
+    out = _Interner()
+    for v in values:
+        out.intern(v)
+    return out
+
+
+def bgp_table_from_numpy(planes, cap_rows: int, cap_cols: int, rows: Mapping,
+                         cols: Mapping, fas, paths, nhs, poisoned, device=None) -> _DevTable:
+    """The port's resident BGP table of one address family from a
+    ``holo_tpu`` ``TpuBgpTableBackend``'s ``_DevTable``: its planes
+    (``np.asarray(dt.planes)``), capacities, prefix rows and peer columns,
+    the value lists of its three interners (first AS, AS path, next hop; ids
+    are list positions) and its poisoned prefixes.  Scatter and grow counts
+    start at 0."""
+    x = np.array(planes, dtype=np.int32)
+    if x.shape != (13, cap_rows, cap_cols):
+        raise ValueError(f"planes {x.shape} are not (13, {cap_rows}, {cap_cols})")
+    return _DevTable(
+        planes=torch.from_numpy(x).to(resolve_device(device)), cap_rows=int(cap_rows),
+        cap_cols=int(cap_cols), rows=dict(rows), cols=dict(cols), fas_ids=_interner(fas),
+        path_ids=_interner(paths), nh_ids=_interner(nhs), poisoned=set(poisoned),
+    )

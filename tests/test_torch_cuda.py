@@ -55,6 +55,13 @@ its hint and with a flat cut, at multipath_k 1 and 4, under max_iters 2, and
 through a delta chain across gateway links, is held to the CPU path (its
 dispositions too) and the oracle; CspfEngine's batch on a k=12 fat tree is
 held to the CPU path.
+
+BGP table: bgp_fold is held bit-identical to its plain version on the same
+CUDA tensors and to the CPU path at (M, C) from (1, 2) to (4096, 64), C = 2,
+17, 64 and 1024 (fewer rows a block), padded idx, unassigned columns and a
+MED-cycle row; TorchBgpTableBackend() on the card decides chip_smoke's feed
+(2,048 prefixes x 8 peers) equal to the oracle cold, after an UPDATE burst
+and after NHT churn.
 """
 
 import numpy as np
@@ -868,3 +875,147 @@ def test_cspf_on_the_card_matches_the_cpu_path():
     want = CspfEngine(topo, attrs, device="cpu").compute(cons, dsts)
     assert [(p.cost, p.vertices) for p in got] == [(p.cost, p.vertices) for p in want]
     assert any(p.cost is not None for p in got)
+
+
+# ---------------------------------------------------------------------------
+# The BGP table's fold (kernels/bgp.py over csrc/bgp_kernels.cu)
+
+
+def _bgp_planes(rng, rows, cols, k):
+    """Seeded lane planes (ops.bgp_table's lanes): every ladder rung varies
+    over few values, router ids are present or not, next hops may not
+    resolve or lie past K (clamped), local cells in column 0; row 0 holds a
+    MED cycle in columns 1-3 where there are four columns."""
+    from holo_tpu_torch.kernels import bgp as kb
+
+    def nbias(a):
+        return (np.asarray(a, np.int64) - (1 << 31)).astype(np.int32)
+
+    shape = (rows, cols)
+    p = np.zeros((kb.N_LANES, rows, cols), np.int32)
+    occ = (rng.random(shape) < 0.7).astype(np.int32)
+    p[kb.L_LP] = nbias(0xFFFFFFFF - rng.integers(99, 102, size=shape))
+    p[kb.L_L1] = (rng.integers(1, 3, size=shape) << 2) | rng.integers(0, 2, size=shape)
+    p[kb.L_MED] = nbias(rng.integers(0, 3, size=shape))
+    p[kb.L_FAS] = rng.integers(0, 3, size=shape)
+    p[kb.L_RT] = rng.integers(0, 2, size=shape)
+    p[kb.L_IGP] = nbias(rng.integers(0, 3, size=shape))
+    p[kb.L_RID] = nbias(rng.integers(0, 4, size=shape))
+    p[kb.L_HASRID] = (rng.random(shape) < 0.8).astype(np.int32)
+    p[kb.L_NH] = rng.integers(0, k + 2, size=shape)
+    p[kb.L_PATH] = rng.integers(0, 3, size=shape)
+    p[kb.L_LOOP] = (rng.random(shape) < 0.05).astype(np.int32)
+    p[kb.L_LOCAL, :, 0] = (rng.random(rows) < 0.5).astype(np.int32)
+    if cols >= 4:
+        p[:, 0, :] = 0
+        occ[0] = 0
+        for c, (fas, med, rid) in zip((1, 2, 3), ((1, 100, 1), (2, 0, 2), (1, 0, 3))):
+            p[kb.L_LP, 0, c], p[kb.L_L1, 0, c] = nbias(0xFFFFFFFF - 100), 4
+            p[kb.L_FAS, 0, c], p[kb.L_MED, 0, c], p[kb.L_RT, 0, c] = fas, nbias(med), 1
+            p[kb.L_RID, 0, c], p[kb.L_HASRID, 0, c], occ[0, c] = nbias(rid), 1, 1
+    p *= occ
+    p[kb.L_OCC] = occ
+    return p
+
+
+def _bgp_vectors(rng, cols, k):
+    """order (some peer columns unassigned, the local column last),
+    addr_rank, has_addr, nht_enc, nht_res (id 0 resolves), mp."""
+    peers = rng.permutation(np.arange(1, cols))
+    live = peers[: max(1, (3 * len(peers)) // 4)]
+    order = np.concatenate([live, np.sort(peers[len(live):]), [0]]).astype(np.int32)
+    rank = np.zeros(cols, np.int32)
+    rank[live] = np.arange(len(live))
+    has = np.zeros(cols, np.int32)
+    has[live] = 1
+    enc = (rng.integers(1, 4, size=k) - (1 << 31)).astype(np.int32)
+    res = (rng.random(k) < 0.75).astype(np.int32)
+    res[0] = 1
+    mp = np.array([rng.integers(0, 2), rng.integers(1, 3), rng.integers(1, 4)], np.int32)
+    return order, rank, has, enc, res, mp
+
+
+@pytest.mark.parametrize("m,cols", [(1, 2), (33, 2), (37, 17), (300, 17), (64, 64),
+                                    (4096, 64), (40, 1024)])
+def test_bgp_fold_matches_plain(m, cols):
+    from holo_tpu_torch.kernels import bgp as kb
+
+    dev = _card()
+    rng = np.random.default_rng(m * 131 + cols)
+    k = 8
+    planes = _bgp_planes(rng, 2 * m, cols, k)
+    live = rng.choice(2 * m, size=m, replace=False)
+    idx = np.zeros(1 << (m - 1).bit_length(), np.int32)  # padded with row 0
+    idx[:m] = live
+    vecs = _bgp_vectors(rng, cols, k)
+    on = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    kb.reset_launches()
+    got = kb.bgp_fold(on(planes), on(idx), *map(on, vecs))
+    torch.cuda.synchronize()
+    assert kb.launches["bgp_fold"] == 1
+    plain = kb.decide_plain(on(planes), on(idx), *map(on, vecs))
+    cpu = kb.bgp_fold(torch.from_numpy(planes), torch.from_numpy(idx),
+                      *map(torch.from_numpy, vecs))
+    for name, g, w, c in zip(("best_col", "reasons", "elig", "mp_sel"), got, plain, cpu):
+        assert g.dtype == w.dtype == c.dtype, name
+        assert torch.equal(g, w), name
+        assert torch.equal(g.cpu(), c), name
+    if cols >= 4 and 0 in live:  # the MED-cycle row decided
+        assert got[2][int(np.nonzero(idx == 0)[0][0]), 1:4].all()
+
+
+def test_bgp_backend_on_the_card_matches_the_oracle():
+    """chip_smoke's engine path at 2,048 prefixes x 8 peers: the card's
+    backend and the oracle equal cold, after an UPDATE burst and after NHT
+    churn, one bgp_fold launch a batch held to decide_plain on its inputs,
+    every prefix of a batch decided on the card, no scatter for the churn."""
+    import chip_smoke as cs
+    from holo_tpu_torch.kernels import bgp as kb
+    from holo_tpu_torch.ops.bgp_table import TorchBgpTableBackend
+    from holo_tpu_torch.protocols import bgp_engine as be
+
+    _card()
+    nht, feed = cs.bgp_feed(be, 2048, 8)
+    burst = cs.bgp_burst(be, feed, 8, 128)
+    backend = TorchBgpTableBackend()
+    arms = []
+    for tb in (None, backend):
+        calls = []
+        eng = be.DecisionEngine(asn=65000, table_backend=tb,
+                                ibus_cb=lambda kind, payload, c=calls: c.append((kind, payload)))
+        eng.multipath[cs.BGP_AFS] = dict(cs.BGP_MP)
+        for addr, metric in nht.items():
+            eng.tables[cs.BGP_AFS].nht[addr] = be.NhtEntry(metric=metric)
+        for prefix, routes in feed:
+            cs.bgp_announce(be, eng, prefix, routes, tb)
+        arms.append((eng, calls))
+    kb.reset_launches()
+    changes = (lambda eng: None,
+               lambda eng: [cs.bgp_announce(be, eng, p, r, eng.table_backend) for p, r in burst],
+               lambda eng: [eng.nexthop_update(a, m) for a, m in (("9.9.1.1", 40),
+                                                                  ("9.9.5.1", 7))])
+    for step, change in enumerate(changes):
+        scatters = backend.stats()["tables"].get(cs.BGP_AFS, {}).get("scatters", 0)
+        served = dict(backend.served)
+        queued = 0
+        kept = []
+        with cs.keeping_decides(kept):
+            for eng, _ in arms:
+                change(eng)
+                queued = len(eng.tables[cs.BGP_AFS].queued)
+                eng.run_decision_process()
+        torch.cuda.synchronize()
+        assert len(kept) == 1, step
+        (args, out), = kept
+        for g, w in zip(out, kb.decide_plain(*args)):
+            assert torch.equal(g, w), step
+        assert backend.served["best-device"] - served.get("best-device", 0) == queued, step
+        assert not backend.served["best-host"] and not backend.served["nexthops-host"]
+        assert cs.bgp_snap(arms[1][0]) == cs.bgp_snap(arms[0][0]), step
+        assert arms[1][1] == arms[0][1], step
+        assert kb.launches["bgp_fold"] == step + 1
+        if step == 2:
+            assert backend.stats()["tables"][cs.BGP_AFS]["scatters"] == scatters
+    st = backend.stats()
+    assert st["fallbacks"] == 0 and st["tables"][cs.BGP_AFS]["poisoned"] == 0
+    assert not backend.breaker.failures

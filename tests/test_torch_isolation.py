@@ -39,7 +39,9 @@ def test_every_module_is_found():
                  "holo_tpu_torch.resilience.breaker", "holo_tpu_torch.frr.inputs",
                  "holo_tpu_torch.frr.kernel", "holo_tpu_torch.frr.scalar",
                  "holo_tpu_torch.frr.manager", "holo_tpu_torch.graft_entry",
-                 "holo_tpu_torch.ops.partition", "holo_tpu_torch.ops.cspf"):
+                 "holo_tpu_torch.ops.partition", "holo_tpu_torch.ops.cspf",
+                 "holo_tpu_torch.ops.bgp_table", "holo_tpu_torch.kernels.bgp",
+                 "holo_tpu_torch.protocols.bgp_engine"):
         assert want in mods
 
 
