@@ -124,8 +124,11 @@ and next-hop churn; the fold alone over a full table of 524,288 prefixes x
    the card (the backend's ``served``), no fallback or poisoned prefix, both arms timed with the card arm's marshal and device batch; the
    full table synthesized at the lane level as the stage does
    (``default_rng(16)``, 1.745 GB on the card), ``bgp_fold``'s four outputs
-   held bit-identical to ``fold_plain`` and timed (CUDA events, median of 5)
-   against its byte bound, the readback of the outputs timed; 40 UPDATE rounds
+   held bit-identical to ``fold_plain`` and timed (CUDA events, median of 5,
+   and the profiler's device time) against its byte bound, with the launch
+   geometry (tile rows, stages, blocks, shared bytes, copy path) printed for
+   it, the update shape and each engine batch, the readback of the outputs
+   timed; 40 UPDATE rounds
    (a 1,024-row ``scatter_rows`` + a 4,096-row ``decide``; p99 on the host
    clock) with the last decide held to ``decide_plain``; ``DeviceRankBackend``
    on 4,096 seeded tuples with duplicates equal to ``sorted()``;
@@ -310,10 +313,10 @@ BGP_RANK_N, BGP_RANK_SEED = 4096, 19
 BGP_SOURCE = "holo_tpu_torch/csrc/bgp_kernels.cu"
 BGP_REPLACES = ("holo_tpu/ops/bgp_table.py:294-415 _fold_planes through :423-426 _decide_fn "
                 "(XLA fusion, no Pallas kernel)")
-# int32 operations bgp_fold does for every cell whatever the data, from its
-# staging loop (csrc/bgp_kernels.cu): the next-hop clamp's min and max, the
-# four tests of eligibility and the IGP select.  The ladder and the
-# multipath test of eligible cells are left out, so the count is a floor.
+# int32 operations bgp_fold does for every cell whatever the data, from the
+# derive warps' step (csrc/bgp_kernels.cu): the next-hop clamp's min and max,
+# the four tests of eligibility and the IGP select.  The (LP, L1) scan, the
+# ladder and the multipath test are left out, so the count is a floor.
 BGP_CELL_OPS = 7
 
 
@@ -1768,6 +1771,21 @@ def keeping_decides(kept: list):
         bt.decide = fn
 
 
+def fold_geometry(m: int, cols: int) -> dict:
+    """The launch ``kernels.bgp.bgp_fold`` makes for ``m`` rows x ``cols``
+    columns on this card."""
+    from holo_tpu_torch.kernels import bgp as kb
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return {"rows": m, "cols": cols, **kb.geometry(m, cols, sms)._asdict()}
+
+
+def geo_text(g: dict) -> str:
+    return (f"{g['rows']} x {g['cols']}: {g['tile_rows']} rows a tile, {g['stages']} stages, "
+            f"{g['group_rows']} rows a group, {g['warps']} fold warps, {g['blocks']} blocks, "
+            f"{g['smem_bytes']} shared bytes a block, {g['copy']} copies")
+
+
 def fold_bound(in_bytes: int, out) -> tuple[float, str, int, int]:
     """(ms, by, operations, bytes) of one fold: ``in_bytes`` of inputs read
     once, its outputs written once; BGP_CELL_OPS a cell."""
@@ -1831,6 +1849,7 @@ def bgp_phase() -> dict:
     backend._device_batch = timed("device_batch_ms", backend._device_batch)
     x["engine_err"] = 0
     x["served"] = {}
+    x["geometry"] = {}
     kb.reset_launches()
 
     def batch(kind: str, change) -> None:
@@ -1852,6 +1871,7 @@ def bgp_phase() -> dict:
         x["breakdown"][kind] = dict(timers)
         require(len(kept) == 1, f"the {kind} batch launched {len(kept)} decides (one a batch)")
         (args, out), = kept
+        x["geometry"][kind] = fold_geometry(args[1].shape[0], args[0].shape[2])
         err = fold_err(out, kb.decide_plain(*args))
         require(err == 0, f"bgp_fold of the {kind} batch differs from decide_plain on its "
                 f"inputs ({args[1].shape[0]} rows x {args[0].shape[2]} columns)")
@@ -1904,6 +1924,8 @@ def bgp_phase() -> dict:
           f"decide_plain on its inputs; backend {st['dispatches']} dispatches, "
           f"{st['tables'][BGP_AFS]['scatters']} scatters, 0 fallbacks, 0 poisoned; prefixes "
           f"served a batch: {x['served']}", flush=True)
+    print("geometry bgp_fold, engine batches: " + "; ".join(
+        f"{kind} {geo_text(g)}" for kind, g in x["geometry"].items()), flush=True)
     del arms, feed, burst
 
     # -- the full table folded alone
@@ -1930,13 +1952,20 @@ def bgp_phase() -> dict:
     require(x["max_abs_err"] == 0, "bgp_fold differs from fold_plain on the full table")
     del plain
     x["ms"] = cuda_ms(lambda: bt.fold_planes(planes, *args), BGP_FOLD_REPS)
+    # The kernel's own device time (fold_planes also launches its idx arange).
+    times = device_times(lambda: [bt.fold_planes(planes, *args) for _ in range(BGP_FOLD_REPS)])
+    x["device_ms"] = sum(ms for key, ms in times.items() if "bgp_fold" in key) / BGP_FOLD_REPS
+    require(x["device_ms"] > 0, f"the profiler saw no bgp_fold kernel: {sorted(times)}")
+    x["geometry"]["full"] = fold_geometry(R, C)
     x["plain_ms"] = cuda_ms(lambda: kb.fold_plain(planes, *args), 3)
     x["readback_ms"] = host_ms(lambda: [o.cpu() for o in out], 3)
     x["bound"] = fold_bound(nbytes(planes, *args), out)
     x["prefixes_per_s"] = R / x["ms"] * 1e3
     eligible = int(out[2].sum().item())
+    print(f"geometry bgp_fold {R} x {C}: {geo_text(x['geometry']['full'])}", flush=True)
     print(f"time bgp_fold {R} x {C}: {x['ms']:.4f} ms (CUDA events, median of "
-          f"{BGP_FOLD_REPS}), {x['prefixes_per_s']:.1f} prefixes/s; bound "
+          f"{BGP_FOLD_REPS}), device {x['device_ms']:.4f} ms (profiler, launch excluded, "
+          f"mean of {BGP_FOLD_REPS}), {x['prefixes_per_s']:.1f} prefixes/s; bound "
           f"{x['bound'][0]:.4f} ms by {x['bound'][1]} ({x['bound'][2]} operations, "
           f"{x['bound'][3]} bytes), {x['bound'][0] / x['ms']:.3f} of it; plain "
           f"{x['plain_ms']:.3f} ms; readback of the four outputs {x['readback_ms']:.3f} ms; "
@@ -1964,6 +1993,9 @@ def bgp_phase() -> dict:
     x["update_err"] = fold_err(res, kb.decide_plain(planes, sub, *args))
     require(x["update_err"] == 0, "the last UPDATE round's bgp_fold differs from decide_plain")
     x["update_ms"] = cuda_ms(lambda: bt.decide(planes, sub, *args), BGP_FOLD_REPS)
+    x["geometry"]["update"] = fold_geometry(BGP_RADIUS, C)
+    print(f"geometry bgp_fold {BGP_RADIUS} x {C}: {geo_text(x['geometry']['update'])}",
+          flush=True)
     x["update_plain_ms"] = cuda_ms(lambda: kb.decide_plain(planes, sub, *args), 3)
     # The decide reads only the queued rows of the planes.
     x["update_bound"] = fold_bound(kb.N_LANES * BGP_RADIUS * C * 4 + nbytes(sub, *args), res)
@@ -2811,7 +2843,8 @@ def main() -> None:
         "name": "bgp_fold", "route": "cuda", "source": BGP_SOURCE, "replaces": BGP_REPLACES,
         "launches": bx["launches"], "max_abs_err": max(bx["max_abs_err"], bx["update_err"], bx["engine_err"]),
         "ms": bx["ms"], "plain_ms": bx["plain_ms"], "bound_ms": bx["bound"][0],
-        "bound_by": bx["bound"][1], "library_ms": None,
+        "bound_by": bx["bound"][1], "library_ms": None, "device_ms": bx["device_ms"],
+        "geometry": bx["geometry"],
         "prefixes_per_s": bx["prefixes_per_s"], "readback_ms": bx["readback_ms"],
         "ms_update": bx["update_ms"], "plain_ms_update": bx["update_plain_ms"],
         "bound_ms_update": ub[0], "device_ms_update": bx["update_device_ms"],

@@ -9,16 +9,30 @@ Pallas kernel.  Given CPU tensors it computes :func:`fold_plain` (JAX's
 kernel on the current stream or raises.  It never falls back.
 :data:`launches` counts kernel launches.
 
+The kernel is a pipeline in one block an SM: a producer warp copies the
+queued rows raw into a ring of :data:`STAGES` shared-memory stages (TMA bulk
+copies where ``4 C`` is a multiple of 16, ``cp.async`` elsewhere); derive
+warps lay each row out in candidate order and scan its eligible (LP, L1)
+pairs, settling at once every position that loses at those two rungs; fold
+warps walk only the rest (one lane a row) and write the group's outputs in
+coalesced runs.  :func:`geometry` picks the rows a fold warp takes, the
+tile rows, the fold warps and the grid; :func:`smem_bytes` is the kernel's
+shared-memory layout.  On the CPU the same walk is modelled in numpy by
+``tests/test_torch_bgp_table.py`` (``walk_fold``) and held to
+:func:`fold_plain` and to JAX.
+
 Inputs (int32): ``planes`` (13, R, C) (lanes in ``ops.bgp_table`` order),
-``idx`` [M] rows of ``planes`` (in [0, R)), ``order`` [C] the candidate
-order (a permutation of the columns), ``addr_rank`` / ``has_addr`` [C],
-``nht_enc`` / ``nht_res`` [K] (K >= 1), ``mp`` [3] = (allow_multiple_as,
-ibgp_max, ebgp_max).  Outputs, as JAX's: ``best_col`` int32 [M] (-1 where
-no column is eligible), ``reasons`` int32 [M, C], ``elig`` bool [M, C],
-``mp_sel`` bool [M, C].
+``idx`` [M] rows of ``planes`` (in [0, R); repeats allowed), ``order`` [C]
+the candidate order (a permutation of the columns), ``addr_rank`` /
+``has_addr`` [C], ``nht_enc`` / ``nht_res`` [K] (K >= 1), ``mp`` [3] =
+(allow_multiple_as, ibgp_max, ebgp_max).  Outputs, as JAX's: ``best_col``
+int32 [M] (-1 where no column is eligible), ``reasons`` int32 [M, C],
+``elig`` bool [M, C], ``mp_sel`` bool [M, C].
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -33,12 +47,33 @@ N_LANES = 13
 LOCAL_COL = 0
 R_LP, R_PLEN, R_ORIGIN, R_MED, R_RT, R_IGP, R_RID, R_ADDR = range(1, 9)
 
-TILE_ROWS = 32  # rows a block stages and folds (csrc/bgp_kernels.cu)
-_STAGED = 9  # int32 words a staged cell keeps in shared memory
+STAGES = 3  # the ring of raw tiles a block keeps in shared memory
+TILE_ROWS = 8  # rows a raw tile holds (fewer where a group is smaller)
+GROUP_ROWS = 32  # rows a fold warp takes at once, one a lane
+FOLD_WARPS = 4  # the most fold warps a block (csrc/bgp_kernels.cu)
+MAX_BLOCKS_PER_SM = 2  # 416 threads a block (csrc/bgp_kernels.cu)
 SMEM_LIMIT = 232_448  # dynamic shared memory one block may take on sm_90
+SM_SHARED = 233_472  # shared memory of one SM (228 KB) ...
+BLOCK_RESERVE = 1024  # ... of which the runtime keeps 1 KB a block
+H100_SMS = 132
+_STAGED = 9  # int32 words a derived cell keeps
 
 #: kernel launches since the last :func:`reset_launches`
 launches = {"bgp_fold": 0}
+
+
+class Geometry(NamedTuple):
+    """A launch of the fold: rows a fold warp takes (a group), rows a raw
+    tile holds, ring stages, fold warps a block, blocks, shared bytes a
+    block, and the copy path ("tma" or "cp.async")."""
+
+    group_rows: int
+    tile_rows: int
+    stages: int
+    warps: int
+    blocks: int
+    smem_bytes: int
+    copy: str
 
 
 def reset_launches() -> None:
@@ -46,16 +81,63 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
-def tile_rows(cols: int) -> int:
-    """Rows a block folds at ``cols`` columns: 32, or fewer where 32 rows of
-    staged cells would not fit in shared memory."""
-    stride, words = cols | 1, ((cols + 31) // 32) | 1  # as csrc/bgp_kernels.cu pads them
-    rows = TILE_ROWS
-    while rows and (_STAGED * stride + 2 * words) * rows * 4 > SMEM_LIMIT:
-        rows //= 2
-    if not rows:
+def _align16(n: int) -> int:
+    return (n + 15) & ~15
+
+
+def smem_bytes(cols: int, group_rows: int, tile_rows: int, stages: int, warps: int) -> int:
+    """Shared-memory bytes of one block (``layout`` in csrc/bgp_kernels.cu):
+    the barriers (two a stage, two a fold warp), the raw ring, and for each
+    fold warp its derived cells
+    (row stride ``cols | 1``), reason rows and eligibility and selection
+    words (``ceil(cols / 32) | 1`` a row); then the four position vectors."""
+    stride, words = cols | 1, ((cols + 31) // 32) | 1
+    return sum(_align16(n) for n in (
+        16 * (stages + FOLD_WARPS),
+        4 * stages * N_LANES * tile_rows * cols,
+        4 * warps * _STAGED * group_rows * stride,
+        4 * warps * group_rows * cols,
+        4 * warps * group_rows * words,
+        4 * warps * group_rows * words,
+        16 * cols,
+    ))
+
+
+def geometry(m: int, cols: int, n_sms: int = H100_SMS) -> Geometry:
+    """The launch of a fold of ``m`` rows x ``cols`` columns on ``n_sms``
+    SMs: the group rows (a power of two, at most :data:`GROUP_ROWS`) and
+    fold warps that keep the most rows folding in one block's shared memory
+    (more warps at a tie), the group halved while the groups would leave an
+    SM without one; as many blocks as the SMs hold, at most one a group.
+    Raises where one row does not fit."""
+    best = None
+    for group in (32, 16, 8, 4, 2, 1):
+        for warps in range(FOLD_WARPS, 0, -1):
+            if smem_bytes(cols, group, min(group, TILE_ROWS), STAGES, warps) <= SMEM_LIMIT:
+                if best is None or (warps * group, warps) > (best[0] * best[1], best[1]):
+                    best = (group, warps)
+                break
+    if best is None:
         raise ValueError(f"{cols} peer columns do not fit one staged row in shared memory")
-    return rows
+    group, warps = best
+    while group > 1 and -(-m // group) < n_sms:
+        group //= 2
+    tile = min(group, TILE_ROWS)
+    smem = smem_bytes(cols, group, tile, STAGES, warps)
+    per_sm = max(1, min(MAX_BLOCKS_PER_SM, SM_SHARED // (smem + BLOCK_RESERVE)))
+    blocks = max(1, min(-(-m // group), per_sm * n_sms))
+    return Geometry(group, tile, STAGES, warps, blocks, smem,
+                    "tma" if cols % 4 == 0 else "cp.async")
+
+
+_SMS: dict = {}
+
+
+def _sm_count(dev: torch.device) -> int:
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    if index not in _SMS:
+        _SMS[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _SMS[index]
 
 
 def _derive(sub, nht_enc, nht_res):
@@ -184,8 +266,10 @@ def bgp_fold(planes, idx, order, addr_rank, has_addr, nht_enc, nht_res, mp):
     elig = torch.empty((m, n_cols), dtype=torch.bool, device=dev)
     mp_sel = torch.empty((m, n_cols), dtype=torch.bool, device=dev)
     if m:
+        geo = geometry(m, n_cols, _sm_count(dev))
         build.launch("holo_bgp_fold", planes, idx, order, addr_rank, has_addr, nht_enc,
                      nht_res, mp, best_col, reasons, elig, mp_sel, n_rows, n_cols, m,
-                     nht_enc.shape[0], tile_rows(n_cols))
+                     nht_enc.shape[0], geo.group_rows, geo.tile_rows, geo.stages, geo.warps,
+                     geo.blocks)
         launches["bgp_fold"] += 1
     return best_col, reasons, elig, mp_sel

@@ -6,7 +6,9 @@ the gather engine's and its multipath kernels, the BGP table's fold) are compile
 one library in ``holo_tpu_torch/build/`` (listed in ``.gitignore``), named
 by a hash of the sources so an edit rebuilds it.  Each C entry point takes ``void*``
 pointers (NULL for an absent plane), ``int`` sizes and the CUDA stream,
-launches on that stream and returns ``cudaGetLastError()``.
+launches on that stream and returns ``cudaGetLastError()``;
+``holo_bgp_fold_smem`` alone launches nothing and returns the fold's
+shared-memory bytes a block.
 
 A library that cannot be built or loaded raises :class:`KernelBuildError`,
 which the dispatch breaker re-raises without counting it; a CUDA error at
@@ -51,7 +53,8 @@ SIGNATURES = {
     "holo_ell_mp_round": (*[_P] * 18, _I, _I, _I, _I, _P),
     "holo_ell_parent_sets": (*[_P] * 10, _I, _I, _I, _I, _P),
     "holo_ell_parent_weights": (*[_P] * 3, _I, _I, _I, _P),
-    "holo_bgp_fold": (*[_P] * 12, _I, _I, _I, _I, _I, _P),
+    "holo_bgp_fold": (*[_P] * 12, *[_I] * 9, _P),
+    "holo_bgp_fold_smem": (_I,) * 5,
 }
 
 _LIB: ctypes.CDLL | None = None

@@ -536,11 +536,205 @@ def test_scatter_and_grow_match_jax():
     assert np.array_equal(grown.numpy(), np.asarray(jbt._grow(jnp.asarray(want), 8, 4)))
 
 
-def test_tile_rows_fit_shared_memory():
-    assert kb.tile_rows(2) == kb.tile_rows(64) == 32
-    assert kb.tile_rows(1024) < 32
-    with pytest.raises(ValueError):
-        kb.tile_rows(1 << 16)
+# ---------------------------------------------------------------------------
+# the kernel's launch geometry and a numpy model of its walk
+
+
+@pytest.mark.parametrize("cols", [1, 2, 17, 32, 64, 1024])
+def test_geometry_fits_shared_memory(cols):
+    for m in (1, 37, 4096, 524_288):
+        geo = kb.geometry(m, cols)
+        assert geo.smem_bytes == kb.smem_bytes(cols, geo.group_rows, geo.tile_rows, geo.stages,
+                                               geo.warps)
+        assert geo.smem_bytes <= kb.SMEM_LIMIT
+        assert 1 <= geo.group_rows <= kb.GROUP_ROWS
+        assert geo.group_rows & (geo.group_rows - 1) == 0
+        assert geo.tile_rows == min(geo.group_rows, kb.TILE_ROWS)
+        assert geo.stages >= 2 and 1 <= geo.warps <= kb.FOLD_WARPS
+        assert 1 <= geo.blocks <= -(-m // geo.group_rows)
+        assert geo.blocks * (geo.smem_bytes + kb.BLOCK_RESERVE) <= kb.SM_SHARED * kb.H100_SMS
+        assert geo.copy == ("tma" if cols % 4 == 0 else "cp.async")
+
+
+@pytest.mark.parametrize("m,cols,group", [(4096, 64, 16), (524_288, 64, 16), (32_768, 32, 32),
+                                          (1024, 32, 4)])
+def test_geometry_spreads_over_every_sm(m, cols, group):
+    """The update shape and the engine's batches cover all 132 SMs with
+    groups and raw tiles; the full table keeps 48 rows folding an SM."""
+    geo = kb.geometry(m, cols)
+    assert geo.group_rows == group
+    assert -(-m // geo.group_rows) >= kb.H100_SMS
+    assert -(-m // geo.tile_rows) >= kb.H100_SMS
+    assert geo.blocks >= kb.H100_SMS
+    if m == 524_288:
+        assert geo.group_rows * geo.warps >= 48
+
+
+@pytest.mark.parametrize("cols", [1450, 1 << 16])
+def test_geometry_raises_where_one_row_does_not_fit(cols):
+    with pytest.raises(ValueError, match="do not fit"):
+        kb.geometry(1, cols)
+
+
+def walk_fold(planes, idx, order, addr_rank, has_addr, nht_enc, nht_res, mp, n_sms):
+    """csrc/bgp_kernels.cu's fold in numpy, as its blocks take the groups of
+    ``kb.geometry(M, C, n_sms)``: each group's rows copied raw through
+    ``idx`` tile by tile, each cell derived at its candidate position
+    (position j holds column order[j]) with eligibility bits by position,
+    a scan of each row's eligible (LP, L1) pairs in order that settles the
+    positions above the least pair before them, the fold walking only the
+    others (the first, each new least pair, each tie on it) with each
+    reason sent to the loser's position (column order[j] on the way out),
+    the multipath pass over the walked positions on the winner's pair with
+    its early stop, and the group's outputs written by column.  Returns
+    the four outputs as numpy."""
+    _, n_rows, cols = planes.shape
+    m, k = len(idx), len(nht_enc)
+    geo = kb.geometry(m, cols, n_sms)
+    gr, tr, words = geo.group_rows, geo.tile_rows, (cols + 31) // 32
+    pos_col = np.clip(order, 0, cols - 1)
+    inv = np.empty(cols, np.int64)
+    inv[pos_col] = np.arange(cols)
+    s_addr, s_has = addr_rank[pos_col], has_addr[pos_col] != 0
+    local_pos = int(inv[kb.LOCAL_COL])
+    allow, ibgp_max, ebgp_max = int(mp[0]) != 0, int(mp[1]), int(mp[2])
+    best_out = np.full(m, -7, np.int32)
+    reasons = np.full((m, cols), -7, np.int32)
+    elig = np.zeros((m, cols), bool)
+    sel = np.zeros((m, cols), bool)
+    written = np.zeros(m, np.int64)
+    n_groups = -(-m // gr)
+    for block in range(geo.blocks):
+        for gi in range(block, n_groups, geo.blocks):
+            row0 = gi * gr
+            rows = min(gr, m - row0)
+            raw = np.concatenate([  # the producer's tiles
+                planes[:, np.clip(idx[t0:min(t0 + tr, row0 + rows)], 0, n_rows - 1), :]
+                for t0 in range(row0, row0 + rows, tr)], axis=1)
+            cand = raw[:, :, pos_col].astype(np.int64)  # by position
+            nh = np.clip(cand[kb.L_NH], 0, k - 1)
+            local = cand[kb.L_LOCAL] != 0
+            e = (cand[kb.L_OCC] != 0) & (cand[kb.L_LOOP] == 0) & (local | (nht_res[nh] != 0))
+            igp = np.where(local, cand[kb.L_IGP], nht_enc[nh])
+            ebits = np.zeros((rows, words), np.int64)
+            for p in range(cols):
+                ebits[:, p >> 5] |= e[:, p].astype(np.int64) << (p & 31)
+            sbits = np.zeros((rows, words), np.int64)
+            sreason = np.zeros((rows, cols), np.int32)
+            for t in range(rows):
+                cell = {name: cand[lane, t] for name, lane in (
+                    ("lp", kb.L_LP), ("l1", kb.L_L1), ("med", kb.L_MED), ("fas", kb.L_FAS),
+                    ("rt", kb.L_RT), ("rid", kb.L_RID), ("hasrid", kb.L_HASRID),
+                    ("path", kb.L_PATH))}
+                cell["igp"] = igp[t]
+
+                def key(p, t=t):
+                    return int(cand[kb.L_LP, t, p]), int(cand[kb.L_L1, t, p])
+
+                # The derive step's scan: the winner's (LP, L1) after any
+                # step is the least pair so far, so an eligible position
+                # above the least pair before it loses at LP or L1, its
+                # reason known at once; the walk visits only the rest (the
+                # first, each new least pair, each tie on it).
+                events, least = [], None
+                for p in range(cols):
+                    if not e[t, p]:
+                        continue
+                    if least is None or key(p) <= least:
+                        events.append(p)
+                    else:
+                        sreason[t, p] = kb.R_LP if key(p)[0] != least[0] else (
+                            kb.R_PLEN if key(p)[1] >> 2 != least[1] >> 2 else kb.R_ORIGIN)
+                    least = key(p) if least is None else min(least, key(p))
+                best, b = -1, {}
+                for p in events:
+                    c = {name: int(v[p]) for name, v in cell.items()}
+                    a_addr, a_has = int(s_addr[p]), bool(s_has[p])
+                    better = True
+                    if best >= 0:
+                        if c["lp"] != b["lp"] or c["l1"] != b["l1"]:  # a new least pair
+                            assert (c["lp"], c["l1"]) < (b["lp"], b["l1"])
+                            reason = kb.R_LP if c["lp"] != b["lp"] else (
+                                kb.R_PLEN if c["l1"] >> 2 != b["l1"] >> 2 else kb.R_ORIGIN)
+                        else:  # the other rungs at once; the first that differs decides
+                            differs = [c["fas"] == b["fas"] and c["med"] != b["med"],
+                                       c["rt"] != b["rt"], c["igp"] != b["igp"],
+                                       bool(c["hasrid"] & b["hasrid"]) and c["rid"] != b["rid"],
+                                       True]
+                            wins = [c["med"] < b["med"], c["rt"] > b["rt"], c["igp"] < b["igp"],
+                                    c["rid"] < b["rid"], a_has and b["has"] and a_addr < b["addr"]]
+                            rung = differs.index(True)
+                            better = wins[rung]
+                            reason = kb.R_MED + rung
+                        assert sreason[t, best if better else p] == 0  # once a cell
+                        sreason[t, best if better else p] = reason
+                    if better:
+                        best, b = p, dict(c, addr=a_addr, has=a_has)
+                if best >= 0:
+                    # the multipath candidates: the events on the winner's
+                    # pair, which are every eligible position with that pair
+                    ties = [p for p in events if key(p) == (b["lp"], b["l1"])]
+                    assert ties == [p for p in range(cols)
+                                    if e[t, p] and key(p) == (b["lp"], b["l1"])]
+                    maxp = ibgp_max if b["rt"] == 0 else ebgp_max
+                    count = 0
+                    for p in ties:
+                        if count >= maxp:
+                            break  # the early stop
+                        c = {name: int(v[p]) for name, v in cell.items()}
+                        if p == local_pos or c["rt"] != b["rt"] or c["igp"] != b["igp"]:
+                            continue
+                        fas_eq = c["fas"] == b["fas"]
+                        if fas_eq and c["med"] != b["med"]:
+                            continue
+                        if not ((allow or fas_eq) if b["rt"] == 1 else c["path"] == b["path"]):
+                            continue
+                        count += 1
+                        sbits[t, p >> 5] |= 1 << (p & 31)
+                best_out[row0 + t] = -1 if best < 0 else pos_col[best]
+            out = slice(row0, row0 + rows)
+            reasons[out] = sreason[:, inv]
+            elig[out] = (ebits[:, inv >> 5] >> (inv & 31)) & 1 == 1
+            sel[out] = (sbits[:, inv >> 5] >> (inv & 31)) & 1 == 1
+            written[out] += 1
+    assert (written == 1).all()  # every row of every tile, once
+    return best_out, reasons, elig, sel
+
+
+def assert_model(got, want):
+    for name, g, w in zip(("best_col", "reasons", "elig", "mp_sel"), got, want):
+        w = np.asarray(w)
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert np.array_equal(g, w), name
+
+
+@pytest.mark.parametrize("m,cols", [(8, 2), (37, 17), (64, 16), (50, 64), (21, 33)])
+@pytest.mark.parametrize("rows", ["padded", "repeated"])
+def test_walk_model_matches_fold_plain_and_jax(m, cols, rows):
+    """The kernel's walk (positions, the (LP, L1) scan, the walk over its
+    events, reasons to order[j], the multipath pass over the ties) on
+    seeded planes with the MED cycle
+    in row 0, through a padded idx and through one with repeated rows, at
+    one SM so that each block walks several tiles; held to fold_plain and
+    to JAX's decide."""
+    rng = np.random.default_rng(50 + m + cols)
+    k = 6
+    planes = _bgp_planes(rng, 2 * m, cols, k)
+    if rows == "padded":
+        idx = np.zeros(tbt._pow2(m), np.int32)  # padded with row 0
+        idx[:m] = rng.choice(2 * m, size=m, replace=False)
+        idx[0] = 0  # the MED cycle
+    else:
+        idx = rng.integers(0, 2 * m, size=m + 3).astype(np.int32)
+        idx[-3:] = idx[:3]
+    args = _bgp_vectors(rng, cols, k)
+    got = walk_fold(planes, idx, *args, n_sms=1)
+    assert_model(got, tbt.decide(torch.from_numpy(planes), torch.from_numpy(idx),
+                                 *map(torch.from_numpy, args)))
+    assert_model(got, jbt._decide(jnp.asarray(planes), jnp.asarray(idx),
+                                  *map(jnp.asarray, args)))
+    if cols >= 4 and rows == "padded":  # the MED cycle was decided
+        assert got[2][0, 1:4].all()
 
 
 # ---------------------------------------------------------------------------

@@ -57,9 +57,12 @@ dispositions too) and the oracle; CspfEngine's batch on a k=12 fat tree is
 held to the CPU path.
 
 BGP table: bgp_fold is held bit-identical to its plain version on the same
-CUDA tensors and to the CPU path at (M, C) from (1, 2) to (4096, 64), C = 2,
-17, 64 and 1024 (fewer rows a block), padded idx, unassigned columns and a
-MED-cycle row; TorchBgpTableBackend() on the card decides chip_smoke's feed
+CUDA tensors and to the CPU path at (M, C) from (1, 2) to (20,000, 64): C =
+32 and 64 (TMA bulk copies) and C = 2 and 17 (cp.async), C = 1024 (one row a
+tile), more tiles than resident blocks (every slot of the ring reused), an
+M that is not a multiple of the tile rows, padded idx, idx with repeated
+rows, unassigned columns and a MED-cycle row; the kernel's shared-memory
+layout equals the wrapper's geometry; TorchBgpTableBackend() on the card decides chip_smoke's feed
 (2,048 prefixes x 8 peers) equal to the oracle cold, after an UPDATE burst
 and after NHT churn.
 """
@@ -935,18 +938,39 @@ def _bgp_vectors(rng, cols, k):
     return order, rank, has, enc, res, mp
 
 
-@pytest.mark.parametrize("m,cols", [(1, 2), (33, 2), (37, 17), (300, 17), (64, 64),
-                                    (4096, 64), (40, 1024)])
-def test_bgp_fold_matches_plain(m, cols):
+@pytest.mark.parametrize("m,cols,rows", [
+    (1, 2, "padded"), (33, 2, "padded"), (37, 17, "padded"), (300, 17, "padded"),
+    (64, 64, "padded"), (4096, 64, "padded"), (40, 1024, "padded"),
+    (20_000, 64, "exact"),  # 2,500 tiles on 396 blocks: every ring slot reused
+    (32_768, 32, "padded"),  # the engine's width
+    (5_003, 32, "exact"),  # a last tile of 11 of 16 rows
+    (40_003, 17, "exact"),  # cp.async: 2,501 tiles of 16 rows on 396 blocks
+    (999, 2, "exact"),
+    (300, 1024, "exact"),
+    (3_000, 64, "repeated"), (700, 17, "repeated"),
+])
+def test_bgp_fold_matches_plain(m, cols, rows):
     from holo_tpu_torch.kernels import bgp as kb
 
     dev = _card()
     rng = np.random.default_rng(m * 131 + cols)
     k = 8
     planes = _bgp_planes(rng, 2 * m, cols, k)
-    live = rng.choice(2 * m, size=m, replace=False)
-    idx = np.zeros(1 << (m - 1).bit_length(), np.int32)  # padded with row 0
-    idx[:m] = live
+    if rows == "padded":
+        live = rng.choice(2 * m, size=m, replace=False)
+        idx = np.zeros(1 << (m - 1).bit_length(), np.int32)  # padded with row 0
+        idx[:m] = live
+    elif rows == "exact":
+        idx = rng.choice(2 * m, size=m, replace=False).astype(np.int32)
+    else:  # each row taken about twice, some in the same tile
+        idx = rng.integers(0, m // 2, size=m).astype(np.int32)
+        idx[1::7] = idx[::7][: len(idx[1::7])]
+    geo = kb.geometry(len(idx), cols, torch.cuda.get_device_properties(dev).multi_processor_count)
+    assert geo.copy == ("tma" if cols % 4 == 0 else "cp.async")
+    if rows == "exact" and cols != 1024:  # a last group (and tile) cut short
+        assert len(idx) % geo.group_rows or m == 20_000
+    if m in (20_000, 40_003):
+        assert -(-len(idx) // geo.tile_rows) > geo.stages * geo.blocks
     vecs = _bgp_vectors(rng, cols, k)
     on = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
     kb.reset_launches()
@@ -960,8 +984,24 @@ def test_bgp_fold_matches_plain(m, cols):
         assert g.dtype == w.dtype == c.dtype, name
         assert torch.equal(g, w), name
         assert torch.equal(g.cpu(), c), name
-    if cols >= 4 and 0 in live:  # the MED-cycle row decided
+    if cols >= 4 and 0 in idx[:m]:  # the MED-cycle row decided
         assert got[2][int(np.nonzero(idx == 0)[0][0]), 1:4].all()
+
+
+@pytest.mark.parametrize("cols", [1, 2, 17, 32, 64, 1024])
+def test_bgp_fold_smem_matches_the_geometry(cols):
+    """The kernel's shared-memory layout (holo_bgp_fold_smem) is the one the
+    wrapper sizes its tiles by, at every tile height and ring depth."""
+    from holo_tpu_torch.kernels import bgp as kb
+    from holo_tpu_torch.kernels import build
+
+    _card()
+    lib = build.load()
+    for group_rows, tile_rows in ((1, 1), (2, 2), (16, 8), (32, 8), (32, 4)):
+        for stages in (2, 3):
+            for warps in (1, 2, 4):
+                assert lib.holo_bgp_fold_smem(cols, group_rows, tile_rows, stages, warps) == (
+                    kb.smem_bytes(cols, group_rows, tile_rows, stages, warps))
 
 
 def test_bgp_backend_on_the_card_matches_the_oracle():
