@@ -24,7 +24,9 @@ and on a 10-area one at ``multipath_k`` 4 and 8 and through DeltaPath; and
 the BGP table (``DecisionEngine`` on ``TorchBgpTableBackend()``: the RFC 4271
 decision process over a 32,768-prefix x 16-peer feed, cold, an UPDATE burst
 and next-hop churn; the fold alone over a full table of 524,288 prefixes x
-64 peers).  Phases:
+64 peers); and the other single-path engines, ``TorchSpfBackend(one_engine=
+"fused" | "packed" | "hybrid")``, and the engine tuner that picks among
+them, through ``compute_whatif`` and ``compute`` on the fat tree.  Phases:
 
 1. build the CUDA kernels from ``holo_tpu_torch/csrc`` with nvcc;
 2. run each kernel once on real mid-fixpoint inputs at the main paths'
@@ -132,6 +134,26 @@ and next-hop churn; the fold alone over a full table of 524,288 prefixes x
    (a 1,024-row ``scatter_rows`` + a 4,096-row ``decide``; p99 on the host
    clock) with the last decide held to ``decide_plain``; ``DeviceRankBackend``
    on 4,096 seeded tuples with duplicates equal to ``sorted()``;
+3j. the engines: with the ELL launch counters at 0 before each, a cold and 3
+   warm ``compute_whatif`` (1024 scenarios) and ``compute()`` of seq, fused,
+   packed and hybrid, timed by the host clock and CUDA events; each engine's
+   own kernels must launch (``ell_fused_round`` in the planar layout for
+   fused, the interleaved for packed; ``ell_relax``, ``ell_first_parent``
+   and ``ell_mp_round`` for hybrid) and ``ell_nh_seed`` / ``ell_nh_round``
+   not; scenarios 0-7 and ``compute()`` equal to the oracle, all 1024
+   scenarios to seq's planes; every ``ell_fused_round`` launch of a 64-lane
+   and a one-lane ``fused_lanes`` dispatch, and the first and last at 1024
+   lanes, held bit-identical to ``fused_round_plain`` (each 1024-lane launch
+   timed against its bound), each dispatch equal to ``spf_lanes``; every
+   G1, G2 and M1 launch of a 64-lane ``hybrid_lanes`` held, and the first
+   and last M1 launch of a 1024-lane one (its G1 and G2 launches see the
+   inputs of seq's, held in phase 2); ``max_iters`` 2
+   and 5 on the card equal to the CPU path (16 scenarios and ``compute()``);
+   the tuner armed (``explore_rounds=2``): 12 what-if batches and 12
+   ``compute()`` calls, each equal to seq's planes, each bucket's picks,
+   medians and winner printed, the saved table picked the same cold, and a
+   DeltaPath chain after three re-marshals whose depth cap
+   (``DeviceGraphCache._depth_cap``) is the tuned one;
 4. time each kernel (CUDA events; at one scenario also the profiler's
    device time, which leaves out the host's launch), its plain version, the
    whole batch, ``compute()`` and the gather batch's stages, and DeltaPath's
@@ -235,6 +257,7 @@ ELL_SPLIT_OPS = 2
 ELL_ROUND_OPS = 2
 ELL_GATHER_OPS = 2  # ell_nh_round per word per active pair: gather, OR
 SECTOR_BYTES = 32
+INF = 1 << 30
 # The main launch of each frontier kernel: ell_relax's third round, ell_nh_round's
 # second (the first of each gathers from almost no changed source).
 MID_RELAX, MID_ROUND = 2, 1
@@ -318,6 +341,28 @@ BGP_REPLACES = ("holo_tpu/ops/bgp_table.py:294-415 _fold_planes through :423-426
 # the four tests of eligibility and the IGP select.  The (LP, L1) scan, the
 # ladder and the multipath test are left out, so the count is a floor.
 BGP_CELL_OPS = 7
+# The other single-path engines (phase 3j): their names, the warm calls
+# timed, the lanes of the fully held fused dispatches, the truncations and
+# the scenarios run there on the card and the CPU, the tuner arm's calls and
+# the re-marshals that feed its depth cap.
+ENGINE_NAMES = ("fused", "packed", "hybrid")
+ENGINE_WARM_REPS = 3
+FUSED_HOLD_LANES = 64
+ENGINE_LIMITS = (2, 5)
+ENGINE_LIMIT_SCENARIOS = 16
+TUNER_CALLS = 12
+TUNER_REMARSHALS = 3
+FUSED_SOURCE = "holo_tpu_torch/csrc/fused_kernels.cu"
+FUSED_REPLACES = ("holo_tpu/ops/spf_engine.py:1071-1106 round_fn of spf_one_fused, planar "
+                  "(fused) and interleaved (packed) (XLA fusion, no Pallas kernel)")
+# int32 operations of ell_fused_round: per usable (slot, lane) pair with the
+# source reached the add, the INF test and the min; per DAG pair the (dist,
+# src) argmin update (compare, select, min) and an OR per word; per (vertex,
+# lane) the hops update (root test, parent test, add, select), the changed
+# tests of dist and hops and one per word.
+FUSED_PAIR_OPS = 3
+FUSED_DAG_OPS = 3  # + W
+FUSED_CELL_OPS = 6  # + W
 
 
 def cuda_call(fn):
@@ -813,13 +858,16 @@ class Holder:
     plus parent_sets_plain's parents and pdist; each ell_parent_weights
     launch to parent_weights_plain.  The plain calls launch no kernel.
     ``full_round=False`` skips the full round: the partitioned fixpoint's
-    pinned halo rows keep their values where a full round recomputes them."""
+    pinned halo rows keep their values where a full round recomputes them.
+    ``ends_only`` holds only the first ell_mp_round launch of the block and
+    those that report no change (a fixpoint's last)."""
 
-    def __init__(self, ell, full_round: bool = True):
+    def __init__(self, ell, full_round: bool = True, ends_only: bool = False):
         self.ell = ell
-        self.full_round = full_round
+        self.full_round, self.ends_only = full_round, ends_only
         self.err = {"ell_mp_round": 0, "ell_parent_sets": 0, "ell_parent_weights": 0}
         self.held = Counter()
+        self.mp_launches = 0
         self.lanes = Counter()  # (kernel, lanes, with counts) -> launches
 
     def mp_round(self, fn):
@@ -829,8 +877,11 @@ class Holder:
             fixed = (src, dag, direct, inc, roots, parent)
             want = _clone(out)
             res = fn(*fixed, state, front, out)
+            self.mp_launches += 1
+            if self.ends_only and self.mp_launches > 1 and bool(res[0]):
+                return res
             ref = ell.mp_round_plain(*fixed, state, front, want)
-            label = f"launch {self.held['ell_mp_round'] + 1}"
+            label = f"launch {self.mp_launches}"
             got = (*out, *res)
             self.err["ell_mp_round"] = max(self.err["ell_mp_round"],
                                            held("ell_mp_round", label, got, (*want, *ref)))
@@ -2026,6 +2077,365 @@ def bgp_phase() -> dict:
     return x
 
 
+def _sectors(bits: torch.Tensor, lane_bytes: int) -> int:
+    """32-byte sectors that the set lanes of bool [N, K, lanes] read at
+    ``lane_bytes`` a lane, each (slot, 32-lane word) holding its set lanes
+    contiguous: the least a gather of them moves."""
+    lanes = bits.shape[-1]
+    pad = -lanes % 32
+    if pad:
+        bits = torch.nn.functional.pad(bits, (0, pad))
+    count = bits.reshape(*bits.shape[:-1], -1, 32).sum(-1, dtype=torch.int64)
+    return int(((count * lane_bytes + SECTOR_BYTES - 1) // SECTOR_BYTES).sum())
+
+
+def fused_work(ell, p, state, roots) -> dict:
+    """What one ell_fused_round launch from ``state`` must do: usable (slot,
+    lane) pairs with the source reached and the DAG pairs of the round; the
+    32-byte sectors its gathers must read (planar: the usable lanes' dist,
+    the DAG lanes' hops and words, a plane each; interleaved: the usable
+    lanes' 2 + W vectors); then its bound (``bound``: operations and bytes,
+    see FUSED_*_OPS and the kernel's note)."""
+    dist, hops, nh = ell.fused_planes(state)
+    n, k = p.src.shape
+    lanes, words = dist.shape[1], nh.shape[1]
+    s = p.src.long()
+    cnt = Counter()
+    for sl in ell.lane_chunks(n, k, lanes):
+        d_nbr = dist[:, sl][s]
+        usable = ell._usable(p.slot, p.mask, sl) & (d_nbr < INF)
+        cand = d_nbr + p.cost[:, :, None]
+        dn = torch.minimum(dist[:, sl], torch.where(usable, cand, INF).amin(1))
+        not_root = torch.arange(n, device=dist.device)[:, None, None] != roots[sl][None, None, :]
+        dag = usable & (dn < INF)[:, None, :] & (cand == dn[:, None, :]) & not_root
+        cnt["usable"] += int(usable.sum())
+        cnt["dag"] += int(dag.sum())
+        cnt["planar_sectors"] += _sectors(usable, 4) + (1 + words) * _sectors(dag, 4)
+        cnt["interleaved_sectors"] += _sectors(usable, (2 + words) * 4)
+        del d_nbr, usable, cand, dag
+    packed = torch.is_tensor(state)
+    state_bytes = n * lanes * (2 + words) * 4
+    fixed = 3 * p.src.numel() * 4 + (0 if p.mask is None else int((p.slot >= 0).sum())
+                                      * p.mask.shape[1] * 4)
+    gathers = SECTOR_BYTES * cnt["interleaved_sectors" if packed else "planar_sectors"]
+    cnt["bytes"] = fixed + 2 * state_bytes + n * lanes * 4 + gathers
+    cnt["ops"] = (FUSED_PAIR_OPS * cnt["usable"] + (FUSED_DAG_OPS + words) * cnt["dag"]
+                  + (FUSED_CELL_OPS + words) * n * lanes)
+    cnt["bound"] = bound(cnt["ops"], cnt["bytes"])
+    return dict(cnt)
+
+
+class FusedHolder:
+    """Within ``holding_fused()``, every ell_fused_round launch runs (and
+    counts) as before, timed by CUDA events, and its work is counted
+    (fused_work); every launch, or with ``ends_only`` the first and the one
+    that reports no change, is held at once bit-identical to
+    fused_round_plain on the same state (the kernel writes another
+    buffer)."""
+
+    def __init__(self, ell, p, ends_only: bool = False):
+        self.ell, self.p, self.ends_only = ell, p, ends_only
+        self.err = 0
+        self.launch_ms, self.plain_ms, self.work = [], [], []
+        self.held = 0
+
+    def wrap(self, fn):
+        ell = self.ell
+
+        def held_round(src, cost, slot, mask, direct, inc, roots, state, out=None):
+            args = (src, cost, slot, mask, direct, inc, roots)
+            got, ms = cuda_call(lambda: fn(*args, state, out))
+            self.launch_ms.append(ms)
+            last = not bool(got[2])
+            if not self.ends_only or len(self.launch_ms) == 1 or last:
+                want, plain_ms = cuda_call(lambda: ell.fused_round_plain(*args, state))
+                flat = lambda r: (*((r[0],) if torch.is_tensor(r[0]) else r[0]), *r[1:])
+                self.err = max(self.err, held("ell_fused_round",
+                                              f"at {roots.shape[0]} lanes, launch "
+                                              f"{len(self.launch_ms)}", flat(got), flat(want)))
+                self.plain_ms.append(plain_ms)
+                self.held += 1
+            self.work.append(fused_work(ell, self.p, state, roots))
+            return got
+
+        return held_round
+
+
+@contextlib.contextmanager
+def holding_fused(ell, holder: FusedHolder):
+    fn = ell.ell_fused_round
+    ell.ell_fused_round = holder.wrap(fn)
+    try:
+        yield holder
+    finally:
+        ell.ell_fused_round = fn
+
+
+def timed_call(fn) -> tuple:
+    """(result, host ms, CUDA-event ms) of one call that ends in a readback."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3, start.elapsed_time(end)
+
+
+def engines_phase(ell, se, dev, topo, masks, gres, gone, oracle, compute_ref, n_atoms) -> dict:
+    """Phase 3j: the fused, packed and hybrid engines on the k=90 fat tree.
+    (a) With the ELL counts at 0 each engine's backend runs a cold and
+    ENGINE_WARM_REPS warm compute_whatif (1024 lanes) and compute(), beside
+    seq's, timed (host clock and CUDA events); its own kernels must launch
+    (ell_fused_round in its layout; G1, G2 and M1 for hybrid) and G3 / G4
+    not; scenarios 0-7 and compute() equal the oracle, every scenario
+    seq's planes.  (b) Every ell_fused_round launch of a 64-lane and of a
+    1-lane fused dispatch, and the first and last at 1024 lanes, held to
+    fused_round_plain, each 1024-lane launch timed against its bound; the
+    hybrid dispatch at 64 lanes with every G1, G2 and M1 launch held, at
+    1024 lanes with M1's first and last launch held.  (c)
+    max_iters 2 and 5 on the card equal to the CPU path.  (d) The tuner
+    arm: 12 what-if and 12 compute() calls with the tuner armed, each equal
+    to seq's; its table saved and picked cold; a DeltaPath chain with the
+    depth cap from the tuned table."""
+    import tempfile
+
+    from holo_tpu_torch import pipeline
+    from holo_tpu_torch.ops import graph
+    from holo_tpu_torch.spf import synth
+    from holo_tpu_torch.spf.backend import TorchSpfBackend
+
+    t_phase = time.perf_counter()
+    x = {"times": {}, "launches": {}}
+    n = topo.n_vertices
+    own = {"fused": ("ell_fused_round",), "packed": ("ell_fused_round",),
+           "hybrid": ("ell_relax", "ell_first_parent", "ell_mp_round")}
+    # (a) the main path of each engine, counted; seq beside it, timed alike.
+    for engine in ("seq", *ENGINE_NAMES):
+        ell.reset_launches()
+        be = TorchSpfBackend(one_engine=engine, device=dev)
+        walls = {"whatif": [], "compute": []}
+        res = one = None
+        for _ in range(1 + ENGINE_WARM_REPS):
+            res, host, ev = timed_call(lambda: be.compute_whatif(topo, masks))
+            walls["whatif"].append((host, ev))
+            one, host, ev = timed_call(lambda: be.compute(topo))
+            walls["compute"].append((host, ev))
+        torch.cuda.synchronize()
+        got, moved = dict(ell.launches), dict(ell.fused_layouts)
+        x["launches"][engine] = got
+        x["times"][engine] = walls
+        if engine != "seq":
+            for name in own[engine]:
+                require(got[name] > 0, f"{engine}: kernel {name} never launched on its path")
+            require(got["ell_nh_seed"] == got["ell_nh_round"] == 0,
+                    f"{engine}: ell_nh_seed or ell_nh_round launched")
+            layout = {"fused": "planar", "packed": "interleaved"}.get(engine)
+            if layout:
+                require(moved[layout] == got["ell_fused_round"] and sum(moved.values())
+                        == moved[layout], f"{engine}: ell_fused_round ran another layout")
+            else:
+                require(got["ell_fused_round"] == 0, "hybrid launched ell_fused_round")
+        x.setdefault("backends", {})[engine] = be
+        require(len(res) == BATCH, f"{engine} batch size")
+        for b in range(ORACLE_SCENARIOS):
+            require(same_planes(res[b], oracle_result(oracle[b], n_atoms)),
+                    f"{engine} scenario {b} differs from the scalar oracle")
+        require(same_planes(one, oracle_result(compute_ref, n_atoms)),
+                f"{engine} compute() differs from the scalar oracle")
+        require(all(same_planes(a, b) for a, b in zip(res, gres)) and same_planes(one, gone),
+                f"{engine}: a scenario or compute() differs from seq's planes")
+        print(f"engine {engine}: launches {dict((k, v) for k, v in got.items() if v)} over "
+              f"{1 + ENGINE_WARM_REPS} compute_whatif + compute() calls; scenarios "
+              f"0-{ORACLE_SCENARIOS - 1} and compute() equal to the oracle, all {BATCH} "
+              f"scenarios and compute() equal to seq's planes", flush=True)
+        del res
+    x["fused_launches"] = sum(x["launches"][e]["ell_fused_round"] for e in ENGINE_NAMES)
+    x["layouts"] = {e: x["launches"][e]["ell_fused_round"] for e in ("fused", "packed")}
+    require(x["fused_launches"] > 0, "ell_fused_round never launched on the engines' paths")
+
+    # (b) the fused round held: every launch at 64 and 1 lanes, the ends at
+    # 1024 (each 1024-lane launch timed and its work counted).
+    eg = se.device_graph_from_ell(graph.build_ell(topo, n_atoms=n_atoms), dev)
+    x["hold"] = {}
+    for packed in (False, True):
+        for lanes in (BATCH, FUSED_HOLD_LANES, 1):
+            mask = se.pack_edge_masks(masks[:lanes], dev) if lanes > 1 else None
+            roots = torch.full((lanes,), topo.root, dtype=torch.int32, device=dev)
+            p = se.lane_planes(eg, mask)
+            hold = FusedHolder(ell, p, ends_only=lanes == BATCH)
+            with holding_fused(ell, hold):
+                out = se.fused_lanes(eg, roots, mask, packed)
+            torch.cuda.synchronize()
+            ref = se.spf_lanes(eg, roots, mask)
+            require(all(torch.equal(a, b) for a, b in zip(out, ref)),
+                    f"fused_lanes packed={packed} at {lanes} lanes differs from spf_lanes")
+            x["hold"][(packed, lanes)] = hold
+            print(f"kernel ell_fused_round {'interleaved' if packed else 'planar'} at {lanes} "
+                  f"lanes: {hold.held} of {len(hold.launch_ms)} launches held bit-identical to "
+                  f"fused_round_plain (max_abs_err {hold.err}); the dispatch equals spf_lanes",
+                  flush=True)
+            del out, ref
+    # Hybrid: at 64 lanes every G1, G2 and M1 launch held; at 1024 M1's
+    # first and last (its G1 and G2 launches there see the inputs of seq's,
+    # held every one in phase 2).
+    hmask = se.pack_edge_masks(masks[:FUSED_HOLD_LANES], dev)
+    hroots = torch.full((FUSED_HOLD_LANES,), topo.root, dtype=torch.int32, device=dev)
+    ghold, mhold = GatherHolder(), Holder(ell)
+    with holding_gather(ell, ghold), holding(ell, mhold):
+        hout = se.hybrid_lanes(eg, hroots, hmask)
+    torch.cuda.synchronize()
+    require(all(torch.equal(a, b) for a, b in zip(hout, se.spf_lanes(eg, hroots, hmask))),
+            f"hybrid_lanes differs from spf_lanes at {FUSED_HOLD_LANES} lanes")
+    require(ghold.held_count("ell_relax") > 0 and ghold.held_count("ell_first_parent") == 1
+            and mhold.held["ell_mp_round"] == mhold.mp_launches > 0,
+            "the hybrid dispatch missed a kernel or left a launch unheld")
+    del hout
+    hmask = se.pack_edge_masks(masks, dev)
+    hroots = torch.full((BATCH,), topo.root, dtype=torch.int32, device=dev)
+    bhold = Holder(ell, ends_only=True)
+    with holding(ell, bhold):
+        hout = se.hybrid_lanes(eg, hroots, hmask)
+    torch.cuda.synchronize()
+    require(all(torch.equal(a, b) for a, b in zip(hout, se.spf_lanes(eg, hroots, hmask))),
+            f"hybrid_lanes differs from spf_lanes at {BATCH} lanes")
+    require(bhold.held["ell_mp_round"] >= 2 and set(bhold.lanes) == {("ell_mp_round", BATCH, False)},
+            f"the first and last ell_mp_round launches at {BATCH} lanes were not held")
+    x["hybrid_err"] = max(max(ghold.err.values()), mhold.err["ell_mp_round"],
+                          bhold.err["ell_mp_round"])
+    print(f"hybrid at {FUSED_HOLD_LANES} lanes: every ell_relax ({ghold.held_count('ell_relax')}), "
+          f"ell_first_parent (1) and ell_mp_round ({mhold.held['ell_mp_round']}, no count "
+          f"planes) launch held to its plain version; at {BATCH} lanes ell_mp_round's first "
+          f"and last ({bhold.held['ell_mp_round']} of {bhold.mp_launches} launches held, no "
+          f"count planes, with the full round); max_abs_err {x['hybrid_err']}; both equal "
+          f"spf_lanes", flush=True)
+    del eg, hout, hmask
+
+    # (c) truncation: the card against the CPU path.
+    sub = masks[:ENGINE_LIMIT_SCENARIOS]
+    for engine in ENGINE_NAMES:
+        for mi in ENGINE_LIMITS:
+            card = TorchSpfBackend(one_engine=engine, max_iters=mi, incremental=False, device=dev)
+            cpu = TorchSpfBackend(one_engine=engine, max_iters=mi, incremental=False,
+                                  device="cpu")
+            got = card.compute_whatif(topo, sub) + [card.compute(topo)]
+            want = cpu.compute_whatif(topo, sub) + [cpu.compute(topo)]
+            require(all(same_planes(a, b) for a, b in zip(got, want)),
+                    f"{engine} at max_iters={mi} differs from the CPU path")
+    print(f"truncation: fused, packed and hybrid at max_iters {list(ENGINE_LIMITS)} on the card "
+          f"equal to the CPU path ({ENGINE_LIMIT_SCENARIOS} scenarios and compute())",
+          flush=True)
+
+    # (d) the tuner arm.
+    path = Path(tempfile.mkdtemp()) / "tuner.json"
+    tuner = pipeline.configure_engine_tuner(path=path, explore_rounds=2)
+    try:
+        tbe = TorchSpfBackend(device=dev)
+        for i in range(TUNER_CALLS):
+            res = tbe.compute_whatif(topo, masks)
+            require(all(same_planes(a, b) for a, b in zip(res, gres)) and len(res) == BATCH,
+                    f"tuned compute_whatif {i} differs from seq's planes")
+            del res
+        for i in range(TUNER_CALLS):
+            require(same_planes(tbe.compute(topo), gone), f"tuned compute() {i} differs from seq")
+        x["tuner_rows"] = tuner.ledger()
+        x["tuner_decisions"] = tuner.stats()["decisions"]
+        for row in x["tuner_rows"]:
+            picks = {f"{e}/{ph}": c for (k, e, ph), c in x["tuner_decisions"].items()
+                     if k == row["kind"]}
+            print(f"tuner bucket {row['kind']} {row['bucket']}: winner {row['winner']} "
+                  f"({row['basis']}); medians ms "
+                  f"{ {e: v['median_ms'] for e, v in row['engines'].items()} }; samples "
+                  f"{ {e: v['samples'] for e, v in row['engines'].items()} }; picks {picks}",
+                  flush=True)
+        require(tuner.save(), "the tuner table was not saved")
+        cold = pipeline.EngineTuner(path=path)
+        for kind, batch in (("whatif", BATCH), ("one", 1)):
+            bucket = pipeline.shape_bucket(n, topo.n_edges, batch, None)
+            require(cold.pick(kind, bucket) == tuner.current_winner(kind, bucket),
+                    f"a cold tuner picks another {kind} engine")
+        # The depth cap: full-rebuild walls (fresh clones), then a chain.
+        dbe = TorchSpfBackend(device=dev)
+        for t in [synth.clone_topology(topo) for _ in range(TUNER_REMARSHALS)]:
+            dbe.compute(t)
+        base = synth.clone_topology(topo)
+        dbe.compute(base)
+        chain = delta_chain(graph, synth, base, K)
+        for i, (label, t) in enumerate(chain):
+            paths = Counter(dbe.delta_paths)
+            res = dbe.compute(t)
+            paths = Counter(dbe.delta_paths) - paths
+            require(paths.get((graph.delta_kind(t.delta_base), "incremental")) == 1,
+                    f"tuned chain step {label} was not incremental: {dict(paths)}")
+            if i in (0, len(chain) - 1):
+                full = TorchSpfBackend(device=dev, incremental=False)
+                require(same_planes(res, full.compute(synth.clone_topology(t))),
+                        f"tuned chain step {label} differs from the full path")
+        bucket = pipeline.shape_bucket(n, topo.n_edges, 1, None)
+        cap = se.shared_graph_cache(dev)._depth_cap(topo)
+        arms = tuner.snapshot()["depth"].get(json.dumps(list(bucket)), {})
+        require(cap == tuner.max_delta_depth(bucket, default=256),
+                "the graph cache's depth cap is not the tuned one")
+        x["depth_cap"] = cap
+        print(f"tuner depth cap: {cap} (delta walls {len(arms.get('delta', []))}, full walls "
+              f"{len(arms.get('full', []))}; medians ms delta "
+              f"{1e3 * statistics.median(arms['delta']):.3f}, full "
+              f"{1e3 * statistics.median(arms['full']):.3f}); a cold tuner picks the saved "
+              f"winners", flush=True)
+    finally:
+        pipeline.reset_engine_tuner()
+
+    # Times: each engine's warm calls (medians) beside seq's, and the fused
+    # round a launch against its bound.
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    for engine, walls in x["times"].items():
+        med = {kind: (statistics.median(h for h, _ in w[1:]), statistics.median(e for _, e in w[1:]),
+                      w[0][0]) for kind, w in walls.items()}
+        x["times"][engine] = med
+        print(f"time engine {engine}: compute_whatif {med['whatif'][0]:.3f} ms host clock, "
+              f"{med['whatif'][1]:.3f} ms between CUDA events (median of {ENGINE_WARM_REPS} warm; "
+              f"cold {med['whatif'][2]:.3f} ms); compute() {med['compute'][0]:.3f} ms host, "
+              f"{med['compute'][1]:.3f} ms events (cold {med['compute'][2]:.3f} ms); {smi}",
+              flush=True)
+    x["row"] = {}
+    for packed, layout in ((False, "planar"), (True, "interleaved")):
+        big, small = x["hold"][(packed, BATCH)], x["hold"][(packed, 1)]
+        ops = sum(w["ops"] for w in big.work)
+        byts = sum(w["bytes"] for w in big.work)
+        row = {
+            "ms": statistics.mean(big.launch_ms), "dispatch_ms": sum(big.launch_ms),
+            "launch_ms": big.launch_ms, "plain_ms": statistics.mean(big.plain_ms),
+            "bound_ms": statistics.mean(w["bound"][0] for w in big.work),
+            "bound_by": bound(ops, byts)[1], "launch_bound_ms": [w["bound"][0] for w in big.work],
+            "ms_b1": statistics.mean(small.launch_ms), "plain_ms_b1": statistics.mean(small.plain_ms),
+            "bound_ms_b1": statistics.mean(w["bound"][0] for w in small.work),
+            "launches_b1": len(small.launch_ms),
+            "max_abs_err": max(h.err for (pk, _), h in x["hold"].items() if pk == packed),
+        }
+        x["row"][layout] = row
+        print(f"time ell_fused_round {layout}: {row['ms']:.3f} ms a launch at B={BATCH} (mean of "
+              f"{len(big.launch_ms)}, CUDA events: {[round(t, 3) for t in big.launch_ms]}), "
+              f"dispatch {row['dispatch_ms']:.3f} ms; bound {row['bound_ms']:.4f} ms a launch by "
+              f"{row['bound_by']} ({[round(b, 4) for b in row['launch_bound_ms']]}; {ops} "
+              f"operations, {byts} bytes over the dispatch); plain {row['plain_ms']:.3f} ms; at "
+              f"B=1 {row['ms_b1']:.4f} ms a launch (host launch included, {row['launches_b1']} "
+              f"launches), bound {row['bound_ms_b1']:.5f} ms, plain {row['plain_ms_b1']:.3f} ms; "
+              f"{smi}", flush=True)
+    x["phase_s"] = time.perf_counter() - t_phase
+    print(f"engines phase checked in {x['phase_s']:.1f} s", flush=True)
+    return x
+
+
+def oracle_result(ref, n_atoms: int):
+    """The oracle's planes under SpfResult's field names."""
+    return type("Ref", (), {"dist": ref.dist, "parent": ref.parent, "hops": ref.hops,
+                            "nexthop_words": ref.nexthop_words(n_atoms)})
+
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device available")
@@ -2042,6 +2452,7 @@ def main() -> None:
     from holo_tpu_torch.spf import synth
     from holo_tpu_torch.spf.synth import fat_tree_topology, whatif_link_failure_masks
 
+    t_start = time.perf_counter()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
 
@@ -2398,6 +2809,9 @@ def main() -> None:
     # -- 3i. the BGP table: the engine path, the full-table fold, UPDATE rounds
     bx = bgp_phase()
 
+    # -- 3j. the fused, packed and hybrid engines, the fused round, the tuner
+    jx = engines_phase(ell, se, dev, topo, masks, gres, gone, oracle, compute_ref, n_atoms)
+
     # -- 4. timing (the profiler last: once it has run, host launches are
     # slower, which the host-clock times below would count)
     for name, (card, *_rest) in calls.items():
@@ -2422,6 +2836,12 @@ def main() -> None:
     g_mr_ms = host_ms(lambda: gbe.compute_multiroot(topo, mr_roots), BATCH_REPS)
     g_pack_ms = host_ms(lambda: se.pack_edge_masks(masks, dev), BATCH_REPS)
     g_spf_ms = host_ms(lambda: se.spf_lanes(eg, lane_roots, mask_w), BATCH_REPS)
+    # The engines' lane programs at 1024 lanes (phase 3j's engines).
+    t_j = time.perf_counter()
+    j_prog = {e: (lambda e=e: se.LANE_ENGINES[e](eg, lane_roots, mask_w))
+              for e in ("seq", *ENGINE_NAMES)}
+    j_prog_ms = {e: host_ms(prog, BATCH_REPS) for e, prog in j_prog.items()}
+    j_phase4_s = time.perf_counter() - t_j
     # DeltaPath: delta-linked compute() calls, each toggling one link's
     # cost, against a re-marshal (fresh clones) and a cached call.
     chain_t = toggles(graph, synth, t_weight, K, DELTA_TOGGLES)
@@ -2540,6 +2960,10 @@ def main() -> None:
     busy_ms, top = device_busy(lambda: bspf.whatif_spf_blocked(g, fdst, fid))
     compute_busy_ms, compute_top = device_busy(lambda: be.compute(topo))
     g_busy_ms, g_top = device_busy(lambda: se.spf_lanes(eg, lane_roots, mask_w))
+    t_j = time.perf_counter()
+    j_busy = {e: (device_busy(prog), device_busy(lambda e=e: jx["backends"][e].compute(topo)))
+              for e, prog in j_prog.items()}
+    j_phase4_s += time.perf_counter() - t_j
     g_compute_busy_ms, g_compute_top = device_busy(lambda: gbe.compute(topo))
     incr_busy_ms, incr_top = device_busy(lambda: se.spf_one_incremental(*last_in))
     m_rows["ell_parent_sets"]["device_ms_b1"] = device_ms_per_call(
@@ -2655,6 +3079,16 @@ def main() -> None:
     else:
         print("profile gather spf_lanes: the profiler saw no device time; "
               "idle share not measured", flush=True)
+    for e, ((busy_ms, top), (c_busy_ms, c_top)) in j_busy.items():
+        c_ms = jx["times"][e]["compute"][0]
+        print(f"profile engine {e}: lane program at B={BATCH} {j_prog_ms[e]:.3f} ms host clock "
+              f"(median of {BATCH_REPS}), device busy {busy_ms:.3f} ms (idle share "
+              f"{1 - busy_ms / j_prog_ms[e]:.3f}); top device ops: {top}; compute() device busy "
+              f"{c_busy_ms:.3f} ms of {c_ms:.3f} ms (phase 3j's median; idle share "
+              f"{1 - c_busy_ms / c_ms:.3f}); top device ops: {c_top}", flush=True)
+    print(f"engines' share of the script: phase 3j {jx['phase_s']:.1f} s + its phase-4 "
+          f"timings and profiles {j_phase4_s:.1f} s = {jx['phase_s'] + j_phase4_s:.1f} s",
+          flush=True)
     print(f"time gather compute delta: {d_delta_ms:.3f} ms (median of {DELTA_TOGGLES} "
           f"delta-linked compute() calls toggling one link's cost; "
           f"{[round(t, 3) for t in delta_times]})", flush=True)
@@ -2850,6 +3284,22 @@ def main() -> None:
         "bound_ms_update": ub[0], "device_ms_update": bx["update_device_ms"],
         "update_round_p99_ms": bx["update_p99_ms"],
     })
+    jr = jx["row"]
+    kernel_rows.append({
+        "name": "ell_fused_round", "route": "cuda", "source": FUSED_SOURCE,
+        "replaces": FUSED_REPLACES, "launches": jx["fused_launches"],
+        "max_abs_err": max(jr["planar"]["max_abs_err"], jr["interleaved"]["max_abs_err"]),
+        "ms": jr["planar"]["ms"], "plain_ms": jr["planar"]["plain_ms"],
+        "bound_ms": jr["planar"]["bound_ms"], "bound_by": jr["planar"]["bound_by"],
+        "library_ms": None, "launches_planar": jx["layouts"]["fused"],
+        "launches_interleaved": jx["layouts"]["packed"],
+        **{f"{key}_interleaved": jr["interleaved"][key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "ms_b1", "plain_ms_b1", "bound_ms_b1",
+            "dispatch_ms")},
+        **{key: jr["planar"][key] for key in ("ms_b1", "plain_ms_b1", "bound_ms_b1",
+                                              "dispatch_ms", "launch_ms", "launch_bound_ms")},
+        "engine_ms": jx["times"],
+    })
     # (e) every dispatch of the run ran on the card: every breaker the run
     # built (every SPF backend, FRR engine and BGP table and rank backend)
     # counted no failure, fallback or refusal.
@@ -2863,6 +3313,7 @@ def main() -> None:
           flush=True)
     print(json.dumps({"kernels": kernel_rows}), flush=True)
     print(smi, flush=True)
+    print(f"chip_smoke wall: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

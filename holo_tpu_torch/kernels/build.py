@@ -1,7 +1,8 @@
 """Build and bind the port's CUDA kernels (nvcc -> shared library -> ctypes).
 
 The sources under ``holo_tpu_torch/csrc/`` (the blocked engine's kernels,
-the gather engine's and its multipath kernels, the BGP table's fold) are compiled at first use for
+the gather engine's, its multipath kernels and its fused round, the BGP
+table's fold) are compiled at first use for
 ``sm_90a``, one ``nvcc`` per source, all started together, and linked into
 one library in ``holo_tpu_torch/build/`` (listed in ``.gitignore``), named
 by a hash of the sources so an edit rebuilds it.  Each C entry point takes ``void*``
@@ -30,7 +31,8 @@ import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = (_PKG / "csrc" / "blocked_kernels.cu", _PKG / "csrc" / "ell_kernels.cu",
-           _PKG / "csrc" / "mp_kernels.cu", _PKG / "csrc" / "bgp_kernels.cu")
+           _PKG / "csrc" / "mp_kernels.cu", _PKG / "csrc" / "bgp_kernels.cu",
+           _PKG / "csrc" / "fused_kernels.cu")
 BUILD_DIR = _PKG / "build"
 CUDA_HOME = "/usr/local/cuda"  # where nvcc is looked for after $CUDA_HOME
 NVCC_FLAGS = (
@@ -53,6 +55,7 @@ SIGNATURES = {
     "holo_ell_mp_round": (*[_P] * 18, _I, _I, _I, _I, _P),
     "holo_ell_parent_sets": (*[_P] * 10, _I, _I, _I, _I, _P),
     "holo_ell_parent_weights": (*[_P] * 3, _I, _I, _I, _P),
+    "holo_ell_fused_round": (*[_P] * 15, *[_I] * 5, _P),
     "holo_bgp_fold": (*[_P] * 12, *[_I] * 9, _P),
     "holo_bgp_fold_smem": (_I,) * 5,
 }

@@ -9,7 +9,9 @@ path counts and per-atom weights over two ping-pong state buffers (without
 the last two planes it is the hops + next-hop round of the incremental
 path), and :func:`ell_parent_sets`, the first parent, the DAG bits and the
 parent sets from one walk, and :func:`ell_parent_weights`, the sets' path
-counts once the fixpoint has them.  In the JAX package
+counts once the fixpoint has them; and one over ``csrc/fused_kernels.cu``,
+:func:`ell_fused_round`, one Jacobi round of the ``fused`` / ``packed``
+engines (every quantity recomputed from one state).  In the JAX package
 each step is an XLA loop fusion, not a Pallas kernel: the source files
 name the lines each one stands for.  A wrapper given CPU tensors
 computes the plain version; given CUDA tensors it launches the kernel on the
@@ -62,12 +64,16 @@ _TEMP = 1 << 26  # elements of the largest [N, K, lanes] temporary of a plain ve
 
 #: kernel launches per wrapper since the last :func:`reset_launches`
 launches = {"ell_relax": 0, "ell_first_parent": 0, "ell_nh_seed": 0, "ell_nh_round": 0,
-            "ell_mp_round": 0, "ell_parent_sets": 0, "ell_parent_weights": 0}
+            "ell_mp_round": 0, "ell_parent_sets": 0, "ell_parent_weights": 0,
+            "ell_fused_round": 0}
+#: ``ell_fused_round`` launches by state layout (their sum is its count above)
+fused_layouts = {"planar": 0, "interleaved": 0}
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    for counts in (launches, fused_layouts):
+        for name in counts:
+            counts[name] = 0
 
 
 def mask_words(lanes: int) -> int:
@@ -421,6 +427,76 @@ def parent_weights_plain(parents, npaths):
     return torch.gather(ext, 0, parents.reshape(n * kp, lanes).long()).reshape(n, kp, lanes)
 
 
+def fused_planes(state):
+    """(dist [N, B], hops [N, B], nh [N, W, B]) of a fused state: the planar
+    tuple itself, or views of an interleaved [N, B, 2 + W] plane."""
+    if torch.is_tensor(state):
+        return state[:, :, 0], state[:, :, 1], state[:, :, 2:].permute(0, 2, 1)
+    return state
+
+
+def fused_state(dist, hops, nh, packed: bool):
+    """The fused state of the three planes: the planar tuple, or (``packed``)
+    one contiguous interleaved [N, B, 2 + W] plane."""
+    if not packed:
+        return dist, hops, nh
+    return torch.cat([dist[:, :, None], hops[:, :, None], nh.permute(0, 2, 1)], 2).contiguous()
+
+
+def fused_round_plain(src, cost, slot, mask, direct, inc, roots, state):
+    """One Jacobi round of ``spf_one_fused`` (``round_fn``) for every lane:
+    (new state in the layout of ``state``, parent [N, B], changed int32 [1]).
+
+    ``state`` is (dist, hops, nh [N, W, B]) or one interleaved [N, B, 2 + W]
+    plane (:func:`fused_planes`).  From the old planes:
+
+    - dist' = min(dist, min over usable slots with dist[src] < INF of
+      dist[src] + cost);
+    - the DAG: those slots with dist' < INF and dist[src] + cost == dist'
+      (the new distance, the old neighbour), v not the lane's root;
+    - parent: the DAG slot's source minimizing (dist[src], src), N if none;
+    - hops' (recomputed): 0 at the root, hops[parent] + ``inc`` where the
+      parent exists and hops[parent] < N + 1, N + 1 elsewhere;
+    - next-hop words: per word the OR over the DAG slots of the slot's
+      direct word where the source's old hops is 0 and of the source's old
+      word elsewhere (``_nh_words_round``).
+
+    ``changed`` is set where dist', hops' or a word differs from the state."""
+    dist, hops, nh = fused_planes(state)
+    n, k = src.shape
+    lanes = dist.shape[1]
+    big = n + 1
+    dev = src.device
+    s = src.long()
+    is_root = torch.arange(n, device=dev)[:, None] == roots.long()[None, :]
+    ext = torch.cat([hops, hops.new_full((1, lanes), big)])
+    dist_new, parent = torch.empty_like(dist), torch.empty_like(dist)
+    nh_new = torch.empty((n, nh.shape[1], lanes), dtype=torch.int32, device=dev)
+    for sl in lane_chunks(n, k, lanes):
+        d_nbr = dist[:, sl][s]
+        h_nbr = hops[:, sl][s]
+        usable = _usable(slot, mask, sl) & (d_nbr < INF)
+        cand = d_nbr + cost[:, :, None]
+        dn = torch.minimum(dist[:, sl], torch.where(usable, cand, INF).amin(1))
+        dag = (usable & (dn < INF)[:, None, :] & (cand == dn[:, None, :])
+               & ~is_root[:, None, sl])
+        dmin = torch.where(dag, d_nbr, INF).amin(1)
+        parent[:, sl] = torch.where(dag & (d_nbr == dmin[:, None, :]), src[:, :, None], n).amin(1)
+        dist_new[:, sl] = dn
+        direct_slot = dag & (h_nbr == 0)
+        inherit_slot = dag & (h_nbr != 0)
+        for w in range(nh.shape[1]):
+            take = torch.where(direct_slot, direct[:, :, w, None],
+                               torch.where(inherit_slot, nh[:, w, sl][s], 0))
+            nh_new[:, w, sl] = or_reduce(take, 1)
+    ph = torch.gather(ext, 0, parent.long())
+    hops_new = torch.where(is_root, 0, torch.where((parent < n) & (ph < big),
+                                                   ph + inc[:, None], big)).to(torch.int32)
+    moved = (dist_new != dist) | (hops_new != hops) | (nh_new != nh).any(1)
+    new = fused_state(dist_new, hops_new, nh_new, torch.is_tensor(state))
+    return new, parent, moved.any().to(torch.int32).reshape(1)
+
+
 # ---------------------------------------------------------------------------
 # Wrappers: CPU tensors -> plain version; CUDA tensors -> the kernel.
 
@@ -594,3 +670,50 @@ def ell_parent_weights(parents, npaths):
     pweight = torch.empty_like(parents)
     _launch("ell_parent_weights", parents, npaths, pweight, n, kp, lanes)
     return pweight
+
+
+def ell_fused_round(src, cost, slot, mask, direct, inc, roots, state, out=None):
+    """(new state, parent [N, B], changed int32 [1]): one round of the fused
+    fixpoint (``round_fn`` of ``spf_one_fused``,
+    ``holo_tpu/ops/spf_engine.py:1071-1106``), see :func:`fused_round_plain`.
+    ``state`` is planar, (dist [N, B], hops [N, B], nh [N, W, B]) (the
+    ``fused`` engine), or one interleaved [N, B, 2 + W] plane (``packed``);
+    ``direct`` [N, K, W], ``inc`` [N] (1 at a router), ``roots`` [B].  On the
+    card the kernel writes the new state into ``out`` (the state's layout
+    and shapes, another buffer: the fixpoint loop ping-pongs two), allocated when
+    None; on the CPU ``out`` is not used."""
+    packed = torch.is_tensor(state)
+    planes = (state,) if packed else tuple(state)
+    outs = None if out is None else ((out,) if packed else tuple(out))
+    if not build.on_card(src, cost, slot, mask, direct, inc, roots, *planes, *(outs or ())):
+        return fused_round_plain(src, cost, slot, mask, direct, inc, roots, state)
+    n, k = src.shape
+    dist, hops, nh = fused_planes(state)
+    lanes = dist.shape[1]
+    words = direct.shape[2] if direct.dim() == 3 else -1
+    _check_planes(src, cost, slot, mask, lanes, roots=roots)
+    bad = direct.shape != (n, k, words) or inc.shape != (n,)
+    if packed:
+        bad |= state.shape != (n, lanes, 2 + words)
+    else:
+        bad |= len(planes) != 3 or hops.shape != (n, lanes) or nh.shape != (n, words, lanes)
+        bad |= dist.shape != (n, lanes)
+    if outs is None:
+        outs = tuple(torch.empty_like(x) for x in planes)
+    bad |= len(outs) != len(planes) or any(o.shape != x.shape for o, x in zip(outs, planes))
+    bad |= any(o.data_ptr() == x.data_ptr() for o, x in zip(outs, planes))
+    if bad:
+        raise ValueError(
+            f"fused_round planes disagree: src {tuple(src.shape)}, direct "
+            f"{tuple(direct.shape)}, inc {tuple(inc.shape)}, state "
+            f"{[tuple(x.shape) for x in planes]}, out {[tuple(o.shape) for o in outs]} "
+            f"(out must be another buffer of the state's shapes)"
+        )
+    parent = torch.empty((n, lanes), dtype=torch.int32, device=src.device)
+    changed = torch.zeros(1, dtype=torch.int32, device=src.device)
+    ins = (state, None, None) if packed else planes
+    dests = (outs[0], None, None) if packed else outs
+    _launch("ell_fused_round", src, cost, slot, mask, direct, inc, roots, *ins, *dests, parent,
+            changed, n, k, lanes, words, int(packed))
+    fused_layouts["interleaved" if packed else "planar"] += 1
+    return (outs[0] if packed else outs), parent, changed

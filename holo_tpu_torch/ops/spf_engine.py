@@ -29,6 +29,19 @@ stop where JAX's do; each round recomputes only the rows whose DAG
 sources changed in the round before), then the parent weights
 (``ell_parent_weights``, one gather of the path counts).
 
+The other formulations of ``spf_one`` (``one_engine`` and the engine tuner
+pick among them; all four agree at the fixpoint, and each follows its JAX
+counterpart round for round under ``max_iters``):
+
+- ``fused`` / ``packed`` (``spf_one_fused``, :func:`fused_lanes`): one
+  Jacobi loop of ``ell_fused_round``, which recomputes dist, the DAG, the
+  parent, hops and the next-hop words every round from one state (three
+  planes, or one interleaved [N, B, 2 + W] plane for ``packed``), at most
+  3N + 6 rounds;
+- ``hybrid`` (``spf_one_hybrid``, :func:`hybrid_lanes`): step 1, then
+  ``ell_first_parent`` once, then the joint hops + next-hop fixpoint
+  (``ell_mp_round`` without the count and weight planes) from fresh seeds.
+
 ``torch.vmap`` cannot carry the data-dependent loops, so one program runs
 every lane at once, with the lanes on the minor axis of [N, B] planes (the
 reverse of JAX's [B, N]); the public functions return JAX's layout.  Each
@@ -64,6 +77,7 @@ from holo_tpu_torch.ops.graph import (
     delta_seed_rows,
     topology_namespace,
 )
+from holo_tpu_torch.pipeline.tuner import active_tuner, shape_bucket
 
 INF = int(_INF)
 
@@ -267,6 +281,69 @@ def spf_lanes(g: DeviceGraph, roots: torch.Tensor, mask, max_iters=None, nexthop
     return dist, parent, torch.where(dist < INF, hops, n + 1), nh
 
 
+def fused_lanes(g: DeviceGraph, roots: torch.Tensor, mask, packed: bool = False,
+                max_iters=None):
+    """The lane-batched ``spf_one_fused``: (dist, parent, hops [N, B],
+    nexthops [N, W, B]), lane b rooted at ``roots[b]`` under mask bit b.
+
+    One loop of ``ell_fused_round`` over two state buffers (three planes, or
+    with ``packed`` one interleaved [N, B, 2 + W] plane), from dist 0 / hops
+    0 at the root (INF / N + 1 elsewhere), next hops 0 and the sentinel
+    parent N, for at most 3N + 6 rounds (``max_iters`` if given), stopping
+    after a round that changed nothing.  One changed flag over all lanes is
+    exact: a round maps a fixpoint to itself, so a converged lane that runs
+    on keeps its values, as under JAX's vmapped ``while_loop``."""
+    n = g.in_src.shape[0]
+    words = g.direct_nh_words.shape[2]
+    limit = 3 * n + 6 if max_iters is None else max_iters
+    p = lane_planes(g, mask)
+    lanes = roots.shape[0]
+    dev = roots.device
+    at_root = torch.arange(n, device=dev)[:, None] == roots.long()[None, :]
+    dist = torch.where(at_root, 0, INF).to(torch.int32)
+    hops = torch.where(at_root, 0, n + 1).to(torch.int32)
+    nh = torch.zeros((n, words, lanes), dtype=torch.int32, device=dev)
+    state = ell.fused_state(dist, hops, nh, packed)
+    spare = None
+    parent = torch.full((n, lanes), n, dtype=torch.int32, device=dev)
+    inc = g.is_router.to(torch.int32)
+    for _ in range(limit):
+        new, parent, changed = ell.ell_fused_round(*p, g.direct_nh_words, inc, roots, state,
+                                                   spare)
+        state, spare = new, state
+        if not bool(changed):
+            break
+    dist, hops, nh = ell.fused_planes(state)
+    return (dist.contiguous(), parent, torch.where(dist < INF, hops, n + 1),
+            nh.contiguous())
+
+
+def hybrid_lanes(g: DeviceGraph, roots: torch.Tensor, mask, max_iters=None):
+    """The lane-batched ``spf_one_hybrid``: the distance fixpoint (G1), the
+    DAG bits and first parent once (G2), then the joint hops + next-hop
+    fixpoint (``_hops_nh_fixpoint``: M1 without the count and weight planes)
+    from fresh seeds, each loop limited to N rounds (``max_iters``)."""
+    n = g.in_src.shape[0]
+    limit = n if max_iters is None else max_iters
+    p = lane_planes(g, mask)
+    dist = distance_fixpoint(p, roots, limit)
+    parent, dag = ell.ell_first_parent(*p, dist, roots)
+    start = mp_start(n, g.direct_nh_words.shape[2], roots, counts=False)
+    (hops, nh, _, _), _ = mp_fixpoint(g, roots, dag, parent, *start, limit)
+    return dist, parent, torch.where(dist < INF, hops, n + 1), nh
+
+
+#: the lane programs of ``one_engine`` (``holo_tpu``'s ``_ONE_ENGINES``
+#: vmapped): (g, roots [B], mask bit words, max_iters) -> [N, B] planes
+LANE_ENGINES = {
+    "seq": spf_lanes,
+    "fused": fused_lanes,
+    "packed": lambda g, roots, mask, max_iters=None: fused_lanes(g, roots, mask, True,
+                                                                 max_iters),
+    "hybrid": hybrid_lanes,
+}
+
+
 def mp_fixpoint(g: DeviceGraph, roots, dag, parent, state, before, front, limit: int):
     """JAX's ``_mp_fixpoint`` for every lane: (planes, rounds) over the DAG
     bits ``dag`` [N, K, ceil(B / 32)] and the first parents [N, B].
@@ -291,28 +368,32 @@ def mp_fixpoint(g: DeviceGraph, roots, dag, parent, state, before, front, limit:
     return state, rounds
 
 
-def mp_start(n: int, words: int, roots: torch.Tensor):
+def mp_start(n: int, words: int, roots: torch.Tensor, counts: bool = True):
     """The fresh start of the joint fixpoint for lanes rooted at ``roots``
     [B]: (seeds, blank, frontier).  The seeds are hops 0 at the root and N +
     1 elsewhere, next hops [N, words, B] 0, npaths 1 at the root and 0
-    elsewhere, nh_weights [N, 32 words, B] 0; the blank planes (hops N + 1,
-    all else 0) are the round before them, which differs only at the roots,
-    and a round maps the blank planes to the seeds: the root has no DAG
-    slot, and a blank source offers nothing.  So the first frontier is the
-    roots."""
+    elsewhere, nh_weights [N, 32 words, B] 0 (without ``counts`` those two
+    are None: ``_hops_nh_fixpoint``'s fresh seeds); the blank planes (hops N
+    + 1, all else 0) are the round before them, which differs only at the
+    roots, and a round maps the blank planes to the seeds: the root has no
+    DAG slot, and a blank source offers nothing.  So the first frontier is
+    the roots."""
     lanes = roots.shape[0]
     dev = roots.device
     at_root = torch.arange(n, device=dev)[:, None] == roots.long()[None, :]
 
     def planes():
-        return (torch.full((n, lanes), n + 1, dtype=torch.int32, device=dev),
-                torch.zeros((n, words, lanes), dtype=torch.int32, device=dev),
-                torch.zeros((n, lanes), dtype=torch.int32, device=dev),
+        hops = torch.full((n, lanes), n + 1, dtype=torch.int32, device=dev)
+        nh = torch.zeros((n, words, lanes), dtype=torch.int32, device=dev)
+        if not counts:
+            return hops, nh, None, None
+        return (hops, nh, torch.zeros((n, lanes), dtype=torch.int32, device=dev),
                 torch.zeros((n, 32 * words, lanes), dtype=torch.int32, device=dev))
 
     seeds = planes()
     seeds[0].masked_fill_(at_root, 0)
-    seeds[2].masked_fill_(at_root, 1)
+    if counts:
+        seeds[2].masked_fill_(at_root, 1)
     return seeds, planes(), ell.pack_lane_bits(at_root)
 
 
@@ -386,28 +467,62 @@ def first_parent(g: DeviceGraph, dist: torch.Tensor, root: int, edge_mask=None):
     return parent[:, 0]
 
 
-def spf_one(g: DeviceGraph, root: int, edge_mask=None, max_iters=None) -> SpfTensors:
-    """Full SPF: distances + first parent + hops + ECMP next-hop words."""
+def _one(lanes_fn, g: DeviceGraph, root: int, edge_mask, *args) -> SpfTensors:
+    """``lanes_fn(g, roots, mask, *args)`` at one lane, in JAX's layout."""
     dev = g.in_src.device
     mask = None if edge_mask is None else pack_edge_masks(np.asarray(edge_mask)[None], dev)
-    out = _batch_major(*spf_lanes(g, _roots(root, 1, dev), mask, max_iters))
+    out = _batch_major(*lanes_fn(g, _roots(root, 1, dev), mask, *args))
     return SpfTensors(*(x[0] for x in out))
+
+
+def spf_one(g: DeviceGraph, root: int, edge_mask=None, max_iters=None) -> SpfTensors:
+    """Full SPF: distances + first parent + hops + ECMP next-hop words."""
+    return _one(spf_lanes, g, root, edge_mask, max_iters)
+
+
+def spf_one_fused(g: DeviceGraph, root: int, edge_mask=None, max_iters=None,
+                  packed: bool = False) -> SpfTensors:
+    """Full SPF with every fixpoint in one Jacobi loop (:func:`fused_lanes`);
+    ``packed`` keeps the state as one interleaved plane."""
+    return _one(fused_lanes, g, root, edge_mask, packed, max_iters)
+
+
+def spf_one_hybrid(g: DeviceGraph, root: int, edge_mask=None, max_iters=None) -> SpfTensors:
+    """Full SPF in two loops, distances then hops + next hops
+    (:func:`hybrid_lanes`)."""
+    return _one(hybrid_lanes, g, root, edge_mask, max_iters)
+
+
+#: ``holo_tpu``'s ``_ONE_ENGINES``: one_engine -> the single-SPF function
+_ONE_ENGINES = {
+    "seq": spf_one,
+    "fused": spf_one_fused,
+    "packed": lambda g, r, m=None, mi=None: spf_one_fused(g, r, m, mi, packed=True),
+    "hybrid": spf_one_hybrid,
+}
+
+
+def lane_engine(engine: str):
+    """The lane program of ``engine``; raises naming the ROADMAP item of an
+    engine the port does not run yet."""
+    if engine not in LANE_ENGINES:
+        item = " (the tropical engine is ROADMAP queue A item 9)" if engine == "tropical" else ""
+        raise ValueError(f"one_engine {engine!r}: the port runs {sorted(LANE_ENGINES)}{item}")
+    return LANE_ENGINES[engine]
 
 
 def spf_whatif_batch(
     g: DeviceGraph, root: int, edge_masks, max_iters=None, engine: str = "seq"
 ) -> SpfTensors:
     """Batched what-if SPF over scenario edge masks (bool [B, E]): [B, N]
-    planes, next hops [B, N, W].  Mask *both* directions of a failed link."""
-    if engine != "seq":
-        raise ValueError(
-            f"one_engine {engine!r}: the port runs only 'seq' (the fused, packed "
-            f"and hybrid formulations are ROADMAP queue A item 6)"
-        )
+    planes, next hops [B, N, W].  Mask *both* directions of a failed link.
+    ``engine``: 'seq', 'fused', 'packed' or 'hybrid' (one lane program over
+    every scenario)."""
+    lanes_fn = lane_engine(engine)
     dev = g.in_src.device
     mask = pack_edge_masks(edge_masks, dev)
     batch = int(np.shape(edge_masks)[0])
-    return _batch_major(*spf_lanes(g, _roots(root, batch, dev), mask, max_iters))
+    return _batch_major(*lanes_fn(g, _roots(root, batch, dev), mask, max_iters=max_iters))
 
 
 def spf_one_multipath(g: DeviceGraph, root: int, kp: int, edge_mask=None, max_iters=None):
@@ -614,7 +729,8 @@ class DeviceGraphCache:
     place; the claimed entry leaves the cache under its old key and serves
     the new one.  Chains deeper than ``max_delta_depth``, padding or atom
     overflow, a missing edge, or an edge-mask consumer asking for an entry
-    with stale edge ids fall back to a full rebuild.  Each disposition
+    with stale edge ids fall back to a full rebuild.  With the engine tuner
+    armed the depth cap is its per-shape one (:meth:`_depth_cap`).  Each disposition
     counts in ``delta_paths[(kind, path)]`` (``holo_spf_delta_total``);
     each lookup in ``lookups[hit | delta | miss]``.
 
@@ -644,6 +760,17 @@ class DeviceGraphCache:
     @staticmethod
     def key(topo, n_atoms: int) -> tuple:
         return (*topology_namespace(topo), *topo.cache_key, int(n_atoms))
+
+    def _depth_cap(self, topo) -> int:
+        """The chain-depth cap of this topology's shape bucket: with the
+        engine tuner armed, derived from its measured delta and full walls
+        (``EngineTuner.max_delta_depth``), else ``max_delta_depth``, which
+        is also the tuner's default."""
+        t = active_tuner()
+        if t is None:
+            return self.max_delta_depth
+        return t.max_delta_depth(shape_bucket(topo.n_vertices, topo.n_edges, 1, None),
+                                 default=self.max_delta_depth)
 
     def get(self, topo, n_atoms: int, need_edge_ids: bool = False,
             allow_delta: bool = True) -> tuple[DeviceGraph, str]:
@@ -677,7 +804,7 @@ class DeviceGraphCache:
         base = self._cache.get(base_key)
         if base is None:
             path = "full-no-base"
-        elif base.depth + 1 > self.max_delta_depth:
+        elif base.depth + 1 > self._depth_cap(topo):
             path, base = "full-depth", None
         elif need_edge_ids and (base.ids_stale or not delta.ids_stable):
             path, base = "full-edge-ids", None

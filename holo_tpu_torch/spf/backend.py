@@ -7,8 +7,9 @@ host oracle; :class:`TorchSpfBackend` runs on the CUDA card, whose kernels
 are hand-written CUDA, with two engines:
 
 - ``engine="gather"`` (the default, as in ``holo_tpu``): the ELL fixpoints
-  of :mod:`holo_tpu_torch.ops.spf_engine` (``one_engine="seq"``), for any
-  topology;
+  of :mod:`holo_tpu_torch.ops.spf_engine`, for any topology, in one of four
+  bit-identical formulations, ``one_engine`` ``seq`` (the default),
+  ``fused``, ``packed`` or ``hybrid``;
 - ``engine="blocked"``: the block-sparse engine of
   :mod:`holo_tpu_torch.ops.blocked_spf`.  A topology outside its
   preconditions (parallel ``(src, dst)`` pairs, distances >= 2**27, more
@@ -41,6 +42,17 @@ kernel library that does not build and an input the kernels refuse
 re-raise uncounted (``resilience.breaker._PASSTHROUGH``): they are not
 device failures.  DeltaPath runs inside the guarded device path.
 
+The engine tuner (``holo_tpu_torch.pipeline.tuner``): while one is armed
+(``configure_engine_tuner``) every single-path gather ``compute`` and
+``compute_whatif`` runs the engine the tuner picks for its shape bucket and
+feeds it the dispatch's wall, as ``holo_tpu``'s backend does; the first
+dispatch of an (engine, shape) under an armed tuner in the process, which
+may build the kernel library, is not a sample (the counterpart of JAX's
+fresh-compile exclusion).
+Multipath dispatches run ``mp`` under buckets of their own.  The delta-linked
+and the re-marshaling ``compute()`` walls feed the DeltaPath depth cap, and a
+warm full partitioned solve the partitioned rows.  Multi-root stays ``seq``.
+
 Partitioned SPF (``partition_threshold``, as in ``holo_tpu``): ``compute``,
 ``compute_whatif`` and ``compute_partitioned`` of a topology with at least
 that many vertices run :class:`~holo_tpu_torch.ops.partition.PartitionedSpfEngine`
@@ -59,6 +71,7 @@ from __future__ import annotations
 
 import copy
 import itertools
+import time
 from collections import Counter
 from dataclasses import dataclass
 
@@ -78,6 +91,8 @@ from holo_tpu_torch.ops.graph import (
 )
 from holo_tpu_torch.ops.partition import PartitionedSpfEngine
 from holo_tpu_torch.ops.spf_engine import (
+    _ONE_ENGINES,
+    lane_engine,
     mp_pad,
     shared_graph_cache,
     spf_multipath_batch,
@@ -88,6 +103,7 @@ from holo_tpu_torch.ops.spf_engine import (
     spf_one_multipath,
     spf_whatif_batch,
 )
+from holo_tpu_torch.pipeline.tuner import active_tuner, shape_bucket
 from holo_tpu_torch.resilience.breaker import CircuitBreaker
 from holo_tpu_torch.spf.scalar import spf_multipath_reference, spf_reference
 
@@ -95,6 +111,9 @@ _CACHE_ENTRIES = 4
 # Namespaces of the backends' partitioned residents: never reused in a
 # process (an id() can be, after a collection).
 _PART_NS_IDS = itertools.count()
+# (kind, engine, device, shapes...) of every gather dispatch run in this
+# process while an engine tuner was armed: the first of each is no sample.
+_DISPATCHED: set = set()
 
 
 @dataclass
@@ -215,7 +234,8 @@ class TorchSpfBackend(SpfBackend):
     DeltaPath; ``prev_capacity`` bounds the kept previous runs, one per
     (topology, root) chain.  ``partition_threshold`` (None: never),
     ``partition_parts`` and ``partition_max_part`` arm and shape the
-    partitioned path (module docstring).
+    partitioned path (module docstring).  ``one_engine`` pins the
+    single-path formulation while no engine tuner is armed.
     """
 
     name = "torch"
@@ -236,11 +256,7 @@ class TorchSpfBackend(SpfBackend):
     ):
         if engine not in ("gather", "blocked"):
             raise ValueError(f"engine {engine!r}: the port runs 'gather' and 'blocked'")
-        if one_engine != "seq":
-            raise ValueError(
-                f"one_engine {one_engine!r}: the port runs only 'seq' (fused, packed "
-                f"and hybrid are ROADMAP queue A item 6, tropical item 9)"
-            )
+        lane_engine(one_engine)  # raises on an engine the port does not run
         self.engine = engine
         self.one_engine = one_engine
         self.device = resolve_device(device)
@@ -348,6 +364,7 @@ class TorchSpfBackend(SpfBackend):
         the resident (DeltaPath); otherwise the resident, marshaled again
         unless it serves this topology (its cut, and its edge ids for a
         mask), solves in full."""
+        t0 = time.perf_counter()
         eng = self._part_engine
         cache = shared_graph_cache(self.device)
         key = self._part_key(topo)
@@ -379,8 +396,15 @@ class TorchSpfBackend(SpfBackend):
                                               else {}))
         mp = {f: out[f] for f in ("parents", "pdist", "pweight", "npaths", "nh_weights")
               if f in out}
-        return SpfResult(dist=out["dist"], parent=out["parent"], hops=out["hops"],
-                         nexthop_words=out["nexthop_words"], **mp)
+        res = SpfResult(dist=out["dist"], parent=out["parent"], hops=out["hops"],
+                        nexthop_words=out["nexthop_words"], **mp)
+        t = active_tuner()
+        if t is not None and edge_mask is None and path == "full":
+            # Full solves on a warm resident only, as holo_tpu: a marshal,
+            # a delta re-solve or a masked solve is not comparable with the
+            # monolithic medians of the same bucket.
+            t.observe_partitioned(self._depth_bucket(topo, kp), time.perf_counter() - t0)
+        return res
 
     def _device_compute(self, topo, edge_mask, kp: int) -> SpfResult:
         if self.engine == "blocked" and kp == 1:
@@ -391,16 +415,74 @@ class TorchSpfBackend(SpfBackend):
             res = self._try_incremental(topo, kp)
             if res is not None:
                 return res
+        t0 = time.perf_counter()
+        engine, bucket = self._pick_engine("one", topo, kp=kp)
         # A scenario mask gathers through in_edge_id: an entry whose ids went
         # stale under a structural delta is rebuilt for it.
-        g = self.prepare(topo, need_edge_ids=edge_mask is not None)
+        g, how = self._gather_cache.get(topo, self._n_atoms(topo),
+                                        need_edge_ids=edge_mask is not None,
+                                        allow_delta=self.incremental)
+        first = self._first_use("one", engine, g, 1, kp, edge_mask is not None)
         if kp > 1:
             out = spf_one_multipath(g, topo.root, kp, edge_mask, self.max_iters)
         else:
-            out = spf_one(g, topo.root, edge_mask, self.max_iters)
+            one = spf_one if engine == "seq" else _ONE_ENGINES[engine]
+            out = one(g, topo.root, edge_mask, self.max_iters)
         if edge_mask is None and self.incremental:
             self._remember(topo, out, kp)
-        return self._result(out, topo.n_vertices, kp)
+        res = self._result(out, topo.n_vertices, kp)
+        seconds = time.perf_counter() - t0
+        if not first:
+            self._tuner_observe("one", bucket, engine, seconds)
+        if how == "miss" and edge_mask is None:
+            # A full re-marshal paid: the depth cap's "full" arm.
+            self._tuner_depth_observe(topo, "full", seconds, kp)
+        return res
+
+    def _pick_engine(self, kind: str, topo, batch: int = 1, kp: int = 1):
+        """(engine, shape bucket or None): the armed tuner's pick for this
+        dispatch's bucket, else the pinned ``one_engine`` (``mp`` at kp > 1)
+        and None, which feeds no tuner (``holo_tpu``'s ``_pick_engine``;
+        the blocked engine's backends feed none either)."""
+        t = active_tuner()
+        if t is None or self.engine == "blocked":
+            return ("mp" if kp > 1 else self.one_engine), None
+        bucket = shape_bucket(topo.n_vertices, topo.n_edges, batch, None, k=kp)
+        return t.pick(kind, bucket), bucket
+
+    @staticmethod
+    def _tuner_observe(kind: str, bucket, engine: str, seconds: float) -> None:
+        t = active_tuner()
+        if bucket is not None and t is not None:
+            t.observe(kind, bucket, engine, seconds)
+
+    @staticmethod
+    def _depth_bucket(topo, kp: int = 1) -> tuple:
+        """The DeltaPath depth bucket (kind one, batch 1, the width kp)."""
+        return shape_bucket(topo.n_vertices, topo.n_edges, 1, None, k=kp)
+
+    def _tuner_depth_observe(self, topo, arm: str, seconds: float, kp: int = 1) -> None:
+        """A delta-linked ("delta") or re-marshaling ("full") ``compute()``
+        wall, the depth cap's input."""
+        t = active_tuner()
+        if t is not None:
+            observe = t.observe_delta if arm == "delta" else t.observe_full
+            observe(self._depth_bucket(topo, kp), seconds)
+
+    def _first_use(self, kind: str, engine: str, g, *shape) -> bool:
+        """True for a dispatch that is no tuner sample: the first of its
+        (kind, engine, device, shapes) under an armed tuner in the process
+        (the one that may build the kernel library or first launch at the
+        shape: an nvcc build would outvote every steady wall).  Signatures
+        are kept only while a tuner is armed.  Call it before the dispatch
+        runs."""
+        if active_tuner() is None:
+            return True
+        sig = (kind, engine, str(g.in_src.device), *g.in_src.shape,
+               g.direct_nh_words.shape[2], *shape)
+        first = sig not in _DISPATCHED
+        _DISPATCHED.add(sig)
+        return first
 
     @staticmethod
     def _result(out, n: int, kp: int) -> SpfResult:
@@ -440,6 +522,7 @@ class TorchSpfBackend(SpfBackend):
         if prev_key not in self._prev_one:
             self.delta_paths[(kind, "full-no-prev")] += 1
             return None
+        t0 = time.perf_counter()
         g, how = self._gather_cache.get(topo, self._n_atoms(topo))
         if how == "miss":
             return None
@@ -454,7 +537,11 @@ class TorchSpfBackend(SpfBackend):
                                       self.delta_stats)
         self.delta_paths[(kind, "incremental")] += 1
         self._remember(topo, out, kp)
-        return self._result(out, topo.n_vertices, kp)
+        res = self._result(out, topo.n_vertices, kp)
+        # The depth cap's "delta" arm: the in-place update and the seeded
+        # recompute at this shape.
+        self._tuner_depth_observe(topo, "delta", time.perf_counter() - t0, kp)
+        return res
 
     def _device_whatif(self, topo, edge_masks, kp: int) -> list:
         masks = np.asarray(edge_masks, bool)
@@ -464,14 +551,19 @@ class TorchSpfBackend(SpfBackend):
             res = self._whatif_blocked(topo, masks)
             if res is not None:
                 return res
+        t0 = time.perf_counter()
+        engine, bucket = self._pick_engine("whatif", topo, len(masks), kp)
         g = self.prepare(topo, need_edge_ids=True)
+        first = self._first_use("whatif", engine, g, len(masks), kp, topo.n_edges)
         if kp > 1:
             sp, mp = spf_multipath_batch(g, topo.root, masks, kp, self.max_iters)
             mp = _host_mp(mp, topo.n_vertices)
         else:
-            sp = spf_whatif_batch(g, topo.root, masks, self.max_iters, self.one_engine)
+            sp = spf_whatif_batch(g, topo.root, masks, self.max_iters, engine)
             mp = {}
         dist, parent, hops, nh = _host_tensors(sp, topo.n_vertices)
+        if not first:
+            self._tuner_observe("whatif", bucket, engine, time.perf_counter() - t0)
         return [
             SpfResult(dist=dist[i], parent=parent[i], hops=hops[i], nexthop_words=nh[i],
                       **{f: x[i] for f, x in mp.items()})

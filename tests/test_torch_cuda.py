@@ -56,6 +56,14 @@ through a delta chain across gateway links, is held to the CPU path (its
 dispositions too) and the oracle; CspfEngine's batch on a k=12 fat tree is
 held to the CPU path.
 
+The fused, packed and hybrid engines: ell_fused_round in both layouts
+(planar and interleaved, with W = 2, and with W = 7, two chunks of
+next-hop words) is held bit-identical to fused_round_plain on every
+launch of a real fused dispatch (each launch's state as it ran) at 1, 8, 64
+and 1024 lanes on the fat tree, K 40 and 136 and the hops-0 networks graph;
+each engine's compute and compute_whatif on the card equal the CPU path, also
+under max_iters 0, 2 and 5, and an armed tuner's picks equal seq.
+
 BGP table: bgp_fold is held bit-identical to its plain version on the same
 CUDA tensors and to the CPU path at (M, C) from (1, 2) to (20,000, 64): C =
 32 and 64 (TMA bulk copies) and C = 2 and 17 (cp.async), C = 1024 (one row a
@@ -1059,3 +1067,114 @@ def test_bgp_backend_on_the_card_matches_the_oracle():
     st = backend.stats()
     assert st["fallbacks"] == 0 and st["tables"][cs.BGP_AFS]["poisoned"] == 0
     assert not backend.breaker.failures
+
+
+# ---------------------------------------------------------------------------
+# The fused, packed and hybrid engines.
+
+
+def _held_fused_dispatch(topo, lanes, dev, packed, n_atoms=64):
+    """One fused dispatch on the card, every ell_fused_round launch held to
+    fused_round_plain on the state it ran from (the dispatch's own
+    ping-pong): the number of launches."""
+    g = se.device_graph_from_ell(build_ell(topo, n_atoms=n_atoms), dev)
+    masks = _dark_masks(topo, lanes) if lanes > 1 else None
+    mask = None if masks is None else se.pack_edge_masks(masks, dev)
+    roots = torch.full((lanes,), topo.root, dtype=torch.int32, device=dev)
+    p = se.lane_planes(g, mask)
+    n = topo.n_vertices
+    at_root = torch.arange(n, device=dev)[:, None] == roots.long()[None, :]
+    state = ell.fused_state(torch.where(at_root, 0, INF).to(torch.int32),
+                            torch.where(at_root, 0, n + 1).to(torch.int32),
+                            torch.zeros((n, g.direct_nh_words.shape[2], lanes), dtype=torch.int32,
+                                        device=dev), packed)
+    inc = g.is_router.to(torch.int32)
+    spare, launches = None, 0
+    before = dict(ell.fused_layouts)
+    for _ in range(3 * n + 6):
+        got = ell.ell_fused_round(*p, g.direct_nh_words, inc, roots, state, spare)
+        want = ell.fused_round_plain(*p, g.direct_nh_words, inc, roots, state)
+        torch.cuda.synchronize()
+        launches += 1
+        for i, (a, b) in enumerate(zip(got, want)):
+            for x, y in zip((a,) if torch.is_tensor(a) else a, (b,) if torch.is_tensor(b) else b):
+                assert torch.equal(x, y), f"launch {launches} output {i}"
+        state, spare = got[0], state
+        if not bool(got[2]):
+            break
+    layout = "interleaved" if packed else "planar"
+    assert ell.fused_layouts[layout] - before[layout] == launches
+    return launches
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("lanes", [1, 8, 64, 1024])
+@pytest.mark.parametrize("shape", ["fat_tree_k8", "k40", "k130", "networks"])
+def test_fused_round_matches_plain(shape, lanes, packed):
+    dev = _card()
+    assert _held_fused_dispatch(_SHAPES[shape](), lanes, dev, packed) > 2
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("lanes", [1, 33])
+def test_fused_round_matches_plain_with_seven_words(lanes, packed):
+    dev = _card()
+    assert _held_fused_dispatch(_networks_topology(), lanes, dev, packed, n_atoms=200) > 2
+
+
+def test_fused_round_refuses_bad_planes():
+    dev = _card()
+    topo = synth.fat_tree_topology(k=4)
+    g = se.device_graph_from_ell(build_ell(topo, n_atoms=64), dev)
+    p = se.lane_planes(g, None)
+    n = topo.n_vertices
+    roots = torch.zeros(4, dtype=torch.int32, device=dev)
+    inc = g.is_router.to(torch.int32)
+    planes = (torch.zeros((n, 4), dtype=torch.int32, device=dev),
+              torch.zeros((n, 4), dtype=torch.int32, device=dev),
+              torch.zeros((n, 2, 4), dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError, match="another buffer"):
+        ell.ell_fused_round(*p, g.direct_nh_words, inc, roots, planes, planes)
+    with pytest.raises(ValueError, match="fused_round planes"):
+        ell.ell_fused_round(*p, g.direct_nh_words, inc, roots, planes[0][:, :, None].repeat(1, 1, 3))
+
+
+@pytest.mark.parametrize("engine", ["fused", "packed", "hybrid"])
+def test_engines_on_the_card_match_the_cpu_path(engine):
+    dev = _card()
+    topo = synth.random_ospf_topology(n_routers=260, n_networks=40, extra_p2p=400, seed=0)
+    masks = synth.whatif_link_failure_masks(topo, 40, seed=7)
+    for mi in (None, 0, 2, 5):
+        ell.reset_launches()
+        card = TorchSpfBackend(one_engine=engine, max_iters=mi, incremental=False)
+        cpu = TorchSpfBackend(one_engine=engine, max_iters=mi, incremental=False, device="cpu")
+        got = card.compute_whatif(topo, masks) + [card.compute(topo)]
+        want = cpu.compute_whatif(topo, masks) + [cpu.compute(topo)]
+        for i, (a, b) in enumerate(zip(got, want)):
+            _same_result(a, b, f"{engine} max_iters={mi} #{i}")
+        if mi != 0:
+            own = ("ell_fused_round",) if engine != "hybrid" else (
+                "ell_relax", "ell_first_parent", "ell_mp_round")
+            assert all(ell.launches[k] > 0 for k in own), ell.launches
+            assert ell.launches["ell_nh_seed"] == ell.launches["ell_nh_round"] == 0
+
+
+def test_tuned_backend_on_the_card_equals_seq(tmp_path):
+    from holo_tpu_torch import pipeline
+
+    dev = _card()
+    topo = synth.random_ospf_topology(n_routers=200, n_networks=30, extra_p2p=300, seed=3)
+    masks = synth.whatif_link_failure_masks(topo, 16, seed=2)
+    ref = TorchSpfBackend(device=dev)
+    want = ref.compute_whatif(topo, masks) + [ref.compute(topo)]
+    tuner = pipeline.configure_engine_tuner(path=tmp_path / "tuner.json", explore_rounds=1)
+    try:
+        be = TorchSpfBackend(device=dev)
+        for _ in range(6):
+            got = be.compute_whatif(topo, masks) + [be.compute(topo)]
+            for i, (a, b) in enumerate(zip(got, want)):
+                _same_result(a, b, f"tuned #{i}")
+        picked = {e for (_, e, _) in tuner.stats()["decisions"]}
+        assert picked == {"seq", "fused", "packed", "hybrid"}
+    finally:
+        pipeline.reset_engine_tuner()

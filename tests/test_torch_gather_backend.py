@@ -153,9 +153,13 @@ def test_multipath_raises():
     assert blocked.routed_to_gather == 0  # kp > 1 never tries the blocked planes
 
 
-@pytest.mark.parametrize("one_engine", ["fused", "packed", "hybrid", "tropical"])
+@pytest.mark.parametrize("one_engine", ["tropical", "mp", "mp_tropical", "gather"])
 def test_other_one_engines_raise(one_engine):
-    with pytest.raises(ValueError, match="queue A item"):
+    # seq, fused, packed and hybrid run (tests/test_torch_engines.py); the
+    # tropical engine is ROADMAP A9, and a multipath or engine name is no
+    # single-path formulation.
+    match = "queue A item 9" if one_engine == "tropical" else "the port runs"
+    with pytest.raises(ValueError, match=match):
         TorchSpfBackend(one_engine=one_engine, device="cpu")
 
 
