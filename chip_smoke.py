@@ -141,10 +141,14 @@ them, through ``compute_whatif`` and ``compute`` on the fat tree.  Phases:
    fused, the interleaved for packed; ``ell_relax``, ``ell_first_parent``
    and ``ell_mp_round`` for hybrid) and ``ell_nh_seed`` / ``ell_nh_round``
    not; scenarios 0-7 and ``compute()`` equal to the oracle, all 1024
-   scenarios to seq's planes; every ``ell_fused_round`` launch of a 64-lane
-   and a one-lane ``fused_lanes`` dispatch, and the first and last at 1024
-   lanes, held bit-identical to ``fused_round_plain`` (each 1024-lane launch
-   timed against its bound), each dispatch equal to ``spf_lanes``; every
+   scenarios to seq's planes; every ``ell_fused_round`` launch of a 64-, an
+   8- and a one-lane ``fused_lanes`` dispatch, and the first and last at 1024
+   lanes, held bit-identical to ``fused_round_plain`` in all four outputs
+   (the new state, the parent, the changed flag and the frontier; each launch
+   given its frontier and a clone of the carried parent), each 1024-lane
+   launch timed against its frontier bound and the full round's, with its
+   recomputed and copied (row, lane)s counted, the form, tiles a warp and
+   registers of each shape printed, each dispatch equal to ``spf_lanes``; every
    G1, G2 and M1 launch of a 64-lane ``hybrid_lanes`` held, and the first
    and last M1 launch of a 1024-lane one (its G1 and G2 launches see the
    inputs of seq's, held in phase 2); ``max_iters`` 2
@@ -2077,30 +2081,43 @@ def bgp_phase() -> dict:
     return x
 
 
-def _sectors(bits: torch.Tensor, lane_bytes: int) -> int:
-    """32-byte sectors that the set lanes of bool [N, K, lanes] read at
-    ``lane_bytes`` a lane, each (slot, 32-lane word) holding its set lanes
-    contiguous: the least a gather of them moves."""
-    lanes = bits.shape[-1]
-    pad = -lanes % 32
-    if pad:
-        bits = torch.nn.functional.pad(bits, (0, pad))
-    count = bits.reshape(*bits.shape[:-1], -1, 32).sum(-1, dtype=torch.int64)
-    return int(((count * lane_bytes + SECTOR_BYTES - 1) // SECTOR_BYTES).sum())
+def _gathered(flat: torch.Tensor, pairs: torch.Tensor, n: int) -> torch.Tensor:
+    """bool [N, chunk]: the (source, lane) entries that some set (slot,
+    lane) pair of bool ``pairs`` [N, K, chunk] gathers (``flat``: the slots'
+    sources, [N * K])."""
+    hits = torch.zeros((n, pairs.shape[2]), dtype=torch.int32, device=pairs.device)
+    hits.index_add_(0, flat, pairs.reshape(flat.numel(), -1).to(torch.int32))
+    return hits > 0
 
 
-def fused_work(ell, p, state, roots) -> dict:
-    """What one ell_fused_round launch from ``state`` must do: usable (slot,
-    lane) pairs with the source reached and the DAG pairs of the round; the
-    32-byte sectors its gathers must read (planar: the usable lanes' dist,
-    the DAG lanes' hops and words, a plane each; interleaved: the usable
-    lanes' 2 + W vectors); then its bound (``bound``: operations and bytes,
-    see FUSED_*_OPS and the kernel's note)."""
+def fused_work(ell, p, state, roots, frontier) -> dict:
+    """What one ell_fused_round launch from ``state`` under ``frontier``
+    must do, and its bounds: operations (FUSED_*_OPS) against the bytes the
+    function must move, each input byte read once and each output written
+    once, at the HBM rate.  That is a floor whatever share of the gathers L2
+    serves, and the same in both layouts (``bound``: under the frontier;
+    ``full_bound``: a full round, every (row, lane) recomputed).
+
+    Reads: src and slot of every slot, cost and inc of the rows with a lane
+    recomputed, the mask words of the (valid slot, word)s whose source's
+    frontier word or the row's recompute word is set, the frontier and the
+    roots; of the state, dist of the recomputed and copied (row, lane)s and
+    of the sources that a usable pair of a recomputed lane gathers, hops and
+    the words of the recomputed and copied (row, lane)s and of the sources
+    that a DAG pair gathers; the direct words of the DAG slots whose source
+    has hops 0.  Writes: the recomputed and copied (row, lane)s, the
+    recomputed ones' parents, the frontier.  The full round reads every mask
+    word of a valid slot and no frontier."""
     dist, hops, nh = ell.fused_planes(state)
     n, k = p.src.shape
     lanes, words = dist.shape[1], nh.shape[1]
     s = p.src.long()
+    flat = s.reshape(-1)
+    valid = p.slot >= 0
+    rec_w, copy_w = ell.fused_row_frontier(p.src, p.slot, p.mask, frontier)
     cnt = Counter()
+    direct = {pre: torch.zeros((n, k), dtype=torch.bool, device=s.device)
+              for pre in ("", "rec_")}
     for sl in ell.lane_chunks(n, k, lanes):
         d_nbr = dist[:, sl][s]
         usable = ell._usable(p.slot, p.mask, sl) & (d_nbr < INF)
@@ -2108,43 +2125,70 @@ def fused_work(ell, p, state, roots) -> dict:
         dn = torch.minimum(dist[:, sl], torch.where(usable, cand, INF).amin(1))
         not_root = torch.arange(n, device=dist.device)[:, None, None] != roots[sl][None, None, :]
         dag = usable & (dn < INF)[:, None, :] & (cand == dn[:, None, :]) & not_root
-        cnt["usable"] += int(usable.sum())
-        cnt["dag"] += int(dag.sum())
-        cnt["planar_sectors"] += _sectors(usable, 4) + (1 + words) * _sectors(dag, 4)
-        cnt["interleaved_sectors"] += _sectors(usable, (2 + words) * 4)
-        del d_nbr, usable, cand, dag
-    packed = torch.is_tensor(state)
-    state_bytes = n * lanes * (2 + words) * 4
-    fixed = 3 * p.src.numel() * 4 + (0 if p.mask is None else int((p.slot >= 0).sum())
-                                      * p.mask.shape[1] * 4)
-    gathers = SECTOR_BYTES * cnt["interleaved_sectors" if packed else "planar_sectors"]
-    cnt["bytes"] = fixed + 2 * state_bytes + n * lanes * 4 + gathers
-    cnt["ops"] = (FUSED_PAIR_OPS * cnt["usable"] + (FUSED_DAG_OPS + words) * cnt["dag"]
-                  + (FUSED_CELL_OPS + words) * n * lanes)
+        hop0 = dag & (hops[:, sl][s] == 0)
+        del d_nbr, cand, dn, not_root
+        rec = ell._unpack(rec_w, sl)
+        everyone = torch.ones_like(rec)
+        for pre, r, own in (("", everyone, everyone),
+                            ("rec_", rec, rec | ell._unpack(copy_w, sl))):
+            u, d = usable & r[:, None, :], dag & r[:, None, :]
+            cnt[pre + "usable"] += int(u.sum())
+            cnt[pre + "dag"] += int(d.sum())
+            cnt[pre + "dist_reads"] += int((own | _gathered(flat, u, n)).sum())
+            cnt[pre + "cell_reads"] += int((own | _gathered(flat, d, n)).sum())
+            direct[pre] |= (hop0 & r[:, None, :]).any(2)
+            del u, d
+        del usable, dag, hop0, rec, everyone
+    cnt["recomputed"] = int(ell._unpack(rec_w, slice(0, lanes)).sum())
+    cnt["copied"] = int(ell._unpack(copy_w, slice(0, lanes)).sum())
+    masked = {"": 0, "rec_": 0}  # mask words read
+    if p.mask is not None:
+        masked[""] = int(valid.sum()) * p.mask.shape[1]
+        need = (frontier[s] != 0) | (rec_w != 0)[:, None, :]
+        masked["rec_"] = int((need & valid[:, :, None]).sum())
+
+    def work(pre: str, entries: int, written: int, rows: int, front_bytes: int):
+        """(operations, bytes): ``entries`` (row, lane)s recomputed,
+        ``written`` written, in ``rows`` rows."""
+        ops = (FUSED_PAIR_OPS * cnt[pre + "usable"] + (FUSED_DAG_OPS + words) * cnt[pre + "dag"]
+               + (FUSED_CELL_OPS + words) * entries)
+        byte_count = (8 * n * k + 4 * rows * (k + 1) + 4 * masked[pre] + front_bytes + 4 * lanes
+                      + 4 * cnt[pre + "dist_reads"] + 4 * (1 + words) * cnt[pre + "cell_reads"]
+                      + 4 * words * int(direct[pre].sum()) + written * 4 * (2 + words)
+                      + 4 * entries)
+        return ops, byte_count
+
+    cnt["full_ops"], cnt["full_bytes"] = work("", n * lanes, n * lanes, n, 0)
+    cnt["ops"], cnt["bytes"] = work("rec_", cnt["recomputed"], cnt["recomputed"] + cnt["copied"],
+                                    int((rec_w != 0).any(1).sum()), 2 * frontier.numel() * 4)
+    cnt["full_bound"] = bound(cnt["full_ops"], cnt["full_bytes"])
     cnt["bound"] = bound(cnt["ops"], cnt["bytes"])
     return dict(cnt)
 
 
 class FusedHolder:
     """Within ``holding_fused()``, every ell_fused_round launch runs (and
-    counts) as before, timed by CUDA events, and its work is counted
-    (fused_work); every launch, or with ``ends_only`` the first and the one
-    that reports no change, is held at once bit-identical to
-    fused_round_plain on the same state (the kernel writes another
-    buffer)."""
+    counts) as before, given its frontier and a clone of the carried parent
+    plane, timed by CUDA events, its work is counted (fused_work) and what
+    the library launches on its planes is read (ell.fused_geometry); every
+    launch, or with ``ends_only`` the first and the one that reports no
+    change, is held at once bit-identical to fused_round_plain on the same
+    state in all four outputs (the kernel writes another buffer and the
+    clone)."""
 
     def __init__(self, ell, p, ends_only: bool = False):
         self.ell, self.p, self.ends_only = ell, p, ends_only
         self.err = 0
-        self.launch_ms, self.plain_ms, self.work = [], [], []
+        self.launch_ms, self.plain_ms, self.work, self.geometry = [], [], [], []
         self.held = 0
 
     def wrap(self, fn):
         ell = self.ell
 
-        def held_round(src, cost, slot, mask, direct, inc, roots, state, out=None):
+        def held_round(src, cost, slot, mask, direct, inc, roots, state, frontier, parent, out):
             args = (src, cost, slot, mask, direct, inc, roots)
-            got, ms = cuda_call(lambda: fn(*args, state, out))
+            self.geometry.append(ell.fused_geometry(state, out))
+            got, ms = cuda_call(lambda: fn(*args, state, frontier, parent.clone(), out))
             self.launch_ms.append(ms)
             last = not bool(got[2])
             if not self.ends_only or len(self.launch_ms) == 1 or last:
@@ -2155,7 +2199,7 @@ class FusedHolder:
                                               f"{len(self.launch_ms)}", flat(got), flat(want)))
                 self.plain_ms.append(plain_ms)
                 self.held += 1
-            self.work.append(fused_work(ell, self.p, state, roots))
+            self.work.append(fused_work(ell, self.p, state, roots, frontier))
             return got
 
         return held_round
@@ -2261,7 +2305,7 @@ def engines_phase(ell, se, dev, topo, masks, gres, gone, oracle, compute_ref, n_
     eg = se.device_graph_from_ell(graph.build_ell(topo, n_atoms=n_atoms), dev)
     x["hold"] = {}
     for packed in (False, True):
-        for lanes in (BATCH, FUSED_HOLD_LANES, 1):
+        for lanes in (BATCH, FUSED_HOLD_LANES, ell.SMALL, 1):
             mask = se.pack_edge_masks(masks[:lanes], dev) if lanes > 1 else None
             roots = torch.full((lanes,), topo.root, dtype=torch.int32, device=dev)
             p = se.lane_planes(eg, mask)
@@ -2272,11 +2316,27 @@ def engines_phase(ell, se, dev, topo, masks, gres, gone, oracle, compute_ref, n_
             ref = se.spf_lanes(eg, roots, mask)
             require(all(torch.equal(a, b) for a, b in zip(out, ref)),
                     f"fused_lanes packed={packed} at {lanes} lanes differs from spf_lanes")
+            require(hold.held == len(hold.launch_ms) or (lanes == BATCH and hold.held >= 2),
+                    f"ell_fused_round at {lanes} lanes: a launch was not held")
             x["hold"][(packed, lanes)] = hold
+            geo = hold.geometry[0]
+            require(all(g == geo for g in hold.geometry),
+                    f"ell_fused_round at {lanes} lanes: launches of one dispatch took different "
+                    f"forms {hold.geometry}")
+            x.setdefault("geometry", {})[(packed, lanes)] = geo
             print(f"kernel ell_fused_round {'interleaved' if packed else 'planar'} at {lanes} "
                   f"lanes: {hold.held} of {len(hold.launch_ms)} launches held bit-identical to "
-                  f"fused_round_plain (max_abs_err {hold.err}); the dispatch equals spf_lanes",
-                  flush=True)
+                  f"fused_round_plain in state, parent, changed and frontier (max_abs_err "
+                  f"{hold.err}); recomputed / copied (row, lane)s a launch "
+                  f"{[(w['recomputed'], w['copied']) for w in hold.work]}; {geo['form']} form, "
+                  f"{geo['tiles']} tiles a warp, int4 vector {geo['vec4']}, "
+                  f"{geo['registers']} registers; the dispatch equals spf_lanes", flush=True)
+            if lanes == 1:
+                fused_ms = lambda: sum(ms for name, ms in device_times(
+                    lambda: se.fused_lanes(eg, roots, mask, packed)).items()
+                    if "ell_fused" in name)
+                x.setdefault("device_b1", {})[packed] = statistics.median(
+                    fused_ms() for _ in range(3))
             del out, ref
     # Hybrid: at 64 lanes every G1, G2 and M1 launch held; at 1024 M1's
     # first and last (its G1 and G2 launches there see the inputs of seq's,
@@ -2405,25 +2465,37 @@ def engines_phase(ell, se, dev, topo, masks, gres, gone, oracle, compute_ref, n_
         big, small = x["hold"][(packed, BATCH)], x["hold"][(packed, 1)]
         ops = sum(w["ops"] for w in big.work)
         byts = sum(w["bytes"] for w in big.work)
+        geo, geo1 = x["geometry"][(packed, BATCH)], x["geometry"][(packed, 1)]
         row = {
             "ms": statistics.mean(big.launch_ms), "dispatch_ms": sum(big.launch_ms),
             "launch_ms": big.launch_ms, "plain_ms": statistics.mean(big.plain_ms),
             "bound_ms": statistics.mean(w["bound"][0] for w in big.work),
             "bound_by": bound(ops, byts)[1], "launch_bound_ms": [w["bound"][0] for w in big.work],
+            "dispatch_bound_ms": sum(w["bound"][0] for w in big.work),
+            "full_round_bound_ms": statistics.mean(w["full_bound"][0] for w in big.work),
+            "recomputed_entries": [w["recomputed"] for w in big.work],
+            "copied_entries": [w["copied"] for w in big.work],
             "ms_b1": statistics.mean(small.launch_ms), "plain_ms_b1": statistics.mean(small.plain_ms),
             "bound_ms_b1": statistics.mean(w["bound"][0] for w in small.work),
-            "launches_b1": len(small.launch_ms),
+            "full_round_bound_ms_b1": statistics.mean(w["full_bound"][0] for w in small.work),
+            "device_ms_b1": x["device_b1"][packed], "launches_b1": len(small.launch_ms),
+            "form": geo["form"], "tiles": geo["tiles"], "registers": geo["registers"],
+            "form_b1": geo1["form"], "registers_b1": geo1["registers"], "vec4_b1": geo1["vec4"],
             "max_abs_err": max(h.err for (pk, _), h in x["hold"].items() if pk == packed),
         }
         x["row"][layout] = row
         print(f"time ell_fused_round {layout}: {row['ms']:.3f} ms a launch at B={BATCH} (mean of "
               f"{len(big.launch_ms)}, CUDA events: {[round(t, 3) for t in big.launch_ms]}), "
-              f"dispatch {row['dispatch_ms']:.3f} ms; bound {row['bound_ms']:.4f} ms a launch by "
-              f"{row['bound_by']} ({[round(b, 4) for b in row['launch_bound_ms']]}; {ops} "
-              f"operations, {byts} bytes over the dispatch); plain {row['plain_ms']:.3f} ms; at "
-              f"B=1 {row['ms_b1']:.4f} ms a launch (host launch included, {row['launches_b1']} "
-              f"launches), bound {row['bound_ms_b1']:.5f} ms, plain {row['plain_ms_b1']:.3f} ms; "
-              f"{smi}", flush=True)
+              f"dispatch {row['dispatch_ms']:.3f} ms; frontier bound {row['bound_ms']:.4f} ms a "
+              f"launch by {row['bound_by']} ({[round(b, 4) for b in row['launch_bound_ms']]}; "
+              f"{ops} operations, {byts} bytes over the dispatch), full round "
+              f"{row['full_round_bound_ms']:.4f} ms; plain {row['plain_ms']:.3f} ms; {geo['form']} "
+              f"form, {geo['tiles']} tiles a warp, {geo['registers']} registers; at B=1 "
+              f"{row['ms_b1']:.4f} ms a launch (host launch included, {row['launches_b1']} "
+              f"launches), {row['device_ms_b1']:.4f} ms a dispatch on the device, frontier bound "
+              f"{row['bound_ms_b1']:.5f} ms (full round {row['full_round_bound_ms_b1']:.5f}), "
+              f"plain {row['plain_ms_b1']:.3f} ms, {geo1['form']} form, {geo1['registers']} "
+              f"registers, int4 vector {geo1['vec4']}; {smi}", flush=True)
     x["phase_s"] = time.perf_counter() - t_phase
     print(f"engines phase checked in {x['phase_s']:.1f} s", flush=True)
     return x
@@ -3295,9 +3367,14 @@ def main() -> None:
         "launches_interleaved": jx["layouts"]["packed"],
         **{f"{key}_interleaved": jr["interleaved"][key] for key in (
             "ms", "plain_ms", "bound_ms", "bound_by", "ms_b1", "plain_ms_b1", "bound_ms_b1",
-            "dispatch_ms")},
-        **{key: jr["planar"][key] for key in ("ms_b1", "plain_ms_b1", "bound_ms_b1",
-                                              "dispatch_ms", "launch_ms", "launch_bound_ms")},
+            "dispatch_ms", "dispatch_bound_ms", "full_round_bound_ms", "device_ms_b1",
+            "recomputed_entries", "copied_entries", "form", "tiles", "registers", "form_b1",
+            "registers_b1", "vec4_b1")},
+        **{key: jr["planar"][key] for key in (
+            "ms_b1", "plain_ms_b1", "bound_ms_b1", "dispatch_ms", "launch_ms", "launch_bound_ms",
+            "dispatch_bound_ms", "full_round_bound_ms", "full_round_bound_ms_b1", "device_ms_b1",
+            "recomputed_entries", "copied_entries", "form", "tiles", "registers", "form_b1",
+            "registers_b1")},
         "engine_ms": jx["times"],
     })
     # (e) every dispatch of the run ran on the card: every breaker the run

@@ -8,8 +8,9 @@ one library in ``holo_tpu_torch/build/`` (listed in ``.gitignore``), named
 by a hash of the sources so an edit rebuilds it.  Each C entry point takes ``void*``
 pointers (NULL for an absent plane), ``int`` sizes and the CUDA stream,
 launches on that stream and returns ``cudaGetLastError()``;
-``holo_bgp_fold_smem`` alone launches nothing and returns the fold's
-shared-memory bytes a block.
+``holo_bgp_fold_smem`` and ``holo_ell_fused_info`` launch nothing: the first
+returns the fold's shared-memory bytes a block, the second writes the fused
+round's launch geometry and register count.
 
 A library that cannot be built or loaded raises :class:`KernelBuildError`,
 which the dispatch breaker re-raises without counting it; a CUDA error at
@@ -55,7 +56,8 @@ SIGNATURES = {
     "holo_ell_mp_round": (*[_P] * 18, _I, _I, _I, _I, _P),
     "holo_ell_parent_sets": (*[_P] * 10, _I, _I, _I, _I, _P),
     "holo_ell_parent_weights": (*[_P] * 3, _I, _I, _I, _P),
-    "holo_ell_fused_round": (*[_P] * 15, *[_I] * 5, _P),
+    "holo_ell_fused_round": (*[_P] * 17, *[_I] * 5, _P),
+    "holo_ell_fused_info": (_I, _I, _I, _P, _P, _P),
     "holo_bgp_fold": (*[_P] * 12, *[_I] * 9, _P),
     "holo_bgp_fold_smem": (_I,) * 5,
 }

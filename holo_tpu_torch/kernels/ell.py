@@ -11,7 +11,7 @@ path), and :func:`ell_parent_sets`, the first parent, the DAG bits and the
 parent sets from one walk, and :func:`ell_parent_weights`, the sets' path
 counts once the fixpoint has them; and one over ``csrc/fused_kernels.cu``,
 :func:`ell_fused_round`, one Jacobi round of the ``fused`` / ``packed``
-engines (every quantity recomputed from one state).  In the JAX package
+engines (every quantity of a row recomputed from one state).  In the JAX package
 each step is an XLA loop fusion, not a Pallas kernel: the source files
 name the lines each one stands for.  A wrapper given CPU tensors
 computes the plain version; given CUDA tensors it launches the kernel on the
@@ -48,9 +48,14 @@ Plane conventions (all int32, INF = 1 << 30 as unreachable):
   return exactly the changes of the full round.  :func:`ell_mp_round`
   takes one too, and its plain version honours it as the kernel does
   (:func:`mp_round_plain`; :func:`mp_round_full` is the full round).
+  :func:`ell_fused_round` takes one and returns the next; its kernel
+  recomputes only the rows :func:`fused_row_frontier` marks, its plain
+  version ignores it.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -445,7 +450,8 @@ def fused_state(dist, hops, nh, packed: bool):
 
 def fused_round_plain(src, cost, slot, mask, direct, inc, roots, state):
     """One Jacobi round of ``spf_one_fused`` (``round_fn``) for every lane:
-    (new state in the layout of ``state``, parent [N, B], changed int32 [1]).
+    (new state in the layout of ``state``, parent [N, B], changed int32 [1],
+    frontier_out [N, ceil(B / 32)]).
 
     ``state`` is (dist, hops, nh [N, W, B]) or one interleaved [N, B, 2 + W]
     plane (:func:`fused_planes`).  From the old planes:
@@ -461,7 +467,11 @@ def fused_round_plain(src, cost, slot, mask, direct, inc, roots, state):
       direct word where the source's old hops is 0 and of the source's old
       word elsewhere (``_nh_words_round``).
 
-    ``changed`` is set where dist', hops' or a word differs from the state."""
+    ``changed`` is set where dist', hops' or a word differs from the state,
+    and ``frontier_out`` holds those (row, lane)s as lane bits
+    (``pack_lane_bits``).  It takes no frontier: every row is recomputed
+    and the parent returned fresh (see :func:`fused_row_frontier` for the
+    rows the kernel recomputes)."""
     dist, hops, nh = fused_planes(state)
     n, k = src.shape
     lanes = dist.shape[1]
@@ -494,7 +504,19 @@ def fused_round_plain(src, cost, slot, mask, direct, inc, roots, state):
                                                    ph + inc[:, None], big)).to(torch.int32)
     moved = (dist_new != dist) | (hops_new != hops) | (nh_new != nh).any(1)
     new = fused_state(dist_new, hops_new, nh_new, torch.is_tensor(state))
-    return new, parent, moved.any().to(torch.int32).reshape(1)
+    return new, parent, *_round_result(moved)
+
+
+def fused_row_frontier(src, slot, mask, frontier):
+    """(recompute, copy) int32 [N, ceil(B / 32)]: the lanes of each row that
+    a frontier round of ``ell_fused_round`` recomputes -- some valid slot
+    whose edge is up in the lane has a source marked in ``frontier`` -- and
+    the other marked lanes of the row, which it copies from its input."""
+    fw = frontier[src.long()]
+    if mask is not None:
+        fw = fw & mask[slot.clamp_min(0).long()]
+    rec = or_reduce(torch.where((slot >= 0)[:, :, None], fw, 0), 1)
+    return rec, frontier & ~rec
 
 
 # ---------------------------------------------------------------------------
@@ -672,48 +694,76 @@ def ell_parent_weights(parents, npaths):
     return pweight
 
 
-def ell_fused_round(src, cost, slot, mask, direct, inc, roots, state, out=None):
-    """(new state, parent [N, B], changed int32 [1]): one round of the fused
-    fixpoint (``round_fn`` of ``spf_one_fused``,
+def fused_geometry(state, out) -> dict:
+    """What ``ell_fused_round`` launches from ``state`` into ``out`` (CUDA
+    tensors), as the built library decides it for the launch: the form
+    (``row``, a warp a row and all its lanes, or ``tile``), the 32-lane
+    tiles a warp of the tile form takes, whether an interleaved lane's
+    vector is one int4 load and the kernel's registers a thread."""
+    packed = torch.is_tensor(state)
+    dist, _, nh = fused_planes(state)
+    dest = out if packed else out[0]
+    info = (ctypes.c_int * 3)()
+    lib = build.load()
+    build.check(lib, lib.holo_ell_fused_info(dist.shape[1], nh.shape[1], int(packed),
+                                             dist.data_ptr(), dest.data_ptr(), info),
+                "holo_ell_fused_info")
+    return {"form": "tile" if info[0] else "row", "tiles": info[0], "vec4": bool(info[1]),
+            "registers": info[2]}
+
+
+def ell_fused_round(src, cost, slot, mask, direct, inc, roots, state, frontier, parent, out):
+    """(new state, parent [N, B], changed int32 [1], frontier_out): one round
+    of the fused fixpoint (``round_fn`` of ``spf_one_fused``,
     ``holo_tpu/ops/spf_engine.py:1071-1106``), see :func:`fused_round_plain`.
     ``state`` is planar, (dist [N, B], hops [N, B], nh [N, W, B]) (the
     ``fused`` engine), or one interleaved [N, B, 2 + W] plane (``packed``);
-    ``direct`` [N, K, W], ``inc`` [N] (1 at a router), ``roots`` [B].  On the
-    card the kernel writes the new state into ``out`` (the state's layout
-    and shapes, another buffer: the fixpoint loop ping-pongs two), allocated when
-    None; on the CPU ``out`` is not used."""
+    ``direct`` [N, K, W], ``inc`` [N] (1 at a router), ``roots`` [B].
+
+    ``frontier`` [N, ceil(B / 32)] marks the (row, lane)s that changed in the
+    round that made ``state`` (all ones before the first round); ``out`` (the
+    state's layout and shapes, another buffer: the fixpoint loop ping-pongs
+    two) holds the state before that round, and ``parent`` [N, B] the parent
+    that round returned.  On the card the kernel recomputes only the (row,
+    lane)s of :func:`fused_row_frontier`, copies the other marked ones from
+    ``state`` into ``out`` and leaves the rest of ``out`` as it is; it
+    writes the recomputed lanes' parents into ``parent`` in place.  On the
+    CPU ``frontier``, ``parent`` and ``out`` are not used."""
     packed = torch.is_tensor(state)
     planes = (state,) if packed else tuple(state)
-    outs = None if out is None else ((out,) if packed else tuple(out))
-    if not build.on_card(src, cost, slot, mask, direct, inc, roots, *planes, *(outs or ())):
+    outs = (out,) if packed else tuple(out)
+    if not build.on_card(src, cost, slot, mask, direct, inc, roots, *planes, frontier, parent,
+                         *outs):
         return fused_round_plain(src, cost, slot, mask, direct, inc, roots, state)
     n, k = src.shape
     dist, hops, nh = fused_planes(state)
     lanes = dist.shape[1]
     words = direct.shape[2] if direct.dim() == 3 else -1
     _check_planes(src, cost, slot, mask, lanes, roots=roots)
-    bad = direct.shape != (n, k, words) or inc.shape != (n,)
+    _check_frontier(frontier, n, lanes)
+    bad = direct.shape != (n, k, words) or inc.shape != (n,) or parent.shape != (n, lanes)
     if packed:
         bad |= state.shape != (n, lanes, 2 + words)
     else:
         bad |= len(planes) != 3 or hops.shape != (n, lanes) or nh.shape != (n, words, lanes)
         bad |= dist.shape != (n, lanes)
-    if outs is None:
-        outs = tuple(torch.empty_like(x) for x in planes)
     bad |= len(outs) != len(planes) or any(o.shape != x.shape for o, x in zip(outs, planes))
-    bad |= any(o.data_ptr() == x.data_ptr() for o, x in zip(outs, planes))
+    ptrs = [x.data_ptr() for x in planes]
+    bad |= any(o.data_ptr() in ptrs for o in outs) or parent.data_ptr() in ptrs
+    bad |= any(o.data_ptr() == parent.data_ptr() for o in outs)
     if bad:
         raise ValueError(
             f"fused_round planes disagree: src {tuple(src.shape)}, direct "
             f"{tuple(direct.shape)}, inc {tuple(inc.shape)}, state "
-            f"{[tuple(x.shape) for x in planes]}, out {[tuple(o.shape) for o in outs]} "
-            f"(out must be another buffer of the state's shapes)"
+            f"{[tuple(x.shape) for x in planes]}, out {[tuple(o.shape) for o in outs]}, "
+            f"parent {tuple(parent.shape)} (out and parent must each be another buffer, out "
+            f"of the state's shapes)"
         )
-    parent = torch.empty((n, lanes), dtype=torch.int32, device=src.device)
     changed = torch.zeros(1, dtype=torch.int32, device=src.device)
+    front_out = torch.empty_like(frontier)
     ins = (state, None, None) if packed else planes
     dests = (outs[0], None, None) if packed else outs
-    _launch("ell_fused_round", src, cost, slot, mask, direct, inc, roots, *ins, *dests, parent,
-            changed, n, k, lanes, words, int(packed))
+    _launch("ell_fused_round", src, cost, slot, mask, direct, inc, roots, *ins, frontier, *dests,
+            parent, changed, front_out, n, k, lanes, words, int(packed))
     fused_layouts["interleaved" if packed else "planar"] += 1
-    return (outs[0] if packed else outs), parent, changed
+    return (outs[0] if packed else outs), parent, changed, front_out

@@ -35,9 +35,10 @@ counterpart round for round under ``max_iters``):
 
 - ``fused`` / ``packed`` (``spf_one_fused``, :func:`fused_lanes`): one
   Jacobi loop of ``ell_fused_round``, which recomputes dist, the DAG, the
-  parent, hops and the next-hop words every round from one state (three
-  planes, or one interleaved [N, B, 2 + W] plane for ``packed``), at most
-  3N + 6 rounds;
+  parent, hops and the next-hop words of a row from one state (three
+  planes, or one interleaved [N, B, 2 + W] plane for ``packed``) in the
+  lanes where one of its sources changed the round before, at most 3N + 6
+  rounds;
 - ``hybrid`` (``spf_one_hybrid``, :func:`hybrid_lanes`): step 1, then
   ``ell_first_parent`` once, then the joint hops + next-hop fixpoint
   (``ell_mp_round`` without the count and weight planes) from fresh seeds.
@@ -290,9 +291,12 @@ def fused_lanes(g: DeviceGraph, roots: torch.Tensor, mask, packed: bool = False,
     with ``packed`` one interleaved [N, B, 2 + W] plane), from dist 0 / hops
     0 at the root (INF / N + 1 elsewhere), next hops 0 and the sentinel
     parent N, for at most 3N + 6 rounds (``max_iters`` if given), stopping
-    after a round that changed nothing.  One changed flag over all lanes is
-    exact: a round maps a fixpoint to itself, so a converged lane that runs
-    on keeps its values, as under JAX's vmapped ``while_loop``."""
+    after a round that changed nothing.  The first round takes an all-ones
+    frontier (so it writes the spare buffer whole), each later one the
+    frontier the round before returned; the parent plane is carried from
+    round to round.  One changed flag over all lanes is exact: a round maps
+    a fixpoint to itself, so a converged lane that runs on keeps its
+    values, as under JAX's vmapped ``while_loop``."""
     n = g.in_src.shape[0]
     words = g.direct_nh_words.shape[2]
     limit = 3 * n + 6 if max_iters is None else max_iters
@@ -304,12 +308,13 @@ def fused_lanes(g: DeviceGraph, roots: torch.Tensor, mask, packed: bool = False,
     hops = torch.where(at_root, 0, n + 1).to(torch.int32)
     nh = torch.zeros((n, words, lanes), dtype=torch.int32, device=dev)
     state = ell.fused_state(dist, hops, nh, packed)
-    spare = None
+    spare = torch.empty_like(state) if packed else tuple(map(torch.empty_like, state))
+    front = ell.full_frontier(n, lanes, dev)
     parent = torch.full((n, lanes), n, dtype=torch.int32, device=dev)
     inc = g.is_router.to(torch.int32)
     for _ in range(limit):
-        new, parent, changed = ell.ell_fused_round(*p, g.direct_nh_words, inc, roots, state,
-                                                   spare)
+        new, parent, changed, front = ell.ell_fused_round(
+            *p, g.direct_nh_words, inc, roots, state, front, parent, spare)
         state, spare = new, state
         if not bool(changed):
             break

@@ -59,8 +59,10 @@ held to the CPU path.
 The fused, packed and hybrid engines: ell_fused_round in both layouts
 (planar and interleaved, with W = 2, and with W = 7, two chunks of
 next-hop words) is held bit-identical to fused_round_plain on every
-launch of a real fused dispatch (each launch's state as it ran) at 1, 8, 64
-and 1024 lanes on the fat tree, K 40 and 136 and the hops-0 networks graph;
+launch of a real fused dispatch (each launch's state, frontier and carried
+parent as it ran, the first spare buffer noise), in the state, the parent,
+the changed flag and the frontier, at 1, 8, 9, 64 and 1024 lanes (row and
+tile forms) on the fat tree, K 40 and 136 and the hops-0 networks graph;
 each engine's compute and compute_whatif on the card equal the CPU path, also
 under max_iters 0, 2 and 5, and an armed tuner's picks equal seq.
 
@@ -1074,9 +1076,10 @@ def test_bgp_backend_on_the_card_matches_the_oracle():
 
 
 def _held_fused_dispatch(topo, lanes, dev, packed, n_atoms=64):
-    """One fused dispatch on the card, every ell_fused_round launch held to
-    fused_round_plain on the state it ran from (the dispatch's own
-    ping-pong): the number of launches."""
+    """One fused dispatch on the card as fused_lanes runs it (an all-ones
+    first frontier, the parent plane carried, a spare buffer of noise), every
+    ell_fused_round launch held to fused_round_plain on the state it ran
+    from, in all four outputs: the number of launches."""
     g = se.device_graph_from_ell(build_ell(topo, n_atoms=n_atoms), dev)
     masks = _dark_masks(topo, lanes) if lanes > 1 else None
     mask = None if masks is None else se.pack_edge_masks(masks, dev)
@@ -1088,19 +1091,26 @@ def _held_fused_dispatch(topo, lanes, dev, packed, n_atoms=64):
                             torch.where(at_root, 0, n + 1).to(torch.int32),
                             torch.zeros((n, g.direct_nh_words.shape[2], lanes), dtype=torch.int32,
                                         device=dev), packed)
+    gen = torch.Generator(device=dev).manual_seed(lanes)
+    noise = lambda x: torch.randint(-INF, INF, x.shape, generator=gen, device=dev,
+                                    dtype=torch.int32)
+    spare = noise(state) if packed else tuple(map(noise, state))
+    front = ell.full_frontier(n, lanes, dev)
+    parent = torch.full((n, lanes), n, dtype=torch.int32, device=dev)
     inc = g.is_router.to(torch.int32)
-    spare, launches = None, 0
+    launches = 0
     before = dict(ell.fused_layouts)
     for _ in range(3 * n + 6):
-        got = ell.ell_fused_round(*p, g.direct_nh_words, inc, roots, state, spare)
+        got = ell.ell_fused_round(*p, g.direct_nh_words, inc, roots, state, front, parent.clone(),
+                                  spare)
         want = ell.fused_round_plain(*p, g.direct_nh_words, inc, roots, state)
         torch.cuda.synchronize()
         launches += 1
         for i, (a, b) in enumerate(zip(got, want)):
             for x, y in zip((a,) if torch.is_tensor(a) else a, (b,) if torch.is_tensor(b) else b):
                 assert torch.equal(x, y), f"launch {launches} output {i}"
-        state, spare = got[0], state
-        if not bool(got[2]):
+        (state, parent, changed, front), spare = got, state
+        if not bool(changed):
             break
     layout = "interleaved" if packed else "planar"
     assert ell.fused_layouts[layout] - before[layout] == launches
@@ -1108,7 +1118,7 @@ def _held_fused_dispatch(topo, lanes, dev, packed, n_atoms=64):
 
 
 @pytest.mark.parametrize("packed", [False, True])
-@pytest.mark.parametrize("lanes", [1, 8, 64, 1024])
+@pytest.mark.parametrize("lanes", [1, 8, 9, 64, 1024])
 @pytest.mark.parametrize("shape", ["fat_tree_k8", "k40", "k130", "networks"])
 def test_fused_round_matches_plain(shape, lanes, packed):
     dev = _card()
@@ -1133,10 +1143,27 @@ def test_fused_round_refuses_bad_planes():
     planes = (torch.zeros((n, 4), dtype=torch.int32, device=dev),
               torch.zeros((n, 4), dtype=torch.int32, device=dev),
               torch.zeros((n, 2, 4), dtype=torch.int32, device=dev))
+    front = ell.full_frontier(n, 4, dev)
+    parent = torch.full((n, 4), n, dtype=torch.int32, device=dev)
+    spare = tuple(map(torch.empty_like, planes))
+    args = (*p, g.direct_nh_words, inc, roots)
+    before = ell.launches["ell_fused_round"]
     with pytest.raises(ValueError, match="another buffer"):
-        ell.ell_fused_round(*p, g.direct_nh_words, inc, roots, planes, planes)
+        ell.ell_fused_round(*args, planes, front, parent, planes)
+    with pytest.raises(ValueError, match="another buffer"):
+        ell.ell_fused_round(*args, planes, front, planes[0], spare)
+    with pytest.raises(ValueError, match="another buffer"):
+        ell.ell_fused_round(*args, planes, front, spare[0], spare)
     with pytest.raises(ValueError, match="fused_round planes"):
-        ell.ell_fused_round(*p, g.direct_nh_words, inc, roots, planes[0][:, :, None].repeat(1, 1, 3))
+        packed = planes[0][:, :, None].repeat(1, 1, 3)
+        ell.ell_fused_round(*args, packed, front, parent, torch.empty_like(packed))
+    with pytest.raises(ValueError, match="fused_round planes"):
+        ell.ell_fused_round(*args, planes, front, parent[:, :3].contiguous(), spare)
+    with pytest.raises(ValueError, match="fused_round planes"):
+        ell.ell_fused_round(*args, planes, front, parent, spare[:2])
+    with pytest.raises(ValueError, match="frontier"):
+        ell.ell_fused_round(*args, planes, front[:-1], parent, spare)
+    assert ell.launches["ell_fused_round"] == before
 
 
 @pytest.mark.parametrize("engine", ["fused", "packed", "hybrid"])

@@ -11,7 +11,8 @@ engine.  So each port engine is held to its own JAX engine:
 - ``compute_whatif`` over 8 masks, at the same limits;
 - ``fused_round_plain`` against one application of JAX's round, driven round
   by round: the port's round from JAX's state after r - 1 rounds equals JAX's
-  after r, in both layouts, at one lane and at 8 masked lanes;
+  after r, in both layouts, at one lane and at 8 masked lanes, and its
+  frontier marks the lanes where the two states differ;
 - the lone router and the disconnected root of ``tests/test_spf_parity.py``;
 - ``one_engine="tropical"`` raises, naming ROADMAP A9.
 """
@@ -120,13 +121,16 @@ def test_fused_round_plain_is_one_jax_round(lanes, packed):
     for r in range(1, 3 * tt.n_vertices + 6):
         dist, hops, nh, _ = _jax_state(jg, jt.root, masks, r - 1)
         state = ell.fused_state(dist, hops, nh, packed)
-        new, parent, changed = ell.fused_round_plain(*p, tg.direct_nh_words, inc, roots, state)
+        new, parent, changed, front = ell.fused_round_plain(*p, tg.direct_nh_words, inc, roots,
+                                                            state)
         want = _jax_state(jg, jt.root, masks, r)
         got = (*ell.fused_planes(new), parent)
         for name, a, b in zip(("dist", "hops", "nh", "parent"), got, want):
             assert torch.equal(a, b), f"round {r} {name}"
-        moved = any(not torch.equal(a, b) for a, b in zip((dist, hops, nh), want[:3]))
+        lanes_moved = (dist != want[0]) | (hops != want[1]) | (nh != want[2]).any(1)
+        moved = bool(lanes_moved.any())
         assert bool(changed) == moved, f"round {r} changed flag"
+        assert torch.equal(front, ell.pack_lane_bits(lanes_moved)), f"round {r} frontier"
         rounds = r
         if not moved:
             break

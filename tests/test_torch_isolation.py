@@ -1,6 +1,6 @@
 """The port stands alone: importing every module of holo_tpu_torch (and
 chip_smoke.py) loads neither jax nor anything of holo_tpu, and no source
-file of either imports them."""
+file of either, nor of the port's tools, imports them."""
 
 import ast
 import pkgutil
@@ -14,6 +14,7 @@ import holo_tpu_torch
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "holo_tpu_torch"
+TOOLS = ("bgp_fold_pair.py", "bgp_fold_phases.py", "fused_round_pair.py")
 
 
 def _modules():
@@ -24,7 +25,8 @@ def _modules():
 
 
 def _sources():
-    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + [ROOT / "tools" / name for name in TOOLS])
 
 
 def _forbidden(name: str) -> bool:

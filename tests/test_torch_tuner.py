@@ -239,7 +239,10 @@ def test_tuned_backend_flips_engines_and_equals_seq(tmp_path, explore_rounds):
     phases = {p for (_, _, p) in t.stats()["decisions"]}
     assert {"explore", "exploit", "reprobe"} <= phases
     assert t.save()
-    cold = tuner.EngineTuner(path=tmp_path / "t.json")
+    # The reloaded table is read under the same schedule: with fewer explore
+    # rounds than its own default, an engine the reprobes missed would still
+    # be exploring.
+    cold = tuner.EngineTuner(path=tmp_path / "t.json", explore_rounds=explore_rounds)
     bw = tuner.shape_bucket(topo.n_vertices, topo.n_edges, 8, None)
     assert cold.pick("whatif", bw) == t.current_winner("whatif", bw)
 
