@@ -25,8 +25,10 @@ the BGP table (``DecisionEngine`` on ``TorchBgpTableBackend()``: the RFC 4271
 decision process over a 32,768-prefix x 16-peer feed, cold, an UPDATE burst
 and next-hop churn; the fold alone over a full table of 524,288 prefixes x
 64 peers); and the other single-path engines, ``TorchSpfBackend(one_engine=
-"fused" | "packed" | "hybrid")``, and the engine tuner that picks among
-them, through ``compute_whatif`` and ``compute`` on the fat tree.  Phases:
+"fused" | "packed" | "hybrid" | "tropical")``, and the engine tuner that picks
+among them, through ``compute_whatif`` and ``compute`` on the fat tree (the
+tropical engine also through ``compute_multiroot``, a masked ``compute`` and
+the DeltaPath chain).  Phases:
 
 1. build the CUDA kernels from ``holo_tpu_torch/csrc`` with nvcc;
 2. run each kernel once on real mid-fixpoint inputs at the main paths'
@@ -153,11 +155,29 @@ them, through ``compute_whatif`` and ``compute`` on the fat tree.  Phases:
    and last M1 launch of a 1024-lane one (its G1 and G2 launches see the
    inputs of seq's, held in phase 2); ``max_iters`` 2
    and 5 on the card equal to the CPU path (16 scenarios and ``compute()``);
-   the tuner armed (``explore_rounds=2``): 12 what-if batches and 12
-   ``compute()`` calls, each equal to seq's planes, each bucket's picks,
+   the tuner armed (``explore_rounds=2``): 16 what-if batches and 16
+   ``compute()`` calls, each equal to seq's planes, tropical run in both
+   buckets, each bucket's picks,
    medians and winner printed, the saved table picked the same cold, and a
    DeltaPath chain after three re-marshals whose depth cap
    (``DeviceGraphCache._depth_cap``) is the tuned one;
+3k. the tropical engine: the tile marshal (B, NB, Tm, tiles, MB, host ms);
+   with the launch counts at 0 before each, ``TorchSpfBackend(one_engine=
+   "tropical")``'s ``compute_whatif`` (1024 scenarios), ``compute()``,
+   ``compute_multiroot`` (the 64 roots), a masked ``compute()`` (scenario 0's
+   mask) and the 8-step DeltaPath chain (seq's backend following it), each of
+   which must launch ``trop_relax`` (T1); every T1 launch of the first call
+   of each path and of chain step 0 held bit-identical to
+   ``trop_relax_plain`` on its own inputs (distances, changed flag, next
+   frontier), timed and its work counted against its bound; every scenario
+   and root equal to seq's planes, scenarios 0-7, ``compute()``, the masked
+   ``compute()``, roots 0-7 and chain steps 0-1 to the oracle; every chain
+   step incremental with its tile delta applied in place; warm what-if,
+   ``compute()`` and multiroot of seq, fused and tropical timed in turns; T1's
+   full round (every block active) at 1024 lanes against its bound; the repair
+   set built on the card against the host's rows (phase 4: the lane program's
+   device-busy time at 1024 lanes, ``compute()``'s, T1's device time at one
+   lane);
 4. time each kernel (CUDA events; at one scenario also the profiler's
    device time, which leaves out the host's launch), its plain version, the
    whole batch, ``compute()`` and the gather batch's stages, and DeltaPath's
@@ -354,7 +374,7 @@ ENGINE_WARM_REPS = 3
 FUSED_HOLD_LANES = 64
 ENGINE_LIMITS = (2, 5)
 ENGINE_LIMIT_SCENARIOS = 16
-TUNER_CALLS = 12
+TUNER_CALLS = 16  # five engines, each explored twice after its unsampled first use
 TUNER_REMARSHALS = 3
 FUSED_SOURCE = "holo_tpu_torch/csrc/fused_kernels.cu"
 FUSED_REPLACES = ("holo_tpu/ops/spf_engine.py:1071-1106 round_fn of spf_one_fused, planar "
@@ -367,6 +387,16 @@ FUSED_REPLACES = ("holo_tpu/ops/spf_engine.py:1071-1106 round_fn of spf_one_fuse
 FUSED_PAIR_OPS = 3
 FUSED_DAG_OPS = 3  # + W
 FUSED_CELL_OPS = 6  # + W
+# The tropical engine (phase 3k): the warm calls timed; T1's source, the
+# loop body it stands for, and its operations: an add and a min per (tile
+# entry, lane) of an active source block; per repair (slot, lane) the add,
+# the INF test and the min.
+TROP_WARM_REPS = 3
+TROP_SOURCE = "holo_tpu_torch/csrc/tropical_kernels.cu"
+TROP_REPLACES = ("holo_tpu/ops/tropical.py:423-464, the body of _tile_relax's loop "
+                 "(XLA fusion, no Pallas kernel)")
+TROP_TILE_OPS = 2
+TROP_REPAIR_OPS = 3
 
 
 def cuda_call(fn):
@@ -2402,6 +2432,9 @@ def engines_phase(ell, se, dev, topo, masks, gres, gone, oracle, compute_ref, n_
             require(same_planes(tbe.compute(topo), gone), f"tuned compute() {i} differs from seq")
         x["tuner_rows"] = tuner.ledger()
         x["tuner_decisions"] = tuner.stats()["decisions"]
+        explored = {(k, e) for (k, e, _) in x["tuner_decisions"]}
+        for kind in ("whatif", "one"):
+            require((kind, "tropical") in explored, f"the tuner never ran tropical for {kind}")
         for row in x["tuner_rows"]:
             picks = {f"{e}/{ph}": c for (k, e, ph), c in x["tuner_decisions"].items()
                      if k == row["kind"]}
@@ -2498,6 +2531,263 @@ def engines_phase(ell, se, dev, topo, masks, gres, gone, oracle, compute_ref, n_
               f"registers, int4 vector {geo1['vec4']}; {smi}", flush=True)
     x["phase_s"] = time.perf_counter() - t_phase
     print(f"engines phase checked in {x['phase_s']:.1f} s", flush=True)
+    return x
+
+
+class TropHolder:
+    """Within ``holding_trop()``, every trop_relax launch runs (and counts) as
+    before, timed by CUDA events, its work counted (trop_work), and is held
+    at once bit-identical to trop_relax_plain on the same inputs in all three
+    outputs (distances, changed flag, next frontier)."""
+
+    def __init__(self, kt):
+        self.kt = kt
+        self.err = 0
+        self.launch_ms, self.plain_ms, self.work = [], [], []
+
+    def wrap(self, fn):
+        kt = self.kt
+
+        def held_relax(*args):
+            got, ms = cuda_call(lambda: fn(*args))
+            want, plain_ms = cuda_call(lambda: kt.trop_relax_plain(*args))
+            self.err = max(self.err, held("trop_relax", f"at {args[2].shape[1]} lanes, launch "
+                                          f"{len(self.launch_ms) + 1}", got, want))
+            self.launch_ms.append(ms)
+            self.plain_ms.append(plain_ms)
+            self.work.append(trop_work(*args))
+            return got
+
+        return held_relax
+
+
+@contextlib.contextmanager
+def holding_trop(kt, holder: TropHolder):
+    fn = kt.trop_relax
+    kt.trop_relax = holder.wrap(fn)
+    try:
+        yield holder
+    finally:
+        kt.trop_relax = fn
+
+
+def trop_work(tiles, cb, dist, active, repair=None, src=None, cost=None, slot=None,
+              mask=None, perm=None, inv=None) -> dict:
+    """What one trop_relax launch must do, and its bound: operations
+    (TROP_TILE_OPS per (tile entry, lane) of an active source block,
+    TROP_REPAIR_OPS per (valid slot, lane) of a repair row) against the
+    bytes the function must move, each input byte read once and each output
+    byte written once at the HBM rate: cb, the tiles of the slots whose
+    source block is active in some lane, dist in and out (every gathered
+    (source row, lane) entry is one of dist's), the frontier in and out, the
+    repair plane, and for each repair row its perm entry and slot row, the
+    src, cost and inv entries of each valid slot up in one of the row's
+    repair lanes, and one mask word for each (valid slot, lane word) that the
+    row's repair bits touch."""
+    from holo_tpu_torch.kernels import ell
+
+    nb, _, b, _ = tiles.shape
+    npad, lanes = dist.shape
+    act = ell._unpack(active, slice(0, lanes))  # [NB, S]
+    real = cb < nb
+    csafe = torch.where(real, cb, 0).long()
+    per_slot = torch.where(real, act.sum(1)[csafe], 0)  # active lanes of each slot's source
+    out = {"entry_lanes": b * b * int(per_slot.sum()), "active_slots": int((per_slot > 0).sum())}
+    ops = TROP_TILE_OPS * out["entry_lanes"]
+    byte_count = 4 * (cb.numel() + out["active_slots"] * b * b + 2 * npad * lanes
+                      + 2 * active.numel())
+    out["repair_pairs"] = 0
+    if repair is not None:
+        rows = ell._unpack(repair, slice(0, lanes)).any(1).nonzero().squeeze(1)
+        rep = repair[rows]  # [R, W] the repair rows' lane words
+        edges = slot[perm[rows].long()].long()  # [R, K]
+        valid = edges >= 0
+        pairs = ell._unpack(rep, slice(0, lanes)).sum(1)  # repair lanes of each row
+        out["repair_pairs"] = int(pairs.sum())
+        ops += TROP_REPAIR_OPS * int((valid.sum(1) * pairs).sum())
+        if mask is None:
+            up, mask_words = valid, 0
+        else:
+            words = mask[torch.where(valid, edges, 0)] & rep[:, None, :]  # [R, K, W]
+            up = valid & (words != 0).any(2)
+            mask_words = int((valid.sum(1) * (rep != 0).sum(1)).sum())
+        byte_count += 4 * (repair.numel() + rows.numel() * (1 + edges.shape[1])
+                           + 3 * int(up.sum()) + mask_words)
+    out.update(ops=ops, bytes=byte_count, bound=bound(ops, byte_count))
+    return out
+
+
+def trop_phase(ell, se, dev, topo, masks, gres, gone, gmr, mr_roots, oracle, compute_ref,
+               mr_ref, n_atoms) -> dict:
+    """Phase 3k: the tropical engine on the k=90 fat tree.  (a) The tile
+    marshal.  (b) With the launch counts at 0 before each, a tropical
+    backend's compute_whatif (1024 scenarios), compute(), compute_multiroot
+    (64 roots), masked compute() and the DeltaPath chain, every trop_relax
+    launch of the first of each (and of chain step 0) held to
+    trop_relax_plain; trop_relax must launch on each; every scenario equals
+    seq's planes, scenarios 0-7, compute(), roots 0-7 and chain steps 0-1 the
+    oracle; every chain step is incremental on the tiles (tile deltas
+    applied in place) and equals seq's.  (c) Warm what-if, compute() and
+    multiroot of seq, fused and tropical, timed in turns.  (d) T1 a launch
+    against its bound at 1024 lanes and at one, its full round, and the
+    repair set built on the card against the host's."""
+    from holo_tpu_torch.kernels import tropical as kt
+    from holo_tpu_torch.ops import graph
+    from holo_tpu_torch.ops import tropical as trop
+    from holo_tpu_torch.spf import synth
+    from holo_tpu_torch.spf.backend import TorchSpfBackend
+    from holo_tpu_torch.spf.scalar import spf_reference
+
+    t_phase = time.perf_counter()
+    x = {"launches": {}, "hold": {}}
+    n = topo.n_vertices
+    # (a) the tile marshal, from the ELL planes the graph cache mirrors.
+    ell_np = graph.build_ell(topo, n_atoms=n_atoms)
+    t0 = time.perf_counter()
+    host, meta = trop.build_tiles_host(ell_np.in_src, ell_np.in_cost, ell_np.in_valid)
+    x["marshal_ms"] = (time.perf_counter() - t0) * 1e3
+    x["meta"] = {k: meta[k] for k in ("block", "nb", "tm", "pairs")}
+    x["tile_mb"] = host.tiles.nbytes / 1e6
+    print(f"tropical tiles: B {meta['block']}, NB {meta['nb']}, Tm {meta['tm']}, "
+          f"{meta['pairs']} real tiles, tile plane {x['tile_mb']:.1f} MB; build_tiles_host "
+          f"{x['marshal_ms']:.1f} ms (host clock)", flush=True)
+    del host
+
+    # (b) the main path, counted; the first call of each path held.
+    be = TorchSpfBackend(one_engine="tropical", device=dev)
+
+    def counted(label: str, fn, hold: bool):
+        kt.reset_launches()
+        ell.reset_launches()
+        holder = TropHolder(kt) if hold else None
+        with (holding_trop(kt, holder) if hold else contextlib.nullcontext()):
+            out, host, ev = timed_call(fn)
+        got = {"trop_relax": kt.launches["trop_relax"],
+               **{k: v for k, v in ell.launches.items() if v}}
+        require(got["trop_relax"] > 0, f"tropical {label}: trop_relax never launched")
+        x["launches"].setdefault(label, []).append(got)
+        if hold:
+            require(len(holder.launch_ms) == got["trop_relax"],
+                    f"tropical {label}: a trop_relax launch was not held")
+            x["hold"][label] = holder
+        return out, host, ev
+
+    res, _, _ = counted("whatif", lambda: be.compute_whatif(topo, masks), True)
+    require(len(res) == BATCH and all(same_planes(a, b) for a, b in zip(res, gres)),
+            "a tropical what-if scenario differs from seq's planes")
+    for b in range(ORACLE_SCENARIOS):
+        require(same_planes(res[b], oracle_result(oracle[b], n_atoms)),
+                f"tropical scenario {b} differs from the scalar oracle")
+    del res
+    one, _, _ = counted("compute", lambda: be.compute(topo), True)
+    require(same_planes(one, gone) and same_planes(one, oracle_result(compute_ref, n_atoms)),
+            "tropical compute() differs from seq's or the oracle's planes")
+    mr, _, _ = counted("multiroot", lambda: be.compute_multiroot(topo, mr_roots), True)
+    for f in ("dist", "parent", "hops"):
+        require(np.array_equal(getattr(mr, f), getattr(gmr, f)),
+                f"tropical multiroot {f} differs from seq's")
+        require(np.array_equal(getattr(mr, f)[:ORACLE_ROOTS], getattr(mr_ref, f)),
+                f"tropical multiroot {f} differs from the scalar oracle")
+    masked, _, _ = counted("masked", lambda: be.compute(topo, masks[0]), True)
+    require(same_planes(masked, gres[0]) and same_planes(masked, oracle_result(oracle[0], n_atoms)),
+            "tropical masked compute() differs from seq's or the oracle's planes")
+    x["repair_pairs_masked"] = sum(w["repair_pairs"] for w in x["hold"]["masked"].work)
+    print(f"tropical main path: launches {x['launches']}; all {BATCH} scenarios equal to seq's "
+          f"planes, scenarios 0-{ORACLE_SCENARIOS - 1}, compute(), the masked compute() and roots "
+          f"0-{ORACLE_ROOTS - 1} equal to the oracle, the {MULTIROOT} roots to seq's; every "
+          f"trop_relax launch of each held to trop_relax_plain ("
+          + ", ".join(f"{k} {len(h.launch_ms)}" for k, h in x["hold"].items()) + ")", flush=True)
+    # The DeltaPath chain, seq's backend following it on the same cache.
+    base = synth.clone_topology(topo)
+    sbe = TorchSpfBackend(device=dev)
+    be.compute(base)
+    sbe.compute(base)
+    be._gather_cache.tile_deltas.clear()
+    chain = delta_chain(graph, synth, base, K)
+    for i, (label, t) in enumerate(chain):
+        paths = Counter(be.delta_paths)
+        res, _, _ = counted("chain", lambda t=t: be.compute(t), i == 0)
+        paths = Counter(be.delta_paths) - paths
+        require(paths.get((graph.delta_kind(t.delta_base), "incremental")) == 1,
+                f"tropical chain step {label} was not incremental: {dict(paths)}")
+        require(same_planes(res, sbe.compute(t)), f"tropical chain step {label} differs from seq")
+        if i < 2:
+            require(same_planes(res, oracle_result(spf_reference(t), n_atoms)),
+                    f"tropical chain step {label} differs from the oracle")
+    x["tile_deltas"] = dict(be._gather_cache.tile_deltas)
+    require(x["tile_deltas"] == {"apply": len(chain)},
+            f"the chain's tile deltas were not all applied in place: {x['tile_deltas']}")
+    print(f"tropical chain: {len(chain)} steps incremental on the tiles, each equal to seq's "
+          f"(steps 0-1 the oracle); tile deltas {x['tile_deltas']}; launches a step "
+          f"{[c['trop_relax'] for c in x['launches']['chain']]}", flush=True)
+    snap = be.breaker.snapshot()
+    require(not any(snap[k] for k in ("failures", "fallbacks", "refusals")),
+            f"the tropical backend's breaker counted {snap}")
+
+    # (c) warm calls of seq, fused and tropical, in turns.
+    backends = {"seq": TorchSpfBackend(device=dev), "fused": TorchSpfBackend(
+        one_engine="fused", device=dev), "tropical": be}
+    calls = {"whatif": (lambda b: b.compute_whatif(topo, masks), TROP_WARM_REPS),
+             "compute": (lambda b: b.compute(topo), COMPUTE_REPS),
+             "multiroot": (lambda b: b.compute_multiroot(topo, mr_roots), TROP_WARM_REPS)}
+    times = {e: {kind: [] for kind in calls} for e in backends}
+    for b_ in backends.values():  # warm-up
+        for fn, _ in calls.values():
+            fn(b_)
+    for kind, (fn, reps) in calls.items():
+        for _ in range(reps):
+            for e, b_ in backends.items():
+                times[e][kind].append(timed_call(lambda: fn(b_))[1])
+    x["times"] = {e: {kind: statistics.median(v) for kind, v in d.items()}
+                  for e, d in times.items()}
+    x["times_all"] = times
+
+    # (d) T1 a launch: the held launches at 1024 lanes and at one, the full
+    # round (every block active) at 1024, the repair set's build.
+    eg = be.prepare(topo, need_edge_ids=True)
+    tt = be._gather_cache.get_tropical(topo, n_atoms)
+    mask_w = se.pack_edge_masks(masks, dev)
+    lane_roots = torch.full((BATCH,), topo.root, dtype=torch.int32, device=dev)
+    p = se.lane_planes(eg, mask_w)
+    rep = trop.repair_bits(p.slot, mask_w, BATCH, tt)
+    dist, _ = trop.tile_relax(eg, tt, se.distance_seed(n, lane_roots)[0], mask_w)
+    dist_p = dist[tt.perm.long()].contiguous()
+    full = ell.full_frontier(tt.tiles.shape[0], BATCH, dev)
+    args = (tt.tiles, tt.cb, dist_p, full, rep, p.src, p.cost, p.slot, p.mask, tt.perm, tt.inv)
+    kt.trop_relax(*args)  # warm-up
+    x["full_ms"] = cuda_ms(lambda: kt.trop_relax(*args), KERNEL_REPS)
+    x["full_work"] = trop_work(*args)
+    x["full_err"] = held("trop_relax", "full round at 1024 lanes", kt.trop_relax(*args),
+                         kt.trop_relax_plain(*args))
+    x["repair_ms"] = cuda_ms(lambda: trop.repair_bits(p.slot, mask_w, BATCH, tt), KERNEL_REPS)
+    # Where launch 1 of the what-if dispatch goes (the roots' block active):
+    # with its repair set, without it, and with no block active and no
+    # repair row (the launch itself); CUDA events and the profiler's
+    # device time of the kernel.
+    nb, _, b, _ = tt.tiles.shape
+    seed_p = se.distance_seed(n, lane_roots)[0][tt.perm.long()].contiguous()
+    front1 = ell.pack_lane_bits((seed_p < INF).view(nb, b, BATCH).any(1))
+    split = {"launch 1": (seed_p, front1, rep), "launch 1 without repair": (seed_p, front1, None),
+             "no block, no repair": (seed_p, torch.zeros_like(front1), None)}
+    x["launch1"] = {}
+    for label, (d_, a_, r_) in split.items():
+        args_ = (tt.tiles, tt.cb, d_, a_, r_, p.src, p.cost, p.slot, p.mask, tt.perm, tt.inv)
+        kt.trop_relax(*args_)  # warm-up
+        dev_ms = sum(ms for key, ms in device_times(
+            lambda: [kt.trop_relax(*args_) for _ in range(KERNEL_REPS)]).items()
+            if "trop_relax" in key) / KERNEL_REPS
+        x["launch1"][label] = {"ms": cuda_ms(lambda: kt.trop_relax(*args_), KERNEL_REPS),
+                               "device_ms": dev_ms, "bound_ms": trop_work(*args_)["bound"][0]}
+    t0 = time.perf_counter()
+    rows = trop.repair_rows_host(topo.edge_dst, masks, n)
+    x["repair_host_ms"] = (time.perf_counter() - t0) * 1e3
+    require(not bool((rep & ~trop.rows_to_bits(rows, tt)).any()),
+            "the card's repair set is not within the host's")
+    x["repair_rows"] = (int(ell._unpack(rep, slice(0, BATCH)).sum()), int((rows < n).sum()))
+    x["lane_prog"] = lambda: trop.tropical_lanes(eg, tt, lane_roots, mask_w)
+    x["compute_call"] = lambda: be.compute(topo)
+    x["phase_s"] = time.perf_counter() - t_phase
+    print(f"tropical phase checked in {x['phase_s']:.1f} s", flush=True)
     return x
 
 
@@ -2884,6 +3174,10 @@ def main() -> None:
     # -- 3j. the fused, packed and hybrid engines, the fused round, the tuner
     jx = engines_phase(ell, se, dev, topo, masks, gres, gone, oracle, compute_ref, n_atoms)
 
+    # -- 3k. the tropical engine: the tiles, T1 and its four paths and chain
+    kx = trop_phase(ell, se, dev, topo, masks, gres, gone, gmr, mr_roots, oracle, compute_ref,
+                    mr_ref, n_atoms)
+
     # -- 4. timing (the profiler last: once it has run, host launches are
     # slower, which the host-clock times below would count)
     for name, (card, *_rest) in calls.items():
@@ -2914,6 +3208,9 @@ def main() -> None:
               for e in ("seq", *ENGINE_NAMES)}
     j_prog_ms = {e: host_ms(prog, BATCH_REPS) for e, prog in j_prog.items()}
     j_phase4_s = time.perf_counter() - t_j
+    t_k = time.perf_counter()
+    k_prog_ms = host_ms(kx["lane_prog"], BATCH_REPS)
+    k_phase4_s = time.perf_counter() - t_k
     # DeltaPath: delta-linked compute() calls, each toggling one link's
     # cost, against a re-marshal (fresh clones) and a cached call.
     chain_t = toggles(graph, synth, t_weight, K, DELTA_TOGGLES)
@@ -3036,6 +3333,12 @@ def main() -> None:
     j_busy = {e: (device_busy(prog), device_busy(lambda e=e: jx["backends"][e].compute(topo)))
               for e, prog in j_prog.items()}
     j_phase4_s += time.perf_counter() - t_j
+    t_k = time.perf_counter()
+    k_busy_ms, k_top = device_busy(kx["lane_prog"])
+    k_c_busy_ms, k_c_top = device_busy(kx["compute_call"])
+    k_t1_b1 = sum(ms for name, ms in device_times(kx["compute_call"]).items()
+                  if "trop_relax" in name)
+    k_phase4_s += time.perf_counter() - t_k
     g_compute_busy_ms, g_compute_top = device_busy(lambda: gbe.compute(topo))
     incr_busy_ms, incr_top = device_busy(lambda: se.spf_one_incremental(*last_in))
     m_rows["ell_parent_sets"]["device_ms_b1"] = device_ms_per_call(
@@ -3158,6 +3461,64 @@ def main() -> None:
               f"{1 - busy_ms / j_prog_ms[e]:.3f}); top device ops: {top}; compute() device busy "
               f"{c_busy_ms:.3f} ms of {c_ms:.3f} ms (phase 3j's median; idle share "
               f"{1 - c_busy_ms / c_ms:.3f}); top device ops: {c_top}", flush=True)
+    kt_ = kx["times"]
+    for kind in ("whatif", "compute", "multiroot"):
+        print(f"time tropical {kind}: " + ", ".join(
+            f"{e} {kt_[e][kind]:.3f} ms" for e in ("seq", "fused", "tropical"))
+            + f" (host clock, medians of {TROP_WARM_REPS if kind != 'compute' else COMPUTE_REPS} "
+            f"warm calls taken in turns: "
+            + "; ".join(f"{e} {[round(t, 3) for t in kx['times_all'][e][kind]]}"
+                        for e in ("seq", "fused", "tropical")) + f"); {smi}", flush=True)
+    big, small = kx["hold"]["whatif"], kx["hold"]["compute"]
+    k_c_launches = kx["launches"]["compute"][0]["trop_relax"]
+    trow = {
+        "ms": statistics.mean(big.launch_ms), "plain_ms": statistics.mean(big.plain_ms),
+        "bound_ms": statistics.mean(w["bound"][0] for w in big.work),
+        "bound_by": bound(sum(w["ops"] for w in big.work), sum(w["bytes"] for w in big.work))[1],
+        "launch_ms": big.launch_ms, "launch_bound_ms": [w["bound"][0] for w in big.work],
+        "dispatch_ms": sum(big.launch_ms), "dispatch_bound_ms": sum(w["bound"][0] for w in big.work),
+        "active_slots": [w["active_slots"] for w in big.work],
+        "full_round_ms": kx["full_ms"], "full_round_bound_ms": kx["full_work"]["bound"][0],
+        "full_round_bound_by": kx["full_work"]["bound"][1],
+        "ms_b1": statistics.mean(small.launch_ms), "plain_ms_b1": statistics.mean(small.plain_ms),
+        "bound_ms_b1": statistics.mean(w["bound"][0] for w in small.work),
+        "device_ms_b1": k_t1_b1 / k_c_launches, "launches_b1": k_c_launches,
+        "repair_set_ms": kx["repair_ms"], "repair_rows_host_ms": kx["repair_host_ms"],
+        "launch1_split": kx["launch1"],
+        "max_abs_err": max(kx["full_err"], *(h.err for h in kx["hold"].values())),
+    }
+    print(f"time trop_relax: {trow['ms']:.4f} ms a launch at B={BATCH} (mean of "
+          f"{len(big.launch_ms)}, CUDA events: {[round(t, 4) for t in big.launch_ms]}), bound "
+          f"{trow['bound_ms']:.4f} ms a launch by {trow['bound_by']} "
+          f"({[round(b, 4) for b in trow['launch_bound_ms']]}; active slots "
+          f"{trow['active_slots']}), plain {trow['plain_ms']:.3f} ms; full round (every block "
+          f"active) {kx['full_ms']:.4f} ms, bound {trow['full_round_bound_ms']:.4f} ms by "
+          f"{trow['full_round_bound_by']} ({kx['full_work']['ops']} operations, "
+          f"{kx['full_work']['bytes']} bytes); at B=1 {trow['ms_b1']:.4f} ms a launch (host "
+          f"launch included, {k_c_launches} launches a compute()), {trow['device_ms_b1']:.4f} ms "
+          f"on the device, bound {trow['bound_ms_b1']:.6f} ms, plain {trow['plain_ms_b1']:.3f} "
+          f"ms; max_abs_err {trow['max_abs_err']}; {smi}", flush=True)
+    print("time trop_relax launch 1 at B=" + str(BATCH) + ": " + "; ".join(
+        f"{label} {v['ms']:.4f} ms (CUDA events, median of {KERNEL_REPS}), "
+        + (f"{v['device_ms']:.4f} ms on the device" if v["device_ms"] > 0
+           else "device time not measured") + f", bound {v['bound_ms']:.5f} ms"
+        for label, v in kx["launch1"].items()) + f"; {smi}", flush=True)
+    print(f"time tropical repair set: built on the card from the mask words "
+          f"{kx['repair_ms']:.4f} ms ({kx['repair_rows'][0]} (row, lane) bits), repair_rows_host "
+          f"on the host {kx['repair_host_ms']:.1f} ms ({kx['repair_rows'][1]} rows); tile "
+          f"marshal {kx['marshal_ms']:.1f} ms (host); {smi}", flush=True)
+    if k_busy_ms > 0:
+        k_c_ms = kt_["tropical"]["compute"]
+        print(f"profile tropical: lane program at B={BATCH} {k_prog_ms:.3f} ms host clock "
+              f"(median of {BATCH_REPS}), device busy {k_busy_ms:.3f} ms (idle share "
+              f"{1 - k_busy_ms / k_prog_ms:.3f}); top device ops: {k_top}; compute() device busy "
+              f"{k_c_busy_ms:.3f} ms of {k_c_ms:.3f} ms (phase 3k's median; idle share "
+              f"{1 - k_c_busy_ms / k_c_ms:.3f}); top device ops: {k_c_top}", flush=True)
+    else:
+        print("profile tropical: the profiler saw no device time; idle share not measured",
+              flush=True)
+    print(f"tropical share of the script: phase 3k {kx['phase_s']:.1f} s + its phase-4 "
+          f"timings and profiles {k_phase4_s:.1f} s", flush=True)
     print(f"engines' share of the script: phase 3j {jx['phase_s']:.1f} s + its phase-4 "
           f"timings and profiles {j_phase4_s:.1f} s = {jx['phase_s'] + j_phase4_s:.1f} s",
           flush=True)
@@ -3376,6 +3737,19 @@ def main() -> None:
             "recomputed_entries", "copied_entries", "form", "tiles", "registers", "form_b1",
             "registers_b1")},
         "engine_ms": jx["times"],
+    })
+    kernel_rows.append({
+        "name": "trop_relax", "route": "cuda", "source": TROP_SOURCE, "replaces": TROP_REPLACES,
+        "launches": sum(c["trop_relax"] for runs in kx["launches"].values() for c in runs),
+        "library_ms": None,
+        **{key: trow[key] for key in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "launch_ms",
+            "launch_bound_ms", "dispatch_ms", "dispatch_bound_ms", "full_round_ms",
+            "full_round_bound_ms", "ms_b1", "plain_ms_b1", "bound_ms_b1", "device_ms_b1",
+            "repair_set_ms", "repair_rows_host_ms", "launch1_split")},
+        "launches_by_path": {k: [c["trop_relax"] for c in runs]
+                             for k, runs in kx["launches"].items()},
+        "tiles": kx["meta"], "tile_deltas": kx["tile_deltas"], "engine_ms": kx["times"],
     })
     # (e) every dispatch of the run ran on the card: every breaker the run
     # built (every SPF backend, FRR engine and BGP table and rank backend)

@@ -2,7 +2,7 @@
 
 The sources under ``holo_tpu_torch/csrc/`` (the blocked engine's kernels,
 the gather engine's, its multipath kernels and its fused round, the BGP
-table's fold) are compiled at first use for
+table's fold, the tropical engine's tile relax) are compiled at first use for
 ``sm_90a``, one ``nvcc`` per source, all started together, and linked into
 one library in ``holo_tpu_torch/build/`` (listed in ``.gitignore``), named
 by a hash of the sources so an edit rebuilds it.  Each C entry point takes ``void*``
@@ -33,7 +33,7 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = (_PKG / "csrc" / "blocked_kernels.cu", _PKG / "csrc" / "ell_kernels.cu",
            _PKG / "csrc" / "mp_kernels.cu", _PKG / "csrc" / "bgp_kernels.cu",
-           _PKG / "csrc" / "fused_kernels.cu")
+           _PKG / "csrc" / "fused_kernels.cu", _PKG / "csrc" / "tropical_kernels.cu")
 BUILD_DIR = _PKG / "build"
 CUDA_HOME = "/usr/local/cuda"  # where nvcc is looked for after $CUDA_HOME
 NVCC_FLAGS = (
@@ -60,6 +60,7 @@ SIGNATURES = {
     "holo_ell_fused_info": (_I, _I, _I, _P, _P, _P),
     "holo_bgp_fold": (*[_P] * 12, *[_I] * 9, _P),
     "holo_bgp_fold_smem": (_I,) * 5,
+    "holo_trop_relax": (*[_P] * 14, *[_I] * 5, _P),
 }
 
 _LIB: ctypes.CDLL | None = None

@@ -396,7 +396,8 @@ def diff_topologies(base: Topology, new: Topology, max_ops: int = 512) -> Topolo
 
 def _undirected_adjacency(n: int, edge_src, edge_dst) -> tuple[np.ndarray, np.ndarray]:
     """CSR (indptr, indices) of the undirected structure, neighbour lists
-    ascending (the deterministic basis of :func:`partition_topology`)."""
+    ascending (the deterministic basis of :func:`partition_topology` and
+    :func:`bandwidth_permutation`)."""
     src = np.concatenate([edge_src, edge_dst]).astype(np.int64)
     dst = np.concatenate([edge_dst, edge_src]).astype(np.int64)
     order = np.lexsort((dst, src))
@@ -409,6 +410,53 @@ def _undirected_adjacency(n: int, edge_src, edge_dst) -> tuple[np.ndarray, np.nd
     np.add.at(indptr, src + 1, 1)
     np.cumsum(indptr, out=indptr)
     return indptr, dst.astype(np.int32)
+
+
+def bandwidth_permutation(n: int, edge_src, edge_dst) -> np.ndarray:
+    """Reverse Cuthill-McKee order, ``holo_tpu.ops.graph.bandwidth_permutation``:
+    int32 [n] ``perm`` with ``perm[new] = old``.  Relabeling the vertices by
+    it puts each vertex's neighbours at nearby indices, which cuts the
+    off-diagonal block pairs of a tiled layout.  Deterministic: components
+    start at their least-degree (then lowest-id) vertex in that order, a BFS
+    level is ordered by (first parent's rank, degree, id) -- the classic FIFO
+    expansion with each parent's children sorted by (degree, id) -- and the
+    final order is reversed."""
+    indptr, nbrs = _undirected_adjacency(n, np.asarray(edge_src), np.asarray(edge_dst))
+    deg = np.diff(indptr)
+    seen = np.zeros(n, bool)
+    chunks: list[np.ndarray] = []
+    for s in np.lexsort((np.arange(n), deg)):
+        if seen[s]:
+            continue
+        seen[s] = True
+        frontier = np.asarray([s], np.int64)
+        chunks.append(frontier)
+        while frontier.shape[0]:
+            counts = indptr[frontier + 1] - indptr[frontier]
+            total = int(counts.sum())
+            if total == 0:
+                break
+            # Every out-neighbour of the level, flattened from the CSR rows.
+            flat = np.repeat(indptr[frontier] - np.concatenate([[0], np.cumsum(counts)[:-1]]),
+                             counts) + np.arange(total)
+            childs = nbrs[flat].astype(np.int64)
+            prank = np.repeat(np.arange(frontier.shape[0]), counts)
+            fresh = ~seen[childs]
+            childs, prank = childs[fresh], prank[fresh]
+            if childs.shape[0] == 0:
+                break
+            # Each child joins at its first parent's rank.
+            first = np.lexsort((prank, childs))
+            childs, prank = childs[first], prank[first]
+            keep = np.ones(childs.shape[0], bool)
+            keep[1:] = childs[1:] != childs[:-1]
+            childs, prank = childs[keep], prank[keep]
+            level = childs[np.lexsort((childs, deg[childs], prank))]
+            seen[level] = True
+            chunks.append(level)
+            frontier = level
+    order = np.concatenate(chunks) if chunks else np.empty(0, np.int64)
+    return order[::-1].astype(np.int32)
 
 
 def partition_topology(topo: Topology, n_parts: int | None = None,

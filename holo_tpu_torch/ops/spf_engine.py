@@ -511,8 +511,10 @@ def lane_engine(engine: str):
     """The lane program of ``engine``; raises naming the ROADMAP item of an
     engine the port does not run yet."""
     if engine not in LANE_ENGINES:
-        item = " (the tropical engine is ROADMAP queue A item 9)" if engine == "tropical" else ""
-        raise ValueError(f"one_engine {engine!r}: the port runs {sorted(LANE_ENGINES)}{item}")
+        item = (" (the tropical engine takes tiles and repair rows: ops/tropical.py, "
+                "tropical_whatif_batch)") if engine == "tropical" else ""
+        raise ValueError(f"one_engine {engine!r}: the lane programs are {sorted(LANE_ENGINES)}"
+                         f"{item}")
     return LANE_ENGINES[engine]
 
 
@@ -601,6 +603,11 @@ class _CacheEntry:
     # structural delta shifted edge indices): the entry serves mask-free
     # SPF but not edge-mask consumers (what-if, a masked compute).
     ids_stale: bool = False
+    # The tropical tile attachment (ops.tropical.TropicalTiles) and its host
+    # meta, built from the mirror on first use and updated in place by each
+    # delta; a delta the tiles cannot absorb drops only the attachment.
+    tropical: object | None = None
+    trop_meta: dict | None = None
 
 
 class _DeltaUnappliable(Exception):
@@ -725,8 +732,7 @@ def apply_delta_slots(g: DeviceGraph, ops: DeltaSlots) -> DeviceGraph:
 class DeviceGraphCache:
     """LRU of marshaled DeviceGraphs on one device, keyed by ``(topology
     class, uid, generation, n_atoms)`` (``holo_tpu``'s ``DeviceGraphCache``
-    without the tropical, partitioned and mesh parts).  In-place topology
-    mutators must ``touch()``.
+    without the mesh parts).  In-place topology mutators must ``touch()``.
 
     DeltaPath: when a lookup misses but the topology carries delta lineage
     (``Topology.link_delta``) to a resident base entry of its own class, the
@@ -738,6 +744,12 @@ class DeviceGraphCache:
     armed the depth cap is its per-shape one (:meth:`_depth_cap`).  Each disposition
     counts in ``delta_paths[(kind, path)]`` (``holo_spf_delta_total``);
     each lookup in ``lookups[hit | delta | miss]``.
+
+    An entry may carry the tropical engine's tiles (:meth:`get_tropical`).
+    A delta applied to it is lowered into tile writes too and applied in
+    place; a delta the tiles cannot absorb drops them only.  Each counts in
+    ``tile_deltas`` (``apply`` or ``drop-<reason>``, ``holo_tpu``'s
+    ``holo_spf_tropical_delta_total``).
 
     A graph obtained from an earlier ``get()`` changes when a delta is later
     applied to its entry: nothing but the cache may hold one across calls.
@@ -757,6 +769,7 @@ class DeviceGraphCache:
         self.max_delta_depth = int(max_delta_depth)
         self.delta_paths: Counter = Counter()
         self.lookups: Counter = Counter()
+        self.tile_deltas: Counter = Counter()
         self._cache: dict[tuple, _CacheEntry] = {}
         self._part: dict[tuple, object] = {}
         self._evictions = 0
@@ -826,13 +839,43 @@ class DeviceGraphCache:
             # and the caller re-marshals.
             self.delta_paths[(kind, f"full-{exc.reason}")] += 1
             return None
+        tile_ops = None
+        if base.tropical is not None:
+            from holo_tpu_torch.ops import tropical
+
+            # Against the post-delta mirror, which lower_delta just moved.
+            try:
+                tile_ops = tropical.lower_tile_delta(base.mirror, delta, base.trop_meta)
+            except tropical.TileDeltaUnappliable as exc:
+                base.tropical = base.trop_meta = None
+                self.tile_deltas[f"drop-{exc.reason}"] += 1
         g = apply_delta_slots(base.graph, ops)
+        if tile_ops is not None:
+            tropical.apply_tile_delta(base.tropical, tile_ops)
+            self.tile_deltas["apply"] += 1
         self._insert(self.key(topo, n_atoms), _CacheEntry(
             graph=g, mirror=base.mirror, depth=base.depth + 1,
             ids_stale=base.ids_stale or not delta.ids_stable,
+            tropical=base.tropical, trop_meta=base.trop_meta,
         ), applied=True)
         self.delta_paths[(kind, "apply")] += 1
         return g
+
+    def get_tropical(self, topo, n_atoms: int):
+        """The entry's tropical tiles (``ops.tropical.TropicalTiles`` on this
+        device), built from its mirror on first use and kept; the entry is
+        looked up (or marshaled) first if it is not resident."""
+        from holo_tpu_torch.ops import tropical
+
+        e = self._cache.get(self.key(topo, n_atoms))
+        if e is None:
+            self.get(topo, n_atoms)
+            e = self._cache[self.key(topo, n_atoms)]
+        if e.tropical is None:
+            m = e.mirror
+            host, e.trop_meta = tropical.build_tiles_host(m.in_src, m.in_cost, m.in_valid)
+            e.tropical = tropical.tiles_on(host, self.device)
+        return e.tropical
 
     def _insert(self, key: tuple, entry: _CacheEntry, applied: bool = False) -> None:
         self._cache[key] = entry
@@ -847,7 +890,7 @@ class DeviceGraphCache:
         own: each engine counts its own lookups while engines on one device
         marshal a topology once."""
         v = copy.copy(self)
-        v.delta_paths, v.lookups = Counter(), Counter()
+        v.delta_paths, v.lookups, v.tile_deltas = Counter(), Counter(), Counter()
         v._evictions = v._deltas_applied = 0
         return v
 
@@ -864,6 +907,7 @@ class DeviceGraphCache:
             "delta-entries": sum(1 for d in depths if d > 0),
             "max-chain-depth": max(depths, default=0),
             "stale-id-entries": sum(1 for e in entries if e.ids_stale),
+            "tropical-entries": sum(1 for e in entries if e.tropical is not None),
             "occupancy": round(sum(occ) / len(occ), 4) if occ else 0.0,
         }
 
@@ -926,17 +970,34 @@ def hops_nh_recompute(g: DeviceGraph, root: int, dag, parent, hops0, nh0, limit:
     return hops[:, 0], nh[:, :, 0], rounds
 
 
-def _incremental_relax(g: DeviceGraph, root: int, prev: SpfTensors, seed_rows, limit: int):
+def _ell_relax_loop(g: DeviceGraph, dist: torch.Tensor, limit: int):
+    """(dist, rounds): ``ell_relax`` rounds from the seed ``dist`` [N, B], no
+    mask, while a round changed something and fewer than ``limit`` ran.  The
+    first frontier marks every row with a finite seed: a seed is not the
+    output of a round, so no source of it may be skipped."""
+    front = ell.pack_lane_bits(dist < INF)
+    p = lane_planes(g, None)
+    rounds = 0
+    changed = True
+    while changed and rounds < limit:
+        dist, flag, front = ell.ell_relax(*p, dist, front)
+        changed = bool(flag)
+        rounds += 1
+    return dist, rounds
+
+
+def _incremental_relax(g: DeviceGraph, root: int, prev: SpfTensors, seed_rows, limit: int,
+                       relax=None):
     """Phases 1-2 of the incremental SPF: (planes, dist [N, 1], phase
     record).  The caller then runs the DAG step: ``ell_first_parent`` on
     the single-path path, ``ell_parent_sets`` on the multipath one.
 
     1. The affected set: the seed rows and their descendants in the
        previous first-parent tree (one gather of ``aff[parent]`` a round).
-    2. The seeded relax on ``ell_relax``, from the previous distances with
-       the affected rows at INF and the root at 0.  Its first frontier marks
-       every row with a finite seed: a seed is not the output of a round,
-       so no source of it may be skipped."""
+    2. The seeded relax from the previous distances with the affected rows
+       at INF and the root at 0: ``relax(dist, limit) -> (dist, rounds)``,
+       :func:`_ell_relax_loop` by default (the tropical engine's runs on its
+       tiles)."""
     n = g.in_src.shape[0]
     dev = g.in_src.device
     t0 = time.perf_counter()
@@ -954,15 +1015,10 @@ def _incremental_relax(g: DeviceGraph, root: int, prev: SpfTensors, seed_rows, l
     t1 = time.perf_counter()
     dist = torch.where(aff, INF, prev.dist)
     dist[int(root)] = 0
-    dist = dist[:, None].contiguous()
-    front = ell.pack_lane_bits(dist < INF)
+    seed = dist[:, None].contiguous()
+    dist, relax_rounds = (_ell_relax_loop(g, seed, limit) if relax is None
+                          else relax(seed, limit))
     p = lane_planes(g, None)
-    relax_rounds = 0
-    changed = True
-    while changed and relax_rounds < limit:
-        dist, flag, front = ell.ell_relax(*p, dist, front)
-        changed = bool(flag)
-        relax_rounds += 1
     t2 = time.perf_counter()
     record = dict(affected=aff_rounds, affected_ms=(t1 - t0) * 1e3, aff=aff,
                   relax=relax_rounds, relax_ms=(t2 - t1) * 1e3, t2=t2)
@@ -980,7 +1036,7 @@ def _note_phases(stats: dict | None, record: dict, rounds: int) -> None:
 
 
 def spf_one_incremental(g: DeviceGraph, root: int, prev: SpfTensors, seed_rows,
-                        max_iters=None, stats: dict | None = None) -> SpfTensors:
+                        max_iters=None, stats: dict | None = None, relax=None) -> SpfTensors:
     """Incremental full SPF (``spf_one_incremental``, one lane): recompute
     only what a delta can have changed, seeded from the previous run.
 
@@ -996,11 +1052,11 @@ def spf_one_incremental(g: DeviceGraph, root: int, prev: SpfTensors, seed_rows,
     ``stats``, when given, receives each phase's rounds and host
     milliseconds (each phase ends on a host sync; the last, ``hops_nh``,
     includes ``ell_first_parent``) and the affected set's size (one more
-    sync).
+    sync).  ``relax`` replaces phase 2's loop (:func:`_incremental_relax`).
     """
     n = g.in_src.shape[0]
     limit = n if max_iters is None else max_iters
-    p, dist, record = _incremental_relax(g, root, prev, seed_rows, limit)
+    p, dist, record = _incremental_relax(g, root, prev, seed_rows, limit, relax)
     parent, dag = ell.ell_first_parent(*p, dist, _roots(root, 1, g.in_src.device))
     hops, nh, rounds = hops_nh_recompute(g, root, dag, parent[:, 0], prev.hops, prev.nexthops,
                                          limit)

@@ -1,9 +1,9 @@
 """Per-shape engine tuner of the port: ``holo_tpu/pipeline/tuner.py``'s
 ``EngineTuner``, its schedule, constants and table format, without telemetry.
 
-The single-path engines (``seq``, ``fused``, ``packed``, ``hybrid``) compute
-the same bits, so which one runs is a latency choice.  The tuner makes it
-per **shape bucket**::
+The single-path engines (``seq``, ``fused``, ``packed``, ``hybrid``,
+``tropical``) compute the same bits, so which one runs is a latency choice.
+The tuner makes it per **shape bucket**::
 
     bucket = (pow2(V), pow2(E), pow2(batch), mesh identity, multipath width)
 
@@ -27,8 +27,9 @@ their own kind.
 The table round-trips through a versioned JSON file (``TABLE_VERSION`` 3,
 ``holo_tpu``'s format: one file reads the same in both packages), written
 atomically; a version mismatch or a corrupt file is discarded.  An engine
-that a loaded table names but this package does not run (``tropical``)
-stays in the table and its saves, and is never picked.
+that a loaded table names but this package does not run (``mp_tropical``,
+the tropical multipath program, ROADMAP A9b) stays in the table and its
+saves, and is never picked.
 
 ``holo_tpu`` counts decisions and promotions in its
 ``holo_pipeline_tuner_*`` metrics; the port has no metric registry yet, so
@@ -49,12 +50,11 @@ log = logging.getLogger("holo_tpu_torch.pipeline.tuner")
 #: persisted-table format version (``holo_tpu``'s: its tables load here)
 TABLE_VERSION = 3
 
-#: the single-path engines the port runs (``holo_tpu``'s also has
-#: ``tropical``, ROADMAP A9)
-ENGINES = ("seq", "fused", "packed", "hybrid")
+#: the single-path engines (``holo_tpu``'s)
+ENGINES = ("seq", "fused", "packed", "hybrid", "tropical")
 
 #: the multipath formulations the port runs (``holo_tpu``'s also has
-#: ``mp_tropical``, A9)
+#: ``mp_tropical``, ROADMAP A9b)
 MP_ENGINES = ("mp",)
 
 #: samples kept per (kind, bucket, engine)

@@ -7,9 +7,14 @@ host oracle; :class:`TorchSpfBackend` runs on the CUDA card, whose kernels
 are hand-written CUDA, with two engines:
 
 - ``engine="gather"`` (the default, as in ``holo_tpu``): the ELL fixpoints
-  of :mod:`holo_tpu_torch.ops.spf_engine`, for any topology, in one of four
+  of :mod:`holo_tpu_torch.ops.spf_engine`, for any topology, in one of five
   bit-identical formulations, ``one_engine`` ``seq`` (the default),
-  ``fused``, ``packed`` or ``hybrid``;
+  ``fused``, ``packed``, ``hybrid`` or ``tropical`` (the distances on
+  min-plus tiles, :mod:`holo_tpu_torch.ops.tropical`: ``compute``,
+  ``compute_whatif``, ``compute_multiroot`` and DeltaPath at ``multipath_k``
+  1; its multipath program is ROADMAP A9b, so a pinned-tropical ``compute``
+  at ``multipath_k`` > 1 raises ``ValueError`` before any dispatch, and a
+  what-if at ``multipath_k`` > 1 runs ``mp`` as in ``holo_tpu``);
 - ``engine="blocked"``: the block-sparse engine of
   :mod:`holo_tpu_torch.ops.blocked_spf`.  A topology outside its
   preconditions (parallel ``(src, dst)`` pairs, distances >= 2**27, more
@@ -51,7 +56,10 @@ may build the kernel library, is not a sample (the counterpart of JAX's
 fresh-compile exclusion).
 Multipath dispatches run ``mp`` under buckets of their own.  The delta-linked
 and the re-marshaling ``compute()`` walls feed the DeltaPath depth cap, and a
-warm full partitioned solve the partitioned rows.  Multi-root stays ``seq``.
+warm full partitioned solve the partitioned rows.  Multi-root runs ``seq``, or
+the tiles when the backend is pinned ``tropical``; a DeltaPath ``compute`` runs
+on the tiles when the backend is pinned ``tropical`` or the tuner's measured
+``compute()`` winner of the bucket is ``tropical``.
 
 Partitioned SPF (``partition_threshold``, as in ``holo_tpu``): ``compute``,
 ``compute_whatif`` and ``compute_partitioned`` of a topology with at least
@@ -102,6 +110,12 @@ from holo_tpu_torch.ops.spf_engine import (
     spf_one_incremental_multipath,
     spf_one_multipath,
     spf_whatif_batch,
+)
+from holo_tpu_torch.ops.tropical import (
+    tropical_multiroot,
+    tropical_spf_one,
+    tropical_spf_one_incremental,
+    tropical_whatif_batch,
 )
 from holo_tpu_torch.pipeline.tuner import active_tuner, shape_bucket
 from holo_tpu_torch.resilience.breaker import CircuitBreaker
@@ -256,7 +270,8 @@ class TorchSpfBackend(SpfBackend):
     ):
         if engine not in ("gather", "blocked"):
             raise ValueError(f"engine {engine!r}: the port runs 'gather' and 'blocked'")
-        lane_engine(one_engine)  # raises on an engine the port does not run
+        if one_engine != "tropical":  # tiles and repair rows: no lane program
+            lane_engine(one_engine)  # raises on an engine the port does not run
         self.engine = engine
         self.one_engine = one_engine
         self.device = resolve_device(device)
@@ -300,6 +315,11 @@ class TorchSpfBackend(SpfBackend):
         kp = mp_pad(multipath_k)
         if self._use_partitioned(topo):
             return self.compute_partitioned(topo, edge_mask, multipath_k=kp)
+        if kp > 1 and self.one_engine == "tropical":
+            # holo_tpu runs mp_tropical here: refused before the breaker, so
+            # nothing counts it and no oracle serves it.
+            raise ValueError("multipath_k > 1 on the tropical engine (mp_tropical) is ROADMAP "
+                             "queue A item A9b, not ported yet")
         return self._guarded(
             lambda: self._device_compute(topo, edge_mask, kp),
             lambda: self._oracle.compute(topo, edge_mask, multipath_k=kp),
@@ -425,6 +445,9 @@ class TorchSpfBackend(SpfBackend):
         first = self._first_use("one", engine, g, 1, kp, edge_mask is not None)
         if kp > 1:
             out = spf_one_multipath(g, topo.root, kp, edge_mask, self.max_iters)
+        elif engine == "tropical":
+            tt = self._gather_cache.get_tropical(topo, self._n_atoms(topo))
+            out = tropical_spf_one(g, tt, topo.root, edge_mask, None, self.max_iters)
         else:
             one = spf_one if engine == "seq" else _ONE_ENGINES[engine]
             out = one(g, topo.root, edge_mask, self.max_iters)
@@ -455,6 +478,16 @@ class TorchSpfBackend(SpfBackend):
         t = active_tuner()
         if bucket is not None and t is not None:
             t.observe(kind, bucket, engine, seconds)
+
+    def _trop_incremental(self, topo) -> bool:
+        """Does a single-path DeltaPath dispatch relax on the tiles?  When the
+        backend is pinned ``tropical``, or the armed tuner's measured
+        ``compute()`` winner of the bucket is (``holo_tpu``'s
+        ``_trop_incremental``)."""
+        if self.one_engine == "tropical":
+            return True
+        t = active_tuner()
+        return t is not None and t.current_winner("one", self._depth_bucket(topo)) == "tropical"
 
     @staticmethod
     def _depth_bucket(topo, kp: int = 1) -> tuple:
@@ -532,6 +565,10 @@ class TorchSpfBackend(SpfBackend):
             sp, mp = prev
             out = spf_one_incremental_multipath(g, topo.root, sp, mp.npaths, mp.nh_weights,
                                                 seeds, kp, self.max_iters, self.delta_stats)
+        elif self._trop_incremental(topo):
+            tt = self._gather_cache.get_tropical(topo, self._n_atoms(topo))
+            out = tropical_spf_one_incremental(g, tt, topo.root, prev, seeds, self.max_iters,
+                                               self.delta_stats)
         else:
             out = spf_one_incremental(g, topo.root, prev, seeds, self.max_iters,
                                       self.delta_stats)
@@ -558,6 +595,9 @@ class TorchSpfBackend(SpfBackend):
         if kp > 1:
             sp, mp = spf_multipath_batch(g, topo.root, masks, kp, self.max_iters)
             mp = _host_mp(mp, topo.n_vertices)
+        elif engine == "tropical":
+            tt = self._gather_cache.get_tropical(topo, self._n_atoms(topo))
+            sp, mp = tropical_whatif_batch(g, tt, topo.root, masks, None, self.max_iters), {}
         else:
             sp = spf_whatif_batch(g, topo.root, masks, self.max_iters, engine)
             mp = {}
@@ -575,7 +615,12 @@ class TorchSpfBackend(SpfBackend):
         if len(roots) == 0:
             empty = np.zeros((0, topo.n_vertices), np.int32)
             return MultiRootResult(dist=empty, parent=empty.copy(), hops=empty.copy())
-        out = spf_multiroot(self.prepare(topo), roots, max_iters=self.max_iters)
+        g = self.prepare(topo)
+        if self.one_engine == "tropical":  # holo_tpu's mr_engine
+            tt = self._gather_cache.get_tropical(topo, self._n_atoms(topo))
+            out = tropical_multiroot(g, tt, roots, None, None, self.max_iters)
+        else:
+            out = spf_multiroot(g, roots, max_iters=self.max_iters)
         dist, parent, hops, _ = _host_tensors(out, topo.n_vertices)
         return MultiRootResult(dist=dist, parent=parent, hops=hops)
 

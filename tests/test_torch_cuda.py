@@ -56,6 +56,14 @@ through a delta chain across gateway links, is held to the CPU path (its
 dispositions too) and the oracle; CspfEngine's batch on a k=12 fat tree is
 held to the CPU path.
 
+The tropical engine: trop_relax (T1) is held bit-identical to its plain
+version on every launch of a real tile relax (and its full round, an
+all-ones frontier, to the same distances) at tile sizes 8 to 128, at 1, 5,
+8, 9, 33 and 64 lanes (row and tile forms), with and without masks (the
+repair rows built on the card); explicit repair rows equal the card-built
+set; the backend's compute (masked too), compute_whatif, compute_multiroot
+and a delta chain (tiles updated in place) equal the CPU path.
+
 The fused, packed and hybrid engines: ell_fused_round in both layouts
 (planar and interleaved, with W = 2, and with W = 7, two chunks of
 next-hop words) is held bit-identical to fused_round_plain on every
@@ -1202,6 +1210,148 @@ def test_tuned_backend_on_the_card_equals_seq(tmp_path):
             for i, (a, b) in enumerate(zip(got, want)):
                 _same_result(a, b, f"tuned #{i}")
         picked = {e for (_, e, _) in tuner.stats()["decisions"]}
-        assert picked == {"seq", "fused", "packed", "hybrid"}
+        assert picked == set(pipeline.tuner.ENGINES)
     finally:
         pipeline.reset_engine_tuner()
+
+
+# ---------------------------------------------------------------------------
+# The tropical engine: trop_relax (T1) against its plain version on every
+# launch of real dispatches, at each tile size the kernel is built for and
+# on both sides of its row / tile switch; the backend against the CPU path.
+
+_TROP_SHAPES = {
+    "fat_tree_k8": lambda: synth.fat_tree_topology(k=8),
+    "ospf": lambda: synth.random_ospf_topology(n_routers=300, n_networks=40, extra_p2p=500,
+                                               seed=4),
+}
+
+
+def _trop_setup(shape, block, lanes, dev):
+    from holo_tpu_torch.ops import tropical as trop
+
+    topo = _TROP_SHAPES[shape]()
+    ell_ = build_ell(topo, n_atoms=64)
+    host, _ = trop.build_tiles_host(ell_.in_src, ell_.in_cost, ell_.in_valid, block)
+    masks = synth.whatif_link_failure_masks(topo, lanes, seed=3)
+    return (topo, se.device_graph_from_ell(ell_, dev), trop.tiles_on(host, dev), masks)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("lanes", [1, 5, 8, 9, 33, 64])
+@pytest.mark.parametrize("block", [8, 16, 32, 64, 128])
+@pytest.mark.parametrize("shape", sorted(_TROP_SHAPES))
+def test_trop_relax_matches_plain_on_every_launch(shape, block, lanes, masked):
+    from holo_tpu_torch.kernels import tropical as kt
+    from holo_tpu_torch.ops import tropical as trop
+
+    dev = _card()
+    topo, g, tt, masks = _trop_setup(shape, block, lanes, dev)
+    mask = se.pack_edge_masks(masks, dev) if masked else None
+    roots = torch.full((lanes,), topo.root, dtype=torch.int32, device=dev)
+    if not masked:  # lanes of distinct roots
+        roots = torch.arange(lanes, dtype=torch.int32, device=dev) * 7 % topo.n_vertices
+    kernel, held = kt.trop_relax, []
+
+    def hold(*args):
+        got = kernel(*args)
+        cpu = [None if a is None else a.cpu() for a in args]
+        want = kt.trop_relax_plain(*cpu)
+        for x, y, name in zip(got, want, ("dist", "changed", "active")):
+            assert torch.equal(x.cpu(), y), (name, len(held))
+        # The full round: an all-ones frontier gives the same distances.
+        full = kernel(*args[:3], ell.full_frontier(*args[3].shape[:1], lanes, dev), *args[4:])
+        assert torch.equal(full[0], got[0]), len(held)
+        held.append(len(held))
+        return got
+
+    kt.trop_relax = hold
+    try:
+        before = kt.launches["trop_relax"]
+        dist0, _ = se.distance_seed(g.in_src.shape[0], roots)
+        got, rounds = trop.tile_relax(g, tt, dist0, mask)
+    finally:
+        kt.trop_relax = kernel
+    torch.cuda.synchronize()
+    assert len(held) == rounds > 1 and kt.launches["trop_relax"] - before == 2 * rounds
+    want = se.distance_fixpoint(se.lane_planes(g, mask), roots, g.in_src.shape[0])
+    assert torch.equal(got, want)
+
+
+def test_trop_relax_explicit_rows_match_the_device_set_on_the_card():
+    from holo_tpu_torch.ops import tropical as trop
+
+    dev = _card()
+    topo, g, tt, masks = _trop_setup("ospf", None, 40, dev)
+    mask = se.pack_edge_masks(masks, dev)
+    roots = torch.full((40,), topo.root, dtype=torch.int32, device=dev)
+    dist0, _ = se.distance_seed(g.in_src.shape[0], roots)
+    rows = trop.repair_rows_host(topo.edge_dst, masks, topo.n_vertices)
+    a, _ = trop.tile_relax(g, tt, dist0, mask, rows)
+    b, _ = trop.tile_relax(g, tt, dist0, mask)
+    assert torch.equal(a, b)
+    p = se.lane_planes(g, mask)
+    assert torch.equal(trop.repair_bits(p.slot, mask, 40, tt).cpu(),
+                       trop.repair_bits(p.slot.cpu(), mask.cpu(), 40,
+                                        trop.TropicalTiles(*(x.cpu() for x in tt))))
+
+
+def test_trop_relax_refuses_bad_planes():
+    from holo_tpu_torch.kernels import tropical as kt
+
+    dev = _card()
+    topo, g, tt, _ = _trop_setup("fat_tree_k8", 8, 9, dev)
+    nb = tt.tiles.shape[0]
+    dist = torch.zeros((tt.perm.shape[0], 9), dtype=torch.int32, device=dev)
+    front = ell.full_frontier(nb, 9, dev)
+    before = kt.launches["trop_relax"]
+    with pytest.raises(ValueError, match="trop_relax planes"):
+        kt.trop_relax(tt.tiles, tt.cb, dist[:-1], front)
+    with pytest.raises(ValueError, match="trop_relax planes"):
+        kt.trop_relax(tt.tiles, tt.cb, dist, front[:-1])
+    with pytest.raises(ValueError, match="trop_relax planes"):
+        kt.trop_relax(tt.tiles[:, :, :4, :4].contiguous(), tt.cb, dist[: nb * 4], front)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        kt.trop_relax(tt.tiles, tt.cb.cpu(), dist, front)
+    assert kt.launches["trop_relax"] == before
+
+
+def test_tropical_backend_on_the_card_matches_the_cpu_path():
+    from holo_tpu_torch.kernels import tropical as kt
+
+    dev = _card()
+    topo = synth.random_ospf_topology(n_routers=260, n_networks=40, extra_p2p=400, seed=0)
+    masks = synth.whatif_link_failure_masks(topo, 40, seed=7)
+    roots = np.arange(0, topo.n_vertices, 23, dtype=np.int32)
+    for mi in (None, 0, 2, 5):
+        kt.reset_launches()
+        card = TorchSpfBackend(one_engine="tropical", max_iters=mi, incremental=False)
+        cpu = TorchSpfBackend(one_engine="tropical", max_iters=mi, incremental=False,
+                              device="cpu")
+        got = card.compute_whatif(topo, masks) + [card.compute(topo), card.compute(topo, masks[3])]
+        want = cpu.compute_whatif(topo, masks) + [cpu.compute(topo), cpu.compute(topo, masks[3])]
+        for i, (a, b) in enumerate(zip(got, want)):
+            _same_result(a, b, f"tropical max_iters={mi} #{i}")
+        a, b = card.compute_multiroot(topo, roots), cpu.compute_multiroot(topo, roots)
+        for f in ("dist", "parent", "hops"):
+            np.testing.assert_array_equal(getattr(a, f), getattr(b, f), err_msg=f)
+        assert (kt.launches["trop_relax"] > 0) == (mi != 0)
+    assert not any(card.breaker.snapshot()[k] for k in ("failures", "fallbacks", "refusals"))
+
+
+def test_tropical_delta_chain_on_the_card_matches_the_cpu_path():
+    dev = _card()
+    topo = synth.fat_tree_topology(k=24)
+    card = TorchSpfBackend(one_engine="tropical")
+    cpu = TorchSpfBackend(one_engine="tropical", device="cpu")
+    _same_result(card.compute(topo), cpu.compute(topo), "base")
+    cur = topo
+    for i in range(6):
+        e = (i * 97) % cur.n_edges
+        nxt = synth.clone_topology(cur, cost={e: int(cur.edge_cost[e]) + 3 + i})
+        nxt.link_delta(graph.diff_topologies(cur, nxt))
+        _same_result(card.compute(nxt), cpu.compute(nxt), f"step {i}")
+        cur = nxt
+    assert card.delta_paths[("weight", "incremental")] == 6
+    assert card._gather_cache.tile_deltas == {"apply": 6} == cpu._gather_cache.tile_deltas
+    assert card._gather_cache.get_tropical(cur, 64).tiles.device.type == dev.type

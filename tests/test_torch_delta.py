@@ -661,7 +661,7 @@ def test_cache_stats_and_lru():
     st = cache.stats()
     assert st == {"entries": 1, "capacity": 2, "evictions": 0, "deltas-applied": 1,
                   "delta-entries": 1, "max-chain-depth": 1, "stale-id-entries": 1,
-                  "occupancy": st["occupancy"]}
+                  "tropical-entries": 0, "occupancy": st["occupancy"]}
     assert 0 < st["occupancy"] < 1
     for s in (20, 21):
         cache.get(_pair(s)[0], N_ATOMS)
@@ -725,6 +725,9 @@ def test_topology_classes_with_equal_keys_do_not_share_planes(engine):
     b = jsynth.random_ospf_topology(n_routers=12, n_networks=2, seed=2)
     b._uid, b.generation = a._uid, a.generation
     assert a.cache_key == b.cache_key
+    # b's borrowed uid may name a holo_tpu topology an earlier test of this
+    # process left in the shared cache: start from an empty one.
+    te.shared_graph_cache("cpu").clear()
     be = TorchSpfBackend(engine=engine, device="cpu")
     ra = be.compute(a)
     _same(be.compute(b), JScalar().compute(b), "holo_tpu topology")

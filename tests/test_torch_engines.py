@@ -14,7 +14,8 @@ engine.  So each port engine is held to its own JAX engine:
   after r, in both layouts, at one lane and at 8 masked lanes, and its
   frontier marks the lanes where the two states differ;
 - the lone router and the disconnected root of ``tests/test_spf_parity.py``;
-- ``one_engine="tropical"`` raises, naming ROADMAP A9.
+- ``one_engine="tropical"`` at ``multipath_k`` > 1 raises, naming ROADMAP
+  A9b (its single path is held in tests/test_torch_tropical.py).
 """
 
 import jax
@@ -177,10 +178,12 @@ def test_disconnected_component_unreachable(engine):
 
 
 def test_tropical_names_a9():
-    with pytest.raises(ValueError, match="item 9"):
-        TorchSpfBackend(one_engine="tropical", device="cpu")
-    g = te.device_graph_from_ell(tgraph.build_ell(tsynth.fat_tree_topology(k=4)), device="cpu")
-    with pytest.raises(ValueError, match="item 9"):
+    topo = tsynth.fat_tree_topology(k=4)
+    be = TorchSpfBackend(one_engine="tropical", device="cpu")
+    with pytest.raises(ValueError, match="A9b"):
+        be.compute(topo, multipath_k=2)
+    g = te.device_graph_from_ell(tgraph.build_ell(topo), device="cpu")
+    with pytest.raises(ValueError, match="ops/tropical.py"):
         te.spf_whatif_batch(g, 0, np.ones((1, 32), bool), engine="tropical")
 
 

@@ -155,11 +155,16 @@ def test_multipath_raises():
 
 @pytest.mark.parametrize("one_engine", ["tropical", "mp", "mp_tropical", "gather"])
 def test_other_one_engines_raise(one_engine):
-    # seq, fused, packed and hybrid run (tests/test_torch_engines.py); the
-    # tropical engine is ROADMAP A9, and a multipath or engine name is no
-    # single-path formulation.
-    match = "queue A item 9" if one_engine == "tropical" else "the port runs"
-    with pytest.raises(ValueError, match=match):
+    # seq, fused, packed, hybrid (tests/test_torch_engines.py) and tropical
+    # (tests/test_torch_tropical.py) run; the tropical multipath program is
+    # ROADMAP A9b, and a multipath or engine name is no single-path
+    # formulation.
+    if one_engine == "tropical":
+        be = TorchSpfBackend(one_engine=one_engine, device="cpu")
+        with pytest.raises(ValueError, match="A9b"):
+            be.compute(tsynth.random_ospf_topology(n_routers=12, seed=1), multipath_k=2)
+        return
+    with pytest.raises(ValueError, match="lane programs are"):
         TorchSpfBackend(one_engine=one_engine, device="cpu")
 
 

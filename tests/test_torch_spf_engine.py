@@ -217,9 +217,11 @@ def test_edgeless_graph_matches_jax():
 
 @pytest.mark.parametrize("engine", ["tropical", "mp", "bogus"])
 def test_other_one_engines_raise(engine):
-    # fused, packed and hybrid run since ROADMAP A6 (tests/test_torch_engines.py).
+    # fused, packed and hybrid run since ROADMAP A6 (tests/test_torch_engines.py);
+    # tropical takes tiles and repair rows (ops/tropical.py), not a lane program.
     _, tt, _, tg = _pair(n_routers=20, seed=1)
-    with pytest.raises(ValueError, match="queue A item 9" if engine == "tropical" else "runs"):
+    with pytest.raises(ValueError,
+                       match="ops/tropical.py" if engine == "tropical" else "lane programs"):
         te.spf_whatif_batch(tg, tt.root, np.ones((2, tt.n_edges), bool), engine=engine)
 
 

@@ -6,8 +6,8 @@ cache.
   and snapshot as holo_tpu's tuner over the same candidate sets;
 - a table written by either package loads in the other and picks the same;
 - a version mismatch or a corrupt file is discarded;
-- an engine the port does not run (tropical), in a loaded table, is kept
-  (a save round-trips it) and never picked;
+- an engine the port does not run (mp_tropical), in a loaded table, is
+  kept (a save round-trips it) and never picked;
 - max_delta_depth scales with the measured ratio (tests/test_tuner.py:148);
 - the port's DeviceGraphCache consults the tuned cap, and a chain past it
   is rebuilt (full-depth) with the same bits;
@@ -49,7 +49,8 @@ def _pair(**kw):
 
 def _wall(engine: str, i: int) -> float:
     """A deterministic wall: hybrid fastest early, then fused (a promotion)."""
-    base = {"seq": 3.0, "fused": 2.0, "packed": 2.5, "hybrid": 1.0, "mp": 4.0}[engine]
+    base = {"seq": 3.0, "fused": 2.0, "packed": 2.5, "hybrid": 1.0, "tropical": 3.5,
+            "mp": 4.0}[engine]
     return base + (5.0 if engine == "hybrid" and i > 20 else 0.0) + (i % 3) * 0.01
 
 
@@ -66,7 +67,7 @@ def test_shape_bucket_matches_holo_tpu():
     assert tuner.TABLE_VERSION == jtuner.TABLE_VERSION == 3
     for name in ("SAMPLE_WINDOW", "DEPTH_SCALE", "DEPTH_MIN", "DEPTH_MAX", "DEPTH_MIN_SAMPLES"):
         assert getattr(tuner, name) == getattr(jtuner, name), name
-    assert set(tuner.ENGINES) == set(jtuner.ENGINES) - {"tropical"}
+    assert tuner.ENGINES == jtuner.ENGINES
     assert set(tuner.MP_ENGINES) == set(jtuner.MP_ENGINES) - {"mp_tropical"}
 
 
@@ -136,25 +137,27 @@ def test_version_mismatch_or_corrupt_file_discarded(tmp_path, content):
 
 
 def test_unknown_engine_in_a_loaded_table_is_kept_and_never_picked(tmp_path):
+    # mp_tropical (ROADMAP A9b) is holo_tpu's second multipath candidate of a
+    # compute() bucket; the port's only one is mp.
     ref = jtuner.EngineTuner(explore_rounds=1, reprobe_every=3)
     for i in range(12):
-        e = ref.pick("one", B1)
-        ref.observe("one", B1, e, 0.001 if e == "tropical" else 1.0 + i * 1e-3)
-    assert ref.current_winner("one", B1) == "tropical"
+        e = ref.pick("one", BK4)
+        ref.observe("one", BK4, e, 0.001 if e == "mp_tropical" else 1.0 + i * 1e-3)
+    assert ref.current_winner("one", BK4) == "mp_tropical"
     path = tmp_path / "tuner.json"
     assert ref.save(path)
     t = tuner.EngineTuner(path=path, reprobe_every=3)
-    assert "tropical" in t.snapshot()["buckets"][json.dumps(["one", *B1])]["samples"]
-    picks = [t.pick("one", B1) for _ in range(40)]
-    assert "tropical" not in picks and set(picks) <= set(tuner.ENGINES)
-    assert t.current_winner("one", B1) in tuner.ENGINES
-    t.observe("one", B1, picks[0], 2.0)
+    assert "mp_tropical" in t.snapshot()["buckets"][json.dumps(["one", *BK4])]["samples"]
+    picks = [t.pick("one", BK4) for _ in range(40)]
+    assert "mp_tropical" not in picks and set(picks) <= set(tuner.MP_ENGINES)
+    assert t.current_winner("one", BK4) in tuner.MP_ENGINES
+    t.observe("one", BK4, picks[0], 2.0)
     again = tmp_path / "again.json"
     assert t.save(again)
     doc = json.loads(again.read_text())
-    key = json.dumps(["one", *B1])
-    assert doc["buckets"][key]["samples"]["tropical"] == \
-        ref.snapshot()["buckets"][key]["samples"]["tropical"]
+    key = json.dumps(["one", *BK4])
+    assert doc["buckets"][key]["samples"]["mp_tropical"] == \
+        ref.snapshot()["buckets"][key]["samples"]["mp_tropical"]
 
 
 def test_depth_cap_scales_with_measured_ratio(tmp_path):
@@ -262,13 +265,13 @@ def test_first_use_dispatch_is_not_a_sample(monkeypatch):
     keys = (("one", *tuner.shape_bucket(topo.n_vertices, topo.n_edges, 1, None)),
             ("whatif", *tuner.shape_bucket(topo.n_vertices, topo.n_edges, 3, None)))
     samples = []
-    for _ in range(5):
+    for _ in range(6):
         be.compute(topo)
         be.compute_whatif(topo, masks)
         samples.append([sum(len(d) for d in t._table[k].samples.values()) for k in keys])
-    # Explore: seq, fused, packed and hybrid each run first (no sample), then
-    # seq again, measured.
-    assert samples == [[0, 0]] * 4 + [[1, 1]]
+    # Explore: seq, fused, packed, hybrid and tropical each run first (no
+    # sample), then seq again, measured.
+    assert samples == [[0, 0]] * 5 + [[1, 1]]
 
 
 def test_depth_arms_are_fed_by_the_backend():
