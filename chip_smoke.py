@@ -164,12 +164,18 @@ the DeltaPath chain).  Phases:
 3k. the tropical engine: the tile marshal (B, NB, Tm, tiles, MB, host ms);
    with the launch counts at 0 before each, ``TorchSpfBackend(one_engine=
    "tropical")``'s ``compute_whatif`` (1024 scenarios), ``compute()``,
-   ``compute_multiroot`` (the 64 roots), a masked ``compute()`` (scenario 0's
-   mask) and the 8-step DeltaPath chain (seq's backend following it), each of
-   which must launch ``trop_relax`` (T1); every T1 launch of the first call
-   of each path and of chain step 0 held bit-identical to
-   ``trop_relax_plain`` on its own inputs (distances, changed flag, next
-   frontier), timed and its work counted against its bound; every scenario
+   ``compute_multiroot`` (the 64 roots), a masked ``compute()`` (scenario 1's
+   mask, one failed link) and the 8-step DeltaPath chain (seq's backend following it), each of
+   which must launch ``trop_relax`` (T1; the what-if and the masked call its
+   repair pass ``trop_repair`` too); every T1 call of the first call of each
+   path and of chain step 0 held bit-identical to ``trop_relax_plain`` on
+   its own inputs (distances, changed flag, next frontier; ``out``
+   snapshotted before the launch and equal to ``dist`` outside the input
+   frontier, the copy rule's precondition; the repair pairs' entries apart),
+   timed and its work counted against its floor (``trop_work``, the copy
+   rule's and the contract before it); T1's launch geometry (grid, threads,
+   registers, shared memory, blocks an SM) for the tile and row forms and
+   every B at 1024 lanes; every scenario
    and root equal to seq's planes, scenarios 0-7, ``compute()``, the masked
    ``compute()``, roots 0-7 and chain steps 0-1 to the oracle; every chain
    step incremental with its tile delta applied in place; warm what-if,
@@ -395,6 +401,8 @@ TROP_WARM_REPS = 3
 TROP_SOURCE = "holo_tpu_torch/csrc/tropical_kernels.cu"
 TROP_REPLACES = ("holo_tpu/ops/tropical.py:423-464, the body of _tile_relax's loop "
                  "(XLA fusion, no Pallas kernel)")
+TROP_REPAIR_REPLACES = ("holo_tpu/ops/tropical.py:445-457, the repair rows of _tile_relax's "
+                        "loop body (XLA fusion, no Pallas kernel)")
 TROP_TILE_OPS = 2
 TROP_REPAIR_OPS = 3
 
@@ -2535,27 +2543,42 @@ def engines_phase(ell, se, dev, topo, masks, gres, gone, oracle, compute_ref, n_
 
 
 class TropHolder:
-    """Within ``holding_trop()``, every trop_relax launch runs (and counts) as
-    before, timed by CUDA events, its work counted (trop_work), and is held
-    at once bit-identical to trop_relax_plain on the same inputs in all three
-    outputs (distances, changed flag, next frontier)."""
+    """Within ``holding_trop()``, every trop_relax call (the tile pass and,
+    with repair pairs, the repair pass) runs (and counts) as before, timed
+    by CUDA events, its work counted (trop_work), and is held at once:
+    ``out`` is snapshotted before the launch and must equal ``dist`` outside
+    the input frontier (the copy rule's precondition), and all three outputs
+    (distances, changed flag, next frontier) must be bit-identical to
+    trop_relax_plain's from the snapshot; the repair pairs' entries are held
+    apart too (the repair pass's error)."""
 
     def __init__(self, kt):
         self.kt = kt
-        self.err = 0
+        self.err = self.repair_err = 0
         self.launch_ms, self.plain_ms, self.work = [], [], []
 
     def wrap(self, fn):
         kt = self.kt
 
         def held_relax(*args):
+            tiles, _, dist, active, out, *rest = args
+            lanes = dist.shape[1]
+            front = kt._unpack(active, slice(0, lanes)).repeat_interleave(tiles.shape[2], 0)
+            label = f"at {lanes} lanes, launch {len(self.launch_ms) + 1}"
+            require(torch.equal(out[~front], dist[~front]),
+                    f"trop_relax {label}: out differs from dist outside the input frontier")
+            snap = out.clone()
             got, ms = cuda_call(lambda: fn(*args))
-            want, plain_ms = cuda_call(lambda: kt.trop_relax_plain(*args))
-            self.err = max(self.err, held("trop_relax", f"at {args[2].shape[1]} lanes, launch "
-                                          f"{len(self.launch_ms) + 1}", got, want))
+            want, plain_ms = cuda_call(lambda: kt.trop_relax_plain(*args[:4], snap, *rest))
+            self.err = max(self.err, held("trop_relax", label, got, want))
+            repair = rest[0] if rest else None
+            if repair is not None and repair.pairs.shape[0]:
+                r, s = repair.pairs.long().unbind(1)
+                self.repair_err = max(self.repair_err, held(
+                    "trop_repair", label, (got[0][r, s],), (want[0][r, s],)))
             self.launch_ms.append(ms)
             self.plain_ms.append(plain_ms)
-            self.work.append(trop_work(*args))
+            self.work.append(trop_work(*args[:4], snap, *rest, new=want[0]))
             return got
 
         return held_relax
@@ -2571,50 +2594,71 @@ def holding_trop(kt, holder: TropHolder):
         kt.trop_relax = fn
 
 
-def trop_work(tiles, cb, dist, active, repair=None, src=None, cost=None, slot=None,
-              mask=None, perm=None, inv=None) -> dict:
-    """What one trop_relax launch must do, and its bound: operations
+def trop_work(tiles, cb, dist, active, out, repair=None, src=None, cost=None, slot=None,
+              mask=None, perm=None, inv=None, new=None) -> dict:
+    """What one trop_relax call must do, and its bound, a floor: operations
     (TROP_TILE_OPS per (tile entry, lane) of an active source block,
-    TROP_REPAIR_OPS per (valid slot, lane) of a repair row) against the
-    bytes the function must move, each input byte read once and each output
-    byte written once at the HBM rate: cb, the tiles of the slots whose
-    source block is active in some lane, dist in and out (every gathered
-    (source row, lane) entry is one of dist's), the frontier in and out, the
-    repair plane, and for each repair row its perm entry and slot row, the
-    src, cost and inv entries of each valid slot up in one of the row's
-    repair lanes, and one mask word for each (valid slot, lane word) that the
-    row's repair bits touch."""
+    TROP_REPAIR_OPS per (valid slot, lane) of a repair pair) against the
+    bytes the function must move at the HBM rate, each input byte read once
+    and each output byte written once.  Read: cb, the tiles of the slots
+    whose source block is active in some lane, the frontier, the repair
+    pairs, and of dist the rows of each (block, lane) that is in the
+    frontier (the gathered sources, and what the copy rule copies) or has an
+    active source (the old values); per repair row its perm entry and slot
+    row, per valid slot up in one of its repair lanes the src, cost and inv
+    entries and the source's dist entry, and one mask word for each (valid
+    slot, lane word) its pairs touch.  Written: the next frontier, and of
+    out (which holds dist outside the frontier) the frontier's entries and
+    those that change (``new``, the round's result).  ``*_full_write``: the
+    floor of the contract before the copy rule (dist read and out written
+    whole, the repair plane read whole, the repair sources in dist's read).
+    ``repair_*``: the repair pass's share."""
     from holo_tpu_torch.kernels import ell
 
-    nb, _, b, _ = tiles.shape
+    nb, tm, b, _ = tiles.shape
     npad, lanes = dist.shape
     act = ell._unpack(active, slice(0, lanes))  # [NB, S]
     real = cb < nb
     csafe = torch.where(real, cb, 0).long()
     per_slot = torch.where(real, act.sum(1)[csafe], 0)  # active lanes of each slot's source
-    out = {"entry_lanes": b * b * int(per_slot.sum()), "active_slots": int((per_slot > 0).sum())}
-    ops = TROP_TILE_OPS * out["entry_lanes"]
-    byte_count = 4 * (cb.numel() + out["active_slots"] * b * b + 2 * npad * lanes
-                      + 2 * active.numel())
-    out["repair_pairs"] = 0
+    fed = torch.zeros_like(act)  # (row block, lane)s with an active source
+    for t in range(tm):
+        fed |= real[:, t, None] & act[csafe[:, t]]
+    out_rows = act.repeat_interleave(b, 0)
+    if new is not None:
+        out_rows = out_rows | (new != dist)
+    res = {"entry_lanes": b * b * int(per_slot.sum()), "active_slots": int((per_slot > 0).sum()),
+           "front_block_lanes": int(act.sum()), "fed_block_lanes": int(fed.sum()),
+           "written_entries": int(out_rows.sum())}
+    ops = TROP_TILE_OPS * res["entry_lanes"]
+    fixed = 4 * (cb.numel() + res["active_slots"] * b * b + 2 * active.numel())
+    dist_read = 4 * b * int((act | fed).sum())
+    res["repair_pairs"] = 0
+    rep_ops = rep_bytes = rep_bytes_old = 0
     if repair is not None:
-        rows = ell._unpack(repair, slice(0, lanes)).any(1).nonzero().squeeze(1)
-        rep = repair[rows]  # [R, W] the repair rows' lane words
+        bits = repair.bits
+        rows = ell._unpack(bits, slice(0, lanes)).any(1).nonzero().squeeze(1)
+        rep = bits[rows]  # [R, W] the repair rows' lane words
         edges = slot[perm[rows].long()].long()  # [R, K]
         valid = edges >= 0
         pairs = ell._unpack(rep, slice(0, lanes)).sum(1)  # repair lanes of each row
-        out["repair_pairs"] = int(pairs.sum())
-        ops += TROP_REPAIR_OPS * int((valid.sum(1) * pairs).sum())
+        res["repair_pairs"] = int(pairs.sum())
+        rep_ops = TROP_REPAIR_OPS * int((valid.sum(1) * pairs).sum())
         if mask is None:
             up, mask_words = valid, 0
         else:
             words = mask[torch.where(valid, edges, 0)] & rep[:, None, :]  # [R, K, W]
             up = valid & (words != 0).any(2)
             mask_words = int((valid.sum(1) * (rep != 0).sum(1)).sum())
-        byte_count += 4 * (repair.numel() + rows.numel() * (1 + edges.shape[1])
-                           + 3 * int(up.sum()) + mask_words)
-    out.update(ops=ops, bytes=byte_count, bound=bound(ops, byte_count))
-    return out
+        per_row = rows.numel() * (1 + edges.shape[1]) + mask_words
+        rep_bytes = 4 * (3 * res["repair_pairs"] + per_row + 4 * int(up.sum()))
+        rep_bytes_old = 4 * (bits.numel() + per_row + 3 * int(up.sum()))
+    byte_count = fixed + dist_read + 4 * res["written_entries"] + rep_bytes
+    full = fixed + 2 * 4 * npad * lanes + rep_bytes_old
+    res.update(ops=ops + rep_ops, bytes=byte_count, bound=bound(ops + rep_ops, byte_count),
+               bytes_full_write=full, bound_full_write=bound(ops + rep_ops, full),
+               repair_ops=rep_ops, repair_bytes=rep_bytes, repair_bound=bound(rep_ops, rep_bytes))
+    return res
 
 
 def trop_phase(ell, se, dev, topo, masks, gres, gone, gmr, mr_roots, oracle, compute_ref,
@@ -2629,8 +2673,9 @@ def trop_phase(ell, se, dev, topo, masks, gres, gone, gmr, mr_roots, oracle, com
     oracle; every chain step is incremental on the tiles (tile deltas
     applied in place) and equals seq's.  (c) Warm what-if, compute() and
     multiroot of seq, fused and tropical, timed in turns.  (d) T1 a launch
-    against its bound at 1024 lanes and at one, its full round, and the
-    repair set built on the card against the host's."""
+    against its bound at 1024 lanes and at one, its full round, launch 1
+    split, the repair pass, the launch geometry, and the repair set built on
+    the card against the host's."""
     from holo_tpu_torch.kernels import tropical as kt
     from holo_tpu_torch.ops import graph
     from holo_tpu_torch.ops import tropical as trop
@@ -2662,9 +2707,11 @@ def trop_phase(ell, se, dev, topo, masks, gres, gone, gmr, mr_roots, oracle, com
         holder = TropHolder(kt) if hold else None
         with (holding_trop(kt, holder) if hold else contextlib.nullcontext()):
             out, host, ev = timed_call(fn)
-        got = {"trop_relax": kt.launches["trop_relax"],
+        got = {"trop_relax": kt.launches["trop_relax"], "trop_repair": kt.launches["trop_repair"],
                **{k: v for k, v in ell.launches.items() if v}}
         require(got["trop_relax"] > 0, f"tropical {label}: trop_relax never launched")
+        if label in ("whatif", "masked"):
+            require(got["trop_repair"] > 0, f"tropical {label}: trop_repair never launched")
         x["launches"].setdefault(label, []).append(got)
         if hold:
             require(len(holder.launch_ms) == got["trop_relax"],
@@ -2688,8 +2735,9 @@ def trop_phase(ell, se, dev, topo, masks, gres, gone, gmr, mr_roots, oracle, com
                 f"tropical multiroot {f} differs from seq's")
         require(np.array_equal(getattr(mr, f)[:ORACLE_ROOTS], getattr(mr_ref, f)),
                 f"tropical multiroot {f} differs from the scalar oracle")
-    masked, _, _ = counted("masked", lambda: be.compute(topo, masks[0]), True)
-    require(same_planes(masked, gres[0]) and same_planes(masked, oracle_result(oracle[0], n_atoms)),
+    # Scenario 1's mask (scenario 0 fails nothing): its repair pairs at one lane.
+    masked, _, _ = counted("masked", lambda: be.compute(topo, masks[1]), True)
+    require(same_planes(masked, gres[1]) and same_planes(masked, oracle_result(oracle[1], n_atoms)),
             "tropical masked compute() differs from seq's or the oracle's planes")
     x["repair_pairs_masked"] = sum(w["repair_pairs"] for w in x["hold"]["masked"].work)
     print(f"tropical main path: launches {x['launches']}; all {BATCH} scenarios equal to seq's "
@@ -2749,41 +2797,58 @@ def trop_phase(ell, se, dev, topo, masks, gres, gone, gmr, mr_roots, oracle, com
     mask_w = se.pack_edge_masks(masks, dev)
     lane_roots = torch.full((BATCH,), topo.root, dtype=torch.int32, device=dev)
     p = se.lane_planes(eg, mask_w)
-    rep = trop.repair_bits(p.slot, mask_w, BATCH, tt)
+    bits = trop.repair_bits(p.slot, mask_w, BATCH, tt)
+    rep = kt.repair_set(bits, BATCH)
     dist, _ = trop.tile_relax(eg, tt, se.distance_seed(n, lane_roots)[0], mask_w)
     dist_p = dist[tt.perm.long()].contiguous()
-    full = ell.full_frontier(tt.tiles.shape[0], BATCH, dev)
-    args = (tt.tiles, tt.cb, dist_p, full, rep, p.src, p.cost, p.slot, p.mask, tt.perm, tt.inv)
+    nb, _, b, _ = tt.tiles.shape
+    full = ell.full_frontier(nb, BATCH, dev)
+    ell_args = (p.src, p.cost, p.slot, p.mask, tt.perm, tt.inv)
+    # The full round writes every entry (its frontier is all ones): any out.
+    args = (tt.tiles, tt.cb, dist_p, full, torch.empty_like(dist_p), rep, *ell_args)
     kt.trop_relax(*args)  # warm-up
     x["full_ms"] = cuda_ms(lambda: kt.trop_relax(*args), KERNEL_REPS)
-    x["full_work"] = trop_work(*args)
-    x["full_err"] = held("trop_relax", "full round at 1024 lanes", kt.trop_relax(*args),
-                         kt.trop_relax_plain(*args))
+    want = kt.trop_relax_plain(*args[:4], torch.empty_like(dist_p), *args[5:])
+    x["full_work"] = trop_work(*args, new=want[0])
+    x["full_err"] = held("trop_relax", "full round at 1024 lanes", kt.trop_relax(*args), want)
     x["repair_ms"] = cuda_ms(lambda: trop.repair_bits(p.slot, mask_w, BATCH, tt), KERNEL_REPS)
-    # Where launch 1 of the what-if dispatch goes (the roots' block active):
-    # with its repair set, without it, and with no block active and no
-    # repair row (the launch itself); CUDA events and the profiler's
-    # device time of the kernel.
-    nb, _, b, _ = tt.tiles.shape
+    x["repair_list_ms"] = host_ms(lambda: kt.repair_set(bits, BATCH), KERNEL_REPS)
+    # Where launch 1 of the what-if dispatch goes (the roots' block active,
+    # out a copy of the seeds as tile_relax passes it): with its repair set,
+    # without it, and with no block active and no repair row (the launch
+    # itself); CUDA events and the profiler's device time of the kernels.
+    # Repeated launches into one out give the same result: each rewrites
+    # the frontier's entries and those that change.
     seed_p = se.distance_seed(n, lane_roots)[0][tt.perm.long()].contiguous()
     front1 = ell.pack_lane_bits((seed_p < INF).view(nb, b, BATCH).any(1))
-    split = {"launch 1": (seed_p, front1, rep), "launch 1 without repair": (seed_p, front1, None),
-             "no block, no repair": (seed_p, torch.zeros_like(front1), None)}
+    split = {"launch 1": (front1, rep), "launch 1 without repair": (front1, None),
+             "no block, no repair": (torch.zeros_like(front1), None)}
     x["launch1"] = {}
-    for label, (d_, a_, r_) in split.items():
-        args_ = (tt.tiles, tt.cb, d_, a_, r_, p.src, p.cost, p.slot, p.mask, tt.perm, tt.inv)
+    for label, (a_, r_) in split.items():
+        args_ = (tt.tiles, tt.cb, seed_p, a_, seed_p.clone(), r_, *ell_args)
         kt.trop_relax(*args_)  # warm-up
-        dev_ms = sum(ms for key, ms in device_times(
-            lambda: [kt.trop_relax(*args_) for _ in range(KERNEL_REPS)]).items()
-            if "trop_relax" in key) / KERNEL_REPS
-        x["launch1"][label] = {"ms": cuda_ms(lambda: kt.trop_relax(*args_), KERNEL_REPS),
-                               "device_ms": dev_ms, "bound_ms": trop_work(*args_)["bound"][0]}
+        per = device_times(lambda: [kt.trop_relax(*args_) for _ in range(KERNEL_REPS)])
+        want = kt.trop_relax_plain(*args_[:4], seed_p.clone(), *args_[5:])
+        x["launch1"][label] = {
+            "ms": cuda_ms(lambda: kt.trop_relax(*args_), KERNEL_REPS),
+            "device_ms": sum(ms for key, ms in per.items() if "trop_" in key) / KERNEL_REPS,
+            "repair_device_ms": sum(ms for key, ms in per.items()
+                                    if "trop_repair" in key) / KERNEL_REPS,
+            "bound_ms": trop_work(*args_, new=want[0])["bound"][0]}
+    x["repair_plain_ms"] = cuda_ms(lambda: kt.repair_plain(seed_p, bits, *ell_args), KERNEL_REPS)
+    # The launch geometry: the tile and row forms at k=90's B, and the
+    # tile form of every B the kernel is built for, at 1024 lanes.
+    x["geometry"] = {f"B={b} x {lanes}": kt.geometry(b, lanes, nb)
+                     for lanes in (BATCH, MULTIROOT, 1)}
+    x["geometry"].update({f"B={bb} x {BATCH}": kt.geometry(bb, BATCH, nb) for bb in kt.BLOCKS})
+    for key, geo in x["geometry"].items():
+        print(f"geometry trop_relax {key} (NB {nb}): {geo}", flush=True)
     t0 = time.perf_counter()
     rows = trop.repair_rows_host(topo.edge_dst, masks, n)
     x["repair_host_ms"] = (time.perf_counter() - t0) * 1e3
-    require(not bool((rep & ~trop.rows_to_bits(rows, tt)).any()),
+    require(not bool((bits & ~trop.rows_to_bits(rows, tt)).any()),
             "the card's repair set is not within the host's")
-    x["repair_rows"] = (int(ell._unpack(rep, slice(0, BATCH)).sum()), int((rows < n).sum()))
+    x["repair_rows"] = (int(rep.pairs.shape[0]), int((rows < n).sum()))
     x["lane_prog"] = lambda: trop.tropical_lanes(eg, tt, lane_roots, mask_w)
     x["compute_call"] = lambda: be.compute(topo)
     x["phase_s"] = time.perf_counter() - t_phase
@@ -3335,6 +3400,9 @@ def main() -> None:
     j_phase4_s += time.perf_counter() - t_j
     t_k = time.perf_counter()
     k_busy_ms, k_top = device_busy(kx["lane_prog"])
+    k_prog_times = device_times(kx["lane_prog"])
+    k_t1_ms = {name: sum(ms for key, ms in k_prog_times.items() if name in key)
+               for name in ("trop_relax", "trop_repair")}
     k_c_busy_ms, k_c_top = device_busy(kx["compute_call"])
     k_t1_b1 = sum(ms for name, ms in device_times(kx["compute_call"]).items()
                   if "trop_relax" in name)
@@ -3471,21 +3539,37 @@ def main() -> None:
                         for e in ("seq", "fused", "tropical")) + f"); {smi}", flush=True)
     big, small = kx["hold"]["whatif"], kx["hold"]["compute"]
     k_c_launches = kx["launches"]["compute"][0]["trop_relax"]
+    k_w_launches = kx["launches"]["whatif"][0]
     trow = {
         "ms": statistics.mean(big.launch_ms), "plain_ms": statistics.mean(big.plain_ms),
         "bound_ms": statistics.mean(w["bound"][0] for w in big.work),
         "bound_by": bound(sum(w["ops"] for w in big.work), sum(w["bytes"] for w in big.work))[1],
         "launch_ms": big.launch_ms, "launch_bound_ms": [w["bound"][0] for w in big.work],
         "dispatch_ms": sum(big.launch_ms), "dispatch_bound_ms": sum(w["bound"][0] for w in big.work),
+        "bound_full_write_ms": statistics.mean(w["bound_full_write"][0] for w in big.work),
+        "dispatch_bound_full_write_ms": sum(w["bound_full_write"][0] for w in big.work),
         "active_slots": [w["active_slots"] for w in big.work],
+        "written_entries": [w["written_entries"] for w in big.work],
+        "device_ms": k_t1_ms["trop_relax"] / k_w_launches["trop_relax"],
         "full_round_ms": kx["full_ms"], "full_round_bound_ms": kx["full_work"]["bound"][0],
         "full_round_bound_by": kx["full_work"]["bound"][1],
         "ms_b1": statistics.mean(small.launch_ms), "plain_ms_b1": statistics.mean(small.plain_ms),
         "bound_ms_b1": statistics.mean(w["bound"][0] for w in small.work),
         "device_ms_b1": k_t1_b1 / k_c_launches, "launches_b1": k_c_launches,
-        "repair_set_ms": kx["repair_ms"], "repair_rows_host_ms": kx["repair_host_ms"],
-        "launch1_split": kx["launch1"],
+        "repair_set_ms": kx["repair_ms"], "repair_list_ms": kx["repair_list_ms"],
+        "repair_rows_host_ms": kx["repair_host_ms"], "launch1_split": kx["launch1"],
+        "geometry": kx["geometry"],
         "max_abs_err": max(kx["full_err"], *(h.err for h in kx["hold"].values())),
+    }
+    rwork = [w for w in big.work if w["repair_pairs"]]
+    rrow = {
+        "ms": k_t1_ms["trop_repair"] / k_w_launches["trop_repair"],
+        "plain_ms": kx["repair_plain_ms"],
+        "bound_ms": statistics.mean(w["repair_bound"][0] for w in rwork),
+        "bound_by": bound(sum(w["repair_ops"] for w in rwork),
+                          sum(w["repair_bytes"] for w in rwork))[1],
+        "pairs": rwork[0]["repair_pairs"],
+        "max_abs_err": max(h.repair_err for h in kx["hold"].values()),
     }
     print(f"time trop_relax: {trow['ms']:.4f} ms a launch at B={BATCH} (mean of "
           f"{len(big.launch_ms)}, CUDA events: {[round(t, 4) for t in big.launch_ms]}), bound "
@@ -3494,7 +3578,11 @@ def main() -> None:
           f"{trow['active_slots']}), plain {trow['plain_ms']:.3f} ms; full round (every block "
           f"active) {kx['full_ms']:.4f} ms, bound {trow['full_round_bound_ms']:.4f} ms by "
           f"{trow['full_round_bound_by']} ({kx['full_work']['ops']} operations, "
-          f"{kx['full_work']['bytes']} bytes); at B=1 {trow['ms_b1']:.4f} ms a launch (host "
+          f"{kx['full_work']['bytes']} bytes); on the device {trow['device_ms']:.4f} ms a "
+          f"launch (the lane program's tile passes); before the copy rule the floor was "
+          f"{trow['bound_full_write_ms']:.4f} ms a launch, "
+          f"{trow['dispatch_bound_full_write_ms']:.4f} a dispatch (entries written "
+          f"{trow['written_entries']}); at B=1 {trow['ms_b1']:.4f} ms a launch (host "
           f"launch included, {k_c_launches} launches a compute()), {trow['device_ms_b1']:.4f} ms "
           f"on the device, bound {trow['bound_ms_b1']:.6f} ms, plain {trow['plain_ms_b1']:.3f} "
           f"ms; max_abs_err {trow['max_abs_err']}; {smi}", flush=True)
@@ -3503,8 +3591,13 @@ def main() -> None:
         + (f"{v['device_ms']:.4f} ms on the device" if v["device_ms"] > 0
            else "device time not measured") + f", bound {v['bound_ms']:.5f} ms"
         for label, v in kx["launch1"].items()) + f"; {smi}", flush=True)
+    print(f"time trop_repair: {rrow['ms']:.4f} ms a launch on the device at B={BATCH} "
+          f"({k_w_launches['trop_repair']} launches a dispatch, {rrow['pairs']} pairs, a warp "
+          f"each), bound {rrow['bound_ms']:.5f} ms by {rrow['bound_by']}, plain "
+          f"{rrow['plain_ms']:.3f} ms; max_abs_err {rrow['max_abs_err']}; {smi}", flush=True)
     print(f"time tropical repair set: built on the card from the mask words "
-          f"{kx['repair_ms']:.4f} ms ({kx['repair_rows'][0]} (row, lane) bits), repair_rows_host "
+          f"{kx['repair_ms']:.4f} ms, listed {kx['repair_list_ms']:.4f} ms (host clock, one sync; "
+          f"{kx['repair_rows'][0]} (row, lane) pairs), repair_rows_host "
           f"on the host {kx['repair_host_ms']:.1f} ms ({kx['repair_rows'][1]} rows); tile "
           f"marshal {kx['marshal_ms']:.1f} ms (host); {smi}", flush=True)
     if k_busy_ms > 0:
@@ -3744,12 +3837,22 @@ def main() -> None:
         "library_ms": None,
         **{key: trow[key] for key in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "launch_ms",
-            "launch_bound_ms", "dispatch_ms", "dispatch_bound_ms", "full_round_ms",
+            "launch_bound_ms", "dispatch_ms", "dispatch_bound_ms", "bound_full_write_ms",
+            "dispatch_bound_full_write_ms", "written_entries", "device_ms", "full_round_ms",
             "full_round_bound_ms", "ms_b1", "plain_ms_b1", "bound_ms_b1", "device_ms_b1",
-            "repair_set_ms", "repair_rows_host_ms", "launch1_split")},
+            "repair_set_ms", "repair_list_ms", "repair_rows_host_ms", "launch1_split",
+            "geometry")},
         "launches_by_path": {k: [c["trop_relax"] for c in runs]
                              for k, runs in kx["launches"].items()},
         "tiles": kx["meta"], "tile_deltas": kx["tile_deltas"], "engine_ms": kx["times"],
+    })
+    kernel_rows.append({
+        "name": "trop_repair", "route": "cuda", "source": TROP_SOURCE,
+        "replaces": TROP_REPAIR_REPLACES,
+        "launches": sum(c["trop_repair"] for runs in kx["launches"].values() for c in runs),
+        "library_ms": None, **rrow,
+        "launches_by_path": {k: [c["trop_repair"] for c in runs]
+                             for k, runs in kx["launches"].items()},
     })
     # (e) every dispatch of the run ran on the card: every breaker the run
     # built (every SPF backend, FRR engine and BGP table and rank backend)

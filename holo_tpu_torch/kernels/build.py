@@ -8,9 +8,10 @@ one library in ``holo_tpu_torch/build/`` (listed in ``.gitignore``), named
 by a hash of the sources so an edit rebuilds it.  Each C entry point takes ``void*``
 pointers (NULL for an absent plane), ``int`` sizes and the CUDA stream,
 launches on that stream and returns ``cudaGetLastError()``;
-``holo_bgp_fold_smem`` and ``holo_ell_fused_info`` launch nothing: the first
-returns the fold's shared-memory bytes a block, the second writes the fused
-round's launch geometry and register count.
+``holo_bgp_fold_smem``, ``holo_ell_fused_info`` and ``holo_trop_info`` launch
+nothing: the first returns the fold's shared-memory bytes a block, the other
+two write the fused round's or the tile relax's launch geometry and register
+counts.
 
 A library that cannot be built or loaded raises :class:`KernelBuildError`,
 which the dispatch breaker re-raises without counting it; a CUDA error at
@@ -60,7 +61,9 @@ SIGNATURES = {
     "holo_ell_fused_info": (_I, _I, _I, _P, _P, _P),
     "holo_bgp_fold": (*[_P] * 12, *[_I] * 9, _P),
     "holo_bgp_fold_smem": (_I,) * 5,
-    "holo_trop_relax": (*[_P] * 14, *[_I] * 5, _P),
+    "holo_trop_relax": (*[_P] * 8, *[_I] * 4, _P),
+    "holo_trop_repair": (_P, _I, *[_P] * 10, *[_I] * 3, _P),
+    "holo_trop_info": (_I, _I, _I, _P),
 }
 
 _LIB: ctypes.CDLL | None = None

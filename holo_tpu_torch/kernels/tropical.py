@@ -1,12 +1,15 @@
-"""The tropical engine's CUDA kernel, beside its plain PyTorch version.
+"""The tropical engine's CUDA kernels, beside their plain PyTorch version.
 
 One wrapper over ``csrc/tropical_kernels.cu``, :func:`trop_relax` (T1): one
 round of the blocked min-plus fixpoint of ``holo_tpu/ops/tropical.py``
 (``_tile_relax``'s loop body, ``:423-464``, an XLA fusion in the JAX package,
-not a Pallas kernel).  A wrapper given CPU tensors computes the plain
-version (:func:`trop_relax_plain`); given CUDA tensors it launches the kernel
-on the current stream or raises.  It never falls back.  :data:`launches`
-counts kernel launches.
+not a Pallas kernel).  On the card it launches the tile pass and, where the
+round has repair (row, lane)s, the repair pass after it on the same stream.
+A wrapper given CPU tensors computes the plain version
+(:func:`trop_relax_plain`); given CUDA tensors it launches the kernels on
+the current stream or raises.  It never falls back.  :data:`launches`
+counts kernel launches: ``trop_relax`` one a wrapper call, ``trop_repair``
+one a repair pass.
 
 Planes (all int32, INF = 1 << 30 unreachable; the vertex space is the
 tiles' permuted one, padded to NB * B rows):
@@ -17,9 +20,15 @@ tiles' permuted one, padded to NB * B rows):
 - ``dist`` [NB * B, S]: the lanes' distances, lanes minor;
 - ``active`` [NB, ceil(S / 32)]: bit s % 32 of word [c, s // 32] set where
   a row of block c changed in lane s in the round before (the frontier);
-- ``repair`` [NB * B, ceil(S / 32)] or None: bit s set where the row's value
-  in lane s is the exact masked ELL row relax instead of the tiles' (a row
-  one of whose in-edges is down in the lane); it reads the ELL planes
+- ``out`` [NB * B, S]: another buffer, equal to ``dist`` outside the (block,
+  lane)s of ``active`` (the copy rule: the kernel writes only the frontier's
+  (block, lane)s and the values that change; a fixpoint passes the buffer
+  of the round before, its first round a copy of ``dist``); it receives the
+  new distances;
+- ``repair`` (:class:`RepairSet`) or None: the (row, lane)s whose value is
+  the exact masked ELL row relax instead of the tiles' (a row one of whose
+  in-edges is down in the lane), as bits and as a list built once per
+  fixpoint (:func:`repair_set`); the repair pass reads the ELL planes
   ``src``, ``cost``, ``slot`` [N, K] (slot: the edge id, -1 for padding),
   the mask words ``mask`` [E, ceil(S / 32)] (None: every edge up), ``perm``
   [NB * B] (permuted row -> vertex) and ``inv`` [N] (vertex -> permuted
@@ -27,6 +36,9 @@ tiles' permuted one, padded to NB * B rows):
 """
 
 from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -44,17 +56,53 @@ BLOCKS = (8, 16, 32, 64, 128)  # the tile sizes the kernel is built for
 _TEMP = 1 << 26  # elements of the largest [NB, B, B, lanes] temporary of the plain version
 
 #: kernel launches since the last :func:`reset_launches`
-launches = {"trop_relax": 0}
+launches = {"trop_relax": 0, "trop_repair": 0}
 
 
 def reset_launches() -> None:
-    launches["trop_relax"] = 0
+    for name in launches:
+        launches[name] = 0
 
 
-def trop_relax_plain(tiles, cb, dist, active, repair=None, src=None, cost=None, slot=None,
+class RepairSet(NamedTuple):
+    """The repair (row, lane)s of a fixpoint, fixed for all its rounds."""
+
+    bits: torch.Tensor  # int32 [NB * B, ceil(S / 32)]: bit s of row p's word s // 32
+    pairs: torch.Tensor  # int32 [R, 2]: (permuted row, lane) of every set bit, row-major
+
+
+def repair_set(bits: torch.Tensor, lanes: int) -> RepairSet:
+    """The repair plane ``bits`` [NB * B, ceil(lanes / 32)] with its list of
+    (row, lane) pairs, in row-major order (one host sync: a fixpoint builds
+    it once)."""
+    pairs = _unpack(bits, slice(0, lanes)).nonzero().to(torch.int32)
+    return RepairSet(bits, pairs.contiguous())
+
+
+def repair_plain(dist, bits, src, cost, slot, mask, perm, inv):
+    """(rows int64 [R'], values int32 [R', S]): the plain repair pass -- for
+    each permuted row with a repair bit, the exact masked ELL relax of its
+    vertex in every lane (``holo_tpu/ops/tropical.py:445-457``): the least
+    ``dist[inv[src], s] + cost`` over its usable slots whose source is
+    reached, INF where there is none."""
+    lanes = dist.shape[1]
+    rows = _unpack(bits, slice(0, lanes)).any(1).nonzero()[:, 0]
+    vals = torch.full((rows.numel(), lanes), INF, dtype=torch.int32, device=dist.device)
+    if rows.numel():
+        v = perm[rows].long()
+        vsrc = inv[src[v].long()].long()  # [R', K] permuted sources
+        vslot, vcost = slot[v], cost[v]
+        for sl in lane_chunks(*vsrc.shape, lanes):
+            dn = dist[:, sl][vsrc]  # [R', K, S']
+            ok = _usable(vslot, mask, sl) & (dn < INF)
+            vals[:, sl] = torch.where(ok, dn + vcost[:, :, None], INF).amin(1)
+    return rows, vals
+
+
+def trop_relax_plain(tiles, cb, dist, active, out, repair=None, src=None, cost=None, slot=None,
                      mask=None, perm=None, inv=None):
-    """One round of ``_tile_relax``: (new [NB * B, S], changed int32 [1],
-    active_out [NB, ceil(S / 32)]).
+    """One round of ``_tile_relax``: (out holding the new distances [NB * B,
+    S], changed int32 [1], active_out [NB, ceil(S / 32)]).
 
     ``agg[rb * B + i, s]`` is the least ``tiles[rb, t, i, j] + dist[cb * B +
     j, s]`` over the slots t whose source block ``cb[rb, t]`` is real and
@@ -62,8 +110,9 @@ def trop_relax_plain(tiles, cb, dist, active, repair=None, src=None, cost=None, 
     fit int32, so the sums are taken in int64).  Where ``repair`` has the
     bit of (row, lane), the exact masked ELL relax of the row's vertex
     replaces ``agg``: the least ``dist[inv[src], s] + cost`` over its usable
-    slots whose source is reached.  Then ``new = min(dist, agg)``;
-    ``active_out`` marks the (block, lane)s where a row changed."""
+    slots whose source is reached.  Then ``new = min(dist, agg)``, written
+    whole into ``out`` (whatever it held); ``active_out`` marks the (block,
+    lane)s where a row changed."""
     nb, tm, b, _ = tiles.shape
     npad, lanes = dist.shape
     dev = dist.device
@@ -85,19 +134,11 @@ def trop_relax_plain(tiles, cb, dist, active, repair=None, src=None, cost=None, 
         agg[:, :, sl] = acc.clamp_max(INF).to(torch.int32)
     agg = agg.view(npad, lanes)
     if repair is not None:
-        bits = _unpack(repair, slice(0, lanes))  # [NB * B, S]
-        rows = bits.any(1).nonzero()[:, 0]
-        if rows.numel():
-            v = perm[rows].long()
-            vsrc = inv[src[v].long()].long()  # [R, K] permuted sources
-            vslot, vcost = slot[v], cost[v]
-            for sl in lane_chunks(*vsrc.shape, lanes):
-                dn = dist[:, sl][vsrc]  # [R, K, S']
-                ok = _usable(vslot, mask, sl) & (dn < INF)
-                cr = torch.where(ok, dn + vcost[:, :, None], INF).amin(1)
-                agg[rows, sl] = torch.where(bits[rows][:, sl], cr, agg[rows, sl])
+        rows, vals = repair_plain(dist, repair.bits, src, cost, slot, mask, perm, inv)
+        agg[rows] = torch.where(_unpack(repair.bits[rows], slice(0, lanes)), vals, agg[rows])
     new = torch.minimum(dist, agg)
-    return new, *_round_result((new != dist).view(nb, b, lanes).any(1))
+    out.copy_(new)
+    return out, *_round_result((new != dist).view(nb, b, lanes).any(1))
 
 
 def _launch(name: str, *args) -> None:
@@ -106,37 +147,64 @@ def _launch(name: str, *args) -> None:
     launches[name] += 1
 
 
-def trop_relax(tiles, cb, dist, active, repair=None, src=None, cost=None, slot=None, mask=None,
-               perm=None, inv=None):
-    """(new [NB * B, S], changed int32 [1], active_out [NB, ceil(S / 32)]):
-    one round of the tile relax, see :func:`trop_relax_plain`.  The ELL
-    planes, ``mask``, ``perm`` and ``inv`` are read only for the rows of
-    ``repair`` (None: no row is repaired)."""
-    planes = (tiles, cb, dist, active, repair, src, cost, slot, mask, perm, inv)
+def trop_relax(tiles, cb, dist, active, out, repair=None, src=None, cost=None, slot=None,
+               mask=None, perm=None, inv=None):
+    """(out holding the new distances [NB * B, S], changed int32 [1],
+    active_out [NB, ceil(S / 32)]): one round of the tile relax, see
+    :func:`trop_relax_plain`.  On the card the kernels write only the
+    entries of ``active``'s (block, lanes) and those that change, so
+    ``out`` must equal ``dist`` elsewhere.  The ELL planes, ``mask``,
+    ``perm`` and ``inv`` are read only for the pairs of ``repair`` (None:
+    no row is repaired)."""
+    rp = (None, None) if repair is None else tuple(repair)
+    planes = (tiles, cb, dist, active, out, *rp, src, cost, slot, mask, perm, inv)
     if not build.on_card(*planes):
-        return trop_relax_plain(*planes)
+        return trop_relax_plain(tiles, cb, dist, active, out, repair, src, cost, slot, mask,
+                                perm, inv)
     nb, tm, b, b2 = tiles.shape if tiles.dim() == 4 else (0, 0, 0, -1)
     npad, lanes = dist.shape
     words = mask_words(lanes)
     bad = b != b2 or b not in BLOCKS or cb.shape != (nb, tm) or npad != nb * b
     bad |= active.shape != (nb, words)
+    bad |= out.shape != dist.shape or out.data_ptr() == dist.data_ptr()
     k = 0
     if repair is not None:
         n, k = src.shape
-        bad |= repair.shape != (npad, words) or cost.shape != (n, k) or slot.shape != (n, k)
+        bad |= repair.bits.shape != (npad, words) or cost.shape != (n, k)
+        bad |= slot.shape != (n, k) or repair.pairs.dim() != 2 or repair.pairs.shape[1] != 2
         bad |= perm.shape != (npad,) or inv.shape != (n,)
         bad |= mask is not None and (mask.dim() != 2 or mask.shape[1] != words)
     if bad:
         raise ValueError(
-            f"trop_relax planes disagree (tiles [NB, Tm, B, B] with B in {BLOCKS}): tiles "
-            f"{tuple(tiles.shape)}, cb {tuple(cb.shape)}, dist {tuple(dist.shape)}, active "
-            f"{tuple(active.shape)}, repair {None if repair is None else tuple(repair.shape)}, "
-            f"src {None if src is None else tuple(src.shape)}, mask "
+            f"trop_relax planes disagree (tiles [NB, Tm, B, B] with B in {BLOCKS}, out another "
+            f"buffer of dist's shape): tiles {tuple(tiles.shape)}, cb {tuple(cb.shape)}, dist "
+            f"{tuple(dist.shape)}, active {tuple(active.shape)}, out {tuple(out.shape)}, "
+            f"repair {None if repair is None else tuple(repair.bits.shape)} / "
+            f"{None if repair is None else tuple(repair.pairs.shape)}, src "
+            f"{None if src is None else tuple(src.shape)}, mask "
             f"{None if mask is None else tuple(mask.shape)}"
         )
-    out = torch.empty_like(dist)
     changed = torch.zeros(1, dtype=torch.int32, device=dist.device)
     active_out = torch.empty_like(active)
-    _launch("trop_relax", tiles, cb, dist, active, repair, src, cost, slot, mask, perm, inv,
-            out, changed, active_out, nb, tm, b, lanes, k)
+    _launch("trop_relax", tiles, cb, dist, active, rp[0], out, changed, active_out, nb, tm, b,
+            lanes)
+    if repair is not None and repair.pairs.shape[0]:
+        _launch("trop_repair", repair.pairs, repair.pairs.shape[0], dist, src, cost, slot, mask,
+                perm, inv, out, changed, active_out, b, lanes, k)
     return out, changed, active_out
+
+
+def geometry(b: int, lanes: int, nb: int) -> dict:
+    """The launch geometry of a round at tile size ``b``, ``lanes`` lanes and
+    ``nb`` row blocks, read from the library (``holo_trop_info``): the form
+    (``tile`` or ``row``), blocks, threads a block, dynamic shared bytes a
+    block, registers a thread, blocks an SM, lanes and rows a thread, lanes
+    a block, and the repair pass's registers a thread."""
+    info = (ctypes.c_int * 10)()
+    lib = build.load()
+    build.check(lib, lib.holo_trop_info(b, lanes, nb, info), "holo_trop_info")
+    keys = ("form", "blocks", "threads", "shared_bytes", "registers", "blocks_per_sm",
+            "lanes_a_thread", "rows_a_thread", "lanes_a_block", "repair_registers")
+    out = dict(zip(keys, info))
+    out["form"] = "tile" if out["form"] else "row"
+    return out

@@ -7,9 +7,10 @@ blocks, keeps only the blocks that hold an edge, grouped by destination row
 block (:class:`TropicalTiles`; an entry is the least cost over parallel
 edges).  One round (kernel T1, ``kernels/tropical.py`` ``trop_relax``)
 computes, per row block and lane, the min-plus product of its tiles with the
-source blocks' distances, reading each tile once for every lane, skipping
+source blocks' distances, reading each tile once for many lanes, skipping
 the source blocks that did not change in the round before (per block and
-lane), and takes the min with the old distances.
+lane), and takes the min with the old distances, writing into the buffer of
+the round before only what differs from it.
 
 Edge masks cannot be applied to a min over parallel edges, so a (row, lane)
 one of whose in-edges is down in the lane is a **repair row**: its value is
@@ -269,25 +270,31 @@ def tile_relax(g, tt: TropicalTiles, dist0: torch.Tensor, mask=None, repair=None
 
     ``mask`` [E, ceil(S / 32)] or None holds the lanes' edge masks;
     ``repair`` is None (the repair set from ``mask``, :func:`repair_bits`) or
-    explicit rows [S, M] (:func:`repair_rows_host`).  At most ``limit``
-    rounds (N when None), stopping after a round that changed nothing."""
+    explicit rows [S, M] (:func:`repair_rows_host`); its (row, lane) list is
+    built once.  At most ``limit`` rounds (N when None), stopping after a
+    round that changed nothing.  The rounds write into two buffers in turn:
+    each into the one the round before read, which differs from its input
+    only at its input frontier (the first into a copy of the input)."""
     n = g.in_src.shape[0]
     limit = n if limit is None else limit
     nb, _, b, _ = tt.tiles.shape
     lanes = dist0.shape[1]
     p = se.lane_planes(g, mask)
     if repair is not None:
-        rep = rows_to_bits(repair, tt)
+        bits = rows_to_bits(repair, tt)
     elif mask is not None:
-        rep = repair_bits(p.slot, mask, lanes, tt)
+        bits = repair_bits(p.slot, mask, lanes, tt)
     else:
-        rep = None
+        bits = None
+    rep = None if bits is None else kt.repair_set(bits, lanes)
     dist = dist0[tt.perm.long()].contiguous()
+    spare = dist.clone()  # the first round's out, equal to dist everywhere
     active = ell.pack_lane_bits((dist < INF).view(nb, b, lanes).any(1))
     rounds = 0
     while rounds < limit:
-        dist, changed, active = kt.trop_relax(tt.tiles, tt.cb, dist, active, rep, p.src, p.cost,
-                                              p.slot, p.mask, tt.perm, tt.inv)
+        new, changed, active = kt.trop_relax(tt.tiles, tt.cb, dist, active, spare, rep, p.src,
+                                             p.cost, p.slot, p.mask, tt.perm, tt.inv)
+        dist, spare = new, dist
         rounds += 1
         if not bool(changed):
             break

@@ -56,12 +56,15 @@ through a delta chain across gateway links, is held to the CPU path (its
 dispositions too) and the oracle; CspfEngine's batch on a k=12 fat tree is
 held to the CPU path.
 
-The tropical engine: trop_relax (T1) is held bit-identical to its plain
-version on every launch of a real tile relax (and its full round, an
-all-ones frontier, to the same distances) at tile sizes 8 to 128, at 1, 5,
-8, 9, 33 and 64 lanes (row and tile forms), with and without masks (the
-repair rows built on the card); explicit repair rows equal the card-built
-set; the backend's compute (masked too), compute_whatif, compute_multiroot
+The tropical engine: trop_relax (T1, the tile pass and the repair pass) is
+held bit-identical to its plain version on every launch of a real tile
+relax, out snapshotted before the launch and equal to dist outside the
+input frontier (and its full round, an all-ones frontier into a noise
+buffer, to the same distances) at tile sizes 8 to 128, at 1, 5, 8, 9, 33,
+64, 65, 127, 129, 255 and 257 lanes (row and tile forms, across the tile
+form's lanes a warp and a block), with and without masks (the repair rows
+built on the card); the launch geometry is the tile shape (5,064 blocks at
+k=90's 1024 lanes); explicit repair rows equal the card-built set; the backend's compute (masked too), compute_whatif, compute_multiroot
 and a delta chain (tiles updated in place) equal the CPU path.
 
 The fused, packed and hybrid engines: ell_fused_round in both layouts
@@ -1237,11 +1240,25 @@ def _trop_setup(shape, block, lanes, dev):
     return (topo, se.device_graph_from_ell(ell_, dev), trop.tiles_on(host, dev), masks)
 
 
+def _trop_cpu(args):
+    """A trop_relax call's arguments on the CPU (a RepairSet's planes too)."""
+    from holo_tpu_torch.kernels import tropical as kt
+
+    return [None if a is None else kt.RepairSet(*(x.cpu() for x in a))
+            if isinstance(a, kt.RepairSet) else a.cpu() for a in args]
+
+
 @pytest.mark.parametrize("masked", [False, True])
-@pytest.mark.parametrize("lanes", [1, 5, 8, 9, 33, 64])
+@pytest.mark.parametrize("lanes", [1, 5, 8, 9, 33, 64, 65, 127, 129, 255, 257])
 @pytest.mark.parametrize("block", [8, 16, 32, 64, 128])
 @pytest.mark.parametrize("shape", sorted(_TROP_SHAPES))
 def test_trop_relax_matches_plain_on_every_launch(shape, block, lanes, masked):
+    """Every launch of a real tile relax, lane counts on both sides of the
+    row / tile switch (8) and of the tile form's lanes a warp (64, 128) and
+    a block (64, 128, 256): ``out`` is snapshotted before the launch, equals
+    ``dist`` outside the input frontier (the copy rule's precondition), and
+    the outputs equal the plain round's from the snapshot; an all-ones
+    frontier writes every entry of a noise buffer, the same distances."""
     from holo_tpu_torch.kernels import tropical as kt
     from holo_tpu_torch.ops import tropical as trop
 
@@ -1251,31 +1268,61 @@ def test_trop_relax_matches_plain_on_every_launch(shape, block, lanes, masked):
     roots = torch.full((lanes,), topo.root, dtype=torch.int32, device=dev)
     if not masked:  # lanes of distinct roots
         roots = torch.arange(lanes, dtype=torch.int32, device=dev) * 7 % topo.n_vertices
-    kernel, held = kt.trop_relax, []
+    kernel, held, repairs = kt.trop_relax, [], []
 
-    def hold(*args):
-        got = kernel(*args)
-        cpu = [None if a is None else a.cpu() for a in args]
-        want = kt.trop_relax_plain(*cpu)
+    def hold(tiles, cb, dist, active, out, *rest):
+        front = ell._unpack(active, slice(0, lanes)).repeat_interleave(block, 0)
+        assert torch.equal(out[~front], dist[~front]), len(held)
+        snap = out.clone()
+        got = kernel(tiles, cb, dist, active, out, *rest)
+        assert got[0] is out
+        want = kt.trop_relax_plain(*_trop_cpu((tiles, cb, dist, active, snap, *rest)))
         for x, y, name in zip(got, want, ("dist", "changed", "active")):
             assert torch.equal(x.cpu(), y), (name, len(held))
-        # The full round: an all-ones frontier gives the same distances.
-        full = kernel(*args[:3], ell.full_frontier(*args[3].shape[:1], lanes, dev), *args[4:])
+        full = kernel(tiles, cb, dist, ell.full_frontier(tiles.shape[0], lanes, dev),
+                      torch.full_like(dist, -7), *rest)
         assert torch.equal(full[0], got[0]), len(held)
         held.append(len(held))
+        repairs.append(0 if rest[0] is None else rest[0].pairs.shape[0])
         return got
 
     kt.trop_relax = hold
     try:
-        before = kt.launches["trop_relax"]
+        before = dict(kt.launches)
         dist0, _ = se.distance_seed(g.in_src.shape[0], roots)
         got, rounds = trop.tile_relax(g, tt, dist0, mask)
     finally:
         kt.trop_relax = kernel
     torch.cuda.synchronize()
-    assert len(held) == rounds > 1 and kt.launches["trop_relax"] - before == 2 * rounds
+    assert len(held) == rounds > 1 and kt.launches["trop_relax"] - before["trop_relax"] == 2 * rounds
+    assert kt.launches["trop_repair"] - before["trop_repair"] == 2 * sum(r > 0 for r in repairs)
+    assert len(set(repairs)) == 1 and (masked or repairs[0] == 0)  # fixed for the fixpoint
     want = se.distance_fixpoint(se.lane_planes(g, mask), roots, g.in_src.shape[0])
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("lanes", [1, 8, 9, 64, 257, 1024])
+@pytest.mark.parametrize("block", [8, 16, 32, 64, 128])
+def test_trop_geometry_is_the_tile_shape(block, lanes):
+    """The library's launch geometry: the row form up to 8 lanes, above that
+    a block a (row block, lanes a block) chunk; k=90's B = 8 at 1024 lanes is
+    1,266 x 4 = 5,064 blocks of 64 threads, 4 lanes and 8 rows a thread."""
+    from holo_tpu_torch.kernels import tropical as kt
+
+    _card()
+    nb = 1266
+    geo = kt.geometry(block, lanes, nb)
+    assert geo["registers"] > 0 and geo["repair_registers"] > 0 and geo["blocks_per_sm"] >= 1
+    if lanes <= 8:
+        assert geo["form"] == "row" and geo["blocks"] == nb
+        return
+    words, per = (lanes + 31) // 32, geo["lanes_a_block"] // 32
+    assert geo["form"] == "tile" and geo["blocks"] == nb * -(-words // per)
+    assert geo["threads"] * geo["lanes_a_thread"] * geo["rows_a_thread"] == (
+        geo["lanes_a_block"] * block)
+    if block == 8 and lanes == 1024:
+        assert (geo["blocks"], geo["threads"], geo["lanes_a_thread"],
+                geo["rows_a_thread"]) == (5064, 64, 4, 8)
 
 
 def test_trop_relax_explicit_rows_match_the_device_set_on_the_card():
@@ -1303,16 +1350,22 @@ def test_trop_relax_refuses_bad_planes():
     topo, g, tt, _ = _trop_setup("fat_tree_k8", 8, 9, dev)
     nb = tt.tiles.shape[0]
     dist = torch.zeros((tt.perm.shape[0], 9), dtype=torch.int32, device=dev)
+    out = torch.zeros_like(dist)
     front = ell.full_frontier(nb, 9, dev)
     before = kt.launches["trop_relax"]
     with pytest.raises(ValueError, match="trop_relax planes"):
-        kt.trop_relax(tt.tiles, tt.cb, dist[:-1], front)
+        kt.trop_relax(tt.tiles, tt.cb, dist[:-1], front, out[:-1])
     with pytest.raises(ValueError, match="trop_relax planes"):
-        kt.trop_relax(tt.tiles, tt.cb, dist, front[:-1])
+        kt.trop_relax(tt.tiles, tt.cb, dist, front[:-1], out)
     with pytest.raises(ValueError, match="trop_relax planes"):
-        kt.trop_relax(tt.tiles[:, :, :4, :4].contiguous(), tt.cb, dist[: nb * 4], front)
+        kt.trop_relax(tt.tiles[:, :, :4, :4].contiguous(), tt.cb, dist[: nb * 4], front,
+                      out[: nb * 4])
+    with pytest.raises(ValueError, match="trop_relax planes"):
+        kt.trop_relax(tt.tiles, tt.cb, dist, front, out[:-1])
+    with pytest.raises(ValueError, match="trop_relax planes"):
+        kt.trop_relax(tt.tiles, tt.cb, dist, front, dist)
     with pytest.raises(ValueError, match="one CUDA device"):
-        kt.trop_relax(tt.tiles, tt.cb.cpu(), dist, front)
+        kt.trop_relax(tt.tiles, tt.cb.cpu(), dist, front, out)
     assert kt.launches["trop_relax"] == before
 
 

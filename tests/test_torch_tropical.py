@@ -10,7 +10,15 @@ plane; the computation is integer-only).
 - the plain T1 round (``trop_relax`` on CPU tensors) equals one body step
   of JAX's ``_tile_relax`` from JAX's own state of every round, with and
   without repair rows (JAX's explicit rows and the port's device-built
-  set), in the new distances, the changed flag and the next frontier;
+  set), in the new distances (written whole into ``out``), the changed flag
+  and the next frontier;
+- ``repair_set`` lists every repair bit once, in row-major order; with
+  each round written only where the kernels write (the input frontier's
+  (block, lane)s, the changed values and the repair pairs) into the buffer
+  ``tile_relax`` passes as ``out``, that buffer equals the input outside
+  the frontier every round, and the what-if, masked single, masked
+  multiroot and incremental programs equal JAX's at ``max_iters`` None, 1
+  and 2;
 - ``tropical_spf_one``, ``tropical_whatif_batch``, ``tropical_multiroot``
   (masked and not) and ``tropical_spf_one_incremental`` equal JAX's on
   JAX's own tiles at ``max_iters`` None, 0, 1, 2 and 4, and the scalar
@@ -309,9 +317,9 @@ def test_plain_round_is_one_jax_body_step(case, repair):
     mask_w = None if masks is None else te.pack_edge_masks(masks, "cpu")
     p = te.lane_planes(case.tg, mask_w)
     if repair == "jax-rows":
-        rep = trop.rows_to_bits(rr, tt)
+        rep = kt.repair_set(trop.rows_to_bits(rr, tt), lanes)
     elif repair == "device-set":
-        rep = trop.repair_bits(p.slot, mask_w, lanes, tt)
+        rep = kt.repair_set(trop.repair_bits(p.slot, mask_w, lanes, tt), lanes)
     else:
         rep = None
     perm, inv = tt.perm.long(), tt.inv.long()
@@ -320,8 +328,10 @@ def test_plain_round_is_one_jax_body_step(case, repair):
     for r in range(n):
         states.append(np.asarray(_JAX_RELAX(case.jg, case.jtiles, dist0, masks, rr, r + 1)))
         cur = torch.from_numpy(np.array(states[r]))[perm].contiguous()
-        new, changed, active_out = kt.trop_relax(tt.tiles, tt.cb, cur, active, rep, p.src,
+        out = torch.full_like(cur, -3)  # the plain round writes out whole
+        new, changed, active_out = kt.trop_relax(tt.tiles, tt.cb, cur, active, out, rep, p.src,
                                                  p.cost, p.slot, p.mask, tt.perm, tt.inv)
+        assert new is out
         np.testing.assert_array_equal(new[inv].numpy(), states[r + 1], err_msg=f"round {r + 1}")
         moved = torch.from_numpy(states[r + 1] != states[r])[perm]
         moved[n:] = False  # padding rows read vertex 0 here; they never change
@@ -408,11 +418,10 @@ def test_tropical_multiroot_matches_jax(case, max_iters, masked):
         np.testing.assert_array_equal(got.hops.numpy(), ref.hops)
 
 
-@pytest.mark.parametrize("max_iters", LIMITS)
-def test_tropical_incremental_matches_jax(case, max_iters):
-    """A link removal and a cost change after a converged run: JAX's
-    incremental program on JAX's tiles of the new graph, the port's on its
-    copy of them, from the same previous run."""
+def _incremental(case, max_iters, stats=None):
+    """(port, JAX, new port topology): a link removal and a cost change
+    after a converged run, JAX's incremental program on JAX's tiles of the
+    new graph, the port's on its copy of them, from the same previous run."""
     tt, jt = case.tt, case.jt
     e = int(np.nonzero((tt.edge_src != tt.root) & (tt.edge_dst != tt.root))[0][3])
     s, d = int(tt.edge_src[e]), int(tt.edge_dst[e])
@@ -428,9 +437,18 @@ def test_tropical_incremental_matches_jax(case, max_iters):
     jg2 = je.device_graph_from_ell(jell)
     tg2 = te.device_graph_from_ell(tgraph.build_ell(tn, n_atoms=N_ATOMS), "cpu")
     want = _J_INCR(jg2, jax.device_put(host), jt.root, jprev, seeds, max_iters)
-    stats = {}
     got = trop.tropical_spf_one_incremental(tg2, trop.tiles_on(host, "cpu"), tt.root, prev,
                                             seeds, max_iters, stats)
+    return got, want, tn
+
+
+@pytest.mark.parametrize("max_iters", LIMITS)
+def test_tropical_incremental_matches_jax(case, max_iters):
+    """A link removal and a cost change after a converged run: JAX's
+    incremental program on JAX's tiles of the new graph, the port's on its
+    copy of them, from the same previous run."""
+    stats = {}
+    got, want, tn = _incremental(case, max_iters, stats)
     _same_tensors(got, want, "incremental")
     assert stats["relax"] <= (case.n if max_iters is None else max_iters)
     if max_iters is None:
@@ -453,6 +471,85 @@ def test_repair_set_is_the_rows_with_a_masked_valid_slot(case):
     jax_set = trop.rows_to_bits(case.rr, tt)
     assert not (got & ~jax_set).any()
     assert got.any() and (got[case.n:] == 0).all()
+
+
+def test_repair_set_lists_every_bit_once_in_row_major_order(case):
+    """repair_set's pairs: the (permuted row, lane) of every set bit, rows
+    ascending and lanes ascending within a row, int32 [R, 2]; none for an
+    empty plane.  Lane 39 of 40 is in the second word."""
+    tt = case.tiles
+    mask_w = te.pack_edge_masks(case.masks, "cpu")
+    p = te.lane_planes(case.tg, mask_w)
+    for bits in (trop.repair_bits(p.slot, mask_w, LANES, tt), trop.rows_to_bits(case.rr, tt),
+                 torch.zeros_like(trop.rows_to_bits(case.rr, tt))):
+        rep = kt.repair_set(bits, LANES)
+        assert rep.bits is bits and rep.pairs.dtype == torch.int32 and rep.pairs.is_contiguous()
+        flags = np.zeros((bits.shape[0], LANES), bool)
+        for s in range(LANES):
+            flags[:, s] = (bits[:, s // 32].numpy() >> (s % 32)) & 1
+        np.testing.assert_array_equal(rep.pairs.numpy().reshape(-1, 2),
+                                      np.argwhere(flags).astype(np.int32))
+        assert torch.equal(ell.pack_lane_bits(torch.from_numpy(flags)), bits)
+
+
+def _copy_rule(written: list):
+    """trop_relax as the kernels write ``out``: the plain round into a
+    scratch plane, then only the input frontier's (block, lane)s, the values
+    that changed and the repair pairs written into ``out`` -- after checking
+    the preconditions: ``out`` another buffer, equal to ``dist`` outside the
+    frontier."""
+    plain = kt.trop_relax_plain
+
+    def run(tiles, cb, dist, active, out, repair=None, *rest):
+        b, lanes = tiles.shape[2], dist.shape[1]
+        assert out.data_ptr() != dist.data_ptr(), "out is the input buffer"
+        front = ell._unpack(active, slice(0, lanes)).repeat_interleave(b, 0)  # [NB * B, S]
+        assert torch.equal(out[~front], dist[~front]), "out differs outside the frontier"
+        before = out.clone()
+        new, changed, active_out = plain(tiles, cb, dist, active, torch.full_like(out, -5),
+                                         repair, *rest)
+        write = front | (new != dist)
+        if repair is not None:
+            write |= ell._unpack(repair.bits, slice(0, lanes))
+        out.copy_(torch.where(write, new, before))
+        written.append((int(write.sum()), write.numel()))
+        return out, changed, active_out
+
+    return run
+
+
+@pytest.mark.parametrize("max_iters", [None, 1, 2])
+@pytest.mark.parametrize("program", ["whatif", "one-masked", "multiroot-masked", "incremental"])
+def test_copy_rule_rounds_match_jax(case, program, max_iters, monkeypatch):
+    """Every round written only where the kernels write (the frontier's
+    (block, lane)s, the changed values, the repair pairs) into the buffer
+    that tile_relax passes as ``out``: the precondition holds every round,
+    and each program, truncated or not, ends where JAX's does."""
+    written = []
+    monkeypatch.setattr(kt, "trop_relax", _copy_rule(written))
+    root = case.tt.root
+    if program == "whatif":
+        want = _J_WHATIF(case.jg, case.jtiles, root, case.masks, case.rr, max_iters)
+        got = trop.tropical_whatif_batch(case.tg, case.tiles, root, case.masks, None, max_iters)
+        _same_tensors(got, want, program)
+    elif program == "one-masked":
+        mask = case.masks[5]
+        rows = jtrop.repair_rows_host(case.jt.edge_dst, mask[None], case.n)[0]
+        want = _J_ONE(case.jg, case.jtiles, root, mask, rows, max_iters)
+        _same_tensors(trop.tropical_spf_one(case.tg, case.tiles, root, mask, None, max_iters),
+                      want, program)
+    elif program == "multiroot-masked":
+        mask = case.masks[2]
+        rows = jtrop.repair_rows_host(case.jt.edge_dst, mask[None], case.n)[0]
+        want = _J_MULTIROOT(case.jg, case.jtiles, case.roots, mask, rows, max_iters)
+        got = trop.tropical_multiroot(case.tg, case.tiles, case.roots, mask, None, max_iters)
+        _same_tensors(got, want, program, fields=("dist", "parent", "hops"))
+    else:
+        got, want, _ = _incremental(case, max_iters)
+        _same_tensors(got, want, program)
+    assert written
+    if max_iters is None:  # the last rounds rewrite only part of the plane
+        assert min(w for w, _ in written) < written[0][1]
 
 
 # ---------------------------------------------------------------------------
