@@ -28,7 +28,8 @@ and next-hop churn; the fold alone over a full table of 524,288 prefixes x
 "fused" | "packed" | "hybrid" | "tropical")``, and the engine tuner that picks
 among them, through ``compute_whatif`` and ``compute`` on the fat tree (the
 tropical engine also through ``compute_multiroot``, a masked ``compute`` and
-the DeltaPath chain).  Phases:
+the DeltaPath chain, and its multipath program through ``compute`` at
+``multipath_k`` 4 and 8, masked, and the chain).  Phases:
 
 1. build the CUDA kernels from ``holo_tpu_torch/csrc`` with nvcc;
 2. run each kernel once on real mid-fixpoint inputs at the main paths'
@@ -184,6 +185,22 @@ the DeltaPath chain).  Phases:
    set built on the card against the host's rows (phase 4: the lane program's
    device-busy time at 1024 lanes, ``compute()``'s, T1's device time at one
    lane);
+3l. the tropical multipath program: with the launch counts at 0 before
+   each, ``TorchSpfBackend(one_engine="tropical")``'s ``compute(topo,
+   multipath_k=4)`` and ``=8``, a masked ``compute`` (scenario 1's mask,
+   ``multipath_k=4``) and the 8-step DeltaPath chain at ``multipath_k=4``
+   (seq's backend following it), each of which must launch ``trop_relax``
+   and ``trop_count`` (T2; the masked call ``trop_repair`` too); every T2
+   launch of each ``compute`` and of chain step 0 held bit-identical to
+   ``trop_count_plain`` on its own inputs (out and the changed flag); all
+   nine planes equal to seq's ``mp`` planes, the two computes and chain
+   steps 0-1 to the multipath oracle; every chain step incremental on the
+   tiles with its tile delta applied in place; ``mp`` and ``mp_tropical``
+   ``compute()`` timed in turns; T2 alone at one lane (the path counts) and
+   at 64 (the weights) against its floor (``count_work``), its plain
+   version and a float64 ``einsum`` of the same contraction; an armed
+   tuner's ``multipath_k=4`` bucket measuring both engines (phase 4: both
+   computes' device-busy time, T2's device time a launch and a dispatch);
 4. time each kernel (CUDA events; at one scenario also the profiler's
    device time, which leaves out the host's launch), its plain version, the
    whole batch, ``compute()`` and the gather batch's stages, and DeltaPath's
@@ -405,6 +422,15 @@ TROP_REPAIR_REPLACES = ("holo_tpu/ops/tropical.py:445-457, the repair rows of _t
                         "loop body (XLA fusion, no Pallas kernel)")
 TROP_TILE_OPS = 2
 TROP_REPAIR_OPS = 3
+# The tropical multipath program (phase 3l): T2's loop bodies, and its
+# operations: a multiply and an add per (nonzero count entry of a real slot,
+# lane), and per output entry the seed add, the clamp and the changed test.
+TROP_COUNT_REPLACES = ("holo_tpu/ops/tropical.py:559-572 and :608-623, the bodies of "
+                       "_np_tile_fixpoint's and _aw_tile_fixpoint's loops (XLA int32 einsum, no "
+                       "Pallas kernel)")
+TROP_COUNT_OPS = 2
+TROP_COUNT_CELL_OPS = 3
+TROP_MP_TUNER_CALLS = 8  # mp and mp_tropical, each explored twice after its unsampled first use
 
 
 def cuda_call(fn):
@@ -2856,6 +2882,234 @@ def trop_phase(ell, se, dev, topo, masks, gres, gone, gmr, mr_roots, oracle, com
     return x
 
 
+def count_work(cnt, cb, x, seed) -> dict:
+    """What one trop_count_round call must do, and its bound, a floor:
+    operations (TROP_COUNT_OPS per (nonzero count entry of a real slot,
+    lane), TROP_COUNT_CELL_OPS per output entry) against the bytes the
+    function must move at the HBM rate, each input byte read once and each
+    output byte written once.  Read: cb, the count tiles of the real slots
+    (a padding slot's are never needed), x whole (every row is a source or
+    is compared for the changed flag) and the seed plane whole where there is
+    one; written: out whole and the flag."""
+    nb, _, b, _ = cnt.shape
+    npad, lanes = x.shape
+    real = cb < nb
+    nnz = int(((cnt != 0) & real[:, :, None, None]).sum())
+    ops = TROP_COUNT_OPS * nnz * lanes + TROP_COUNT_CELL_OPS * npad * lanes
+    planes = 2 + (seed is not None)  # x, out and the seed
+    byte_count = 4 * (cb.numel() + int(real.sum()) * b * b + planes * npad * lanes + 1)
+    return {"nnz": nnz, "real_slots": int(real.sum()), "ops": ops, "bytes": byte_count,
+            "bound": bound(ops, byte_count)}
+
+
+class CountHolder:
+    """Within ``holding_count()``, every trop_count_round call (T2) runs (and
+    counts) as before, timed by CUDA events, and is held at once: ``out``
+    and the changed flag bit-identical to trop_count_plain's on the same
+    CUDA inputs (``x``, which the round does not write, and a fresh out);
+    its work is counted (count_work), and the first inputs of each lane
+    width are kept."""
+
+    def __init__(self, kt):
+        self.kt = kt
+        self.err = 0
+        self.launch_ms, self.plain_ms, self.work, self.lanes = [], [], [], []
+        self.inputs = {}
+
+    def wrap(self, fn):
+        kt = self.kt
+
+        def held_count(cnt, cb, x, seed, out, root=-1):
+            lanes = x.shape[1]
+            label = f"at {lanes} lanes, launch {len(self.launch_ms) + 1}"
+            got, ms = cuda_call(lambda: fn(cnt, cb, x, seed, out, root))
+            want, plain_ms = cuda_call(
+                lambda: kt.trop_count_plain(cnt, cb, x, seed, torch.empty_like(x), root))
+            self.err = max(self.err, held("trop_count", label, got, want))
+            self.launch_ms.append(ms)
+            self.plain_ms.append(plain_ms)
+            self.lanes.append(lanes)
+            self.work.append(count_work(cnt, cb, x, seed))
+            if lanes not in self.inputs:
+                self.inputs[lanes] = (cnt, cb, x.clone(), None if seed is None else seed.clone(),
+                                      root)
+            return got
+
+        return held_count
+
+
+@contextlib.contextmanager
+def holding_count(kt, holder: CountHolder):
+    fn = kt.trop_count_round
+    kt.trop_count_round = holder.wrap(fn)
+    try:
+        yield holder
+    finally:
+        kt.trop_count_round = fn
+
+
+def count_launch(kt, cnt, cb, x, seed, root) -> dict:
+    """T2 alone on one held launch's inputs: CUDA-event ms of the kernel and
+    of its plain version, the floor, and the one PyTorch call that computes
+    the same contraction (a float64 ``einsum``: exact, every partial sum is
+    an integer below 2**31 < 2**53; timed here, never on the path), held
+    equal to the plain round once seeded, clamped and rooted."""
+    nb, _, b, _ = cnt.shape
+    npad, lanes = x.shape
+    out = torch.empty_like(x)
+
+    def run():
+        return kt.trop_count_round(cnt, cb, x, seed, out, root)
+
+    run()  # warm-up
+    want = kt.trop_count_plain(cnt, cb, x, seed, torch.empty_like(x), root)
+    real = cb < nb
+    cf = torch.where(real[:, :, None, None], cnt, 0).double()
+    xf = x.view(nb, b, lanes)[torch.where(real, cb, 0).long()].double()  # [NB, Tm, B, A]
+
+    def library():
+        return torch.einsum("rtij,rtja->ria", cf, xf)
+
+    tot = library().round().long().view(npad, lanes)
+    new = (tot if seed is None else tot + seed).clamp_max(kt.MP_SAT).to(torch.int32)
+    if root >= 0:
+        new[root] = 1
+    require(torch.equal(new, want[0]), f"the float64 einsum at {lanes} lanes is not the round")
+    err = held("trop_count", f"alone at {lanes} lanes", run(), want)
+    return {"ms": cuda_ms(run, KERNEL_REPS),
+            "plain_ms": cuda_ms(lambda: kt.trop_count_plain(cnt, cb, x, seed,
+                                                            torch.empty_like(x), root),
+                                KERNEL_REPS),
+            "library_ms": cuda_ms(library, KERNEL_REPS), "work": count_work(cnt, cb, x, seed),
+            "err": err, "run": run}
+
+
+def trop_mp_phase(ell, se, dev, topo, masks, m_ref, m_step_ref, n_atoms) -> dict:
+    """Phase 3l: the tropical engine's multipath program on the k=90 fat
+    tree.  (a) With the launch counts at 0 before each, a tropical backend's
+    compute(multipath_k=4) and =8, a masked compute(masks[1], multipath_k=4)
+    and the DeltaPath chain at multipath_k=4, each of which must launch
+    trop_relax and trop_count (the masked one trop_repair too); every T2
+    launch of each compute and of chain step 0 held to trop_count_plain; all
+    nine planes equal a seq backend's mp planes, compute() and chain steps
+    0-1 the oracle's; every chain step incremental on the tiles, its tile
+    delta applied in place.  (b) mp against mp_tropical compute(), in
+    turns.  (c) T2 a launch at 1 and 32 W lanes against its floor, its plain
+    version and a float64 einsum.  (d) A tuner armed: the kp = 4 compute()
+    bucket measures mp and mp_tropical."""
+    from holo_tpu_torch import pipeline
+    from holo_tpu_torch.kernels import tropical as kt
+    from holo_tpu_torch.ops import graph
+    from holo_tpu_torch.spf import synth
+    from holo_tpu_torch.spf.backend import TorchSpfBackend
+
+    t_phase = time.perf_counter()
+    x = {"launches": {}, "hold": {}}
+    be = TorchSpfBackend(one_engine="tropical", device=dev)
+    sbe = TorchSpfBackend(device=dev)
+
+    # (a) the main path, counted; the first call of each path held.
+    def counted(label: str, fn, hold: bool):
+        kt.reset_launches()
+        ell.reset_launches()
+        holder = CountHolder(kt) if hold else None
+        with (holding_count(kt, holder) if hold else contextlib.nullcontext()):
+            out = fn()
+            torch.cuda.synchronize()
+        got = {**kt.launches, **{k: v for k, v in ell.launches.items() if v}}
+        for name in ("trop_relax", "trop_count") + (("trop_repair",) if label == "masked" else ()):
+            require(got[name] > 0, f"mp_tropical {label}: {name} never launched")
+        x["launches"].setdefault(label, []).append(got)
+        if hold:
+            require(len(holder.launch_ms) == got["trop_count"],
+                    f"mp_tropical {label}: a trop_count launch was not held")
+            x["hold"][label] = holder
+        return out
+
+    for k in MP_KS:
+        res = counted(f"compute k={k}", lambda k=k: be.compute(topo, multipath_k=k), True)
+        require(same_nine(res, sbe.compute(topo, multipath_k=k)),
+                f"mp_tropical compute(k={k}) differs from mp's planes")
+        require(same_nine(res, m_ref[k]), f"mp_tropical compute(k={k}) differs from the oracle")
+    res = counted("masked", lambda: be.compute(topo, masks[1], multipath_k=MP_K), True)
+    require(same_nine(res, sbe.compute(topo, masks[1], multipath_k=MP_K)),
+            "mp_tropical masked compute() differs from mp's planes")
+    x["npaths_max"] = int(res.npaths.max())
+    base = synth.clone_topology(topo)
+    be.compute(base, multipath_k=MP_K)
+    sbe.compute(base, multipath_k=MP_K)
+    be._gather_cache.tile_deltas.clear()
+    chain = delta_chain(graph, synth, base, K)
+    for i, (label, t) in enumerate(chain):
+        paths = Counter(be.delta_paths)
+        res = counted("chain", lambda t=t: be.compute(t, multipath_k=MP_K), i == 0)
+        paths = Counter(be.delta_paths) - paths
+        require(paths.get((graph.delta_kind(t.delta_base), "incremental")) == 1,
+                f"mp_tropical chain step {label} was not incremental: {dict(paths)}")
+        require(same_nine(res, sbe.compute(t, multipath_k=MP_K)),
+                f"mp_tropical chain step {label} differs from mp's planes")
+        if i < len(m_step_ref):
+            require(same_nine(res, m_step_ref[i]),
+                    f"mp_tropical chain step {label} differs from the oracle")
+    x["tile_deltas"] = dict(be._gather_cache.tile_deltas)
+    require(x["tile_deltas"] == {"apply": len(chain)},
+            f"the mp_tropical chain's tile deltas were not all applied in place: "
+            f"{x['tile_deltas']}")
+    snap = be.breaker.snapshot()
+    require(not any(snap[k] for k in ("failures", "fallbacks", "refusals")),
+            f"the mp_tropical backend's breaker counted {snap}")
+    print(f"mp_tropical main path: launches {x['launches']}; compute(k={list(MP_KS)}), the "
+          f"masked compute() and the {len(chain)} chain steps equal to mp's nine planes, "
+          f"compute() and steps 0-{len(m_step_ref) - 1} to the oracle; every step incremental "
+          f"on the tiles, tile deltas {x['tile_deltas']}; every trop_count launch of each held "
+          f"to trop_count_plain ("
+          + ", ".join(f"{k} {len(h.launch_ms)}" for k, h in x["hold"].items()) + ")", flush=True)
+
+    # (b) mp against mp_tropical compute(), warm, in turns.
+    backends = {"mp": sbe, "mp_tropical": be}
+    times = {e: {k: [] for k in MP_KS} for e in backends}
+    for b_ in backends.values():
+        for k in MP_KS:
+            b_.compute(topo, multipath_k=k)  # warm-up
+    for _ in range(COMPUTE_REPS):
+        for k in MP_KS:
+            for e, b_ in backends.items():
+                times[e][k].append(timed_call(lambda b_=b_, k=k: b_.compute(
+                    topo, multipath_k=k))[1])
+    x["times"] = {e: {k: statistics.median(v) for k, v in d.items()} for e, d in times.items()}
+    x["times_all"] = times
+
+    # (c) T2 alone at one lane (path counts) and 32 W lanes (weights).
+    x["t2"] = {lanes: count_launch(kt, *inp)
+               for lanes, inp in sorted(x["hold"][f"compute k={MP_K}"].inputs.items())}
+    require(sorted(x["t2"]) == [1, 32 * ((n_atoms + 31) // 32)],
+            f"T2's lane widths {sorted(x['t2'])}")
+
+    # (d) the tuner: the kp = 4 compute() bucket measures both engines.
+    tuner = pipeline.configure_engine_tuner(explore_rounds=2, reprobe_every=0)
+    try:
+        tbe = TorchSpfBackend(device=dev)
+        want = sbe.compute(topo, multipath_k=MP_K)
+        for i in range(TROP_MP_TUNER_CALLS):
+            require(same_nine(tbe.compute(topo, multipath_k=MP_K), want),
+                    f"tuned compute(multipath_k={MP_K}) {i} differs from mp's planes")
+        bucket = list(pipeline.shape_bucket(topo.n_vertices, topo.n_edges, 1, None, k=MP_K))
+        row = next(r for r in tuner.ledger() if r["kind"] == "one" and r["bucket"] == bucket)
+        require({"mp", "mp_tropical"} <= set(row["engines"]),
+                f"the kp={MP_K} bucket did not measure both engines: {row}")
+        x["tuner_row"] = row
+        print(f"tuner bucket one {bucket}: winner {row['winner']} ({row['basis']}); medians ms "
+              f"{ {e: v['median_ms'] for e, v in row['engines'].items()} }; samples "
+              f"{ {e: v['samples'] for e, v in row['engines'].items()} }", flush=True)
+    finally:
+        pipeline.reset_engine_tuner()
+    x["compute_call"] = lambda: be.compute(topo, multipath_k=MP_K)
+    x["mp_compute_call"] = lambda: sbe.compute(topo, multipath_k=MP_K)
+    x["phase_s"] = time.perf_counter() - t_phase
+    print(f"mp_tropical phase checked in {x['phase_s']:.1f} s", flush=True)
+    return x
+
+
 def oracle_result(ref, n_atoms: int):
     """The oracle's planes under SpfResult's field names."""
     return type("Ref", (), {"dist": ref.dist, "parent": ref.parent, "hops": ref.hops,
@@ -3186,10 +3440,11 @@ def main() -> None:
             "ell_first_parent launched on a multipath path (the fused walk replaces it)")
     m_k1 = mbe.compute(topo, multipath_k=1)
     mp_oracle = ScalarSpfBackend()
+    m_ref = {k: mp_oracle.compute(topo, multipath_k=k) for k in MP_KS}  # phase 3l reads them too
     for k, res in m_one.items():
         require(res.parents.shape == (n, k) and res.nh_weights.shape == (n, n_atoms),
                 f"multipath compute(k={k}) shapes")
-        require(same_nine(res, mp_oracle.compute(topo, multipath_k=k)),
+        require(same_nine(res, m_ref[k]),
                 f"multipath compute(k={k}) differs from the multipath oracle")
     require(same_planes(m_k1, gone) and all(getattr(m_k1, f) is None for f in MP_FIELDS),
             "multipath_k=1 is not the single-path compute()")
@@ -3207,6 +3462,7 @@ def main() -> None:
           f"single-path batch", flush=True)
     del m_batch
     m_full = TorchSpfBackend(device=dev, incremental=False)
+    m_step_ref = []  # the oracle of the chain's first steps, phase 3l's too
     for i, (label, t, res, ms, st, paths) in enumerate(m_steps):
         kind = graph.delta_kind(t.delta_base)
         require(paths == Counter({(kind, "apply"): 1, (kind, "incremental"): 1}),
@@ -3215,7 +3471,8 @@ def main() -> None:
         require(same_nine(res, m_full.compute(synth.clone_topology(t), multipath_k=MP_K)),
                 f"multipath delta step {i} ({label}) differs from the full path")
         if i < MP_ORACLE_STEPS:
-            require(same_nine(res, mp_oracle.compute(t, multipath_k=MP_K)),
+            m_step_ref.append(mp_oracle.compute(t, multipath_k=MP_K))
+            require(same_nine(res, m_step_ref[i]),
                     f"multipath delta step {i} ({label}) differs from the oracle")
         print(f"multipath delta step {i} {label}: incremental, bit-identical to the full "
               f"path{' and the oracle' if i < MP_ORACLE_STEPS else ''}; affected "
@@ -3242,6 +3499,9 @@ def main() -> None:
     # -- 3k. the tropical engine: the tiles, T1 and its four paths and chain
     kx = trop_phase(ell, se, dev, topo, masks, gres, gone, gmr, mr_roots, oracle, compute_ref,
                     mr_ref, n_atoms)
+
+    # -- 3l. the tropical multipath program: T2 and its paths
+    lx = trop_mp_phase(ell, se, dev, topo, masks, m_ref, m_step_ref, n_atoms)
 
     # -- 4. timing (the profiler last: once it has run, host launches are
     # slower, which the host-clock times below would count)
@@ -3407,6 +3667,15 @@ def main() -> None:
     k_t1_b1 = sum(ms for name, ms in device_times(kx["compute_call"]).items()
                   if "trop_relax" in name)
     k_phase4_s += time.perf_counter() - t_k
+    t_l = time.perf_counter()
+    l_busy = {e: device_busy(lx[key]) for e, key in (("mp_tropical", "compute_call"),
+                                                      ("mp", "mp_compute_call"))}
+    l_times = device_times(lx["compute_call"])
+    l_t2_dispatch = sum(ms for name, ms in l_times.items() if "trop_count" in name)
+    for lanes, v in lx["t2"].items():
+        per = device_times(lambda v=v: [v["run"]() for _ in range(KERNEL_REPS)])
+        v["device_ms"] = sum(ms for name, ms in per.items() if "trop_count" in name) / KERNEL_REPS
+    l_phase4_s = time.perf_counter() - t_l
     g_compute_busy_ms, g_compute_top = device_busy(lambda: gbe.compute(topo))
     incr_busy_ms, incr_top = device_busy(lambda: se.spf_one_incremental(*last_in))
     m_rows["ell_parent_sets"]["device_ms_b1"] = device_ms_per_call(
@@ -3612,6 +3881,36 @@ def main() -> None:
               flush=True)
     print(f"tropical share of the script: phase 3k {kx['phase_s']:.1f} s + its phase-4 "
           f"timings and profiles {k_phase4_s:.1f} s", flush=True)
+    lt = lx["times"]
+    for k in MP_KS:
+        print(f"time mp_tropical compute(multipath_k={k}): mp {lt['mp'][k]:.3f} ms, mp_tropical "
+              f"{lt['mp_tropical'][k]:.3f} ms (host clock, medians of {COMPUTE_REPS} warm calls "
+              f"taken in turns: " + "; ".join(f"{e} {[round(t, 3) for t in lx['times_all'][e][k]]}"
+                                              for e in ("mp", "mp_tropical")) + f"); {smi}",
+              flush=True)
+    l_hold = lx["hold"][f"compute k={MP_K}"]
+    l_launches = lx["launches"][f"compute k={MP_K}"][0]["trop_count"]
+    for lanes, v in sorted(lx["t2"].items()):
+        w = v["work"]
+        print(f"time trop_count at {lanes} lanes: {v['ms']:.4f} ms a launch (CUDA events, median "
+              f"of {KERNEL_REPS}), " + (f"{v['device_ms']:.4f} ms on the device" if v["device_ms"]
+                                       else "device time not measured")
+              + f", bound {w['bound'][0]:.5f} ms by {w['bound'][1]} ({w['ops']} operations, "
+              f"{w['bytes']} bytes; {w['nnz']} nonzero counts in {w['real_slots']} real tiles), "
+              f"plain {v['plain_ms']:.3f} ms, float64 einsum {v['library_ms']:.4f} ms; {smi}",
+              flush=True)
+    print(f"time trop_count a dispatch: compute(multipath_k={MP_K}) launches {l_launches} "
+          f"(by lanes {dict(Counter(l_hold.lanes))}), held launches "
+          f"{[round(t, 4) for t in l_hold.launch_ms]} ms by events, "
+          f"{l_t2_dispatch:.4f} ms on the device in all; {smi}", flush=True)
+    for e, (busy_ms, top) in l_busy.items():
+        c_ms = lt[e][MP_K]
+        print(f"profile mp_tropical: {e} compute(multipath_k={MP_K}) device busy "
+              + (f"{busy_ms:.3f} ms of {c_ms:.3f} ms (phase 3l's median; idle share "
+                 f"{1 - busy_ms / c_ms:.3f}); top device ops: {top}" if busy_ms > 0
+                 else "not measured (the profiler saw no device time)"), flush=True)
+    print(f"mp_tropical share of the script: phase 3l {lx['phase_s']:.1f} s + its phase-4 "
+          f"profiles {l_phase4_s:.1f} s", flush=True)
     print(f"engines' share of the script: phase 3j {jx['phase_s']:.1f} s + its phase-4 "
           f"timings and profiles {j_phase4_s:.1f} s = {jx['phase_s'] + j_phase4_s:.1f} s",
           flush=True)
@@ -3853,6 +4152,27 @@ def main() -> None:
         "library_ms": None, **rrow,
         "launches_by_path": {k: [c["trop_repair"] for c in runs]
                              for k, runs in kx["launches"].items()},
+    })
+    t2 = lx["t2"]
+    a_lanes = max(t2)
+    kernel_rows.append({
+        "name": "trop_count", "route": "cuda", "source": TROP_SOURCE,
+        "replaces": TROP_COUNT_REPLACES,
+        "launches": sum(c["trop_count"] for runs in lx["launches"].values() for c in runs),
+        "max_abs_err": max(*(h.err for h in lx["hold"].values()), *(v["err"] for v in t2.values())),
+        "ms": t2[a_lanes]["ms"], "plain_ms": t2[a_lanes]["plain_ms"],
+        "bound_ms": t2[a_lanes]["work"]["bound"][0], "bound_by": t2[a_lanes]["work"]["bound"][1],
+        "library_ms": t2[a_lanes]["library_ms"], "lanes": a_lanes,
+        "device_ms": t2[a_lanes]["device_ms"],
+        "ms_a1": t2[1]["ms"], "plain_ms_a1": t2[1]["plain_ms"],
+        "bound_ms_a1": t2[1]["work"]["bound"][0], "bound_by_a1": t2[1]["work"]["bound"][1],
+        "library_ms_a1": t2[1]["library_ms"], "device_ms_a1": t2[1]["device_ms"],
+        "launches_by_path": {k: [c["trop_count"] for c in runs]
+                             for k, runs in lx["launches"].items()},
+        "dispatch_launches": l_launches, "dispatch_device_ms": l_t2_dispatch,
+        "dispatch_launch_ms": l_hold.launch_ms, "dispatch_lanes": l_hold.lanes,
+        "engine_ms": lt, "tuner": {e: v["median_ms"] for e, v in lx["tuner_row"]["engines"].items()},
+        "tuner_winner": lx["tuner_row"]["winner"], "tile_deltas": lx["tile_deltas"],
     })
     # (e) every dispatch of the run ran on the card: every breaker the run
     # built (every SPF backend, FRR engine and BGP table and rank backend)

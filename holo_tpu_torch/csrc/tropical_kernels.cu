@@ -8,6 +8,10 @@
 //                 pass (trop_relax_tile / trop_relax_rows) and the repair
 //                 pass (trop_repair), launched one after the other on one
 //                 stream by one wrapper call
+//   trop_count (T2) <- holo_tpu/ops/tropical.py:559-572 and :608-623, the
+//                 bodies of the multipath tile fixpoints (int32 einsums in
+//                 XLA): one round of the integer count-tile contraction,
+//                 described at its kernels below
 //
 // Planes (int32, INF = 1<<30 unreachable), in the tiles' permuted vertex
 // space padded to NB*B rows: tiles [NB, Tm, B, B] (tiles[rb, t, i, j] = the
@@ -446,6 +450,113 @@ int geometry(int lanes, int nb, int* info) {
   return rc;
 }
 
+// ---------------------------------------------------------------------------
+// trop_count_round (T2) <- holo_tpu/ops/tropical.py:559-572 and :608-623, the
+// loop bodies of _np_tile_fixpoint and _aw_tile_fixpoint (int32 einsums in
+// XLA; the JAX package has no Pallas kernel there): one Jacobi round of the
+// DAG-linear multipath fixpoints over integer count tiles, in the tiles'
+// permuted space padded to NB*B rows.
+//
+// Planes (int32): cnt [NB, Tm, B, B] (cnt[rb, t, i, j] = how many flagged
+// ELL slots join source cb[rb, t]*B + j to row rb*B + i; 0 on a padding
+// slot); cb [NB, Tm] (NB for a padding slot); x [NB*B, A] (the carry, 0 on
+// padding rows); seed [NB*B, A] or NULL (0 everywhere); out [NB*B, A] another
+// buffer, written whole; root: the permuted row whose value is 1 (the path
+// counts' root), or -1 for none.
+//   tot[p, a] = sum over slots t with cb[rb, t] < NB and over j of
+//               cnt[rb, t, i, j] * x[cb*B + j, a];
+//   new = p == root ? 1 : min(seed + tot, MP_SAT) into out; changed is set
+//   if any new != x.
+// Every x is at most MP_SAT = 2^17 and a row's counts add up to at most its
+// K slots, so every partial sum is at most K * 2^17 < 2^31 (K <= 16384,
+// holo_tpu/ops/graph.py:32-36): int32 multiply-adds are exact and give
+// JAX's bits.  No floating point, no tensor core.
+//
+// What bounds it: at the k=90 fat tree (B = 8, NB 1,266, Tm 67) the count
+// tiles are 21.7 MB, read once a round (6.5 us at the HBM rate), against two
+// operations (multiply, add) a (nonzero count, lane): bytes.  The design is
+// the simple one.  Row form (up to SMALL lanes; the path counts' one lane):
+// a block a row block, a warp a row, its threads splitting the row's (slot,
+// j) entries, then __reduce_add_sync; thread s finishes lane s.  Lane form
+// (more lanes; the 32 W weight lanes): a block a row block x 32 lanes, a warp
+// a row, a thread a lane walking the row's entries (the count a broadcast
+// read, the source value a coalesced one).  Padding slots and zero counts
+// are skipped (exact: they add 0).
+// ---------------------------------------------------------------------------
+
+constexpr int MP_SAT = 1 << 17;
+constexpr int COUNT_THREADS = 256;
+constexpr int COUNT_WARPS = COUNT_THREADS / 32;
+
+__device__ __forceinline__ void count_finish(int p, int s, int tot, const int* x,
+                                             const int* seed, int* out, int* changed,
+                                             int lanes, int root) {
+  const size_t at = (size_t)p * lanes + s;
+  const int nw = p == root ? 1 : min((seed != nullptr ? seed[at] : 0) + tot, MP_SAT);
+  out[at] = nw;
+  if (nw != x[at]) changed[0] = 1;
+}
+
+__global__ void __launch_bounds__(COUNT_THREADS)
+    trop_count_rows(const int* __restrict__ cnt, const int* __restrict__ cb,
+                    const int* __restrict__ x, const int* __restrict__ seed,
+                    int* __restrict__ out, int* __restrict__ changed, int nb, int tm, int b,
+                    int lanes, int root) {
+  const int rb = blockIdx.x;
+  const int warp = threadIdx.x >> 5, l = threadIdx.x & 31;
+  const size_t slot0 = (size_t)rb * tm;
+  for (int i = warp; i < b; i += COUNT_WARPS) {
+    int acc[SMALL];
+#pragma unroll
+    for (int s = 0; s < SMALL; ++s) acc[s] = 0;
+    for (int idx = l; idx < tm * b; idx += 32) {
+      const int t = idx / b, j = idx - t * b;
+      const int c = cb[slot0 + t];
+      if (c >= nb) continue;
+      const int w = cnt[((slot0 + t) * b + i) * b + j];
+      if (w == 0) continue;
+      const int* row = x + ((size_t)c * b + j) * lanes;
+#pragma unroll
+      for (int s = 0; s < SMALL; ++s)
+        if (s < lanes) acc[s] += w * row[s];
+    }
+    const int p = rb * b + i;
+#pragma unroll
+    for (int s = 0; s < SMALL; ++s) {
+      if (s < lanes) {
+        const int tot = __reduce_add_sync(0xffffffffu, acc[s]);
+        if (l == s) count_finish(p, s, tot, x, seed, out, changed, lanes, root);
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(COUNT_THREADS)
+    trop_count_lanes(const int* __restrict__ cnt, const int* __restrict__ cb,
+                     const int* __restrict__ x, const int* __restrict__ seed,
+                     int* __restrict__ out, int* __restrict__ changed, int nb, int tm, int b,
+                     int lanes, int root, int chunks) {
+  const int rb = blockIdx.x / chunks;
+  const int warp = threadIdx.x >> 5, l = threadIdx.x & 31;
+  const int s = (blockIdx.x % chunks) * 32 + l;
+  if (s >= lanes) return;  // no warp-collective below
+  const size_t slot0 = (size_t)rb * tm;
+  for (int i = warp; i < b; i += COUNT_WARPS) {
+    int acc = 0;
+    for (int t = 0; t < tm; ++t) {
+      const int c = cb[slot0 + t];
+      if (c >= nb) continue;
+      const int* w = cnt + ((slot0 + t) * b + i) * b;
+      const int* col = x + (size_t)c * b * lanes + s;
+      for (int j = 0; j < b; ++j) {
+        const int wj = w[j];
+        if (wj != 0) acc += wj * col[(size_t)j * lanes];
+      }
+    }
+    count_finish(rb * b + i, s, acc, x, seed, out, changed, lanes, root);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -485,6 +596,23 @@ int holo_trop_repair(const void* pairs, int npairs, const void* dist, const void
       (const int*)pairs, npairs, (const int*)dist, (const int*)src, (const int*)cost,
       (const int*)slot, (const int*)mask, (const int*)perm, (const int*)inv, (int*)out,
       (int*)changed, (int*)active_out, b, lanes, k);
+  return (int)cudaGetLastError();
+}
+
+int holo_trop_count(const void* cnt, const void* cb, const void* x, const void* seed, void* out,
+                    void* changed, int nb, int tm, int b, int lanes, int root, void* stream) {
+  if (nb <= 0 || tm <= 0 || lanes <= 0) return 0;
+  const int *n = (const int*)cnt, *c = (const int*)cb, *xi = (const int*)x;
+  const int* sd = (const int*)seed;
+  int *o = (int*)out, *ch = (int*)changed;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (lanes <= SMALL) {
+    trop_count_rows<<<nb, COUNT_THREADS, 0, st>>>(n, c, xi, sd, o, ch, nb, tm, b, lanes, root);
+  } else {
+    const int chunks = (lanes + 31) / 32;
+    trop_count_lanes<<<(unsigned)((long long)nb * chunks), COUNT_THREADS, 0, st>>>(
+        n, c, xi, sd, o, ch, nb, tm, b, lanes, root, chunks);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -2,9 +2,9 @@
 
 The sources under ``holo_tpu_torch/csrc/`` (the blocked engine's kernels,
 the gather engine's, its multipath kernels and its fused round, the BGP
-table's fold, the tropical engine's tile relax) are compiled at first use for
-``sm_90a``, one ``nvcc`` per source, all started together, and linked into
-one library in ``holo_tpu_torch/build/`` (listed in ``.gitignore``), named
+table's fold, the tropical engine's tile relax and count contraction) are
+compiled at first use for ``sm_90a``, one ``nvcc`` per source, all started
+together, and linked into one library in ``holo_tpu_torch/build/`` (listed in ``.gitignore``), named
 by a hash of the sources so an edit rebuilds it.  Each C entry point takes ``void*``
 pointers (NULL for an absent plane), ``int`` sizes and the CUDA stream,
 launches on that stream and returns ``cudaGetLastError()``;
@@ -63,6 +63,7 @@ SIGNATURES = {
     "holo_bgp_fold_smem": (_I,) * 5,
     "holo_trop_relax": (*[_P] * 8, *[_I] * 4, _P),
     "holo_trop_repair": (_P, _I, *[_P] * 10, *[_I] * 3, _P),
+    "holo_trop_count": (*[_P] * 6, *[_I] * 5, _P),
     "holo_trop_info": (_I, _I, _I, _P),
 }
 

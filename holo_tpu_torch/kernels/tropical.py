@@ -1,15 +1,22 @@
-"""The tropical engine's CUDA kernels, beside their plain PyTorch version.
+"""The tropical engine's CUDA kernels, beside their plain PyTorch versions.
 
-One wrapper over ``csrc/tropical_kernels.cu``, :func:`trop_relax` (T1): one
-round of the blocked min-plus fixpoint of ``holo_tpu/ops/tropical.py``
-(``_tile_relax``'s loop body, ``:423-464``, an XLA fusion in the JAX package,
-not a Pallas kernel).  On the card it launches the tile pass and, where the
-round has repair (row, lane)s, the repair pass after it on the same stream.
+Two wrappers over ``csrc/tropical_kernels.cu``:
+
+- :func:`trop_relax` (T1): one round of the blocked min-plus fixpoint of
+  ``holo_tpu/ops/tropical.py`` (``_tile_relax``'s loop body, ``:423-464``, an
+  XLA fusion in the JAX package, not a Pallas kernel).  On the card it
+  launches the tile pass and, where the round has repair (row, lane)s, the
+  repair pass after it on the same stream;
+- :func:`trop_count_round` (T2): one round of the multipath tile fixpoints
+  (``_np_tile_fixpoint`` / ``_aw_tile_fixpoint``'s loop bodies, ``:559-572``
+  and ``:608-623``, int32 einsums in XLA): the integer contraction of
+  count tiles with the source blocks' values, clamped at ``MP_SAT``.
+
 A wrapper given CPU tensors computes the plain version
-(:func:`trop_relax_plain`); given CUDA tensors it launches the kernels on
-the current stream or raises.  It never falls back.  :data:`launches`
-counts kernel launches: ``trop_relax`` one a wrapper call, ``trop_repair``
-one a repair pass.
+(:func:`trop_relax_plain`, :func:`trop_count_plain`); given CUDA tensors it
+launches the kernels on the current stream or raises.  It never falls back.
+:data:`launches` counts kernel launches: ``trop_relax`` one a wrapper call,
+``trop_repair`` one a repair pass, ``trop_count`` one a T2 call.
 
 Planes (all int32, INF = 1 << 30 unreachable; the vertex space is the
 tiles' permuted one, padded to NB * B rows):
@@ -32,7 +39,9 @@ tiles' permuted one, padded to NB * B rows):
   ``src``, ``cost``, ``slot`` [N, K] (slot: the edge id, -1 for padding),
   the mask words ``mask`` [E, ceil(S / 32)] (None: every edge up), ``perm``
   [NB * B] (permuted row -> vertex) and ``inv`` [N] (vertex -> permuted
-  row), as the gather kernels do (``kernels/ell.py``).
+  row), as the gather kernels do (``kernels/ell.py``);
+- ``cnt`` [NB, Tm, B, B] (T2): ``cnt[rb, t, i, j]`` how many flagged ELL slots
+  join ``cb[rb, t] * B + j`` to ``rb * B + i`` (0 on a padding slot).
 """
 
 from __future__ import annotations
@@ -52,11 +61,12 @@ from holo_tpu_torch.kernels.ell import (
 )
 
 INF = 1 << 30
+MP_SAT = 1 << 17  # the multipath counts' saturation (holo_tpu/ops/graph.py:36)
 BLOCKS = (8, 16, 32, 64, 128)  # the tile sizes the kernel is built for
 _TEMP = 1 << 26  # elements of the largest [NB, B, B, lanes] temporary of the plain version
 
 #: kernel launches since the last :func:`reset_launches`
-launches = {"trop_relax": 0, "trop_repair": 0}
+launches = {"trop_relax": 0, "trop_repair": 0, "trop_count": 0}
 
 
 def reset_launches() -> None:
@@ -192,6 +202,64 @@ def trop_relax(tiles, cb, dist, active, out, repair=None, src=None, cost=None, s
         _launch("trop_repair", repair.pairs, repair.pairs.shape[0], dist, src, cost, slot, mask,
                 perm, inv, out, changed, active_out, b, lanes, k)
     return out, changed, active_out
+
+
+def trop_count_plain(cnt, cb, x, seed, out, root: int = -1):
+    """One round of the multipath tile fixpoints (``_np_tile_fixpoint`` /
+    ``_aw_tile_fixpoint``'s loop bodies): (out holding the new values [NB *
+    B, A], changed int32 [1]).
+
+    ``tot[rb * B + i, a]`` is the sum over the slots t whose source block
+    ``cb[rb, t]`` is real and over j of ``cnt[rb, t, i, j] * x[cb * B + j,
+    a]``, in int64 (exact: it is below 2**31); ``new = min(seed + tot,
+    MP_SAT)`` (``seed`` None: 0), and 1 at the permuted row ``root`` (-1:
+    none); written whole into ``out``; changed where ``new != x``."""
+    nb, tm, b, _ = cnt.shape
+    npad, lanes = x.shape
+    real = cb < nb
+    csafe = torch.where(real, cb, 0).long()
+    xb = x.view(nb, b, lanes)
+    tot = torch.zeros((nb, b, lanes), dtype=torch.int64, device=x.device)
+    step = max(1, _TEMP // max(nb * b * b, 1))
+    for s0 in range(0, lanes, step):
+        sl = slice(s0, min(s0 + step, lanes))
+        for t in range(tm):
+            w = torch.where(real[:, t, None, None], cnt[:, t], 0).long()  # [NB, B(i), B(j)]
+            src = xb[csafe[:, t]][:, :, sl].long()  # [NB, B(j), S']
+            tot[:, :, sl] += (w[:, :, :, None] * src[:, None, :, :]).sum(2)
+    tot = tot.view(npad, lanes)
+    if seed is not None:
+        tot = tot + seed
+    new = tot.clamp_max(MP_SAT).to(torch.int32)
+    if root >= 0:
+        new[root] = 1
+    out.copy_(new)
+    return out, (new != x).any().to(torch.int32).reshape(1)
+
+
+def trop_count_round(cnt, cb, x, seed, out, root: int = -1):
+    """(out holding the new values [NB * B, A], changed int32 [1]): one
+    round of the multipath tile fixpoints, see :func:`trop_count_plain`.  On
+    the card the kernel (T2) writes ``out`` whole, accumulating in int32
+    (exact, as JAX's int32 einsum)."""
+    if not build.on_card(cnt, cb, x, seed, out):
+        return trop_count_plain(cnt, cb, x, seed, out, root)
+    nb, tm, b, b2 = cnt.shape if cnt.dim() == 4 else (0, 0, 0, -1)
+    npad, lanes = x.shape if x.dim() == 2 else (-1, 0)
+    bad = b != b2 or b not in BLOCKS or cb.shape != (nb, tm) or npad != nb * b
+    bad |= out.shape != x.shape or out.data_ptr() == x.data_ptr()
+    bad |= seed is not None and seed.shape != x.shape
+    bad |= not -1 <= root < npad
+    if bad:
+        raise ValueError(
+            f"trop_count planes disagree (cnt [NB, Tm, B, B] with B in {BLOCKS}, x [NB * B, A], "
+            f"seed None or x's shape, out another buffer of x's shape, root -1 or a row): cnt "
+            f"{tuple(cnt.shape)}, cb {tuple(cb.shape)}, x {tuple(x.shape)}, seed "
+            f"{None if seed is None else tuple(seed.shape)}, out {tuple(out.shape)}, root {root}"
+        )
+    changed = torch.zeros(1, dtype=torch.int32, device=x.device)
+    _launch("trop_count", cnt, cb, x, seed, out, changed, nb, tm, b, lanes, int(root))
+    return out, changed
 
 
 def geometry(b: int, lanes: int, nb: int) -> dict:

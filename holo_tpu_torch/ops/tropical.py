@@ -33,10 +33,23 @@ chunks of ``LANE_CHUNK`` lanes, a bound on its memory: lanes are
 independent and a converged lane is a fixpoint, so here one lane set runs
 the whole batch, each lane seeing the rounds JAX gives it.
 
+The multipath program (``tropical_spf_one_multipath`` and its incremental
+twin, ``tropical.py:809`` and ``:903``) runs the tile relax and phase 2
+(``ell_parent_sets``: first parent, DAG bits and parent sets; the hops +
+next-hop fixpoint), then two more fixpoints on the tiles, each a loop of
+kernel T2 (``kernels/tropical.py`` ``trop_count_round``) over integer
+**count tiles** (:func:`count_tiles`: how many DAG slots join each (row,
+source) pair): the saturated path counts (:func:`np_tile_fixpoint`) and the
+per-atom UCMP weights (:func:`aw_tile_fixpoint`, over the inherit slots, from
+the direct-atom seed).  Each is capped at ``limit`` rounds on its own, as in
+JAX: three capped loops after the relax, where the gather engine's ``mp``
+runs one joint loop, so truncated bits differ between the two engines.  The
+loops keep their carry in the permuted space (padding rows 0): one gather in
+and one out give JAX's bits, whose carry is gathered every round.
+
 The tiles are an attachment of a ``DeviceGraphCache`` entry
 (``get_tropical``), updated in place by lowered tile deltas
 (:func:`lower_tile_delta`, :func:`apply_tile_delta`) along a DeltaPath chain.
-The multipath tile contraction (A9b) is not here.
 """
 
 from __future__ import annotations
@@ -379,3 +392,164 @@ def tropical_spf_one_incremental(g, tt: TropicalTiles, root: int, prev: se.SpfTe
     return se.spf_one_incremental(
         g, root, prev, seed_rows, max_iters, stats,
         relax=lambda dist0, limit: tile_relax(g, tt, dist0, None, None, limit))
+
+
+# ---------------------------------------------------------------------------
+# The multipath program: count tiles and the two tile fixpoints (T2)
+
+
+def count_tiles(src: torch.Tensor, tt: TropicalTiles, flag: torch.Tensor) -> torch.Tensor:
+    """``_count_tiles`` (``tropical.py:510``): int32 [NB, Tm, B, B] whose
+    entry (rb, t, i, j) is how many flagged ELL slots (``flag`` bool [N, K],
+    ``src`` the slots' sources [N, K]) join source ``cb[rb, t] * B + j`` to
+    row ``rb * B + i`` of the permuted space; parallel edges count once each.
+    A flagged slot whose block pair has no tile drops, as JAX's scatter
+    drops it (never: a flagged slot is a valid edge).  Integer adds, so the
+    scatter's order does not matter."""
+    nb, tm, b, _ = tt.tiles.shape
+    n, k = flag.shape
+    inv = tt.inv.long()
+    pv = inv[:, None].expand(n, k)
+    ps = inv[src.long()]
+    slot = torch.where(flag, tt.pos.long()[pv // b, ps // b], tm)  # Tm: dropped
+    out = torch.zeros((nb, tm + 1, b, b), dtype=torch.int32, device=flag.device)
+    out.index_put_((pv // b, slot, pv % b, ps % b), flag.to(torch.int32), accumulate=True)
+    return out[:, :tm].contiguous()
+
+
+def direct_atom_seed(g, direct: torch.Tensor, npaths: torch.Tensor) -> torch.Tensor:
+    """The fixed seed of the weight fixpoint (``tropical.py:598-603``), int32
+    [N, A] with A = 32 W: ``seed[v, a]`` is the sum of ``npaths[src]`` over
+    the slots of v flagged in ``direct`` (bool [N, K]: DAG slots whose source
+    has hops 0) whose direct-atom words hold bit a.  One pass a bit, over
+    all words at once: JAX's [N, K, A] one-hot is never built."""
+    n, _ = direct.shape
+    words = g.direct_nh_words
+    val = torch.where(direct, npaths[g.in_src.long()], 0)  # [N, K]
+    seed = torch.empty((n, words.shape[2], 32), dtype=torch.int32, device=direct.device)
+    for bit in range(32):
+        seed[:, :, bit] = (((words >> bit) & 1) * val[:, :, None]).sum(1)
+    return seed.view(n, -1)
+
+
+def _to_tiles(v: torch.Tensor, tt: TropicalTiles) -> torch.Tensor:
+    """Vertex rows [N, A] -> the permuted rows [NB * B, A], padding rows 0."""
+    out = v[tt.perm.long()]
+    out[tt.inv.shape[0]:] = 0  # padding rows read vertex 0
+    return out
+
+
+def _count_fixpoint(tt: TropicalTiles, cnt, x0, seed, root_row: int, limit: int):
+    """Values [N, A]: T2 rounds from ``x0`` [N, A] (only read) between two
+    permuted buffers, while a round changed something and fewer than
+    ``limit`` ran, one flag read a round."""
+    x = _to_tiles(x0, tt)
+    spare = torch.empty_like(x)
+    seed_p = None if seed is None else _to_tiles(seed, tt)
+    rounds = 0
+    changed = True
+    while changed and rounds < limit:
+        new, flag = kt.trop_count_round(cnt, tt.cb, x, seed_p, spare, root_row)
+        x, spare = new, x
+        changed = bool(flag)
+        rounds += 1
+    return x[tt.inv.long()]
+
+
+def np_tile_fixpoint(g, tt: TropicalTiles, dag: torch.Tensor, root: int, np0: torch.Tensor,
+                     limit: int):
+    """``_np_tile_fixpoint`` (``tropical.py:539``): npaths [N, 1], the
+    saturated shortest-path counts ``min(sum of npaths[src] over the DAG
+    slots, MP_SAT)``, 1 at the root, a Jacobi loop from ``np0`` [N] over the
+    count tiles of ``dag`` (bool [N, K])."""
+    cnt = count_tiles(g.in_src, tt, dag)
+    return _count_fixpoint(tt, cnt, np0[:, None], None, int(tt.inv[root]), limit)
+
+
+def aw_tile_fixpoint(g, tt: TropicalTiles, dag: torch.Tensor, hops: torch.Tensor,
+                     npaths: torch.Tensor, aw0: torch.Tensor, limit: int):
+    """``_aw_tile_fixpoint`` (``tropical.py:580``): nh_weights [N, A], the
+    per-atom UCMP weights ``min(seed + sum of aw[src] over the
+    inherit slots, MP_SAT)``, a Jacobi loop from ``aw0`` [N, A].  ``hops``
+    [N] and ``npaths`` [N] are phase 2's raw planes: the DAG slots whose
+    source has hops 0 seed the direct atoms, the others inherit."""
+    hop0 = hops[g.in_src.long()] == 0
+    seed = direct_atom_seed(g, dag & hop0, npaths)
+    cnt = count_tiles(g.in_src, tt, dag & ~hop0)
+    return _count_fixpoint(tt, cnt, aw0, seed, -1, limit)
+
+
+def _multipath_on_tiles(g, tt: TropicalTiles, p, dist, root: int, start, np0, aw0, kp: int,
+                        limit: int):
+    """The rest of a one-lane multipath program after the tile relax, over
+    its distances ``dist`` [N, 1]: ``ell_parent_sets`` (first parent, DAG
+    bits, parent sets), the hops + next-hop fixpoint from ``start``
+    (``mp_start`` / ``mp_resume`` without count planes), the path counts
+    from ``np0`` [N] and the weights from ``aw0`` [N, A] on the tiles, and
+    the parent weights from the raw path counts: (SpfTensors,
+    MultipathTensors, phase-2 rounds)."""
+    n = g.in_src.shape[0]
+    roots = se._roots(root, 1, g.in_src.device)
+    parent, dag, parents, pdist = ell.ell_parent_sets(*p, dist, roots, kp)
+    (hops, nh, _, _), rounds = se.mp_fixpoint(g, roots, dag, parent, *start, limit)
+    flag = (dag[:, :, 0] & 1) != 0  # lane 0's bit of the DAG words
+    npaths = np_tile_fixpoint(g, tt, flag, root, np0, limit)
+    aw = aw_tile_fixpoint(g, tt, flag, hops[:, 0], npaths[:, 0], aw0, limit)
+    pweight = ell.ell_parent_weights(parents, npaths)
+    d = dist[:, 0]
+    reach = d < INF
+    sp = se.SpfTensors(dist=d, parent=parent[:, 0], hops=torch.where(reach, hops[:, 0], n + 1),
+                       nexthops=nh[:, :, 0])
+    mp = se.MultipathTensors(parents=parents[:, :, 0], pdist=pdist[:, :, 0],
+                             pweight=pweight[:, :, 0],
+                             npaths=torch.where(reach, npaths[:, 0], 0), nh_weights=aw)
+    return sp, mp, rounds
+
+
+def tropical_spf_one_multipath(g, tt: TropicalTiles, root: int, kp: int, edge_mask=None,
+                               repair_rows=None, max_iters=None):
+    """The multipath program on the tiles (``tropical_spf_one_multipath``):
+    (SpfTensors, MultipathTensors) of one run, the distances by the tile
+    relax (``edge_mask`` and ``repair_rows`` as in
+    :func:`tropical_spf_one`), then phase 2 and the count and weight planes
+    on the tiles from fresh seeds.  ``npaths`` is 0 where unreachable;
+    ``nh_weights`` is the weight fixpoint's value as it is."""
+    n = g.in_src.shape[0]
+    limit = n if max_iters is None else max_iters
+    dev = g.in_src.device
+    mask = None if edge_mask is None else se.pack_edge_masks(np.asarray(edge_mask)[None], dev)
+    roots = se._roots(root, 1, dev)
+    dist0, _ = se.distance_seed(n, roots)
+    dist, _ = tile_relax(g, tt, dist0, mask, _lane_rows(repair_rows, 1), limit)
+    words = g.direct_nh_words.shape[2]
+    start = se.mp_start(n, words, roots, counts=False)
+    np0 = (torch.arange(n, device=dev) == int(root)).to(torch.int32)
+    aw0 = torch.zeros((n, 32 * words), dtype=torch.int32, device=dev)
+    sp, mp, _ = _multipath_on_tiles(g, tt, se.lane_planes(g, mask), dist, root, start, np0,
+                                    aw0, kp, limit)
+    return sp, mp
+
+
+def tropical_spf_one_incremental_multipath(g, tt: TropicalTiles, root: int,
+                                           prev: se.SpfTensors, prev_npaths, prev_nh_weights,
+                                           seed_rows, kp: int, max_iters=None,
+                                           stats: dict | None = None):
+    """DeltaPath multipath on the tiles
+    (``tropical_spf_one_incremental_multipath``): ``spf_one_incremental``'s
+    affected set and the seeded relax on the tiles (no mask), phase 2 seeded
+    with the previous hops and next hops, and the count and weight
+    fixpoints seeded with the previous run's output planes ``prev_npaths``
+    [N] and ``prev_nh_weights`` [N, A] (only read).  (SpfTensors,
+    MultipathTensors); ``stats`` as in ``spf_one_incremental_multipath``
+    (its ``hops_nh`` phase also holds the parent sets and the tile
+    fixpoints)."""
+    n = g.in_src.shape[0]
+    limit = n if max_iters is None else max_iters
+    p, dist, record = se._incremental_relax(
+        g, root, prev, seed_rows, limit,
+        relax=lambda dist0, lim: tile_relax(g, tt, dist0, None, None, lim))
+    start = se.mp_resume((prev.hops[:, None], prev.nexthops[:, :, None], None, None))
+    sp, mp, rounds = _multipath_on_tiles(g, tt, p, dist, root, start, prev_npaths,
+                                         prev_nh_weights, kp, limit)
+    se._note_phases(stats, record, rounds)
+    return sp, mp

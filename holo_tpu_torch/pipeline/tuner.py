@@ -26,10 +26,12 @@ their own kind.
 
 The table round-trips through a versioned JSON file (``TABLE_VERSION`` 3,
 ``holo_tpu``'s format: one file reads the same in both packages), written
-atomically; a version mismatch or a corrupt file is discarded.  An engine
-that a loaded table names but this package does not run (``mp_tropical``,
-the tropical multipath program, ROADMAP A9b) stays in the table and its
-saves, and is never picked.
+atomically; a version mismatch or a corrupt file is discarded.  The
+candidates of a multipath ``compute()`` bucket are ``holo_tpu``'s pair,
+``mp`` (the gather engine's program) and ``mp_tropical`` (the tropical
+engine's, on its tiles).  An engine that a loaded table names but this
+package does not run stays in the table and its saves, and is never
+picked.
 
 ``holo_tpu`` counts decisions and promotions in its
 ``holo_pipeline_tuner_*`` metrics; the port has no metric registry yet, so
@@ -53,9 +55,9 @@ TABLE_VERSION = 3
 #: the single-path engines (``holo_tpu``'s)
 ENGINES = ("seq", "fused", "packed", "hybrid", "tropical")
 
-#: the multipath formulations the port runs (``holo_tpu``'s also has
-#: ``mp_tropical``, ROADMAP A9b)
-MP_ENGINES = ("mp",)
+#: the multipath formulations of a ``compute()`` (``holo_tpu``'s): the
+#: gather program and the one on the tropical tiles
+MP_ENGINES = ("mp", "mp_tropical")
 
 #: samples kept per (kind, bucket, engine)
 SAMPLE_WINDOW = 9

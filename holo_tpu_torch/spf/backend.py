@@ -11,10 +11,10 @@ are hand-written CUDA, with two engines:
   bit-identical formulations, ``one_engine`` ``seq`` (the default),
   ``fused``, ``packed``, ``hybrid`` or ``tropical`` (the distances on
   min-plus tiles, :mod:`holo_tpu_torch.ops.tropical`: ``compute``,
-  ``compute_whatif``, ``compute_multiroot`` and DeltaPath at ``multipath_k``
-  1; its multipath program is ROADMAP A9b, so a pinned-tropical ``compute``
-  at ``multipath_k`` > 1 raises ``ValueError`` before any dispatch, and a
-  what-if at ``multipath_k`` > 1 runs ``mp`` as in ``holo_tpu``);
+  ``compute_whatif``, ``compute_multiroot`` and DeltaPath; at
+  ``multipath_k`` > 1 a pinned-tropical ``compute`` and its DeltaPath chain
+  run the multipath program on the tiles, ``mp_tropical``, and a what-if
+  runs ``mp``, as in ``holo_tpu``);
 - ``engine="blocked"``: the block-sparse engine of
   :mod:`holo_tpu_torch.ops.blocked_spf`.  A topology outside its
   preconditions (parallel ``(src, dst)`` pairs, distances >= 2**27, more
@@ -33,7 +33,9 @@ Multipath (``multipath_k`` 2..8, padded to ``kp`` = 2, 4 or 8 by
 of :mod:`holo_tpu_torch.ops.spf_engine` and fill the five multipath fields
 of :class:`SpfResult`; ``kp == 1`` is the single-path program, those fields
 None.  The blocked engine has no multipath planes: ``kp > 1`` goes to the
-gather engine's program, as in ``holo_tpu``.  DeltaPath keeps the run's
+gather engine's program, as in ``holo_tpu``.  A ``compute`` whose engine is
+``mp_tropical`` (pinned ``tropical``, or the tuner's pick) runs the multipath
+program of :mod:`holo_tpu_torch.ops.tropical`.  DeltaPath keeps the run's
 ``kp`` in its key, so a change of width mid-chain gives ``full-no-prev``.
 
 Every device dispatch (``compute``, ``compute_whatif``,
@@ -54,12 +56,14 @@ feeds it the dispatch's wall, as ``holo_tpu``'s backend does; the first
 dispatch of an (engine, shape) under an armed tuner in the process, which
 may build the kernel library, is not a sample (the counterpart of JAX's
 fresh-compile exclusion).
-Multipath dispatches run ``mp`` under buckets of their own.  The delta-linked
+Multipath dispatches run under buckets of their own: ``compute`` chooses
+between ``mp`` and ``mp_tropical``, a what-if runs ``mp``.  The delta-linked
 and the re-marshaling ``compute()`` walls feed the DeltaPath depth cap, and a
 warm full partitioned solve the partitioned rows.  Multi-root runs ``seq``, or
 the tiles when the backend is pinned ``tropical``; a DeltaPath ``compute`` runs
 on the tiles when the backend is pinned ``tropical`` or the tuner's measured
-``compute()`` winner of the bucket is ``tropical``.
+``compute()`` winner of the bucket (which carries the multipath width) is
+``tropical`` or ``mp_tropical``.
 
 Partitioned SPF (``partition_threshold``, as in ``holo_tpu``): ``compute``,
 ``compute_whatif`` and ``compute_partitioned`` of a topology with at least
@@ -115,6 +119,8 @@ from holo_tpu_torch.ops.tropical import (
     tropical_multiroot,
     tropical_spf_one,
     tropical_spf_one_incremental,
+    tropical_spf_one_incremental_multipath,
+    tropical_spf_one_multipath,
     tropical_whatif_batch,
 )
 from holo_tpu_torch.pipeline.tuner import active_tuner, shape_bucket
@@ -128,6 +134,8 @@ _PART_NS_IDS = itertools.count()
 # (kind, engine, device, shapes...) of every gather dispatch run in this
 # process while an engine tuner was armed: the first of each is no sample.
 _DISPATCHED: set = set()
+# The engines that relax on the tiles (holo_tpu's _TROPICAL_ENGINES).
+_TROPICAL_ENGINES = ("tropical", "mp_tropical")
 
 
 @dataclass
@@ -315,11 +323,6 @@ class TorchSpfBackend(SpfBackend):
         kp = mp_pad(multipath_k)
         if self._use_partitioned(topo):
             return self.compute_partitioned(topo, edge_mask, multipath_k=kp)
-        if kp > 1 and self.one_engine == "tropical":
-            # holo_tpu runs mp_tropical here: refused before the breaker, so
-            # nothing counts it and no oracle serves it.
-            raise ValueError("multipath_k > 1 on the tropical engine (mp_tropical) is ROADMAP "
-                             "queue A item A9b, not ported yet")
         return self._guarded(
             lambda: self._device_compute(topo, edge_mask, kp),
             lambda: self._oracle.compute(topo, edge_mask, multipath_k=kp),
@@ -443,7 +446,11 @@ class TorchSpfBackend(SpfBackend):
                                         need_edge_ids=edge_mask is not None,
                                         allow_delta=self.incremental)
         first = self._first_use("one", engine, g, 1, kp, edge_mask is not None)
-        if kp > 1:
+        if engine == "mp_tropical":
+            tt = self._gather_cache.get_tropical(topo, self._n_atoms(topo))
+            out = tropical_spf_one_multipath(g, tt, topo.root, kp, edge_mask, None,
+                                             self.max_iters)
+        elif kp > 1:
             out = spf_one_multipath(g, topo.root, kp, edge_mask, self.max_iters)
         elif engine == "tropical":
             tt = self._gather_cache.get_tropical(topo, self._n_atoms(topo))
@@ -464,12 +471,16 @@ class TorchSpfBackend(SpfBackend):
 
     def _pick_engine(self, kind: str, topo, batch: int = 1, kp: int = 1):
         """(engine, shape bucket or None): the armed tuner's pick for this
-        dispatch's bucket, else the pinned ``one_engine`` (``mp`` at kp > 1)
-        and None, which feeds no tuner (``holo_tpu``'s ``_pick_engine``;
-        the blocked engine's backends feed none either)."""
+        dispatch's bucket, else the pinned ``one_engine`` and None, which
+        feeds no tuner (``holo_tpu``'s ``_pick_engine``; the blocked
+        engine's backends feed none either).  At kp > 1 the pinned engine is
+        ``mp_tropical`` for a pinned-tropical ``compute``, else ``mp``."""
         t = active_tuner()
         if t is None or self.engine == "blocked":
-            return ("mp" if kp > 1 else self.one_engine), None
+            if kp > 1:
+                trop = self.one_engine == "tropical" and kind == "one"
+                return ("mp_tropical" if trop else "mp"), None
+            return self.one_engine, None
         bucket = shape_bucket(topo.n_vertices, topo.n_edges, batch, None, k=kp)
         return t.pick(kind, bucket), bucket
 
@@ -479,15 +490,16 @@ class TorchSpfBackend(SpfBackend):
         if bucket is not None and t is not None:
             t.observe(kind, bucket, engine, seconds)
 
-    def _trop_incremental(self, topo) -> bool:
-        """Does a single-path DeltaPath dispatch relax on the tiles?  When the
-        backend is pinned ``tropical``, or the armed tuner's measured
-        ``compute()`` winner of the bucket is (``holo_tpu``'s
-        ``_trop_incremental``)."""
+    def _trop_incremental(self, topo, kp: int) -> bool:
+        """Does a DeltaPath dispatch of width ``kp`` relax on the tiles?
+        When the backend is pinned ``tropical``, or the armed tuner's
+        measured ``compute()`` winner of the kp bucket is ``tropical`` or
+        ``mp_tropical`` (``holo_tpu``'s ``_trop_incremental``)."""
         if self.one_engine == "tropical":
             return True
         t = active_tuner()
-        return t is not None and t.current_winner("one", self._depth_bucket(topo)) == "tropical"
+        return (t is not None
+                and t.current_winner("one", self._depth_bucket(topo, kp)) in _TROPICAL_ENGINES)
 
     @staticmethod
     def _depth_bucket(topo, kp: int = 1) -> tuple:
@@ -561,12 +573,18 @@ class TorchSpfBackend(SpfBackend):
             return None
         prev = self._prev_one.pop(prev_key)
         seeds = delta_seed_rows(delta)
+        trop = self._trop_incremental(topo, kp)
+        tt = self._gather_cache.get_tropical(topo, self._n_atoms(topo)) if trop else None
         if kp > 1:
             sp, mp = prev
-            out = spf_one_incremental_multipath(g, topo.root, sp, mp.npaths, mp.nh_weights,
-                                                seeds, kp, self.max_iters, self.delta_stats)
-        elif self._trop_incremental(topo):
-            tt = self._gather_cache.get_tropical(topo, self._n_atoms(topo))
+            if trop:
+                out = tropical_spf_one_incremental_multipath(
+                    g, tt, topo.root, sp, mp.npaths, mp.nh_weights, seeds, kp, self.max_iters,
+                    self.delta_stats)
+            else:
+                out = spf_one_incremental_multipath(g, topo.root, sp, mp.npaths, mp.nh_weights,
+                                                    seeds, kp, self.max_iters, self.delta_stats)
+        elif trop:
             out = tropical_spf_one_incremental(g, tt, topo.root, prev, seeds, self.max_iters,
                                                self.delta_stats)
         else:

@@ -65,7 +65,13 @@ buffer, to the same distances) at tile sizes 8 to 128, at 1, 5, 8, 9, 33,
 form's lanes a warp and a block), with and without masks (the repair rows
 built on the card); the launch geometry is the tile shape (5,064 blocks at
 k=90's 1024 lanes); explicit repair rows equal the card-built set; the backend's compute (masked too), compute_whatif, compute_multiroot
-and a delta chain (tiles updated in place) equal the CPU path.
+and a delta chain (tiles updated in place) equal the CPU path.  Its
+multipath program: trop_count_round (T2) is held bit-identical to its plain
+version on every launch of a masked kp = 4 dispatch at tile sizes 8 to 128
+(one lane for the path counts, 32 W for the weights) and on seeded carries
+near MP_SAT at 1 to 65 lanes (row and lane forms), with and without a seed
+plane and a root row; the backend's mp_tropical compute (kp 2, 4, 8, masked,
+max_iters 1 and 2) and a kp = 4 delta chain equal the CPU path.
 
 The fused, packed and hybrid engines: ell_fused_round in both layouts
 (planar and interleaved, with W = 2, and with W = 7, two chunks of
@@ -1408,3 +1414,161 @@ def test_tropical_delta_chain_on_the_card_matches_the_cpu_path():
     assert card.delta_paths[("weight", "incremental")] == 6
     assert card._gather_cache.tile_deltas == {"apply": 6} == cpu._gather_cache.tile_deltas
     assert card._gather_cache.get_tropical(cur, 64).tiles.device.type == dev.type
+
+
+# ---------------------------------------------------------------------------
+# The tropical multipath program: trop_count_round (T2) against its plain
+# version on every launch of real dispatches at each tile size, and on
+# seeded carries at lane counts on both sides of its row / lane switch; the
+# backend's mp_tropical against the CPU path.
+
+_MP_FIELDS = ("parents", "pdist", "pweight", "npaths", "nh_weights")
+
+
+def _trop_count_holding(kernel, held):
+    """A trop_count_round that holds each launch to the plain version on CPU
+    copies of its inputs (out written whole, the changed flag)."""
+    from holo_tpu_torch.kernels import tropical as kt
+
+    def hold(cnt, cb, x, seed, out, root=-1):
+        got = kernel(cnt, cb, x, seed, out, root)
+        assert got[0] is out
+        want = kt.trop_count_plain(cnt.cpu(), cb.cpu(), x.cpu(),
+                                   None if seed is None else seed.cpu(),
+                                   torch.full_like(x, -3).cpu(), root)
+        for a, b, name in zip(got, want, ("out", "changed")):
+            assert torch.equal(a.cpu(), b), (name, len(held), x.shape[1])
+        held.append(x.shape[1])
+        return got
+
+    return hold
+
+
+@pytest.mark.parametrize("block", [8, 16, 32, 64, 128])
+@pytest.mark.parametrize("shape", sorted(_TROP_SHAPES))
+def test_trop_count_matches_plain_on_every_launch(shape, block):
+    """Every T2 launch of a masked multipath dispatch at kp 4 (the path
+    counts at one lane, the weights at 32 W) equals the plain round; the
+    planes equal the CPU path's."""
+    from holo_tpu_torch.kernels import tropical as kt
+    from holo_tpu_torch.ops import tropical as trop
+
+    dev = _card()
+    topo, g, tt, masks = _trop_setup(shape, block, 2, dev)
+    assert not masks[1].all()
+    kernel, held = kt.trop_count_round, []
+    kt.trop_count_round = _trop_count_holding(kernel, held)
+    try:
+        before = kt.launches["trop_count"]
+        got = trop.tropical_spf_one_multipath(g, tt, topo.root, 4, masks[1])
+    finally:
+        kt.trop_count_round = kernel
+    torch.cuda.synchronize()
+    assert len(held) == kt.launches["trop_count"] - before > 2
+    assert set(held) == {1, 32 * g.direct_nh_words.shape[2]}
+    cpu = trop.tropical_spf_one_multipath(
+        se.DeviceGraph(*(x.cpu() for x in g)), trop.TropicalTiles(*(x.cpu() for x in tt)),
+        topo.root, 4, masks[1])
+    for a, b in zip(got, cpu):
+        for f in a._fields:
+            assert torch.equal(getattr(a, f).cpu(), getattr(b, f)), f
+
+
+@pytest.mark.parametrize("lanes", [1, 5, 8, 9, 33, 64, 65])
+@pytest.mark.parametrize("block", [8, 32, 128])
+def test_trop_count_matches_plain_on_seeded_carries(block, lanes):
+    """Carries drawn up to MP_SAT (a quarter at MP_SAT - 1, so sums clamp),
+    with and without a seed plane and a root row, on the count tiles of every
+    valid slot (parallel slots count 2)."""
+    from holo_tpu_torch.kernels import tropical as kt
+    from holo_tpu_torch.ops import tropical as trop
+
+    dev = _card()
+    _, g, tt, _ = _trop_setup("ospf", block, 1, dev)
+    cnt = trop.count_tiles(g.in_src, tt, g.in_valid)
+    rng = np.random.default_rng(block + lanes)
+    npad = tt.perm.shape[0]
+
+    def carry():
+        x = np.where(rng.random((npad, lanes)) < 0.25, kt.MP_SAT - 1,
+                     rng.integers(0, kt.MP_SAT, (npad, lanes)))
+        x[tt.inv.shape[0]:] = 0
+        return torch.from_numpy(x.astype(np.int32)).to(dev)
+
+    x = carry()
+    for seed, root in ((None, 3), (carry(), -1), (None, -1)):
+        out = torch.full_like(x, -9)
+        got = kt.trop_count_round(cnt, tt.cb, x, seed, out, root)
+        want = kt.trop_count_plain(cnt.cpu(), tt.cb.cpu(), x.cpu(),
+                                   None if seed is None else seed.cpu(),
+                                   torch.empty_like(x).cpu(), root)
+        assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+        assert int(got[0].max()) == kt.MP_SAT
+        again = kt.trop_count_round(cnt, tt.cb, x, seed, torch.empty_like(x), root)
+        assert torch.equal(again[0], got[0])  # no atomics in the sum: the same bits
+
+
+def test_trop_count_refuses_bad_planes():
+    from holo_tpu_torch.kernels import tropical as kt
+    from holo_tpu_torch.ops import tropical as trop
+
+    dev = _card()
+    _, g, tt, _ = _trop_setup("fat_tree_k8", 8, 1, dev)
+    cnt = trop.count_tiles(g.in_src, tt, g.in_valid)
+    x = torch.zeros((tt.perm.shape[0], 2), dtype=torch.int32, device=dev)
+    before = kt.launches["trop_count"]
+    for args in ((cnt, tt.cb, x[:-1], None, x[:-1].clone()),
+                 (cnt, tt.cb, x, None, x),
+                 (cnt, tt.cb, x, x[:, :1].contiguous(), x.clone()),
+                 (cnt, tt.cb[:, :-1].contiguous(), x, None, x.clone()),
+                 (cnt[:, :, :4, :4].contiguous(), tt.cb, x, None, x.clone())):
+        with pytest.raises(ValueError, match="trop_count planes"):
+            kt.trop_count_round(*args)
+    with pytest.raises(ValueError, match="trop_count planes"):
+        kt.trop_count_round(cnt, tt.cb, x, None, x.clone(), x.shape[0])
+    with pytest.raises(ValueError, match="one CUDA device"):
+        kt.trop_count_round(cnt, tt.cb.cpu(), x, None, x.clone())
+    assert kt.launches["trop_count"] == before
+
+
+def test_tropical_multipath_backend_on_the_card_matches_the_cpu_path():
+    """mp_tropical on the card: compute at kp 2, 4 and 8 (masked too), under
+    max_iters None, 1 and 2, and a DeltaPath chain at kp 4 (tiles updated in
+    place), equal to the CPU path on all nine planes, T2 launched."""
+    from holo_tpu_torch.kernels import tropical as kt
+
+    dev = _card()
+    topo = synth.random_ospf_topology(n_routers=260, n_networks=40, extra_p2p=400, max_cost=4,
+                                      seed=0)
+    masks = synth.whatif_link_failure_masks(topo, 4, seed=7)
+
+    def same(a, b, label):
+        _same_result(a, b, label)
+        for f in _MP_FIELDS:
+            np.testing.assert_array_equal(getattr(a, f), getattr(b, f), err_msg=f"{label} {f}")
+
+    for mi in (None, 1, 2):
+        kt.reset_launches()
+        card = TorchSpfBackend(one_engine="tropical", max_iters=mi, incremental=False)
+        cpu = TorchSpfBackend(one_engine="tropical", max_iters=mi, incremental=False,
+                              device="cpu")
+        for k in (2, 4, 8):
+            same(card.compute(topo, multipath_k=k), cpu.compute(topo, multipath_k=k),
+                 f"k={k} max_iters={mi}")
+        same(card.compute(topo, masks[2], multipath_k=4), cpu.compute(topo, masks[2],
+                                                                      multipath_k=4),
+             f"masked max_iters={mi}")
+        assert kt.launches["trop_count"] > 0 and kt.launches["trop_relax"] > 0
+    card = TorchSpfBackend(one_engine="tropical")
+    cpu = TorchSpfBackend(one_engine="tropical", device="cpu")
+    same(card.compute(topo, multipath_k=4), cpu.compute(topo, multipath_k=4), "base")
+    cur = topo
+    for i in range(5):
+        e = (i * 97) % cur.n_edges
+        nxt = synth.clone_topology(cur, cost={e: int(cur.edge_cost[e]) + 2 + i})
+        nxt.link_delta(graph.diff_topologies(cur, nxt))
+        same(card.compute(nxt, multipath_k=4), cpu.compute(nxt, multipath_k=4), f"step {i}")
+        cur = nxt
+    assert card.delta_paths[("weight", "incremental")] == 5
+    assert card._gather_cache.tile_deltas == {"apply": 5} == cpu._gather_cache.tile_deltas
+    assert not any(card.breaker.snapshot()[k] for k in ("failures", "fallbacks", "refusals"))

@@ -14,8 +14,11 @@ engine.  So each port engine is held to its own JAX engine:
   after r, in both layouts, at one lane and at 8 masked lanes, and its
   frontier marks the lanes where the two states differ;
 - the lone router and the disconnected root of ``tests/test_spf_parity.py``;
-- ``one_engine="tropical"`` at ``multipath_k`` > 1 raises, naming ROADMAP
-  A9b (its single path is held in tests/test_torch_tropical.py).
+- ``one_engine="tropical"`` at ``multipath_k`` > 1 computes what
+  ``holo_tpu``'s ``mp_tropical`` computes (its single path is held in
+  tests/test_torch_tropical.py, its multipath program in
+  tests/test_torch_tropical_mp.py), and ``spf_whatif_batch`` names the
+  tropical module for ``engine="tropical"``.
 """
 
 import jax
@@ -180,8 +183,12 @@ def test_disconnected_component_unreachable(engine):
 def test_tropical_names_a9():
     topo = tsynth.fat_tree_topology(k=4)
     be = TorchSpfBackend(one_engine="tropical", device="cpu")
-    with pytest.raises(ValueError, match="A9b"):
-        be.compute(topo, multipath_k=2)
+    got = be.compute(topo, multipath_k=2)
+    want = TpuSpfBackend(one_engine="tropical").compute(jsynth.fat_tree_topology(k=4),
+                                                        multipath_k=2)
+    _same(got, want, "mp_tropical")
+    for f in ("parents", "pdist", "pweight", "npaths", "nh_weights"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f), err_msg=f)
     g = te.device_graph_from_ell(tgraph.build_ell(topo), device="cpu")
     with pytest.raises(ValueError, match="ops/tropical.py"):
         te.spf_whatif_batch(g, 0, np.ones((1, 32), bool), engine="tropical")

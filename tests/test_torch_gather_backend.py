@@ -156,13 +156,19 @@ def test_multipath_raises():
 @pytest.mark.parametrize("one_engine", ["tropical", "mp", "mp_tropical", "gather"])
 def test_other_one_engines_raise(one_engine):
     # seq, fused, packed, hybrid (tests/test_torch_engines.py) and tropical
-    # (tests/test_torch_tropical.py) run; the tropical multipath program is
-    # ROADMAP A9b, and a multipath or engine name is no single-path
-    # formulation.
+    # (tests/test_torch_tropical.py, its multipath program
+    # tests/test_torch_tropical_mp.py) run: a pinned-tropical compute at
+    # multipath_k 2 raises nothing and equals holo_tpu's mp_tropical.  A
+    # multipath or engine name is no single-path formulation.
     if one_engine == "tropical":
         be = TorchSpfBackend(one_engine=one_engine, device="cpu")
-        with pytest.raises(ValueError, match="A9b"):
-            be.compute(tsynth.random_ospf_topology(n_routers=12, seed=1), multipath_k=2)
+        tt = tsynth.random_ospf_topology(n_routers=12, seed=1)
+        jt = jsynth.random_ospf_topology(n_routers=12, seed=1)
+        got = be.compute(tt, multipath_k=2)
+        want = TpuSpfBackend(one_engine="tropical").compute(jt, multipath_k=2)
+        for f in FIELDS + ("parents", "pdist", "pweight", "npaths", "nh_weights"):
+            np.testing.assert_array_equal(getattr(got, f), getattr(want, f), err_msg=f)
+        assert not any(be.breaker.snapshot()[k] for k in ("failures", "fallbacks", "refusals"))
         return
     with pytest.raises(ValueError, match="lane programs are"):
         TorchSpfBackend(one_engine=one_engine, device="cpu")

@@ -28,8 +28,9 @@ plane; the computation is integer-only).
 - ``TorchSpfBackend(one_engine="tropical")`` equals
   ``TpuSpfBackend(one_engine="tropical")`` on compute (masked too),
   compute_whatif, compute_multiroot and delta chains, with JAX's DeltaPath
-  and tile-delta dispositions; at ``multipath_k`` > 1 it raises naming
-  A9b with no breaker count.
+  and tile-delta dispositions; at ``multipath_k`` > 1 its compute is
+  ``mp_tropical`` (tests/test_torch_tropical_mp.py holds it), counted by no
+  breaker, and its what-if is ``mp``.
 
 JAX results are computed once per module where several tests read them.
 """
@@ -642,12 +643,19 @@ def test_overload_strike_chain_matches_jax_and_the_oracle():
 
 
 def test_multipath_is_refused_naming_a9b_before_the_breaker():
-    topo = tsynth.random_ospf_topology(n_routers=20, n_networks=4, seed=1)
+    """Since the multipath program landed, nothing is refused: a
+    pinned-tropical compute at multipath_k 2 and 8 equals holo_tpu's
+    mp_tropical and counts no breaker event."""
+    kw = dict(n_routers=20, n_networks=4, seed=1)
+    topo, jtopo = tsynth.random_ospf_topology(**kw), jsynth.random_ospf_topology(**kw)
     be = TorchSpfBackend(one_engine="tropical", device="cpu")
+    jbe = TpuSpfBackend(N_ATOMS, one_engine="tropical")
     before = tallies()
     for k in (2, 8):
-        with pytest.raises(ValueError, match="A9b"):
-            be.compute(topo, multipath_k=k)
+        got, want = be.compute(topo, multipath_k=k), jbe.compute(jtopo, multipath_k=k)
+        _same(got, want, f"k={k}")
+        for f in ("parents", "pdist", "pweight", "npaths", "nh_weights"):
+            np.testing.assert_array_equal(getattr(got, f), getattr(want, f), err_msg=f)
     snap = be.breaker.snapshot()
     assert not any(snap[k] for k in ("failures", "fallbacks", "refusals")), snap
     assert tallies() == before
@@ -670,7 +678,7 @@ def test_tuned_winner_routes_the_delta_chain_through_the_tiles():
     for e in ttuner.ENGINES:
         t.observe("one", b, e, 0.001 if e == "tropical" else 0.1)
     be = TorchSpfBackend(device="cpu")
-    assert be._trop_incremental(topo)
+    assert be._trop_incremental(topo, 1)
     _same(be.compute(topo), ScalarSpfBackend().compute(topo), "base")
     nxt = tsynth.clone_topology(topo, cost={0: 7})
     nxt.link_delta(tgraph.diff_topologies(topo, nxt))
@@ -678,7 +686,7 @@ def test_tuned_winner_routes_the_delta_chain_through_the_tiles():
     assert be.delta_paths[("weight", "incremental")] == 1
     assert be._gather_cache.tile_deltas == {"apply": 1}
     pipeline.reset_engine_tuner()
-    assert not TorchSpfBackend(device="cpu")._trop_incremental(topo)
+    assert not TorchSpfBackend(device="cpu")._trop_incremental(topo, 1)
 
 
 def test_lane_engine_names_the_tropical_module():

@@ -6,8 +6,14 @@ cache.
   and snapshot as holo_tpu's tuner over the same candidate sets;
 - a table written by either package loads in the other and picks the same;
 - a version mismatch or a corrupt file is discarded;
-- an engine the port does not run (mp_tropical), in a loaded table, is
-  kept (a save round-trips it) and never picked;
+- the multipath candidates are holo_tpu's (mp and mp_tropical): a loaded
+  table whose kp bucket winner is mp_tropical picks it, as holo_tpu's
+  tuner does, and an engine neither package runs is kept (a save
+  round-trips it) and never picked;
+- an armed tuner measures both multipath engines of a compute() bucket
+  with every plane equal to the oracle's, and a kp = 4 bucket whose
+  measured winner is mp_tropical routes its DeltaPath chain through the
+  tiles (tests/test_tropical.py:435-456 and :537-563);
 - max_delta_depth scales with the measured ratio (tests/test_tuner.py:148);
 - the port's DeviceGraphCache consults the tuned cap, and a chain past it
   is rebuilt (full-depth) with the same bits;
@@ -31,6 +37,7 @@ from holo_tpu_torch.spf import synth as tsynth
 from holo_tpu_torch.spf.backend import TorchSpfBackend
 
 FIELDS = ("dist", "parent", "hops", "nexthop_words")
+MP_FIELDS = ("parents", "pdist", "pweight", "npaths", "nh_weights")
 B1 = tuner.shape_bucket(1000, 4000, 1, None)
 B8 = tuner.shape_bucket(1000, 4000, 8, None)
 BK4 = tuner.shape_bucket(1000, 4000, 1, None, k=4)
@@ -50,7 +57,7 @@ def _pair(**kw):
 def _wall(engine: str, i: int) -> float:
     """A deterministic wall: hybrid fastest early, then fused (a promotion)."""
     base = {"seq": 3.0, "fused": 2.0, "packed": 2.5, "hybrid": 1.0, "tropical": 3.5,
-            "mp": 4.0}[engine]
+            "mp": 4.0, "mp_tropical": 3.8}[engine]
     return base + (5.0 if engine == "hybrid" and i > 20 else 0.0) + (i % 3) * 0.01
 
 
@@ -68,7 +75,7 @@ def test_shape_bucket_matches_holo_tpu():
     for name in ("SAMPLE_WINDOW", "DEPTH_SCALE", "DEPTH_MIN", "DEPTH_MAX", "DEPTH_MIN_SAMPLES"):
         assert getattr(tuner, name) == getattr(jtuner, name), name
     assert tuner.ENGINES == jtuner.ENGINES
-    assert set(tuner.MP_ENGINES) == set(jtuner.MP_ENGINES) - {"mp_tropical"}
+    assert tuner.MP_ENGINES == jtuner.MP_ENGINES == ("mp", "mp_tropical")
 
 
 @pytest.mark.parametrize("explore_rounds,reprobe_every", [(1, 0), (2, 64), (2, 5), (3, 7)])
@@ -137,8 +144,10 @@ def test_version_mismatch_or_corrupt_file_discarded(tmp_path, content):
 
 
 def test_unknown_engine_in_a_loaded_table_is_kept_and_never_picked(tmp_path):
-    # mp_tropical (ROADMAP A9b) is holo_tpu's second multipath candidate of a
-    # compute() bucket; the port's only one is mp.
+    # holo_tpu's tuner writes the table.  Its kp = 4 compute() bucket's
+    # winner, mp_tropical (the tropical multipath program), is picked here
+    # as there; an engine neither package runs, measured in the same bucket
+    # of the file, is kept through a save and never picked.
     ref = jtuner.EngineTuner(explore_rounds=1, reprobe_every=3)
     for i in range(12):
         e = ref.pick("one", BK4)
@@ -146,18 +155,89 @@ def test_unknown_engine_in_a_loaded_table_is_kept_and_never_picked(tmp_path):
     assert ref.current_winner("one", BK4) == "mp_tropical"
     path = tmp_path / "tuner.json"
     assert ref.save(path)
+    doc = json.loads(path.read_text())
+    key = json.dumps(["one", *BK4])
+    doc["buckets"][key]["samples"]["mp_future"] = [0.0001]
+    path.write_text(json.dumps(doc))
     t = tuner.EngineTuner(path=path, reprobe_every=3)
-    assert "mp_tropical" in t.snapshot()["buckets"][json.dumps(["one", *BK4])]["samples"]
+    cold = jtuner.EngineTuner(path=path, reprobe_every=3)
+    assert "mp_future" in t.snapshot()["buckets"][key]["samples"]
     picks = [t.pick("one", BK4) for _ in range(40)]
-    assert "mp_tropical" not in picks and set(picks) <= set(tuner.MP_ENGINES)
-    assert t.current_winner("one", BK4) in tuner.MP_ENGINES
-    t.observe("one", BK4, picks[0], 2.0)
+    assert picks == [cold.pick("one", BK4) for _ in range(40)]
+    assert "mp_future" not in picks and set(picks) == set(tuner.MP_ENGINES)
+    assert picks.count("mp_tropical") > picks.count("mp")  # the winner, reprobes apart
+    assert t.current_winner("one", BK4) == "mp_tropical"
+    t.observe("one", BK4, "mp", 2.0)
     again = tmp_path / "again.json"
     assert t.save(again)
     doc = json.loads(again.read_text())
-    key = json.dumps(["one", *BK4])
+    assert doc["buckets"][key]["samples"]["mp_future"] == [0.0001]
     assert doc["buckets"][key]["samples"]["mp_tropical"] == \
         ref.snapshot()["buckets"][key]["samples"]["mp_tropical"]
+
+
+def test_tuner_explores_tropical_and_the_mp_pair():
+    """tests/test_tropical.py:435-456 on the port: an armed tuner measures
+    tropical in the k = 1 compute() bucket and both mp and mp_tropical in
+    the k = 8 one, every dispatch equal to the oracle."""
+    from holo_tpu_torch.spf.backend import ScalarSpfBackend
+
+    t = pipeline.configure_engine_tuner(explore_rounds=1, reprobe_every=0)
+    topo = tsynth.random_ospf_topology(n_routers=14, n_networks=4, seed=1)
+    sc = ScalarSpfBackend()
+    be = TorchSpfBackend(device="cpu")
+    ref = sc.compute(topo)
+    for i in range(2 * len(tuner.ENGINES) + 2):
+        _same(be.compute(topo), ref, f"one {i}")
+    mref = sc.compute(topo, multipath_k=8)
+    for i in range(2 * len(tuner.MP_ENGINES) + 2):
+        _same(be.compute(topo, multipath_k=8), mref, f"mp {i}", FIELDS + MP_FIELDS)
+    measured = set()
+    for v in t.stats()["winners"].values():
+        measured |= set(v["measured-engines"])
+    assert "tropical" in measured
+    assert {"mp", "mp_tropical"} <= measured
+    picked = {e for (k, e, _) in t.stats()["decisions"] if k == "one"}
+    assert {"mp", "mp_tropical"} <= picked
+
+
+def test_mp_tropical_winner_routes_the_kp4_chain_through_the_tiles():
+    """tests/test_tropical.py:537-563 at kp = 4: a bucket whose measured
+    compute() winner is mp_tropical runs the DeltaPath chain of that width
+    on the tiles (tile deltas applied), equal to the oracle; the kp = 1
+    bucket, unmeasured, stays off them."""
+    from holo_tpu_torch.ops import tropical as trop
+    from holo_tpu_torch.spf.backend import ScalarSpfBackend
+
+    t = pipeline.configure_engine_tuner(explore_rounds=1, reprobe_every=0)
+    topo = tsynth.random_ospf_topology(n_routers=16, n_networks=4, seed=5)
+    b4 = tuner.shape_bucket(topo.n_vertices, topo.n_edges, 1, None, k=4)
+    for e, wall in (("mp", 0.1), ("mp_tropical", 0.001)):
+        t.observe("one", b4, e, wall)
+    be = TorchSpfBackend(device="cpu")
+    assert be._trop_incremental(topo, 4) and not be._trop_incremental(topo, 1)
+    calls = []
+    real = trop.tropical_spf_one_incremental_multipath
+
+    def counted(*args, **kw):
+        calls.append(1)
+        return real(*args, **kw)
+
+    import holo_tpu_torch.spf.backend as backend_mod
+
+    backend_mod.tropical_spf_one_incremental_multipath = counted
+    try:
+        _same(be.compute(topo, multipath_k=4), ScalarSpfBackend().compute(topo, multipath_k=4),
+              "base", FIELDS + MP_FIELDS)
+        nxt = tsynth.clone_topology(topo, cost={0: 7})
+        nxt.link_delta(tgraph.diff_topologies(topo, nxt))
+        _same(be.compute(nxt, multipath_k=4), ScalarSpfBackend().compute(nxt, multipath_k=4),
+              "delta", FIELDS + MP_FIELDS)
+    finally:
+        backend_mod.tropical_spf_one_incremental_multipath = real
+    assert calls == [1]
+    assert be.delta_paths[("weight", "incremental")] == 1
+    assert be._gather_cache.tile_deltas == {"apply": 1}
 
 
 def test_depth_cap_scales_with_measured_ratio(tmp_path):
@@ -217,8 +297,8 @@ def test_device_graph_cache_consults_the_tuned_cap():
     assert cache._depth_cap(topo) == 256
 
 
-def _same(a, b, label):
-    for f in FIELDS:
+def _same(a, b, label, fields=FIELDS):
+    for f in fields:
         np.testing.assert_array_equal(getattr(a, f), getattr(b, f), err_msg=f"{label} {f}")
 
 
