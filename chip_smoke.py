@@ -192,15 +192,19 @@ the DeltaPath chain, and its multipath program through ``compute`` at
    (seq's backend following it), each of which must launch ``trop_relax``
    and ``trop_count`` (T2; the masked call ``trop_repair`` too); every T2
    launch of each ``compute`` and of chain step 0 held bit-identical to
-   ``trop_count_plain`` on its own inputs (out and the changed flag); all
-   nine planes equal to seq's ``mp`` planes, the two computes and chain
-   steps 0-1 to the multipath oracle; every chain step incremental on the
-   tiles with its tile delta applied in place; ``mp`` and ``mp_tropical``
-   ``compute()`` timed in turns; T2 alone at one lane (the path counts) and
-   at 64 (the weights) against its floor (``count_work``), its plain
-   version and a float64 ``einsum`` of the same contraction; an armed
-   tuner's ``multipath_k=4`` bucket measuring both engines (phase 4: both
-   computes' device-busy time, T2's device time a launch and a dispatch);
+   ``trop_count_plain`` on its own inputs (out and the changed flag), and
+   each of those dispatches' two count lists (one a fixpoint) to
+   ``count_list`` on the CPU; all nine planes equal to seq's ``mp`` planes,
+   the two computes and chain steps 0-1 to the multipath oracle; every chain
+   step incremental on the tiles with its tile delta applied in place;
+   ``mp`` and ``mp_tropical`` ``compute()`` timed in turns; T2 alone at one
+   lane (the path counts) and at 64 (the weights) against its floor
+   (``count_work``: the nonzero counts with an index each; the floor over
+   every real tile's counts beside it), its plain version and a float64
+   ``einsum`` of the same contraction, with its launch geometry and the
+   count list's build time; an armed tuner's ``multipath_k=4`` bucket
+   measuring both engines (phase 4: both computes' device-busy time, T2's
+   and the list build's device time a launch and a dispatch);
 4. time each kernel (CUDA events; at one scenario also the profiler's
    device time, which leaves out the host's launch), its plain version, the
    whole batch, ``compute()`` and the gather batch's stages, and DeltaPath's
@@ -2887,44 +2891,67 @@ def count_work(cnt, cb, x, seed) -> dict:
     operations (TROP_COUNT_OPS per (nonzero count entry of a real slot,
     lane), TROP_COUNT_CELL_OPS per output entry) against the bytes the
     function must move at the HBM rate, each input byte read once and each
-    output byte written once.  Read: cb, the count tiles of the real slots
-    (a padding slot's are never needed), x whole (every row is a source or
-    is compared for the changed flag) and the seed plane whole where there is
-    one; written: out whole and the flag."""
+    output byte written once.  Read: the nonzero count entries of the real
+    slots, each with a 4-byte index (the zero entries add nothing), the
+    listed slots' cb, x whole (every row is a source or is compared for the
+    changed flag) and the seed plane whole where there is one; written: out
+    whole and the flag.  ``tile_bound`` is the looser floor that reads cb and
+    every real tile's counts whole in place of the nonzero entries."""
     nb, _, b, _ = cnt.shape
     npad, lanes = x.shape
     real = cb < nb
-    nnz = int(((cnt != 0) & real[:, :, None, None]).sum())
+    nz = (cnt != 0) & real[:, :, None, None]
+    nnz = int(nz.sum())
+    listed = int(nz.flatten(2).any(2).sum())
     ops = TROP_COUNT_OPS * nnz * lanes + TROP_COUNT_CELL_OPS * npad * lanes
     planes = 2 + (seed is not None)  # x, out and the seed
-    byte_count = 4 * (cb.numel() + int(real.sum()) * b * b + planes * npad * lanes + 1)
-    return {"nnz": nnz, "real_slots": int(real.sum()), "ops": ops, "bytes": byte_count,
-            "bound": bound(ops, byte_count)}
+    dense = 4 * (planes * npad * lanes + 1)
+    byte_count = 4 * (2 * nnz + listed) + dense
+    tile_bytes = 4 * (cb.numel() + int(real.sum()) * b * b) + dense
+    return {"nnz": nnz, "real_slots": int(real.sum()), "listed_slots": listed, "ops": ops,
+            "bytes": byte_count, "bound": bound(ops, byte_count), "tile_bytes": tile_bytes,
+            "tile_bound": bound(ops, tile_bytes)}
 
 
 class CountHolder:
     """Within ``holding_count()``, every trop_count_round call (T2) runs (and
     counts) as before, timed by CUDA events, and is held at once: ``out``
     and the changed flag bit-identical to trop_count_plain's on the same
-    CUDA inputs (``x``, which the round does not write, and a fresh out);
-    its work is counted (count_work), and the first inputs of each lane
-    width are kept."""
+    CUDA inputs (``x``, which the round does not write, and a fresh out),
+    each count list (one a fixpoint) to count_list's on CPU copies; its work
+    is counted (count_work), and the first inputs of each lane width are
+    kept."""
 
     def __init__(self, kt):
         self.kt = kt
         self.err = 0
         self.launch_ms, self.plain_ms, self.work, self.lanes = [], [], [], []
         self.inputs = {}
+        self.lists = 0
+        self._last_list = None
+
+    def hold_list(self, cnt, cb, listed):
+        want = self.kt.count_list(cnt.cpu(), cb.cpu())
+        n = listed.n.cpu()
+        require(torch.equal(n, want.n), "a count list's lengths differ from the CPU's")
+        slots = listed.slots.cpu()
+        keep = torch.arange(cb.shape[1])[None, :] < n[:, None]
+        require(torch.equal(slots[keep], want.slots[keep]),
+                "a count list's slots differ from the CPU's")
+        self.lists += 1
 
     def wrap(self, fn):
         kt = self.kt
 
-        def held_count(cnt, cb, x, seed, out, root=-1):
+        def held_count(cnt, cb, listed, x, seed, out, root=-1):
             lanes = x.shape[1]
             label = f"at {lanes} lanes, launch {len(self.launch_ms) + 1}"
-            got, ms = cuda_call(lambda: fn(cnt, cb, x, seed, out, root))
+            if listed is not self._last_list:
+                self.hold_list(cnt, cb, listed)
+                self._last_list = listed
+            got, ms = cuda_call(lambda: fn(cnt, cb, listed, x, seed, out, root))
             want, plain_ms = cuda_call(
-                lambda: kt.trop_count_plain(cnt, cb, x, seed, torch.empty_like(x), root))
+                lambda: kt.trop_count_plain(cnt, cb, None, x, seed, torch.empty_like(x), root))
             self.err = max(self.err, held("trop_count", label, got, want))
             self.launch_ms.append(ms)
             self.plain_ms.append(plain_ms)
@@ -2950,19 +2977,21 @@ def holding_count(kt, holder: CountHolder):
 
 def count_launch(kt, cnt, cb, x, seed, root) -> dict:
     """T2 alone on one held launch's inputs: CUDA-event ms of the kernel and
-    of its plain version, the floor, and the one PyTorch call that computes
-    the same contraction (a float64 ``einsum``: exact, every partial sum is
-    an integer below 2**31 < 2**53; timed here, never on the path), held
-    equal to the plain round once seeded, clamped and rooted."""
+    of its plain version, of the count list's build (once a fixpoint), the
+    floors, the launch geometry, and the one PyTorch call that computes the
+    same contraction (a float64 ``einsum``: exact, every partial sum is an
+    integer below 2**31 < 2**53; timed here, never on the path), held equal
+    to the plain round once seeded, clamped and rooted."""
     nb, _, b, _ = cnt.shape
     npad, lanes = x.shape
     out = torch.empty_like(x)
+    listed = kt.count_list(cnt, cb)
 
     def run():
-        return kt.trop_count_round(cnt, cb, x, seed, out, root)
+        return kt.trop_count_round(cnt, cb, listed, x, seed, out, root)
 
     run()  # warm-up
-    want = kt.trop_count_plain(cnt, cb, x, seed, torch.empty_like(x), root)
+    want = kt.trop_count_plain(cnt, cb, None, x, seed, torch.empty_like(x), root)
     real = cb < nb
     cf = torch.where(real[:, :, None, None], cnt, 0).double()
     xf = x.view(nb, b, lanes)[torch.where(real, cb, 0).long()].double()  # [NB, Tm, B, A]
@@ -2977,10 +3006,12 @@ def count_launch(kt, cnt, cb, x, seed, root) -> dict:
     require(torch.equal(new, want[0]), f"the float64 einsum at {lanes} lanes is not the round")
     err = held("trop_count", f"alone at {lanes} lanes", run(), want)
     return {"ms": cuda_ms(run, KERNEL_REPS),
-            "plain_ms": cuda_ms(lambda: kt.trop_count_plain(cnt, cb, x, seed,
+            "plain_ms": cuda_ms(lambda: kt.trop_count_plain(cnt, cb, None, x, seed,
                                                             torch.empty_like(x), root),
                                 KERNEL_REPS),
             "library_ms": cuda_ms(library, KERNEL_REPS), "work": count_work(cnt, cb, x, seed),
+            "list_ms": cuda_ms(lambda: kt.count_list(cnt, cb), KERNEL_REPS),
+            "list_run": lambda: kt.count_list(cnt, cb), "geometry": kt.count_geometry(b, lanes, nb),
             "err": err, "run": run}
 
 
@@ -2990,13 +3021,14 @@ def trop_mp_phase(ell, se, dev, topo, masks, m_ref, m_step_ref, n_atoms) -> dict
     compute(multipath_k=4) and =8, a masked compute(masks[1], multipath_k=4)
     and the DeltaPath chain at multipath_k=4, each of which must launch
     trop_relax and trop_count (the masked one trop_repair too); every T2
-    launch of each compute and of chain step 0 held to trop_count_plain; all
-    nine planes equal a seq backend's mp planes, compute() and chain steps
-    0-1 the oracle's; every chain step incremental on the tiles, its tile
-    delta applied in place.  (b) mp against mp_tropical compute(), in
-    turns.  (c) T2 a launch at 1 and 32 W lanes against its floor, its plain
-    version and a float64 einsum.  (d) A tuner armed: the kp = 4 compute()
-    bucket measures mp and mp_tropical."""
+    launch of each compute and of chain step 0 held to trop_count_plain, and
+    their count lists to the CPU's; all nine planes equal a seq backend's mp
+    planes, compute() and chain steps 0-1 the oracle's; every chain step
+    incremental on the tiles, its tile delta applied in place.  (b) mp
+    against mp_tropical compute(), in turns.  (c) T2 a launch at 1 and 32 W
+    lanes against its floors, its plain version and a float64 einsum, with
+    its geometry and the count list's build.  (d) A tuner armed: the kp = 4
+    compute() bucket measures mp and mp_tropical."""
     from holo_tpu_torch import pipeline
     from holo_tpu_torch.kernels import tropical as kt
     from holo_tpu_torch.ops import graph
@@ -3023,6 +3055,8 @@ def trop_mp_phase(ell, se, dev, topo, masks, m_ref, m_step_ref, n_atoms) -> dict
         if hold:
             require(len(holder.launch_ms) == got["trop_count"],
                     f"mp_tropical {label}: a trop_count launch was not held")
+            require(holder.lists == 2, f"mp_tropical {label}: {holder.lists} count lists held, "
+                                       f"not one a fixpoint")
             x["hold"][label] = holder
         return out
 
@@ -3675,6 +3709,8 @@ def main() -> None:
     for lanes, v in lx["t2"].items():
         per = device_times(lambda v=v: [v["run"]() for _ in range(KERNEL_REPS)])
         v["device_ms"] = sum(ms for name, ms in per.items() if "trop_count" in name) / KERNEL_REPS
+        per = device_times(lambda v=v: [v["list_run"]() for _ in range(KERNEL_REPS)])
+        v["list_device_ms"] = sum(per.values()) / KERNEL_REPS
     l_phase4_s = time.perf_counter() - t_l
     g_compute_busy_ms, g_compute_top = device_busy(lambda: gbe.compute(topo))
     incr_busy_ms, incr_top = device_busy(lambda: se.spf_one_incremental(*last_in))
@@ -3895,9 +3931,16 @@ def main() -> None:
         print(f"time trop_count at {lanes} lanes: {v['ms']:.4f} ms a launch (CUDA events, median "
               f"of {KERNEL_REPS}), " + (f"{v['device_ms']:.4f} ms on the device" if v["device_ms"]
                                        else "device time not measured")
-              + f", bound {w['bound'][0]:.5f} ms by {w['bound'][1]} ({w['ops']} operations, "
-              f"{w['bytes']} bytes; {w['nnz']} nonzero counts in {w['real_slots']} real tiles), "
+              + f", floor {w['bound'][0]:.5f} ms by {w['bound'][1]} ({w['ops']} operations, "
+              f"{w['bytes']} bytes; {w['nnz']} nonzero counts in {w['listed_slots']} listed of "
+              f"{w['real_slots']} real tiles), the floor over every real tile's counts "
+              f"{w['tile_bound'][0]:.5f} ms by {w['tile_bound'][1]} ({w['tile_bytes']} bytes), "
               f"plain {v['plain_ms']:.3f} ms, float64 einsum {v['library_ms']:.4f} ms; {smi}",
+              flush=True)
+        print(f"time trop_count count list at {lanes} lanes: {v['list_ms']:.4f} ms a build (one "
+              f"a fixpoint; CUDA events, median of {KERNEL_REPS}), "
+              + (f"{v['list_device_ms']:.4f} ms on the device" if v["list_device_ms"]
+                 else "device time not measured") + f"; geometry {v['geometry']}; {smi}",
               flush=True)
     print(f"time trop_count a dispatch: compute(multipath_k={MP_K}) launches {l_launches} "
           f"(by lanes {dict(Counter(l_hold.lanes))}), held launches "
@@ -4167,6 +4210,13 @@ def main() -> None:
         "ms_a1": t2[1]["ms"], "plain_ms_a1": t2[1]["plain_ms"],
         "bound_ms_a1": t2[1]["work"]["bound"][0], "bound_by_a1": t2[1]["work"]["bound"][1],
         "library_ms_a1": t2[1]["library_ms"], "device_ms_a1": t2[1]["device_ms"],
+        "bound_ms_tiles": t2[a_lanes]["work"]["tile_bound"][0],
+        "bound_by_tiles": t2[a_lanes]["work"]["tile_bound"][1],
+        "bound_ms_tiles_a1": t2[1]["work"]["tile_bound"][0],
+        "bound_by_tiles_a1": t2[1]["work"]["tile_bound"][1],
+        "list_ms": t2[a_lanes]["list_ms"], "list_device_ms": t2[a_lanes]["list_device_ms"],
+        "list_ms_a1": t2[1]["list_ms"], "list_device_ms_a1": t2[1]["list_device_ms"],
+        "geometry": t2[a_lanes]["geometry"], "geometry_a1": t2[1]["geometry"],
         "launches_by_path": {k: [c["trop_count"] for c in runs]
                              for k, runs in lx["launches"].items()},
         "dispatch_launches": l_launches, "dispatch_device_ms": l_t2_dispatch,

@@ -459,102 +459,397 @@ int geometry(int lanes, int nb, int* info) {
 //
 // Planes (int32): cnt [NB, Tm, B, B] (cnt[rb, t, i, j] = how many flagged
 // ELL slots join source cb[rb, t]*B + j to row rb*B + i; 0 on a padding
-// slot); cb [NB, Tm] (NB for a padding slot); x [NB*B, A] (the carry, 0 on
-// padding rows); seed [NB*B, A] or NULL (0 everywhere); out [NB*B, A] another
-// buffer, written whole; root: the permuted row whose value is 1 (the path
-// counts' root), or -1 for none.
+// slot); cb [NB, Tm] (NB for a padding slot); the count list, built once a
+// fixpoint (kernels/tropical.py count_list): list [NB, Tm] (first, in slot
+// order, each row block's real slots whose tile holds a nonzero count; the
+// rest of the row is never used) and len [NB] (how many); x [NB*B, A] (the
+// carry, 0 on padding rows); seed [NB*B, A] or NULL (0 everywhere); out
+// [NB*B, A] another buffer, written whole; root: the permuted row whose
+// value is 1 (the path counts' root), or -1 for none.
 //   tot[p, a] = sum over slots t with cb[rb, t] < NB and over j of
 //               cnt[rb, t, i, j] * x[cb*B + j, a];
 //   new = p == root ? 1 : min(seed + tot, MP_SAT) into out; changed is set
 //   if any new != x.
 // Every x is at most MP_SAT = 2^17 and a row's counts add up to at most its
 // K slots, so every partial sum is at most K * 2^17 < 2^31 (K <= 16384,
-// holo_tpu/ops/graph.py:32-36): int32 multiply-adds are exact and give
-// JAX's bits.  No floating point, no tensor core.
+// holo_tpu/ops/graph.py:32-36): int32 multiply-adds are exact in any order
+// and give JAX's bits.  No floating point, no tensor core (x passes int8).
 //
-// What bounds it: at the k=90 fat tree (B = 8, NB 1,266, Tm 67) the count
-// tiles are 21.7 MB, read once a round (6.5 us at the HBM rate), against two
-// operations (multiply, add) a (nonzero count, lane): bytes.  The design is
-// the simple one.  Row form (up to SMALL lanes; the path counts' one lane):
-// a block a row block, a warp a row, its threads splitting the row's (slot,
-// j) entries, then __reduce_add_sync; thread s finishes lane s.  Lane form
-// (more lanes; the 32 W weight lanes): a block a row block x 32 lanes, a warp
-// a row, a thread a lane walking the row's entries (the count a broadcast
-// read, the source value a coalesced one).  Padding slots and zero counts
-// are skipped (exact: they add 0).
+// What bounds it: bytes, and in practice latency and instructions.  At the
+// k=90 fat tree (B = 8, NB 1,266, Tm 67) 20,811 of the 53,524 real tiles
+// hold a nonzero count, and 81,293 of their 1.33 M entries are nonzero, in
+// 52,088 (tile, column) pairs.  The floor is those entries with an index
+// each, the listed slots' cb, and x, seed and out once (8.5 MB at 64 lanes,
+// 0.8 MB at one); two operations (multiply, add) a (nonzero entry, lane)
+// are nothing beside it.  So a round walks only the count list (a zero tile
+// adds 0: exact) and, within a listed tile, only its nonzero columns'
+// source rows; what is left is a few dependent loads a block and the
+// instructions a (pair, lane).
+//
+// Lane form (more than SMALL lanes: the 32 W weight lanes; Count<B> below).
+// A block owns one row block and LANES lanes; a thread R rows of row group
+// warp / LWARPS and one lane, (warp % LWARPS) * 32 + l.  The thread's old
+// values and seed are loaded first, beside the list's first chunk.  Per
+// chunk of CH listed slots, a thread a (tile, column j) reads the column's
+// B counts and its slot's cb, and a ballot a warp lists the nonzero columns
+// as pairs (source row cb*B + j, the column's offset) in shared memory (a
+// shared-memory atomic a warp: the order is free, integer sums are exact in
+// any order).  PAIRS pairs at a time, their source rows x[cb*B + j, lanes]
+// (16 bytes a copy where the lane count allows; only those rows, 2.5 of 8 a
+// tile at k=90) and their columns (contiguous, rows in order) are staged
+// together by cp.async, and each thread adds count x source into its R sums
+// in registers: a pair costs it one source read and R / 4 16-byte count
+// reads (broadcasts).  No tile is staged whole, so a block needs 13.6 KB at
+// B = 8 and a chunk of 64 tiles holds every row block's list at k=90.  The
+// instructions a pair and the dependent loads a block (list, columns,
+// sources), not the bytes, set the lane form's time at k=90.  Then each
+// thread writes its R outputs; the changed flag is one vote a block
+// (__syncthreads_or) and one store.
+//
+// The lane form for B = 8 / 16 / 32 / 64 / 128: rows a thread R 4 / 8 / 8 /
+// 16 / 16, threads 128 / 128 / 256 / 256 / 256, lanes a block 64 / 64 / 64 /
+// 64 / 32, tiles a chunk CH 64 / 32 / 16 / 8 / 4, pairs a pass PAIRS 32,
+// shared memory 13,568 / 14,464 / 16,448 / 20,512 / 24,592 bytes
+// (registers and blocks an SM: holo_trop_count_info, which chip_smoke
+// prints and PERF.md keeps).
+//
+// Row form (up to SMALL lanes: the path counts' one lane; CountRows<B, S>,
+// S = 1 for one lane, else SMALL: the sums a thread keeps, so that one lane
+// holds 8 and not 64 in registers).  A block owns one row block: a warp 8 of
+// its rows, SPLIT warps a row group splitting its listed (tile, column j)
+// entries (the next entry's slot loaded ahead).  A thread loads its 8 rows
+// of the column and skips an all-zero one, else loads the source row's
+// lanes into 8 rows x S lanes of sums; the warp meets in __reduce_add_sync
+// (thread o % 32 keeps output o = row * S + lane), the SPLIT warps in
+// shared memory, and the first warp of the group finishes the outputs,
+// whose old values and seed it loaded before the walk.  The changed flag as
+// in the lane form.
 // ---------------------------------------------------------------------------
 
 constexpr int MP_SAT = 1 << 17;
-constexpr int COUNT_THREADS = 256;
-constexpr int COUNT_WARPS = COUNT_THREADS / 32;
 
-__device__ __forceinline__ void count_finish(int p, int s, int tot, const int* x,
-                                             const int* seed, int* out, int* changed,
-                                             int lanes, int root) {
-  const size_t at = (size_t)p * lanes + s;
-  const int nw = p == root ? 1 : min((seed != nullptr ? seed[at] : 0) + tot, MP_SAT);
-  out[at] = nw;
-  if (nw != x[at]) changed[0] = 1;
+__device__ __forceinline__ unsigned sptr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-__global__ void __launch_bounds__(COUNT_THREADS)
-    trop_count_rows(const int* __restrict__ cnt, const int* __restrict__ cb,
-                    const int* __restrict__ x, const int* __restrict__ seed,
-                    int* __restrict__ out, int* __restrict__ changed, int nb, int tm, int b,
-                    int lanes, int root) {
-  const int rb = blockIdx.x;
-  const int warp = threadIdx.x >> 5, l = threadIdx.x & 31;
-  const size_t slot0 = (size_t)rb * tm;
-  for (int i = warp; i < b; i += COUNT_WARPS) {
-    int acc[SMALL];
-#pragma unroll
-    for (int s = 0; s < SMALL; ++s) acc[s] = 0;
-    for (int idx = l; idx < tm * b; idx += 32) {
-      const int t = idx / b, j = idx - t * b;
-      const int c = cb[slot0 + t];
-      if (c >= nb) continue;
-      const int w = cnt[((slot0 + t) * b + i) * b + j];
-      if (w == 0) continue;
-      const int* row = x + ((size_t)c * b + j) * lanes;
-#pragma unroll
-      for (int s = 0; s < SMALL; ++s)
-        if (s < lanes) acc[s] += w * row[s];
-    }
-    const int p = rb * b + i;
-#pragma unroll
-    for (int s = 0; s < SMALL; ++s) {
-      if (s < lanes) {
-        const int tot = __reduce_add_sync(0xffffffffu, acc[s]);
-        if (l == s) count_finish(p, s, tot, x, seed, out, changed, lanes, root);
-      }
-    }
-  }
+// 4 bytes global -> shared, in flight until cp_async_wait; `ok` false
+// fills 0 and reads nothing.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok = true) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(sptr(dst)), "l"(src),
+               "r"(ok ? 4 : 0)
+               : "memory");
 }
 
-__global__ void __launch_bounds__(COUNT_THREADS)
+// 16 bytes global -> shared (both ends 16-byte aligned), through L2 only;
+// `ok` false fills 0 and reads nothing.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(sptr(dst)), "l"(src),
+               "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+// Every cp.async this thread issued has landed.
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// The lane form's geometry for tile size B.
+template <int B>
+struct Count {
+  static constexpr int R = B == 8 ? 4 : (B <= 32 ? 8 : 16);  // rows a thread
+  static constexpr int G = B / R;                             // row groups
+  static constexpr int LWARPS = B == 128 ? 1 : 2;             // warps a row group
+  static constexpr int THREADS = 32 * G * LWARPS;
+  static constexpr int LANES = 32 * LWARPS;                   // lanes a block
+  static constexpr int CH = 512 / B;  // listed tiles a chunk
+  static constexpr int CAP = CH * B;  // (tile, column) pairs a chunk at most
+  static constexpr int PAIRS = 32;    // pairs staged a pass
+  // Shared memory: a pass's columns (B counts each, contiguous) and source
+  // rows, the chunk's pairs (source row, column offset) and list entries.
+  static constexpr int SMEM = (PAIRS * B + PAIRS * LANES + 2 * CAP + CH) * (int)sizeof(int);
+  static_assert(THREADS <= 256 && B % R == 0 && R % 4 == 0 && LANES % 4 == 0 &&
+                    SMEM <= 48 * 1024, "count geometry");
+};
+
+template <int B>
+__global__ void __launch_bounds__(Count<B>::THREADS)
     trop_count_lanes(const int* __restrict__ cnt, const int* __restrict__ cb,
+                     const int* __restrict__ list, const int* __restrict__ len,
                      const int* __restrict__ x, const int* __restrict__ seed,
-                     int* __restrict__ out, int* __restrict__ changed, int nb, int tm, int b,
-                     int lanes, int root, int chunks) {
+                     int* __restrict__ out, int* __restrict__ changed, int tm, int lanes,
+                     int root) {
+  using C = Count<B>;
+  constexpr int R = C::R, CH = C::CH, LANES = C::LANES, PAIRS = C::PAIRS, T = C::THREADS;
+  extern __shared__ __align__(16) int csm[];
+  int* col_s = csm;                      // [PAIRS][B]: a pass's columns, rows in order
+  int* src_s = col_s + PAIRS * B;        // [PAIRS][LANES]: a pass's source rows
+  int* row_s = src_s + PAIRS * LANES;    // [CAP]: pair k's source row cb * B + j
+  int* off_s = row_s + C::CAP;           // [CAP]: pair k's column, slot * B * B + j
+  int* list_s = off_s + C::CAP;          // [CH]
+  __shared__ int npairs;
+
+  const int chunks = (lanes + LANES - 1) / LANES;
   const int rb = blockIdx.x / chunks;
-  const int warp = threadIdx.x >> 5, l = threadIdx.x & 31;
-  const int s = (blockIdx.x % chunks) * 32 + l;
-  if (s >= lanes) return;  // no warp-collective below
+  const int lane0 = (blockIdx.x % chunks) * LANES;
+  const int tid = threadIdx.x, warp = tid >> 5, l = tid & 31;
+  const int ln = (warp % C::LWARPS) * 32 + l;  // the thread's lane within the block's
+  const int s = lane0 + ln;
+  const int i0 = (warp / C::LWARPS) * R;       // its first row within the row block
+  const int row0 = rb * B + i0;
   const size_t slot0 = (size_t)rb * tm;
-  for (int i = warp; i < b; i += COUNT_WARPS) {
-    int acc = 0;
-    for (int t = 0; t < tm; ++t) {
-      const int c = cb[slot0 + t];
-      if (c >= nb) continue;
-      const int* w = cnt + ((slot0 + t) * b + i) * b;
-      const int* col = x + (size_t)c * b * lanes + s;
-      for (int j = 0; j < b; ++j) {
-        const int wj = w[j];
-        if (wj != 0) acc += wj * col[(size_t)j * lanes];
+  const int* tiles = cnt + slot0 * B * B;      // the row block's tiles
+  const bool live = s < lanes;
+  // Source rows as 16-byte copies where every row segment is aligned.
+  const bool vec = lanes % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+
+  for (int i = tid; i < CH; i += T) cp_async4(list_s + i, list + slot0 + min(i, tm - 1));
+  int old[R], sd[R], acc[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const size_t at = (size_t)(row0 + r) * lanes + s;
+    old[r] = live ? x[at] : 0;
+    sd[r] = live && seed != nullptr ? seed[at] : 0;
+    acc[r] = 0;
+  }
+  const int n = len[rb];
+  for (int t0 = 0; t0 < n; t0 += CH) {
+    const int m = min(CH, n - t0);
+    cp_async_wait();
+    if (tid == 0) npairs = 0;
+    __syncthreads();  // list_s holds this chunk; the chunk before is done
+    // A thread a (tile, column j) reads the column's B counts; a nonzero
+    // column is listed (a ballot a warp) with its source row and offset.
+    for (int base = 0; base < m * B; base += T) {
+      const int idx = base + tid;
+      bool nz = false;
+      int slot = 0, c = 0;
+      if (idx < m * B) {
+        slot = list_s[idx / B];
+        c = cb[slot0 + slot];
+        const int* col = tiles + (size_t)slot * B * B + idx % B;
+#pragma unroll
+        for (int i = 0; i < B; ++i) nz |= __ldg(col + i * B) != 0;
+      }
+      const unsigned bal = __ballot_sync(0xffffffffu, nz);
+      int at = 0;
+      if (l == 0 && bal != 0) at = atomicAdd(&npairs, __popc(bal));
+      at = __shfl_sync(0xffffffffu, at, 0) + __popc(bal & ((1u << l) - 1u));
+      if (nz) {
+        row_s[at] = c * B + idx % B;
+        off_s[at] = slot * B * B + idx % B;
       }
     }
-    count_finish(rb * b + i, s, acc, x, seed, out, changed, lanes, root);
+    __syncthreads();
+    if (t0 + CH < n)  // the next chunk's list, in flight while this one is walked
+      for (int i = tid; i < CH; i += T)
+        cp_async4(list_s + i, list + slot0 + min(t0 + CH + i, tm - 1));
+    const int np = npairs;
+    for (int p0 = 0; p0 < np; p0 += PAIRS) {
+      const int pm = min(PAIRS, np - p0);
+      if (vec) {
+        for (int idx = tid; idx < pm * (LANES / 4); idx += T) {
+          const int sl = lane0 + 4 * (idx % (LANES / 4));
+          const bool ok = sl < lanes;
+          cp_async16(src_s + 4 * idx,
+                     ok ? x + (size_t)row_s[p0 + idx / (LANES / 4)] * lanes + sl : x, ok);
+        }
+      } else {
+        for (int idx = tid; idx < pm * LANES; idx += T) {
+          const int sl = lane0 + idx % LANES;
+          const bool ok = sl < lanes;
+          cp_async4(src_s + idx, ok ? x + (size_t)row_s[p0 + idx / LANES] * lanes + sl : x, ok);
+        }
+      }
+      for (int idx = tid; idx < pm * B; idx += T)
+        cp_async4(col_s + idx, tiles + off_s[p0 + idx / B] + (idx % B) * B);
+      cp_async_wait();
+      __syncthreads();
+      const int* w = col_s + i0;
+      for (int p = 0; p < pm; ++p, w += B) {
+        const int v = src_s[p * LANES + ln];
+#pragma unroll
+        for (int r = 0; r < R; r += 4) {
+          const int4 c = *reinterpret_cast<const int4*>(w + r);
+          acc[r] += c.x * v;
+          acc[r + 1] += c.y * v;
+          acc[r + 2] += c.z * v;
+          acc[r + 3] += c.w * v;
+        }
+      }
+      __syncthreads();  // col_s and src_s are free for the next pass
+    }
   }
+  cp_async_wait();  // a list prefetch past the last chunk
+  bool moved = false;
+  if (live) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int p = row0 + r;
+      const int nw = p == root ? 1 : min(sd[r] + acc[r], MP_SAT);
+      out[(size_t)p * lanes + s] = nw;
+      moved |= nw != old[r];
+    }
+  }
+  if (__syncthreads_or(moved) && tid == 0) changed[0] = 1;
+}
+
+// The row form's geometry for tile size B and S lanes of sums: a warp 8
+// rows, SPLIT warps splitting a row group's listed (tile, column) entries.
+template <int B, int S>
+struct CountRows {
+  static constexpr int G = B / 8;                   // row groups
+  static constexpr int SPLIT = G >= 4 ? 1 : 4 / G;  // warps a row group
+  static constexpr int THREADS = 32 * G * SPLIT;
+  static constexpr int OUT = 8 * S;                 // (row, lane) outputs of a row group
+  static constexpr int KEPT = (OUT + 31) / 32;      // outputs a thread keeps
+};
+
+template <int B, int S>
+__global__ void __launch_bounds__(CountRows<B, S>::THREADS)
+    trop_count_rows(const int* __restrict__ cnt, const int* __restrict__ cb,
+                    const int* __restrict__ list, const int* __restrict__ len,
+                    const int* __restrict__ x, const int* __restrict__ seed,
+                    int* __restrict__ out, int* __restrict__ changed, int tm, int lanes,
+                    int root) {
+  using C = CountRows<B, S>;
+  constexpr int STEP = 32 * C::SPLIT, KEPT = C::KEPT;
+  __shared__ int red[C::SPLIT > 1 ? C::THREADS / 32 : 1][KEPT * 32];
+  const int rb = blockIdx.x, warp = threadIdx.x >> 5, l = threadIdx.x & 31;
+  const int g = warp / C::SPLIT, part = warp % C::SPLIT;
+  const int i0 = g * 8;
+  const size_t slot0 = (size_t)rb * tm;
+
+  // The outputs this thread finishes (group's first warp): old values, seed.
+  int old[KEPT], sd[KEPT];
+#pragma unroll
+  for (int k = 0; k < KEPT; ++k) {
+    const int o = k * 32 + l, sl = o % S;
+    const size_t at = (size_t)(rb * B + i0 + o / S) * lanes + sl;
+    const bool mine = part == 0 && o < C::OUT && sl < lanes;
+    old[k] = mine ? x[at] : 0;
+    sd[k] = mine && seed != nullptr ? seed[at] : 0;
+  }
+  int acc[8][S] = {};
+  int idx = part * 32 + l;
+  int t = list[slot0 + min(idx / B, tm - 1)];  // loaded beside len, ahead of the walk
+  const int n = len[rb];
+  for (; idx < n * B; idx += STEP) {
+    const int tn = list[slot0 + min((idx + STEP) / B, tm - 1)];  // the next entry's slot
+    const int j = idx % B;
+    const int c = cb[slot0 + t];
+    const int* col = cnt + ((slot0 + t) * B + i0) * B + j;
+    int w[8];
+    bool any = false;
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      w[r] = col[r * B];
+      any |= w[r] != 0;
+    }
+    if (any) {
+      const int* src = x + ((size_t)c * B + j) * lanes;
+#pragma unroll
+      for (int sl = 0; sl < S; ++sl) {
+        if (sl < lanes) {
+          const int v = src[sl];
+#pragma unroll
+          for (int r = 0; r < 8; ++r) acc[r][sl] += w[r] * v;
+        }
+      }
+    }
+    t = tn;
+  }
+  int kept[KEPT];
+#pragma unroll
+  for (int k = 0; k < KEPT; ++k) kept[k] = 0;
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+#pragma unroll
+    for (int sl = 0; sl < S; ++sl) {
+      if (sl < lanes) {
+        const int tot = __reduce_add_sync(0xffffffffu, acc[r][sl]);
+        if (((r * S + sl) & 31) == l) kept[(r * S + sl) >> 5] = tot;
+      }
+    }
+  }
+  if (C::SPLIT > 1) {
+#pragma unroll
+    for (int k = 0; k < KEPT; ++k) red[warp][k * 32 + l] = kept[k];
+    __syncthreads();
+    if (part == 0) {
+#pragma unroll
+      for (int k = 0; k < KEPT; ++k) {
+        int sum = 0;
+        for (int q = 0; q < C::SPLIT; ++q) sum += red[g * C::SPLIT + q][k * 32 + l];
+        kept[k] = sum;
+      }
+    }
+  }
+  bool moved = false;
+  if (part == 0) {
+#pragma unroll
+    for (int k = 0; k < KEPT; ++k) {
+      const int o = k * 32 + l, sl = o % S;
+      if (o < C::OUT && sl < lanes) {
+        const int p = rb * B + i0 + o / S;
+        const int nw = p == root ? 1 : min(sd[k] + kept[k], MP_SAT);
+        out[(size_t)p * lanes + sl] = nw;
+        moved |= nw != old[k];
+      }
+    }
+  }
+  if (__syncthreads_or(moved) && threadIdx.x == 0) changed[0] = 1;
+}
+
+template <int B>
+int count_launch(const int* cnt, const int* cb, const int* list, const int* len, const int* x,
+                 const int* seed, int* out, int* changed, int nb, int tm, int lanes, int root,
+                 cudaStream_t st) {
+  if (lanes == 1) {
+    trop_count_rows<B, 1><<<nb, CountRows<B, 1>::THREADS, 0, st>>>(
+        cnt, cb, list, len, x, seed, out, changed, tm, lanes, root);
+    return (int)cudaGetLastError();
+  }
+  if (lanes <= SMALL) {
+    trop_count_rows<B, SMALL><<<nb, CountRows<B, SMALL>::THREADS, 0, st>>>(
+        cnt, cb, list, len, x, seed, out, changed, tm, lanes, root);
+    return (int)cudaGetLastError();
+  }
+  using C = Count<B>;
+  const long long blocks = (long long)nb * ((lanes + C::LANES - 1) / C::LANES);
+  trop_count_lanes<B><<<(unsigned)blocks, C::THREADS, C::SMEM, st>>>(
+      cnt, cb, list, len, x, seed, out, changed, tm, lanes, root);
+  return (int)cudaGetLastError();
+}
+
+// T2's launch geometry on (b, lanes, nb): info[0] form (1 lane, 0 row), [1]
+// blocks, [2] threads a block, [3] shared bytes a block (static and
+// dynamic), [4] registers a thread, [5] blocks an SM, [6] lanes a block, [7]
+// rows a thread, [8] tiles a chunk, [9] source rows a pass (the last two 0
+// in the row form).
+template <int B>
+int count_geometry(int lanes, int nb, int* info) {
+  cudaFuncAttributes fa;
+  int per_sm = 0, rc;
+  if (lanes <= SMALL) {
+    const int threads = CountRows<B, SMALL>::THREADS;  // as CountRows<B, 1>'s
+    const auto kernel = lanes == 1 ? trop_count_rows<B, 1> : trop_count_rows<B, SMALL>;
+    rc = (int)cudaFuncGetAttributes(&fa, kernel);
+    if (rc == 0) rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
+    const int row[10] = {0, nb, threads, (int)fa.sharedSizeBytes, fa.numRegs, per_sm,
+                         lanes == 1 ? 1 : SMALL, 8, 0, 0};
+    for (int i = 0; i < 10; ++i) info[i] = row[i];
+  } else {
+    using C = Count<B>;
+    rc = (int)cudaFuncGetAttributes(&fa, trop_count_lanes<B>);
+    if (rc == 0)
+      rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, trop_count_lanes<B>,
+                                                               C::THREADS, C::SMEM);
+    const int lane[10] = {1, nb * ((lanes + C::LANES - 1) / C::LANES), C::THREADS,
+                          C::SMEM + (int)fa.sharedSizeBytes, fa.numRegs, per_sm, C::LANES, C::R,
+                          C::CH, C::PAIRS};
+    for (int i = 0; i < 10; ++i) info[i] = lane[i];
+  }
+  return rc;
 }
 
 }  // namespace
@@ -599,21 +894,46 @@ int holo_trop_repair(const void* pairs, int npairs, const void* dist, const void
   return (int)cudaGetLastError();
 }
 
-int holo_trop_count(const void* cnt, const void* cb, const void* x, const void* seed, void* out,
-                    void* changed, int nb, int tm, int b, int lanes, int root, void* stream) {
+int holo_trop_count(const void* cnt, const void* cb, const void* list, const void* len,
+                    const void* x, const void* seed, void* out, void* changed, int nb, int tm,
+                    int b, int lanes, int root, void* stream) {
   if (nb <= 0 || tm <= 0 || lanes <= 0) return 0;
-  const int *n = (const int*)cnt, *c = (const int*)cb, *xi = (const int*)x;
-  const int* sd = (const int*)seed;
+  const int *n = (const int*)cnt, *c = (const int*)cb, *li = (const int*)list;
+  const int *le = (const int*)len, *xi = (const int*)x, *sd = (const int*)seed;
   int *o = (int*)out, *ch = (int*)changed;
   const cudaStream_t st = (cudaStream_t)stream;
-  if (lanes <= SMALL) {
-    trop_count_rows<<<nb, COUNT_THREADS, 0, st>>>(n, c, xi, sd, o, ch, nb, tm, b, lanes, root);
-  } else {
-    const int chunks = (lanes + 31) / 32;
-    trop_count_lanes<<<(unsigned)((long long)nb * chunks), COUNT_THREADS, 0, st>>>(
-        n, c, xi, sd, o, ch, nb, tm, b, lanes, root, chunks);
+  switch (b) {
+    case 8:
+      return count_launch<8>(n, c, li, le, xi, sd, o, ch, nb, tm, lanes, root, st);
+    case 16:
+      return count_launch<16>(n, c, li, le, xi, sd, o, ch, nb, tm, lanes, root, st);
+    case 32:
+      return count_launch<32>(n, c, li, le, xi, sd, o, ch, nb, tm, lanes, root, st);
+    case 64:
+      return count_launch<64>(n, c, li, le, xi, sd, o, ch, nb, tm, lanes, root, st);
+    case 128:
+      return count_launch<128>(n, c, li, le, xi, sd, o, ch, nb, tm, lanes, root, st);
+    default:
+      return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+}
+
+int holo_trop_count_info(int b, int lanes, int nb, void* info) {
+  int* i = (int*)info;
+  switch (b) {
+    case 8:
+      return count_geometry<8>(lanes, nb, i);
+    case 16:
+      return count_geometry<16>(lanes, nb, i);
+    case 32:
+      return count_geometry<32>(lanes, nb, i);
+    case 64:
+      return count_geometry<64>(lanes, nb, i);
+    case 128:
+      return count_geometry<128>(lanes, nb, i);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 int holo_trop_info(int b, int lanes, int nb, void* info) {

@@ -8,10 +8,10 @@ together, and linked into one library in ``holo_tpu_torch/build/`` (listed in ``
 by a hash of the sources so an edit rebuilds it.  Each C entry point takes ``void*``
 pointers (NULL for an absent plane), ``int`` sizes and the CUDA stream,
 launches on that stream and returns ``cudaGetLastError()``;
-``holo_bgp_fold_smem``, ``holo_ell_fused_info`` and ``holo_trop_info`` launch
-nothing: the first returns the fold's shared-memory bytes a block, the other
-two write the fused round's or the tile relax's launch geometry and register
-counts.
+``holo_bgp_fold_smem``, ``holo_ell_fused_info``, ``holo_trop_info`` and
+``holo_trop_count_info`` launch nothing: the first returns the fold's
+shared-memory bytes a block, the other three write the fused round's, the
+tile relax's or the count round's launch geometry and register counts.
 
 A library that cannot be built or loaded raises :class:`KernelBuildError`,
 which the dispatch breaker re-raises without counting it; a CUDA error at
@@ -63,8 +63,9 @@ SIGNATURES = {
     "holo_bgp_fold_smem": (_I,) * 5,
     "holo_trop_relax": (*[_P] * 8, *[_I] * 4, _P),
     "holo_trop_repair": (_P, _I, *[_P] * 10, *[_I] * 3, _P),
-    "holo_trop_count": (*[_P] * 6, *[_I] * 5, _P),
+    "holo_trop_count": (*[_P] * 8, *[_I] * 5, _P),
     "holo_trop_info": (_I, _I, _I, _P),
+    "holo_trop_count_info": (_I, _I, _I, _P),
 }
 
 _LIB: ctypes.CDLL | None = None

@@ -41,7 +41,10 @@ tiles' permuted one, padded to NB * B rows):
   [NB * B] (permuted row -> vertex) and ``inv`` [N] (vertex -> permuted
   row), as the gather kernels do (``kernels/ell.py``);
 - ``cnt`` [NB, Tm, B, B] (T2): ``cnt[rb, t, i, j]`` how many flagged ELL slots
-  join ``cb[rb, t] * B + j`` to ``rb * B + i`` (0 on a padding slot).
+  join ``cb[rb, t] * B + j`` to ``rb * B + i`` (0 on a padding slot);
+- ``listed`` (T2, :class:`CountList`): each row block's real slots whose
+  count tile holds a nonzero entry, built once per fixpoint
+  (:func:`count_list`); the kernel walks only those.
 """
 
 from __future__ import annotations
@@ -204,7 +207,27 @@ def trop_relax(tiles, cb, dist, active, out, repair=None, src=None, cost=None, s
     return out, changed, active_out
 
 
-def trop_count_plain(cnt, cb, x, seed, out, root: int = -1):
+class CountList(NamedTuple):
+    """The count tiles of a fixpoint that can add something, fixed for all
+    its rounds (:func:`count_list`)."""
+
+    slots: torch.Tensor  # int32 [NB, Tm]: first, in slot order, the listed slots of each row block
+    n: torch.Tensor  # int32 [NB]: how many each row block lists
+
+
+def count_list(cnt: torch.Tensor, cb: torch.Tensor) -> CountList:
+    """Each row block's real slots (``cb < NB``) whose count tile holds a
+    nonzero entry, in slot order, at the front of its row of ``slots`` (the
+    rest of the row is never read), and their number ``n``: the tiles a T2
+    round walks (a zero tile adds 0).  A stable sort on the card, with no
+    host sync; a fixpoint builds it once, after the count tiles."""
+    nb = cb.shape[0]
+    listed = cnt.flatten(2).any(2) & (cb < nb)  # [NB, Tm]
+    order = torch.sort(listed.to(torch.uint8), dim=1, descending=True, stable=True).indices
+    return CountList(order.to(torch.int32), listed.sum(1, dtype=torch.int32))
+
+
+def trop_count_plain(cnt, cb, listed, x, seed, out, root: int = -1):
     """One round of the multipath tile fixpoints (``_np_tile_fixpoint`` /
     ``_aw_tile_fixpoint``'s loop bodies): (out holding the new values [NB *
     B, A], changed int32 [1]).
@@ -213,7 +236,8 @@ def trop_count_plain(cnt, cb, x, seed, out, root: int = -1):
     ``cb[rb, t]`` is real and over j of ``cnt[rb, t, i, j] * x[cb * B + j,
     a]``, in int64 (exact: it is below 2**31); ``new = min(seed + tot,
     MP_SAT)`` (``seed`` None: 0), and 1 at the permuted row ``root`` (-1:
-    none); written whole into ``out``; changed where ``new != x``."""
+    none); written whole into ``out``; changed where ``new != x``.  It walks
+    every slot: ``listed`` (the kernel's :class:`CountList`) is ignored."""
     nb, tm, b, _ = cnt.shape
     npad, lanes = x.shape
     real = cb < nb
@@ -237,29 +261,51 @@ def trop_count_plain(cnt, cb, x, seed, out, root: int = -1):
     return out, (new != x).any().to(torch.int32).reshape(1)
 
 
-def trop_count_round(cnt, cb, x, seed, out, root: int = -1):
+def trop_count_round(cnt, cb, listed, x, seed, out, root: int = -1):
     """(out holding the new values [NB * B, A], changed int32 [1]): one
     round of the multipath tile fixpoints, see :func:`trop_count_plain`.  On
-    the card the kernel (T2) writes ``out`` whole, accumulating in int32
-    (exact, as JAX's int32 einsum)."""
-    if not build.on_card(cnt, cb, x, seed, out):
-        return trop_count_plain(cnt, cb, x, seed, out, root)
+    the card the kernel (T2) walks only the tiles of ``listed``, which must be
+    :func:`count_list` of ``cnt`` and ``cb``, writes ``out`` whole and
+    accumulates in int32 (exact, as JAX's int32 einsum)."""
+    lp = (None, None) if listed is None else tuple(listed)
+    if not build.on_card(cnt, cb, *lp, x, seed, out):
+        return trop_count_plain(cnt, cb, listed, x, seed, out, root)
     nb, tm, b, b2 = cnt.shape if cnt.dim() == 4 else (0, 0, 0, -1)
     npad, lanes = x.shape if x.dim() == 2 else (-1, 0)
     bad = b != b2 or b not in BLOCKS or cb.shape != (nb, tm) or npad != nb * b
+    bad |= listed is None or listed.slots.shape != (nb, tm) or listed.n.shape != (nb,)
     bad |= out.shape != x.shape or out.data_ptr() == x.data_ptr()
     bad |= seed is not None and seed.shape != x.shape
     bad |= not -1 <= root < npad
     if bad:
         raise ValueError(
-            f"trop_count planes disagree (cnt [NB, Tm, B, B] with B in {BLOCKS}, x [NB * B, A], "
-            f"seed None or x's shape, out another buffer of x's shape, root -1 or a row): cnt "
-            f"{tuple(cnt.shape)}, cb {tuple(cb.shape)}, x {tuple(x.shape)}, seed "
-            f"{None if seed is None else tuple(seed.shape)}, out {tuple(out.shape)}, root {root}"
+            f"trop_count planes disagree (cnt [NB, Tm, B, B] with B in {BLOCKS}, the count "
+            f"list [NB, Tm] and [NB], x [NB * B, A], seed None or x's shape, out another buffer "
+            f"of x's shape, root -1 or a row): cnt {tuple(cnt.shape)}, cb {tuple(cb.shape)}, "
+            f"list {None if listed is None else tuple(tuple(p.shape) for p in listed)}, "
+            f"x {tuple(x.shape)}, seed {None if seed is None else tuple(seed.shape)}, out "
+            f"{tuple(out.shape)}, root {root}"
         )
     changed = torch.zeros(1, dtype=torch.int32, device=x.device)
-    _launch("trop_count", cnt, cb, x, seed, out, changed, nb, tm, b, lanes, int(root))
+    _launch("trop_count", cnt, cb, *lp, x, seed, out, changed, nb, tm, b, lanes, int(root))
     return out, changed
+
+
+def count_geometry(b: int, lanes: int, nb: int) -> dict:
+    """T2's launch geometry at tile size ``b``, ``lanes`` lanes and ``nb``
+    row blocks, read from the library (``holo_trop_count_info``): the form
+    (``lane`` or ``row``), blocks, threads a block, shared bytes a block
+    (static and dynamic), registers a thread, blocks an SM, lanes a block,
+    rows a thread, listed tiles a chunk and (tile, column) pairs a pass (the
+    last two 0 in the row form)."""
+    info = (ctypes.c_int * 10)()
+    lib = build.load()
+    build.check(lib, lib.holo_trop_count_info(b, lanes, nb, info), "holo_trop_count_info")
+    keys = ("form", "blocks", "threads", "shared_bytes", "registers", "blocks_per_sm",
+            "lanes_a_block", "rows_a_thread", "tiles_a_chunk", "pairs_a_pass")
+    out = dict(zip(keys, info))
+    out["form"] = "lane" if out["form"] else "row"
+    return out
 
 
 def geometry(b: int, lanes: int, nb: int) -> dict:

@@ -39,9 +39,11 @@ twin, ``tropical.py:809`` and ``:903``) runs the tile relax and phase 2
 next-hop fixpoint), then two more fixpoints on the tiles, each a loop of
 kernel T2 (``kernels/tropical.py`` ``trop_count_round``) over integer
 **count tiles** (:func:`count_tiles`: how many DAG slots join each (row,
-source) pair): the saturated path counts (:func:`np_tile_fixpoint`) and the
-per-atom UCMP weights (:func:`aw_tile_fixpoint`, over the inherit slots, from
-the direct-atom seed).  Each is capped at ``limit`` rounds on its own, as in
+source) pair; on the card a round walks only the tiles of the fixpoint's
+count list, ``kernels/tropical.py`` ``count_list``, built once): the
+saturated path counts (:func:`np_tile_fixpoint`) and the per-atom UCMP
+weights (:func:`aw_tile_fixpoint`, over the inherit slots, from the
+direct-atom seed).  Each is capped at ``limit`` rounds on its own, as in
 JAX: three capped loops after the relax, where the gather engine's ``mp``
 runs one joint loop, so truncated bits differ between the two engines.  The
 loops keep their carry in the permuted space (padding rows 0): one gather in
@@ -442,14 +444,18 @@ def _to_tiles(v: torch.Tensor, tt: TropicalTiles) -> torch.Tensor:
 def _count_fixpoint(tt: TropicalTiles, cnt, x0, seed, root_row: int, limit: int):
     """Values [N, A]: T2 rounds from ``x0`` [N, A] (only read) between two
     permuted buffers, while a round changed something and fewer than
-    ``limit`` ran, one flag read a round."""
+    ``limit`` ran, one flag read a round.  The count list (the nonzero
+    tiles, the same for every round) is built once, before the first."""
     x = _to_tiles(x0, tt)
+    if limit <= 0:
+        return x[tt.inv.long()]
     spare = torch.empty_like(x)
     seed_p = None if seed is None else _to_tiles(seed, tt)
+    listed = kt.count_list(cnt, tt.cb)
     rounds = 0
     changed = True
     while changed and rounds < limit:
-        new, flag = kt.trop_count_round(cnt, tt.cb, x, seed_p, spare, root_row)
+        new, flag = kt.trop_count_round(cnt, tt.cb, listed, x, seed_p, spare, root_row)
         x, spare = new, x
         changed = bool(flag)
         rounds += 1

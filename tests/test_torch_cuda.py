@@ -69,8 +69,10 @@ and a delta chain (tiles updated in place) equal the CPU path.  Its
 multipath program: trop_count_round (T2) is held bit-identical to its plain
 version on every launch of a masked kp = 4 dispatch at tile sizes 8 to 128
 (one lane for the path counts, 32 W for the weights) and on seeded carries
-near MP_SAT at 1 to 65 lanes (row and lane forms), with and without a seed
-plane and a root row; the backend's mp_tropical compute (kp 2, 4, 8, masked,
+near MP_SAT at 1 to 257 lanes (row and lane forms) and tile sizes 8 to 128,
+with and without a seed plane and a root row, counts up to 9, an empty row
+block and a padding slot of junk counts (its count list held to the CPU's
+on every launch; a malformed list refused); the backend's mp_tropical compute (kp 2, 4, 8, masked,
 max_iters 1 and 2) and a kp = 4 delta chain equal the CPU path.
 
 The fused, packed and hybrid engines: ell_fused_round in both layouts
@@ -1427,13 +1429,18 @@ _MP_FIELDS = ("parents", "pdist", "pweight", "npaths", "nh_weights")
 
 def _trop_count_holding(kernel, held):
     """A trop_count_round that holds each launch to the plain version on CPU
-    copies of its inputs (out written whole, the changed flag)."""
+    copies of its inputs (out written whole, the changed flag), and its
+    count list to count_list's on the CPU."""
     from holo_tpu_torch.kernels import tropical as kt
 
-    def hold(cnt, cb, x, seed, out, root=-1):
-        got = kernel(cnt, cb, x, seed, out, root)
+    def hold(cnt, cb, listed, x, seed, out, root=-1):
+        got = kernel(cnt, cb, listed, x, seed, out, root)
         assert got[0] is out
-        want = kt.trop_count_plain(cnt.cpu(), cb.cpu(), x.cpu(),
+        want_list = kt.count_list(cnt.cpu(), cb.cpu())
+        assert torch.equal(listed.n.cpu(), want_list.n), len(held)
+        for rb, n in enumerate(want_list.n.tolist()):
+            assert torch.equal(listed.slots[rb, :n].cpu(), want_list.slots[rb, :n]), rb
+        want = kt.trop_count_plain(cnt.cpu(), cb.cpu(), None, x.cpu(),
                                    None if seed is None else seed.cpu(),
                                    torch.full_like(x, -3).cpu(), root)
         for a, b, name in zip(got, want, ("out", "changed")):
@@ -1474,19 +1481,33 @@ def test_trop_count_matches_plain_on_every_launch(shape, block):
             assert torch.equal(getattr(a, f).cpu(), getattr(b, f)), f
 
 
-@pytest.mark.parametrize("lanes", [1, 5, 8, 9, 33, 64, 65])
-@pytest.mark.parametrize("block", [8, 32, 128])
+@pytest.mark.parametrize("lanes", [1, 2, 8, 9, 32, 33, 64, 65, 257])
+@pytest.mark.parametrize("block", [8, 16, 32, 64, 128])
 def test_trop_count_matches_plain_on_seeded_carries(block, lanes):
     """Carries drawn up to MP_SAT (a quarter at MP_SAT - 1, so sums clamp),
     with and without a seed plane and a root row, on the count tiles of every
-    valid slot (parallel slots count 2)."""
+    valid slot, counts multiplied by 1-3 (parallel slots count 2 already),
+    one row block emptied and a padding slot of junk counts appended (the
+    list leaves it out, the plain round ignores it); lane counts on both
+    sides of the row / lane switch (8) and of the lane form's lanes a block
+    (32, 64)."""
     from holo_tpu_torch.kernels import tropical as kt
     from holo_tpu_torch.ops import tropical as trop
 
     dev = _card()
     _, g, tt, _ = _trop_setup("ospf", block, 1, dev)
-    cnt = trop.count_tiles(g.in_src, tt, g.in_valid)
     rng = np.random.default_rng(block + lanes)
+    cnt = trop.count_tiles(g.in_src, tt, g.in_valid)
+    nb, _, b, _ = cnt.shape
+    cnt = cnt * torch.from_numpy(rng.integers(1, 4, tuple(cnt.shape)).astype(np.int32)).to(dev)
+    empty = int(rng.integers(0, nb))
+    cnt[empty] = 0
+    junk = torch.from_numpy(rng.integers(1, 4, (nb, 1, b, b)).astype(np.int32)).to(dev)
+    cnt = torch.cat([cnt, junk], 1).contiguous()
+    cb = torch.cat([tt.cb, torch.full((nb, 1), nb, dtype=torch.int32, device=dev)], 1)
+    cb = cb.contiguous()
+    listed = kt.count_list(cnt, cb)
+    assert int(listed.n[empty]) == 0 and int(cnt.max()) >= 3
     npad = tt.perm.shape[0]
 
     def carry():
@@ -1498,14 +1519,39 @@ def test_trop_count_matches_plain_on_seeded_carries(block, lanes):
     x = carry()
     for seed, root in ((None, 3), (carry(), -1), (None, -1)):
         out = torch.full_like(x, -9)
-        got = kt.trop_count_round(cnt, tt.cb, x, seed, out, root)
-        want = kt.trop_count_plain(cnt.cpu(), tt.cb.cpu(), x.cpu(),
+        got = kt.trop_count_round(cnt, cb, listed, x, seed, out, root)
+        want = kt.trop_count_plain(cnt.cpu(), cb.cpu(), None, x.cpu(),
                                    None if seed is None else seed.cpu(),
                                    torch.empty_like(x).cpu(), root)
         assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
         assert int(got[0].max()) == kt.MP_SAT
-        again = kt.trop_count_round(cnt, tt.cb, x, seed, torch.empty_like(x), root)
+        again = kt.trop_count_round(cnt, cb, listed, x, seed, torch.empty_like(x), root)
         assert torch.equal(again[0], got[0])  # no atomics in the sum: the same bits
+
+
+@pytest.mark.parametrize("lanes", [1, 8, 9, 64, 257])
+@pytest.mark.parametrize("block", [8, 16, 32, 64, 128])
+def test_trop_count_geometry_is_the_lane_shape(block, lanes):
+    """T2's launch geometry: the row form up to 8 lanes (a block a row block,
+    a warp 8 rows), above that a block a (row block, lanes a block) chunk, a
+    thread R rows of one lane; k=90's B = 8 at 64 lanes is 1,266 blocks of
+    128 threads, 4 rows a thread."""
+    from holo_tpu_torch.kernels import tropical as kt
+
+    _card()
+    nb = 1266
+    geo = kt.count_geometry(block, lanes, nb)
+    assert geo["registers"] > 0 and geo["blocks_per_sm"] >= 1
+    if lanes <= 8:
+        assert geo["form"] == "row" and geo["blocks"] == nb
+        assert geo["threads"] % (32 * block // 8) == 0 and geo["rows_a_thread"] == 8
+        return
+    assert geo["form"] == "lane" and geo["blocks"] == nb * -(-lanes // geo["lanes_a_block"])
+    assert geo["threads"] * geo["rows_a_thread"] == geo["lanes_a_block"] * block
+    assert geo["shared_bytes"] >= 4 * geo["pairs_a_pass"] * (block + geo["lanes_a_block"])
+    assert geo["tiles_a_chunk"] * block == 512
+    if block == 8 and lanes == 64:
+        assert (geo["blocks"], geo["threads"], geo["rows_a_thread"]) == (1266, 128, 4)
 
 
 def test_trop_count_refuses_bad_planes():
@@ -1515,19 +1561,28 @@ def test_trop_count_refuses_bad_planes():
     dev = _card()
     _, g, tt, _ = _trop_setup("fat_tree_k8", 8, 1, dev)
     cnt = trop.count_tiles(g.in_src, tt, g.in_valid)
+    listed = kt.count_list(cnt, tt.cb)
     x = torch.zeros((tt.perm.shape[0], 2), dtype=torch.int32, device=dev)
     before = kt.launches["trop_count"]
-    for args in ((cnt, tt.cb, x[:-1], None, x[:-1].clone()),
-                 (cnt, tt.cb, x, None, x),
-                 (cnt, tt.cb, x, x[:, :1].contiguous(), x.clone()),
-                 (cnt, tt.cb[:, :-1].contiguous(), x, None, x.clone()),
-                 (cnt[:, :, :4, :4].contiguous(), tt.cb, x, None, x.clone())):
+    for args in ((cnt, tt.cb, listed, x[:-1], None, x[:-1].clone()),
+                 (cnt, tt.cb, listed, x, None, x),
+                 (cnt, tt.cb, listed, x, x[:, :1].contiguous(), x.clone()),
+                 (cnt, tt.cb[:, :-1].contiguous(), listed, x, None, x.clone()),
+                 (cnt[:, :, :4, :4].contiguous(), tt.cb, listed, x, None, x.clone()),
+                 (cnt, tt.cb, None, x, None, x.clone()),
+                 (cnt, tt.cb, kt.CountList(listed.slots[:, :-1].contiguous(), listed.n), x, None,
+                  x.clone()),
+                 (cnt, tt.cb, kt.CountList(listed.slots, listed.n[:-1].contiguous()), x, None,
+                  x.clone())):
         with pytest.raises(ValueError, match="trop_count planes"):
             kt.trop_count_round(*args)
     with pytest.raises(ValueError, match="trop_count planes"):
-        kt.trop_count_round(cnt, tt.cb, x, None, x.clone(), x.shape[0])
+        kt.trop_count_round(cnt, tt.cb, listed, x, None, x.clone(), x.shape[0])
     with pytest.raises(ValueError, match="one CUDA device"):
-        kt.trop_count_round(cnt, tt.cb.cpu(), x, None, x.clone())
+        kt.trop_count_round(cnt, tt.cb.cpu(), listed, x, None, x.clone())
+    with pytest.raises(ValueError, match="one CUDA device"):
+        kt.trop_count_round(cnt, tt.cb, kt.CountList(*(p.cpu() for p in listed)), x, None,
+                            x.clone())
     assert kt.launches["trop_count"] == before
 
 

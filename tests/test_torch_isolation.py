@@ -15,7 +15,7 @@ import holo_tpu_torch
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "holo_tpu_torch"
 TOOLS = ("bgp_fold_pair.py", "bgp_fold_phases.py", "fused_round_pair.py",
-         "trop_relax_pair.py")
+         "trop_relax_pair.py", "trop_count_pair.py")
 
 
 def _modules():

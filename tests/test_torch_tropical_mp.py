@@ -205,7 +205,8 @@ def test_plain_round_is_one_jax_body_step(shape):
     x = trop._to_tiles(torch.from_numpy(np0)[:, None], tt)
     out = torch.full_like(x, -5)  # written whole
     root_row = int(tt.inv[case.tt.root])
-    new, changed = kt.trop_count_round(cnt, tt.cb, x, None, out, root_row)
+    new, changed = kt.trop_count_round(cnt, tt.cb, kt.count_list(cnt, tt.cb), x, None, out,
+                                       root_row)
     assert new is out
     np.testing.assert_array_equal(new[tt.inv.long(), 0].numpy(), want)
     assert bool(changed) == bool((want != np0).any()) and bool(changed)
@@ -222,15 +223,15 @@ def test_plain_round_is_one_jax_body_step(shape):
                                          0)[:, :, None]).sum(1))
     cnt = trop.count_tiles(case.tg.in_src, tt, flag & ~hop0)
     x = trop._to_tiles(torch.from_numpy(aw0), tt)
-    new, changed = kt.trop_count_round(cnt, tt.cb, x, trop._to_tiles(seed, tt),
-                                       torch.empty_like(x), -1)
+    new, changed = kt.trop_count_round(cnt, tt.cb, kt.count_list(cnt, tt.cb), x,
+                                       trop._to_tiles(seed, tt), torch.empty_like(x), -1)
     np.testing.assert_array_equal(new[tt.inv.long()].numpy(), want)
     assert bool(changed) == bool((want != aw0).any())
     # A fixpoint maps to itself with the flag clear.
     fixed = trop._count_fixpoint(tt, cnt, torch.from_numpy(aw0), seed, -1, n)
     x = trop._to_tiles(fixed, tt)
-    again, changed = kt.trop_count_round(cnt, tt.cb, x, trop._to_tiles(seed, tt),
-                                         torch.empty_like(x), -1)
+    again, changed = kt.trop_count_round(cnt, tt.cb, kt.count_list(cnt, tt.cb), x,
+                                         trop._to_tiles(seed, tt), torch.empty_like(x), -1)
     assert torch.equal(again, x) and not bool(changed)
 
 
@@ -243,11 +244,12 @@ def test_count_round_is_plain_on_the_cpu_only():
     x = torch.zeros((tt.perm.shape[0], 1), dtype=torch.int32)
     cnt = trop.count_tiles(case.tg.in_src, tt, case.tg.in_valid)
     before = dict(kt.launches)
-    kt.trop_count_round(cnt, tt.cb, x, None, torch.empty_like(x))
+    kt.trop_count_round(cnt, tt.cb, kt.count_list(cnt, tt.cb), x, None, torch.empty_like(x))
     assert kt.launches == before  # the plain version counts no launch
     meta = [t.to("meta") for t in (cnt, tt.cb, x)]
+    listed = kt.CountList(*(t.to("meta") for t in kt.count_list(cnt, tt.cb)))
     with pytest.raises(ValueError, match="one CUDA device"):
-        kt.trop_count_round(*meta, None, meta[2])
+        kt.trop_count_round(*meta[:2], listed, meta[2], None, meta[2])
 
 
 # ---------------------------------------------------------------------------
