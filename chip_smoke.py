@@ -205,6 +205,24 @@ the DeltaPath chain, and its multipath program through ``compute`` at
    count list's build time; an armed tuner's ``multipath_k=4`` bucket
    measuring both engines (phase 4: both computes' device-busy time, T2's
    and the list build's device time a launch and a dispatch);
+3m. the dispatch pipeline (``holo_tpu_torch.pipeline``): through
+   ``AsyncSpfBackend(TorchSpfBackend(), DispatchPipeline(depth=2))``, all
+   submitted before any is forced, ``compute()``, ``compute(masks[1])``,
+   ``compute(multipath_k=4)``, a tropical backend's ``compute()`` and
+   ``compute(multipath_k=4)``, an ``AsyncFrrEngine(FrrEngine("torch"))`` table
+   (root 6075) beside an SPF ticket of the same topology, then phase 3d's
+   8-step chain interleaved with 8 linked toggles of agg(6,1)-core 45 on the
+   tree rooted at edge(1, 0) (6120); each result bit-identical to the synchronous
+   ``compute()`` of its input on another backend (so to the oracle where
+   phase 3d holds it), the table to the synchronous table; G1-G4, M1-M3, T1
+   and T2 launched through the pipeline; its stats: at most one entry in
+   flight per key, no ticket failed, shed or abandoned, no respawn; both
+   chains continued by toggles, 3 a chain a turn, interleaved through the
+   pipeline against the same calls back to back, on the caller's thread and
+   on a thread of their own, in turns (wall, overlap ratio, the worker's
+   launch and finish an entry); ``launch_one`` / ``finish_one`` called directly on the full,
+   masked, multipath, tropical and delta paths, held the same way, each
+   phase timed (median of 5), beside the card's name and power limit;
 4. time each kernel (CUDA events; at one scenario also the profiler's
    device time, which leaves out the host's launch), its plain version, the
    whole batch, ``compute()`` and the gather batch's stages, and DeltaPath's
@@ -230,6 +248,7 @@ import statistics
 from collections import Counter
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -435,6 +454,14 @@ TROP_COUNT_REPLACES = ("holo_tpu/ops/tropical.py:559-572 and :608-623, the bodie
 TROP_COUNT_OPS = 2
 TROP_COUNT_CELL_OPS = 3
 TROP_MP_TUNER_CALLS = 8  # mp and mp_tropical, each explored twice after its unsampled first use
+# The dispatch pipeline (phase 3m): the second chain's root (edge(1, 0), the
+# first chain's edge(0, 0) in the next pod), the direct launch/finish calls
+# timed per path, the interleaved turns (a turn: this many toggles per chain),
+# how long a forced ticket may take.
+PIPE_ROOT2 = (K // 2) ** 2 + K * (K // 2) + K // 2
+PIPE_REPS = 5
+PIPE_TURN_STEPS = 3
+PIPE_WAIT_S = 120.0
 
 
 def cuda_call(fn):
@@ -3144,6 +3171,225 @@ def trop_mp_phase(ell, se, dev, topo, masks, m_ref, m_step_ref, n_atoms) -> dict
     return x
 
 
+def pipeline_phase(ell, dev, topo, masks, gone, mask_ref, m_one, chain, d_steps) -> dict:
+    """Phase 3m: the dispatch pipeline on the k=90 fat tree.  (a) Through
+    AsyncSpfBackend(TorchSpfBackend(), DispatchPipeline(depth=2)), all
+    submitted before any is forced: compute(), compute(masks[1]),
+    compute(multipath_k=4), phase 3d's chain (root 6075) interleaved with a
+    second chain (8 toggles on the tree rooted at edge(1, 0)), a tropical backend's
+    compute() and compute(multipath_k=4), and an AsyncFrrEngine table with an
+    SPF ticket of the same topology; each held bit for bit to the synchronous
+    compute() of the same input on another backend (and so to the oracle
+    where phase 3d holds it), the table to the synchronous one; G1-G4,
+    M1-M3, T1 and T2 launched through the pipeline; its stats: one entry in
+    flight per key, nothing failed, shed, abandoned or respawned.  (b) The
+    two chains continued by toggles, interleaved through the pipeline
+    against the same calls back to back, on the caller's thread and on a
+    thread of their own, in turns.  (c) launch_one /
+    finish_one called directly on each path, held the same way and timed."""
+    from holo_tpu_torch.frr.kernel import TABLE_PLANES
+    from holo_tpu_torch.frr.manager import FrrConfig, FrrEngine
+    from holo_tpu_torch.kernels import tropical as kt
+    from holo_tpu_torch.ops import graph
+    from holo_tpu_torch.pipeline import AsyncFrrEngine, AsyncSpfBackend, DispatchPipeline
+    from holo_tpu_torch.spf import synth
+    from holo_tpu_torch.spf.backend import TorchSpfBackend
+
+    t_phase = time.perf_counter()
+    x = {}
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+
+    def force(lazy):
+        return lazy._ticket.result(timeout=PIPE_WAIT_S)
+
+    def same_table(got, want) -> bool:
+        return all(getattr(got, f).dtype == getattr(want, f).dtype
+                   and np.array_equal(getattr(got, f), getattr(want, f)) for f in TABLE_PLANES)
+
+    # The synchronous references, each on a backend of its own.
+    topo2 = synth.clone_topology(topo)
+    topo2.root = PIPE_ROOT2
+    synth.assign_direct_atoms(topo2)
+    chain2 = list(enumerate(toggles(graph, synth, topo2, K, len(chain))))
+    sync2 = TorchSpfBackend(device=dev)
+    ref2 = [sync2.compute(topo2)] + [sync2.compute(t) for _, t in chain2]
+    require(sum(v for (_, path), v in sync2.delta_paths.items() if path == "incremental")
+            == len(chain2), "the second chain did not stay incremental")
+    sref = TorchSpfBackend(device=dev)
+    masked = sref.compute(topo, masks[1])
+    require(same_planes(masked, mask_ref), "compute(masks[1]) differs from the scalar oracle")
+    tsync = TorchSpfBackend(device=dev, one_engine="tropical")
+    trop = tsync.compute(topo)
+    trop_mp = tsync.compute(topo, multipath_k=MP_K)
+    require(same_planes(trop, gone) and same_nine(trop_mp, m_one[MP_K]),
+            "the tropical engine's compute() differs from seq's or mp's")
+    frr_cfg = FrrConfig(**FRR_CFG)
+    fsync = FrrEngine("torch", device=dev)
+    fsync.set_policy(frr_cfg)
+    table = fsync.compute(topo)
+
+    # (a) the held results, all submitted ahead, counted.
+    pipe = DispatchPipeline(depth=2)
+    inner = TorchSpfBackend(device=dev)
+    abe = AsyncSpfBackend(inner, pipe)
+    tbe = AsyncSpfBackend(TorchSpfBackend(device=dev, one_engine="tropical"), pipe)
+    afe = AsyncFrrEngine(FrrEngine("torch", device=dev), pipe)
+    afe.set_policy(frr_cfg)
+    torch.cuda.synchronize()
+    ell.reset_launches()
+    kt.reset_launches()
+    t0 = time.perf_counter()
+    # Every dispatch on topo before the chain that claims its graph.
+    held_ = [("compute()", abe.compute(topo), gone, 1),
+             ("compute(masks[1])", abe.compute(topo, masks[1]), masked, 1),
+             (f"compute(multipath_k={MP_K})", abe.compute(topo, multipath_k=MP_K), m_one[MP_K],
+              MP_K),
+             ("tropical compute()", tbe.compute(topo), trop, 1),
+             (f"tropical compute(multipath_k={MP_K})", tbe.compute(topo, multipath_k=MP_K),
+              trop_mp, MP_K),
+             ("the SPF ticket beside FRR", abe.compute(topo), gone, 1)]
+    frr_lazy = afe.compute(topo)
+    held_.append(("chain B base", abe.compute(topo2), ref2[0], 1))
+    for i, ((label, t), (_, t2)) in enumerate(zip(chain, chain2)):  # interleaved
+        held_.append((f"chain A step {i} {label}", abe.compute(t), d_steps[i][2], 1))
+        held_.append((f"chain B step {i}", abe.compute(t2), ref2[i + 1], 1))
+    submit_ms = (time.perf_counter() - t0) * 1e3
+    for label, lazy, want, kp in held_:
+        got = force(lazy)
+        require(same_nine(got, want) if kp > 1 else same_planes(got, want),
+                f"pipelined {label} differs from the synchronous compute()")
+    require(same_table(force(frr_lazy), table), "the pipelined FRR table differs")
+    torch.cuda.synchronize()
+    x["wall_ms"] = (time.perf_counter() - t0) * 1e3
+    launched = {**{k: v for k, v in ell.launches.items() if v}, **kt.launches}
+    for name in ("ell_relax", "ell_first_parent", "ell_nh_seed", "ell_nh_round", "ell_mp_round",
+                 "ell_parent_sets", "ell_parent_weights", "trop_relax", "trop_count"):
+        require(launched.get(name, 0) > 0, f"kernel {name} never launched through the pipeline")
+    st = pipe.stats()
+    require(st["max-inflight-per-key"] <= 1, f"two entries of one key in flight: {st}")
+    require(st["sheds"] == 0 and st["hangs"] == 0 and st["worker-respawns"] == 0
+            and st["worker-crashes"] == 0, f"a ticket was shed or abandoned, or a respawn: {st}")
+    require(st["completed"] == st["submitted"] == len(held_) + 1, f"tickets lost: {st}")
+    require(sum(v for (_, path), v in inner.delta_paths.items() if path == "incremental")
+            == 2 * len(chain), f"a pipelined chain step left DeltaPath: {dict(inner.delta_paths)}")
+    x["stats"] = st
+    print(f"pipeline held: {len(held_) + 1} tickets submitted in {submit_ms:.3f} ms, all forced "
+          f"in {x['wall_ms']:.3f} ms, each bit-identical to the synchronous compute() of its "
+          f"input (nine planes at multipath_k={MP_K}; the chains' steps also to the oracle "
+          f"where phase 3d holds it), the FRR table to the synchronous one; launches {launched}",
+          flush=True)
+    print(f"pipeline stats: {json.dumps(st)}", flush=True)
+
+    # (b) the two chains continued by toggles: interleaved through the
+    # pipeline against the same calls back to back on the same backend, and
+    # the same calls back to back on a thread of their own (what a second
+    # thread alone costs), in turns; every result held to a third backend
+    # following the chains.
+    follow = TorchSpfBackend(device=dev)
+    ends = [chain[-1][1], chain2[-1][1]]
+    for t in ends:
+        follow.compute(t)
+    walls = {"pipelined": [], "synchronous": [], "thread": []}
+    before = pipe.stats()
+    for arm in ("pipelined", "synchronous", "thread", "thread", "synchronous", "pipelined") * 2 + (
+            "pipelined", "synchronous", "thread"):
+        steps = [toggles(graph, synth, end, K, PIPE_TURN_STEPS) for end in ends]
+        order = [t for pair in zip(*steps) for t in pair]
+        served = inner.delta_paths[("weight", "incremental")]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if arm == "pipelined":
+            res = [force(lazy) for lazy in [abe.compute(t) for t in order]]
+        elif arm == "synchronous":
+            res = [inner.compute(t) for t in order]
+        else:
+            res = []
+            th = threading.Thread(target=lambda: res.extend(inner.compute(t) for t in order))
+            th.start()
+            th.join()
+        walls[arm].append((time.perf_counter() - t0) * 1e3)
+        require(inner.delta_paths[("weight", "incremental")] == served + len(order),
+                f"a {arm} turn left DeltaPath")
+        for t, r in zip(order, res):
+            require(same_planes(r, follow.compute(t)), f"a {arm} turn's result differs")
+        ends = [s[-1] for s in steps]
+    x["walls"] = walls
+    st = pipe.stats()
+    pipe.close()
+    n_turn = st["completed"] - before["completed"]
+    per_launch = (st["launch-seconds"] - before["launch-seconds"]) / n_turn * 1e3
+    per_finish = (st["finish-seconds"] - before["finish-seconds"]) / n_turn * 1e3
+    require(st["max-inflight-per-key"] <= 1 and st["sheds"] == 0 and st["worker-respawns"] == 0,
+            f"the turns broke the pipeline's contract: {st}")
+    x["stats_turns"] = st
+    wall_ratio = statistics.median(walls["pipelined"]) / statistics.median(walls["synchronous"])
+    print(f"time pipeline two chains interleaved: {statistics.median(walls['pipelined']):.3f} ms "
+          f"pipelined against {statistics.median(walls['synchronous']):.3f} ms back to back "
+          f"(pipelined / back to back {wall_ratio:.4f}) and "
+          f"{statistics.median(walls['thread']):.3f} ms back to back on a thread of their own "
+          f"(median of {len(walls['pipelined'])} turns each, {2 * PIPE_TURN_STEPS} delta-linked "
+          f"compute() a turn; pipelined {[round(w, 3) for w in walls['pipelined']]}, "
+          f"synchronous {[round(w, 3) for w in walls['synchronous']]}, thread "
+          f"{[round(w, 3) for w in walls['thread']]}); the worker's launch {per_launch:.3f} ms "
+          f"and finish {per_finish:.3f} ms an entry over the turns' {n_turn}; overlap "
+          f"{st['overlap-seconds']:.6f} s of {st['overlap-seconds'] + st['finish-seconds']:.6f} s "
+          f"(ratio {st['overlap-ratio']}), launch {st['launch-seconds']:.6f} s, finish "
+          f"{st['finish-seconds']:.6f} s over {st['completed']} entries; {smi}", flush=True)
+
+    # (c) launch_one / finish_one called directly on each path, timed.
+    lbe = TorchSpfBackend(device=dev)
+    ltr = TorchSpfBackend(device=dev, one_engine="tropical")
+    paths = {"full": (lbe, (topo,), {}, gone), "masked": (lbe, (topo, masks[1]), {}, masked),
+             "multipath": (lbe, (topo,), {"multipath_k": MP_K}, m_one[MP_K]),
+             "tropical": (ltr, (topo,), {}, trop)}
+    x["direct"] = {}
+    for name, (be, args, kw, want) in paths.items():
+        times = []
+        for rep_ in range(PIPE_REPS + 1):  # the first warms the path
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            h = be.launch_one(*args, **kw)
+            t1 = time.perf_counter()
+            got = be.finish_one(h)
+            t2 = time.perf_counter()
+            require(same_nine(got, want) if kw else same_planes(got, want),
+                    f"launch_one / finish_one ({name}) differs from compute()")
+            if rep_:
+                times.append(((t1 - t0) * 1e3, (t2 - t1) * 1e3))
+        x["direct"][name] = times
+    dref = TorchSpfBackend(device=dev)
+    base = ends[0]
+    lbe.finish_one(lbe.launch_one(base))
+    dref.compute(base)
+    times = []
+    for t in toggles(graph, synth, base, K, PIPE_REPS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h = lbe.launch_one(t)
+        t1 = time.perf_counter()
+        got = lbe.finish_one(h)
+        t2 = time.perf_counter()
+        require(same_planes(got, dref.compute(t)), "launch_one / finish_one (delta) differs")
+        times.append(((t1 - t0) * 1e3, (t2 - t1) * 1e3))
+    require(lbe.delta_paths[("weight", "incremental")] == PIPE_REPS + 1,
+            "a direct delta launch left DeltaPath")
+    x["direct"]["delta"] = times[1:]
+    for name, times in x["direct"].items():
+        launch_ms = statistics.median(t[0] for t in times)
+        finish_ms = statistics.median(t[1] for t in times)
+        # The most device time a pipeline could hide behind other work: the
+        # launch holds every round, so only the finish can overlap.
+        print(f"time pipeline launch_one / finish_one {name}: launch {launch_ms:.3f} ms, "
+              f"finish {finish_ms:.3f} ms, the finish's share "
+              f"{finish_ms / (launch_ms + finish_ms):.4f} (median of {len(times)}; "
+              f"launch {[round(t[0], 3) for t in times]}, finish "
+              f"{[round(t[1], 3) for t in times]}); {smi}", flush=True)
+    x["phase_s"] = time.perf_counter() - t_phase
+    print(f"pipeline phase checked in {x['phase_s']:.1f} s", flush=True)
+    return x
+
+
 def oracle_result(ref, n_atoms: int):
     """The oracle's planes under SpfResult's field names."""
     return type("Ref", (), {"dist": ref.dist, "parent": ref.parent, "hops": ref.hops,
@@ -3536,6 +3782,10 @@ def main() -> None:
 
     # -- 3l. the tropical multipath program: T2 and its paths
     lx = trop_mp_phase(ell, se, dev, topo, masks, m_ref, m_step_ref, n_atoms)
+
+    # -- 3m. the dispatch pipeline: held results, interleaved chains, launch/finish
+    pipeline_phase(ell, dev, topo, masks, gone, oracle_result(oracle[1], n_atoms), m_one, chain,
+                   d_steps)
 
     # -- 4. timing (the profiler last: once it has run, host launches are
     # slower, which the host-clock times below would count)

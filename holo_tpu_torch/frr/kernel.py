@@ -43,6 +43,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from holo_tpu_torch.device import HostCopy
 from holo_tpu_torch.frr.inputs import FrrInputs
 from holo_tpu_torch.kernels import ell
 from holo_tpu_torch.ops.graph import INF as _INF
@@ -348,9 +349,21 @@ def backup_table(out: FrrTensors, fin: FrrInputs, root: int, n: int) -> BackupTa
     """Read the device tables back in two copies (the six [L, N] planes
     stacked, then the next-hop words as uint32), the link pad and any vertex
     pad dropped."""
+    return host_tables(stage_tables(out, fin, n, queue=False), fin, root)
+
+
+def stage_tables(out: FrrTensors, fin: FrrInputs, n: int, queue: bool = True) -> HostCopy:
+    """Queue :func:`backup_table`'s two copies (pinned host memory on the
+    card) behind the program that made ``out``; :func:`host_tables` waits.
+    ``queue=False``: the wait reads them back with ``.cpu()``."""
     nl = fin.n_links
-    flat = TABLE_PLANES[:-1]
-    stacked = torch.stack([getattr(out, f)[:nl, :n] for f in flat]).cpu().numpy()
-    host = dict(zip(flat, stacked))
-    host["post_nh"] = out.post_nh[:nl, :n].cpu().numpy().view(np.uint32)
+    stacked = torch.stack([getattr(out, f)[:nl, :n] for f in TABLE_PLANES[:-1]])
+    return HostCopy({"stacked": stacked, "post_nh": out.post_nh[:nl, :n]}, queue)
+
+
+def host_tables(staged: HostCopy, fin: FrrInputs, root: int) -> BackupTable:
+    """The BackupTable of :func:`stage_tables`' copies, once they landed."""
+    h = staged.wait()
+    host = dict(zip(TABLE_PLANES[:-1], h["stacked"].numpy()))
+    host["post_nh"] = h["post_nh"].numpy().view(np.uint32)
     return BackupTable(inputs=fin, root=int(root), **host)

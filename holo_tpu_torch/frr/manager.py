@@ -18,6 +18,15 @@ remote-LFA PQ tunnel, then the TI-LFA segment repair.  The result is
 symbolic (atoms + repair vertices); the protocol layer maps atoms to
 (interface, address) next hops and repair vertices to SR labels.
 
+The device dispatch has two phases, as ``holo_tpu``'s ``_launch_tpu`` /
+``_finish_tpu``: :meth:`FrrEngine._launch_device` runs the batched program
+and queues the tables' copies to pinned host memory behind it,
+:meth:`FrrEngine._finish_device` waits on them and builds the table.  The
+synchronous path runs one after the other and queues no copy (the finish
+reads the tables back with ``.cpu()``); the dispatch pipeline
+(``holo_tpu_torch.pipeline.dispatch.AsyncFrrEngine``) runs them as two
+phases on its worker.
+
 Where ``holo_tpu`` exports metrics, the engine keeps counters:
 ``graph_cache`` (marshaled-graph lookups by result) and ``dispatches`` (by
 path: device, fallback, scalar).  ``stats``, when set to a dict, receives
@@ -34,9 +43,10 @@ import numpy as np
 
 from holo_tpu_torch.device import resolve_device
 from holo_tpu_torch.frr.inputs import marshal_frr
-from holo_tpu_torch.frr.kernel import BackupTable, backup_table, frr_batch
+from holo_tpu_torch.frr.kernel import BackupTable, frr_batch, host_tables, stage_tables
 from holo_tpu_torch.frr.scalar import frr_reference
 from holo_tpu_torch.ops.spf_engine import shared_graph_cache
+from holo_tpu_torch.resilience import faults
 from holo_tpu_torch.resilience.breaker import CircuitBreaker
 
 
@@ -225,15 +235,35 @@ class FrrEngine:
         self.graph_cache[how] += 1
         return g
 
+    def fallback_serves(self) -> bool:
+        """Does the oracle compute this engine's bits?  On the CPU with no
+        ``max_iters`` cap only; it is then the breaker's fallback."""
+        return self.device.type == "cpu" and self.max_iters is None
+
     def _compute_device(self, topo, fin) -> BackupTable:
+        # Back to back: the finish reads the tables back with .cpu().
+        return self._finish_device(self._launch_device(topo, fin, queue=False))
+
+    def _launch_device(self, topo, fin, queue: bool = True) -> tuple:
+        """Phase 1 of the device dispatch: the chaos seam, the shared graph,
+        the batched program, the tables' host copies queued behind it
+        (``queue``; else the finish reads them back).  Returns the handle
+        :meth:`_finish_device` completes."""
+        faults.crashpoint("frr.dispatch")
         g = self._prepare(topo)
         out = frr_batch(
             g, topo.root, fin.link_far, fin.link_cost, fin.link_valid, fin.edge_masks,
             fin.adj_nbr, fin.adj_cost, fin.adj_link, fin.adj_valid,
             *self._policy_args(fin), max_iters=self.max_iters, stats=self.stats,
         )
+        return stage_tables(out, fin, topo.n_vertices, queue), fin, topo
+
+    def _finish_device(self, handle: tuple) -> BackupTable:
+        """Phase 2: the chaos delay, the wait on the copies, the table."""
+        staged, fin, topo = handle
         t0 = time.perf_counter()
-        table = backup_table(out, fin, topo.root, topo.n_vertices)
+        faults.delaypoint("frr.dispatch")
+        table = host_tables(staged, fin, topo.root)
         if self.stats is not None:
             self.stats["readback_ms"] = (time.perf_counter() - t0) * 1e3
         self.dispatches["device"] += 1
@@ -260,10 +290,9 @@ class FrrEngine:
             self.stats.clear()
             self.stats["marshal_ms"] = (time.perf_counter() - t0) * 1e3
         if self.engine == "torch":
-            serves = self.device.type == "cpu" and self.max_iters is None
             return self.breaker.call(
                 lambda: self._compute_device(topo, fin),
-                (lambda: self._scalar_fallback(topo, fin)) if serves else None,
+                (lambda: self._scalar_fallback(topo, fin)) if self.fallback_serves() else None,
                 "frr.batch",
             )
         self.dispatches["scalar"] += 1

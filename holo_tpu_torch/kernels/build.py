@@ -27,6 +27,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 import torch
@@ -69,6 +70,7 @@ SIGNATURES = {
 }
 
 _LIB: ctypes.CDLL | None = None
+_LIB_LOCK = threading.Lock()
 
 
 class KernelBuildError(RuntimeError):
@@ -145,7 +147,16 @@ def build(verbose: bool = False) -> Path:
 
 def load() -> ctypes.CDLL:
     """The bound kernel library, built at first use.  Raises
-    :class:`KernelBuildError` where it cannot be built, loaded or bound."""
+    :class:`KernelBuildError` where it cannot be built, loaded or bound.
+    The first build and bind run under a lock: two threads (a dispatch
+    pipeline's worker and its caller) never build the library at once."""
+    if _LIB is not None:
+        return _LIB
+    with _LIB_LOCK:
+        return _load_locked()
+
+
+def _load_locked() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
         path = build()

@@ -43,11 +43,12 @@ The scalar decision process (``protocols.bgp_engine``) is the oracle.  A
 route the lane contract cannot represent poisons only its own prefix back
 to it.  A device failure under the ``CircuitBreaker("bgp-table")`` is
 counted; the oracle then serves the batch only on the CPU, and on the card
-the failure re-raises.
+the failure re-raises.  The chaos seams ``faults.crashpoint("bgp.dispatch")``
+and ``faults.delaypoint("bgp.dispatch")`` sit where ``holo_tpu`` has them.
 
 Left out (ROADMAP): the ``holo_bgp_table_*`` counters, profiling,
 observatory and span calls, the kernel-contract audit registrations and the
-telemetry leaf wiring (A13); fault injection points (A3).
+telemetry leaf wiring (A13).
 """
 
 from __future__ import annotations
@@ -87,6 +88,7 @@ from holo_tpu_torch.kernels.bgp import (  # noqa: F401 (the lane contract)
     R_RID,
     R_RT,
 )
+from holo_tpu_torch.resilience import faults
 from holo_tpu_torch.resilience.breaker import CircuitBreaker
 
 __all__ = [
@@ -504,6 +506,7 @@ class TorchBgpTableBackend:
         return dt
 
     def _device_batch(self, engine, afs, table, prefixes) -> dict:
+        faults.crashpoint("bgp.dispatch")
         dirty = self._dirty.setdefault(afs, set())
 
         # Column/row discovery before sizing the planes.
@@ -545,7 +548,9 @@ class TorchBgpTableBackend:
         self._shapes.add(
             ("decide", dt.cap_rows, dt.cap_cols, args[1].shape[0], args[5].shape[0])
         )
-        best_col, reasons, elig, mp_sel = (x.cpu().numpy() for x in decide(*args))
+        out = decide(*args)
+        faults.delaypoint("bgp.dispatch")
+        best_col, reasons, elig, mp_sel = (x.cpu().numpy() for x in out)
         self._dispatches += 1
         best = best_col.tolist()
         return {

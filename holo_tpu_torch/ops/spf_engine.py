@@ -60,6 +60,7 @@ bit patterns carried as int32 (torch has no uint32 min or OR reduction).
 from __future__ import annotations
 
 import copy
+import threading
 import time
 from collections import Counter
 from dataclasses import dataclass
@@ -751,9 +752,17 @@ class DeviceGraphCache:
     ``tile_deltas`` (``apply`` or ``drop-<reason>``, ``holo_tpu``'s
     ``holo_spf_tropical_delta_total``).
 
-    A graph obtained from an earlier ``get()`` changes when a delta is later
-    applied to its entry: nothing but the cache may hold one across calls.
-    A cache and its views (:meth:`view`) serve one thread at a time.
+    A cache and its views (:meth:`view`) share one lock, as ``holo_tpu``'s:
+    every lookup, marshal, delta apply, tile build, eviction and
+    partitioned-store access runs under it, so threads may look up, marshal
+    and evict at once.  The lock does not cover a graph once ``get()`` has
+    returned it: a delta applied later to its entry rewrites its planes in
+    place, while a dispatch may still read them round by round.  So nothing
+    but the cache may hold a graph across calls, and a dispatch that reads a
+    chain's graph must not run on one thread while a delta of that chain
+    runs on another: the dispatch pipeline runs every dispatch of a chain,
+    its synchronous what-if and multi-root delegates included, on its
+    worker in the chain's order.
 
     Partitioned residents (``ops.partition.PartResident``) live beside the
     graphs, keyed by their backend (key[0] the backend's namespace), up to
@@ -774,6 +783,9 @@ class DeviceGraphCache:
         self._part: dict[tuple, object] = {}
         self._evictions = 0
         self._deltas_applied = 0
+        # Shared by the views (copy.copy keeps the reference); reentrant
+        # because get_tropical may marshal through get.
+        self._lock = threading.RLock()
 
     @staticmethod
     def key(topo, n_atoms: int) -> tuple:
@@ -795,6 +807,11 @@ class DeviceGraphCache:
         """(device graph, 'hit' | 'delta' | 'miss').  ``need_edge_ids``:
         the caller gathers through ``in_edge_id`` (edge masks), so an entry
         whose edge ids went stale under a structural delta is rebuilt."""
+        with self._lock:
+            return self._get_locked(topo, n_atoms, need_edge_ids, allow_delta)
+
+    def _get_locked(self, topo, n_atoms: int, need_edge_ids: bool,
+                    allow_delta: bool) -> tuple[DeviceGraph, str]:
         key = self.key(topo, n_atoms)
         e = self._cache.pop(key, None)
         if e is not None and not (need_edge_ids and e.ids_stale):
@@ -867,15 +884,16 @@ class DeviceGraphCache:
         looked up (or marshaled) first if it is not resident."""
         from holo_tpu_torch.ops import tropical
 
-        e = self._cache.get(self.key(topo, n_atoms))
-        if e is None:
-            self.get(topo, n_atoms)
-            e = self._cache[self.key(topo, n_atoms)]
-        if e.tropical is None:
-            m = e.mirror
-            host, e.trop_meta = tropical.build_tiles_host(m.in_src, m.in_cost, m.in_valid)
-            e.tropical = tropical.tiles_on(host, self.device)
-        return e.tropical
+        with self._lock:
+            e = self._cache.get(self.key(topo, n_atoms))
+            if e is None:
+                self.get(topo, n_atoms)
+                e = self._cache[self.key(topo, n_atoms)]
+            if e.tropical is None:
+                m = e.mirror
+                host, e.trop_meta = tropical.build_tiles_host(m.in_src, m.in_cost, m.in_valid)
+                e.tropical = tropical.tiles_on(host, self.device)
+            return e.tropical
 
     def _insert(self, key: tuple, entry: _CacheEntry, applied: bool = False) -> None:
         self._cache[key] = entry
@@ -896,9 +914,10 @@ class DeviceGraphCache:
 
     def stats(self) -> dict:
         """Eviction, chain and occupancy summary (the counts this view's)."""
-        entries = list(self._cache.values())
-        depths = [e.depth for e in entries]
-        occ = [e.mirror.occupancy for e in entries]
+        with self._lock:
+            entries = list(self._cache.values())
+            depths = [e.depth for e in entries]
+            occ = [e.mirror.occupancy for e in entries]
         return {
             "entries": len(entries),
             "capacity": self.capacity,
@@ -914,46 +933,55 @@ class DeviceGraphCache:
     def get_partitioned(self, key: tuple):
         """The partitioned resident under ``key`` (made the LRU's newest), or
         None."""
-        res = self._part.pop(key, None)
-        if res is not None:
-            self._part[key] = res
-        return res
+        with self._lock:
+            res = self._part.pop(key, None)
+            if res is not None:
+                self._part[key] = res
+            return res
 
     def put_partitioned(self, key: tuple, res) -> None:
-        self._part.pop(key, None)
-        self._part[key] = res
-        while len(self._part) > self.PART_CAPACITY:
-            self._part.pop(next(iter(self._part)))
-            self._evictions += 1
+        with self._lock:
+            self._part.pop(key, None)
+            self._part[key] = res
+            while len(self._part) > self.PART_CAPACITY:
+                self._part.pop(next(iter(self._part)))
+                self._evictions += 1
 
     def partitioned_entries(self, namespace=None) -> dict:
         """key -> resident, of one backend's ``namespace`` (key[0]) or all."""
-        return {k: v for k, v in self._part.items() if namespace is None or k[0] == namespace}
+        with self._lock:
+            return {k: v for k, v in self._part.items()
+                    if namespace is None or k[0] == namespace}
 
     def __len__(self) -> int:
-        return len(self._cache)
+        with self._lock:
+            return len(self._cache)
 
     def clear(self) -> None:
-        self._cache.clear()
-        self._part.clear()
+        with self._lock:
+            self._cache.clear()
+            self._part.clear()
 
 
 _SHARED_CACHES: dict[torch.device, DeviceGraphCache] = {}
+_SHARED_LOCK = threading.Lock()
 
 
 def shared_graph_cache(device=None) -> DeviceGraphCache:
     """The process-wide marshaled-graph cache of ``device`` (the card unless
     ``device="cpu"``), one per device: engines that run on one topology
     (``TorchSpfBackend`` through a :meth:`~DeviceGraphCache.view`, FRR
-    beside it) marshal it once and keep one copy.  Like every
-    :class:`DeviceGraphCache` it serves one thread at a time
-    (``holo_tpu``'s takes a lock; the port has no threaded caller)."""
+    beside it) marshal it once and keep one copy.  The registry creates an
+    entry under a lock, and the cache takes its own, so threads may share it
+    under the rule :class:`DeviceGraphCache` states: no dispatch reads a
+    chain's graph while a delta of the chain runs on another thread."""
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
-    if dev not in _SHARED_CACHES:
-        _SHARED_CACHES[dev] = DeviceGraphCache(dev)
-    return _SHARED_CACHES[dev]
+    with _SHARED_LOCK:
+        if dev not in _SHARED_CACHES:
+            _SHARED_CACHES[dev] = DeviceGraphCache(dev)
+        return _SHARED_CACHES[dev]
 
 
 def hops_nh_recompute(g: DeviceGraph, root: int, dag, parent, hops0, nh0, limit: int):

@@ -23,8 +23,17 @@ circuit raises :class:`CircuitOpen`.
 Where ``holo_tpu`` exports its counts as metrics, the port keeps them on the
 breaker (``failures``, ``fallbacks`` and ``refusals`` by cause, in
 :meth:`snapshot`) and process-wide by breaker name (:func:`tallies`), which
-outlives the breaker.  State mutates under an owning lock; the primary and
-fallback callables run outside it.
+outlives the breaker.  The causes: ``exception`` (a guarded dispatch
+raised), ``open`` (the circuit refused it) and ``hang`` (the pipeline's
+watchdog abandoned it, :meth:`CircuitBreaker.force_failure`).  State mutates
+under an owning lock; the primary and fallback callables run outside it.
+
+The split-phase guard (:meth:`CircuitBreaker.split`, :class:`SplitGuard`)
+unbundles :meth:`CircuitBreaker.call` for the dispatch pipeline's launch and
+finish phases under the same rule: the caller says whether a fallback
+serves, and the guard counts a fallback or a refusal accordingly.
+``holo_tpu``'s deadline budget (``DeadlineOverrun``, ``configure_defaults``)
+is not carried: no caller of the port sets one.
 """
 
 from __future__ import annotations
@@ -130,7 +139,7 @@ class CircuitBreaker:
                 return True
             return False
 
-    def _on_failure(self, context: str, error: BaseException) -> None:
+    def _on_failure(self, context: str, error: BaseException, cause: str = "exception") -> None:
         opened = False
         with self._lock:
             self.consecutive_failures += 1
@@ -143,7 +152,7 @@ class CircuitBreaker:
             elif self.state == CLOSED and self.consecutive_failures >= self.failure_threshold:
                 self._transition_locked(OPEN)
                 opened = True
-        self._count("failures", "exception")
+        self._count("failures", cause)
         if opened:
             log.error("breaker %s OPEN after %d consecutive failures (%s) for %.1fs",
                       self.name, self.consecutive_failures, self.last_error,
@@ -170,6 +179,15 @@ class CircuitBreaker:
         if restored:
             log.info("breaker %s: probe dispatch succeeded, device service restored",
                      self.name)
+
+    def force_failure(self, cause: str, error: BaseException, served: bool = False) -> None:
+        """Count a failure that raised nothing through a guard: a hung
+        dispatch the watchdog abandoned (cause ``hang``) is a device failure
+        all the same.  The FSM moves as for a guarded exception; ``served``
+        (a fallback serves the dispatch) also counts the fallback."""
+        self._on_failure(cause, error, cause)
+        if served:
+            self._count("fallbacks", cause)
 
     # -- the guard
 
@@ -204,6 +222,14 @@ class CircuitBreaker:
         self._on_success()
         return result
 
+    def split(self, context: str = "", fallback: bool = False) -> "SplitGuard":
+        """:meth:`call` unbundled for a two-phase (launch, finish) dispatch:
+        the guard admits at launch, and either phase reports a failure or the
+        finish a success.  ``fallback``: whether the caller serves a refused
+        or failed dispatch from a fallback, which decides what is counted;
+        the caller runs it (``pipeline/dispatch.py``)."""
+        return SplitGuard(self, context, fallback)
+
     def snapshot(self) -> dict:
         """Health view: state, streak, parameters, counts by cause."""
         with self._lock:
@@ -217,3 +243,57 @@ class CircuitBreaker:
                 "fallbacks": dict(self.fallbacks),
                 "refusals": dict(self.refusals),
             }
+
+
+class SplitGuard:
+    """One guarded dispatch split across two phases (see
+    :meth:`CircuitBreaker.split`).
+
+    Construct (admits or refuses), then exactly one of :meth:`failure`,
+    :meth:`success` or :meth:`abort`.  ``admitted`` False means the circuit
+    is open: the refusal (no fallback) or the ``open`` fallback is already
+    counted, and the caller raises :class:`CircuitOpen` or serves the
+    fallback.
+    """
+
+    __slots__ = ("breaker", "context", "fallback", "admitted", "_settled")
+
+    def __init__(self, breaker: CircuitBreaker, context: str = "", fallback: bool = False):
+        self.breaker = breaker
+        self.context = context
+        self.fallback = fallback
+        self.admitted = breaker._admit()
+        self._settled = not self.admitted
+        if not self.admitted:
+            breaker._count("fallbacks" if fallback else "refusals", "open")
+
+    def refused(self) -> CircuitOpen:
+        """The error a refused dispatch with no fallback raises."""
+        b = self.breaker
+        return CircuitOpen(f"breaker {b.name} is open ({b.last_error}); "
+                           f"{self.context or 'the dispatch'} was not tried")
+
+    def failure(self, exc: BaseException, cause: str = "exception") -> None:
+        """A phase failed with a device error: count it, and the fallback
+        where one serves."""
+        if self._settled:
+            return
+        self._settled = True
+        self.breaker._on_failure(self.context, exc, cause)
+        if self.fallback:
+            self.breaker._count("fallbacks", cause)
+
+    def abort(self) -> None:
+        """A passthrough exception escaped with no device verdict: release
+        the half-open probe slot, count nothing."""
+        if self._settled:
+            return
+        self._settled = True
+        self.breaker._abort_probe()
+
+    def success(self) -> None:
+        """Both phases completed."""
+        if self._settled:
+            return
+        self._settled = True
+        self.breaker._on_success()

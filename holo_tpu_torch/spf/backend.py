@@ -77,19 +77,29 @@ a delta-linked mask-free ``compute`` re-solves only the affected parts
 ``"partitioned-full"``); ``part_stats``, when a dict, receives each
 partitioned dispatch's path, re-solved parts, rounds and phase times.  The
 what-if batch solves one mask at a time, as in ``holo_tpu``.
+
+Split-phase dispatch (``launch_one`` / ``finish_one``, as ``holo_tpu``'s):
+the dispatch pipeline (:mod:`holo_tpu_torch.pipeline.dispatch`) runs a
+gather ``compute`` (DeltaPath included) in two phases on its worker: the
+launch runs the same device program as ``compute`` and queues the result
+planes' copies to pinned host memory behind it; the finish waits on them,
+builds the SpfResult, feeds the tuner and keeps the DeltaPath run.  The
+chaos seams ``faults.crashpoint("spf.dispatch")`` and
+``faults.delaypoint("spf.dispatch")`` sit in both paths.
 """
 
 from __future__ import annotations
 
 import copy
 import itertools
+import threading
 import time
 from collections import Counter
 from dataclasses import dataclass
 
 import numpy as np
 
-from holo_tpu_torch.device import resolve_device
+from holo_tpu_torch.device import HostCopy, resolve_device
 from holo_tpu_torch.ops.blocked_spf import (
     failed_edges_perm,
     marshal_block_spf,
@@ -124,6 +134,7 @@ from holo_tpu_torch.ops.tropical import (
     tropical_whatif_batch,
 )
 from holo_tpu_torch.pipeline.tuner import active_tuner, shape_bucket
+from holo_tpu_torch.resilience import faults
 from holo_tpu_torch.resilience.breaker import CircuitBreaker
 from holo_tpu_torch.spf.scalar import spf_multipath_reference, spf_reference
 
@@ -187,6 +198,51 @@ def _host_mp(mp, n: int) -> dict:
         "npaths": mp.npaths.cpu().numpy()[..., :n],
         "nh_weights": mp.nh_weights.cpu().numpy()[..., :n, :],
     }
+
+
+@dataclass
+class _InFlightOne:
+    """A launched split-phase ``compute`` (``TorchSpfBackend.launch_one``;
+    ``holo_tpu``'s ``_InFlightOne``): the run's device tensors, their host
+    copies in flight, and what ``finish_one`` books."""
+
+    out: object  # SpfTensors, or (SpfTensors, MultipathTensors) at kp > 1
+    # The planes' copies to the host, queued after the run; None where the
+    # finish follows at once and reads the planes back itself.
+    host: HostCopy | None
+    topo: Topology
+    engine: str
+    bucket: tuple | None  # tuner bucket; None feeds no tuner
+    mode: str  # "full" | "delta"
+    kp: int = 1
+    delta_kind: str = ""
+    remember: bool = False  # keep the run as the next delta's seed
+    remarshal: bool = False  # a full re-marshal: the depth cap's "full" arm
+    first: bool = False  # the first dispatch of its shape: no tuner sample
+    # The launch's wall alone: tuner samples are launch_s + the finish's
+    # wall, without the time the entry sat launched in a pipeline.
+    launch_s: float = 0.0
+
+
+def _stage(out, kp: int) -> HostCopy:
+    """Queue the host copies of one run's planes (every tensor field of the
+    SpfTensors, and of the MultipathTensors at kp > 1)."""
+    parts = out if kp > 1 else (out,)
+    return HostCopy({(i, f): t for i, part in enumerate(parts)
+                     for f, t in part._asdict().items() if t is not None})
+
+
+def _staged(h: _InFlightOne):
+    """``h.out`` with each plane replaced by its host copy (after the wait),
+    the shape :meth:`TorchSpfBackend._result` reads; ``h.out`` itself where
+    no copy was queued."""
+    if h.host is None:
+        return h.out
+    host = h.host.wait()
+    parts = h.out if h.kp > 1 else (h.out,)
+    staged = tuple(part._replace(**{f: host[(i, f)] for f in part._fields if (i, f) in host})
+                   for i, part in enumerate(parts))
+    return staged if h.kp > 1 else staged[0]
 
 
 class SpfBackend:
@@ -302,7 +358,9 @@ class TorchSpfBackend(SpfBackend):
         self.delta_stats: dict | None = None
         # The previous run's device tensors per (topology class, uid,
         # generation, n_atoms, root): the seed of the next delta's run.
+        # The lock serves a pipeline worker beside the caller's thread.
         self._prev_one: dict[tuple, object] = {}
+        self._prev_lock = threading.Lock()
         self.partition_threshold = partition_threshold
         self.partition_parts = partition_parts
         self.partition_max_part = int(partition_max_part)
@@ -313,11 +371,15 @@ class TorchSpfBackend(SpfBackend):
     def _n_atoms(self, topo) -> int:
         return max(self.n_atoms, topo.n_atoms())
 
+    def fallback_serves(self) -> bool:
+        """Does the oracle compute this backend's bits?  On the CPU with no
+        ``max_iters`` cap only; it is then the breaker's fallback."""
+        return self.device.type == "cpu" and self.max_iters is None
+
     def _guarded(self, primary, oracle, context: str):
-        """``primary`` under the breaker, the oracle its fallback only where
-        it computes the same bits: on the CPU, with no ``max_iters`` cap."""
-        serves = self.device.type == "cpu" and self.max_iters is None
-        return self.breaker.call(primary, oracle if serves else None, context)
+        """``primary`` under the breaker, the oracle its fallback where
+        :meth:`fallback_serves`."""
+        return self.breaker.call(primary, oracle if self.fallback_serves() else None, context)
 
     def compute(self, topo, edge_mask=None, multipath_k: int = 1):
         kp = mp_pad(multipath_k)
@@ -430,15 +492,18 @@ class TorchSpfBackend(SpfBackend):
         return res
 
     def _device_compute(self, topo, edge_mask, kp: int) -> SpfResult:
+        faults.crashpoint("spf.dispatch")
         if self.engine == "blocked" and kp == 1:
             res = self._whatif_blocked(topo, self._full_mask(topo, edge_mask)[None, :])
             if res is not None:
                 return res[0]
-        if edge_mask is None:
-            res = self._try_incremental(topo, kp)
-            if res is not None:
-                return res
-        t0 = time.perf_counter()
+        # The split dispatch back to back, the planes read back by .cpu() at
+        # the finish (no pinned copies queued: nothing runs in between).
+        return self.finish_one(self._launch(topo, edge_mask, kp, stage=False))
+
+    def _one_program(self, topo, edge_mask, kp: int) -> tuple:
+        """The device program of a full (not DeltaPath) ``compute``:
+        (device tensors, engine, tuner bucket, graph lookup, first use)."""
         engine, bucket = self._pick_engine("one", topo, kp=kp)
         # A scenario mask gathers through in_edge_id: an entry whose ids went
         # stale under a structural delta is rebuilt for it.
@@ -458,16 +523,7 @@ class TorchSpfBackend(SpfBackend):
         else:
             one = spf_one if engine == "seq" else _ONE_ENGINES[engine]
             out = one(g, topo.root, edge_mask, self.max_iters)
-        if edge_mask is None and self.incremental:
-            self._remember(topo, out, kp)
-        res = self._result(out, topo.n_vertices, kp)
-        seconds = time.perf_counter() - t0
-        if not first:
-            self._tuner_observe("one", bucket, engine, seconds)
-        if how == "miss" and edge_mask is None:
-            # A full re-marshal paid: the depth cap's "full" arm.
-            self._tuner_depth_observe(topo, "full", seconds, kp)
-        return res
+        return out, engine, bucket, how, first
 
     def _pick_engine(self, kind: str, topo, batch: int = 1, kp: int = 1):
         """(engine, shape bucket or None): the armed tuner's pick for this
@@ -547,18 +603,22 @@ class TorchSpfBackend(SpfBackend):
         bits).  ``kp`` is in the key: a kp=1 chain keeps SpfTensors, a
         multipath chain the (SpfTensors, MultipathTensors) pair."""
         key = self._prev_key(topo, topo.cache_key, kp)
-        if key in self._prev_one:
-            return
-        self._prev_one[key] = out
-        while len(self._prev_one) > self.prev_capacity:
-            self._prev_one.pop(next(iter(self._prev_one)))
+        with self._prev_lock:
+            if key in self._prev_one:
+                return
+            self._prev_one[key] = out
+            while len(self._prev_one) > self.prev_capacity:
+                self._prev_one.pop(next(iter(self._prev_one)))
 
-    def _try_incremental(self, topo, kp: int) -> SpfResult | None:
-        """The DeltaPath dispatch (``holo_tpu``'s ``_try_incremental``): the
-        resident graph absorbs the delta in place and the incremental SPF
-        runs seeded from the kept run of the delta's base.  None sends the
-        dispatch to the full path: no lineage, no kept run (``full-no-prev``)
-        or a cache that rebuilt the graph (its reason already counted)."""
+    def _incremental_program(self, topo, kp: int) -> tuple | None:
+        """The device program of a DeltaPath dispatch (``holo_tpu``'s
+        ``_try_incremental``): the resident graph absorbs the delta in place
+        and the incremental SPF runs seeded from the kept run of the delta's
+        base.  (device tensors, delta kind), or None for the full path: no
+        lineage, no kept run (``full-no-prev``) or a cache that rebuilt the
+        graph (its reason already counted).  The kept run of the base leaves
+        ``_prev_one`` before the program runs; the finish keeps the new
+        one."""
         delta = getattr(topo, "delta_base", None)
         if delta is None or not self.incremental:
             return None
@@ -567,11 +627,14 @@ class TorchSpfBackend(SpfBackend):
         if prev_key not in self._prev_one:
             self.delta_paths[(kind, "full-no-prev")] += 1
             return None
-        t0 = time.perf_counter()
         g, how = self._gather_cache.get(topo, self._n_atoms(topo))
         if how == "miss":
             return None
-        prev = self._prev_one.pop(prev_key)
+        with self._prev_lock:
+            prev = self._prev_one.pop(prev_key, None)
+        if prev is None:  # taken by another thread since the test above
+            self.delta_paths[(kind, "full-no-prev")] += 1
+            return None
         seeds = delta_seed_rows(delta)
         trop = self._trop_incremental(topo, kp)
         tt = self._gather_cache.get_tropical(topo, self._n_atoms(topo)) if trop else None
@@ -590,12 +653,74 @@ class TorchSpfBackend(SpfBackend):
         else:
             out = spf_one_incremental(g, topo.root, prev, seeds, self.max_iters,
                                       self.delta_stats)
-        self.delta_paths[(kind, "incremental")] += 1
-        self._remember(topo, out, kp)
-        res = self._result(out, topo.n_vertices, kp)
-        # The depth cap's "delta" arm: the in-place update and the seeded
-        # recompute at this shape.
-        self._tuner_depth_observe(topo, "delta", time.perf_counter() - t0, kp)
+        return out, kind
+
+    # -- split-phase dispatch (the pipeline's seam)
+    #
+    # launch_one() runs everything up to the device program's last round
+    # and queues the result planes' copies to pinned host memory behind it;
+    # finish_one() waits on those copies, builds the SpfResult and books the
+    # dispatch.  The port's fixpoints read a changed flag on the host every
+    # round, so a launch returns only once the last round has run: what a
+    # pipeline overlaps is the tail (the copies, the result's numpy planes,
+    # the caller's own work).  compute() is the same two phases back to back
+    # (_device_compute), so the results are the same bits and a dispatch is
+    # booked in one place.
+
+    def launch_one(self, topo, edge_mask=None, multipath_k: int = 1) -> _InFlightOne:
+        """Phase 1 of a split ``compute``: the chaos seam, the engine pick,
+        the graph lookup or the DeltaPath in-place update, the whole device
+        program, the host copies queued.  The blocked engine at kp = 1 and
+        the partitioned path have no split (a pipeline runs them whole)."""
+        faults.crashpoint("spf.dispatch")
+        kp = mp_pad(multipath_k)
+        if (self.engine == "blocked" and kp == 1) or self._use_partitioned(topo):
+            raise ValueError("the blocked engine at multipath_k 1 and the partitioned path "
+                             "have no split-phase dispatch")
+        return self._launch(topo, edge_mask, kp, stage=True)
+
+    def _launch(self, topo, edge_mask, kp: int, stage: bool) -> _InFlightOne:
+        """The DeltaPath program where a mask-free dispatch links to a kept
+        run, else the full one.  ``stage`` queues the planes' host copies
+        for a finish that runs later.  The previous run leaves
+        ``_prev_one`` in the DeltaPath program; a pipeline's per-key
+        handoff keeps the next delta of the chain from launching before
+        :meth:`finish_one` has put the new run back."""
+        if edge_mask is None:
+            t0 = time.perf_counter()
+            run = self._incremental_program(topo, kp)
+            if run is not None:
+                out, kind = run
+                return _InFlightOne(
+                    out=out, host=_stage(out, kp) if stage else None, topo=topo, engine="incr",
+                    bucket=None, mode="delta", kp=kp, delta_kind=kind, remember=True,
+                    launch_s=time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        out, engine, bucket, how, first = self._one_program(topo, edge_mask, kp)
+        return _InFlightOne(
+            out=out, host=_stage(out, kp) if stage else None, topo=topo, engine=engine,
+            bucket=bucket, mode="full", kp=kp, remember=edge_mask is None and self.incremental,
+            remarshal=how == "miss" and edge_mask is None, first=first,
+            launch_s=time.perf_counter() - t0)
+
+    def finish_one(self, h: _InFlightOne) -> SpfResult:
+        """Phase 2: the chaos delay, the wait on the host copies, the
+        SpfResult, the tuner samples (the launch's wall and the finish's,
+        not the time between) and the kept run."""
+        t_fs = time.perf_counter()
+        faults.delaypoint("spf.dispatch")
+        res = self._result(_staged(h), h.topo.n_vertices, h.kp)
+        unparked = h.launch_s + (time.perf_counter() - t_fs)
+        if h.mode == "delta":
+            self.delta_paths[(h.delta_kind, "incremental")] += 1
+            self._tuner_depth_observe(h.topo, "delta", unparked, h.kp)
+        else:
+            if not h.first:
+                self._tuner_observe("one", h.bucket, h.engine, unparked)
+            if h.remarshal:
+                self._tuner_depth_observe(h.topo, "full", unparked, h.kp)
+        if h.remember and self.incremental:
+            self._remember(h.topo, h.out, h.kp)
         return res
 
     def _device_whatif(self, topo, edge_masks, kp: int) -> list:

@@ -1627,3 +1627,103 @@ def test_tropical_multipath_backend_on_the_card_matches_the_cpu_path():
     assert card.delta_paths[("weight", "incremental")] == 5
     assert card._gather_cache.tile_deltas == {"apply": 5} == cpu._gather_cache.tile_deltas
     assert not any(card.breaker.snapshot()[k] for k in ("failures", "fallbacks", "refusals"))
+
+
+# -- the dispatch pipeline and the split-phase dispatch on the card
+
+
+def _same_nine(a, b, label):
+    _same_result(a, b, label)
+    for f in _MP_FIELDS:
+        x, y = getattr(a, f), getattr(b, f)
+        assert (x is None) == (y is None), (label, f)
+        if x is not None:
+            np.testing.assert_array_equal(x, y, err_msg=f"{label} {f}")
+
+
+@pytest.mark.parametrize("engine", ["seq", "fused", "tropical"])
+def test_pipeline_launch_one_on_the_card_matches_the_cpu_path(engine):
+    """launch_one / finish_one and the pipeline on the card equal the CPU
+    path: full, masked, multipath, and a delta chain submitted ahead; the
+    FRR table through AsyncFrrEngine too."""
+    from holo_tpu_torch.frr.manager import FrrEngine
+    from holo_tpu_torch.pipeline import AsyncFrrEngine, AsyncSpfBackend, DispatchPipeline
+
+    dev = _card()
+    topo = synth.random_ospf_topology(n_routers=120, n_networks=20, extra_p2p=200, seed=3)
+    mask = synth.whatif_link_failure_masks(topo, 1, seed=4)[0]
+    card = TorchSpfBackend(one_engine=engine, device=dev)
+    cpu = TorchSpfBackend(one_engine=engine, device="cpu")
+    for args, kw in (((), {}), ((mask,), {}), ((), {"multipath_k": 4})):
+        h = card.launch_one(topo, *args, **kw)
+        _same_nine(card.finish_one(h), cpu.compute(topo, *args, **kw), f"{engine} {kw} direct")
+    chain, cur = [], topo
+    for i in range(4):
+        e = (i * 53) % cur.n_edges
+        nxt = synth.clone_topology(cur, cost={e: int(cur.edge_cost[e]) + 3 + i})
+        nxt.link_delta(graph.diff_topologies(cur, nxt))
+        chain.append(nxt)
+        cur = nxt
+    pipe = DispatchPipeline(depth=2)
+    try:
+        inner = TorchSpfBackend(one_engine=engine, device=dev)
+        abe = AsyncSpfBackend(inner, pipe)
+        afe = AsyncFrrEngine(FrrEngine("torch", device=dev), pipe)
+        lazies = [abe.compute(t) for t in (topo, *chain)]
+        lazies.append(abe.compute(topo, multipath_k=4))
+        table = afe.compute(topo)
+        ref = TorchSpfBackend(one_engine=engine, device="cpu")
+        for i, (t, lazy) in enumerate(zip((topo, *chain), lazies)):
+            _same_result(lazy._ticket.result(timeout=120), ref.compute(t), f"{engine} step {i}")
+        _same_nine(lazies[-1]._ticket.result(timeout=120), cpu.compute(topo, multipath_k=4),
+                   f"{engine} pipelined multipath")
+        want = FrrEngine("torch", device="cpu").compute(topo)
+        got = table._ticket.result(timeout=120)
+        from holo_tpu_torch.frr.kernel import TABLE_PLANES
+        for f in TABLE_PLANES:
+            np.testing.assert_array_equal(getattr(got, f), getattr(want, f), err_msg=f)
+        st = pipe.stats()
+    finally:
+        pipe.close()
+    assert st["max-inflight-per-key"] <= 1 and st["completed"] == len(lazies) + 1
+    assert inner.delta_paths[("weight", "incremental")] == len(chain)
+    assert not any(inner.breaker.snapshot()[k] for k in ("failures", "fallbacks", "refusals"))
+
+
+@pytest.mark.parametrize("phase", ["launch", "finish"])
+def test_pipeline_crash_on_the_card_reraises_and_never_serves_the_oracle(phase):
+    """The card rule: a pipelined dispatch that fails on the card, at launch
+    (the spf.dispatch crashpoint) or at finish, re-raises when its result is
+    read, counted by the breaker, with no fallback; the open circuit then
+    refuses."""
+    from holo_tpu_torch.pipeline import AsyncSpfBackend, DispatchPipeline
+    from holo_tpu_torch.resilience.breaker import CircuitBreaker, CircuitOpen
+    from holo_tpu_torch.resilience.faults import FaultInjector, FaultPlan, InjectedFault, inject
+
+    dev = _card()
+    topo = synth.random_ospf_topology(n_routers=60, n_networks=10, extra_p2p=80, seed=5)
+    br = CircuitBreaker(f"card-pipeline-{phase}", failure_threshold=1, recovery_timeout=1e9)
+    inner = TorchSpfBackend(device=dev, breaker=br)
+    assert not inner.fallback_serves()
+    pipe = DispatchPipeline(depth=2)
+    try:
+        abe = AsyncSpfBackend(inner, pipe)
+        if phase == "finish":
+            def boom(h):
+                raise RuntimeError("device lost in the finish")
+            inner.finish_one = boom
+            res, err = abe.compute(topo), RuntimeError
+        else:
+            with inject(FaultInjector(FaultPlan(dispatch_fail={"spf.dispatch": 1}))):
+                res = abe.compute(topo)
+                pipe.drain(timeout=120)
+            err = InjectedFault
+        with pytest.raises(err):
+            _ = res.dist
+        with pytest.raises(CircuitOpen):
+            abe.compute(topo)
+    finally:
+        pipe.close()
+    snap = br.snapshot()
+    assert snap["failures"] == {"exception": 1} and snap["refusals"] == {"open": 1}
+    assert not snap["fallbacks"]

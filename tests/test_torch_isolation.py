@@ -44,7 +44,9 @@ def test_every_module_is_found():
                  "holo_tpu_torch.frr.manager", "holo_tpu_torch.graft_entry",
                  "holo_tpu_torch.ops.partition", "holo_tpu_torch.ops.cspf",
                  "holo_tpu_torch.ops.bgp_table", "holo_tpu_torch.kernels.bgp",
-                 "holo_tpu_torch.protocols.bgp_engine", "holo_tpu_torch.pipeline.tuner"):
+                 "holo_tpu_torch.protocols.bgp_engine", "holo_tpu_torch.pipeline.tuner",
+                 "holo_tpu_torch.pipeline.dispatch", "holo_tpu_torch.resilience.overload",
+                 "holo_tpu_torch.resilience.faults", "holo_tpu_torch.resilience.watchdog"):
         assert want in mods
 
 
