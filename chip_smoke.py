@@ -3390,6 +3390,202 @@ def pipeline_phase(ell, dev, topo, masks, gone, mask_ref, m_one, chain, d_steps)
     return x
 
 
+# The dispatch mesh (phase 3n): the engines of the 1-device mesh's what-if
+# checks, the alternating turns of each timed what-if (mesh against none),
+# the virtual meshes over the card.
+MESH_ENGINES = ("seq", "fused", "packed", "hybrid", "tropical")
+MESH_TURNS = 5
+MESH_VIRTUAL = ((2, 2), (4, 1))
+
+
+def launch_counts() -> dict:
+    """Every kernel's launch count: the gather, multipath, fused, tropical
+    and blocked wrappers' counters."""
+    from holo_tpu_torch.kernels import blocked, ell
+    from holo_tpu_torch.kernels import tropical as kt
+
+    return {**ell.launches, **kt.launches, **blocked.launches}
+
+
+def same_result(got, want) -> bool:
+    """Two results of one call equal on every plane they carry (SpfResult,
+    MultiRootResult, BackupTable or lists of them)."""
+    if isinstance(got, list):
+        return len(got) == len(want) and all(same_result(a, b) for a, b in zip(got, want))
+    fields = [f for f in vars(want) if f != "inputs"]
+    return all((getattr(got, f) is None and getattr(want, f) is None)
+               or np.array_equal(getattr(got, f), getattr(want, f)) for f in fields)
+
+
+def mesh_phase(dev, topo, masks, gres, gmr, mr_roots, oracle, mr_ref, n_atoms) -> dict:
+    """Phase 3n: (a) under a 1-device mesh on the card, compute, a masked
+    compute, compute_whatif on every engine and at multipath_k=4,
+    compute_multiroot (seq and tropical), FrrEngine("torch").compute and a
+    partitioned compute (the 10k hinted LSDB): each bit-identical to the same
+    call with no mesh, its shard counter moved by one, every kernel launched
+    the same number of times; (b) the paired overhead of the 1-device mesh on
+    the 1024-lane what-if, in alternating turns; (c) virtual (2, 2) and (4, 1)
+    meshes over the card: the what-if and multiroot equal to no mesh and to
+    the oracle's scenarios and roots, the FRR table to the no-mesh table, each
+    what-if timed beside no mesh; (d) the dry run over 4 entries of the
+    card."""
+    from holo_tpu_torch import graft_entry
+    from holo_tpu_torch.frr.manager import FrrEngine
+    from holo_tpu_torch.parallel import mesh as pm
+    from holo_tpu_torch.spf import synth
+    from holo_tpu_torch.spf.backend import TorchSpfBackend
+
+    t_phase = time.perf_counter()
+    x = {}
+    n = topo.n_vertices
+    t10 = synth.multiarea_topology(**PART_10K)
+    require(pm.make_spf_mesh(devices=pm.virtual_devices(1, dev)).size == 1, "1-device mesh")
+    # label -> (shard kind, a fresh backend or engine, its call)
+
+    def spf(**kw):
+        return lambda: TorchSpfBackend(device=dev, **kw)
+
+    calls = {
+        "compute": ("one", spf(), lambda be: be.compute(topo)),
+        "masked compute": ("one", spf(), lambda be: be.compute(topo, masks[1])),
+        **{f"whatif {e}": ("whatif", spf(one_engine=e),
+                           lambda be: be.compute_whatif(topo, masks)) for e in MESH_ENGINES},
+        "whatif multipath_k=4": ("whatif", spf(),
+                                 lambda be: be.compute_whatif(topo, masks, multipath_k=MP_K)),
+        "multiroot seq": ("multiroot", spf(), lambda be: be.compute_multiroot(topo, mr_roots)),
+        "multiroot tropical": ("multiroot", spf(one_engine="tropical"),
+                               lambda be: be.compute_multiroot(topo, mr_roots)),
+        "frr": ("frr", lambda: FrrEngine("torch", device=dev), lambda eng: eng.compute(topo)),
+        "partitioned 10k": ("partitioned", spf(partition_threshold=1),
+                            lambda be: be.compute(t10)),
+    }
+
+    def counted(make, run):
+        """(result, launches, shard dispatches) of one call on a fresh object."""
+        obj = make()
+        before = launch_counts()
+        res = run(obj)
+        torch.cuda.synchronize()
+        after = launch_counts()
+        return (res, {k: after[k] - before[k] for k in after if after[k] != before[k]},
+                Counter(obj.shard_dispatches))
+
+    # (a) the 1-device mesh against no mesh, call by call
+    x["a"] = {}
+    for label, (kind, make, run) in calls.items():
+        plain, plain_launches, plain_shards = counted(make, run)
+        pm.configure_process_mesh(1, 1, pm.virtual_devices(1, dev))
+        try:
+            got, launches, shards = counted(make, run)
+        finally:
+            pm.reset_process_mesh()
+        require(not plain_shards and shards == Counter({kind: 1}),
+                f"1-device mesh {label}: shard dispatches {dict(shards)} (no mesh: "
+                f"{dict(plain_shards)})")
+        require(same_result(got, plain), f"1-device mesh {label} differs from no mesh")
+        require(launches == plain_launches and launches,
+                f"1-device mesh {label}: launches {launches} against {plain_launches}")
+        x["a"][label] = launches
+        print(f"mesh (1, 1) {label}: bit-identical to no mesh, shard dispatches "
+              f"{dict(shards)}, launches {launches} equal to no mesh's", flush=True)
+        del plain, got
+    # (b) the paired overhead on the 1024-lane what-if, alternating turns
+    plain_be, mesh_be = TorchSpfBackend(device=dev), TorchSpfBackend(device=dev)
+    plain_be.compute_whatif(topo, masks)
+    pm.configure_process_mesh(1, 1, pm.virtual_devices(1, dev))
+    try:
+        mesh_be.compute_whatif(topo, masks)
+    finally:
+        pm.reset_process_mesh()
+    turns = []
+    for _ in range(MESH_TURNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain_be.compute_whatif(topo, masks)
+        t1 = time.perf_counter()
+        pm.configure_process_mesh(1, 1, pm.virtual_devices(1, dev))
+        try:
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            mesh_be.compute_whatif(topo, masks)
+            t3 = time.perf_counter()
+        finally:
+            pm.reset_process_mesh()
+        turns.append(((t1 - t0) * 1e3, (t3 - t2) * 1e3))
+    p_ms = statistics.median(t[0] for t in turns)
+    m_ms = statistics.median(t[1] for t in turns)
+    x["b"] = {"plain_ms": p_ms, "mesh_ms": m_ms, "turns": turns,
+              "overhead": (m_ms - p_ms) / p_ms}
+    print(f"time mesh (1, 1) overhead on the {BATCH}-lane what-if: {m_ms:.3f} ms against "
+          f"{p_ms:.3f} ms with no mesh, median of {MESH_TURNS} alternating turns "
+          f"({x['b']['overhead'] * 100:+.2f}%; turns "
+          f"{[(round(a, 3), round(b, 3)) for a, b in turns]})", flush=True)
+    del plain_be, mesh_be
+    # (c) virtual meshes over the card, each what-if timed in turns with no mesh
+    frr_plain = FrrEngine("torch", device=dev).compute(topo)
+    plain_be = TorchSpfBackend(device=dev)
+    x["c"] = {}
+    for shape in MESH_VIRTUAL:
+        devices = pm.virtual_devices(shape[0] * shape[1], dev)
+        pm.configure_process_mesh(*shape, devices)
+        try:
+            be = TorchSpfBackend(device=dev)
+            res = be.compute_whatif(topo, masks)
+            mr = be.compute_multiroot(topo, mr_roots)
+            eng = FrrEngine("torch", device=dev)
+            table = eng.compute(topo)
+            rows = be.prepare(topo).in_src.shape[0]
+        finally:
+            pm.reset_process_mesh()
+        turns = []
+        for _ in range(MESH_TURNS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            plain_be.compute_whatif(topo, masks)
+            t1 = time.perf_counter()
+            pm.configure_process_mesh(*shape, devices)
+            try:
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                be.compute_whatif(topo, masks)
+                t3 = time.perf_counter()
+            finally:
+                pm.reset_process_mesh()
+            turns.append(((t1 - t0) * 1e3, (t3 - t2) * 1e3))
+        plain_ms = statistics.median(t[0] for t in turns)
+        mesh_ms = statistics.median(t[1] for t in turns)
+        require(be.shard_dispatches == Counter({"whatif": MESH_TURNS + 1, "multiroot": 1})
+                and eng.shard_dispatches == Counter({"frr": 1}), f"mesh {shape} shard counts")
+        require(same_result(res, gres), f"mesh {shape} what-if differs from no mesh")
+        require(same_result(mr, gmr), f"mesh {shape} multiroot differs from no mesh")
+        require(same_result(table, frr_plain), f"mesh {shape} FRR table differs from no mesh")
+        for b in range(ORACLE_SCENARIOS):
+            ref = oracle[b]
+            require(all(np.array_equal(getattr(res[b], f), getattr(ref, f))
+                        for f in ("dist", "parent", "hops"))
+                    and np.array_equal(res[b].nexthop_words, ref.nexthop_words(n_atoms)),
+                    f"mesh {shape} scenario {b} differs from the oracle")
+        for f in ("dist", "parent", "hops"):
+            require(np.array_equal(getattr(mr, f)[:ORACLE_ROOTS], getattr(mr_ref, f)),
+                    f"mesh {shape} multiroot {f} differs from the oracle")
+        x["c"][shape] = {"mesh_ms": mesh_ms, "plain_ms": plain_ms, "rows": rows, "turns": turns}
+        rounded = [(round(a, 3), round(b, 3)) for a, b in turns]
+        print(f"time mesh {shape} over {len(devices)} entries of {devices[0]}: what-if "
+              f"{mesh_ms:.3f} ms against {plain_ms:.3f} ms with no mesh (median of "
+              f"{MESH_TURNS} alternating turns {rounded}; resident rows {rows} of {n}); "
+              f"what-if, multiroot and FRR table "
+              f"bit-identical to no mesh, scenarios 0-{ORACLE_SCENARIOS - 1} and roots "
+              f"0-{ORACLE_ROOTS - 1} to the oracle", flush=True)
+        del res, mr, table
+    del plain_be
+    # (d) the dry run over 4 entries of the card
+    x["dryrun"] = graft_entry.dryrun_multichip(4)
+    require(pm.process_mesh() is None, "the dry run left its mesh installed")
+    x["seconds"] = time.perf_counter() - t_phase
+    print(f"mesh phase checked in {x['seconds']:.1f} s", flush=True)
+    return x
+
+
 def oracle_result(ref, n_atoms: int):
     """The oracle's planes under SpfResult's field names."""
     return type("Ref", (), {"dist": ref.dist, "parent": ref.parent, "hops": ref.hops,
@@ -3786,6 +3982,10 @@ def main() -> None:
     # -- 3m. the dispatch pipeline: held results, interleaved chains, launch/finish
     pipeline_phase(ell, dev, topo, masks, gone, oracle_result(oracle[1], n_atoms), m_one, chain,
                    d_steps)
+
+    # -- 3n. the dispatch mesh: the 1-device mesh against no mesh, its
+    # overhead, virtual meshes over the card, the dry run
+    mesh_phase(dev, topo, masks, gres, gmr, mr_roots, oracle, mr_ref, n_atoms)
 
     # -- 4. timing (the profiler last: once it has run, host launches are
     # slower, which the host-clock times below would count)

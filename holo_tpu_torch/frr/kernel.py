@@ -105,6 +105,7 @@ def frr_select(
     require_np: bool = False,
     max_iters: int | None = None,
     stats: dict | None = None,
+    link_offset: int = 0,
 ) -> FrrTensors:
     """The selection stages of :func:`frr_batch` over ``D`` (int32 [N, N],
     ``D[v, r]`` = distance from r to v) and ``post`` (the per-link
@@ -113,7 +114,9 @@ def frr_select(
     bitmasks): a candidate sharing any risk group with the protected link is
     excluded (all-zero planes exclude nothing).  ``require_np`` makes node
     protection a hard LFA policy.  ``stats``, when given, receives each
-    stage's host milliseconds (ended by a device sync) and TI-LFA's rounds."""
+    stage's host milliseconds (ended by a device sync) and TI-LFA's rounds.
+    ``link_offset``: the id of the first of these links (a mesh's batch
+    shard holds a run of them), which a candidate's ``adj_link`` names."""
     dev = D.device
     n = D.shape[0]
     root = int(root)
@@ -141,7 +144,7 @@ def frr_select(
     usable = (
         adj_valid[None, :]
         & link_valid[:, None]
-        & (adj_link[None, :] != torch.arange(nlinks, device=dev)[:, None])
+        & (adj_link[None, :] != link_offset + torch.arange(nlinks, device=dev)[:, None])
     )  # [L, A]
     if link_srlg is not None and adj_srlg is not None:
         usable &= (_plane(link_srlg, dev)[:, None] & _plane(adj_srlg, dev)[None, :]) == 0

@@ -27,10 +27,23 @@ reads the tables back with ``.cpu()``); the dispatch pipeline
 (``holo_tpu_torch.pipeline.dispatch.AsyncFrrEngine``) runs them as two
 phases on its worker.
 
+Under a dispatch mesh (:mod:`holo_tpu_torch.parallel.mesh`) the device
+dispatch splits its protected links over the mesh's batch axis, padded as
+``holo_tpu``'s ``_shard_args`` pads them (a pad link is invalid, costs 1 and
+fails nothing); each shard runs the post-convergence batch and the selection
+on its device's resident graph, whose all-roots matrix ``D`` is computed once
+per physical device and shared by the shards on it; the tables are read back
+and joined in link order, then cut to the real links (``[:nl]``) and
+vertices (``[:n]``: the node axis pads the resident's rows).  A size-1 mesh
+runs the plain ``frr_batch``.  ``faults.crashpoint("frr.shard")`` is the
+shard chaos seam.
+
 Where ``holo_tpu`` exports metrics, the engine keeps counters:
-``graph_cache`` (marshaled-graph lookups by result) and ``dispatches`` (by
-path: device, fallback, scalar).  ``stats``, when set to a dict, receives
-each device dispatch's stage times.
+``graph_cache`` (marshaled-graph lookups by result), ``dispatches`` (by
+path: device, fallback, scalar) and ``shard_dispatches`` (``frr``: the
+dispatches the mesh served, ``holo_spf_shard_dispatch_total{kind=frr}``).
+``stats``, when set to a dict, receives each device dispatch's stage times
+(a mesh's dispatch: its shard count only).
 """
 
 from __future__ import annotations
@@ -43,9 +56,17 @@ import numpy as np
 
 from holo_tpu_torch.device import resolve_device
 from holo_tpu_torch.frr.inputs import marshal_frr
-from holo_tpu_torch.frr.kernel import BackupTable, frr_batch, host_tables, stage_tables
+from holo_tpu_torch.frr.kernel import (
+    BackupTable,
+    all_roots,
+    frr_batch,
+    frr_select,
+    host_tables,
+    stage_tables,
+)
 from holo_tpu_torch.frr.scalar import frr_reference
-from holo_tpu_torch.ops.spf_engine import shared_graph_cache
+from holo_tpu_torch.ops.spf_engine import shared_graph_cache, spf_whatif_batch
+from holo_tpu_torch.parallel import mesh as pm
 from holo_tpu_torch.resilience import faults
 from holo_tpu_torch.resilience.breaker import CircuitBreaker
 
@@ -204,6 +225,7 @@ class FrrEngine:
         self.policy = FrrConfig()
         self.graph_cache: Counter = Counter()  # shared-cache lookups: hit | delta | miss
         self.dispatches: Counter = Counter()  # device | fallback | scalar
+        self.shard_dispatches: Counter = Counter()  # frr: dispatches the mesh served
         # Set to a dict to receive each device dispatch's stage times.
         self.stats: dict | None = None
 
@@ -226,19 +248,69 @@ class FrrEngine:
         """The FRR planes of ``topo`` (the front half of :meth:`compute`)."""
         return marshal_frr(topo)
 
-    def _prepare(self, topo):
-        """The device graph from the per-device shared cache.  The scenario
-        masks gather through ``in_edge_id``, so an entry whose edge ids went
-        stale under a structural delta is rebuilt (``need_edge_ids``)."""
-        g, how = shared_graph_cache(self.device).get(
-            topo, max(self.n_atoms, topo.n_atoms()), need_edge_ids=True)
+    def _prepare(self, topo, device=None, mesh=None):
+        """The device graph from the per-device shared cache (``device``'s,
+        laid out for ``mesh``; by default this engine's, no mesh).  The
+        scenario masks gather through ``in_edge_id``, so an entry whose edge
+        ids went stale under a structural delta is rebuilt
+        (``need_edge_ids``)."""
+        g, how = shared_graph_cache(self.device if device is None else device).get(
+            topo, max(self.n_atoms, topo.n_atoms()), need_edge_ids=True, mesh=mesh)
         self.graph_cache[how] += 1
         return g
 
     def fallback_serves(self) -> bool:
         """Does the oracle compute this engine's bits?  On the CPU with no
-        ``max_iters`` cap only; it is then the breaker's fallback."""
-        return self.device.type == "cpu" and self.max_iters is None
+        ``max_iters`` cap only (under a mesh, every device of it on the
+        CPU); it is then the breaker's fallback."""
+        mesh = pm.process_mesh()
+        on_cpu = self.device.type == "cpu" and (
+            mesh is None or all(d.type == "cpu" for d in mesh.devices.flat))
+        return on_cpu and self.max_iters is None
+
+    def _shard_args(self, mesh, fin) -> list:
+        """The per-link planes (link_far, link_cost, link_valid, edge_masks,
+        link_srlg) of each batch shard, padded to the batch axis as
+        ``holo_tpu``'s ``_shard_args``: a pad link is far 0, cost 1, invalid,
+        with an all-True scenario mask and no SRLG bit."""
+        lsr = self._policy_args(fin)[0]
+        planes = [pm.shard_rows(mesh, np.asarray(x), fill) for x, fill in (
+            (fin.link_far, 0), (fin.link_cost, 1), (fin.link_valid, False),
+            (fin.edge_masks, True), (lsr, 0))]
+        return list(zip(*planes))
+
+    def _sharded(self, mesh, topo, fin):
+        """The FRR tables with the protected links on the batch axis: on
+        each shard's device ``D`` (once per physical device), the post
+        batch of its links and the selection; host tensors joined in link
+        order; a size-1 mesh runs the plain ``frr_batch``."""
+        if mesh.size == 1:
+            return frr_batch(
+                self._prepare(topo, mesh.batch_device(0), mesh), topo.root, fin.link_far,
+                fin.link_cost, fin.link_valid, fin.edge_masks, fin.adj_nbr, fin.adj_cost,
+                fin.adj_link, fin.adj_valid, *self._policy_args(fin), max_iters=self.max_iters,
+                stats=self.stats)
+        _, asr, rnp = self._policy_args(fin)
+        root = int(topo.root)
+
+        def resident(dev):
+            g = self._prepare(topo, dev, mesh)
+            return g, all_roots(g, self.max_iters)
+
+        def run(gd, shard):
+            g, D = gd
+            offset, (lf, lc, lv, em, lsr) = shard
+            post = spf_whatif_batch(g, root, em, self.max_iters)
+            return frr_select(D, post, root, g.is_router, lf, lc, lv, fin.adj_nbr,
+                              fin.adj_cost, fin.adj_link, fin.adj_valid, lsr, asr, rnp,
+                              self.max_iters, link_offset=offset)
+
+        shards = self._shard_args(mesh, fin)
+        width = shards[0][0].shape[0]
+        shards = [(i * width, shard) for i, shard in enumerate(shards)]
+        if self.stats is not None:
+            self.stats["shards"] = len(shards)
+        return pm.run_batch(mesh, shards, resident, run, np.asarray(fin.link_far).shape[0])
 
     def _compute_device(self, topo, fin) -> BackupTable:
         # Back to back: the finish reads the tables back with .cpu().
@@ -250,23 +322,34 @@ class FrrEngine:
         (``queue``; else the finish reads them back).  Returns the handle
         :meth:`_finish_device` completes."""
         faults.crashpoint("frr.dispatch")
-        g = self._prepare(topo)
-        out = frr_batch(
-            g, topo.root, fin.link_far, fin.link_cost, fin.link_valid, fin.edge_masks,
-            fin.adj_nbr, fin.adj_cost, fin.adj_link, fin.adj_valid,
-            *self._policy_args(fin), max_iters=self.max_iters, stats=self.stats,
-        )
-        return stage_tables(out, fin, topo.n_vertices, queue), fin, topo
+        mesh = pm.process_mesh()
+        if mesh is not None:
+            # The shard chaos seam: a device lost from the mesh surfaces
+            # here, and the breaker counts it like any device failure.
+            faults.crashpoint("frr.shard")
+            out = self._sharded(mesh, topo, fin)
+        else:
+            g = self._prepare(topo)
+            out = frr_batch(
+                g, topo.root, fin.link_far, fin.link_cost, fin.link_valid, fin.edge_masks,
+                fin.adj_nbr, fin.adj_cost, fin.adj_link, fin.adj_valid,
+                *self._policy_args(fin), max_iters=self.max_iters, stats=self.stats,
+            )
+        # [:nl] drops the link pad (the marshal's bucket and the mesh's batch
+        # axis), [:n] the rows a node axis pads.
+        return stage_tables(out, fin, topo.n_vertices, queue), fin, topo, mesh is not None
 
     def _finish_device(self, handle: tuple) -> BackupTable:
         """Phase 2: the chaos delay, the wait on the copies, the table."""
-        staged, fin, topo = handle
+        staged, fin, topo, sharded = handle
         t0 = time.perf_counter()
         faults.delaypoint("frr.dispatch")
         table = host_tables(staged, fin, topo.root)
         if self.stats is not None:
             self.stats["readback_ms"] = (time.perf_counter() - t0) * 1e3
         self.dispatches["device"] += 1
+        if sharded:
+            self.shard_dispatches["frr"] += 1
         return table
 
     def _scalar(self, topo, fin) -> BackupTable:

@@ -79,6 +79,7 @@ from holo_tpu_torch.ops.graph import (
     delta_seed_rows,
     topology_namespace,
 )
+from holo_tpu_torch.parallel.mesh import mesh_cache_key, pad_graph_rows
 from holo_tpu_torch.pipeline.tuner import active_tuner, shape_bucket
 
 INF = int(_INF)
@@ -732,8 +733,19 @@ def apply_delta_slots(g: DeviceGraph, ops: DeltaSlots) -> DeviceGraph:
 
 class DeviceGraphCache:
     """LRU of marshaled DeviceGraphs on one device, keyed by ``(topology
-    class, uid, generation, n_atoms)`` (``holo_tpu``'s ``DeviceGraphCache``
-    without the mesh parts).  In-place topology mutators must ``touch()``.
+    class, uid, generation, n_atoms, mesh key)`` (``holo_tpu``'s
+    ``DeviceGraphCache``).  In-place topology mutators must ``touch()``.
+
+    Under a dispatch mesh (``mesh=`` of each call: the caller reads the
+    process mesh once a dispatch) the mesh's identity
+    (``parallel.mesh.mesh_cache_key``) joins the key, so a resident laid out
+    for one mesh never serves another or the plain path, and a marshal pads
+    the rows to a multiple of the node axis (``pad_graph_rows``).  The host
+    mirror keeps the N real rows: a delta's slot writes and the tiles never
+    touch a pad row.  Each device's cache holds its own residents, so a
+    delta applied on one card leaves another card's copy of the base as it
+    was (that cache applies the delta to its own copy when a dispatch there
+    asks for the new generation).
 
     DeltaPath: when a lookup misses but the topology carries delta lineage
     (``Topology.link_delta``) to a resident base entry of its own class, the
@@ -788,10 +800,10 @@ class DeviceGraphCache:
         self._lock = threading.RLock()
 
     @staticmethod
-    def key(topo, n_atoms: int) -> tuple:
-        return (*topology_namespace(topo), *topo.cache_key, int(n_atoms))
+    def key(topo, n_atoms: int, mesh=None) -> tuple:
+        return (*topology_namespace(topo), *topo.cache_key, int(n_atoms), mesh_cache_key(mesh))
 
-    def _depth_cap(self, topo) -> int:
+    def _depth_cap(self, topo, mesh=None) -> int:
         """The chain-depth cap of this topology's shape bucket: with the
         engine tuner armed, derived from its measured delta and full walls
         (``EngineTuner.max_delta_depth``), else ``max_delta_depth``, which
@@ -799,47 +811,52 @@ class DeviceGraphCache:
         t = active_tuner()
         if t is None:
             return self.max_delta_depth
-        return t.max_delta_depth(shape_bucket(topo.n_vertices, topo.n_edges, 1, None),
-                                 default=self.max_delta_depth)
+        return t.max_delta_depth(
+            shape_bucket(topo.n_vertices, topo.n_edges, 1, mesh_cache_key(mesh)),
+            default=self.max_delta_depth)
 
     def get(self, topo, n_atoms: int, need_edge_ids: bool = False,
-            allow_delta: bool = True) -> tuple[DeviceGraph, str]:
+            allow_delta: bool = True, mesh=None) -> tuple[DeviceGraph, str]:
         """(device graph, 'hit' | 'delta' | 'miss').  ``need_edge_ids``:
         the caller gathers through ``in_edge_id`` (edge masks), so an entry
-        whose edge ids went stale under a structural delta is rebuilt."""
+        whose edge ids went stale under a structural delta is rebuilt.
+        ``mesh``: the dispatch mesh the resident is laid out for (None: the
+        plain path)."""
         with self._lock:
-            return self._get_locked(topo, n_atoms, need_edge_ids, allow_delta)
+            return self._get_locked(topo, n_atoms, need_edge_ids, allow_delta, mesh)
 
     def _get_locked(self, topo, n_atoms: int, need_edge_ids: bool,
-                    allow_delta: bool) -> tuple[DeviceGraph, str]:
-        key = self.key(topo, n_atoms)
+                    allow_delta: bool, mesh) -> tuple[DeviceGraph, str]:
+        key = self.key(topo, n_atoms, mesh)
         e = self._cache.pop(key, None)
         if e is not None and not (need_edge_ids and e.ids_stale):
             self._cache[key] = e  # the LRU's newest
             self.lookups["hit"] += 1
             return e.graph, "hit"
         if allow_delta:
-            g = self._try_delta(topo, n_atoms, need_edge_ids)
+            g = self._try_delta(topo, n_atoms, need_edge_ids, mesh)
             if g is not None:
                 self.lookups["delta"] += 1
                 return g, "delta"
         self.lookups["miss"] += 1
         ell_graph = build_ell(topo, n_atoms=n_atoms)
-        g = device_graph_from_ell(ell_graph, self.device)
+        g = pad_graph_rows(device_graph_from_ell(ell_graph, self.device), mesh)
         self._insert(key, _CacheEntry(graph=g, mirror=_EllMirror(ell_graph)))
         return g, "miss"
 
-    def _try_delta(self, topo, n_atoms: int, need_edge_ids: bool) -> DeviceGraph | None:
+    def _try_delta(self, topo, n_atoms: int, need_edge_ids: bool, mesh) -> DeviceGraph | None:
         delta = getattr(topo, "delta_base", None)
         if delta is None:
             return None
         kind = delta_kind(delta)
-        # The base is a topology of the delta carrier's own class.
-        base_key = (*topology_namespace(topo), *delta.base_key, int(n_atoms))
+        # The base is a topology of the delta carrier's own class, laid out
+        # for the same mesh.
+        base_key = (*topology_namespace(topo), *delta.base_key, int(n_atoms),
+                    mesh_cache_key(mesh))
         base = self._cache.get(base_key)
         if base is None:
             path = "full-no-base"
-        elif base.depth + 1 > self._depth_cap(topo):
+        elif base.depth + 1 > self._depth_cap(topo, mesh):
             path, base = "full-depth", None
         elif need_edge_ids and (base.ids_stale or not delta.ids_stable):
             path, base = "full-edge-ids", None
@@ -870,7 +887,7 @@ class DeviceGraphCache:
         if tile_ops is not None:
             tropical.apply_tile_delta(base.tropical, tile_ops)
             self.tile_deltas["apply"] += 1
-        self._insert(self.key(topo, n_atoms), _CacheEntry(
+        self._insert(self.key(topo, n_atoms, mesh), _CacheEntry(
             graph=g, mirror=base.mirror, depth=base.depth + 1,
             ids_stale=base.ids_stale or not delta.ids_stable,
             tropical=base.tropical, trop_meta=base.trop_meta,
@@ -878,17 +895,19 @@ class DeviceGraphCache:
         self.delta_paths[(kind, "apply")] += 1
         return g
 
-    def get_tropical(self, topo, n_atoms: int):
+    def get_tropical(self, topo, n_atoms: int, mesh=None):
         """The entry's tropical tiles (``ops.tropical.TropicalTiles`` on this
         device), built from its mirror on first use and kept; the entry is
-        looked up (or marshaled) first if it is not resident."""
+        looked up (or marshaled) first if it is not resident.  The tiles
+        cover the N real vertices, also on a row-padded resident."""
         from holo_tpu_torch.ops import tropical
 
+        key = self.key(topo, n_atoms, mesh)
         with self._lock:
-            e = self._cache.get(self.key(topo, n_atoms))
+            e = self._cache.get(key)
             if e is None:
-                self.get(topo, n_atoms)
-                e = self._cache[self.key(topo, n_atoms)]
+                self.get(topo, n_atoms, mesh=mesh)
+                e = self._cache[key]
             if e.tropical is None:
                 m = e.mirror
                 host, e.trop_meta = tropical.build_tiles_host(m.in_src, m.in_cost, m.in_valid)
@@ -902,13 +921,19 @@ class DeviceGraphCache:
             self._evictions += 1
         self._deltas_applied += applied
 
-    def view(self) -> "DeviceGraphCache":
+    def view(self, counts: "DeviceGraphCache | None" = None) -> "DeviceGraphCache":
         """A cache over this one's graphs (the same entries, capacity and
         depth limit) with lookup, DeltaPath, eviction and delta counts of its
         own: each engine counts its own lookups while engines on one device
-        marshal a topology once."""
+        marshal a topology once.  ``counts``: another view whose lookup,
+        DeltaPath and tile-delta counters this one shares (an engine's views
+        of the caches of its mesh's devices)."""
         v = copy.copy(self)
-        v.delta_paths, v.lookups, v.tile_deltas = Counter(), Counter(), Counter()
+        if counts is None:
+            v.delta_paths, v.lookups, v.tile_deltas = Counter(), Counter(), Counter()
+        else:
+            v.delta_paths, v.lookups = counts.delta_paths, counts.lookups
+            v.tile_deltas = counts.tile_deltas
         v._evictions = v._deltas_applied = 0
         return v
 

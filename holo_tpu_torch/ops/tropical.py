@@ -52,6 +52,20 @@ and one out give JAX's bits, whose carry is gathered every round.
 The tiles are an attachment of a ``DeviceGraphCache`` entry
 (``get_tropical``), updated in place by lowered tile deltas
 (:func:`lower_tile_delta`, :func:`apply_tile_delta`) along a DeltaPath chain.
+
+Under a dispatch mesh whose node axis pads the resident's rows
+(``parallel.mesh.pad_graph_rows``), the program mixes three row counts: the
+tiles' NB * B permuted rows, the N real vertices of the permutation, and the
+graph's R rows.  The entry gathers read the R-row planes through ``perm``
+(whose entries are below N); the exit gathers give N rows, padded back to R
+(distances INF, counts 0) as ``holo_tpu`` pads them (``tropical.py:358-364``,
+``:481``); the repair pass and the count scatter read the N real rows of the
+slot planes, which are the only ones with a valid slot.  ``holo_tpu``'s
+``_constrain_replicated`` (``:486-497``) pins the tile loop's carry
+replicated against GSPMD's row sharding; the port has no GSPMD and each
+batch shard runs the whole loop on its own device, so it has no counterpart.
+A batch shard's tiles are those of its device's cache entry: one copy per
+physical device, shared by the shards on it.
 """
 
 from __future__ import annotations
@@ -108,6 +122,14 @@ class TileDelta(NamedTuple):
     j: np.ndarray  # int32 [T] column within the block
     val: np.ndarray  # int32 [T] least cost over the pair's parallel edges, INF for none
     strike: np.ndarray | None  # bool [NB * B] struck permuted rows, None if none
+
+
+def _pad_rows(x: torch.Tensor, rows: int, fill: int) -> torch.Tensor:
+    """``x`` with ``fill`` rows appended up to ``rows`` (``_pad_rows_to``);
+    ``x`` itself where it has them."""
+    if x.shape[0] == rows:
+        return x
+    return torch.cat([x, x.new_full((rows - x.shape[0], *x.shape[1:]), fill)])
 
 
 def _pick_block(n: int, rows: np.ndarray, srcs: np.ndarray) -> int:
@@ -294,7 +316,10 @@ def tile_relax(g, tt: TropicalTiles, dist0: torch.Tensor, mask=None, repair=None
     limit = n if limit is None else limit
     nb, _, b, _ = tt.tiles.shape
     lanes = dist0.shape[1]
+    n_true = tt.inv.shape[0]
     p = se.lane_planes(g, mask)
+    if n_true < n:  # row-padded: the repair pass reads the real rows' slots
+        p = p._replace(src=p.src[:n_true], cost=p.cost[:n_true], slot=p.slot[:n_true])
     if repair is not None:
         bits = rows_to_bits(repair, tt)
     elif mask is not None:
@@ -313,7 +338,7 @@ def tile_relax(g, tt: TropicalTiles, dist0: torch.Tensor, mask=None, repair=None
         rounds += 1
         if not bool(changed):
             break
-    return dist[tt.inv.long()].contiguous(), rounds
+    return _pad_rows(dist[tt.inv.long()], n, INF).contiguous(), rounds
 
 
 def tropical_lanes(g, tt: TropicalTiles, roots: torch.Tensor, mask, repair=None,
@@ -409,7 +434,9 @@ def count_tiles(src: torch.Tensor, tt: TropicalTiles, flag: torch.Tensor) -> tor
     drops it (never: a flagged slot is a valid edge).  Integer adds, so the
     scatter's order does not matter."""
     nb, tm, b, _ = tt.tiles.shape
-    n, k = flag.shape
+    n = tt.inv.shape[0]  # a padded resident's pad rows flag no slot
+    flag, src = flag[:n], src[:n]
+    k = flag.shape[1]
     inv = tt.inv.long()
     pv = inv[:, None].expand(n, k)
     ps = inv[src.long()]
@@ -442,13 +469,15 @@ def _to_tiles(v: torch.Tensor, tt: TropicalTiles) -> torch.Tensor:
 
 
 def _count_fixpoint(tt: TropicalTiles, cnt, x0, seed, root_row: int, limit: int):
-    """Values [N, A]: T2 rounds from ``x0`` [N, A] (only read) between two
-    permuted buffers, while a round changed something and fewer than
-    ``limit`` ran, one flag read a round.  The count list (the nonzero
-    tiles, the same for every round) is built once, before the first."""
+    """Values [R, A]: T2 rounds from ``x0`` [R, A] (only read; R the graph's
+    rows, N or more) between two permuted buffers, while a round changed
+    something and fewer than ``limit`` ran, one flag read a round; rows past
+    N are 0.  The count list (the nonzero tiles, the same for every round)
+    is built once, before the first."""
+    rows = x0.shape[0]
     x = _to_tiles(x0, tt)
     if limit <= 0:
-        return x[tt.inv.long()]
+        return _pad_rows(x[tt.inv.long()], rows, 0)
     spare = torch.empty_like(x)
     seed_p = None if seed is None else _to_tiles(seed, tt)
     listed = kt.count_list(cnt, tt.cb)
@@ -459,7 +488,7 @@ def _count_fixpoint(tt: TropicalTiles, cnt, x0, seed, root_row: int, limit: int)
         x, spare = new, x
         changed = bool(flag)
         rounds += 1
-    return x[tt.inv.long()]
+    return _pad_rows(x[tt.inv.long()], rows, 0)
 
 
 def np_tile_fixpoint(g, tt: TropicalTiles, dag: torch.Tensor, root: int, np0: torch.Tensor,

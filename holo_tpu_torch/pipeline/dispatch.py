@@ -794,10 +794,17 @@ class AsyncSpfBackend:
     it phase by phase.  The blocked engine at ``multipath_k`` 1 and the
     partitioned path have no split and run whole on the worker.
     ``compute_whatif_async`` adds the advisory-batch semantics (coalescing,
-    the breaker-open skip).  ``compute_whatif`` and ``compute_multiroot``
-    stay synchronous, but run on the worker in their chain's order (see
-    :meth:`_in_chain`), where ``holo_tpu``'s run on the caller's thread.
+    the breaker-open skip).  ``compute_whatif``, ``compute_multiroot`` and
+    ``compute_partitioned`` stay synchronous, but run on the worker in their
+    chain's order (see :meth:`_in_chain`), where ``holo_tpu``'s run on the
+    caller's thread.  The split-phase seam and the graph lookup
+    (:attr:`WORKER_ONLY`) are refused on the facade: they read, and may
+    update in place, the resident graph that the chain's deltas rewrite.
     """
+
+    #: the inner backend's methods that read or update a chain's resident
+    #: graph and return device state: only the worker calls them
+    WORKER_ONLY = frozenset({"launch_one", "finish_one", "prepare"})
 
     #: retained chain-root entries (one live dispatch chain per entry)
     CHAIN_CAPACITY = 512
@@ -815,8 +822,13 @@ class AsyncSpfBackend:
         return f"{self.inner.name}-async"
 
     def __getattr__(self, attr):
-        # breaker, engine, prepare, delta_paths ...: the facade adds
-        # scheduling, not behaviour.
+        # breaker, engine, delta_paths ...: the facade adds scheduling, not
+        # behaviour.
+        if attr in AsyncSpfBackend.WORKER_ONLY:
+            raise AttributeError(
+                f"{attr} is not served through {type(self).__name__}: it reads the chain's "
+                "resident graph off the pipeline's worker; use compute(), or call it on the "
+                "inner backend where no pipeline runs its chain")
         return getattr(self.inner, attr)
 
     def _key(self, topo) -> tuple:
@@ -884,6 +896,13 @@ class AsyncSpfBackend:
         return self._in_chain(topo, "multiroot", "spf.multiroot",
                               lambda: inner.compute_multiroot(topo, roots),
                               lambda: inner._oracle.compute_multiroot(topo, roots))
+
+    def compute_partitioned(self, topo, edge_mask=None, multipath_k: int = 1):
+        inner = self.inner
+        return self._in_chain(
+            topo, "partitioned", "spf.partitioned",
+            lambda: inner.compute_partitioned(topo, edge_mask, multipath_k=multipath_k),
+            lambda: inner._oracle.compute(topo, edge_mask, multipath_k=multipath_k))
 
     def _in_chain(self, topo, kind: str, site: str, fn, oracle):
         """Run a synchronous delegate on the worker, ordered with the

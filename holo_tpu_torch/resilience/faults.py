@@ -6,7 +6,8 @@ Every injection decision comes from a per-site random stream derived from
 
 - ``crashpoint(site)`` raises :class:`InjectedFault` (forced counts in
   ``dispatch_fail``, or ``dispatch_fail_prob``): ``spf.dispatch``,
-  ``frr.dispatch``, ``bgp.dispatch`` in the device paths and
+  ``frr.dispatch``, ``bgp.dispatch`` in the device paths, ``spf.shard`` and
+  ``frr.shard`` in the dispatches a mesh serves (``parallel/mesh.py``) and
   ``pipeline.dispatch`` inside the pipeline's breaker guard;
 - ``delaypoint(site)`` stalls a dispatch that still succeeds
   (``dispatch_delay``);

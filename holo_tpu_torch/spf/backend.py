@@ -86,6 +86,24 @@ planes' copies to pinned host memory behind it; the finish waits on them,
 builds the SpfResult, feeds the tuner and keeps the DeltaPath run.  The
 chaos seams ``faults.crashpoint("spf.dispatch")`` and
 ``faults.delaypoint("spf.dispatch")`` sit in both paths.
+
+The dispatch mesh (:mod:`holo_tpu_torch.parallel.mesh`, ``holo_tpu``'s
+process mesh): while one is installed every gather dispatch reads it once and
+runs on its devices, not on the backend's own.  A what-if batch (each
+``one_engine``, and the multipath program at ``multipath_k`` > 1) and a
+multi-root batch (``seq``, or the tiles when pinned ``tropical``) run their
+lanes split over the batch axis, each shard on its device's resident,
+joined on the host; ``compute`` (DeltaPath included, and ``launch_one`` /
+``finish_one``) runs on the first batch device's resident; a partitioned
+solve runs on the first batch device (``holo_tpu``'s replicated arm), its
+resident keyed by the mesh.  Residents, kept runs and tuner buckets carry
+the mesh's key, and a node axis above 1 pads the residents' rows, which the
+readback slices off (:func:`_host_tensors`).  A size-1 mesh runs the plain
+programs, whose bits and kernel launches it keeps.  ``shard_dispatches``
+counts the dispatches the mesh served, by kind (``holo_spf_shard_dispatch_
+total``; :meth:`TorchSpfBackend.stats`), and ``faults.crashpoint("spf.shard")``
+is the shard chaos seam.  The blocked engine ignores the mesh, as in
+``holo_tpu``.
 """
 
 from __future__ import annotations
@@ -133,6 +151,7 @@ from holo_tpu_torch.ops.tropical import (
     tropical_spf_one_multipath,
     tropical_whatif_batch,
 )
+from holo_tpu_torch.parallel import mesh as pm
 from holo_tpu_torch.pipeline.tuner import active_tuner, shape_bucket
 from holo_tpu_torch.resilience import faults
 from holo_tpu_torch.resilience.breaker import CircuitBreaker
@@ -147,6 +166,11 @@ _PART_NS_IDS = itertools.count()
 _DISPATCHED: set = set()
 # The engines that relax on the tiles (holo_tpu's _TROPICAL_ENGINES).
 _TROPICAL_ENGINES = ("tropical", "mp_tropical")
+
+
+def _mesh():
+    """The process dispatch mesh (``parallel/mesh.py``), or None."""
+    return pm.process_mesh()
 
 
 @dataclass
@@ -177,8 +201,9 @@ class MultiRootResult:
 def _host_tensors(out, n: int):
     """Device SPF tensors -> the host contract, one bulk copy a plane: the
     vertex axis sliced back to N and the sentinels renormalized to N (no
-    parent) and N + 1 (unreachable hops).  The port never pads rows, so
-    every step is a no-op kept for ``holo_tpu``'s contract."""
+    parent) and N + 1 (unreachable hops).  A resident whose rows a mesh's
+    node axis padded to R gives the no-parent sentinel R and unreachable
+    hops R + 1; on an unpadded one every step is a no-op."""
     dist = out.dist.cpu().numpy()[..., :n]
     parent = np.minimum(out.parent.cpu().numpy()[..., :n], np.int32(n))
     hops = np.minimum(out.hops.cpu().numpy()[..., :n], np.int32(n + 1))
@@ -190,7 +215,8 @@ def _host_tensors(out, n: int):
 
 def _host_mp(mp, n: int) -> dict:
     """Device multipath planes -> the five SpfResult fields, under
-    :func:`_host_tensors`' contract (parents' sentinel renormalized to N)."""
+    :func:`_host_tensors`' contract (the vertex axis sliced to N, parents'
+    sentinel renormalized from R to N)."""
     return {
         "parents": np.minimum(mp.parents.cpu().numpy()[..., :n, :], np.int32(n)),
         "pdist": mp.pdist.cpu().numpy()[..., :n, :],
@@ -222,6 +248,7 @@ class _InFlightOne:
     # The launch's wall alone: tuner samples are launch_s + the finish's
     # wall, without the time the entry sat launched in a pipeline.
     launch_s: float = 0.0
+    mesh: object = None  # the dispatch mesh the launch ran under
 
 
 def _stage(out, kp: int) -> HostCopy:
@@ -367,14 +394,61 @@ class TorchSpfBackend(SpfBackend):
         self._part_engine = PartitionedSpfEngine(self.device, max_iters)
         self._part_ns = f"part:{next(_PART_NS_IDS)}"
         self.part_stats: dict | None = None
+        # Dispatches the process mesh served, by kind (whatif, one,
+        # multiroot, partitioned): holo_spf_shard_dispatch_total{kind}.
+        self.shard_dispatches: Counter = Counter()
+        # Views of the mesh devices' caches other than this backend's own
+        # device (sharing its counts), and their partitioned engines.
+        self._mesh_views: dict = {}
+        self._part_engines: dict = {}
 
     def _n_atoms(self, topo) -> int:
         return max(self.n_atoms, topo.n_atoms())
 
     def fallback_serves(self) -> bool:
         """Does the oracle compute this backend's bits?  On the CPU with no
-        ``max_iters`` cap only; it is then the breaker's fallback."""
-        return self.device.type == "cpu" and self.max_iters is None
+        ``max_iters`` cap only (the backend's device and, under a dispatch
+        mesh, every device of it); it is then the breaker's fallback."""
+        mesh = _mesh()
+        on_cpu = self.device.type == "cpu" and (
+            mesh is None or all(d.type == "cpu" for d in mesh.devices.flat))
+        return on_cpu and self.max_iters is None
+
+    def stats(self) -> dict:
+        """The mesh's axis sizes and the dispatches it served by kind
+        (``holo_tpu``'s ``holo_parallel_mesh_size`` and
+        ``holo_spf_shard_dispatch_total``)."""
+        return {"mesh": pm.mesh_stats(), "shard-dispatches": dict(self.shard_dispatches)}
+
+    def _view(self, dev):
+        """This backend's view of ``dev``'s shared graph cache: its own for
+        its own device, else one that shares its counts."""
+        cache = shared_graph_cache(dev)
+        if cache._cache is self._gather_cache._cache:
+            return self._gather_cache
+        view = self._mesh_views.get(cache.device)
+        if view is None:
+            view = self._mesh_views[cache.device] = cache.view(counts=self._gather_cache)
+        return view
+
+    def _home(self, mesh):
+        """The view a single-lane dispatch runs on: the first batch device's
+        under a mesh, else this backend's own."""
+        return self._gather_cache if mesh is None else self._view(mesh.batch_device(0))
+
+    def _resident(self, mesh, topo, need_edge_ids: bool = False, tiles: bool = False):
+        """``dev -> graph`` (``(graph, tiles)`` with ``tiles``): a batch
+        shard's resident under ``mesh`` from its device's cache, looked up
+        once per physical device (``pm.per_device``)."""
+        n_atoms = self._n_atoms(topo)
+
+        def resident(dev):
+            view = self._view(dev)
+            g, _ = view.get(topo, n_atoms, need_edge_ids=need_edge_ids,
+                            allow_delta=self.incremental, mesh=mesh)
+            return (g, view.get_tropical(topo, n_atoms, mesh)) if tiles else g
+
+        return pm.per_device(resident)
 
     def _guarded(self, primary, oracle, context: str):
         """``primary`` under the breaker, the oracle its fallback where
@@ -432,27 +506,49 @@ class TorchSpfBackend(SpfBackend):
                 and topo.n_vertices >= self.partition_threshold
                 and self.engine != "blocked")
 
-    def _part_key(self, topo) -> tuple:
-        return (self._part_ns, *topology_namespace(topo), int(topo.root), self._n_atoms(topo))
+    def _part_key(self, topo, mesh=None) -> tuple:
+        return (self._part_ns, *topology_namespace(topo), int(topo.root), self._n_atoms(topo),
+                pm.mesh_cache_key(mesh))
+
+    def _part_device(self, mesh=None):
+        """Where the partitioned residents live: the mesh's replicated
+        placement (``pm.replicated_device``), else the backend's device."""
+        return self.device if mesh is None else pm.replicated_device(mesh)
+
+    def _part_engine_on(self, dev) -> PartitionedSpfEngine:
+        if shared_graph_cache(dev)._cache is self._gather_cache._cache:
+            return self._part_engine
+        eng = self._part_engines.get(dev)
+        if eng is None:
+            eng = self._part_engines[dev] = PartitionedSpfEngine(dev, self.max_iters)
+        return eng
 
     def partition_residents(self) -> list:
-        """This backend's partitioned residents (tests, chip_smoke)."""
-        return list(shared_graph_cache(self.device).partitioned_entries(self._part_ns).values())
+        """This backend's partitioned residents where the current dispatches
+        keep them (tests, chip_smoke)."""
+        cache = shared_graph_cache(self._part_device(_mesh()))
+        return list(cache.partitioned_entries(self._part_ns).values())
 
     def partition_stats(self) -> dict:
         """Each resident's summary, by its key past the namespace."""
-        entries = shared_graph_cache(self.device).partitioned_entries(self._part_ns)
+        entries = shared_graph_cache(self._part_device(_mesh())).partitioned_entries(
+            self._part_ns)
         return {str(k[1:]): r.stats() for k, r in entries.items()}
 
     def _device_partitioned(self, topo, edge_mask, kp: int) -> SpfResult:
         """A delta-linked mask-free dispatch re-solves the affected parts of
         the resident (DeltaPath); otherwise the resident, marshaled again
         unless it serves this topology (its cut, and its edge ids for a
-        mask), solves in full."""
+        mask), solves in full.  Under a mesh the resident lives on its
+        replicated device and its key carries the mesh."""
         t0 = time.perf_counter()
-        eng = self._part_engine
-        cache = shared_graph_cache(self.device)
-        key = self._part_key(topo)
+        mesh = _mesh()
+        if mesh is not None:
+            faults.crashpoint("spf.shard")
+        dev = self._part_device(mesh)
+        eng = self._part_engine_on(dev)
+        cache = shared_graph_cache(dev)
+        key = self._part_key(topo, mesh)
         delta = getattr(topo, "delta_base", None)
         res = cache.get_partitioned(key)
         out, info, path = None, {}, "full"
@@ -488,56 +584,66 @@ class TorchSpfBackend(SpfBackend):
             # Full solves on a warm resident only, as holo_tpu: a marshal,
             # a delta re-solve or a masked solve is not comparable with the
             # monolithic medians of the same bucket.
-            t.observe_partitioned(self._depth_bucket(topo, kp), time.perf_counter() - t0)
+            t.observe_partitioned(self._depth_bucket(topo, kp, mesh), time.perf_counter() - t0)
+        if mesh is not None:
+            self.shard_dispatches["partitioned"] += 1
         return res
 
     def _device_compute(self, topo, edge_mask, kp: int) -> SpfResult:
         faults.crashpoint("spf.dispatch")
+        mesh = _mesh()
+        if mesh is not None:
+            # The shard chaos seam: a device lost from the mesh surfaces
+            # here, and the breaker counts it like any device failure.
+            faults.crashpoint("spf.shard")
         if self.engine == "blocked" and kp == 1:
             res = self._whatif_blocked(topo, self._full_mask(topo, edge_mask)[None, :])
             if res is not None:
                 return res[0]
         # The split dispatch back to back, the planes read back by .cpu() at
         # the finish (no pinned copies queued: nothing runs in between).
-        return self.finish_one(self._launch(topo, edge_mask, kp, stage=False))
+        return self.finish_one(self._launch(topo, edge_mask, kp, stage=False, mesh=mesh))
 
-    def _one_program(self, topo, edge_mask, kp: int) -> tuple:
+    def _one_program(self, topo, edge_mask, kp: int, mesh=None) -> tuple:
         """The device program of a full (not DeltaPath) ``compute``:
-        (device tensors, engine, tuner bucket, graph lookup, first use)."""
-        engine, bucket = self._pick_engine("one", topo, kp=kp)
+        (device tensors, engine, tuner bucket, graph lookup, first use).
+        Under a mesh it runs on the first batch device's resident."""
+        engine, bucket = self._pick_engine("one", topo, kp=kp, mesh=mesh)
+        view = self._home(mesh)
         # A scenario mask gathers through in_edge_id: an entry whose ids went
         # stale under a structural delta is rebuilt for it.
-        g, how = self._gather_cache.get(topo, self._n_atoms(topo),
-                                        need_edge_ids=edge_mask is not None,
-                                        allow_delta=self.incremental)
-        first = self._first_use("one", engine, g, 1, kp, edge_mask is not None)
+        g, how = view.get(topo, self._n_atoms(topo), need_edge_ids=edge_mask is not None,
+                          allow_delta=self.incremental, mesh=mesh)
+        first = self._first_use("one", engine, g, 1, kp, edge_mask is not None,
+                                pm.mesh_cache_key(mesh))
         if engine == "mp_tropical":
-            tt = self._gather_cache.get_tropical(topo, self._n_atoms(topo))
+            tt = view.get_tropical(topo, self._n_atoms(topo), mesh)
             out = tropical_spf_one_multipath(g, tt, topo.root, kp, edge_mask, None,
                                              self.max_iters)
         elif kp > 1:
             out = spf_one_multipath(g, topo.root, kp, edge_mask, self.max_iters)
         elif engine == "tropical":
-            tt = self._gather_cache.get_tropical(topo, self._n_atoms(topo))
+            tt = view.get_tropical(topo, self._n_atoms(topo), mesh)
             out = tropical_spf_one(g, tt, topo.root, edge_mask, None, self.max_iters)
         else:
             one = spf_one if engine == "seq" else _ONE_ENGINES[engine]
             out = one(g, topo.root, edge_mask, self.max_iters)
         return out, engine, bucket, how, first
 
-    def _pick_engine(self, kind: str, topo, batch: int = 1, kp: int = 1):
+    def _pick_engine(self, kind: str, topo, batch: int = 1, kp: int = 1, mesh=None):
         """(engine, shape bucket or None): the armed tuner's pick for this
-        dispatch's bucket, else the pinned ``one_engine`` and None, which
-        feeds no tuner (``holo_tpu``'s ``_pick_engine``; the blocked
-        engine's backends feed none either).  At kp > 1 the pinned engine is
-        ``mp_tropical`` for a pinned-tropical ``compute``, else ``mp``."""
+        dispatch's bucket (which carries the mesh's key), else the pinned
+        ``one_engine`` and None, which feeds no tuner (``holo_tpu``'s
+        ``_pick_engine``; the blocked engine's backends feed none either).
+        At kp > 1 the pinned engine is ``mp_tropical`` for a pinned-tropical
+        ``compute``, else ``mp``."""
         t = active_tuner()
         if t is None or self.engine == "blocked":
             if kp > 1:
                 trop = self.one_engine == "tropical" and kind == "one"
                 return ("mp_tropical" if trop else "mp"), None
             return self.one_engine, None
-        bucket = shape_bucket(topo.n_vertices, topo.n_edges, batch, None, k=kp)
+        bucket = shape_bucket(topo.n_vertices, topo.n_edges, batch, pm.mesh_cache_key(mesh), k=kp)
         return t.pick(kind, bucket), bucket
 
     @staticmethod
@@ -546,7 +652,7 @@ class TorchSpfBackend(SpfBackend):
         if bucket is not None and t is not None:
             t.observe(kind, bucket, engine, seconds)
 
-    def _trop_incremental(self, topo, kp: int) -> bool:
+    def _trop_incremental(self, topo, kp: int, mesh=None) -> bool:
         """Does a DeltaPath dispatch of width ``kp`` relax on the tiles?
         When the backend is pinned ``tropical``, or the armed tuner's
         measured ``compute()`` winner of the kp bucket is ``tropical`` or
@@ -555,20 +661,23 @@ class TorchSpfBackend(SpfBackend):
             return True
         t = active_tuner()
         return (t is not None
-                and t.current_winner("one", self._depth_bucket(topo, kp)) in _TROPICAL_ENGINES)
+                and t.current_winner("one", self._depth_bucket(topo, kp, mesh))
+                in _TROPICAL_ENGINES)
 
     @staticmethod
-    def _depth_bucket(topo, kp: int = 1) -> tuple:
-        """The DeltaPath depth bucket (kind one, batch 1, the width kp)."""
-        return shape_bucket(topo.n_vertices, topo.n_edges, 1, None, k=kp)
+    def _depth_bucket(topo, kp: int = 1, mesh=None) -> tuple:
+        """The DeltaPath depth bucket (kind one, batch 1, the mesh, the
+        width kp)."""
+        return shape_bucket(topo.n_vertices, topo.n_edges, 1, pm.mesh_cache_key(mesh), k=kp)
 
-    def _tuner_depth_observe(self, topo, arm: str, seconds: float, kp: int = 1) -> None:
+    def _tuner_depth_observe(self, topo, arm: str, seconds: float, kp: int = 1,
+                             mesh=None) -> None:
         """A delta-linked ("delta") or re-marshaling ("full") ``compute()``
         wall, the depth cap's input."""
         t = active_tuner()
         if t is not None:
             observe = t.observe_delta if arm == "delta" else t.observe_full
-            observe(self._depth_bucket(topo, kp), seconds)
+            observe(self._depth_bucket(topo, kp, mesh), seconds)
 
     def _first_use(self, kind: str, engine: str, g, *shape) -> bool:
         """True for a dispatch that is no tuner sample: the first of its
@@ -593,16 +702,17 @@ class TorchSpfBackend(SpfBackend):
         mp = _host_mp(out[1], n) if kp > 1 else {}
         return SpfResult(dist=dist, parent=parent, hops=hops, nexthop_words=nh, **mp)
 
-    def _prev_key(self, topo, topo_key: tuple, kp: int) -> tuple:
+    def _prev_key(self, topo, topo_key: tuple, kp: int, mesh=None) -> tuple:
         return (*topology_namespace(topo), *topo_key, self._n_atoms(topo), int(topo.root),
-                int(kp))
+                pm.mesh_cache_key(mesh), int(kp))
 
-    def _remember(self, topo, out, kp: int) -> None:
+    def _remember(self, topo, out, kp: int, mesh=None) -> None:
         """Keep this run's device tensors as the next delta's seed (once per
         key: a repeated run of one generation and root gives the same
         bits).  ``kp`` is in the key: a kp=1 chain keeps SpfTensors, a
-        multipath chain the (SpfTensors, MultipathTensors) pair."""
-        key = self._prev_key(topo, topo.cache_key, kp)
+        multipath chain the (SpfTensors, MultipathTensors) pair.  The mesh
+        is in the key too: a padded run seeds only a padded resident."""
+        key = self._prev_key(topo, topo.cache_key, kp, mesh)
         with self._prev_lock:
             if key in self._prev_one:
                 return
@@ -610,7 +720,7 @@ class TorchSpfBackend(SpfBackend):
             while len(self._prev_one) > self.prev_capacity:
                 self._prev_one.pop(next(iter(self._prev_one)))
 
-    def _incremental_program(self, topo, kp: int) -> tuple | None:
+    def _incremental_program(self, topo, kp: int, mesh=None) -> tuple | None:
         """The device program of a DeltaPath dispatch (``holo_tpu``'s
         ``_try_incremental``): the resident graph absorbs the delta in place
         and the incremental SPF runs seeded from the kept run of the delta's
@@ -623,11 +733,12 @@ class TorchSpfBackend(SpfBackend):
         if delta is None or not self.incremental:
             return None
         kind = delta_kind(delta)
-        prev_key = self._prev_key(topo, tuple(delta.base_key), kp)
+        prev_key = self._prev_key(topo, tuple(delta.base_key), kp, mesh)
         if prev_key not in self._prev_one:
             self.delta_paths[(kind, "full-no-prev")] += 1
             return None
-        g, how = self._gather_cache.get(topo, self._n_atoms(topo))
+        view = self._home(mesh)
+        g, how = view.get(topo, self._n_atoms(topo), mesh=mesh)
         if how == "miss":
             return None
         with self._prev_lock:
@@ -636,8 +747,8 @@ class TorchSpfBackend(SpfBackend):
             self.delta_paths[(kind, "full-no-prev")] += 1
             return None
         seeds = delta_seed_rows(delta)
-        trop = self._trop_incremental(topo, kp)
-        tt = self._gather_cache.get_tropical(topo, self._n_atoms(topo)) if trop else None
+        trop = self._trop_incremental(topo, kp, mesh)
+        tt = view.get_tropical(topo, self._n_atoms(topo), mesh) if trop else None
         if kp > 1:
             sp, mp = prev
             if trop:
@@ -673,13 +784,16 @@ class TorchSpfBackend(SpfBackend):
         program, the host copies queued.  The blocked engine at kp = 1 and
         the partitioned path have no split (a pipeline runs them whole)."""
         faults.crashpoint("spf.dispatch")
+        mesh = _mesh()
+        if mesh is not None:
+            faults.crashpoint("spf.shard")
         kp = mp_pad(multipath_k)
         if (self.engine == "blocked" and kp == 1) or self._use_partitioned(topo):
             raise ValueError("the blocked engine at multipath_k 1 and the partitioned path "
                              "have no split-phase dispatch")
-        return self._launch(topo, edge_mask, kp, stage=True)
+        return self._launch(topo, edge_mask, kp, stage=True, mesh=mesh)
 
-    def _launch(self, topo, edge_mask, kp: int, stage: bool) -> _InFlightOne:
+    def _launch(self, topo, edge_mask, kp: int, stage: bool, mesh=None) -> _InFlightOne:
         """The DeltaPath program where a mask-free dispatch links to a kept
         run, else the full one.  ``stage`` queues the planes' host copies
         for a finish that runs later.  The previous run leaves
@@ -688,20 +802,20 @@ class TorchSpfBackend(SpfBackend):
         :meth:`finish_one` has put the new run back."""
         if edge_mask is None:
             t0 = time.perf_counter()
-            run = self._incremental_program(topo, kp)
+            run = self._incremental_program(topo, kp, mesh)
             if run is not None:
                 out, kind = run
                 return _InFlightOne(
                     out=out, host=_stage(out, kp) if stage else None, topo=topo, engine="incr",
                     bucket=None, mode="delta", kp=kp, delta_kind=kind, remember=True,
-                    launch_s=time.perf_counter() - t0)
+                    launch_s=time.perf_counter() - t0, mesh=mesh)
         t0 = time.perf_counter()
-        out, engine, bucket, how, first = self._one_program(topo, edge_mask, kp)
+        out, engine, bucket, how, first = self._one_program(topo, edge_mask, kp, mesh)
         return _InFlightOne(
             out=out, host=_stage(out, kp) if stage else None, topo=topo, engine=engine,
             bucket=bucket, mode="full", kp=kp, remember=edge_mask is None and self.incremental,
             remarshal=how == "miss" and edge_mask is None, first=first,
-            launch_s=time.perf_counter() - t0)
+            launch_s=time.perf_counter() - t0, mesh=mesh)
 
     def finish_one(self, h: _InFlightOne) -> SpfResult:
         """Phase 2: the chaos delay, the wait on the host copies, the
@@ -713,17 +827,22 @@ class TorchSpfBackend(SpfBackend):
         unparked = h.launch_s + (time.perf_counter() - t_fs)
         if h.mode == "delta":
             self.delta_paths[(h.delta_kind, "incremental")] += 1
-            self._tuner_depth_observe(h.topo, "delta", unparked, h.kp)
+            self._tuner_depth_observe(h.topo, "delta", unparked, h.kp, h.mesh)
         else:
             if not h.first:
                 self._tuner_observe("one", h.bucket, h.engine, unparked)
             if h.remarshal:
-                self._tuner_depth_observe(h.topo, "full", unparked, h.kp)
+                self._tuner_depth_observe(h.topo, "full", unparked, h.kp, h.mesh)
         if h.remember and self.incremental:
-            self._remember(h.topo, h.out, h.kp)
+            self._remember(h.topo, h.out, h.kp, h.mesh)
+        if h.mesh is not None:
+            self.shard_dispatches["one"] += 1
         return res
 
     def _device_whatif(self, topo, edge_masks, kp: int) -> list:
+        mesh = _mesh()
+        if mesh is not None:
+            faults.crashpoint("spf.shard")
         masks = np.asarray(edge_masks, bool)
         if len(masks) == 0:
             return []
@@ -732,18 +851,21 @@ class TorchSpfBackend(SpfBackend):
             if res is not None:
                 return res
         t0 = time.perf_counter()
-        engine, bucket = self._pick_engine("whatif", topo, len(masks), kp)
-        g = self.prepare(topo, need_edge_ids=True)
-        first = self._first_use("whatif", engine, g, len(masks), kp, topo.n_edges)
-        if kp > 1:
-            sp, mp = spf_multipath_batch(g, topo.root, masks, kp, self.max_iters)
-            mp = _host_mp(mp, topo.n_vertices)
-        elif engine == "tropical":
-            tt = self._gather_cache.get_tropical(topo, self._n_atoms(topo))
-            sp, mp = tropical_whatif_batch(g, tt, topo.root, masks, None, self.max_iters), {}
+        engine, bucket = self._pick_engine("whatif", topo, len(masks), kp, mesh)
+        if mesh is None:
+            g = self.prepare(topo, need_edge_ids=True)
+            first = self._first_use("whatif", engine, g, len(masks), kp, topo.n_edges)
+            if kp > 1:
+                sp, mp = spf_multipath_batch(g, topo.root, masks, kp, self.max_iters)
+            elif engine == "tropical":
+                tt = self._gather_cache.get_tropical(topo, self._n_atoms(topo))
+                sp, mp = tropical_whatif_batch(g, tt, topo.root, masks, None,
+                                               self.max_iters), None
+            else:
+                sp, mp = spf_whatif_batch(g, topo.root, masks, self.max_iters, engine), None
         else:
-            sp = spf_whatif_batch(g, topo.root, masks, self.max_iters, engine)
-            mp = {}
+            sp, mp, first = self._sharded_whatif(mesh, topo, masks, engine, kp)
+        mp = {} if mp is None else _host_mp(mp, topo.n_vertices)
         dist, parent, hops, nh = _host_tensors(sp, topo.n_vertices)
         if not first:
             self._tuner_observe("whatif", bucket, engine, time.perf_counter() - t0)
@@ -753,17 +875,50 @@ class TorchSpfBackend(SpfBackend):
             for i in range(len(masks))
         ]
 
+    def _sharded_whatif(self, mesh, topo, masks, engine: str, kp: int) -> tuple:
+        """The what-if batch with its scenarios on the mesh's batch axis
+        (``holo_tpu``'s ``_sharded_whatif`` / ``_sharded_mp_whatif`` /
+        ``_sharded_trop_whatif``): (SpfTensors, MultipathTensors or None,
+        first use), each shard on its device's resident."""
+        trop = kp == 1 and engine == "tropical"
+        res = self._resident(mesh, topo, need_edge_ids=True, tiles=trop)
+        g0 = res(mesh.batch_device(0))
+        first = self._first_use("whatif", engine, g0[0] if trop else g0, len(masks), kp,
+                                topo.n_edges, pm.mesh_cache_key(mesh))
+        mp = None
+        if kp > 1:
+            sp, mp = pm.sharded_multipath_program(mesh, res, topo.root, masks, kp,
+                                                  self.max_iters)
+        elif trop:
+            sp = pm.sharded_tropical_whatif_program(mesh, res, topo.root, masks, None,
+                                                    self.max_iters)
+        else:
+            sp = pm.sharded_whatif_program(mesh, res, topo.root, masks, self.max_iters, engine)
+        self.shard_dispatches["whatif"] += 1
+        return sp, mp, first
+
     def _device_multiroot(self, topo, roots) -> MultiRootResult:
+        mesh = _mesh()
+        if mesh is not None:
+            faults.crashpoint("spf.shard")
         roots = np.asarray(roots, np.int32)
         if len(roots) == 0:
             empty = np.zeros((0, topo.n_vertices), np.int32)
             return MultiRootResult(dist=empty, parent=empty.copy(), hops=empty.copy())
-        g = self.prepare(topo)
-        if self.one_engine == "tropical":  # holo_tpu's mr_engine
+        trop = self.one_engine == "tropical"  # holo_tpu's mr_engine
+        if mesh is not None:
+            # The roots ride the batch axis, padded with root 0.
+            res = self._resident(mesh, topo, tiles=trop)
+            program = (pm.sharded_tropical_multiroot_program if trop
+                       else pm.sharded_multiroot_program)
+            out = program(mesh, res, roots, max_iters=self.max_iters)
+            self.shard_dispatches["multiroot"] += 1
+        elif trop:
+            g = self.prepare(topo)
             tt = self._gather_cache.get_tropical(topo, self._n_atoms(topo))
             out = tropical_multiroot(g, tt, roots, None, None, self.max_iters)
         else:
-            out = spf_multiroot(g, roots, max_iters=self.max_iters)
+            out = spf_multiroot(self.prepare(topo), roots, max_iters=self.max_iters)
         dist, parent, hops, _ = _host_tensors(out, topo.n_vertices)
         return MultiRootResult(dist=dist, parent=parent, hops=hops)
 
@@ -784,9 +939,11 @@ class TorchSpfBackend(SpfBackend):
         """The gather engine's ELL planes on the device, from the cache: a
         hit, a delta applied in place to the base's planes (DeltaPath, when
         ``incremental``), or a full marshal.  ``need_edge_ids``: the caller
-        reads ``in_edge_id`` (edge masks)."""
-        g, _how = self._gather_cache.get(topo, self._n_atoms(topo), need_edge_ids=need_edge_ids,
-                                         allow_delta=self.incremental)
+        reads ``in_edge_id`` (edge masks).  Under a mesh, the first batch
+        device's resident, laid out for the mesh."""
+        mesh = _mesh()
+        g, _how = self._home(mesh).get(topo, self._n_atoms(topo), need_edge_ids=need_edge_ids,
+                                       allow_delta=self.incremental, mesh=mesh)
         return g
 
     def prepare_blocked(self, topo: Topology):

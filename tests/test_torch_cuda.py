@@ -1727,3 +1727,70 @@ def test_pipeline_crash_on_the_card_reraises_and_never_serves_the_oracle(phase):
     snap = br.snapshot()
     assert snap["failures"] == {"exception": 1} and snap["refusals"] == {"open": 1}
     assert not snap["fallbacks"]
+
+
+def test_make_spf_mesh_takes_the_cards_and_raises_with_none(monkeypatch):
+    """With no device list the mesh is laid over every visible card; with no
+    card visible it raises, never dropping to the CPU."""
+    from holo_tpu_torch.parallel import mesh as pm
+
+    _card()
+    mesh = pm.make_spf_mesh()
+    assert mesh.shape == {"batch": torch.cuda.device_count(), "node": 1}
+    assert [str(d) for d in mesh.devices.flat] == [
+        f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    assert pm.virtual_devices(2) == [torch.device("cuda", torch.cuda.current_device())] * 2
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pm.make_spf_mesh()
+    assert pm.process_mesh() is None
+
+
+@pytest.mark.parametrize("site", ["spf.shard", "frr.shard"])
+def test_mesh_on_the_card_matches_the_cpu_and_a_shard_failure_reraises(site):
+    """A virtual (2, 2) mesh over the card: the what-if, multi-root and FRR
+    dispatches equal the CPU path with no mesh; an injected shard failure is
+    counted by the breaker and re-raises (the oracle never serves on the
+    card), and the open circuit then refuses."""
+    from holo_tpu_torch.frr.kernel import TABLE_PLANES
+    from holo_tpu_torch.frr.manager import FrrEngine
+    from holo_tpu_torch.parallel import mesh as pm
+    from holo_tpu_torch.resilience.breaker import CircuitBreaker, CircuitOpen
+    from holo_tpu_torch.resilience.faults import FaultInjector, FaultPlan, InjectedFault, inject
+
+    dev = _card()
+    topo = synth.random_ospf_topology(n_routers=60, n_networks=11, extra_p2p=80, seed=5)
+    masks = synth.whatif_link_failure_masks(topo, 37, seed=6)
+    roots = [0, 5, 9]
+    cpu = TorchSpfBackend(device="cpu")
+    want = cpu.compute_whatif(topo, masks)
+    want_mr = cpu.compute_multiroot(topo, roots)
+    want_frr = FrrEngine("torch", device="cpu").compute(topo)
+    br = CircuitBreaker(f"card-mesh-{site}", failure_threshold=1, recovery_timeout=1e9)
+    card = TorchSpfBackend(device=dev, breaker=br)
+    eng = FrrEngine("torch", device=dev, breaker=br)
+    pm.configure_process_mesh(2, 2, pm.virtual_devices(4))
+    try:
+        assert not card.fallback_serves() and not eng.fallback_serves()
+        for i, (g, w) in enumerate(zip(card.compute_whatif(topo, masks), want)):
+            _same_result(g, w, f"mesh whatif {i}")
+        got_mr = card.compute_multiroot(topo, roots)
+        for f in ("dist", "parent", "hops"):
+            np.testing.assert_array_equal(getattr(got_mr, f), getattr(want_mr, f), err_msg=f)
+        got = eng.compute(topo)
+        for f in TABLE_PLANES:
+            np.testing.assert_array_equal(getattr(got, f), getattr(want_frr, f), err_msg=f)
+        assert card.shard_dispatches == {"whatif": 1, "multiroot": 1}
+        assert eng.shard_dispatches == {"frr": 1}
+        call = ((lambda: card.compute_whatif(topo, masks)) if site == "spf.shard"
+                else (lambda: eng.compute(topo)))
+        with inject(FaultInjector(FaultPlan(dispatch_fail={site: 1}))):
+            with pytest.raises(InjectedFault):
+                call()
+        with pytest.raises(CircuitOpen):
+            call()
+    finally:
+        pm.reset_process_mesh()
+    snap = br.snapshot()
+    assert snap["failures"] == {"exception": 1} and snap["refusals"] == {"open": 1}
+    assert not snap["fallbacks"]

@@ -46,7 +46,8 @@ def test_every_module_is_found():
                  "holo_tpu_torch.ops.bgp_table", "holo_tpu_torch.kernels.bgp",
                  "holo_tpu_torch.protocols.bgp_engine", "holo_tpu_torch.pipeline.tuner",
                  "holo_tpu_torch.pipeline.dispatch", "holo_tpu_torch.resilience.overload",
-                 "holo_tpu_torch.resilience.faults", "holo_tpu_torch.resilience.watchdog"):
+                 "holo_tpu_torch.resilience.faults", "holo_tpu_torch.resilience.watchdog",
+                 "holo_tpu_torch.parallel", "holo_tpu_torch.parallel.mesh"):
         assert want in mods
 
 

@@ -641,6 +641,65 @@ def test_sync_delegate_on_the_base_runs_after_the_chains_delta(pipe, call):
     assert pipe.stats()["max-inflight-per-key"] <= 1
 
 
+@pytest.mark.parametrize("masked", [True, False])
+def test_partitioned_call_on_the_base_runs_after_the_chains_delta(pipe, masked):
+    """The partitioned twin of the test above: a delta of a chain is
+    submitted, and while it waits to re-solve the partitioned resident in
+    place the caller runs ``compute_partitioned`` on the delta's base.  The
+    solve's entry waits up to 1 s for the delta's in-place re-solve and the
+    re-solve up to 1 s for the solve: run on the caller's thread, the solve
+    would read the next generation's planes; run in the chain's order on
+    the worker, it follows the delta and equals the serial run."""
+    base = tsynth.multiarea_topology(4, 6, 6, seed=3)
+    nxt = _tstep(base, {"cost": {e: 60 + e % 7 for e in range(0, base.n_edges, 3)}})
+    mask = tsynth.whatif_link_failure_masks(base, 3, seed=5)[1] if masked else None
+    ref = TorchSpfBackend(device="cpu", partition_threshold=1, incremental=False)
+    want = ref.compute_partitioned(base, mask)
+    moved = ref.compute_partitioned(tsynth.clone_topology(nxt), mask)
+    assert not np.array_equal(want.dist, moved.dist)
+
+    inner = TorchSpfBackend(device="cpu", partition_threshold=1)
+    be = AsyncSpfBackend(inner, pipe)
+    _force(be.compute(base))  # the base's partitioned resident
+    eng = inner._part_engine
+    holds_base, applied = threading.Event(), threading.Event()
+    real_solve, real_delta = eng.solve, eng.try_delta
+
+    def solve(topo, *a, **k):
+        if topo is base and not holds_base.is_set():
+            holds_base.set()
+            applied.wait(1.0)
+        return real_solve(topo, *a, **k)
+
+    def try_delta(topo, *a, **k):
+        holds_base.wait(1.0)
+        out = real_delta(topo, *a, **k)
+        applied.set()
+        return out
+
+    eng.solve, eng.try_delta = solve, try_delta
+    lazy = be.compute(nxt)
+    got = be.compute_partitioned(base, mask)
+    _same(got, want, f"compute_partitioned masked={masked}")
+    _same(_force(lazy), ref.compute(nxt), "the delta")
+    assert applied.is_set()
+    assert inner.delta_paths[("weight", "partitioned-incremental")] == 1
+    assert pipe.stats()["max-inflight-per-key"] <= 1
+
+
+@pytest.mark.parametrize("attr", sorted(AsyncSpfBackend.WORKER_ONLY))
+def test_facade_refuses_calls_that_read_the_resident_graph(pipe, attr):
+    """``launch_one`` / ``finish_one`` / ``prepare`` read (or update in
+    place) the chain's resident graph: the facade does not pass them to the
+    inner backend off the worker."""
+    inner = TorchSpfBackend(device="cpu")
+    be = AsyncSpfBackend(inner, pipe)
+    with pytest.raises(AttributeError, match=attr):
+        getattr(be, attr)
+    assert callable(getattr(inner, attr))
+    assert be.delta_paths is inner.delta_paths  # the rest passes through
+
+
 def test_library_first_build_runs_once_at_a_time(monkeypatch):
     """Four threads asking for the library at once never build it at the
     same time (a build that fails leaves it unbuilt, so each tries)."""
