@@ -223,6 +223,20 @@ the DeltaPath chain, and its multipath program through ``compute`` at
    launch and finish an entry); ``launch_one`` / ``finish_one`` called directly on the full,
    masked, multipath, tropical and delta paths, held the same way, each
    phase timed (median of 5), beside the card's name and power limit;
+3o. (run after phase 4's timings) the port's telemetry and runtime checks:
+   compute(), compute(masks[1]), compute(multipath_k=4), the 1024-lane
+   what-if on seq and tropical, the 64-root multi-root, FRR (root 6075), a
+   1024-request CSPF batch, the partitioned 10k LSDB, a BGP table's cold
+   batch and UPDATE burst, phase 3d's chain and its pipelined twin, each
+   with profiling armed and disarmed: bit-identical, equal launches, each
+   (site, stage) observed once a call, each device stage's CUDA-event time
+   at most its dispatch's wall, no event while disarmed; the overhead in 5
+   alternating turns; every path again under the transfer sanitizer with
+   no unsanctioned sync, and the flag reads a compute() per engine; the
+   residency rows against independent sums; the chains under the donation
+   guard and a seeded stale read caught; a torch.profiler trace with the
+   spf.one stage ranges and a gather kernel; all beside the card's name
+   and power limit;
 4. time each kernel (CUDA events; at one scenario also the profiler's
    device time, which leaves out the host's launch), its plain version, the
    whole batch, ``compute()`` and the gather batch's stages, and DeltaPath's
@@ -3586,6 +3600,453 @@ def mesh_phase(dev, topo, masks, gres, gmr, mr_roots, oracle, mr_ref, n_atoms) -
     return x
 
 
+# Telemetry and runtime checks (phase 3o): the partitioned LSDB, the BGP
+# feed and burst, the alternating turns of the overhead timing, the calls a
+# turn, the pipelined chain's depth.
+TEL_PART = PART_10K
+TEL_BGP_PREFIXES, TEL_BGP_BURST = 2048, 256
+TEL_TURNS = 5
+TEL_COMPUTE_REPS, TEL_WHATIF_REPS = 5, 3
+TEL_FLAG_ENGINES = ("seq", "fused", "packed", "hybrid", "tropical")
+
+
+def telemetry_phase(dev, topo, masks, gres, gone, gmr, mr_roots, m_one, mask_ref, chain,
+                    d_steps) -> dict:
+    """Phase 3o: the port's telemetry and runtime checks on the k=90 fat tree.
+    (a) One set of paths run with profiling armed and again disarmed:
+    ``compute()``, ``compute(masks[1])``, ``compute(multipath_k=4)``, the
+    1024-lane what-if on seq and on the tropical engine, the 64-root
+    multi-root, ``FrrEngine("torch").compute`` (root 6075), a 1024-request
+    CSPF batch, the partitioned 10k LSDB (hinted), a BGP table's cold batch
+    and one UPDATE burst, phase 3d's 8-event chain and the same chain
+    pipelined through ``AsyncSpfBackend``: every plane bit-identical between
+    the arms and to the earlier phases' references, the kernel launches
+    equal, each (site, stage) observed as often as the calls made it, each
+    device stage's CUDA-event time at most its dispatch's wall, and no CUDA
+    event recorded by the disarmed arm.  (b) The overhead: ``compute()``
+    (median of 5) and the what-if (median of 3), armed against disarmed in 5
+    alternating turns.  (c) Every path again under
+    ``testing.no_implicit_transfers()``, with no unsanctioned sync (one that
+    raises is run again with the mode at "warn" to list every site), and
+    the sanctioned windows each path opened, the flag reads of one
+    ``compute()`` per engine, ``mp`` and ``mp_tropical`` at multipath_k=4
+    and a partitioned ``compute()``.  (d) The residency rows against an
+    independent sum of the tensors each names, the total at most
+    ``torch.cuda.memory_allocated()``.  (e) Phase 3d's chain and the
+    pipeline's interleaved chains under ``testing.donation_guarded()``; a
+    seeded stale read raises ``DonatedBufferError``.  (f) A
+    ``capture_device_trace`` into a temporary directory holds the
+    ``spf.one.*`` stage ranges and a gather kernel."""
+    import tempfile
+    import warnings
+
+    from holo_tpu_torch import telemetry, testing
+    from holo_tpu_torch.analysis import runtime
+    from holo_tpu_torch.frr.manager import FrrEngine
+    from holo_tpu_torch.kernels import bgp as kb
+    from holo_tpu_torch.kernels import blocked, ell
+    from holo_tpu_torch.kernels import tropical as kt
+    from holo_tpu_torch.ops import bgp_table as bt
+    from holo_tpu_torch.ops import graph
+    from holo_tpu_torch.ops import spf_engine as se
+    from holo_tpu_torch.ops.cspf import Constraint, CspfEngine, LinkAttrs
+    from holo_tpu_torch.pipeline import AsyncSpfBackend, DispatchPipeline
+    from holo_tpu_torch.protocols import bgp_engine as bge
+    from holo_tpu_torch.spf import synth
+    from holo_tpu_torch.spf.backend import TorchSpfBackend
+    from holo_tpu_torch.telemetry import profiling, residency
+
+    t_phase = time.perf_counter()
+    x = {}
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    n_atoms = max(64, topo.n_atoms())
+    part_topo = synth.multiarea_topology(**TEL_PART)
+    rng = np.random.default_rng(CSPF_SEED)  # phase 3g's draws
+    attrs = LinkAttrs(affinity=rng.integers(0, 2**8, topo.n_edges, dtype=np.uint32),
+                      bandwidth=rng.uniform(1.0, 10.0, topo.n_edges))
+    cons = [Constraint(exclude_any=int(rng.integers(0, 4)),
+                       min_bandwidth=float(rng.uniform(0.0, 2.0))) for _ in range(CSPF_BATCH)]
+    dsts = [int(d) for d in rng.integers(0, topo.n_vertices, CSPF_BATCH)]
+    cspf = CspfEngine(topo, attrs, device=dev)
+    nht, feed = bgp_feed(bge, TEL_BGP_PREFIXES, BGP_PEERS)
+    burst = bgp_burst(bge, feed, BGP_PEERS, TEL_BGP_BURST)
+
+    def force(lazy):
+        return lazy._ticket.result(timeout=PIPE_WAIT_S)
+
+    def bgp_run():
+        tb = bt.TorchBgpTableBackend(device=dev)
+        eng = bge.DecisionEngine(asn=65000, table_backend=tb, ibus_cb=lambda *a: None)
+        eng.multipath[BGP_AFS] = dict(BGP_MP)
+        for addr, metric in nht.items():
+            eng.tables[BGP_AFS].nht[addr] = bge.NhtEntry(metric=metric)
+        for prefix, routes in feed:
+            bgp_announce(bge, eng, prefix, routes, tb)
+        eng.run_decision_process()
+        for prefix, routes in burst:
+            bgp_announce(bge, eng, prefix, routes, tb)
+        eng.run_decision_process()
+        require(tb.stats()["fallbacks"] == 0, "the BGP table fell back to the oracle")
+        return bgp_snap(eng)
+
+    def chain_run():
+        be = TorchSpfBackend(device=dev)
+        out = [be.compute(topo)] + [be.compute(t) for _, t in chain]
+        require(be.delta_paths.get(("weight", "incremental"), 0) > 0,
+                "the chain left DeltaPath")
+        return out
+
+    def pipelined_run():
+        pipe = DispatchPipeline(depth=2)
+        try:
+            abe = AsyncSpfBackend(TorchSpfBackend(device=dev), pipe)
+            lazies = [abe.compute(topo)] + [abe.compute(t) for _, t in chain]
+            return [force(lz) for lz in lazies]
+        finally:
+            pipe.close()
+
+    def sb():
+        return TorchSpfBackend(device=dev)
+
+    def planes(want):
+        return lambda got: same_planes(got, want)
+
+    def batch(want, same):
+        return lambda got: len(got) == len(want) and all(same(a, b) for a, b in zip(got, want))
+
+    def roots(got):
+        return all(np.array_equal(getattr(got, f), getattr(gmr, f))
+                   for f in ("dist", "parent", "hops"))
+
+    chain_ref = [gone] + [s[2] for s in d_steps]
+    one3 = {"marshal": 1, "device": 1, "readback": 1}
+    chain_stages = {("spf.one", "marshal"): 1, ("spf.one", "delta"): len(chain),
+                    ("spf.one", "device"): len(chain) + 1,
+                    ("spf.one", "readback"): len(chain) + 1}
+    part_stages = {("spf.partitioned", s): 1 for s in ("marshal", "solve", "bdist", "stitch",
+                                                       "dist", "phase2")}
+    # name -> (call, check against the earlier phases or None, expected
+    # stage observations)
+    paths = {
+        "compute()": (lambda: sb().compute(topo), planes(gone),
+                      {("spf.one", s): v for s, v in one3.items()}),
+        "compute(masks[1])": (lambda: sb().compute(topo, masks[1]), planes(mask_ref),
+                              {("spf.one", s): v for s, v in one3.items()}),
+        f"compute(multipath_k={MP_K})": (lambda: sb().compute(topo, multipath_k=MP_K),
+                                         lambda got: same_nine(got, m_one[MP_K]),
+                                         {("spf.one", s): v for s, v in one3.items()}),
+        "what-if seq": (lambda: sb().compute_whatif(topo, masks), batch(gres, same_planes),
+                        {("spf.whatif", s): v for s, v in one3.items()}),
+        "what-if tropical": (
+            lambda: TorchSpfBackend(device=dev, one_engine="tropical").compute_whatif(topo, masks),
+            batch(gres, same_planes), {("spf.whatif", s): v for s, v in one3.items()}),
+        f"multiroot x{len(mr_roots)}": (lambda: sb().compute_multiroot(topo, mr_roots), roots,
+                                         {("spf.multiroot", s): v for s, v in one3.items()}),
+        "FRR": (lambda: FrrEngine("torch", device=dev).compute(topo), None,
+                {("frr.batch", s): v for s, v in one3.items()}),
+        f"CSPF x{CSPF_BATCH}": (lambda: cspf.compute(cons, dsts), None, {}),
+        "partitioned 10k": (
+            lambda: TorchSpfBackend(device=dev, partition_threshold=1).compute(part_topo), None,
+            part_stages),
+        "BGP burst": (bgp_run, None, {("bgp.table", s): 2 for s in one3}),
+        "delta chain": (chain_run, batch(chain_ref, same_planes), chain_stages),
+        "pipelined chain": (pipelined_run, batch(chain_ref, same_planes), chain_stages),
+    }
+
+    def same_any(got, want) -> bool:
+        """Two runs of one path equal on every plane (results, lists of
+        them, CSPF paths, BGP Loc-RIB snapshots)."""
+        if isinstance(want, list):
+            return len(got) == len(want) and all(same_any(g, w) for g, w in zip(got, want))
+        if isinstance(want, dict):
+            return got == want
+        return same_result(got, want)
+
+    def stage_counts() -> Counter:
+        out = Counter()
+        for k, v in telemetry.snapshot("holo_profile_stage_seconds").items():
+            labels = dict(kv.split("=", 1) for kv in k[k.index("{") + 1:-1].split(","))
+            if labels["device"] == "-":
+                out[(labels["site"], labels["stage"])] += v["count"]
+        return out
+
+    def launches() -> dict:
+        return {**launch_counts(), **kb.launches}
+
+    def reset() -> None:
+        ell.reset_launches()
+        kt.reset_launches()
+        blocked.reset_launches()
+        kb.reset_launches()
+
+    # (a) armed and disarmed
+    arms = {}
+    for arm in ("armed", "disarmed"):
+        profiling.set_device_profiling(arm == "armed")
+        ev0, n0, st0 = profiling.event_records(), len(profiling.settled()), stage_counts()
+        results, counts = {}, {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            for name, (call, _want, _st) in paths.items():
+                reset()
+                results[name] = call()
+                torch.cuda.synchronize()
+                counts[name] = {k: v for k, v in launches().items() if v}
+        finally:
+            profiling.set_device_profiling(False)
+        arms[arm] = {"results": results, "launches": counts,
+                     "events": profiling.event_records() - ev0,
+                     "settled": profiling.settled()[n0:], "stages": stage_counts() - st0,
+                     "s": time.perf_counter() - t0}
+    a, d = arms["armed"], arms["disarmed"]
+    for name, (_call, check, _st) in paths.items():
+        require(same_any(a["results"][name], d["results"][name]),
+                f"3o: {name} differs between the armed and the disarmed arm")
+        if check is not None:
+            require(check(a["results"][name]),
+                    f"3o: {name} differs from the earlier phases' reference")
+        require(a["launches"][name] == d["launches"][name],
+                f"3o: {name} launches differ: armed {a['launches'][name]}, disarmed "
+                f"{d['launches'][name]}")
+    want_stages = Counter()
+    for _call, _want, st in paths.values():
+        want_stages.update(st)
+    require(a["stages"] == want_stages,
+            f"3o: stage observations {dict(a['stages'])} != calls made {dict(want_stages)}")
+    require(d["events"] == 0 and not d["settled"] and not d["stages"],
+            f"3o: the disarmed arm recorded {d['events']} CUDA events, settled "
+            f"{len(d['settled'])} device stages, observed {dict(d['stages'])}")
+    n_device = sum(v for (_site, stage), v in want_stages.items() if stage == "device")
+    require(len(a["settled"]) == n_device and a["events"] == 2 * n_device,
+            f"3o: {len(a['settled'])} device stages settled and {a['events']} events "
+            f"recorded for {n_device} device stages")
+    worst = max((dt / wall, site) for site, _dev, dt, _host, wall in a["settled"])
+    require(all(0 < dt <= wall for _s, _d, dt, _h, wall in a["settled"]),
+            f"3o: a device stage's event time exceeds its dispatch wall ({worst})")
+    by_site = {}
+    for site, _dev, dt, _host, wall in a["settled"]:
+        by_site.setdefault(site, []).append((dt * 1e3, wall * 1e3))
+    x["device_stages"] = by_site
+    print(f"3o (a): {len(paths)} paths armed ({a['s']:.1f} s) and disarmed ({d['s']:.1f} s): "
+          f"every plane bit-identical between the arms and to the earlier phases' references, "
+          f"launches equal; stage observations {dict(sorted(want_stages.items()))} equal to "
+          f"the calls made; {n_device} device stages on {a['events']} CUDA events, each at "
+          f"most its dispatch's wall (largest share {worst[0]:.4f}, {worst[1]}); disarmed: "
+          f"0 events; {smi}", flush=True)
+    for site, rows in by_site.items():
+        print(f"3o device stages {site}: " + ", ".join(
+            f"{dt:.3f} of {wall:.3f} ms" for dt, wall in rows[:9]) + f"; {smi}", flush=True)
+
+    # (b) the overhead, armed against disarmed in alternating turns
+    ob = sb()
+    ob.compute(topo)
+    ob.compute_whatif(topo, masks)
+    walls = {("compute", arm): [] for arm in ("armed", "disarmed")}
+    walls.update({("whatif", arm): [] for arm in ("armed", "disarmed")})
+    for turn in range(TEL_TURNS):
+        order = ("armed", "disarmed") if turn % 2 == 0 else ("disarmed", "armed")
+        for arm in order:
+            profiling.set_device_profiling(arm == "armed")
+            try:
+                walls[("compute", arm)].append(host_ms(lambda: ob.compute(topo), TEL_COMPUTE_REPS))
+                walls[("whatif", arm)].append(host_ms(lambda: ob.compute_whatif(topo, masks),
+                                                      TEL_WHATIF_REPS))
+            finally:
+                profiling.set_device_profiling(False)
+    x["overhead"] = {}
+    for what in ("compute", "whatif"):
+        on = statistics.median(walls[(what, "armed")])
+        off = statistics.median(walls[(what, "disarmed")])
+        x["overhead"][what] = (on, off)
+        print(f"time 3o profiling overhead {what}: armed {on:.3f} ms, disarmed {off:.3f} ms "
+              f"(armed / disarmed {on / off:.4f}; median of {TEL_TURNS} alternating turns, each "
+              f"the median of {TEL_COMPUTE_REPS if what == 'compute' else TEL_WHATIF_REPS}; "
+              f"armed {[round(w, 3) for w in walls[(what, 'armed')]]}, disarmed "
+              f"{[round(w, 3) for w in walls[(what, 'disarmed')]]}); {smi}", flush=True)
+
+    # (c) the sanitizer
+    def survey(call) -> tuple:
+        """``call``'s result and its unsanctioned sync sites: the mode at
+        "warn", each warning's innermost frame in the port (or the
+        script)."""
+        sites = []
+
+        def show(message, category, filename, lineno, file=None, line=None):
+            import traceback
+
+            frames = [f for f in traceback.extract_stack()[:-1]
+                      if "holo_tpu_torch" in f.filename or f.filename.endswith("chip_smoke.py")]
+            where = frames[-1] if frames else None
+            sites.append(f"{where.filename.split('/holo_tpu_torch/')[-1]}:{where.lineno} "
+                         f"{where.name}" if where else f"{filename}:{lineno}")
+
+        runtime.ARMED_MODE = "warn"
+        try:
+            with warnings.catch_warnings():  # restores showwarning
+                warnings.simplefilter("always")
+                warnings.showwarning = show
+                with testing.no_implicit_transfers():
+                    out = call()
+        finally:
+            runtime.ARMED_MODE = "error"
+        return out, sorted(Counter(sites).items())
+
+    unsanctioned = {}
+
+    def sanitized(name, call):
+        """``call`` under the sanitizer; one that raises on a sync runs
+        again with the mode at "warn" to list every site (checked after
+        the last path, so one run lists them all)."""
+        before = runtime.sanctioned_counts()
+        try:
+            with testing.no_implicit_transfers():
+                out = call()
+        except RuntimeError as exc:
+            if "synchroniz" not in str(exc):
+                raise
+            torch.cuda.synchronize()
+            out, unsanctioned[name] = survey(call)
+        torch.cuda.synchronize()
+        after = runtime.sanctioned_counts()
+        return out, {k: v - before.get(k, 0) for k, v in after.items() if v != before.get(k, 0)}
+
+    x["sanctioned"] = {}
+    for name, (call, _want, _st) in paths.items():
+        out, delta = sanitized(name, call)
+        require(same_any(out, a["results"][name]), f"3o (c): {name} differs under the sanitizer")
+        x["sanctioned"][name] = delta
+        print(f"3o (c) sanitized {name}: "
+              f"{'unsanctioned syncs' if name in unsanctioned else 'no unsanctioned sync'}; "
+              f"windows {dict(sorted(delta.items()))}", flush=True)
+    flag_paths = {e: (lambda e=e: TorchSpfBackend(device=dev, one_engine=e).compute(topo))
+                  for e in TEL_FLAG_ENGINES}
+    flag_paths["mp"] = lambda: sb().compute(topo, multipath_k=MP_K)
+    flag_paths["mp_tropical"] = lambda: TorchSpfBackend(
+        device=dev, one_engine="tropical").compute(topo, multipath_k=MP_K)
+    pwarm = TorchSpfBackend(device=dev, partition_threshold=1)
+    pwarm.compute(part_topo)
+    flag_paths["partitioned"] = lambda: pwarm.compute(part_topo)
+    x["flags"] = {}
+    for name, call in flag_paths.items():
+        out, delta = sanitized(f"compute() {name}", call)
+        flags = {k: v for k, v in sorted(delta.items()) if ".flag." in k}
+        x["flags"][name] = flags
+        print(f"3o (c) flag reads of one compute() {name}: {sum(flags.values())} "
+              f"{flags}; {smi}", flush=True)
+    require(not unsanctioned, f"3o (c): unsanctioned syncs, path -> [(site, count)]: "
+            f"{unsanctioned}")
+
+    # (d) the residency ledger
+    torch.cuda.synchronize()
+    rows = residency.rows()
+    indep = dict.fromkeys(residency.PLANES, 0)
+    host_held = [0]
+
+    def add(plane, tensors) -> None:
+        for t in tensors:
+            if t is not None:
+                indep[plane] += t.numel() * t.element_size()
+                host_held[0] += 0 if t.is_cuda else t.numel() * t.element_size()
+
+    for cache in list(se._SHARED_CACHES.values()):
+        for e in list(cache._cache.values()):
+            add("spf-graph", e.graph)
+            if e.tropical is not None:
+                add("tropical", e.tropical)
+        for r in list(cache._part.values()):
+            add("spf-graph-partitioned", r.graph)
+    for ref in residency._SPF_BACKENDS:
+        b = ref()
+        for run in ([] if b is None else list(b._prev_one.values())):
+            for part in (run if isinstance(run[0], tuple) else (run,)):
+                add("spf-prev", part)
+    for b in bt.live_backends():
+        for dt in b._tables.values():
+            add("bgp-table", (dt.planes,))
+    got = {p: r["bytes"] for p, r in rows.items()}
+    total = sum(got.values())
+    allocated = torch.cuda.memory_allocated()
+    require(got == indep, f"3o (d): residency rows {got} != the independent sums {indep}")
+    require(total <= allocated, f"3o (d): resident {total} bytes > allocated {allocated}")
+    x["residency"] = rows
+    print(f"3o (d) residency: {json.dumps(rows)}; total {total} bytes ({host_held[0]} of them "
+          f"in the CPU's caches) of {allocated} allocated on the card; each row equal to an "
+          f"independent sum of its tensors; {smi}", flush=True)
+
+    # (e) the donation guard
+    with testing.donation_guarded():
+        require(paths["delta chain"][1](chain_run()), "3o (e): the guarded chain differs")
+        require(paths["pipelined chain"][1](pipelined_run()),
+                "3o (e): the guarded pipelined chain differs")
+        pipe = DispatchPipeline(depth=2)
+        try:
+            inner = TorchSpfBackend(device=dev)
+            abe = AsyncSpfBackend(inner, pipe)
+            topo2 = synth.clone_topology(topo)
+            topo2.root = PIPE_ROOT2
+            synth.assign_direct_atoms(topo2)
+            ref2 = TorchSpfBackend(device=dev)
+            ends = [topo, topo2]
+            # Each turn is forced whole before its synchronous reference
+            # runs: the reference reads the chains' resident graphs, which
+            # the worker's next delta would rewrite under it.
+            first = [force(lz) for lz in [abe.compute(t) for t in ends]]
+            require(all(same_planes(r, ref2.compute(t)) for r, t in zip(first, ends)),
+                    "3o (e): a guarded interleaved base differs")
+            for _ in range(2):
+                steps = [toggles(graph, synth, end, K, PIPE_TURN_STEPS) for end in ends]
+                order = [t for pair in zip(*steps) for t in pair]
+                res = [force(lz) for lz in [abe.compute(t) for t in order]]
+                require(all(same_planes(r, ref2.compute(t)) for r, t in zip(res, order)),
+                        "3o (e): a guarded interleaved chain step differs")
+                ends = [s[-1] for s in steps]
+            require(pipe.stats()["max-inflight-per-key"] <= 1, "3o (e): two of a key in flight")
+        finally:
+            pipe.close()
+        # The seeded stale read: a lease on a resident graph taken for one
+        # generation, then the next generation's delta applied to it in place.
+        small = synth.fat_tree_topology(k=8)
+        stale_be = TorchSpfBackend(device=dev)
+        stale_be.compute(small)
+        g = stale_be.prepare(small)
+        lease = runtime.lease(g, generation=stale_be._gather_cache.key(small, n_atoms))
+        stale_be.compute(toggles(graph, synth, small, 8, 1)[0])
+        try:
+            runtime.assert_live("chip_smoke.stale", lease)
+            caught = None
+        except runtime.DonatedBufferError as exc:
+            caught = str(exc)
+    require(caught is not None and "spf.graph.delta" in caught,
+            f"3o (e): the seeded stale read was not caught ({caught})")
+    consumed, donated = runtime.consumed_counts(), runtime.donated_counts()
+    print(f"3o (e) donation guard: phase 3d's chain, its pipelined twin and two interleaved "
+          f"pipelined chains ({2 * PIPE_TURN_STEPS} toggles a turn, 2 turns) under the guard, "
+          f"each bit-identical to its synchronous run, no error; the seeded stale read raised "
+          f"DonatedBufferError: {caught}; seams {donated}, hand-overs {consumed}", flush=True)
+
+    # (f) the trace
+    with tempfile.TemporaryDirectory() as tmp:
+        row = profiling.capture_device_trace(tmp)
+        require(row.get("captured"), f"3o (f): no trace captured: {row}")
+        events = json.loads(Path(row["path"]).read_text())["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    stages = sorted(nm for nm in names if nm.startswith("spf.one."))
+    kern = sorted(nm for nm in names if any(k in nm for k in (
+        "ell_relax", "ell_first_parent", "ell_nh_seed", "ell_nh_round", "ell_fused")))
+    require({"spf.one.marshal", "spf.one.device", "spf.one.readback"} <= set(stages),
+            f"3o (f): the trace lacks the spf.one stage ranges: {stages}")
+    require(kern, "3o (f): the trace holds no gather kernel")
+    x["trace"] = {"stages": stages, "kernels": kern, "events": len(events)}
+    print(f"3o (f) trace: {len(events)} events, stage ranges {stages}, gather kernels "
+          f"{kern[:4]}{' ...' if len(kern) > 4 else ''} ({row['n_vertices']} vertices); {smi}",
+          flush=True)
+    x["phase_s"] = time.perf_counter() - t_phase
+    print(f"telemetry phase 3o checked in {x['phase_s']:.1f} s", flush=True)
+    return x
+
+
 def oracle_result(ref, n_atoms: int):
     """The oracle's planes under SpfResult's field names."""
     return type("Ref", (), {"dist": ref.dist, "parent": ref.parent, "hops": ref.hops,
@@ -4674,6 +5135,12 @@ def main() -> None:
         "engine_ms": lt, "tuner": {e: v["median_ms"] for e, v in lx["tuner_row"]["engines"].items()},
         "tuner_winner": lx["tuner_row"]["winner"], "tile_deltas": lx["tile_deltas"],
     })
+    # -- 3o. the telemetry and the runtime checks: armed against disarmed,
+    # the overhead, the sanitizer, the residency ledger, the donation guard
+    # and a trace (after phase 4's timings: it arms and runs the profiler)
+    telemetry_phase(dev, topo, masks, gres, gone, gmr, mr_roots, m_one,
+                    oracle_result(oracle[1], n_atoms), chain, d_steps)
+
     # (e) every dispatch of the run ran on the card: every breaker the run
     # built (every SPF backend, FRR engine and BGP table and rank backend)
     # counted no failure, fallback or refusal.

@@ -46,10 +46,15 @@ class HostCopy:
         self._event.record()
 
     def wait(self) -> dict:
-        if self._host is None:
-            self._host = {name: t.cpu() for name, t in self._src.items()}
-        if self._event is not None:
-            self._event.synchronize()
-            self._event = None
+        from holo_tpu_torch.analysis.runtime import sanctioned_transfer
+
+        if self._src is None:  # waited already
+            return self._host
+        with sanctioned_transfer("host_copy.wait"):
+            if self._host is None:
+                self._host = {name: t.cpu() for name, t in self._src.items()}
+            if self._event is not None:
+                self._event.synchronize()
+                self._event = None
         self._src = None
         return self._host

@@ -43,6 +43,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from holo_tpu_torch.analysis.runtime import read_flag, sanctioned_transfer
 from holo_tpu_torch.device import HostCopy
 from holo_tpu_torch.frr.inputs import FrrInputs
 from holo_tpu_torch.kernels import ell
@@ -80,7 +81,8 @@ def _plane(x, device, dtype=torch.int32) -> torch.Tensor:
     SRLG masks keep their bit patterns as int32."""
     if isinstance(x, np.ndarray) and x.dtype == np.uint32:
         x = x.view(np.int32)
-    return torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x).to(device, dtype)
+    with sanctioned_transfer("frr.batch.marshal"):
+        return torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x).to(device, dtype)
 
 
 def _sync(device: torch.device) -> None:
@@ -232,7 +234,7 @@ def frr_select(
                 torch.where(pmark, -1, torch.where(s_u >= 0, s_u, vidx[None, :])),
             ),
         ).to(torch.int32)
-        changed = bool(((n1_new != n1) | (p_new != p) | (s_new != s)).any())
+        changed = read_flag("frr.flag.tilfa", ((n1_new != n1) | (p_new != p) | (s_new != s)).any())
         n1, p, s = n1_new, p_new, s_new
         rounds += 1
 

@@ -38,12 +38,16 @@ vertices (``[:n]``: the node axis pads the resident's rows).  A size-1 mesh
 runs the plain ``frr_batch``.  ``faults.crashpoint("frr.shard")`` is the
 shard chaos seam.
 
-Where ``holo_tpu`` exports metrics, the engine keeps counters:
-``graph_cache`` (marshaled-graph lookups by result), ``dispatches`` (by
-path: device, fallback, scalar) and ``shard_dispatches`` (``frr``: the
-dispatches the mesh served, ``holo_spf_shard_dispatch_total{kind=frr}``).
-``stats``, when set to a dict, receives each device dispatch's stage times
-(a mesh's dispatch: its shard count only).
+Telemetry, under ``holo_tpu``'s names: ``holo_frr_dispatch_seconds{engine}``
+(one ``frr.dispatch`` span a ``compute``), ``holo_frr_graph_cache_total
+{result}``, ``holo_frr_pad_occupancy{plane}``, ``holo_spf_shard_dispatch_
+total{kind=frr}`` and the ``frr.batch`` marshal / device / readback stages
+(``telemetry.profiling``; the device stage's time from CUDA events recorded
+around the program).  The engine also keeps its counters: ``graph_cache``
+(marshaled-graph lookups by result), ``dispatches`` (by path: device,
+fallback, scalar) and ``shard_dispatches``.  ``stats``, when set to a dict,
+receives each device dispatch's stage times (a mesh's dispatch: its shard
+count only).
 """
 
 from __future__ import annotations
@@ -54,6 +58,8 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from holo_tpu_torch import telemetry
+from holo_tpu_torch.analysis.runtime import sanctioned_transfer
 from holo_tpu_torch.device import resolve_device
 from holo_tpu_torch.frr.inputs import marshal_frr
 from holo_tpu_torch.frr.kernel import (
@@ -69,6 +75,22 @@ from holo_tpu_torch.ops.spf_engine import shared_graph_cache, spf_whatif_batch
 from holo_tpu_torch.parallel import mesh as pm
 from holo_tpu_torch.resilience import faults
 from holo_tpu_torch.resilience.breaker import CircuitBreaker
+from holo_tpu_torch.telemetry import profiling
+
+_FRR_SECONDS = telemetry.histogram(
+    "holo_frr_dispatch_seconds",
+    "Wall time of one backup-table computation (marshal + dispatch + readback)",
+    ("engine",))
+_FRR_GRAPH_CACHE = telemetry.counter(
+    "holo_frr_graph_cache_total", "Marshaled DeviceGraph cache lookups (FRR engine)",
+    ("result",))
+_FRR_PAD_OCCUPANCY = telemetry.gauge(
+    "holo_frr_pad_occupancy", "Valid fraction of the padded FRR plane (last dispatch)",
+    ("plane",))
+_FRR_SHARD_DISPATCHES = telemetry.counter(
+    "holo_spf_shard_dispatch_total",
+    "Dispatches routed through the process-mesh sharded path "
+    "(parallel/mesh.py layout contract)", ("kind",))
 
 
 @dataclass
@@ -245,8 +267,17 @@ class FrrEngine:
         return lsr, asr, np.bool_(self.policy.node_protection)
 
     def marshal_inputs(self, topo):
-        """The FRR planes of ``topo`` (the front half of :meth:`compute`)."""
-        return marshal_frr(topo)
+        """The FRR planes of ``topo`` (the front half of :meth:`compute`) and
+        the pad-occupancy gauges (the adjacency plane's mean sampled at
+        scrape time)."""
+        fin = marshal_frr(topo)
+        lp = fin.link_valid.shape[0]
+        if lp:
+            _FRR_PAD_OCCUPANCY.labels(plane="links").set(fin.n_links / lp)
+        if fin.adj_valid.shape[0]:
+            _FRR_PAD_OCCUPANCY.labels(plane="adjs").set_fn(
+                telemetry.deferred_mean(fin.adj_valid))
+        return fin
 
     def _prepare(self, topo, device=None, mesh=None):
         """The device graph from the per-device shared cache (``device``'s,
@@ -254,9 +285,11 @@ class FrrEngine:
         scenario masks gather through ``in_edge_id``, so an entry whose edge
         ids went stale under a structural delta is rebuilt
         (``need_edge_ids``)."""
-        g, how = shared_graph_cache(self.device if device is None else device).get(
-            topo, max(self.n_atoms, topo.n_atoms()), need_edge_ids=True, mesh=mesh)
+        with sanctioned_transfer("frr.batch.marshal"):
+            g, how = shared_graph_cache(self.device if device is None else device).get(
+                topo, max(self.n_atoms, topo.n_atoms()), need_edge_ids=True, mesh=mesh)
         self.graph_cache[how] += 1
+        _FRR_GRAPH_CACHE.labels(result=how).inc()
         return g
 
     def fallback_serves(self) -> bool:
@@ -310,7 +343,8 @@ class FrrEngine:
         shards = [(i * width, shard) for i, shard in enumerate(shards)]
         if self.stats is not None:
             self.stats["shards"] = len(shards)
-        return pm.run_batch(mesh, shards, resident, run, np.asarray(fin.link_far).shape[0])
+        return pm.run_batch(mesh, shards, resident, run, np.asarray(fin.link_far).shape[0],
+                            site="frr.batch")
 
     def _compute_device(self, topo, fin) -> BackupTable:
         # Back to back: the finish reads the tables back with .cpu().
@@ -323,28 +357,41 @@ class FrrEngine:
         :meth:`_finish_device` completes."""
         faults.crashpoint("frr.dispatch")
         mesh = pm.process_mesh()
-        if mesh is not None:
-            # The shard chaos seam: a device lost from the mesh surfaces
-            # here, and the breaker counts it like any device failure.
-            faults.crashpoint("frr.shard")
-            out = self._sharded(mesh, topo, fin)
-        else:
-            g = self._prepare(topo)
-            out = frr_batch(
-                g, topo.root, fin.link_far, fin.link_cost, fin.link_valid, fin.edge_masks,
-                fin.adj_nbr, fin.adj_cost, fin.adj_link, fin.adj_valid,
-                *self._policy_args(fin), max_iters=self.max_iters, stats=self.stats,
-            )
-        # [:nl] drops the link pad (the marshal's bucket and the mesh's batch
-        # axis), [:n] the rows a node axis pads.
-        return stage_tables(out, fin, topo.n_vertices, queue), fin, topo, mesh is not None
+        t0 = profiling.clock()
+        with profiling.stage("frr.batch", "marshal"):
+            if mesh is not None:
+                # The shard chaos seam: a device lost from the mesh surfaces
+                # here, and the breaker counts it like any device failure.
+                faults.crashpoint("frr.shard")
+                clk = None
+                out = self._sharded(mesh, topo, fin)
+            else:
+                g = self._prepare(topo)
+                clk = profiling.device_clock("frr.batch", on=g.in_src.device)
+                out = frr_batch(
+                    g, topo.root, fin.link_far, fin.link_cost, fin.link_valid, fin.edge_masks,
+                    fin.adj_nbr, fin.adj_cost, fin.adj_link, fin.adj_valid,
+                    *self._policy_args(fin), max_iters=self.max_iters, stats=self.stats,
+                )
+                profiling.sync(clk)
+            # [:nl] drops the link pad (the marshal's bucket and the mesh's
+            # batch axis), [:n] the rows a node axis pads.
+            staged = stage_tables(out, fin, topo.n_vertices, queue)
+        return staged, fin, topo, mesh is not None, clk, t0
 
     def _finish_device(self, handle: tuple) -> BackupTable:
         """Phase 2: the chaos delay, the wait on the copies, the table."""
-        staged, fin, topo, sharded = handle
+        staged, fin, topo, sharded, clk, t_launch = handle
         t0 = time.perf_counter()
-        faults.delaypoint("frr.dispatch")
-        table = host_tables(staged, fin, topo.root)
+        with profiling.stage("frr.batch", "device", clock=clk):
+            faults.delaypoint("frr.dispatch")
+            staged.wait()
+        if sharded:
+            _FRR_SHARD_DISPATCHES.labels(kind="frr").inc()
+        with profiling.stage("frr.batch", "readback"):
+            with sanctioned_transfer("frr.batch.unmarshal"):
+                table = host_tables(staged, fin, topo.root)
+        profiling.settle(clk, profiling.clock() - t_launch)
         if self.stats is not None:
             self.stats["readback_ms"] = (time.perf_counter() - t0) * 1e3
         self.dispatches["device"] += 1
@@ -368,15 +415,20 @@ class FrrEngine:
     def compute(self, topo) -> BackupTable:
         """One batched backup-table computation for ``topo.root``."""
         t0 = time.perf_counter()
-        fin = self.marshal_inputs(topo)
-        if self.stats is not None:
-            self.stats.clear()
-            self.stats["marshal_ms"] = (time.perf_counter() - t0) * 1e3
-        if self.engine == "torch":
-            return self.breaker.call(
-                lambda: self._compute_device(topo, fin),
-                (lambda: self._scalar_fallback(topo, fin)) if self.fallback_serves() else None,
-                "frr.batch",
-            )
-        self.dispatches["scalar"] += 1
-        return self._scalar(topo, fin)
+        with telemetry.span("frr.dispatch", engine=self.engine):
+            fin = self.marshal_inputs(topo)
+            if self.stats is not None:
+                self.stats.clear()
+                self.stats["marshal_ms"] = (time.perf_counter() - t0) * 1e3
+            if self.engine == "torch":
+                table = self.breaker.call(
+                    lambda: self._compute_device(topo, fin),
+                    (lambda: self._scalar_fallback(topo, fin)) if self.fallback_serves()
+                    else None,
+                    "frr.batch",
+                )
+            else:
+                self.dispatches["scalar"] += 1
+                table = self._scalar(topo, fin)
+        _FRR_SECONDS.labels(engine=self.engine).observe(time.perf_counter() - t0)
+        return table

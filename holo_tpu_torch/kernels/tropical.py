@@ -54,6 +54,7 @@ from typing import NamedTuple
 
 import torch
 
+from holo_tpu_torch.analysis.runtime import sanctioned_transfer
 from holo_tpu_torch.kernels import build
 from holo_tpu_torch.kernels.ell import (
     _round_result,
@@ -88,7 +89,8 @@ def repair_set(bits: torch.Tensor, lanes: int) -> RepairSet:
     """The repair plane ``bits`` [NB * B, ceil(lanes / 32)] with its list of
     (row, lane) pairs, in row-major order (one host sync: a fixpoint builds
     it once)."""
-    pairs = _unpack(bits, slice(0, lanes)).nonzero().to(torch.int32)
+    with sanctioned_transfer("spf.tiles.repair_set"):
+        pairs = _unpack(bits, slice(0, lanes)).nonzero().to(torch.int32)
     return RepairSet(bits, pairs.contiguous())
 
 

@@ -46,9 +46,15 @@ counted; the oracle then serves the batch only on the CPU, and on the card
 the failure re-raises.  The chaos seams ``faults.crashpoint("bgp.dispatch")``
 and ``faults.delaypoint("bgp.dispatch")`` sit where ``holo_tpu`` has them.
 
-Left out (ROADMAP): the ``holo_bgp_table_*`` counters, profiling,
-observatory and span calls, the kernel-contract audit registrations and the
-telemetry leaf wiring (A13).
+Telemetry, under ``holo_tpu``'s names: ``holo_bgp_table_dispatch_total
+{kind}``, ``holo_bgp_table_update_rows{kind}``, ``holo_bgp_table_recomputed_
+prefixes{kind}``, ``holo_bgp_table_fallback_total{context}``, the
+``bgp.table.dispatch`` / ``bgp.rank.dispatch`` spans and the ``bgp.table``
+marshal / device / readback stages; the row scatter is the donation guard's
+``bgp.table.scatter`` seam.  ``holo_tpu``'s jit compile and cache-hit pair has
+no torch meaning.  Left out (ROADMAP): the observatory's calls (A13b), the
+kernel-contract audit registrations (A13c) and the telemetry leaf wiring
+(A4).
 """
 
 from __future__ import annotations
@@ -61,6 +67,8 @@ from ipaddress import IPv4Address
 import numpy as np
 import torch
 
+from holo_tpu_torch import telemetry
+from holo_tpu_torch.analysis.runtime import note_donated, sanctioned_transfer
 from holo_tpu_torch.device import resolve_device
 from holo_tpu_torch.kernels import bgp
 from holo_tpu_torch.kernels.bgp import (  # noqa: F401 (the lane contract)
@@ -90,6 +98,18 @@ from holo_tpu_torch.kernels.bgp import (  # noqa: F401 (the lane contract)
 )
 from holo_tpu_torch.resilience import faults
 from holo_tpu_torch.resilience.breaker import CircuitBreaker
+from holo_tpu_torch.telemetry import profiling
+
+_DISPATCH_TOTAL = telemetry.counter(
+    "holo_bgp_table_dispatch_total", "BGP table device dispatches", ("kind",))
+_UPDATE_ROWS = telemetry.counter(
+    "holo_bgp_table_update_rows", "Adj-RIB-In rows scattered into the device planes", ("kind",))
+_RECOMPUTED = telemetry.counter(
+    "holo_bgp_table_recomputed_prefixes", "Prefixes whose best path was recomputed on device",
+    ("kind",))
+_FALLBACK = telemetry.counter(
+    "holo_bgp_table_fallback_total", "Decisions served by the scalar oracle instead of the device",
+    ("context",))
 
 __all__ = [
     "MarshalError",
@@ -372,6 +392,7 @@ class TorchBgpTableBackend:
 
         def _fallback():
             self._fallbacks += 1
+            _FALLBACK.labels(context="bgp.decision").inc()
             return None
 
         # The oracle serves a failed batch only on the CPU, where it computes
@@ -384,6 +405,7 @@ class TorchBgpTableBackend:
     def best_path(self, engine, afs, table, prefix, dest):
         res = self._verdicts(afs, prefix, "best")
         if res is None:
+            _FALLBACK.labels(context="bgp.prefix").inc()
             return engine._best_path(table, dest)
         best_col, reasons, _elig, _mp_sel = res
         dt = self._tables[afs]
@@ -541,17 +563,35 @@ class TorchBgpTableBackend:
             if p not in dt.poisoned and p in dt.rows
         ]
         mp_cfg = engine.multipath.get(afs) or {}
-        if len(idx_np):
-            scatter_rows(dt.planes, self._up(idx_np), self._up(rows_np))
-            dt.scatters += 1
-        args = self._dispatch_args(dt, table, live, mp_cfg)
-        self._shapes.add(
-            ("decide", dt.cap_rows, dt.cap_cols, args[1].shape[0], args[5].shape[0])
-        )
-        out = decide(*args)
-        faults.delaypoint("bgp.dispatch")
-        best_col, reasons, elig, mp_sel = (x.cpu().numpy() for x in out)
+        kind = "cold" if len(marshal) == len(prefixes) else "incremental"
+        t0 = profiling.clock()
+        with profiling.dispatch_context(kind="bgp", engine="fold", bucket=None), \
+                telemetry.span("bgp.table.dispatch", kind=kind, backend="torch"):
+            with profiling.stage("bgp.table", "marshal"):
+                with sanctioned_transfer("bgp.table.marshal"):
+                    if len(idx_np):
+                        scatter_rows(dt.planes, self._up(idx_np), self._up(rows_np))
+                        # The kernel writes the resident lanes through a raw
+                        # pointer: the guard's version bump is explicit.
+                        note_donated("bgp.table.scatter", dt.planes, raw=True)
+                        dt.scatters += 1
+                        _UPDATE_ROWS.labels(kind=kind).inc(len(idx_np))
+                    args = self._dispatch_args(dt, table, live, mp_cfg)
+            self._shapes.add(
+                ("decide", dt.cap_rows, dt.cap_cols, args[1].shape[0], args[5].shape[0])
+            )
+            clk = profiling.device_clock("bgp.table", on=self.device)
+            out = decide(*args)
+            profiling.sync(clk)
+            with profiling.stage("bgp.table", "device", clock=clk):
+                faults.delaypoint("bgp.dispatch")
+            with profiling.stage("bgp.table", "readback"):
+                with sanctioned_transfer("bgp.table.unmarshal"):
+                    best_col, reasons, elig, mp_sel = (x.cpu().numpy() for x in out)
+        profiling.settle(clk, profiling.clock() - t0)
         self._dispatches += 1
+        _DISPATCH_TOTAL.labels(kind=kind).inc()
+        _RECOMPUTED.labels(kind=kind).inc(len(live))
         best = best_col.tolist()
         return {
             p: (best[i], reasons[i], elig[i], mp_sel[i])
@@ -598,6 +638,7 @@ class TorchBgpTableBackend:
             except MarshalError:
                 rows_np[:, i, :] = 0
                 poison.add(prefix)
+                _FALLBACK.labels(context="bgp.marshal").inc()
         return rows_np, idx_np, poison
 
     def _dispatch_args(self, dt, table, live, mp_cfg):
@@ -691,6 +732,11 @@ def _register_backend(backend) -> None:
     _BACKENDS.append(weakref.ref(backend))
 
 
+def live_backends() -> list:
+    """The live BGP table backends (the residency ledger's bgp-table row)."""
+    return [b for b in (ref() for ref in _BACKENDS) if b is not None]
+
+
 def backends_stats() -> list[dict]:
     out = []
     dead = []
@@ -756,6 +802,7 @@ class DeviceRankBackend:
                         lanes[j, i] = v
         except MarshalError:
             self.refusals += 1
+            _FALLBACK.labels(context="bgp.rank").inc()
             return None
         return lanes
 
@@ -767,9 +814,18 @@ class DeviceRankBackend:
             return None
 
         def _device():
-            order = rank_sort(torch.from_numpy(lanes).to(self.device)).cpu().tolist()
+            with telemetry.span("bgp.rank.dispatch", kind="rank", backend="torch"):
+                with sanctioned_transfer("bgp.rank.marshal"):
+                    up = torch.from_numpy(lanes).to(self.device)
+                order = rank_sort(up)
+                with sanctioned_transfer("bgp.rank.unmarshal"):
+                    order = order.cpu().tolist()
+            _DISPATCH_TOTAL.labels(kind="rank").inc()
             return [i for i in order if i < len(ranks)]
 
+        def _fallback():
+            _FALLBACK.labels(context="bgp.rank").inc()
+            return None
+
         serves = self.device.type == "cpu"
-        return self.breaker.call(_device, (lambda: None) if serves else None,
-                                 context="bgp.rank")
+        return self.breaker.call(_device, _fallback if serves else None, context="bgp.rank")

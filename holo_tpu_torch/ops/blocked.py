@@ -26,6 +26,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from holo_tpu_torch.analysis.runtime import read_flag
 from holo_tpu_torch.device import resolve_device
 from holo_tpu_torch.kernels import blocked as kernels
 from holo_tpu_torch.ops.graph import INF, Topology, build_ell
@@ -201,7 +202,7 @@ def distance_fixpoint(g, root: int, fdst, fid, limit: int) -> torch.Tensor:
         capped = dist.clamp_max(CAP)
         acc = kernels.relax(g.w, g.bsrc, g.bdst, g.seg, capped, edges=edges_of(g))
         acc = correct_dist(g, capped, acc, fdst, fid)
-        changed = bool((acc != dist).any())
+        changed = read_flag("spf.flag.blocked_relax", (acc != dist).any())
         dist = acc
         if not changed:
             break

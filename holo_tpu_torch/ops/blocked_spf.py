@@ -30,6 +30,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from holo_tpu_torch.analysis.runtime import read_flag
 from holo_tpu_torch.device import resolve_device
 from holo_tpu_torch.kernels import blocked as kernels
 from holo_tpu_torch.kernels.blocked import or_reduce
@@ -321,7 +322,7 @@ def hops_fixpoint(g: BlockSpfGraph, parent_o, limit: int):
     for _ in range(limit):
         ph = torch.where(has_parent, hops[pperm, brange[None, :]], big)
         new = torch.minimum(hops, torch.where(ph < big, ph + inc, big))
-        changed = bool((new != hops).any())
+        changed = read_flag("spf.flag.blocked_hops", (new != hops).any())
         hops = new
         if not changed:
             break
@@ -361,7 +362,7 @@ def nexthop_fixpoint(g: BlockSpfGraph, dist, hops, direct, fdst, fid, limit: int
             g.w, g.bsrc, g.bdst, g.seg, dist, gate, nh, direct, edges=edges_of(g)
         )
         acc = _correct_nh(g, dist, gate, direct, acc, fdst, fid)
-        changed = bool((acc != nh).any())
+        changed = read_flag("spf.flag.blocked_nexthop", (acc != nh).any())
         nh = acc
         if not changed:
             break

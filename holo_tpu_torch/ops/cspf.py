@@ -23,6 +23,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from holo_tpu_torch.analysis.runtime import sanctioned_transfer
 from holo_tpu_torch.device import resolve_device
 from holo_tpu_torch.ops.graph import INF, Topology, build_ell
 from holo_tpu_torch.ops.spf_engine import device_graph_from_ell, spf_whatif_batch
@@ -132,10 +133,12 @@ class CspfEngine:
             raise ValueError("constraints and dsts must pair up")
         if not constraints:
             return []
-        masks = device_constraint_masks(self.topo, self.attrs, constraints, self.device)
+        with sanctioned_transfer("cspf.batch.marshal"):
+            masks = device_constraint_masks(self.topo, self.attrs, constraints, self.device)
         out = spf_whatif_batch(self._g, self.topo.root, masks)
-        dist = out.dist.cpu().numpy()  # [B, N]
-        parent = out.parent.cpu().numpy()
+        with sanctioned_transfer("cspf.batch.unmarshal"):
+            dist = out.dist.cpu().numpy()  # [B, N]
+            parent = out.parent.cpu().numpy()
         n, root = self.topo.n_vertices, self.topo.root
         paths = []
         for b, dst in enumerate(dsts):

@@ -63,10 +63,13 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from holo_tpu_torch import telemetry
+from holo_tpu_torch.analysis.runtime import note_donated, read_flag
 from holo_tpu_torch.device import resolve_device
 from holo_tpu_torch.kernels import ell
 from holo_tpu_torch.ops.graph import INF as _INF
 from holo_tpu_torch.ops.graph import EllGraph, Topology, partition_topology
+from holo_tpu_torch.telemetry import profiling
 from holo_tpu_torch.ops.spf_engine import (
     DeltaSlots,
     DeviceGraph,
@@ -75,6 +78,29 @@ from holo_tpu_torch.ops.spf_engine import (
     device_graph_from_ell,
     mp_fixpoint,
 )
+
+_PART_STAGES = telemetry.counter(
+    "holo_spf_partition_total",
+    "Partitioned-SPF stage dispatches (batched partition programs, "
+    "skeleton stitches, exchange rounds, delta dispositions)", ("stage",))
+_PART_PARTS = telemetry.gauge("holo_spf_partition_parts", "Partitions of the last partitioned solve")
+_PART_SKEL = telemetry.gauge(
+    "holo_spf_partition_skeleton", "Skeleton (boundary-contraction) vertices of the last solve")
+_PART_ROUNDS = telemetry.gauge(
+    "holo_spf_partition_exchange_rounds",
+    "Halo-exchange outer rounds of the last partitioned phase 2")
+_PART_RESOLVED = telemetry.gauge(
+    "holo_spf_partition_resolved",
+    "Partitions re-solved by the last partitioned dispatch (full solve: "
+    "all of them; DeltaPath: the affected set + changed-seed closure)")
+_PART_MARSHAL_SECONDS = telemetry.histogram(
+    "holo_spf_partition_marshal_seconds",
+    "Host-side partition marshal (stacked local ELL expansion)")
+
+
+def note_partition(stage: str) -> None:
+    """One partitioned-SPF stage, ``holo_spf_partition_total{stage}``."""
+    _PART_STAGES.labels(stage=stage).inc()
 
 INF = int(_INF)
 # Elements of the largest [R, lanes] distance plane of one boundary-solve
@@ -197,6 +223,7 @@ def marshal_partitions(topo: Topology, plan: PartitionPlan, n_atoms: int) -> Ell
     source's row in the destination's part (a halo row for a cut edge), the
     slots of a row in ascending edge order; ``k_pad`` JAX's (the largest
     in-degree rounded up to 8).  An invalid slot's source is its own row."""
+    t0 = time.perf_counter()
     if topo.n_atoms() > n_atoms:
         raise ValueError(f"topology references {topo.n_atoms()} next-hop atoms, "
                          f"bitmask width n_atoms={n_atoms} is too small")
@@ -221,6 +248,8 @@ def marshal_partitions(topo: Topology, plan: PartitionPlan, n_atoms: int) -> Ell
         in_valid[d_s, slots] = True
         in_eid[d_s, slots] = order.astype(np.int32)
         in_atom[d_s, slots] = topo.edge_direct_atom[order]
+    note_partition("marshal")
+    _PART_MARSHAL_SECONDS.observe(time.perf_counter() - t0)
     return EllGraph(in_src=in_src, in_cost=in_cost, in_valid=in_valid, in_edge_id=in_eid,
                     in_direct_atom=in_atom, is_router=topo.is_router[plan.gid].copy(),
                     n_atoms=n_atoms)
@@ -298,7 +327,7 @@ def relax_fixpoint(st: PartStack, dist: torch.Tensor, limit: int) -> tuple[torch
         dist, changed, front = ell.ell_relax(st.g.in_src, st.g.in_cost, st.slot, None, dist,
                                              front)
         rounds += 1
-        if not bool(changed):
+        if not read_flag("spf.flag.partition_relax", changed):
             break
     return dist, rounds
 
@@ -336,6 +365,7 @@ def boundary_tables(plan: PartitionPlan, st: PartStack, limit: int,
         dist, r = relax_fixpoint(st, dist, limit)
         rounds += r
         out = dist[rows_t].cpu().numpy()  # [S_sub, c1 - c0]
+        note_partition("bdist")
         btab[owner[:, None], np.arange(c0, c1)[None, :], col[:, None]] = out
     return btab, rounds
 
@@ -389,6 +419,7 @@ def skeleton_solve(plan: PartitionPlan, btab: np.ndarray,
             dist[nbr] = nd
             for u, du in zip(nbr.tolist(), nd.tolist()):
                 heapq.heappush(heap, (du, u))
+    note_partition("skeleton")
     return dist
 
 
@@ -472,7 +503,7 @@ def pinned_fixpoint(st: PartStack, d: _Dag, pin_rows: torch.Tensor, pins, kp: in
         if x is not None:
             x[pin_rows] = s[pin_rows]
     front[pin_rows] = 0
-    changed = bool(front.any())
+    changed = read_flag("spf.flag.partition_pin", front.any())
     state, before = before, state
     if not changed:
         return state, 1
@@ -573,6 +604,8 @@ class PartitionedSpfEngine:
         plan = build_plan(topo, n_parts=n_parts, max_part=max_part, part_of=part_of)
         host = marshal_partitions(topo, plan, n_atoms)
         hint = topo.partition_hint
+        _PART_PARTS.set(plan.n_parts)
+        _PART_SKEL.set(plan.n_skel)
         return PartResident(plan=plan, graph=device_graph_from_ell(host, self.device),
                             mirror=_EllMirror(host), n_atoms=n_atoms, topo_key=topo.cache_key,
                             hint=None if hint is None else hint.copy())
@@ -590,22 +623,31 @@ class PartitionedSpfEngine:
         if edge_mask is not None:
             mask = torch.from_numpy(np.asarray(edge_mask, bool)).to(self.device)
         st = part_stack(plan, res.graph, range(plan.n_parts), mask)
-        btab, r_bdist = boundary_tables(plan, st, limit, self.root_chunk)
+        # The phases are holo_tpu's stages of the partitioned site, beside
+        # the host timings the solve keeps (``res.timings``).
+        with profiling.stage("spf.partitioned", "bdist"):
+            btab, r_bdist = boundary_tables(plan, st, limit, self.root_chunk)
         t1 = time.perf_counter()
         cut_mask = None if edge_mask is None else np.asarray(edge_mask, bool)[plan.cut_eid]
-        skel_dist = skeleton_solve(plan, btab, cut_mask)
+        with profiling.stage("spf.partitioned", "stitch"):
+            skel_dist = skeleton_solve(plan, btab, cut_mask)
         t2 = time.perf_counter()
-        dist, r_dist = final_distances(plan, st, skel_dist, limit)
-        dist_h = dist[:, 0].cpu().numpy()
+        with profiling.stage("spf.partitioned", "dist"):
+            dist, r_dist = final_distances(plan, st, skel_dist, limit)
+            dist_h = dist[:, 0].cpu().numpy()
+        note_partition("dist")
         t3 = time.perf_counter()
         words = res.graph.direct_nh_words.shape[2]
         tables = _tables(plan.n_vertices, words, plan.n_skel)
         planes = self._fresh_planes(plan, words, kp)
         stacks = {tuple(st.parts): (st, stack_dag(plan, st, dist, kp))}
-        info = self._exchange(res, st.parts, tables, planes, stacks, dist_h, mask, kp, limit,
-                              full=True)
+        with profiling.stage("spf.partitioned", "phase2"):
+            info = self._exchange(res, st.parts, tables, planes, stacks, dist_h, mask, kp,
+                                  limit, full=True)
         t4 = time.perf_counter()
         sets = self._sets(res, planes, stacks, info["resolved"], dist_h, mask, kp)
+        if kp > 1:
+            note_partition("mpsets")
         out = assemble(plan, dist_h, planes, sets, kp)
         t5 = time.perf_counter()
         timings = {"bdist_ms": (t1 - t0) * 1e3, "stitch_ms": (t2 - t1) * 1e3,
@@ -621,6 +663,9 @@ class PartitionedSpfEngine:
             res.last_resolved = plan.n_parts
             res.exchange_rounds = info["rounds"]
         res.timings, res.rounds = timings, rounds
+        _PART_RESOLVED.set(plan.n_parts)
+        _PART_ROUNDS.set(info["rounds"])
+        note_partition("solve")
         return out
 
     def _fresh_planes(self, plan: PartitionPlan, words: int, kp: int) -> list:
@@ -673,6 +718,7 @@ class PartitionedSpfEngine:
                       for x in pins]
             state, rounds = pinned_fixpoint(st, d, pin_rows, pins_t, kp, limit)
             inner.append(rounds)
+            note_partition("phase2-round")
             host = [None if x is None else x.cpu().numpy() for x in state]
             hops = host[0][:, 0]
             host[0] = np.where(hops >= big, n + 1, hops).astype(np.int32)
@@ -834,9 +880,14 @@ class PartitionedSpfEngine:
         if delta is None:
             return None, {"reason": "no-lineage"}
         if res.btab is None or tuple(delta.base_key) != res.topo_key:
+            if res.btab is not None:
+                note_partition("delta-no-base")
             return None, {"reason": "no-base"}
-        if kp != res.kp or not _same_hint(res.hint, topo.partition_hint):
-            return None, {"reason": "kp-flip" if kp != res.kp else "hint"}
+        if kp != res.kp:
+            note_partition("delta-kp-flip")
+            return None, {"reason": "kp-flip"}
+        if not _same_hint(res.hint, topo.partition_hint):
+            return None, {"reason": "hint"}
         t0 = time.perf_counter()
         try:
             ops, affected = self._lower_delta(res, delta)
@@ -844,8 +895,13 @@ class PartitionedSpfEngine:
             # The mirror (and the plan's cut costs) may be half-moved.
             res.topo_key = None
             res.btab = None
+            note_partition(f"delta-{exc.reason}")
             return None, {"reason": exc.reason}
         apply_delta_slots(res.graph, ops)
+        # The resident's planes hold the new generation from here: a solve
+        # still reading them for the base fails its finish under the guard.
+        note_donated("spf.partition.delta", res.graph, generation=topo.cache_key)
+        note_partition("delta-apply")
         res.topo_key = topo.cache_key
         res.delta_depth += 1
         res.ids_stale = res.ids_stale or not delta.ids_stable
@@ -855,6 +911,7 @@ class PartitionedSpfEngine:
             st = part_stack(plan, res.graph, affected)
             btab_sub, r_bdist = boundary_tables(plan, st, limit, self.root_chunk)
             res.btab[affected] = btab_sub
+            note_partition("delta-bdist")
         t1 = time.perf_counter()
         skel_new = skeleton_solve(plan, res.btab)
         need = set(affected)
@@ -870,6 +927,7 @@ class PartitionedSpfEngine:
             st = part_stack(plan, res.graph, parts_d)
             dist, r_dist = final_distances(plan, st, skel_new, limit)
             res.dist[st.rows] = dist[:, 0].cpu().numpy()
+            note_partition("delta-dist")
             stacks[tuple(parts_d)] = (st, stack_dag(plan, st, dist, kp))
         t3 = time.perf_counter()
         planes = [res.hops, res.nh, res.parent, res.npaths, res.aw]
@@ -887,6 +945,9 @@ class PartitionedSpfEngine:
                        "assemble_ms": (t5 - t4) * 1e3}
         res.rounds = {"bdist": r_bdist, "dist": r_dist, "exchange": info["rounds"],
                       "exchange_inner": info["inner"]}
+        _PART_RESOLVED.set(len(resolved))
+        _PART_ROUNDS.set(info["rounds"])
+        note_partition("delta-solve")
         return out, {"resolved": len(resolved), "parts": plan.n_parts,
                      "rounds": info["rounds"], "affected": len(affected)}
 

@@ -69,6 +69,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from holo_tpu_torch import telemetry
+from holo_tpu_torch.analysis.runtime import note_donated, read_flag, sanctioned_transfer
 from holo_tpu_torch.device import resolve_device
 from holo_tpu_torch.kernels import ell
 from holo_tpu_torch.ops.graph import INF as _INF
@@ -83,6 +85,28 @@ from holo_tpu_torch.parallel.mesh import mesh_cache_key, pad_graph_rows
 from holo_tpu_torch.pipeline.tuner import active_tuner, shape_bucket
 
 INF = int(_INF)
+
+_MARSHALS = telemetry.counter("holo_spf_marshal_total", "DeviceGraph marshals (ELL expansion)")
+_MARSHAL_SECONDS = telemetry.histogram(
+    "holo_spf_marshal_seconds", "Host-side ELL -> DeviceGraph marshal time")
+_ELL_OCCUPANCY = telemetry.gauge(
+    "holo_spf_ell_occupancy", "Valid fraction of padded ELL in-edge slots (last marshal)")
+_MARSHAL_CACHE = telemetry.counter(
+    "holo_spf_marshal_cache_total",
+    "Shared marshaled-DeviceGraph cache lookups (SPF + FRR engines)", ("result",))
+_DELTA_TOTAL = telemetry.counter(
+    "holo_spf_delta_total",
+    "DeltaPath topology-delta dispositions: in-place device-graph "
+    "updates vs full-rebuild fallbacks, by delta taxonomy", ("kind", "path"))
+_CACHE_EVICTIONS = telemetry.counter(
+    "holo_spf_marshal_cache_evictions_total", "Shared marshaled-DeviceGraph cache LRU evictions")
+
+
+def note_delta(counts, kind: str, path: str) -> None:
+    """One DeltaPath disposition: ``counts[(kind, path)]`` (a cache view's
+    or backend's ``delta_paths``) and ``holo_spf_delta_total{kind,path}``."""
+    counts[(kind, path)] += 1
+    _DELTA_TOTAL.labels(kind=kind, path=path).inc()
 
 
 class DeviceGraph(NamedTuple):
@@ -142,6 +166,7 @@ def mp_pad(k: int) -> int:
 def device_graph_from_ell(ell_graph: EllGraph, device=None) -> DeviceGraph:
     """Expand per-slot direct atoms into one-hot words (host side), then
     upload the six planes."""
+    t0 = time.perf_counter()
     dev = resolve_device(device)
     n, k = ell_graph.in_src.shape
     w = max((ell_graph.n_atoms + 31) // 32, 1)
@@ -158,8 +183,14 @@ def device_graph_from_ell(ell_graph: EllGraph, device=None) -> DeviceGraph:
         "direct_nh_words": words.view(np.int32),
         "is_router": ell_graph.is_router,
     }
-    return DeviceGraph(**{f: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
-                          for f, x in planes.items()})
+    with sanctioned_transfer("spf.graph.upload"):
+        g = DeviceGraph(**{f: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                           for f, x in planes.items()})
+    _MARSHALS.inc()
+    _MARSHAL_SECONDS.observe(time.perf_counter() - t0)
+    # Sampled at scrape time: no reduction on the marshal path.
+    _ELL_OCCUPANCY.set_fn(telemetry.deferred_mean(ell_graph.in_valid))
+    return g
 
 
 def pack_edge_masks(edge_masks, device) -> torch.Tensor | None:
@@ -177,7 +208,9 @@ def pack_edge_masks(edge_masks, device) -> torch.Tensor | None:
     batch, n_edges = m.shape
     if n_edges == 0:
         return None
-    return ell.pack_lane_bits(m.to(device).T)
+    with sanctioned_transfer("spf.masks.upload"):
+        m = m.to(device)
+    return ell.pack_lane_bits(m.T)
 
 
 class LanePlanes(NamedTuple):
@@ -203,7 +236,10 @@ def distance_seed(n: int, roots: torch.Tensor):
     1)."""
     lanes = roots.shape[0]
     dist = torch.full((n, lanes), INF, dtype=torch.int32, device=roots.device)
-    dist[roots.long(), torch.arange(lanes, device=roots.device)] = 0
+    # A scalar assigned through tensor indices is copied to the card
+    # synchronously.
+    with sanctioned_transfer("spf.seed.roots"):
+        dist[roots.long(), torch.arange(lanes, device=roots.device)] = 0
     return dist, ell.pack_lane_bits(dist < INF)
 
 
@@ -218,7 +254,7 @@ def distance_fixpoint(p: LanePlanes, roots: torch.Tensor, limit: int) -> torch.T
     dist, front = distance_seed(p.src.shape[0], roots)
     for _ in range(limit):
         dist, changed, front = ell.ell_relax(*p, dist, front)
-        if not bool(changed):
+        if not read_flag("spf.flag.distance", changed):
             break
     return dist
 
@@ -234,14 +270,15 @@ def hops_fixpoint(g: DeviceGraph, parent, roots, limit: int) -> torch.Tensor:
     n, batch = parent.shape
     big = n + 1
     ext = torch.full((n + 1, batch), big, dtype=torch.int32, device=parent.device)
-    ext[roots.long(), torch.arange(batch, device=parent.device)] = 0
+    with sanctioned_transfer("spf.seed.roots"):
+        ext[roots.long(), torch.arange(batch, device=parent.device)] = 0
     pidx = parent.long()
     inc = g.is_router.to(torch.int32)[:, None]
     for _ in range(limit):
         hops = ext[:n]
         ph = torch.gather(ext, 0, pidx)
         new = torch.minimum(hops, torch.where(ph < big, ph + inc, big))
-        changed = bool((new != hops).any())
+        changed = read_flag("spf.flag.hops", (new != hops).any())
         ext[:n] = new
         if not changed:
             break
@@ -266,7 +303,7 @@ def nexthop_fixpoint(g: DeviceGraph, dag, hops, limit: int):
     front = nexthop_frontier(nh)
     for _ in range(limit):
         nh, changed, front = ell.ell_nh_round(g.in_src, inherit, nh, front)
-        if not bool(changed):
+        if not read_flag("spf.flag.nexthop", changed):
             break
     return nh
 
@@ -318,7 +355,7 @@ def fused_lanes(g: DeviceGraph, roots: torch.Tensor, mask, packed: bool = False,
         new, parent, changed, front = ell.ell_fused_round(
             *p, g.direct_nh_words, inc, roots, state, front, parent, spare)
         state, spare = new, state
-        if not bool(changed):
+        if not read_flag("spf.flag.fused", changed):
             break
     dist, hops, nh = ell.fused_planes(state)
     return (dist.contiguous(), parent, torch.where(dist < INF, hops, n + 1),
@@ -370,7 +407,7 @@ def mp_fixpoint(g: DeviceGraph, roots, dag, parent, state, before, front, limit:
         flag, front = ell.ell_mp_round(g.in_src, dag, g.direct_nh_words, inc, roots, parent,
                                        state, front, before)
         state, before = before, state
-        changed = bool(flag)
+        changed = read_flag("spf.flag.mp", flag)
         rounds += 1
     return state, rounds
 
@@ -564,7 +601,8 @@ def spf_multiroot(g: DeviceGraph, roots, edge_mask=None, max_iters=None) -> SpfT
     ``MultiRootResult`` has no next-hop plane.
     """
     dev = g.in_src.device
-    roots_t = torch.as_tensor(np.asarray(roots, np.int32)).to(dev)
+    with sanctioned_transfer("spf.roots.upload"):
+        roots_t = torch.as_tensor(np.asarray(roots, np.int32)).to(dev)
     mask = None
     if edge_mask is not None:
         shared = np.repeat(np.asarray(edge_mask, bool)[None], roots_t.shape[0], axis=0)
@@ -719,14 +757,16 @@ def apply_delta_slots(g: DeviceGraph, ops: DeltaSlots) -> DeviceGraph:
         packed[0], packed[1] = ops.rows, ops.cols
         packed[2], packed[3], packed[4] = ops.src, ops.cost, ops.valid
         packed[5:] = ops.words.T
-        up = torch.from_numpy(packed).to(dev)
+        with sanctioned_transfer("spf.graph.delta"):
+            up = torch.from_numpy(packed).to(dev)
         at = (up[0].long(), up[1].long())
         g.in_src.index_put_(at, up[2])
         g.in_cost.index_put_(at, up[3])
         g.in_valid.index_put_(at, up[4] != 0)
         g.direct_nh_words.index_put_(at, up[5:].T)
     if ops.strike is not None:
-        strike = torch.from_numpy(ops.strike).to(dev)
+        with sanctioned_transfer("spf.graph.delta"):
+            strike = torch.from_numpy(ops.strike).to(dev)
         g.in_valid.logical_and_(~strike[g.in_src.long()])
     return g
 
@@ -831,14 +871,14 @@ class DeviceGraphCache:
         e = self._cache.pop(key, None)
         if e is not None and not (need_edge_ids and e.ids_stale):
             self._cache[key] = e  # the LRU's newest
-            self.lookups["hit"] += 1
+            self._lookup("hit")
             return e.graph, "hit"
         if allow_delta:
             g = self._try_delta(topo, n_atoms, need_edge_ids, mesh)
             if g is not None:
-                self.lookups["delta"] += 1
+                self._lookup("delta")
                 return g, "delta"
-        self.lookups["miss"] += 1
+        self._lookup("miss")
         ell_graph = build_ell(topo, n_atoms=n_atoms)
         g = pad_graph_rows(device_graph_from_ell(ell_graph, self.device), mesh)
         self._insert(key, _CacheEntry(graph=g, mirror=_EllMirror(ell_graph)))
@@ -864,14 +904,14 @@ class DeviceGraphCache:
             del self._cache[base_key]  # claimed: its planes change in place
             path = "apply"
         if base is None:
-            self.delta_paths[(kind, path)] += 1
+            note_delta(self.delta_paths, kind, path)
             return None
         try:
             ops = lower_delta(base.mirror, delta, topo.n_vertices)
         except _DeltaUnappliable as exc:
             # The mirror may be half-updated: the claimed entry is dropped
             # and the caller re-marshals.
-            self.delta_paths[(kind, f"full-{exc.reason}")] += 1
+            note_delta(self.delta_paths, kind, f"full-{exc.reason}")
             return None
         tile_ops = None
         if base.tropical is not None:
@@ -882,17 +922,22 @@ class DeviceGraphCache:
                 tile_ops = tropical.lower_tile_delta(base.mirror, delta, base.trop_meta)
             except tropical.TileDeltaUnappliable as exc:
                 base.tropical = base.trop_meta = None
-                self.tile_deltas[f"drop-{exc.reason}"] += 1
+                tropical.note_tile_delta(self.tile_deltas, f"drop-{exc.reason}")
+        new_key = self.key(topo, n_atoms, mesh)
         g = apply_delta_slots(base.graph, ops)
+        # The base's planes now hold the new generation: a reader still
+        # holding them for the base fails its finish under the guard.
+        note_donated("spf.graph.delta", base.graph, generation=new_key)
         if tile_ops is not None:
             tropical.apply_tile_delta(base.tropical, tile_ops)
-            self.tile_deltas["apply"] += 1
-        self._insert(self.key(topo, n_atoms, mesh), _CacheEntry(
+            tropical.note_tile_delta(self.tile_deltas, "apply")
+            note_donated("spf.tiles.delta", base.tropical, generation=new_key)
+        self._insert(new_key, _CacheEntry(
             graph=g, mirror=base.mirror, depth=base.depth + 1,
             ids_stale=base.ids_stale or not delta.ids_stable,
             tropical=base.tropical, trop_meta=base.trop_meta,
         ), applied=True)
-        self.delta_paths[(kind, "apply")] += 1
+        note_delta(self.delta_paths, kind, "apply")
         return g
 
     def get_tropical(self, topo, n_atoms: int, mesh=None):
@@ -914,11 +959,16 @@ class DeviceGraphCache:
                 e.tropical = tropical.tiles_on(host, self.device)
             return e.tropical
 
+    def _lookup(self, how: str) -> None:
+        self.lookups[how] += 1
+        _MARSHAL_CACHE.labels(result=how).inc()
+
     def _insert(self, key: tuple, entry: _CacheEntry, applied: bool = False) -> None:
         self._cache[key] = entry
         while len(self._cache) > self.capacity:
             self._cache.pop(next(iter(self._cache)))
             self._evictions += 1
+            _CACHE_EVICTIONS.inc()
         self._deltas_applied += applied
 
     def view(self, counts: "DeviceGraphCache | None" = None) -> "DeviceGraphCache":
@@ -971,6 +1021,7 @@ class DeviceGraphCache:
             while len(self._part) > self.PART_CAPACITY:
                 self._part.pop(next(iter(self._part)))
                 self._evictions += 1
+                _CACHE_EVICTIONS.inc()
 
     def partitioned_entries(self, namespace=None) -> dict:
         """key -> resident, of one backend's ``namespace`` (key[0]) or all."""
@@ -1034,7 +1085,7 @@ def _ell_relax_loop(g: DeviceGraph, dist: torch.Tensor, limit: int):
     changed = True
     while changed and rounds < limit:
         dist, flag, front = ell.ell_relax(*p, dist, front)
-        changed = bool(flag)
+        changed = read_flag("spf.flag.relax", flag)
         rounds += 1
     return dist, rounds
 
@@ -1057,17 +1108,19 @@ def _incremental_relax(g: DeviceGraph, root: int, prev: SpfTensors, seed_rows, l
     has_par = prev.parent < n
     pidx = torch.where(has_par, prev.parent, 0).long()
     aff = torch.zeros(n, dtype=torch.bool, device=dev)
-    aff[torch.as_tensor(np.asarray(seed_rows, np.int64)).to(dev)] = True
+    with sanctioned_transfer("spf.delta.seeds"):
+        aff[torch.as_tensor(np.asarray(seed_rows, np.int64)).to(dev)] = True
     aff_rounds = 0
     changed = True
     while changed and aff_rounds < limit:
         new = aff | (has_par & aff[pidx])
-        changed = bool((new != aff).any())
+        changed = read_flag("spf.flag.affected", (new != aff).any())
         aff = new
         aff_rounds += 1
     t1 = time.perf_counter()
     dist = torch.where(aff, INF, prev.dist)
-    dist[int(root)] = 0
+    with sanctioned_transfer("spf.seed.roots"):
+        dist[int(root)] = 0
     seed = dist[:, None].contiguous()
     dist, relax_rounds = (_ell_relax_loop(g, seed, limit) if relax is None
                           else relax(seed, limit))
@@ -1082,8 +1135,10 @@ def _note_phases(stats: dict | None, record: dict, rounds: int) -> None:
     """Fill ``stats`` (when given) with each phase's rounds and host
     milliseconds and the affected set's size (one more sync)."""
     if stats is not None:
+        with sanctioned_transfer("spf.delta.stats"):
+            affected_rows = int(record["aff"].sum())
         stats.update(affected=record["affected"], affected_ms=record["affected_ms"],
-                     affected_rows=int(record["aff"].sum()), relax=record["relax"],
+                     affected_rows=affected_rows, relax=record["relax"],
                      relax_ms=record["relax_ms"], hops_nh=rounds,
                      hops_nh_ms=(time.perf_counter() - record["t2"]) * 1e3)
 

@@ -70,11 +70,14 @@ physical device, shared by the shards on it.
 
 from __future__ import annotations
 
+import time
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from holo_tpu_torch.analysis.runtime import read_flag, sanctioned_transfer
+from holo_tpu_torch import telemetry
 from holo_tpu_torch.device import resolve_device
 from holo_tpu_torch.kernels import ell
 from holo_tpu_torch.kernels import tropical as kt
@@ -87,6 +90,24 @@ INF = int(_INF)
 
 #: candidate tile block sizes the marshal scores (:func:`_pick_block`)
 _BLOCKS = (8, 16, 32, 64, 128)
+
+
+_MARSHALS = telemetry.counter("holo_spf_tropical_marshal_total", "Tropical tile-plane marshals")
+_MARSHAL_SECONDS = telemetry.histogram(
+    "holo_spf_tropical_marshal_seconds", "Host-side mirror -> tile-plane marshal time")
+_TILE_OCCUPANCY = telemetry.gauge(
+    "holo_spf_tropical_tile_occupancy",
+    "Real-edge fraction of materialized tile entries (last marshal)")
+_TILE_DELTAS = telemetry.counter(
+    "holo_spf_tropical_delta_total",
+    "Tile-attachment delta dispositions (in-place scatter vs drop)", ("path",))
+
+
+def note_tile_delta(counts, path: str) -> None:
+    """One tile-attachment delta disposition: ``counts[path]`` (a graph
+    cache's ``tile_deltas``) and ``holo_spf_tropical_delta_total{path}``."""
+    counts[path] += 1
+    _TILE_DELTAS.labels(path=path).inc()
 
 
 class TropicalTiles(NamedTuple):
@@ -159,6 +180,7 @@ def build_tiles_host(in_src: np.ndarray, in_cost: np.ndarray, in_valid: np.ndarr
     then blocked; parallel edges collapse onto their least cost.  ``meta``
     (block, nb, tm, the pos grid, n, pairs, perm, inv) stays on the host for
     delta lowering."""
+    t0 = time.perf_counter()
     n = int(in_src.shape[0])
     rows, cols = np.nonzero(in_valid)
     srcs = in_src[rows, cols].astype(np.int64)
@@ -195,6 +217,9 @@ def build_tiles_host(in_src: np.ndarray, in_cost: np.ndarray, in_valid: np.ndarr
     tt = TropicalTiles(tiles=tiles, cb=cb, pos=pos, perm=perm_pad, inv=inv)
     meta = {"block": b, "nb": nb, "tm": tm, "pos": pos.copy(), "n": n, "pairs": n_pairs,
             "perm": perm.copy(), "inv": inv.copy()}
+    _MARSHALS.inc()
+    _MARSHAL_SECONDS.observe(time.perf_counter() - t0)
+    _TILE_OCCUPANCY.set(rows.size / tiles.size if tiles.size else 0.0)
     return tt, meta
 
 
@@ -202,8 +227,9 @@ def tiles_on(tt, device=None) -> TropicalTiles:
     """The five planes of ``tt`` (this module's host tiles, or ``holo_tpu``'s:
     any object with the same fields) as int32 tensors on ``device``."""
     dev = resolve_device(device)
-    return TropicalTiles(*(torch.from_numpy(np.ascontiguousarray(np.asarray(x), np.int32))
-                           .to(dev) for x in (tt.tiles, tt.cb, tt.pos, tt.perm, tt.inv)))
+    with sanctioned_transfer("spf.tiles.upload"):
+        return TropicalTiles(*(torch.from_numpy(np.ascontiguousarray(np.asarray(x), np.int32))
+                               .to(dev) for x in (tt.tiles, tt.cb, tt.pos, tt.perm, tt.inv)))
 
 
 def lower_tile_delta(mirror, delta, meta: dict) -> TileDelta:
@@ -244,13 +270,15 @@ def apply_tile_delta(tt: TropicalTiles, ops: TileDelta) -> TropicalTiles:
     nb, _, b, _ = tt.tiles.shape
     dev = tt.tiles.device
     if ops.strike is not None:
-        strike = torch.from_numpy(ops.strike).to(dev)
+        with sanctioned_transfer("spf.tiles.delta"):
+            strike = torch.from_numpy(ops.strike).to(dev)
         # Padding slots read block 0's columns: they are all INF already.
         colv = (torch.where(tt.cb < nb, tt.cb, 0).long()[:, :, None] * b
                 + torch.arange(b, device=dev))
         tt.tiles.masked_fill_(strike[colv][:, :, None, :], INF)
     if ops.rb.shape[0]:
-        up = torch.from_numpy(np.stack([ops.rb, ops.slot, ops.i, ops.j, ops.val])).to(dev)
+        with sanctioned_transfer("spf.tiles.delta"):
+            up = torch.from_numpy(np.stack([ops.rb, ops.slot, ops.i, ops.j, ops.val])).to(dev)
         tt.tiles.index_put_(tuple(up[:4].long()), up[4])
     return tt
 
@@ -336,7 +364,7 @@ def tile_relax(g, tt: TropicalTiles, dist0: torch.Tensor, mask=None, repair=None
                                              p.cost, p.slot, p.mask, tt.perm, tt.inv)
         dist, spare = new, dist
         rounds += 1
-        if not bool(changed):
+        if not read_flag("spf.flag.tile_relax", changed):
             break
     return _pad_rows(dist[tt.inv.long()], n, INF).contiguous(), rounds
 
@@ -486,7 +514,7 @@ def _count_fixpoint(tt: TropicalTiles, cnt, x0, seed, root_row: int, limit: int)
     while changed and rounds < limit:
         new, flag = kt.trop_count_round(cnt, tt.cb, listed, x, seed_p, spare, root_row)
         x, spare = new, x
-        changed = bool(flag)
+        changed = read_flag("spf.flag.tile_count", flag)
         rounds += 1
     return _pad_rows(x[tt.inv.long()], rows, 0)
 
@@ -498,7 +526,9 @@ def np_tile_fixpoint(g, tt: TropicalTiles, dag: torch.Tensor, root: int, np0: to
     slots, MP_SAT)``, 1 at the root, a Jacobi loop from ``np0`` [N] over the
     count tiles of ``dag`` (bool [N, K])."""
     cnt = count_tiles(g.in_src, tt, dag)
-    return _count_fixpoint(tt, cnt, np0[:, None], None, int(tt.inv[root]), limit)
+    with sanctioned_transfer("spf.tiles.root_row"):
+        root_row = int(tt.inv[root])
+    return _count_fixpoint(tt, cnt, np0[:, None], None, root_row, limit)
 
 
 def aw_tile_fixpoint(g, tt: TropicalTiles, dag: torch.Tensor, hops: torch.Tensor,

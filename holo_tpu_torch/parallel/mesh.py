@@ -39,9 +39,12 @@ A size-1 mesh degenerates to the plain program everywhere: no padding, no
 readback of its own, the plain program's tensors returned as they are, as
 ``holo_tpu``'s 1-device mesh does (``mesh.py:152-157``, ``:249-254``,
 ``:276-277``).  The shards of a mesh run one after another on the caller's
-thread (concurrency across distinct cards is A12b too).  ``holo_tpu``'s
-``holo_parallel_mesh_size`` gauge and its audit registrations belong to
-ROADMAP A13; :func:`mesh_stats` keeps the axis sizes.
+thread (concurrency across distinct cards is A12b too).  The axis sizes are
+``holo_parallel_mesh_size{axis}`` (and :func:`mesh_stats`); a sharded program
+given its dispatch ``site`` times each shard's device phase on that shard's
+own CUDA events, one ``device=<index>`` row each
+(``telemetry.profiling.device_stages``).  ``holo_tpu``'s audit
+registrations come with the kernel-contract audit (ROADMAP A13c).
 """
 
 from __future__ import annotations
@@ -51,7 +54,16 @@ import threading
 import numpy as np
 import torch
 
+from holo_tpu_torch import telemetry
+from holo_tpu_torch.analysis.runtime import sanctioned_transfer
 from holo_tpu_torch.device import resolve_device
+from holo_tpu_torch.telemetry import profiling
+
+_MESH_SIZE = telemetry.gauge(
+    "holo_parallel_mesh_size",
+    "Process dispatch-mesh axis sizes (0 = no mesh: single-device path)",
+    ("axis",),
+)
 
 
 def _normal(device) -> torch.device:
@@ -137,6 +149,8 @@ def configure_process_mesh(n_batch: int | None = None, n_node: int | None = None
     mesh = make_spf_mesh(n_batch, n_node, devices)
     with _MESH_LOCK:
         _PROCESS_MESH = mesh
+    _MESH_SIZE.labels(axis="batch").set(mesh.shape["batch"])
+    _MESH_SIZE.labels(axis="node").set(mesh.shape["node"])
     return mesh
 
 
@@ -145,6 +159,8 @@ def reset_process_mesh() -> None:
     global _PROCESS_MESH
     with _MESH_LOCK:
         _PROCESS_MESH = None
+    _MESH_SIZE.labels(axis="batch").set(0)
+    _MESH_SIZE.labels(axis="node").set(0)
 
 
 def process_mesh() -> Mesh | None:
@@ -234,7 +250,8 @@ def _host(out):
     if out is None:
         return None
     if torch.is_tensor(out):
-        return out.cpu()
+        with sanctioned_transfer("mesh.shard.readback"):
+            return out.cpu()
     items = [_host(x) for x in out]
     return type(out)(*items) if hasattr(out, "_fields") else tuple(items)
 
@@ -272,14 +289,30 @@ def per_device(resident):
     return get
 
 
-def run_batch(mesh: Mesh, shards: list, resident, run, b: int):
+def run_batch(mesh: Mesh, shards: list, resident, run, b: int, site: str | None = None):
     """``run(resident(device), shard)`` for each batch shard on its device,
     each output read back to the host, joined by :func:`gather_batch`.  On a
-    size-1 mesh the one run's output, on its device."""
+    size-1 mesh the one run's output, on its device.  With profiling armed
+    and a dispatch ``site``, each shard's run is a ``stage(site, "device",
+    device=<index>)`` on its own CUDA events, settled once the shards are
+    read back (``profiling.device_stages``)."""
     res = per_device(resident)
     if mesh.size == 1:
         return run(res(mesh.batch_device(0)), shards[0])
-    parts = [_host(run(res(mesh.batch_device(i)), shard)) for i, shard in enumerate(shards)]
+    parts, clocks = [], []
+    for i, shard in enumerate(shards):
+        dev = mesh.batch_device(i)
+        g = res(dev)
+        clk = None if site is None else profiling.device_clock(site, on=dev, device=str(i))
+        if clk is None:
+            out = run(g, shard)
+        else:
+            with profiling.stage(site, "device", device=str(i), clock=clk):
+                out = run(g, shard)
+                profiling.sync(clk)
+            clocks.append(clk)
+        parts.append(_host(out))
+    profiling.device_stages(site, clocks)
     return gather_batch(mesh, parts, b)
 
 
@@ -287,7 +320,7 @@ def run_batch(mesh: Mesh, shards: list, resident, run, b: int):
 
 
 def sharded_whatif_program(mesh: Mesh, resident, root: int, edge_masks, max_iters=None,
-                           engine: str = "seq"):
+                           engine: str = "seq", site: str | None = None):
     """``spf_whatif_batch`` with the scenarios on the batch axis:
     ``resident(device)`` gives a shard's DeviceGraph; [B, R] planes (on the
     host past a size-1 mesh)."""
@@ -295,31 +328,32 @@ def sharded_whatif_program(mesh: Mesh, resident, root: int, edge_masks, max_iter
 
     return run_batch(mesh, shard_scenarios(mesh, edge_masks), resident,
                      lambda g, m: spf_whatif_batch(g, root, m, max_iters, engine),
-                     len(edge_masks))
+                     len(edge_masks), site)
 
 
 def sharded_multipath_program(mesh: Mesh, resident, root: int, edge_masks, kp: int,
-                              max_iters=None):
+                              max_iters=None, site: str | None = None):
     """``spf_multipath_batch`` with the scenarios on the batch axis:
     (SpfTensors, MultipathTensors) with a leading batch axis."""
     from holo_tpu_torch.ops.spf_engine import spf_multipath_batch
 
     return run_batch(mesh, shard_scenarios(mesh, edge_masks), resident,
                      lambda g, m: spf_multipath_batch(g, root, m, kp, max_iters),
-                     len(edge_masks))
+                     len(edge_masks), site)
 
 
-def sharded_multiroot_program(mesh: Mesh, resident, roots, max_iters=None):
+def sharded_multiroot_program(mesh: Mesh, resident, roots, max_iters=None,
+                              site: str | None = None):
     """``spf_multiroot`` with the roots on the batch axis: [R, N] planes."""
     from holo_tpu_torch.ops.spf_engine import spf_multiroot
 
     roots = np.asarray(roots, np.int32)
     return run_batch(mesh, shard_roots(mesh, roots), resident,
-                     lambda g, r: spf_multiroot(g, r, max_iters=max_iters), roots.shape[0])
+                     lambda g, r: spf_multiroot(g, r, max_iters=max_iters), roots.shape[0], site)
 
 
 def sharded_tropical_whatif_program(mesh: Mesh, resident, root: int, edge_masks,
-                                    repair_rows=None, max_iters=None):
+                                    repair_rows=None, max_iters=None, site: str | None = None):
     """``tropical_whatif_batch`` with the scenarios on the batch axis;
     ``resident(device)`` gives (DeviceGraph, TropicalTiles).  Explicit
     ``repair_rows`` [B, M] are sharded with the resident's row count as the
@@ -334,11 +368,12 @@ def sharded_tropical_whatif_program(mesh: Mesh, resident, root: int, edge_masks,
         rows = shard_repair_rows(mesh, repair_rows, sentinel)
     return run_batch(mesh, list(zip(masks, rows)), res,
                      lambda gt, s: tropical_whatif_batch(*gt, root, s[0], s[1], max_iters),
-                     len(edge_masks))
+                     len(edge_masks), site)
 
 
 def sharded_tropical_multiroot_program(mesh: Mesh, resident, roots, edge_mask=None,
-                                       repair_rows=None, max_iters=None):
+                                       repair_rows=None, max_iters=None,
+                                       site: str | None = None):
     """``tropical_multiroot`` with the roots on the batch axis (the mask and
     repair rows [M] shared by every root, as there)."""
     from holo_tpu_torch.ops.tropical import tropical_multiroot
@@ -346,7 +381,7 @@ def sharded_tropical_multiroot_program(mesh: Mesh, resident, roots, edge_mask=No
     roots = np.asarray(roots, np.int32)
     return run_batch(mesh, shard_roots(mesh, roots), resident,
                      lambda gt, r: tropical_multiroot(*gt, r, edge_mask, repair_rows, max_iters),
-                     roots.shape[0])
+                     roots.shape[0], site)
 
 
 def replicated_device(mesh: Mesh) -> torch.device:

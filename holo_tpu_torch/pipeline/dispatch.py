@@ -52,10 +52,13 @@ Differences from ``holo_tpu``:
   breaker and re-raised at ``result()`` or attribute access, an open circuit
   raises ``CircuitOpen``, and a hang fails the ticket with
   ``WatchdogTimeout``: no dispatch on the card is served by the host oracle;
-- the telemetry hooks (``convergence``, ``critpath``, ``flight``, ``slo``
-  and the ``holo_pipeline_*`` metrics) and the donation guard
-  (``consumes_donated``) are not carried; the counts they kept are in
-  :meth:`DispatchPipeline.stats`.
+- the pipeline's analytics (``convergence``, ``critpath``, ``flight``,
+  ``slo``) come with ROADMAP A13b; the ten ``holo_pipeline_*`` families this
+  module declares in ``holo_tpu`` (queue depth, in flight, dispatches,
+  coalesced, breaker skips, caller wait, overlap ratio, sheds, shed margin,
+  worker respawns) are exported here, beside :meth:`DispatchPipeline.stats`,
+  and a finish runs in the donation guard's ``pipeline.key.handoff``
+  window.
 """
 
 from __future__ import annotations
@@ -66,12 +69,42 @@ import time
 from collections import Counter, deque
 from contextlib import nullcontext
 
+from holo_tpu_torch import telemetry
+from holo_tpu_torch.analysis.runtime import consumes_donated
 from holo_tpu_torch.ops.graph import topology_namespace
 from holo_tpu_torch.resilience import faults, overload
 from holo_tpu_torch.resilience.breaker import _PASSTHROUGH
 from holo_tpu_torch.resilience.overload import CLASS_RANK, CLASSES
 
 log = logging.getLogger("holo_tpu_torch.pipeline")
+
+_QUEUE_DEPTH = telemetry.gauge(
+    "holo_pipeline_queue_depth", "Entries waiting in the dispatch pipeline queue")
+_INFLIGHT = telemetry.gauge(
+    "holo_pipeline_inflight", "Launched-but-unfinished pipeline entries (device in flight)")
+_DISPATCHES = telemetry.counter(
+    "holo_pipeline_dispatch_total", "Pipeline entries completed, by dispatch kind", ("kind",))
+_COALESCED = telemetry.counter(
+    "holo_pipeline_coalesced_total", "Queued what-if batches coalesced (shared or superseded)",
+    ("reason",))
+_BREAKER_SKIPS = telemetry.counter(
+    "holo_pipeline_breaker_skip_total",
+    "Advisory batches skipped at submit because the circuit was open")
+_WAIT_SECONDS = telemetry.histogram(
+    "holo_pipeline_wait_seconds", "Caller-side wait from result force to completion", ("kind",))
+_OVERLAP_RATIO = telemetry.gauge(
+    "holo_pipeline_overlap_ratio",
+    "Fraction of device-in-flight time overlapped with other host work")
+_SHED = telemetry.counter(
+    "holo_pipeline_shed_total", "Tickets shed by the overload plane, by ticket class and reason",
+    ("class", "reason"))
+_SHED_MARGIN = telemetry.histogram(
+    "holo_pipeline_shed_margin_seconds",
+    "How far past its deadline an expired ticket already was at "
+    "dequeue (near-miss sheds vs hopeless ones)", ("class",))
+_WORKER_RESPAWNS = telemetry.counter(
+    "holo_pipeline_worker_respawns_total",
+    "Pipeline worker threads respawned after a crash or abandoned hang")
 
 
 class PipelineClosed(RuntimeError):
@@ -262,6 +295,8 @@ class DispatchPipeline:
         self._finish_seconds = 0.0
         self._overlap_seconds = 0.0
         self._max_inflight_per_key = 0  # the ownership invariant: <= 1
+        _QUEUE_DEPTH.set_fn(lambda: float(len(self._queue)))
+        _INFLIGHT.set_fn(lambda: float(len(self._inflight)))
 
     # -- submit side
 
@@ -294,6 +329,7 @@ class DispatchPipeline:
             ticket._skip()
             with self._cv:
                 self._skipped += 1
+            _BREAKER_SKIPS.inc()
             return ticket
         item = _Item(ticket, run=run, launch=launch, finish=finish, coalesce=coalesce, site=site,
                      fallback=fallback, breaker=breaker)
@@ -312,22 +348,24 @@ class DispatchPipeline:
                             continue
                         if old.generation == item.generation:
                             self._coalesced["shared"] += 1
+                            _COALESCED.labels(reason="shared").inc()
                             return old.ticket
                         if old.generation < item.generation:
                             self._queue.remove(old)
                             old.ticket._skip(superseded=True)
                             self._coalesced["superseded"] += 1
+                            _COALESCED.labels(reason="superseded").inc()
                 while len(self._queue) >= self.capacity and not self._closed:
                     victim = self._capacity_victim_locked(item.rank)
                     if victim is not None:
                         self._queue.remove(victim)
-                        self._sheds[(victim.cls, "capacity")] += 1
+                        self._note_shed(victim.cls, "capacity")
                         victims.append(victim)
                         continue
                     if item.rank > 0:
                         # Full of equal-or-better work: shed the incoming
                         # sheddable ticket rather than block the caller.
-                        self._sheds[(item.cls, "capacity")] += 1
+                        self._note_shed(item.cls, "capacity")
                         shed_self = True
                         break
                     # Correctness blocks until space frees or close().
@@ -359,9 +397,20 @@ class DispatchPipeline:
                 victim = item
         return victim
 
+    def _note_shed(self, cls: str, reason: str, margin: float | None = None) -> None:
+        """Count a shed ticket (under ``_cv``); ``margin``, seconds past its
+        deadline at dequeue, exists for expiry sheds only."""
+        self._sheds[(cls, reason)] += 1
+        _SHED.labels(**{"class": cls, "reason": reason}).inc()
+        if margin is not None:
+            _SHED_MARGIN.labels(**{"class": cls}).observe(margin)
+
     def _note_wait(self, kind: str, seconds: float) -> None:
         with self._cv:
             self._wait_seconds[kind] += seconds
+        sid = telemetry.current_span_id()
+        _WAIT_SECONDS.labels(kind=kind).observe(
+            seconds, exemplar=None if sid is None else {"span_id": sid})
 
     def on_worker(self) -> bool:
         """Is the calling thread this pipeline's worker?"""
@@ -375,6 +424,7 @@ class DispatchPipeline:
         with self._cv:  # reentrant: the Condition's lock is an RLock
             if self._worker_spawned:
                 self._worker_respawns += 1
+                _WORKER_RESPAWNS.inc()
             self._worker_spawned = True
             self._thread = threading.Thread(target=self._worker_main,
                                             name=f"holo-pipeline-{self.name}", daemon=True)
@@ -427,7 +477,7 @@ class DispatchPipeline:
                         now = self._clock()
                     if now >= item.deadline:
                         self._queue.remove(item)
-                        self._sheds[(item.cls, "expired")] += 1
+                        self._note_shed(item.cls, "expired", now - item.deadline)
                         expired.append(item)
                         continue
                 if item.key in self._inflight_keys:
@@ -517,10 +567,15 @@ class DispatchPipeline:
                 self._thread = None
             self._working -= 1
             self._completed += 1
-            if phase == "finish":
-                self._inflight_keys.discard(item.key)
             self._dispatches[item.kind] += 1
             self._cv.notify_all()
+        if phase == "finish":
+            # The wedged finish never put the chain's run back; the key
+            # passes on through the same hand-over window as a healthy one.
+            with consumes_donated("pipeline.key.handoff"), self._cv:
+                self._inflight_keys.discard(item.key)
+                self._cv.notify_all()
+        _DISPATCHES.labels(kind=item.kind).inc()
         return True
 
     # -- phases
@@ -565,7 +620,9 @@ class DispatchPipeline:
         self._overlap_seconds += max(t_fs - item.t_launch_end, 0.0)
         owned = True
         try:
-            with self._ctx():
+            # The per-key hand-over: the finish puts the chain's new run
+            # back, and only then may a queued delta of the chain launch.
+            with self._ctx(), consumes_donated("pipeline.key.handoff"):
                 self._begin_phase(item, "finish")
                 faults.hangpoint("pipeline.finish")
                 value = item.finish(item.handle)
@@ -587,7 +644,11 @@ class DispatchPipeline:
             self._working -= 1
             self._completed += 1
             self._dispatches[item.kind] += 1
+            denom = self._overlap_seconds + self._finish_seconds
             self._cv.notify_all()
+        _DISPATCHES.labels(kind=item.kind).inc()
+        if denom > 0:
+            _OVERLAP_RATIO.set(self._overlap_seconds / denom)
 
     # -- lifecycle
 
@@ -613,6 +674,12 @@ class DispatchPipeline:
         t = self._thread
         if t is not None and t.is_alive():
             t.join(timeout)
+        # Detach the sampled gauges: a closure over a closed pipeline would
+        # pin it and keep sampling its dead queue.
+        _QUEUE_DEPTH.set_fn(None)
+        _QUEUE_DEPTH.set(0.0)
+        _INFLIGHT.set_fn(None)
+        _INFLIGHT.set(0.0)
 
     @property
     def closed(self) -> bool:

@@ -1,5 +1,5 @@
 """Per-shape engine tuner of the port: ``holo_tpu/pipeline/tuner.py``'s
-``EngineTuner``, its schedule, constants and table format, without telemetry.
+``EngineTuner``, its schedule, constants and table format.
 
 The single-path engines (``seq``, ``fused``, ``packed``, ``hybrid``,
 ``tropical``) compute the same bits, so which one runs is a latency choice.
@@ -33,9 +33,9 @@ engine's, on its tiles).  An engine that a loaded table names but this
 package does not run stays in the table and its saves, and is never
 picked.
 
-``holo_tpu`` counts decisions and promotions in its
-``holo_pipeline_tuner_*`` metrics; the port has no metric registry yet, so
-:meth:`EngineTuner.stats` counts the decisions by (kind, engine, phase).
+Decisions, promotions and the tracked buckets are ``holo_tpu``'s
+``holo_pipeline_tuner_{decisions_total,promotions_total,buckets}``;
+:meth:`EngineTuner.stats` also counts the decisions by (kind, engine, phase).
 """
 
 from __future__ import annotations
@@ -47,7 +47,18 @@ import threading
 from collections import Counter, deque
 from pathlib import Path
 
+from holo_tpu_torch import telemetry
+from holo_tpu_torch.telemetry import profiling
+
 log = logging.getLogger("holo_tpu_torch.pipeline.tuner")
+
+_DECISIONS = telemetry.counter(
+    "holo_pipeline_tuner_decisions_total", "Engine-tuner picks by schedule phase",
+    ("kind", "engine", "phase"))
+_PROMOTIONS = telemetry.counter(
+    "holo_pipeline_tuner_promotions_total", "Shape buckets whose measured winner changed",
+    ("kind",))
+_BUCKETS = telemetry.gauge("holo_pipeline_tuner_buckets", "Shape buckets the tuner currently tracks")
 
 #: persisted-table format version (``holo_tpu``'s: its tables load here)
 TABLE_VERSION = 3
@@ -154,6 +165,7 @@ class EngineTuner:
         st = self._table.get(key)
         if st is None:
             st = self._table[key] = _BucketState()
+            _BUCKETS.set(len(self._table))
         return st
 
     # -- engine selection ----------------------------------------------
@@ -191,6 +203,7 @@ class EngineTuner:
                     engine = winner
                     phase = "exploit"
             self._decisions[(kind, engine, phase)] += 1
+        _DECISIONS.labels(kind=kind, engine=engine, phase=phase).inc()
         return engine
 
     def _explore_order(self, st: _BucketState, cands: tuple[str, ...] | None = None):
@@ -244,6 +257,7 @@ class EngineTuner:
                 if promoted:
                     self._promotions += 1
         if promoted:
+            _PROMOTIONS.labels(kind=kind).inc()
             self.save()
 
     def cost_prior(self, kind: str, bucket: tuple, engine: str, entry: dict | None) -> None:
@@ -303,9 +317,10 @@ class EngineTuner:
     def max_delta_depth(self, bucket: tuple, default: int | None = None) -> int:
         """The chain-depth cap of a bucket: round(full / delta) x
         DEPTH_SCALE, clamped to [DEPTH_MIN, DEPTH_MAX], once both arms have
-        DEPTH_MIN_SAMPLES walls; ``default`` before (``holo_tpu`` falls back
-        to its profiling stage medians first, which the port does not keep
-        yet: ROADMAP A13)."""
+        DEPTH_MIN_SAMPLES walls.  Before that, as ``holo_tpu``: the
+        process-wide ``holo_profile_stage_seconds`` medians of the
+        ``spf.one`` delta and marshal stages while device profiling is
+        armed, and ``default`` without them."""
         if default is None:
             default = self.default_delta_depth
         with self._lock:
@@ -315,7 +330,12 @@ class EngineTuner:
             enough = d is not None and (len(d["delta"]) >= DEPTH_MIN_SAMPLES
                                         and len(d["full"]) >= DEPTH_MIN_SAMPLES)
         if not enough or not delta_med or full_med is None:
-            return int(default)
+            if not profiling.device_profiling():
+                return int(default)
+            delta_med = profiling.stage_median("spf.one", "delta")
+            full_med = profiling.stage_median("spf.one", "marshal")
+            if not delta_med or full_med is None:
+                return int(default)
         ratio = max(full_med / delta_med, 1.0)
         return max(DEPTH_MIN, min(DEPTH_MAX, int(round(ratio)) * DEPTH_SCALE))
 
@@ -402,6 +422,7 @@ class EngineTuner:
                 self._depth[b] = {arm: deque([float(v) for v in vals], maxlen=SAMPLE_WINDOW)
                                   for arm, vals in d.items()}
             self._loaded = True
+            _BUCKETS.set(len(self._table))
         return True
 
     # -- introspection ---------------------------------------------------

@@ -20,10 +20,12 @@ without one (tensors on the card, whose work the host oracle cannot do in
 the same time), the device failure re-raises once counted and an open
 circuit raises :class:`CircuitOpen`.
 
-Where ``holo_tpu`` exports its counts as metrics, the port keeps them on the
-breaker (``failures``, ``fallbacks`` and ``refusals`` by cause, in
-:meth:`snapshot`) and process-wide by breaker name (:func:`tallies`), which
-outlives the breaker.  The causes: ``exception`` (a guarded dispatch
+The counts are ``holo_tpu``'s metrics (``holo_resilience_breaker_state``,
+``_transitions_total``, ``_failures_total`` and ``holo_resilience_fallback_
+total``), and the breaker also keeps them (``failures``, ``fallbacks`` and
+``refusals`` by cause, in :meth:`snapshot`), as do process-wide tallies by
+breaker name (:func:`tallies`), which outlive the breaker; refusals, a card
+dispatch refused with no fallback, have no ``holo_tpu`` series.  The causes: ``exception`` (a guarded dispatch
 raised), ``open`` (the circuit refused it) and ``hang`` (the pipeline's
 watchdog abandoned it, :meth:`CircuitBreaker.force_failure`).  State mutates
 under an owning lock; the primary and fallback callables run outside it.
@@ -45,6 +47,8 @@ import weakref
 from collections import Counter
 from typing import Callable
 
+from holo_tpu_torch import telemetry
+from holo_tpu_torch.analysis.runtime import DonatedBufferError
 from holo_tpu_torch.kernels.build import KernelBuildError
 
 log = logging.getLogger("holo_tpu_torch.resilience.breaker")
@@ -59,6 +63,23 @@ _REGISTRY: "weakref.WeakValueDictionary[str, CircuitBreaker]" = weakref.WeakValu
 _REGISTRY_LOCK = threading.Lock()
 # (breaker name, "failures" | "fallbacks" | "refusals", cause) -> count.
 _TALLIES: Counter = Counter()
+
+_STATE_CODE = {CLOSED: 0, OPEN: 1, HALF_OPEN: 2}
+_STATE = telemetry.gauge(
+    "holo_resilience_breaker_state",
+    "Dispatch circuit-breaker state (0=closed, 1=open, 2=half-open)", ("breaker",))
+_TRANSITIONS = telemetry.counter(
+    "holo_resilience_breaker_transitions_total", "Breaker state transitions by target state",
+    ("breaker", "to"))
+_FAILURES = telemetry.counter(
+    "holo_resilience_breaker_failures_total", "Guarded dispatch failures by cause",
+    ("breaker", "cause"))
+_FALLBACKS = telemetry.counter(
+    "holo_resilience_fallback_total", "Dispatches served by the scalar oracle instead of the device",
+    ("breaker", "cause"))
+# The tallies' kinds that holo_tpu exports (refusals are the port's own: a
+# card dispatch with no fallback).
+_FAMILY = {"failures": _FAILURES, "fallbacks": _FALLBACKS}
 
 
 def breakers() -> dict[str, "CircuitBreaker"]:
@@ -80,11 +101,12 @@ class CircuitOpen(RuntimeError):
 # Exception types that are never how a device failure presents at this
 # boundary: programming or input errors (``ValueError`` is what the kernel
 # wrappers raise for inputs split across devices, of the wrong type or
-# shape) and a kernel library that does not build.  They re-raise without
-# counting: a fallback would either hit the same bug or hide a missing
-# card path behind a healthy-looking result.
+# shape), a kernel library that does not build, and the donation guard's
+# verdict (a use-after-donate is an ordering bug, not a device failure).
+# They re-raise without counting: a fallback would either hit the same bug
+# or hide a missing card path behind a healthy-looking result.
 _PASSTHROUGH = (TypeError, AttributeError, NameError, IndexError, KeyError, ValueError,
-                KernelBuildError)
+                KernelBuildError, DonatedBufferError)
 
 
 class CircuitBreaker:
@@ -112,6 +134,10 @@ class CircuitBreaker:
         self.failures: Counter = Counter()  # cause -> guarded failures
         self.fallbacks: Counter = Counter()  # cause -> dispatches the fallback served
         self.refusals: Counter = Counter()  # cause -> dispatches refused (no fallback)
+        _STATE.labels(breaker=name).set(_STATE_CODE[CLOSED])
+        # No series removal in the registry: a breaker that dies open must
+        # not leave an "open" gauge behind.
+        weakref.finalize(self, _STATE.labels(breaker=name).set, _STATE_CODE[CLOSED])
 
     # -- bookkeeping
 
@@ -119,9 +145,14 @@ class CircuitBreaker:
         with _REGISTRY_LOCK:
             getattr(self, kind)[cause] += 1
             _TALLIES[(self.name, kind, cause)] += 1
+        fam = _FAMILY.get(kind)
+        if fam is not None:
+            fam.labels(breaker=self.name, cause=cause).inc()
 
     def _transition_locked(self, to: str) -> None:
         self.state = to
+        _STATE.labels(breaker=self.name).set(_STATE_CODE[to])
+        _TRANSITIONS.labels(breaker=self.name, to=to).inc()
         if to == OPEN:
             self._open_until = time.monotonic() + self.recovery_timeout
 

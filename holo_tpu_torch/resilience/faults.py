@@ -20,8 +20,8 @@ Every injection decision comes from a per-site random stream derived from
 ``holo_tpu``'s network, TCP, ibus, clock and actor seams (``FaultyNetIo``,
 ``_DelayedSendLoop``, drop, reset and partial-write probabilities) serve the
 protocol actors, which the port does not carry, so they are not copied.
-Where ``holo_tpu`` exports ``holo_resilience_faults_injected_total``, the
-injector keeps ``injected`` (site -> count).  With nothing armed each seam
+Each injection counts in ``holo_resilience_faults_injected_total{site}``
+and in the injector's ``injected`` (site -> count).  With nothing armed each seam
 costs one module-global ``None`` check.
 """
 
@@ -33,6 +33,12 @@ import threading
 import time
 from contextlib import contextmanager
 from dataclasses import dataclass, field
+
+from holo_tpu_torch import telemetry
+
+_INJECTED = telemetry.counter(
+    "holo_resilience_faults_injected_total", "Faults injected by the chaos harness, by seam site",
+    ("site",))
 
 
 class InjectedFault(RuntimeError):
@@ -82,6 +88,7 @@ class FaultInjector:
 
     def _record(self, site: str) -> None:
         self.injected[site] = self.injected.get(site, 0) + 1
+        _INJECTED.labels(site=site).inc()
 
     def crashpoint(self, site: str) -> None:
         with self._lock:

@@ -15,9 +15,9 @@ taxonomy (the port's copy of ``holo_tpu.resilience.overload``).
   jittered-backoff retries before the breaker counts it.
 
 Jitter is deterministic, a hash of (context, attempt), so a chaos run
-replays exactly.  Where ``holo_tpu`` exports the retry verdicts as the
-``holo_pipeline_transient_retries_total`` metric, the port counts them in
-the module's :data:`RETRIES` (``recovered`` | ``exhausted``).
+replays exactly.  The retry verdicts count in
+``holo_pipeline_transient_retries_total{outcome}`` and in the module's
+:data:`RETRIES` (``recovered`` | ``exhausted``).
 """
 
 from __future__ import annotations
@@ -25,6 +25,13 @@ from __future__ import annotations
 import hashlib
 from collections import Counter
 from dataclasses import dataclass
+
+from holo_tpu_torch import telemetry
+
+_RETRIES = telemetry.counter(
+    "holo_pipeline_transient_retries_total",
+    "Transient-classified launch failures retried once before the breaker counts, by outcome",
+    ("outcome",))
 
 #: ticket classes, most to least important (index = rank)
 CLASSES = ("correctness", "advisory", "background")
@@ -102,3 +109,4 @@ def default_retry_policy() -> RetryPolicy:
 def note_retry(outcome: str) -> None:
     """Tally one retry verdict (``recovered`` | ``exhausted``)."""
     RETRIES[outcome] += 1
+    _RETRIES.labels(outcome=outcome).inc()

@@ -18,8 +18,10 @@ queue walls the submitters.  The watchdog closes that gap:
   (the card), and respawns the worker.
 
 The budget is a fixed value per site (``budgets``, else ``floor``): the
-dispatch observatory whose p99 sketches calibrate ``holo_tpu``'s is not
-ported.  ``Supervisor.watch_worker`` is not ported either: a sentinel or
+dispatch observatory whose p99 sketches calibrate ``holo_tpu``'s comes with
+ROADMAP A13b.  Each abandoned phase counts in
+``holo_pipeline_watchdog_hangs_total{phase}``, and
+``holo_pipeline_watchdog_budget_seconds`` holds the last verdict's budget.  ``Supervisor.watch_worker`` is not ported either: a sentinel or
 worker death marshals through ``on_worker_crash`` when set, and respawns
 directly otherwise.
 """
@@ -29,6 +31,15 @@ from __future__ import annotations
 import logging
 import threading
 import time
+
+from holo_tpu_torch import telemetry
+
+_HANGS = telemetry.counter(
+    "holo_pipeline_watchdog_hangs_total",
+    "In-flight pipeline phases abandoned by the hung-dispatch watchdog", ("phase",))
+_BUDGET = telemetry.gauge(
+    "holo_pipeline_watchdog_budget_seconds",
+    "Hang budget the watchdog applied on its most recent verdict")
 
 log = logging.getLogger("holo_tpu_torch.resilience.watchdog")
 
@@ -121,6 +132,8 @@ class DispatchWatchdog:
         if not self.pipeline.abandon_active(item, phase):
             return False  # the phase completed while we decided
         self.hangs += 1
+        _HANGS.labels(phase=phase).inc()
+        _BUDGET.set(budget)
         exc = WatchdogTimeout(f"{phase} phase for {item.key}/{item.kind} hung {age:.3f}s "
                               f"(> budget {budget:.3f}s at site {item.site or '-'})")
         log.error("%s", exc)

@@ -111,12 +111,19 @@ from __future__ import annotations
 import copy
 import itertools
 import threading
-import time
 from collections import Counter
 from dataclasses import dataclass
 
 import numpy as np
 
+from holo_tpu_torch import telemetry
+from holo_tpu_torch.analysis.runtime import (
+    assert_live,
+    consumes_donated,
+    lease,
+    note_donated,
+    sanctioned_transfer,
+)
 from holo_tpu_torch.device import HostCopy, resolve_device
 from holo_tpu_torch.ops.blocked_spf import (
     failed_edges_perm,
@@ -134,6 +141,7 @@ from holo_tpu_torch.ops.spf_engine import (
     _ONE_ENGINES,
     lane_engine,
     mp_pad,
+    note_delta,
     shared_graph_cache,
     spf_multipath_batch,
     spf_multiroot,
@@ -156,6 +164,22 @@ from holo_tpu_torch.pipeline.tuner import active_tuner, shape_bucket
 from holo_tpu_torch.resilience import faults
 from holo_tpu_torch.resilience.breaker import CircuitBreaker
 from holo_tpu_torch.spf.scalar import spf_multipath_reference, spf_reference
+from holo_tpu_torch.telemetry import profiling, residency
+
+_DISPATCH_SECONDS = telemetry.histogram(
+    "holo_spf_dispatch_seconds", "Wall time of one SPF dispatch (incl. readback)",
+    ("backend", "kind"))
+_TRANSFER_SECONDS = telemetry.histogram(
+    "holo_spf_transfer_seconds", "Device->host readback time per dispatch", ("kind",))
+_GRAPH_CACHE = telemetry.counter(
+    "holo_spf_graph_cache_total", "Marshaled DeviceGraph cache lookups", ("result",))
+_BATCH_SCENARIOS = telemetry.counter(
+    "holo_spf_scenarios_total", "Scenario-SPFs computed (batch rows count individually)",
+    ("kind",))
+_SHARD_DISPATCHES = telemetry.counter(
+    "holo_spf_shard_dispatch_total",
+    "Dispatches routed through the process-mesh sharded path "
+    "(parallel/mesh.py layout contract)", ("kind",))
 
 _CACHE_ENTRIES = 4
 # Namespaces of the backends' partitioned residents: never reused in a
@@ -249,6 +273,11 @@ class _InFlightOne:
     # wall, without the time the entry sat launched in a pipeline.
     launch_s: float = 0.0
     mesh: object = None  # the dispatch mesh the launch ran under
+    t0: float = 0.0  # the dispatch's start (profiling.clock)
+    # The device phase's CUDA events (profiling armed), read at the finish,
+    # and the donation guard's lease on the residents the program read.
+    clock: object = None
+    lease: object = None
 
 
 def _stage(out, kp: int) -> HostCopy:
@@ -293,8 +322,16 @@ class ScalarSpfBackend(SpfBackend):
         self.n_atoms = n_atoms
 
     def compute(self, topo, edge_mask=None, multipath_k: int = 1):
+        # The dispatch histogram's kind axis is shared with the card backend.
+        t0 = profiling.clock()
+        with telemetry.span("spf.dispatch", kind="one", backend="scalar"):
+            res = self._one(topo, edge_mask, mp_pad(multipath_k))
+        _DISPATCH_SECONDS.labels(backend="scalar", kind="one").observe(profiling.clock() - t0)
+        _BATCH_SCENARIOS.labels(kind="one").inc()
+        return res
+
+    def _one(self, topo, edge_mask, kp: int) -> SpfResult:
         n_atoms = max(self.n_atoms, topo.n_atoms())
-        kp = mp_pad(multipath_k)
         if kp > 1:
             out, omp = spf_multipath_reference(topo, kp, edge_mask,
                                                n_lanes=((n_atoms + 31) // 32) * 32)
@@ -310,7 +347,14 @@ class ScalarSpfBackend(SpfBackend):
         )
 
     def compute_whatif(self, topo, edge_masks, multipath_k: int = 1):
-        return [self.compute(topo, m, multipath_k) for m in edge_masks]
+        t0 = profiling.clock()
+        kp = mp_pad(multipath_k)
+        with telemetry.span("spf.dispatch", kind="whatif", backend="scalar",
+                            batch=len(edge_masks)):
+            res = [self._one(topo, m, kp) for m in edge_masks]
+        _DISPATCH_SECONDS.labels(backend="scalar", kind="whatif").observe(profiling.clock() - t0)
+        _BATCH_SCENARIOS.labels(kind="whatif").inc(len(res))
+        return res
 
     def compute_multiroot(self, topo, roots) -> MultiRootResult:
         dists, parents, hops = [], [], []
@@ -401,6 +445,7 @@ class TorchSpfBackend(SpfBackend):
         # device (sharing its counts), and their partitioned engines.
         self._mesh_views: dict = {}
         self._part_engines: dict = {}
+        residency.register_spf_backend(self)  # the ledger's spf-prev row
 
     def _n_atoms(self, topo) -> int:
         return max(self.n_atoms, topo.n_atoms())
@@ -444,8 +489,9 @@ class TorchSpfBackend(SpfBackend):
 
         def resident(dev):
             view = self._view(dev)
-            g, _ = view.get(topo, n_atoms, need_edge_ids=need_edge_ids,
-                            allow_delta=self.incremental, mesh=mesh)
+            g, how = view.get(topo, n_atoms, need_edge_ids=need_edge_ids,
+                              allow_delta=self.incremental, mesh=mesh)
+            _GRAPH_CACHE.labels(result=how).inc()
             return (g, view.get_tropical(topo, n_atoms, mesh)) if tiles else g
 
         return pm.per_device(resident)
@@ -540,8 +586,11 @@ class TorchSpfBackend(SpfBackend):
         the resident (DeltaPath); otherwise the resident, marshaled again
         unless it serves this topology (its cut, and its edge ids for a
         mask), solves in full.  Under a mesh the resident lives on its
-        replicated device and its key carries the mesh."""
-        t0 = time.perf_counter()
+        replicated device and its key carries the mesh.  The stages are
+        ``holo_tpu``'s: ``spf.partitioned`` delta / marshal / solve; the
+        partitioned solve stitches its parts on the host, so the delta and
+        solve stages are sanctioned windows whole."""
+        t0 = profiling.clock()
         mesh = _mesh()
         if mesh is not None:
             faults.crashpoint("spf.shard")
@@ -550,24 +599,37 @@ class TorchSpfBackend(SpfBackend):
         cache = shared_graph_cache(dev)
         key = self._part_key(topo, mesh)
         delta = getattr(topo, "delta_base", None)
-        res = cache.get_partitioned(key)
         out, info, path = None, {}, "full"
-        if edge_mask is None and delta is not None and self.incremental and res is not None:
-            out, info = eng.try_delta(topo, res, kp)
-            if out is not None:
-                path = "incremental"
-                self.delta_paths[(delta_kind(delta), "partitioned-incremental")] += 1
-        if out is None:
-            if not (res is not None and res.serves(topo)
-                    and not (edge_mask is not None and res.ids_stale)):
-                res = eng.marshal(topo, self._n_atoms(topo), n_parts=self.partition_parts,
-                                  max_part=(None if self.partition_parts is not None
-                                            else self.partition_max_part))
-                cache.put_partitioned(key, res)
-                path = "marshal"
-            out = eng.solve(topo, res, edge_mask, kp)
-            if delta is not None and edge_mask is None:
-                self.delta_paths[(delta_kind(delta), "partitioned-full")] += 1
+        with profiling.dispatch_context(kind="partitioned", engine="partitioned", bucket=None), \
+                telemetry.span("spf.dispatch", kind="partitioned", backend="torch"):
+            res = cache.get_partitioned(key)
+            if edge_mask is None and delta is not None and self.incremental and res is not None:
+                with profiling.stage("spf.partitioned", "delta"):
+                    with sanctioned_transfer("spf.partition.delta"):
+                        out, info = eng.try_delta(topo, res, kp)
+                if out is not None:
+                    path = "incremental"
+                    note_delta(self.delta_paths, delta_kind(delta), "partitioned-incremental")
+            if out is None:
+                with profiling.stage("spf.partitioned", "marshal"):
+                    if not (res is not None and res.serves(topo)
+                            and not (edge_mask is not None and res.ids_stale)):
+                        with sanctioned_transfer("spf.partition.marshal"):
+                            res = eng.marshal(
+                                topo, self._n_atoms(topo), n_parts=self.partition_parts,
+                                max_part=(None if self.partition_parts is not None
+                                          else self.partition_max_part))
+                        cache.put_partitioned(key, res)
+                        path = "marshal"
+                ls = lease(res.graph, generation=topo.cache_key)
+                with profiling.stage("spf.partitioned", "solve"):
+                    with sanctioned_transfer("spf.partition.solve"):
+                        out = eng.solve(topo, res, edge_mask, kp)
+                # A resident re-solved in place under this solve (a delta of
+                # its chain on another thread) fails here under the guard.
+                assert_live("spf.partitioned.readback", ls)
+                if delta is not None and edge_mask is None:
+                    note_delta(self.delta_paths, delta_kind(delta), "partitioned-full")
         if self.part_stats is not None:
             self.part_stats.clear()
             self.part_stats.update(
@@ -577,17 +639,22 @@ class TorchSpfBackend(SpfBackend):
                                               else {}))
         mp = {f: out[f] for f in ("parents", "pdist", "pweight", "npaths", "nh_weights")
               if f in out}
-        res = SpfResult(dist=out["dist"], parent=out["parent"], hops=out["hops"],
-                        nexthop_words=out["nexthop_words"], **mp)
+        result = SpfResult(dist=out["dist"], parent=out["parent"], hops=out["hops"],
+                           nexthop_words=out["nexthop_words"], **mp)
+        t1 = profiling.clock()
+        _DISPATCH_SECONDS.labels(backend="torch", kind="partitioned").observe(t1 - t0)
         t = active_tuner()
         if t is not None and edge_mask is None and path == "full":
             # Full solves on a warm resident only, as holo_tpu: a marshal,
             # a delta re-solve or a masked solve is not comparable with the
             # monolithic medians of the same bucket.
-            t.observe_partitioned(self._depth_bucket(topo, kp, mesh), time.perf_counter() - t0)
+            t.observe_partitioned(self._depth_bucket(topo, kp, mesh), t1 - t0)
+        kind = "one" if edge_mask is None else "whatif"
+        _BATCH_SCENARIOS.labels(kind=kind).inc()
         if mesh is not None:
+            _SHARD_DISPATCHES.labels(kind=kind).inc()
             self.shard_dispatches["partitioned"] += 1
-        return res
+        return result
 
     def _device_compute(self, topo, edge_mask, kp: int) -> SpfResult:
         faults.crashpoint("spf.dispatch")
@@ -602,33 +669,44 @@ class TorchSpfBackend(SpfBackend):
                 return res[0]
         # The split dispatch back to back, the planes read back by .cpu() at
         # the finish (no pinned copies queued: nothing runs in between).
-        return self.finish_one(self._launch(topo, edge_mask, kp, stage=False, mesh=mesh))
+        with telemetry.span("spf.dispatch", kind="one", backend="torch"):
+            return self._finish(self._launch(topo, edge_mask, kp, stage=False, mesh=mesh))
 
     def _one_program(self, topo, edge_mask, kp: int, mesh=None) -> tuple:
-        """The device program of a full (not DeltaPath) ``compute``:
-        (device tensors, engine, tuner bucket, graph lookup, first use).
-        Under a mesh it runs on the first batch device's resident."""
+        """The device program of a full (not DeltaPath) ``compute``, in the
+        ``spf.one`` marshal stage (as ``holo_tpu``'s jit call): (device
+        tensors, engine, tuner bucket, graph lookup, first use, device clock,
+        lease).  Under a mesh it runs on the first batch device's
+        resident."""
         engine, bucket = self._pick_engine("one", topo, kp=kp, mesh=mesh)
         view = self._home(mesh)
-        # A scenario mask gathers through in_edge_id: an entry whose ids went
-        # stale under a structural delta is rebuilt for it.
-        g, how = view.get(topo, self._n_atoms(topo), need_edge_ids=edge_mask is not None,
-                          allow_delta=self.incremental, mesh=mesh)
-        first = self._first_use("one", engine, g, 1, kp, edge_mask is not None,
-                                pm.mesh_cache_key(mesh))
-        if engine == "mp_tropical":
-            tt = view.get_tropical(topo, self._n_atoms(topo), mesh)
-            out = tropical_spf_one_multipath(g, tt, topo.root, kp, edge_mask, None,
-                                             self.max_iters)
-        elif kp > 1:
-            out = spf_one_multipath(g, topo.root, kp, edge_mask, self.max_iters)
-        elif engine == "tropical":
-            tt = view.get_tropical(topo, self._n_atoms(topo), mesh)
-            out = tropical_spf_one(g, tt, topo.root, edge_mask, None, self.max_iters)
-        else:
-            one = spf_one if engine == "seq" else _ONE_ENGINES[engine]
-            out = one(g, topo.root, edge_mask, self.max_iters)
-        return out, engine, bucket, how, first
+        n_atoms = self._n_atoms(topo)
+        with profiling.stage("spf.one", "marshal"):
+            tt = None
+            with sanctioned_transfer("spf.one.marshal"):
+                # A scenario mask gathers through in_edge_id: an entry whose
+                # ids went stale under a structural delta is rebuilt for it.
+                g, how = view.get(topo, n_atoms, need_edge_ids=edge_mask is not None,
+                                  allow_delta=self.incremental, mesh=mesh)
+                if engine in _TROPICAL_ENGINES:
+                    tt = view.get_tropical(topo, n_atoms, mesh)
+            _GRAPH_CACHE.labels(result=how).inc()
+            first = self._first_use("one", engine, g, 1, kp, edge_mask is not None,
+                                    pm.mesh_cache_key(mesh))
+            ls = lease(g, tt, generation=view.key(topo, n_atoms, mesh))
+            clk = profiling.device_clock("spf.one", on=g.in_src.device)
+            if engine == "mp_tropical":
+                out = tropical_spf_one_multipath(g, tt, topo.root, kp, edge_mask, None,
+                                                 self.max_iters)
+            elif kp > 1:
+                out = spf_one_multipath(g, topo.root, kp, edge_mask, self.max_iters)
+            elif engine == "tropical":
+                out = tropical_spf_one(g, tt, topo.root, edge_mask, None, self.max_iters)
+            else:
+                one = spf_one if engine == "seq" else _ONE_ENGINES[engine]
+                out = one(g, topo.root, edge_mask, self.max_iters)
+            profiling.sync(clk)
+        return out, engine, bucket, how, first, clk, ls
 
     def _pick_engine(self, kind: str, topo, batch: int = 1, kp: int = 1, mesh=None):
         """(engine, shape bucket or None): the armed tuner's pick for this
@@ -716,55 +794,72 @@ class TorchSpfBackend(SpfBackend):
         with self._prev_lock:
             if key in self._prev_one:
                 return
-            self._prev_one[key] = out
-            while len(self._prev_one) > self.prev_capacity:
-                self._prev_one.pop(next(iter(self._prev_one)))
+            # The hand-over seam: this run's fresh tensors take the consumed
+            # seed's place.
+            with consumes_donated("spf.prev.redeposit"):
+                self._prev_one[key] = out
+                while len(self._prev_one) > self.prev_capacity:
+                    self._prev_one.pop(next(iter(self._prev_one)))
 
     def _incremental_program(self, topo, kp: int, mesh=None) -> tuple | None:
         """The device program of a DeltaPath dispatch (``holo_tpu``'s
-        ``_try_incremental``): the resident graph absorbs the delta in place
-        and the incremental SPF runs seeded from the kept run of the delta's
-        base.  (device tensors, delta kind), or None for the full path: no
-        lineage, no kept run (``full-no-prev``) or a cache that rebuilt the
-        graph (its reason already counted).  The kept run of the base leaves
-        ``_prev_one`` before the program runs; the finish keeps the new
-        one."""
+        ``_try_incremental``), in the ``spf.one`` delta stage: the resident
+        graph absorbs the delta in place and the incremental SPF runs seeded
+        from the kept run of the delta's base.  (device tensors, delta kind,
+        device clock, lease), or None for the full path: no lineage, no kept
+        run (``full-no-prev``) or a cache that rebuilt the graph (its reason
+        already counted).  The kept run of the base leaves ``_prev_one``
+        before the program runs; the finish keeps the new one."""
         delta = getattr(topo, "delta_base", None)
         if delta is None or not self.incremental:
             return None
         kind = delta_kind(delta)
         prev_key = self._prev_key(topo, tuple(delta.base_key), kp, mesh)
         if prev_key not in self._prev_one:
-            self.delta_paths[(kind, "full-no-prev")] += 1
+            note_delta(self.delta_paths, kind, "full-no-prev")
             return None
         view = self._home(mesh)
-        g, how = view.get(topo, self._n_atoms(topo), mesh=mesh)
-        if how == "miss":
-            return None
-        with self._prev_lock:
-            prev = self._prev_one.pop(prev_key, None)
-        if prev is None:  # taken by another thread since the test above
-            self.delta_paths[(kind, "full-no-prev")] += 1
-            return None
-        seeds = delta_seed_rows(delta)
-        trop = self._trop_incremental(topo, kp, mesh)
-        tt = view.get_tropical(topo, self._n_atoms(topo), mesh) if trop else None
-        if kp > 1:
-            sp, mp = prev
+        n_atoms = self._n_atoms(topo)
+        with profiling.stage("spf.one", "delta"):
+            with sanctioned_transfer("spf.one.delta"):
+                g, how = view.get(topo, n_atoms, mesh=mesh)
+            if how == "miss":
+                return None
+            _GRAPH_CACHE.labels(result=how).inc()
+            with self._prev_lock:
+                prev = self._prev_one.pop(prev_key, None)
+            if prev is None:  # taken by another thread since the test above
+                note_delta(self.delta_paths, kind, "full-no-prev")
+                return None
+            seeds = delta_seed_rows(delta)
+            trop = self._trop_incremental(topo, kp, mesh)
+            tt = None
             if trop:
-                out = tropical_spf_one_incremental_multipath(
-                    g, tt, topo.root, sp, mp.npaths, mp.nh_weights, seeds, kp, self.max_iters,
-                    self.delta_stats)
+                with sanctioned_transfer("spf.one.delta"):
+                    tt = view.get_tropical(topo, n_atoms, mesh)
+            generation = view.key(topo, n_atoms, mesh)
+            ls = lease(g, tt, generation=generation)
+            clk = profiling.device_clock("spf.one", on=g.in_src.device)
+            if kp > 1:
+                sp, mp = prev
+                if trop:
+                    out = tropical_spf_one_incremental_multipath(
+                        g, tt, topo.root, sp, mp.npaths, mp.nh_weights, seeds, kp,
+                        self.max_iters, self.delta_stats)
+                else:
+                    out = spf_one_incremental_multipath(g, topo.root, sp, mp.npaths,
+                                                        mp.nh_weights, seeds, kp, self.max_iters,
+                                                        self.delta_stats)
+            elif trop:
+                out = tropical_spf_one_incremental(g, tt, topo.root, prev, seeds, self.max_iters,
+                                                   self.delta_stats)
             else:
-                out = spf_one_incremental_multipath(g, topo.root, sp, mp.npaths, mp.nh_weights,
-                                                    seeds, kp, self.max_iters, self.delta_stats)
-        elif trop:
-            out = tropical_spf_one_incremental(g, tt, topo.root, prev, seeds, self.max_iters,
-                                               self.delta_stats)
-        else:
-            out = spf_one_incremental(g, topo.root, prev, seeds, self.max_iters,
-                                      self.delta_stats)
-        return out, kind
+                out = spf_one_incremental(g, topo.root, prev, seeds, self.max_iters,
+                                          self.delta_stats)
+            profiling.sync(clk)
+            # The base's kept run was consumed into this generation's.
+            note_donated("spf.one.delta", prev, generation=generation)
+        return out, kind, clk, ls
 
     # -- split-phase dispatch (the pipeline's seam)
     #
@@ -776,7 +871,11 @@ class TorchSpfBackend(SpfBackend):
     # pipeline overlaps is the tail (the copies, the result's numpy planes,
     # the caller's own work).  compute() is the same two phases back to back
     # (_device_compute), so the results are the same bits and a dispatch is
-    # booked in one place.
+    # booked in one place.  The stages follow holo_tpu's: marshal or delta
+    # in the launch (the program runs in it, as holo_tpu's jit call), device
+    # (the wait; its time from the launch's CUDA events) and readback in the
+    # finish.  The launch and the finish are spans of their own
+    # (spf.launch / spf.finish); compute() is one spf.dispatch span.
 
     def launch_one(self, topo, edge_mask=None, multipath_k: int = 1) -> _InFlightOne:
         """Phase 1 of a split ``compute``: the chaos seam, the engine pick,
@@ -791,7 +890,8 @@ class TorchSpfBackend(SpfBackend):
         if (self.engine == "blocked" and kp == 1) or self._use_partitioned(topo):
             raise ValueError("the blocked engine at multipath_k 1 and the partitioned path "
                              "have no split-phase dispatch")
-        return self._launch(topo, edge_mask, kp, stage=True, mesh=mesh)
+        with telemetry.span("spf.launch", kind="one", backend="torch"):
+            return self._launch(topo, edge_mask, kp, stage=True, mesh=mesh)
 
     def _launch(self, topo, edge_mask, kp: int, stage: bool, mesh=None) -> _InFlightOne:
         """The DeltaPath program where a mask-free dispatch links to a kept
@@ -801,32 +901,49 @@ class TorchSpfBackend(SpfBackend):
         handoff keeps the next delta of the chain from launching before
         :meth:`finish_one` has put the new run back."""
         if edge_mask is None:
-            t0 = time.perf_counter()
+            t0 = profiling.clock()
             run = self._incremental_program(topo, kp, mesh)
             if run is not None:
-                out, kind = run
+                out, kind, clk, ls = run
                 return _InFlightOne(
                     out=out, host=_stage(out, kp) if stage else None, topo=topo, engine="incr",
                     bucket=None, mode="delta", kp=kp, delta_kind=kind, remember=True,
-                    launch_s=time.perf_counter() - t0, mesh=mesh)
-        t0 = time.perf_counter()
-        out, engine, bucket, how, first = self._one_program(topo, edge_mask, kp, mesh)
+                    launch_s=profiling.clock() - t0, mesh=mesh, t0=t0, clock=clk, lease=ls)
+        t0 = profiling.clock()
+        out, engine, bucket, how, first, clk, ls = self._one_program(topo, edge_mask, kp, mesh)
         return _InFlightOne(
             out=out, host=_stage(out, kp) if stage else None, topo=topo, engine=engine,
             bucket=bucket, mode="full", kp=kp, remember=edge_mask is None and self.incremental,
             remarshal=how == "miss" and edge_mask is None, first=first,
-            launch_s=time.perf_counter() - t0, mesh=mesh)
+            launch_s=profiling.clock() - t0, mesh=mesh, t0=t0, clock=clk, lease=ls)
 
     def finish_one(self, h: _InFlightOne) -> SpfResult:
         """Phase 2: the chaos delay, the wait on the host copies, the
         SpfResult, the tuner samples (the launch's wall and the finish's,
         not the time between) and the kept run."""
-        t_fs = time.perf_counter()
-        faults.delaypoint("spf.dispatch")
-        res = self._result(_staged(h), h.topo.n_vertices, h.kp)
-        unparked = h.launch_s + (time.perf_counter() - t_fs)
+        with telemetry.span("spf.finish", kind="one", backend="torch", mode=h.mode):
+            return self._finish(h)
+
+    def _finish(self, h: _InFlightOne) -> SpfResult:
+        t_fs = profiling.clock()
+        with profiling.stage("spf.one", "device", clock=h.clock):
+            faults.delaypoint("spf.dispatch")
+            # The donation guard's finish seam: a resident moved in place
+            # since the launch fails here, named.
+            assert_live("spf.one.readback", h.lease)
+            staged = _staged(h)
+        t1 = profiling.clock()
+        with profiling.stage("spf.one", "readback"):
+            with sanctioned_transfer("spf.one.unmarshal"):
+                res = self._result(staged, h.topo.n_vertices, h.kp)
+        t2 = profiling.clock()
+        profiling.settle(h.clock, t2 - h.t0)
+        _TRANSFER_SECONDS.labels(kind="one").observe(t2 - t1)
+        _DISPATCH_SECONDS.labels(backend="torch", kind="one").observe(t2 - h.t0)
+        _BATCH_SCENARIOS.labels(kind="one").inc()
+        unparked = h.launch_s + (t2 - t_fs)
         if h.mode == "delta":
-            self.delta_paths[(h.delta_kind, "incremental")] += 1
+            note_delta(self.delta_paths, h.delta_kind, "incremental")
             self._tuner_depth_observe(h.topo, "delta", unparked, h.kp, h.mesh)
         else:
             if not h.first:
@@ -836,6 +953,7 @@ class TorchSpfBackend(SpfBackend):
         if h.remember and self.incremental:
             self._remember(h.topo, h.out, h.kp, h.mesh)
         if h.mesh is not None:
+            _SHARD_DISPATCHES.labels(kind="one").inc()
             self.shard_dispatches["one"] += 1
         return res
 
@@ -850,29 +968,55 @@ class TorchSpfBackend(SpfBackend):
             res = self._whatif_blocked(topo, masks)
             if res is not None:
                 return res
-        t0 = time.perf_counter()
-        engine, bucket = self._pick_engine("whatif", topo, len(masks), kp, mesh)
-        if mesh is None:
-            g = self.prepare(topo, need_edge_ids=True)
-            first = self._first_use("whatif", engine, g, len(masks), kp, topo.n_edges)
-            if kp > 1:
-                sp, mp = spf_multipath_batch(g, topo.root, masks, kp, self.max_iters)
-            elif engine == "tropical":
-                tt = self._gather_cache.get_tropical(topo, self._n_atoms(topo))
-                sp, mp = tropical_whatif_batch(g, tt, topo.root, masks, None,
-                                               self.max_iters), None
-            else:
-                sp, mp = spf_whatif_batch(g, topo.root, masks, self.max_iters, engine), None
-        else:
-            sp, mp, first = self._sharded_whatif(mesh, topo, masks, engine, kp)
-        mp = {} if mp is None else _host_mp(mp, topo.n_vertices)
-        dist, parent, hops, nh = _host_tensors(sp, topo.n_vertices)
+        b = len(masks)
+        t0 = profiling.clock()
+        engine, bucket = self._pick_engine("whatif", topo, b, kp, mesh)
+        with profiling.dispatch_context(kind="whatif", engine=engine, bucket=bucket), \
+                telemetry.span("spf.dispatch", kind="whatif", backend="torch", batch=b):
+            with profiling.stage("spf.whatif", "marshal"):
+                if mesh is None:
+                    tt = None
+                    with sanctioned_transfer("spf.whatif.marshal"):
+                        g = self.prepare(topo, need_edge_ids=True)
+                        if kp == 1 and engine == "tropical":
+                            tt = self._gather_cache.get_tropical(topo, self._n_atoms(topo))
+                    first = self._first_use("whatif", engine, g, b, kp, topo.n_edges)
+                    ls = lease(g, tt, generation=self._gather_cache.key(topo, self._n_atoms(topo)))
+                    clk = profiling.device_clock("spf.whatif", on=g.in_src.device)
+                    if kp > 1:
+                        sp, mp = spf_multipath_batch(g, topo.root, masks, kp, self.max_iters)
+                    elif engine == "tropical":
+                        sp, mp = tropical_whatif_batch(g, tt, topo.root, masks, None,
+                                                       self.max_iters), None
+                    else:
+                        sp, mp = spf_whatif_batch(g, topo.root, masks, self.max_iters,
+                                                  engine), None
+                    profiling.sync(clk)
+                else:
+                    clk = ls = None
+                    sp, mp, first = self._sharded_whatif(mesh, topo, masks, engine, kp)
+            with profiling.stage("spf.whatif", "device", clock=clk):
+                assert_live("spf.whatif.readback", ls)
+            t1 = profiling.clock()
+            # One bulk copy a plane: per-scenario slices would pay the round
+            # trip B times.
+            with profiling.stage("spf.whatif", "readback"):
+                with sanctioned_transfer("spf.whatif.unmarshal"):
+                    mp = {} if mp is None else _host_mp(mp, topo.n_vertices)
+                    dist, parent, hops, nh = _host_tensors(sp, topo.n_vertices)
+        t2 = profiling.clock()
+        profiling.settle(clk, t2 - t0)
+        _TRANSFER_SECONDS.labels(kind="whatif").observe(t2 - t1)
+        _DISPATCH_SECONDS.labels(backend="torch", kind="whatif").observe(t2 - t0)
+        _BATCH_SCENARIOS.labels(kind="whatif").inc(b)
+        if mesh is not None:
+            _SHARD_DISPATCHES.labels(kind="whatif").inc()
         if not first:
-            self._tuner_observe("whatif", bucket, engine, time.perf_counter() - t0)
+            self._tuner_observe("whatif", bucket, engine, t2 - t0)
         return [
             SpfResult(dist=dist[i], parent=parent[i], hops=hops[i], nexthop_words=nh[i],
                       **{f: x[i] for f, x in mp.items()})
-            for i in range(len(masks))
+            for i in range(b)
         ]
 
     def _sharded_whatif(self, mesh, topo, masks, engine: str, kp: int) -> tuple:
@@ -881,19 +1025,21 @@ class TorchSpfBackend(SpfBackend):
         ``_sharded_trop_whatif``): (SpfTensors, MultipathTensors or None,
         first use), each shard on its device's resident."""
         trop = kp == 1 and engine == "tropical"
-        res = self._resident(mesh, topo, need_edge_ids=True, tiles=trop)
-        g0 = res(mesh.batch_device(0))
+        with sanctioned_transfer("spf.whatif.marshal"):
+            res = self._resident(mesh, topo, need_edge_ids=True, tiles=trop)
+            g0 = res(mesh.batch_device(0))
         first = self._first_use("whatif", engine, g0[0] if trop else g0, len(masks), kp,
                                 topo.n_edges, pm.mesh_cache_key(mesh))
         mp = None
         if kp > 1:
             sp, mp = pm.sharded_multipath_program(mesh, res, topo.root, masks, kp,
-                                                  self.max_iters)
+                                                  self.max_iters, site="spf.whatif")
         elif trop:
             sp = pm.sharded_tropical_whatif_program(mesh, res, topo.root, masks, None,
-                                                    self.max_iters)
+                                                    self.max_iters, site="spf.whatif")
         else:
-            sp = pm.sharded_whatif_program(mesh, res, topo.root, masks, self.max_iters, engine)
+            sp = pm.sharded_whatif_program(mesh, res, topo.root, masks, self.max_iters, engine,
+                                           site="spf.whatif")
         self.shard_dispatches["whatif"] += 1
         return sp, mp, first
 
@@ -906,20 +1052,49 @@ class TorchSpfBackend(SpfBackend):
             empty = np.zeros((0, topo.n_vertices), np.int32)
             return MultiRootResult(dist=empty, parent=empty.copy(), hops=empty.copy())
         trop = self.one_engine == "tropical"  # holo_tpu's mr_engine
+        t0 = profiling.clock()
+        clk = ls = None
+        with profiling.dispatch_context(kind="multiroot", engine="tropical" if trop else "seq",
+                                        bucket=None), \
+                telemetry.span("spf.dispatch", kind="multiroot", backend="torch",
+                               roots=len(roots)):
+            with profiling.stage("spf.multiroot", "marshal"):
+                if mesh is not None:
+                    # The roots ride the batch axis, padded with root 0.
+                    with sanctioned_transfer("spf.multiroot.marshal"):
+                        res = self._resident(mesh, topo, tiles=trop)
+                        res(mesh.batch_device(0))
+                    program = (pm.sharded_tropical_multiroot_program if trop
+                               else pm.sharded_multiroot_program)
+                    out = program(mesh, res, roots, max_iters=self.max_iters,
+                                  site="spf.multiroot")
+                    self.shard_dispatches["multiroot"] += 1
+                else:
+                    tt = None
+                    with sanctioned_transfer("spf.multiroot.marshal"):
+                        g = self.prepare(topo)
+                        if trop:
+                            tt = self._gather_cache.get_tropical(topo, self._n_atoms(topo))
+                    ls = lease(g, tt, generation=self._gather_cache.key(topo, self._n_atoms(topo)))
+                    clk = profiling.device_clock("spf.multiroot", on=g.in_src.device)
+                    if trop:
+                        out = tropical_multiroot(g, tt, roots, None, None, self.max_iters)
+                    else:
+                        out = spf_multiroot(g, roots, max_iters=self.max_iters)
+                    profiling.sync(clk)
+            with profiling.stage("spf.multiroot", "device", clock=clk):
+                assert_live("spf.multiroot.readback", ls)
+            t1 = profiling.clock()
+            with profiling.stage("spf.multiroot", "readback"):
+                with sanctioned_transfer("spf.multiroot.unmarshal"):
+                    dist, parent, hops, _ = _host_tensors(out, topo.n_vertices)
+        t2 = profiling.clock()
+        profiling.settle(clk, t2 - t0)
+        _TRANSFER_SECONDS.labels(kind="multiroot").observe(t2 - t1)
+        _DISPATCH_SECONDS.labels(backend="torch", kind="multiroot").observe(t2 - t0)
+        _BATCH_SCENARIOS.labels(kind="multiroot").inc(len(roots))
         if mesh is not None:
-            # The roots ride the batch axis, padded with root 0.
-            res = self._resident(mesh, topo, tiles=trop)
-            program = (pm.sharded_tropical_multiroot_program if trop
-                       else pm.sharded_multiroot_program)
-            out = program(mesh, res, roots, max_iters=self.max_iters)
-            self.shard_dispatches["multiroot"] += 1
-        elif trop:
-            g = self.prepare(topo)
-            tt = self._gather_cache.get_tropical(topo, self._n_atoms(topo))
-            out = tropical_multiroot(g, tt, roots, None, None, self.max_iters)
-        else:
-            out = spf_multiroot(self.prepare(topo), roots, max_iters=self.max_iters)
-        dist, parent, hops, _ = _host_tensors(out, topo.n_vertices)
+            _SHARD_DISPATCHES.labels(kind="multiroot").inc()
         return MultiRootResult(dist=dist, parent=parent, hops=hops)
 
     @staticmethod
@@ -942,8 +1117,9 @@ class TorchSpfBackend(SpfBackend):
         reads ``in_edge_id`` (edge masks).  Under a mesh, the first batch
         device's resident, laid out for the mesh."""
         mesh = _mesh()
-        g, _how = self._home(mesh).get(topo, self._n_atoms(topo), need_edge_ids=need_edge_ids,
-                                       allow_delta=self.incremental, mesh=mesh)
+        g, how = self._home(mesh).get(topo, self._n_atoms(topo), need_edge_ids=need_edge_ids,
+                                      allow_delta=self.incremental, mesh=mesh)
+        _GRAPH_CACHE.labels(result=how).inc()
         return g
 
     def prepare_blocked(self, topo: Topology):
@@ -969,21 +1145,39 @@ class TorchSpfBackend(SpfBackend):
         """The blocked engine's results, or None (counted in
         ``routed_to_gather``) when the topology or a scenario is outside
         its preconditions."""
-        planes = self.prepare_blocked(topo)
-        if planes is not None:
-            g, perm_of = planes
-            try:
-                fdst, fid = failed_edges_perm(perm_of, topo, edge_masks, device=self.device)
-            except ValueError:
-                planes = None  # more than 4 failed edges in a scenario
+        with sanctioned_transfer("spf.blocked.marshal"):
+            planes = self.prepare_blocked(topo)
+            if planes is not None:
+                g, perm_of = planes
+                try:
+                    fdst, fid = failed_edges_perm(perm_of, topo, edge_masks, device=self.device)
+                except ValueError:
+                    planes = None  # more than 4 failed edges in a scenario
         if planes is None:
             self.routed_to_gather += 1
             return None
-        out = whatif_spf_blocked(g, fdst, fid, max_iters=self.max_iters)
-        dist = out.dist.cpu().numpy()
-        parent = out.parent.cpu().numpy()
-        hops = out.hops.cpu().numpy()
-        nh = out.nexthops.cpu().numpy().view(np.uint32)
+        t0 = profiling.clock()
+        with profiling.dispatch_context(kind="blocked", engine="blocked", bucket=None), \
+                telemetry.span("spf.dispatch", kind="blocked", backend="torch",
+                               batch=len(edge_masks)):
+            with profiling.stage("spf.blocked", "marshal"):
+                clk = profiling.device_clock("spf.blocked", on=self.device)
+                out = whatif_spf_blocked(g, fdst, fid, max_iters=self.max_iters)
+                profiling.sync(clk)
+            with profiling.stage("spf.blocked", "device", clock=clk):
+                pass
+            t1 = profiling.clock()
+            with profiling.stage("spf.blocked", "readback"):
+                with sanctioned_transfer("spf.blocked.unmarshal"):
+                    dist = out.dist.cpu().numpy()
+                    parent = out.parent.cpu().numpy()
+                    hops = out.hops.cpu().numpy()
+                    nh = out.nexthops.cpu().numpy().view(np.uint32)
+        t2 = profiling.clock()
+        profiling.settle(clk, t2 - t0)
+        _TRANSFER_SECONDS.labels(kind="blocked").observe(t2 - t1)
+        _DISPATCH_SECONDS.labels(backend="torch", kind="blocked").observe(t2 - t0)
+        _BATCH_SCENARIOS.labels(kind="blocked").inc(dist.shape[0])
         return [
             SpfResult(dist=dist[i], parent=parent[i], hops=hops[i], nexthop_words=nh[i])
             for i in range(dist.shape[0])

@@ -1794,3 +1794,94 @@ def test_mesh_on_the_card_matches_the_cpu_and_a_shard_failure_reraises(site):
     snap = br.snapshot()
     assert snap["failures"] == {"exception": 1} and snap["refusals"] == {"open": 1}
     assert not snap["fallbacks"]
+
+
+# -- telemetry and runtime checks on the card
+
+
+def test_sanitizer_raises_on_an_unsanctioned_sync_and_passes_a_sanctioned_one():
+    from holo_tpu_torch import testing
+    from holo_tpu_torch.analysis import runtime
+
+    dev = _card()
+    t = torch.ones(4, device=dev)
+    before = runtime.sanctioned_counts().get("card.test", 0)
+    with testing.no_implicit_transfers():
+        with pytest.raises(RuntimeError, match="synchroniz"):
+            t.sum().item()
+        with runtime.sanctioned_transfer("card.test"):
+            assert t.sum().item() == 4.0
+        assert runtime.read_flag("card.flag", (t > 0).any()) is True
+    assert torch.cuda.get_sync_debug_mode() == 0
+    assert runtime.sanctioned_counts()["card.test"] == before + 1
+
+
+def test_sanitizer_windows_on_two_threads_keep_the_mode():
+    """Thread A holds a window open across thread B's whole window: A's
+    sync inside still passes, and after both close an unsanctioned sync
+    raises again."""
+    import threading
+
+    from holo_tpu_torch import testing
+    from holo_tpu_torch.analysis import runtime
+
+    dev = _card()
+    t = torch.ones(4, device=dev)
+    a_open, b_done = threading.Event(), threading.Event()
+    seen = {}
+
+    def a():
+        with runtime.sanctioned_transfer("card.a"):
+            a_open.set()
+            b_done.wait(10.0)
+            seen["a"] = t.sum().item()
+
+    with testing.no_implicit_transfers():
+        th = threading.Thread(target=a)
+        th.start()
+        a_open.wait(10.0)
+        with runtime.sanctioned_transfer("card.b"):
+            seen["b"] = t.sum().item()
+        b_done.set()
+        th.join(10.0)
+        with pytest.raises(RuntimeError, match="synchroniz"):
+            t.sum().item()
+    assert seen == {"a": 4.0, "b": 4.0}
+
+
+def test_device_stage_on_events_is_at_most_its_dispatch_wall():
+    from holo_tpu_torch.telemetry import profiling
+
+    dev = _card()
+    topo = synth.fat_tree_topology(k=8)
+    be = TorchSpfBackend(device=dev)
+    be.compute(topo)  # the kernel library and the marshal
+    masks = synth.whatif_link_failure_masks(topo, 64, seed=1)
+    profiling.set_device_profiling(True)
+    n0, e0 = len(profiling.settled()), profiling.event_records()
+    try:
+        be.compute(topo, masks[1])
+        be.compute_whatif(topo, masks)
+        be.finish_one(be.launch_one(topo))
+    finally:
+        profiling.set_device_profiling(False)
+    rows = profiling.settled()[n0:]
+    assert [r[0] for r in rows] == ["spf.one", "spf.whatif", "spf.one"]
+    assert profiling.event_records() - e0 == 6
+    for site, _dev, dt, _host, wall in rows:
+        assert 0 < dt <= wall, (site, dt, wall)
+
+
+def test_disarmed_dispatch_records_no_event():
+    from holo_tpu_torch.telemetry import profiling
+
+    dev = _card()
+    topo = synth.fat_tree_topology(k=8)
+    be = TorchSpfBackend(device=dev)
+    assert not profiling.device_profiling()
+    e0, n0 = profiling.event_records(), len(profiling.settled())
+    be.compute(topo)
+    be.compute_whatif(topo, synth.whatif_link_failure_masks(topo, 8, seed=2))
+    be.compute_multiroot(topo, np.arange(4, dtype=np.int32))
+    assert profiling.event_records() == e0
+    assert len(profiling.settled()) == n0

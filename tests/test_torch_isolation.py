@@ -47,7 +47,9 @@ def test_every_module_is_found():
                  "holo_tpu_torch.protocols.bgp_engine", "holo_tpu_torch.pipeline.tuner",
                  "holo_tpu_torch.pipeline.dispatch", "holo_tpu_torch.resilience.overload",
                  "holo_tpu_torch.resilience.faults", "holo_tpu_torch.resilience.watchdog",
-                 "holo_tpu_torch.parallel", "holo_tpu_torch.parallel.mesh"):
+                 "holo_tpu_torch.parallel", "holo_tpu_torch.parallel.mesh",
+                 "holo_tpu_torch.telemetry.profiling", "holo_tpu_torch.telemetry.residency",
+                 "holo_tpu_torch.analysis.runtime", "holo_tpu_torch.testing"):
         assert want in mods
 
 
