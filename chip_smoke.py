@@ -237,6 +237,18 @@ the DeltaPath chain, and its multipath program through ``compute`` at
    guard and a seeded stale read caught; a torch.profiler trace with the
    spf.one stage ranges and a gather kernel; all beside the card's name
    and power limit;
+3p. (after 3o) the dispatch analytics over 3o's twelve paths, each one
+   causal event from ``convergence.begin`` to ``fib_commit``: disarmed,
+   then with the flight recorder, the convergence tracker, the observatory
+   (the card's peaks), the critical-path ledger and the SLO engine armed:
+   bit-identical, equal launches; the observatory's observations equal to
+   the stage observations made; each bucket's roofline row (its work-tally
+   cost entry, device p50, achieved op/s and bytes/s and their shares of
+   the peaks, none above 1.05, the verdict); each path's critical-path
+   verdict and phases; the watchdog's budget per site from its p99; the
+   overhead on ``compute()`` and the 1024-lane what-if in alternating
+   turns; the SLO report and the flight ring; all beside the card's name
+   and power limit;
 4. time each kernel (CUDA events; at one scenario also the profiler's
    device time, which leaves out the host's launch), its plain version, the
    whole batch, ``compute()`` and the gather batch's stages, and DeltaPath's
@@ -265,6 +277,7 @@ import sys
 import threading
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -3610,56 +3623,29 @@ TEL_COMPUTE_REPS, TEL_WHATIF_REPS = 5, 3
 TEL_FLAG_ENGINES = ("seq", "fused", "packed", "hybrid", "tropical")
 
 
-def telemetry_phase(dev, topo, masks, gres, gone, gmr, mr_roots, m_one, mask_ref, chain,
-                    d_steps) -> dict:
-    """Phase 3o: the port's telemetry and runtime checks on the k=90 fat tree.
-    (a) One set of paths run with profiling armed and again disarmed:
-    ``compute()``, ``compute(masks[1])``, ``compute(multipath_k=4)``, the
-    1024-lane what-if on seq and on the tropical engine, the 64-root
-    multi-root, ``FrrEngine("torch").compute`` (root 6075), a 1024-request
-    CSPF batch, the partitioned 10k LSDB (hinted), a BGP table's cold batch
-    and one UPDATE burst, phase 3d's 8-event chain and the same chain
-    pipelined through ``AsyncSpfBackend``: every plane bit-identical between
-    the arms and to the earlier phases' references, the kernel launches
-    equal, each (site, stage) observed as often as the calls made it, each
-    device stage's CUDA-event time at most its dispatch's wall, and no CUDA
-    event recorded by the disarmed arm.  (b) The overhead: ``compute()``
-    (median of 5) and the what-if (median of 3), armed against disarmed in 5
-    alternating turns.  (c) Every path again under
-    ``testing.no_implicit_transfers()``, with no unsanctioned sync (one that
-    raises is run again with the mode at "warn" to list every site), and
-    the sanctioned windows each path opened, the flag reads of one
-    ``compute()`` per engine, ``mp`` and ``mp_tropical`` at multipath_k=4
-    and a partitioned ``compute()``.  (d) The residency rows against an
-    independent sum of the tensors each names, the total at most
-    ``torch.cuda.memory_allocated()``.  (e) Phase 3d's chain and the
-    pipeline's interleaved chains under ``testing.donation_guarded()``; a
-    seeded stale read raises ``DonatedBufferError``.  (f) A
-    ``capture_device_trace`` into a temporary directory holds the
-    ``spf.one.*`` stage ranges and a gather kernel."""
-    import tempfile
-    import warnings
-
-    from holo_tpu_torch import telemetry, testing
-    from holo_tpu_torch.analysis import runtime
+def telemetry_paths(dev, topo, masks, gres, gone, gmr, mr_roots, m_one, mask_ref, chain,
+                    d_steps) -> SimpleNamespace:
+    """The twelve paths phases 3o and 3p drive, with what each must give and
+    the stage observations each makes: ``compute()``, ``compute(masks[1])``,
+    ``compute(multipath_k=4)``, the 1024-lane what-if on seq and on the
+    tropical engine, the 64-root multi-root, ``FrrEngine("torch").compute``
+    (root 6075), a 1024-request CSPF batch, the partitioned 10k LSDB
+    (hinted), a BGP table's cold batch and one UPDATE burst, phase 3d's
+    8-event chain and the same chain pipelined through ``AsyncSpfBackend``;
+    and the helpers both phases use (launch counts, stage counts, result
+    equality)."""
+    from holo_tpu_torch import telemetry
     from holo_tpu_torch.frr.manager import FrrEngine
     from holo_tpu_torch.kernels import bgp as kb
     from holo_tpu_torch.kernels import blocked, ell
     from holo_tpu_torch.kernels import tropical as kt
     from holo_tpu_torch.ops import bgp_table as bt
-    from holo_tpu_torch.ops import graph
-    from holo_tpu_torch.ops import spf_engine as se
     from holo_tpu_torch.ops.cspf import Constraint, CspfEngine, LinkAttrs
     from holo_tpu_torch.pipeline import AsyncSpfBackend, DispatchPipeline
     from holo_tpu_torch.protocols import bgp_engine as bge
     from holo_tpu_torch.spf import synth
     from holo_tpu_torch.spf.backend import TorchSpfBackend
-    from holo_tpu_torch.telemetry import profiling, residency
 
-    t_phase = time.perf_counter()
-    x = {}
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip()
     n_atoms = max(64, topo.n_atoms())
     part_topo = synth.multiarea_topology(**TEL_PART)
     rng = np.random.default_rng(CSPF_SEED)  # phase 3g's draws
@@ -3779,6 +3765,63 @@ def telemetry_phase(dev, topo, masks, gres, gone, gmr, mr_roots, m_one, mask_ref
         kt.reset_launches()
         blocked.reset_launches()
         kb.reset_launches()
+
+    return SimpleNamespace(paths=paths, same_any=same_any, stage_counts=stage_counts,
+                           launches=launches, reset=reset, sb=sb, force=force,
+                           chain_run=chain_run, pipelined_run=pipelined_run,
+                           part_topo=part_topo, n_atoms=n_atoms)
+
+
+def telemetry_phase(dev, topo, masks, gres, gone, gmr, mr_roots, m_one, mask_ref, chain,
+                    d_steps) -> dict:
+    """Phase 3o: the port's telemetry and runtime checks on the k=90 fat tree.
+    (a) One set of paths run with profiling armed and again disarmed:
+    ``compute()``, ``compute(masks[1])``, ``compute(multipath_k=4)``, the
+    1024-lane what-if on seq and on the tropical engine, the 64-root
+    multi-root, ``FrrEngine("torch").compute`` (root 6075), a 1024-request
+    CSPF batch, the partitioned 10k LSDB (hinted), a BGP table's cold batch
+    and one UPDATE burst, phase 3d's 8-event chain and the same chain
+    pipelined through ``AsyncSpfBackend``: every plane bit-identical between
+    the arms and to the earlier phases' references, the kernel launches
+    equal, each (site, stage) observed as often as the calls made it, each
+    device stage's CUDA-event time at most its dispatch's wall, and no CUDA
+    event recorded by the disarmed arm.  (b) The overhead: ``compute()``
+    (median of 5) and the what-if (median of 3), armed against disarmed in 5
+    alternating turns.  (c) Every path again under
+    ``testing.no_implicit_transfers()``, with no unsanctioned sync (one that
+    raises is run again with the mode at "warn" to list every site), and
+    the sanctioned windows each path opened, the flag reads of one
+    ``compute()`` per engine, ``mp`` and ``mp_tropical`` at multipath_k=4
+    and a partitioned ``compute()``.  (d) The residency rows against an
+    independent sum of the tensors each names, the total at most
+    ``torch.cuda.memory_allocated()``.  (e) Phase 3d's chain and the
+    pipeline's interleaved chains under ``testing.donation_guarded()``; a
+    seeded stale read raises ``DonatedBufferError``.  (f) A
+    ``capture_device_trace`` into a temporary directory holds the
+    ``spf.one.*`` stage ranges and a gather kernel."""
+    import tempfile
+    import warnings
+
+    from holo_tpu_torch import testing
+    from holo_tpu_torch.analysis import runtime
+    from holo_tpu_torch.ops import bgp_table as bt
+    from holo_tpu_torch.ops import graph
+    from holo_tpu_torch.ops import spf_engine as se
+    from holo_tpu_torch.pipeline import AsyncSpfBackend, DispatchPipeline
+    from holo_tpu_torch.spf import synth
+    from holo_tpu_torch.spf.backend import TorchSpfBackend
+    from holo_tpu_torch.telemetry import profiling, residency
+
+    t_phase = time.perf_counter()
+    x = {}
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    tp = telemetry_paths(dev, topo, masks, gres, gone, gmr, mr_roots, m_one, mask_ref, chain,
+                         d_steps)
+    paths, same_any, stage_counts, launches, reset = (tp.paths, tp.same_any, tp.stage_counts,
+                                                      tp.launches, tp.reset)
+    sb, force, chain_run, pipelined_run = tp.sb, tp.force, tp.chain_run, tp.pipelined_run
+    part_topo, n_atoms = tp.part_topo, tp.n_atoms
 
     # (a) armed and disarmed
     arms = {}
@@ -4044,6 +4087,256 @@ def telemetry_phase(dev, topo, masks, gres, gone, gmr, mr_roots, m_one, mask_ref
           flush=True)
     x["phase_s"] = time.perf_counter() - t_phase
     print(f"telemetry phase 3o checked in {x['phase_s']:.1f} s", flush=True)
+    x["paths"] = tp
+    return x
+
+
+ANALYTICS_TURNS = 5
+ANALYTICS_SPLIT_TURNS = 9
+ANALYTICS_SHARE_MAX = 1.05  # a roofline share past this is a miscounted bucket
+ANALYTICS_FLIGHT = 8192  # flight-recorder ring entries
+
+
+def analytics_phase(tp, topo, masks) -> dict:
+    """Phase 3p: the dispatch analytics on the k=90 fat tree.  The twelve
+    paths of phase 3o (:func:`telemetry_paths`) run with every analytics
+    module disarmed, then armed (the flight recorder, the convergence
+    tracker, the observatory with the card's peaks, the critical-path
+    ledger and the SLO engine, device profiling too, so that each device
+    stage is its CUDA-event time), each path one causal event from
+    ``convergence.begin`` to ``fib_commit``.  (a) Every path bit-identical
+    between the arms, launches equal.  (b) The observatory's observations,
+    summed by (site, stage), equal to the stage observations made (the
+    ``holo_profile_stage_seconds`` counts and the calls' expectation).  (c)
+    Each bucket's roofline row: its cost entry (the kernels' work tally),
+    device p50, achieved op/s and bytes/s, their shares of the peaks and
+    the verdict; a share above ``ANALYTICS_SHARE_MAX`` fails.  (d) Each
+    path's critical-path verdict and phases.  (e) The watchdog's budget per
+    site from the p99, beside its fixed floor.  (f) ``compute()`` and the
+    1024-lane what-if with the analytics armed (each call one event)
+    against disarmed, in alternating turns.  (g) The SLO report and the
+    flight recorder's ring.  The ledger and the postmortem directory are
+    temporary."""
+    import tempfile
+
+    from holo_tpu_torch.resilience.watchdog import DispatchWatchdog
+    from holo_tpu_torch.telemetry import convergence, critpath, flight, observatory
+    from holo_tpu_torch.telemetry import profiling, slo
+
+    t_phase = time.perf_counter()
+    x = {}
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    peaks = {"flops": INT32_OPS_S, "bytes": HBM_BYTES_S, "name": f"{smi} (int32 op/s, HBM)"}
+
+    def arm(tmp) -> None:
+        flight.configure(entries=ANALYTICS_FLIGHT, postmortem_dir=tmp)
+        convergence.configure(capacity=1024)
+        observatory.configure(check_every=32, ledger_path=Path(tmp) / "ledger.json",
+                              peaks=peaks)
+        critpath.configure(capacity=1024)
+        slo.configure()
+
+    def disarm() -> None:
+        slo.configure(False)
+        critpath.configure(0)
+        observatory.configure(enabled=False)
+        convergence.configure(0)
+        flight.configure(entries=0)
+        profiling.set_device_profiling(False)
+
+    def event(name, call):
+        """``call`` as one causal event, closed at its FIB commit (no-ops
+        while disarmed)."""
+        eid = convergence.begin("lsa", path=name)
+        with convergence.activation(eid):
+            out = call()
+            convergence.observe(convergence.PHASE_SPF)
+            convergence.observe(convergence.PHASE_RIB)
+            convergence.fib_commit()
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) disarmed, then armed
+        runs = {}
+        for armed in (False, True):
+            if armed:
+                arm(tmp)
+                profiling.set_device_profiling(True)
+            st0 = tp.stage_counts()
+            results, counts = {}, {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                for name, (call, _want, _st) in tp.paths.items():
+                    tp.reset()
+                    results[name] = event(name, call)
+                    torch.cuda.synchronize()
+                    counts[name] = {k: v for k, v in tp.launches().items() if v}
+            finally:
+                profiling.set_device_profiling(False)
+            runs[armed] = {"results": results, "launches": counts,
+                           "stages": tp.stage_counts() - st0, "s": time.perf_counter() - t0}
+        a, d = runs[True], runs[False]
+        for name in tp.paths:
+            require(tp.same_any(a["results"][name], d["results"][name]),
+                    f"3p: {name} differs between the armed and the disarmed arm")
+            require(a["launches"][name] == d["launches"][name],
+                    f"3p: {name} launches differ: armed {a['launches'][name]}, disarmed "
+                    f"{d['launches'][name]}")
+        print(f"3p (a): {len(tp.paths)} paths disarmed ({d['s']:.1f} s) and armed ({a['s']:.1f} "
+              f"s), each one causal event: every plane bit-identical between the arms, launches "
+              f"equal; {smi}", flush=True)
+
+        # (b) the observatory's keys against the stage observations made
+        obs = observatory.active()
+        want = Counter()
+        for _call, _want, st in tp.paths.values():
+            want.update(st)
+        by_stage = Counter()
+        for (site, stage, _e, _b, _k), sk in obs._sketches.items():
+            by_stage[(site, stage)] += sk.count
+        require(by_stage == a["stages"] == want,
+                f"3p (b): observatory observations {dict(by_stage)}, stage observations "
+                f"{dict(a['stages'])}, calls made {dict(want)}")
+        x["keys"] = {observatory.key_str(k): sk.count for k, sk in obs._sketches.items()}
+        print(f"3p (b): {len(obs._sketches)} sketch keys, {sum(by_stage.values())} observations, "
+              f"equal by (site, stage) to the stage observations made: "
+              f"{json.dumps(x['keys'], sort_keys=True)}", flush=True)
+
+        # (c) the roofline rows
+        rows = obs.roofline()
+        require(rows, "3p (c): no cost entry reached the observatory")
+        x["roofline"] = []
+        for r in rows:
+            if "device_p50_s" not in r:
+                continue
+            op_share = r["achieved_flops_per_sec"] / INT32_OPS_S
+            byte_share = r["achieved_bytes_per_sec"] / HBM_BYTES_S
+            worst = max(op_share, byte_share, r["roofline_fraction"] or 0.0)
+            row = {"site": r["site"], "engine": r["engine"], "kind": r["kind"],
+                   "bucket": r["bucket"], "ops": r["flops"], "bytes": r["bytes"],
+                   "device_p50_ms": r["device_p50_s"] * 1e3, "dispatches": r["dispatches"],
+                   "op_per_s": r["achieved_flops_per_sec"],
+                   "bytes_per_s": r["achieved_bytes_per_sec"], "op_share": op_share,
+                   "byte_share": byte_share, "roofline_fraction": r["roofline_fraction"],
+                   "verdict": r["verdict"]}
+            x["roofline"].append(row)
+            print(f"3p (c) roofline {r['site']} {r['kind']} {r['engine']} {r['bucket']}: cost "
+                  f"{r['flops']:.0f} int32 ops, {r['bytes']:.0f} bytes (AI "
+                  f"{r['ai_flops_per_byte']}); device p50 {row['device_p50_ms']:.4f} ms over "
+                  f"{r['dispatches']} dispatches; {row['op_per_s']:.4g} op/s ({op_share:.5f} of "
+                  f"peak), {row['bytes_per_s']:.4g} B/s ({byte_share:.5f} of peak), roofline "
+                  f"fraction {r['roofline_fraction']}; {r['verdict']}; {smi}", flush=True)
+            require(worst <= ANALYTICS_SHARE_MAX,
+                    f"3p (c): {r['site']} {r['kind']} {r['engine']} shares {worst:.4f} of a peak")
+        require(x["roofline"], "3p (c): no bucket joined a device sketch")
+
+        # (d) the critical path of each path
+        cp = critpath.active()
+        water = cp.waterfalls()
+        require(len(water) == len(tp.paths) and cp.stats()["completed"] == len(tp.paths),
+                f"3p (d): {len(water)} waterfalls for {len(tp.paths)} events")
+        x["critpath"] = {}
+        for name, w in zip(tp.paths, water):
+            require(abs(sum(w["phases"].values()) - w["wall"]) <= 1e-9 * max(w["wall"], 1.0),
+                    f"3p (d): {name}'s phases do not sum to its wall")
+            ms = {p: round(v * 1e3, 4) for p, v in w["phases"].items() if v}
+            x["critpath"][name] = {"verdict": w["verdict"], "wall_ms": w["wall"] * 1e3,
+                                   "phases_ms": ms}
+            print(f"3p (d) critical path {name}: {w['verdict']}-bound, wall "
+                  f"{w['wall'] * 1e3:.3f} ms, phases (ms) {ms}", flush=True)
+        q = cp.phase_quantiles()
+        print(f"3p (d) verdicts {cp.stats()['verdicts']}; phase p99 ms "
+              f"{ {p: round(v['p99'] * 1e3, 4) for p, v in q.items()} }; host fraction of the "
+              f"p99s {cp.host_fraction_p99()}; {smi}", flush=True)
+
+        # (e) the watchdog's budgets
+        wd = DispatchWatchdog(SimpleNamespace(name="3p"))
+        sites = sorted({k[0] for k in obs._sketches})
+        x["budgets"] = {s: (obs.site_p99(s), wd.budget(s), wd.floor) for s in sites}
+        print("3p (e) watchdog budgets: " + "; ".join(
+            f"{s} p99 {p99 * 1e3:.3f} ms -> budget {b:.3f} s (floor {f:.1f} s)"
+            for s, (p99, b, f) in x["budgets"].items()) + f"; {smi}", flush=True)
+
+        # (g) the SLO report and the flight ring
+        report = slo.active().report()
+        ring = flight.recorder().snapshot_ring()
+        kinds = Counter(e[1] if e[0] == "event" else e[0] for e in ring)
+        require(kinds["convergence"] == len(tp.paths),
+                f"3p (g): {kinds['convergence']} convergence events in the ring")
+        require(flight.recorder().stats()["dumps"] == 0, "3p (g): a postmortem was written")
+        trig = next(r for r in report["objectives"] if r["objective"] == "trigger-fib")
+        require(trig["events"] == len(tp.paths), f"3p (g): trigger-fib graded {trig['events']}")
+        x["slo"] = report
+        print(f"3p (g) SLO: {json.dumps(report['objectives'])}; sheds {report['sheds']}",
+              flush=True)
+        print(f"3p (g) flight ring: {len(ring)} entries, {dict(kinds)}", flush=True)
+        observatory.active().checkpoint()
+        disarm()
+
+        # (f) the overhead: alternating turns, each call one event
+        ob = tp.sb()
+        ob.compute(topo)
+        ob.compute_whatif(topo, masks)
+        walls = {(what, armed): [] for what in ("compute", "whatif") for armed in (1, 0)}
+        for turn in range(ANALYTICS_TURNS):
+            for armed in ((1, 0) if turn % 2 == 0 else (0, 1)):
+                if armed:
+                    arm(tmp)
+                try:
+                    walls[("compute", armed)].append(host_ms(
+                        lambda: event("compute()", lambda: ob.compute(topo)), TEL_COMPUTE_REPS))
+                    walls[("whatif", armed)].append(host_ms(
+                        lambda: event("what-if", lambda: ob.compute_whatif(topo, masks)),
+                        TEL_WHATIF_REPS))
+                finally:
+                    disarm()
+        x["overhead"] = {}
+        for what in ("compute", "whatif"):
+            on, off = walls[(what, 1)], walls[(what, 0)]
+            m_on, m_off = statistics.median(on), statistics.median(off)
+            spread = max(max(on) - min(on), max(off) - min(off))
+            resolved = abs(m_on - m_off) > spread
+            x["overhead"][what] = (m_on, m_off, spread, resolved)
+            print(f"time 3p analytics overhead {what}: armed {m_on:.3f} ms, disarmed {m_off:.3f} "
+                  f"ms (armed / disarmed {m_on / m_off:.4f}; median of {ANALYTICS_TURNS} "
+                  f"alternating turns, each the median of "
+                  f"{TEL_COMPUTE_REPS if what == 'compute' else TEL_WHATIF_REPS}; armed "
+                  f"{[round(w, 3) for w in on]}, disarmed {[round(w, 3) for w in off]}; "
+                  f"{'resolved' if resolved else 'unresolved: within the turns spread'} "
+                  f"{spread:.3f} ms); {smi}", flush=True)
+        # (f) where compute()'s armed cost goes: one module armed at a time
+        # (the observatory brings the work tallies with it), in turns whose
+        # order rotates
+        from holo_tpu_torch.kernels import work
+
+        arms = {"disarmed": lambda: None, "tallies": lambda: work.set_counting(True),
+                "observatory": lambda: observatory.configure(check_every=32, peaks=peaks),
+                "events": lambda: (convergence.configure(capacity=1024),
+                                   critpath.configure(capacity=1024), slo.configure()),
+                "flight": lambda: flight.configure(entries=ANALYTICS_FLIGHT),
+                "all": lambda: arm(tmp)}
+        split = {name: [] for name in arms}
+        names = list(arms)
+        for turn in range(ANALYTICS_SPLIT_TURNS):
+            for name in names[turn % len(names):] + names[:turn % len(names)]:
+                arms[name]()
+                try:
+                    split[name].append(host_ms(
+                        lambda: event("compute()", lambda: ob.compute(topo)), TEL_COMPUTE_REPS))
+                finally:
+                    disarm()
+                    work.set_counting(False)
+        base = statistics.median(split["disarmed"])
+        x["split"] = {name: statistics.median(w) for name, w in split.items()}
+        print(f"time 3p analytics split compute(): " + "; ".join(
+            f"{name} {statistics.median(w):.3f} ms ({statistics.median(w) / base:.4f}x, turns "
+            f"{min(w):.3f}-{max(w):.3f})" for name, w in split.items())
+            + f" (median of {ANALYTICS_SPLIT_TURNS} rotating turns, each the median of "
+            f"{TEL_COMPUTE_REPS}); {smi}", flush=True)
+    x["phase_s"] = time.perf_counter() - t_phase
+    print(f"analytics phase 3p checked in {x['phase_s']:.1f} s", flush=True)
     return x
 
 
@@ -5138,8 +5431,12 @@ def main() -> None:
     # -- 3o. the telemetry and the runtime checks: armed against disarmed,
     # the overhead, the sanitizer, the residency ledger, the donation guard
     # and a trace (after phase 4's timings: it arms and runs the profiler)
-    telemetry_phase(dev, topo, masks, gres, gone, gmr, mr_roots, m_one,
-                    oracle_result(oracle[1], n_atoms), chain, d_steps)
+    tel = telemetry_phase(dev, topo, masks, gres, gone, gmr, mr_roots, m_one,
+                          oracle_result(oracle[1], n_atoms), chain, d_steps)
+    # -- 3p. the dispatch analytics over the same twelve paths: armed against
+    # disarmed, the observatory's keys and roofline rows, the critical path,
+    # the watchdog's budgets, the overhead, the SLO report and the ring
+    analytics_phase(tel["paths"], topo, masks)
 
     # (e) every dispatch of the run ran on the card: every breaker the run
     # built (every SPF backend, FRR engine and BGP table and rank backend)

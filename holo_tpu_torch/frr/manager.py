@@ -48,6 +48,13 @@ around the program).  The engine also keeps its counters: ``graph_cache``
 fallback, scalar) and ``shard_dispatches``.  ``stats``, when set to a dict,
 receives each device dispatch's stage times (a mesh's dispatch: its shard
 count only).
+
+The dispatch analytics (:mod:`holo_tpu_torch.telemetry`): each dispatch
+notes the path that served it to the convergence tracker (``device``,
+``fallback`` or ``scalar``); with the observatory armed its stages run under
+the ``(kind frr, engine frr, shape bucket)`` dispatch context, and the first
+armed dispatch of each shape gives the ``frr.batch`` cost entry (the kernel
+wrappers' work tally over the batched program).
 """
 
 from __future__ import annotations
@@ -75,7 +82,8 @@ from holo_tpu_torch.ops.spf_engine import shared_graph_cache, spf_whatif_batch
 from holo_tpu_torch.parallel import mesh as pm
 from holo_tpu_torch.resilience import faults
 from holo_tpu_torch.resilience.breaker import CircuitBreaker
-from holo_tpu_torch.telemetry import profiling
+from holo_tpu_torch.pipeline.tuner import shape_bucket
+from holo_tpu_torch.telemetry import convergence, observatory, profiling
 
 _FRR_SECONDS = telemetry.histogram(
     "holo_frr_dispatch_seconds",
@@ -250,6 +258,9 @@ class FrrEngine:
         self.shard_dispatches: Counter = Counter()  # frr: dispatches the mesh served
         # Set to a dict to receive each device dispatch's stage times.
         self.stats: dict | None = None
+        # The shape signatures this engine has costed (the first armed
+        # dispatch of each).
+        self._costed: set = set()
 
     def set_policy(self, cfg: FrrConfig) -> None:
         """Adopt the instance's protection policy (the ensure_engine seam)."""
@@ -358,7 +369,9 @@ class FrrEngine:
         faults.crashpoint("frr.dispatch")
         mesh = pm.process_mesh()
         t0 = profiling.clock()
-        with profiling.stage("frr.batch", "marshal"):
+        obucket = self._obs_bucket(topo, mesh)
+        with self._obs_ctx(obucket), profiling.stage("frr.batch", "marshal"):
+            mark = profiling.work_mark()
             if mesh is not None:
                 # The shard chaos seam: a device lost from the mesh surfaces
                 # here, and the breaker counts it like any device failure.
@@ -374,21 +387,54 @@ class FrrEngine:
                     *self._policy_args(fin), max_iters=self.max_iters, stats=self.stats,
                 )
                 profiling.sync(clk)
+            self._cost(mark, topo, fin, mesh, obucket)
             # [:nl] drops the link pad (the marshal's bucket and the mesh's
             # batch axis), [:n] the rows a node axis pads.
             staged = stage_tables(out, fin, topo.n_vertices, queue)
-        return staged, fin, topo, mesh is not None, clk, t0
+        return staged, fin, topo, mesh is not None, clk, t0, obucket
+
+    @staticmethod
+    def _obs_bucket(topo, mesh):
+        """The observatory's shape key of an FRR batch (the SPF tuner's
+        quantization, one lane), None while the observatory is disarmed."""
+        if not profiling.observing():
+            return None
+        return shape_bucket(topo.n_vertices, topo.n_edges, 1, pm.mesh_cache_key(mesh))
+
+    @staticmethod
+    def _obs_ctx(obucket):
+        """The dispatch context of the observatory's feed: the shared null
+        context while it is disarmed."""
+        if obucket is None:
+            return profiling.dispatch_context()
+        return profiling.dispatch_context(kind="frr", engine="frr", bucket=obucket)
+
+    def _cost(self, mark, topo, fin, mesh, obucket) -> None:
+        """The ``frr.batch`` cost entry of this engine's first armed dispatch
+        of each shape (the planes' shapes and the mesh): the work the kernel
+        wrappers counted since ``mark``."""
+        if mark is None:
+            return
+        sig = (topo.n_vertices, topo.n_edges, np.shape(fin.link_far), np.shape(fin.edge_masks),
+               np.shape(fin.adj_nbr), pm.mesh_cache_key(mesh))
+        if sig in self._costed:
+            return
+        self._costed.add(sig)
+        entry = profiling.record_cost("frr.batch", mark, shape_sig=sig)
+        if obucket is not None:
+            observatory.note_cost("frr.batch", "frr", "frr", obucket, entry)
 
     def _finish_device(self, handle: tuple) -> BackupTable:
         """Phase 2: the chaos delay, the wait on the copies, the table."""
-        staged, fin, topo, sharded, clk, t_launch = handle
+        staged, fin, topo, sharded, clk, t_launch, obucket = handle
         t0 = time.perf_counter()
-        with profiling.stage("frr.batch", "device", clock=clk):
+        with self._obs_ctx(obucket), profiling.stage("frr.batch", "device", clock=clk):
             faults.delaypoint("frr.dispatch")
             staged.wait()
         if sharded:
             _FRR_SHARD_DISPATCHES.labels(kind="frr").inc()
-        with profiling.stage("frr.batch", "readback"):
+        convergence.note_dispatch("frr", "device")
+        with self._obs_ctx(obucket), profiling.stage("frr.batch", "readback"):
             with sanctioned_transfer("frr.batch.unmarshal"):
                 table = host_tables(staged, fin, topo.root)
         profiling.settle(clk, profiling.clock() - t_launch)
@@ -410,7 +456,10 @@ class FrrEngine:
         """The breaker's degraded path: the oracle over the same marshaled
         inputs and policy."""
         self.dispatches["fallback"] += 1
-        return self._scalar(topo, fin)
+        try:
+            return self._scalar(topo, fin)
+        finally:
+            convergence.note_dispatch("frr", "fallback")
 
     def compute(self, topo) -> BackupTable:
         """One batched backup-table computation for ``topo.root``."""
@@ -430,5 +479,6 @@ class FrrEngine:
             else:
                 self.dispatches["scalar"] += 1
                 table = self._scalar(topo, fin)
+                convergence.note_dispatch("frr", "scalar")
         _FRR_SECONDS.labels(engine=self.engine).observe(time.perf_counter() - t0)
         return table

@@ -36,7 +36,7 @@ from typing import NamedTuple
 
 import torch
 
-from holo_tpu_torch.kernels import build
+from holo_tpu_torch.kernels import build, work
 
 # Lanes and reject-reason codes (ops.bgp_table's, which imports them here).
 (
@@ -60,6 +60,8 @@ _STAGED = 9  # int32 words a derived cell keeps
 
 #: kernel launches since the last :func:`reset_launches`
 launches = {"bgp_fold": 0}
+#: the fold's int32 operations a (prefix, column) cell, as PERF.md section 3 prices it
+CELL_OPS = 7
 
 
 class Geometry(NamedTuple):
@@ -245,7 +247,16 @@ def decide_plain(planes, idx, order, addr_rank, has_addr, nht_enc, nht_res, mp):
 
 def bgp_fold(planes, idx, order, addr_rank, has_addr, nht_enc, nht_res, mp):
     """(best_col, reasons, elig, mp_sel) of the rows ``idx`` of ``planes``
-    (``_decide_fn``, ``bgp_table.py:423-426``); see the module docstring."""
+    (``_decide_fn``, ``bgp_table.py:423-426``); see the module docstring.  Its
+    work tally (:mod:`holo_tpu_torch.kernels.work`): each lane of each queued
+    cell read once, the column vectors and the outputs once, ``CELL_OPS`` a
+    cell (PERF.md section 3)."""
+    if work.COUNTING:
+        m, n_cols = idx.shape[0], planes.shape[2]
+        cells = m * n_cols
+        work.note("bgp_fold", CELL_OPS * cells,
+                  4 * planes.shape[0] * cells + 6 * cells + 4 * m
+                  + work.nbytes(idx, order, addr_rank, has_addr, nht_enc, nht_res, mp))
     if not build.on_card(planes, idx, order, addr_rank, has_addr, nht_enc, nht_res, mp):
         return decide_plain(planes, idx, order, addr_rank, has_addr, nht_enc, nht_res, mp)
     lanes, n_rows, n_cols = planes.shape

@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import torch
 
-from holo_tpu_torch.kernels import build
+from holo_tpu_torch.kernels import build, work
 
 S = 256
 CAP = 1 << 28
@@ -151,12 +151,31 @@ def _launch(name: str, *args) -> None:
     launches[name] += 1
 
 
+# Work tallies (:mod:`holo_tpu_torch.kernels.work`), as PERF.md section 3
+# prices the block kernels: per weight entry walked (the compact edge planes'
+# entries, every entry of the dense planes without them) and lane.
+RELAX_OPS = 2  # K1/K2: an add and a min
+DMIN_PARENT_OPS = 3 + 3  # K3+K4: the DAG test and the update
+NH_OR_OPS = 4  # K5: the gated DAG test (+ an OR a word)
+
+
+def _entries(w, edges) -> tuple:
+    """(weight entries walked, the bytes of the weight planes read)."""
+    if edges is None:
+        return w.numel(), work.nbytes(w)
+    return edges[2].shape[0], work.nbytes(*edges)
+
+
 def relax(w, bsrc, bdst, seg, dist, edges=None):
     """out[v, l] = min(dist[v, l], min over pairs and u of w[u, v] + dist[u, l]).
 
     The kernel adds only the edges (``edges``), which equals the dense sum
     for ``dist`` in [0, CAP], as every caller passes it (CAP + d >= CAP).
     """
+    if work.COUNTING:
+        nnz, wb = _entries(w, edges)
+        work.note("relax", RELAX_OPS * nnz * dist.shape[1],
+                  wb + work.nbytes(bsrc, bdst, seg, dist, dist))
     if not build.on_card(w, bsrc, bdst, seg, dist, *(edges or ())):
         return relax_plain(w, bsrc, bdst, dist)
     nb = _check_planes(w, seg, dist.shape[0])
@@ -174,6 +193,10 @@ def dmin_parent(w, bsrc, bdst, seg, dist, orig_id, edges=None):
     Together they are the lexicographic min of (dist[u, l], orig_id[u]),
     which the kernel takes in one walk of ``edges``.
     """
+    if work.COUNTING:
+        nnz, wb = _entries(w, edges)
+        work.note("dmin_parent", DMIN_PARENT_OPS * nnz * dist.shape[1],
+                  wb + work.nbytes(bsrc, bdst, seg, dist, orig_id, dist, dist))
     if not build.on_card(w, bsrc, bdst, seg, dist, orig_id, *(edges or ())):
         dmin_ = dmin_plain(w, bsrc, bdst, dist)
         return dmin_, parent_plain(w, bsrc, bdst, dist, dmin_, orig_id)
@@ -198,6 +221,11 @@ def nh_or(w, bsrc, bdst, seg, dist, gate, nh, direct, edges=None):
     negative distance, which is the plain test for ``dist`` >= 0, as
     distances are.
     """
+    if work.COUNTING:
+        nnz, wb = _entries(w, edges)
+        words = nh.shape[1] // max(dist.shape[1], 1)
+        work.note("nh_or", (NH_OR_OPS + words) * nnz * dist.shape[1],
+                  wb + work.nbytes(bsrc, bdst, seg, dist, gate, nh, direct, nh))
     if not build.on_card(w, bsrc, bdst, seg, dist, gate, nh, direct, *(edges or ())):
         return nh_or_plain(w, bsrc, bdst, dist, gate, nh, direct)
     nb = _check_planes(w, seg, dist.shape[0])

@@ -59,7 +59,7 @@ import ctypes
 
 import torch
 
-from holo_tpu_torch.kernels import build
+from holo_tpu_torch.kernels import build, work
 from holo_tpu_torch.kernels.blocked import or_reduce
 
 INF = 1 << 30
@@ -529,12 +529,28 @@ def _launch(name: str, *args) -> None:
     launches[name] += 1
 
 
+# Work tallies (:mod:`holo_tpu_torch.kernels.work`): int32 operations per
+# element of the call's shapes, as PERF.md section 3 prices each kernel's
+# bound, with every slot of every row counted in every lane.
+RELAX_OPS = 3  # G1 a (slot, lane) pair
+FIRST_PARENT_OPS = 3 + 3  # G2 a pair: the usable test and the DAG update
+SPLIT_OPS = 2  # G3 a DAG word (+ one OR a word a pair)
+GATHER_OPS, ROUND_OPS = 2, 2  # G4: a gather and an OR a word a pair; 2 a (row, word, lane)
+MP_PAIR_OPS, MP_CELL_OPS = 2, 4  # M1 (+ A + W a pair, + 2 A + W an entry)
+SETS_OPS = 4 + 3  # M2 a pair (+ 2 kp offers)
+WEIGHT_OPS = 1  # M3 an entry of the parent sets
+FUSED_PAIR_OPS, FUSED_DAG_OPS, FUSED_CELL_OPS = 3, 3, 6  # G5 (+ W a DAG pair, + W an entry)
+
+
 def ell_relax(src, cost, slot, mask, dist, frontier):
     """(new [N, B], changed int32 [1], frontier_out): new[v, b] = min(dist[v,
     b], min over usable slots with dist[src] < INF of dist[src, b] + cost)
     (``spf_engine.py:860-866``); the kernel gathers only sources marked in
     ``frontier``, which must hold every change of the round that made
     ``dist``."""
+    if work.COUNTING:
+        work.note("ell_relax", RELAX_OPS * src.numel() * dist.shape[1],
+                  work.nbytes(src, cost, slot, mask, dist, frontier, dist, frontier) + 4)
     if not build.on_card(src, cost, slot, mask, dist, frontier):
         return relax_plain(src, cost, slot, mask, dist, frontier)
     n, lanes = dist.shape
@@ -552,6 +568,11 @@ def ell_first_parent(src, cost, slot, mask, dist, roots):
     """(parent [N, B], dag [N, K, ceil(B / 32)]): the DAG in-edge source u
     minimizing (dist[u, b], u), N where v has none or is lane b's root, and
     the DAG bits (``_sp_dag`` + ``_first_parent``, ``spf_engine.py:872-894``)."""
+    if work.COUNTING:
+        lanes = dist.shape[1]
+        work.note("ell_first_parent", FIRST_PARENT_OPS * src.numel() * lanes,
+                  work.nbytes(src, cost, slot, mask, dist, roots, dist)
+                  + 4 * src.numel() * mask_words(lanes))
     if not build.on_card(src, cost, slot, mask, dist, roots):
         return first_parent_plain(src, cost, slot, mask, dist, roots)
     n, k = src.shape
@@ -569,6 +590,10 @@ def ell_nh_seed(src, dag, hop0, direct, lanes: int):
     and the bits of the other DAG slots, ``dag & ~hop0[src]``
     (``spf_engine.py:976-991``).  ``lanes`` is B, which the bit planes round
     up to words."""
+    if work.COUNTING:
+        nw = direct.shape[2]
+        work.note("ell_nh_seed", SPLIT_OPS * dag.numel() + nw * src.numel() * lanes,
+                  work.nbytes(src, dag, hop0, direct, dag) + 4 * src.shape[0] * nw * lanes)
     if not build.on_card(src, dag, hop0, direct):
         return nh_seed_plain(src, dag, hop0, direct, lanes)
     n, k = src.shape
@@ -591,6 +616,11 @@ def ell_nh_round(src, inherit, nh, frontier):
     nh[src] over the slots whose ``inherit`` bit is set, all words in one
     round (``spf_engine.py:993-1005``); the kernel gathers only sources
     marked in ``frontier`` (changes in any word)."""
+    if work.COUNTING:
+        words, lanes = nh.shape[1], nh.shape[2]
+        work.note("ell_nh_round", GATHER_OPS * words * src.numel() * lanes
+                  + ROUND_OPS * nh.numel(),
+                  work.nbytes(src, inherit, nh, frontier, nh, frontier) + 4)
     if not build.on_card(src, inherit, nh, frontier):
         return nh_round_plain(src, inherit, nh, frontier)
     n, k = src.shape
@@ -623,6 +653,13 @@ def ell_mp_round(src, dag, direct, inc, roots, parent, state, frontier, out):
         raise ValueError("ell_mp_round takes (hops, nh, npaths, aw) in and out")
     if any((x is None) != (state[2] is None) for x in (*state[2:], *out[2:])):
         raise ValueError("ell_mp_round takes both npaths and aw, in and out, or neither")
+    if work.COUNTING:
+        lanes, w = roots.shape[0], direct.shape[2]
+        a = 32 * w if state[2] is not None else 0
+        work.note("ell_mp_round", (a + w + MP_PAIR_OPS) * src.numel() * lanes
+                  + (2 * a + w + MP_CELL_OPS) * src.shape[0] * lanes,
+                  work.nbytes(src, dag, direct, inc, roots, parent, *state, frontier, *out,
+                              frontier) + 4)
     if not build.on_card(src, dag, direct, inc, roots, parent, *state, frontier, *out):
         return mp_round_plain(src, dag, direct, inc, roots, parent, state, frontier, out)
     n, k = src.shape
@@ -665,6 +702,11 @@ def ell_parent_sets(src, cost, slot, mask, dist, roots, kp: int):
     over the slots.  See :func:`first_parent_sets_plain`."""
     if kp not in (2, 4, 8):
         raise ValueError(f"kp={kp}: parent sets are 2, 4 or 8 wide (mp_pad past single path)")
+    if work.COUNTING:
+        n, lanes = src.shape[0], dist.shape[1]
+        work.note("ell_parent_sets", (SETS_OPS + 2 * kp) * src.numel() * lanes,
+                  work.nbytes(src, cost, slot, mask, dist, roots, dist)
+                  + 4 * (src.numel() * mask_words(lanes) + 2 * n * kp * lanes))
     if not build.on_card(src, cost, slot, mask, dist, roots):
         return first_parent_sets_plain(src, cost, slot, mask, dist, roots, kp)
     n, k = src.shape
@@ -683,6 +725,9 @@ def ell_parent_weights(parents, npaths):
     """pweight [N, kp, B]: ``npaths[parents[v, i, b], b]``, 0 past the set
     (``_mp_parent_sets``' pweight, ``holo_tpu/ops/spf_engine.py:1361-1366``,
     which needs the fixpoint's path counts).  See :func:`parent_weights_plain`."""
+    if work.COUNTING:
+        work.note("ell_parent_weights", WEIGHT_OPS * parents.numel(),
+                  work.nbytes(parents, npaths, parents))
     if not build.on_card(parents, npaths):
         return parent_weights_plain(parents, npaths)
     n, kp, lanes = parents.shape
@@ -732,6 +777,12 @@ def ell_fused_round(src, cost, slot, mask, direct, inc, roots, state, frontier, 
     packed = torch.is_tensor(state)
     planes = (state,) if packed else tuple(state)
     outs = (out,) if packed else tuple(out)
+    if work.COUNTING:
+        lanes, w = roots.shape[0], direct.shape[2]
+        work.note("ell_fused_round", (FUSED_PAIR_OPS + FUSED_DAG_OPS + w) * src.numel() * lanes
+                  + (FUSED_CELL_OPS + w) * src.shape[0] * lanes,
+                  work.nbytes(src, cost, slot, mask, direct, inc, roots, *planes, frontier, *outs,
+                              parent, frontier) + 4)
     if not build.on_card(src, cost, slot, mask, direct, inc, roots, *planes, frontier, parent,
                          *outs):
         return fused_round_plain(src, cost, slot, mask, direct, inc, roots, state)

@@ -55,7 +55,7 @@ from typing import NamedTuple
 import torch
 
 from holo_tpu_torch.analysis.runtime import sanctioned_transfer
-from holo_tpu_torch.kernels import build
+from holo_tpu_torch.kernels import build, work
 from holo_tpu_torch.kernels.ell import (
     _round_result,
     _unpack,
@@ -162,6 +162,14 @@ def _launch(name: str, *args) -> None:
     launches[name] += 1
 
 
+# Work tallies (:mod:`holo_tpu_torch.kernels.work`), as PERF.md section 3
+# prices T1 and T2: every tile entry of every slot in every lane.
+TILE_OPS = 2  # T1 a (tile entry, lane): an add and a min
+REPAIR_OPS = 3  # T1's repair pass a (slot, lane) of a repair pair
+COUNT_OPS, COUNT_CELL_OPS = 2, 3  # T2 a (count entry, lane); an output entry
+LIST_OPS = 1  # the count list: a test a count entry
+
+
 def trop_relax(tiles, cb, dist, active, out, repair=None, src=None, cost=None, slot=None,
                mask=None, perm=None, inv=None):
     """(out holding the new distances [NB * B, S], changed int32 [1],
@@ -173,6 +181,11 @@ def trop_relax(tiles, cb, dist, active, out, repair=None, src=None, cost=None, s
     no row is repaired)."""
     rp = (None, None) if repair is None else tuple(repair)
     planes = (tiles, cb, dist, active, out, *rp, src, cost, slot, mask, perm, inv)
+    if work.COUNTING:
+        pairs = 0 if repair is None else repair.pairs.shape[0] * src.shape[1]
+        work.note("trop_relax", TILE_OPS * tiles.numel() * dist.shape[1] + REPAIR_OPS * pairs,
+                  work.nbytes(tiles, cb, dist, active, *rp, src, cost, slot, mask, perm, inv,
+                              out, active) + 4)
     if not build.on_card(*planes):
         return trop_relax_plain(tiles, cb, dist, active, out, repair, src, cost, slot, mask,
                                 perm, inv)
@@ -223,6 +236,8 @@ def count_list(cnt: torch.Tensor, cb: torch.Tensor) -> CountList:
     rest of the row is never read), and their number ``n``: the tiles a T2
     round walks (a zero tile adds 0).  A stable sort on the card, with no
     host sync; a fixpoint builds it once, after the count tiles."""
+    if work.COUNTING:
+        work.note("count_list", LIST_OPS * cnt.numel(), work.nbytes(cnt, cb, cb) + 4 * cb.shape[0])
     nb = cb.shape[0]
     listed = cnt.flatten(2).any(2) & (cb < nb)  # [NB, Tm]
     order = torch.sort(listed.to(torch.uint8), dim=1, descending=True, stable=True).indices
@@ -270,6 +285,10 @@ def trop_count_round(cnt, cb, listed, x, seed, out, root: int = -1):
     :func:`count_list` of ``cnt`` and ``cb``, writes ``out`` whole and
     accumulates in int32 (exact, as JAX's int32 einsum)."""
     lp = (None, None) if listed is None else tuple(listed)
+    if work.COUNTING:
+        lanes = x.shape[1]
+        work.note("trop_count", COUNT_OPS * cnt.numel() * lanes + COUNT_CELL_OPS * x.numel(),
+                  work.nbytes(cnt, cb, *lp, x, seed, out) + 4)
     if not build.on_card(cnt, cb, *lp, x, seed, out):
         return trop_count_plain(cnt, cb, listed, x, seed, out, root)
     nb, tm, b, b2 = cnt.shape if cnt.dim() == 4 else (0, 0, 0, -1)

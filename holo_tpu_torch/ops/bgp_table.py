@@ -52,9 +52,12 @@ prefixes{kind}``, ``holo_bgp_table_fallback_total{context}``, the
 ``bgp.table.dispatch`` / ``bgp.rank.dispatch`` spans and the ``bgp.table``
 marshal / device / readback stages; the row scatter is the donation guard's
 ``bgp.table.scatter`` seam.  ``holo_tpu``'s jit compile and cache-hit pair has
-no torch meaning.  Left out (ROADMAP): the observatory's calls (A13b), the
-kernel-contract audit registrations (A13c) and the telemetry leaf wiring
-(A4).
+no torch meaning.  With the observatory armed the stages run under the
+``(kind bgp, engine fold, (prefixes, peers) bucket)`` dispatch context, and
+the first armed batch of each (kind, shape) gives the ``bgp.table`` cost
+entry: the fold's work tally (:mod:`holo_tpu_torch.kernels.work`).  Left out
+(ROADMAP): the kernel-contract audit registrations (A13c) and the telemetry
+leaf wiring (A4).
 """
 
 from __future__ import annotations
@@ -98,7 +101,8 @@ from holo_tpu_torch.kernels.bgp import (  # noqa: F401 (the lane contract)
 )
 from holo_tpu_torch.resilience import faults
 from holo_tpu_torch.resilience.breaker import CircuitBreaker
-from holo_tpu_torch.telemetry import profiling
+from holo_tpu_torch.pipeline.tuner import bgp_shape_bucket
+from holo_tpu_torch.telemetry import observatory, profiling
 
 _DISPATCH_TOTAL = telemetry.counter(
     "holo_bgp_table_dispatch_total", "BGP table device dispatches", ("kind",))
@@ -364,6 +368,7 @@ class TorchBgpTableBackend:
         self._dirty: dict[str, set] = {}
         self._batch: dict[str, dict | None] = {}
         self._shapes: set = set()  # distinct dispatch shapes
+        self._costed: set = set()  # (kind, shape) of the costed batches
         self._dispatches = 0
         self._fallbacks = 0
         # Prefixes each hook served, by source: "best-device",
@@ -565,7 +570,8 @@ class TorchBgpTableBackend:
         mp_cfg = engine.multipath.get(afs) or {}
         kind = "cold" if len(marshal) == len(prefixes) else "incremental"
         t0 = profiling.clock()
-        with profiling.dispatch_context(kind="bgp", engine="fold", bucket=None), \
+        bucket = bgp_shape_bucket(len(live), len(dt.cols))
+        with profiling.dispatch_context(kind="bgp", engine="fold", bucket=bucket), \
                 telemetry.span("bgp.table.dispatch", kind=kind, backend="torch"):
             with profiling.stage("bgp.table", "marshal"):
                 with sanctioned_transfer("bgp.table.marshal"):
@@ -577,12 +583,16 @@ class TorchBgpTableBackend:
                         dt.scatters += 1
                         _UPDATE_ROWS.labels(kind=kind).inc(len(idx_np))
                     args = self._dispatch_args(dt, table, live, mp_cfg)
-            self._shapes.add(
-                ("decide", dt.cap_rows, dt.cap_cols, args[1].shape[0], args[5].shape[0])
-            )
+            sig = ("decide", dt.cap_rows, dt.cap_cols, args[1].shape[0], args[5].shape[0])
+            self._shapes.add(sig)
+            mark = profiling.work_mark()
             clk = profiling.device_clock("bgp.table", on=self.device)
             out = decide(*args)
             profiling.sync(clk)
+            if mark is not None and (kind, sig) not in self._costed:
+                self._costed.add((kind, sig))
+                entry = profiling.record_cost("bgp.table", mark, shape_sig=sig)
+                observatory.note_cost("bgp.table", "bgp", "fold", bucket, entry)
             with profiling.stage("bgp.table", "device", clock=clk):
                 faults.delaypoint("bgp.dispatch")
             with profiling.stage("bgp.table", "readback"):

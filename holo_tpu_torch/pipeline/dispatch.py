@@ -52,13 +52,22 @@ Differences from ``holo_tpu``:
   breaker and re-raised at ``result()`` or attribute access, an open circuit
   raises ``CircuitOpen``, and a hang fails the ticket with
   ``WatchdogTimeout``: no dispatch on the card is served by the host oracle;
-- the pipeline's analytics (``convergence``, ``critpath``, ``flight``,
-  ``slo``) come with ROADMAP A13b; the ten ``holo_pipeline_*`` families this
-  module declares in ``holo_tpu`` (queue depth, in flight, dispatches,
-  coalesced, breaker skips, caller wait, overlap ratio, sheds, shed margin,
-  worker respawns) are exported here, beside :meth:`DispatchPipeline.stats`,
-  and a finish runs in the donation guard's ``pipeline.key.handoff``
-  window.
+- the ten ``holo_pipeline_*`` families this module declares in
+  ``holo_tpu`` (queue depth, in flight, dispatches, coalesced, breaker
+  skips, caller wait, overlap ratio, sheds, shed margin, worker respawns)
+  are exported here, beside :meth:`DispatchPipeline.stats`, and a finish
+  runs in the donation guard's ``pipeline.key.handoff`` window.
+
+The dispatch analytics (:mod:`holo_tpu_torch.telemetry`), at ``holo_tpu``'s
+seams and disarmed by default: a submit captures the caller's active
+convergence events (``convergence.current()``) on the ticket, and the worker
+runs both phases under their activation, so the backends' dispatch notes
+and stages join the caller's events; the critical-path ledger gets the
+enqueue, launch, finish, force-wait, ordering-stall and shed stamps; the SLO
+engine grades each served or shed ticket by class; and a shed or a worker
+crash is a flight-recorder event.  Where ``holo_tpu``'s actors open their
+events in ``holo_tpu``'s tracker, the port's callers open them in the port's
+(``holo_tpu_torch.telemetry.convergence``; the bridge is ROADMAP A4's).
 """
 
 from __future__ import annotations
@@ -75,6 +84,7 @@ from holo_tpu_torch.ops.graph import topology_namespace
 from holo_tpu_torch.resilience import faults, overload
 from holo_tpu_torch.resilience.breaker import _PASSTHROUGH
 from holo_tpu_torch.resilience.overload import CLASS_RANK, CLASSES
+from holo_tpu_torch.telemetry import convergence, critpath, flight, slo
 
 log = logging.getLogger("holo_tpu_torch.pipeline")
 
@@ -115,7 +125,7 @@ class PipelineTicket:
     """Completion handle for one submitted dispatch."""
 
     __slots__ = ("key", "kind", "generation", "cls", "_event", "_value", "_exc", "skipped",
-                 "superseded", "shed", "_done", "_pipeline", "_cbs", "_cb_lock")
+                 "superseded", "shed", "_done", "_pipeline", "_cbs", "_cb_lock", "eids")
 
     def __init__(self, pipeline, key, kind: str, generation: int, cls: str = "correctness"):
         self.key = key
@@ -134,6 +144,9 @@ class PipelineTicket:
         self._done = False
         self._cbs: list = []
         self._cb_lock = threading.Lock()
+        # The causal convergence events captured at submit (the critical-path
+        # ledger's join key for the force-wait stamps).
+        self.eids: tuple = ()
 
     def add_done_callback(self, fn) -> None:
         """Run ``fn(ticket)`` at completion (at once when already done), on
@@ -164,11 +177,13 @@ class PipelineTicket:
         """Block until completion; re-raise the dispatch's exception on the
         caller's thread.  Skipped and superseded tickets return None."""
         if not self._event.is_set():
+            critpath.note_force(self.eids, "b")
             t0 = time.perf_counter()
             if not self._event.wait(timeout):
                 raise TimeoutError(f"pipeline result for {self.key}/{self.kind} not ready")
             if self._pipeline is not None:
-                self._pipeline._note_wait(self.kind, time.perf_counter() - t0)
+                self._pipeline._note_wait(self.kind, time.perf_counter() - t0, self.eids)
+            critpath.note_force(self.eids, "e")
         if self._exc is not None:
             raise self._exc
         return self._value
@@ -186,6 +201,8 @@ class PipelineTicket:
         self._value = value
         self._event.set()
         self._fire_cbs()
+        # A delivered value, a fallback's too, grades good for its class.
+        slo.note_served(self.cls)
 
     def _fail(self, exc: BaseException) -> None:
         if not self._claim():
@@ -219,10 +236,10 @@ class _Item:
 
     __slots__ = ("key", "kind", "generation", "ticket", "run", "launch", "finish", "coalesce",
                  "handle", "t_launch_end", "cls", "rank", "deadline", "site", "fallback",
-                 "breaker", "abandoned")
+                 "breaker", "abandoned", "eids", "stalled")
 
     def __init__(self, ticket, run=None, launch=None, finish=None, coalesce=False, site=None,
-                 fallback=None, breaker=None):
+                 fallback=None, breaker=None, eids=()):
         self.ticket = ticket
         self.key = ticket.key
         self.kind = ticket.kind
@@ -243,6 +260,10 @@ class _Item:
         self.fallback = fallback
         self.breaker = breaker
         self.abandoned = False
+        # The caller's causal events, activated around both phases; the
+        # latch that stamps an ordering stall once.
+        self.eids = eids
+        self.stalled = False
 
 
 class DispatchPipeline:
@@ -332,10 +353,14 @@ class DispatchPipeline:
             _BREAKER_SKIPS.inc()
             return ticket
         item = _Item(ticket, run=run, launch=launch, finish=finish, coalesce=coalesce, site=site,
-                     fallback=fallback, breaker=breaker)
+                     fallback=fallback, breaker=breaker, eids=convergence.current())
+        ticket.eids = item.eids
         if deadline is not None:
             # The only clock read on the submit path.
             item.deadline = self._clock() + float(deadline)
+        # Admission, before the capacity gate: a submitter blocked on a full
+        # queue books that wall as queue_wait.
+        critpath.note_enqueue(item.eids)
         shed_self = False
         victims: list = []
         try:
@@ -347,6 +372,10 @@ class DispatchPipeline:
                         if not (old.coalesce and old.key == key and old.kind == kind):
                             continue
                         if old.generation == item.generation:
+                            # The new submit's events ride the queued item.
+                            if item.eids:
+                                old.eids = tuple(dict.fromkeys(old.eids + item.eids))
+                                old.ticket.eids = old.eids
                             self._coalesced["shared"] += 1
                             _COALESCED.labels(reason="shared").inc()
                             return old.ticket
@@ -380,9 +409,9 @@ class DispatchPipeline:
         finally:
             # Settle outside the lock: done-callbacks never run under _cv.
             for v in victims:
-                v.ticket._shed("capacity")
+                self._shed_item(v, "capacity")
         if shed_self:
-            ticket._shed("capacity")
+            self._shed_item(item, "capacity")
         return ticket
 
     def _capacity_victim_locked(self, incoming_rank: int):
@@ -405,12 +434,23 @@ class DispatchPipeline:
         if margin is not None:
             _SHED_MARGIN.labels(**{"class": cls}).observe(margin)
 
-    def _note_wait(self, kind: str, seconds: float) -> None:
+    def _shed_item(self, item: _Item, reason: str) -> None:
+        """Settle a shed ticket (outside ``_cv``: it fires done-callbacks)
+        and report the shed to the analytics."""
+        flight.event("pipeline-shed", pipeline=self.name, dispatch=item.kind, cls=item.cls,
+                     reason=reason)
+        critpath.note_shed(item.eids)
+        slo.note_shed(item.cls, reason)
+        item.ticket._shed(reason)
+
+    def _note_wait(self, kind: str, seconds: float, eids=()) -> None:
         with self._cv:
             self._wait_seconds[kind] += seconds
+        # The exemplar: the caller's span, else its first causal event.
         sid = telemetry.current_span_id()
-        _WAIT_SECONDS.labels(kind=kind).observe(
-            seconds, exemplar=None if sid is None else {"span_id": sid})
+        exemplar = ({"span_id": sid} if sid is not None
+                    else {"event_id": eids[0]} if eids else None)
+        _WAIT_SECONDS.labels(kind=kind).observe(seconds, exemplar=exemplar)
 
     def on_worker(self) -> bool:
         """Is the calling thread this pipeline's worker?"""
@@ -458,16 +498,19 @@ class DispatchPipeline:
                     self._thread = None
                 self._cv.notify_all()
             log.exception("pipeline %s worker crashed", self.name)
+            flight.event("pipeline-worker-crash", pipeline=self.name, error=repr(exc))
             cb = self.on_worker_crash
             if cb is not None:
                 cb(exc)
             elif not self._closed:
                 self.respawn()
 
-    def _next_launchable_locked(self, expired: list) -> _Item | None:
+    def _next_launchable_locked(self, stalled: list, expired: list) -> _Item | None:
         """The best launchable queued item: lowest class rank first, FIFO
         within a rank, never a key already in flight.  Expired items move to
-        ``expired``."""
+        ``expired``; items skipped because their key is in flight land in
+        ``stalled`` on their first skip only (the critical-path ledger's
+        ordering-stall stamp)."""
         with self._cv:
             best = None
             now = None
@@ -481,6 +524,9 @@ class DispatchPipeline:
                         expired.append(item)
                         continue
                 if item.key in self._inflight_keys:
+                    if not item.stalled:
+                        item.stalled = True
+                        stalled.append(item)
                     continue
                 if best is None or item.rank < best.rank:
                     best = item
@@ -495,6 +541,7 @@ class DispatchPipeline:
             # Chaos seam: with no item in hand, so queued tickets survive.
             faults.killpoint("pipeline.worker")
             launch_item = finish_item = None
+            stalled: list = []
             expired: list = []
             with self._cv:
                 if self._thread is not threading.current_thread():
@@ -503,7 +550,7 @@ class DispatchPipeline:
                     self._cv.notify_all()
                     return
                 if len(self._inflight) < self.depth:
-                    launch_item = self._next_launchable_locked(expired)
+                    launch_item = self._next_launchable_locked(stalled, expired)
                 if launch_item is None:
                     if self._inflight:
                         finish_item = self._inflight.pop(0)
@@ -512,8 +559,11 @@ class DispatchPipeline:
                         self._cv.wait(0.5)
                 else:
                     self._working += 1
+            # The stall and shed stamps outside the lock.
+            for it in stalled:
+                critpath.note_stall(it.eids)
             for it in expired:
-                it.ticket._shed("expired")
+                self._shed_item(it, "expired")
             if launch_item is not None:
                 self._do_launch(launch_item)
             elif finish_item is not None:
@@ -581,9 +631,10 @@ class DispatchPipeline:
     # -- phases
 
     def _do_launch(self, item: _Item) -> None:
+        critpath.note_launch(item.eids, "b")
         t0 = time.perf_counter()
         try:
-            with self._ctx():
+            with self._ctx(), convergence.activation(item.eids):
                 self._begin_phase(item, "launch")
                 faults.hangpoint("pipeline.launch")
                 if item.run is not None:
@@ -591,6 +642,7 @@ class DispatchPipeline:
                     if not self._end_phase(item):
                         return  # abandoned: the watchdog settled everything
                     item.ticket._complete(value)
+                    critpath.note_finish(item.eids, "e")
                     self._finalize(item)
                     return
                 item.handle = item.launch()
@@ -604,6 +656,7 @@ class DispatchPipeline:
             return
         finally:
             self._launch_seconds += time.perf_counter() - t0
+        critpath.note_launch(item.eids, "e")
         item.t_launch_end = time.perf_counter()
         with self._cv:
             self._inflight.append(item)
@@ -614,6 +667,7 @@ class DispatchPipeline:
             self._cv.notify_all()
 
     def _do_finish(self, item: _Item) -> None:
+        critpath.note_finish(item.eids, "b")
         t_fs = time.perf_counter()
         # The time the entry sat launched while the worker did other work:
         # the overlap the double buffer exists to create.
@@ -622,13 +676,16 @@ class DispatchPipeline:
         try:
             # The per-key hand-over: the finish puts the chain's new run
             # back, and only then may a queued delta of the chain launch.
-            with self._ctx(), consumes_donated("pipeline.key.handoff"):
+            with self._ctx(), convergence.activation(item.eids), \
+                    consumes_donated("pipeline.key.handoff"):
                 self._begin_phase(item, "finish")
                 faults.hangpoint("pipeline.finish")
                 value = item.finish(item.handle)
                 owned = self._end_phase(item)
                 if owned:
                     item.ticket._complete(value)
+            if owned:
+                critpath.note_finish(item.eids, "e")
         except BaseException as exc:  # noqa: BLE001 -- see _do_launch
             owned = self._end_phase(item)
             if owned:

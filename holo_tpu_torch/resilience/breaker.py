@@ -34,7 +34,11 @@ The split-phase guard (:meth:`CircuitBreaker.split`, :class:`SplitGuard`)
 unbundles :meth:`CircuitBreaker.call` for the dispatch pipeline's launch and
 finish phases under the same rule: the caller says whether a fallback
 serves, and the guard counts a fallback or a refusal accordingly.
-``holo_tpu``'s deadline budget (``DeadlineOverrun``, ``configure_defaults``)
+
+Every state transition is a ``breaker`` event in the flight recorder's ring
+(:mod:`holo_tpu_torch.telemetry.flight`; no-ops while it is disarmed), and
+the open transition is a postmortem trigger, emitted outside the breaker's
+lock.  ``holo_tpu``'s deadline budget (``DeadlineOverrun``, ``configure_defaults``)
 is not carried: no caller of the port sets one.
 """
 
@@ -50,6 +54,7 @@ from typing import Callable
 from holo_tpu_torch import telemetry
 from holo_tpu_torch.analysis.runtime import DonatedBufferError
 from holo_tpu_torch.kernels.build import KernelBuildError
+from holo_tpu_torch.telemetry import flight
 
 log = logging.getLogger("holo_tpu_torch.resilience.breaker")
 
@@ -156,19 +161,33 @@ class CircuitBreaker:
         if to == OPEN:
             self._open_until = time.monotonic() + self.recovery_timeout
 
+    def _emit(self, to: str) -> None:
+        """A transition's flight-recorder forensics (outside the lock: the
+        postmortem reads every breaker's snapshot)."""
+        flight.event("breaker", breaker=self.name, to=to)
+        if to == OPEN:
+            flight.trigger(f"breaker-open:{self.name}",
+                           extra={"last-error": self.last_error or ""})
+
     def _admit(self) -> bool:
         """Whether this call may try the device (closed, or the single
         half-open probe)."""
+        emit = False
         with self._lock:
             if self.state == OPEN and time.monotonic() >= self._open_until:
                 self._transition_locked(HALF_OPEN)
                 self._probing = False
+                emit = True
             if self.state == CLOSED:
-                return True
-            if self.state == HALF_OPEN and not self._probing:
+                admitted = True
+            elif self.state == HALF_OPEN and not self._probing:
                 self._probing = True
-                return True
-            return False
+                admitted = True
+            else:
+                admitted = False
+        if emit:
+            self._emit(HALF_OPEN)
+        return admitted
 
     def _on_failure(self, context: str, error: BaseException, cause: str = "exception") -> None:
         opened = False
@@ -185,6 +204,7 @@ class CircuitBreaker:
                 opened = True
         self._count("failures", cause)
         if opened:
+            self._emit(OPEN)
             log.error("breaker %s OPEN after %d consecutive failures (%s) for %.1fs",
                       self.name, self.consecutive_failures, self.last_error,
                       self.recovery_timeout)
@@ -208,6 +228,7 @@ class CircuitBreaker:
                 self._transition_locked(CLOSED)
                 restored = True
         if restored:
+            self._emit(CLOSED)
             log.info("breaker %s: probe dispatch succeeded, device service restored",
                      self.name)
 

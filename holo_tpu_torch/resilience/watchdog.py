@@ -17,9 +17,12 @@ queue walls the submitters.  The watchdog closes that gap:
   CPU path with no iteration cap) or fails it with :class:`WatchdogTimeout`
   (the card), and respawns the worker.
 
-The budget is a fixed value per site (``budgets``, else ``floor``): the
-dispatch observatory whose p99 sketches calibrate ``holo_tpu``'s comes with
-ROADMAP A13b.  Each abandoned phase counts in
+The budget of a site is ``holo_tpu``'s: ``max(site_p99 * multiplier,
+floor)``, the p99 the worst across the armed dispatch observatory's sketches
+at the site (:meth:`~holo_tpu_torch.telemetry.observatory.Observatory.site_p99`).
+With no observatory armed, or a site it has not seen yet, the site's fixed
+value serves (``budgets``, else ``floor``).  Each abandoned phase is a
+``pipeline-hang`` event in the flight recorder's ring and counts in
 ``holo_pipeline_watchdog_hangs_total{phase}``, and
 ``holo_pipeline_watchdog_budget_seconds`` holds the last verdict's budget.  ``Supervisor.watch_worker`` is not ported either: a sentinel or
 worker death marshals through ``on_worker_crash`` when set, and respawns
@@ -33,6 +36,7 @@ import threading
 import time
 
 from holo_tpu_torch import telemetry
+from holo_tpu_torch.telemetry import flight, observatory
 
 _HANGS = telemetry.counter(
     "holo_pipeline_watchdog_hangs_total",
@@ -49,14 +53,17 @@ class WatchdogTimeout(RuntimeError):
 
 
 class DispatchWatchdog:
-    """Sentinel for one :class:`DispatchPipeline`.  ``budgets`` maps a
-    ticket's site to its hang budget in seconds; any other site gets
-    ``floor``.  ``clock`` is injectable for deterministic tests."""
+    """Sentinel for one :class:`DispatchPipeline`.  A site the armed
+    observatory has seen gets ``max(site_p99 * multiplier, floor)``;
+    otherwise ``budgets`` maps a ticket's site to its hang budget in seconds
+    and any other site gets ``floor``.  ``clock`` is injectable for
+    deterministic tests."""
 
     def __init__(self, pipeline, interval: float = 0.25, floor: float = 5.0,
-                 budgets: dict | None = None, clock=time.monotonic):
+                 budgets: dict | None = None, clock=time.monotonic, multiplier: float = 4.0):
         self.pipeline = pipeline
         self.interval = float(interval)
+        self.multiplier = float(multiplier)
         self.floor = float(floor)
         self.budgets = dict(budgets or {})
         self._clock = clock
@@ -104,6 +111,7 @@ class DispatchWatchdog:
         except BaseException as exc:  # noqa: BLE001 -- the pipeline must not
             # lose its guard silently.
             log.exception("dispatch watchdog %s crashed", self.name)
+            flight.event("watchdog-crash", watchdog=self.name, error=repr(exc))
             cb = self.on_worker_crash
             if cb is not None:
                 cb(exc)
@@ -111,8 +119,13 @@ class DispatchWatchdog:
                 self._spawn()
 
     def budget(self, site: str | None) -> float:
-        """The hang budget of ``site``."""
-        return float(self.budgets.get(site, self.floor))
+        """The hang budget of ``site``: the floor-clamped observatory p99,
+        else the site's fixed value."""
+        obs = observatory.active() if site else None
+        base = obs.site_p99(site) if obs is not None else None
+        if base is None:
+            return float(self.budgets.get(site, self.floor))
+        return max(base * self.multiplier, self.floor)
 
     def check(self, now: float | None = None) -> bool:
         """One sentinel pass: True when a hang was declared and served.
@@ -134,6 +147,9 @@ class DispatchWatchdog:
         self.hangs += 1
         _HANGS.labels(phase=phase).inc()
         _BUDGET.set(budget)
+        flight.event("pipeline-hang", pipeline=self.pipeline.name, phase=phase,
+                     dispatch=item.kind, site=item.site or "-", age_s=round(age, 3),
+                     budget_s=round(budget, 3))
         exc = WatchdogTimeout(f"{phase} phase for {item.key}/{item.kind} hung {age:.3f}s "
                               f"(> budget {budget:.3f}s at site {item.site or '-'})")
         log.error("%s", exc)
@@ -158,7 +174,8 @@ class DispatchWatchdog:
 
     def stats(self) -> dict:
         return {"pipeline": self.pipeline.name, "interval": self.interval,
-                "floor": self.floor, "budgets": dict(self.budgets), "hangs": self.hangs}
+                "multiplier": self.multiplier, "floor": self.floor,
+                "budgets": dict(self.budgets), "hangs": self.hangs}
 
 
 _WATCHDOG: DispatchWatchdog | None = None

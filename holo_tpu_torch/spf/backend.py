@@ -164,7 +164,7 @@ from holo_tpu_torch.pipeline.tuner import active_tuner, shape_bucket
 from holo_tpu_torch.resilience import faults
 from holo_tpu_torch.resilience.breaker import CircuitBreaker
 from holo_tpu_torch.spf.scalar import spf_multipath_reference, spf_reference
-from holo_tpu_torch.telemetry import profiling, residency
+from holo_tpu_torch.telemetry import convergence, observatory, profiling, residency
 
 _DISPATCH_SECONDS = telemetry.histogram(
     "holo_spf_dispatch_seconds", "Wall time of one SPF dispatch (incl. readback)",
@@ -278,6 +278,7 @@ class _InFlightOne:
     # and the donation guard's lease on the residents the program read.
     clock: object = None
     lease: object = None
+    obucket: tuple | None = None  # the observatory's shape key (None: disarmed)
 
 
 def _stage(out, kp: int) -> HostCopy:
@@ -328,6 +329,7 @@ class ScalarSpfBackend(SpfBackend):
             res = self._one(topo, edge_mask, mp_pad(multipath_k))
         _DISPATCH_SECONDS.labels(backend="scalar", kind="one").observe(profiling.clock() - t0)
         _BATCH_SCENARIOS.labels(kind="one").inc()
+        convergence.note_dispatch("spf", "scalar")
         return res
 
     def _one(self, topo, edge_mask, kp: int) -> SpfResult:
@@ -354,6 +356,7 @@ class ScalarSpfBackend(SpfBackend):
             res = [self._one(topo, m, kp) for m in edge_masks]
         _DISPATCH_SECONDS.labels(backend="scalar", kind="whatif").observe(profiling.clock() - t0)
         _BATCH_SCENARIOS.labels(kind="whatif").inc(len(res))
+        convergence.note_dispatch("spf", "scalar")
         return res
 
     def compute_multiroot(self, topo, roots) -> MultiRootResult:
@@ -445,6 +448,10 @@ class TorchSpfBackend(SpfBackend):
         # device (sharing its counts), and their partitioned engines.
         self._mesh_views: dict = {}
         self._part_engines: dict = {}
+        # (site, kind, engine, shape signature) of the dispatches this
+        # backend has costed (the first armed one of each; holo_tpu's
+        # fresh-compile set).
+        self._costed: set = set()
         residency.register_spf_backend(self)  # the ledger's spf-prev row
 
     def _n_atoms(self, topo) -> int:
@@ -498,8 +505,19 @@ class TorchSpfBackend(SpfBackend):
 
     def _guarded(self, primary, oracle, context: str):
         """``primary`` under the breaker, the oracle its fallback where
-        :meth:`fallback_serves`."""
-        return self.breaker.call(primary, oracle if self.fallback_serves() else None, context)
+        :meth:`fallback_serves`.  A fallback tags the active convergence
+        events ``fallback`` after the oracle's own ``scalar`` note, so the
+        sticky fallback verdict is what the event closes with."""
+        if not self.fallback_serves():
+            return self.breaker.call(primary, None, context)
+
+        def fallback():
+            try:
+                return oracle()
+            finally:
+                convergence.note_dispatch("spf", "fallback")
+
+        return self.breaker.call(primary, fallback, context)
 
     def compute(self, topo, edge_mask=None, multipath_k: int = 1):
         kp = mp_pad(multipath_k)
@@ -600,8 +618,11 @@ class TorchSpfBackend(SpfBackend):
         key = self._part_key(topo, mesh)
         delta = getattr(topo, "delta_base", None)
         out, info, path = None, {}, "full"
-        with profiling.dispatch_context(kind="partitioned", engine="partitioned", bucket=None), \
+        obucket = self._obs_bucket(topo, 1, kp, None, mesh)
+        with profiling.dispatch_context(kind="partitioned", engine="partitioned",
+                                        bucket=obucket), \
                 telemetry.span("spf.dispatch", kind="partitioned", backend="torch"):
+            mark = profiling.work_mark()
             res = cache.get_partitioned(key)
             if edge_mask is None and delta is not None and self.incremental and res is not None:
                 with profiling.stage("spf.partitioned", "delta"):
@@ -630,6 +651,8 @@ class TorchSpfBackend(SpfBackend):
                 assert_live("spf.partitioned.readback", ls)
                 if delta is not None and edge_mask is None:
                     note_delta(self.delta_paths, delta_kind(delta), "partitioned-full")
+            self._cost(mark, "spf.partitioned", "partitioned", "partitioned", topo, 1, kp, mesh,
+                       obucket)
         if self.part_stats is not None:
             self.part_stats.clear()
             self.part_stats.update(
@@ -654,6 +677,7 @@ class TorchSpfBackend(SpfBackend):
         if mesh is not None:
             _SHARD_DISPATCHES.labels(kind=kind).inc()
             self.shard_dispatches["partitioned"] += 1
+        convergence.note_dispatch("spf", "device")
         return result
 
     def _device_compute(self, topo, edge_mask, kp: int) -> SpfResult:
@@ -676,12 +700,14 @@ class TorchSpfBackend(SpfBackend):
         """The device program of a full (not DeltaPath) ``compute``, in the
         ``spf.one`` marshal stage (as ``holo_tpu``'s jit call): (device
         tensors, engine, tuner bucket, graph lookup, first use, device clock,
-        lease).  Under a mesh it runs on the first batch device's
-        resident."""
+        lease, observatory bucket).  Under a mesh it runs on the first batch
+        device's resident."""
         engine, bucket = self._pick_engine("one", topo, kp=kp, mesh=mesh)
+        obucket = self._obs_bucket(topo, 1, kp, bucket, mesh)
         view = self._home(mesh)
         n_atoms = self._n_atoms(topo)
-        with profiling.stage("spf.one", "marshal"):
+        with profiling.dispatch_context(kind="one", engine=engine, bucket=obucket), \
+                profiling.stage("spf.one", "marshal"):
             tt = None
             with sanctioned_transfer("spf.one.marshal"):
                 # A scenario mask gathers through in_edge_id: an entry whose
@@ -694,6 +720,7 @@ class TorchSpfBackend(SpfBackend):
             first = self._first_use("one", engine, g, 1, kp, edge_mask is not None,
                                     pm.mesh_cache_key(mesh))
             ls = lease(g, tt, generation=view.key(topo, n_atoms, mesh))
+            mark = profiling.work_mark()
             clk = profiling.device_clock("spf.one", on=g.in_src.device)
             if engine == "mp_tropical":
                 out = tropical_spf_one_multipath(g, tt, topo.root, kp, edge_mask, None,
@@ -706,7 +733,8 @@ class TorchSpfBackend(SpfBackend):
                 one = spf_one if engine == "seq" else _ONE_ENGINES[engine]
                 out = one(g, topo.root, edge_mask, self.max_iters)
             profiling.sync(clk)
-        return out, engine, bucket, how, first, clk, ls
+            self._cost(mark, "spf.one", "one", engine, topo, 1, kp, mesh, obucket, bucket)
+        return out, engine, bucket, how, first, clk, ls, obucket
 
     def _pick_engine(self, kind: str, topo, batch: int = 1, kp: int = 1, mesh=None):
         """(engine, shape bucket or None): the armed tuner's pick for this
@@ -729,6 +757,42 @@ class TorchSpfBackend(SpfBackend):
         t = active_tuner()
         if bucket is not None and t is not None:
             t.observe(kind, bucket, engine, seconds)
+
+    @staticmethod
+    def _obs_bucket(topo, batch: int, kp: int, bucket, mesh=None):
+        """The observatory's shape key of a dispatch: the tuner's bucket where
+        one was picked, else the same quantization (the sketches key on shape
+        with no tuner armed, but ``bucket`` None keeps feeding no tuner).
+        None while the observatory is disarmed."""
+        if not profiling.observing():
+            return None
+        if bucket is not None:
+            return bucket
+        return shape_bucket(topo.n_vertices, topo.n_edges, batch, pm.mesh_cache_key(mesh), k=kp)
+
+    def _cost(self, mark, site: str, kind: str, engine: str, topo, lanes: int, kp: int,
+              mesh, obucket, bucket=None, cost_site: str | None = None) -> None:
+        """The cost entry of this backend's first armed dispatch of (site,
+        kind, engine, shape signature): the kernel work counted since
+        ``mark`` (``profiling.work_mark``), recorded under ``cost_site`` (else
+        ``site``) and handed to the armed tuner (``bucket``) and observatory
+        (``obucket``), where ``holo_tpu``'s backend hands its fresh-compile
+        cost analysis.  The signature is the topology's vertex, edge and
+        atom counts, the lanes, the mesh and the width.  A no-op for a None
+        mark (disarmed)."""
+        if mark is None:
+            return
+        sig = (topo.n_vertices, topo.n_edges, self._n_atoms(topo), lanes,
+               pm.mesh_cache_key(mesh), kp)
+        if (site, kind, engine, *sig) in self._costed:
+            return
+        self._costed.add((site, kind, engine, *sig))
+        entry = profiling.record_cost(cost_site or site, mark, shape_sig=(kind, engine, *sig))
+        t = active_tuner()
+        if bucket is not None and t is not None:
+            t.cost_prior(kind, bucket, engine, entry)
+        if obucket is not None:
+            observatory.note_cost(site, kind, engine, obucket, entry)
 
     def _trop_incremental(self, topo, kp: int, mesh=None) -> bool:
         """Does a DeltaPath dispatch of width ``kp`` relax on the tiles?
@@ -801,7 +865,7 @@ class TorchSpfBackend(SpfBackend):
                 while len(self._prev_one) > self.prev_capacity:
                     self._prev_one.pop(next(iter(self._prev_one)))
 
-    def _incremental_program(self, topo, kp: int, mesh=None) -> tuple | None:
+    def _incremental_program(self, topo, kp: int, mesh=None, obucket=None) -> tuple | None:
         """The device program of a DeltaPath dispatch (``holo_tpu``'s
         ``_try_incremental``), in the ``spf.one`` delta stage: the resident
         graph absorbs the delta in place and the incremental SPF runs seeded
@@ -839,6 +903,7 @@ class TorchSpfBackend(SpfBackend):
                     tt = view.get_tropical(topo, n_atoms, mesh)
             generation = view.key(topo, n_atoms, mesh)
             ls = lease(g, tt, generation=generation)
+            mark = profiling.work_mark()
             clk = profiling.device_clock("spf.one", on=g.in_src.device)
             if kp > 1:
                 sp, mp = prev
@@ -859,6 +924,8 @@ class TorchSpfBackend(SpfBackend):
             profiling.sync(clk)
             # The base's kept run was consumed into this generation's.
             note_donated("spf.one.delta", prev, generation=generation)
+            self._cost(mark, "spf.one", "delta", "incr", topo, 1, kp, mesh, obucket,
+                       cost_site="spf.delta")
         return out, kind, clk, ls
 
     # -- split-phase dispatch (the pipeline's seam)
@@ -902,20 +969,25 @@ class TorchSpfBackend(SpfBackend):
         :meth:`finish_one` has put the new run back."""
         if edge_mask is None:
             t0 = profiling.clock()
-            run = self._incremental_program(topo, kp, mesh)
+            obucket = self._obs_bucket(topo, 1, kp, None, mesh)
+            with profiling.dispatch_context(kind="delta", engine="incr", bucket=obucket):
+                run = self._incremental_program(topo, kp, mesh, obucket)
             if run is not None:
                 out, kind, clk, ls = run
                 return _InFlightOne(
                     out=out, host=_stage(out, kp) if stage else None, topo=topo, engine="incr",
                     bucket=None, mode="delta", kp=kp, delta_kind=kind, remember=True,
-                    launch_s=profiling.clock() - t0, mesh=mesh, t0=t0, clock=clk, lease=ls)
+                    launch_s=profiling.clock() - t0, mesh=mesh, t0=t0, clock=clk, lease=ls,
+                    obucket=obucket)
         t0 = profiling.clock()
-        out, engine, bucket, how, first, clk, ls = self._one_program(topo, edge_mask, kp, mesh)
+        out, engine, bucket, how, first, clk, ls, obucket = self._one_program(topo, edge_mask,
+                                                                             kp, mesh)
         return _InFlightOne(
             out=out, host=_stage(out, kp) if stage else None, topo=topo, engine=engine,
             bucket=bucket, mode="full", kp=kp, remember=edge_mask is None and self.incremental,
             remarshal=how == "miss" and edge_mask is None, first=first,
-            launch_s=profiling.clock() - t0, mesh=mesh, t0=t0, clock=clk, lease=ls)
+            launch_s=profiling.clock() - t0, mesh=mesh, t0=t0, clock=clk, lease=ls,
+            obucket=obucket)
 
     def finish_one(self, h: _InFlightOne) -> SpfResult:
         """Phase 2: the chaos delay, the wait on the host copies, the
@@ -926,21 +998,24 @@ class TorchSpfBackend(SpfBackend):
 
     def _finish(self, h: _InFlightOne) -> SpfResult:
         t_fs = profiling.clock()
-        with profiling.stage("spf.one", "device", clock=h.clock):
-            faults.delaypoint("spf.dispatch")
-            # The donation guard's finish seam: a resident moved in place
-            # since the launch fails here, named.
-            assert_live("spf.one.readback", h.lease)
-            staged = _staged(h)
-        t1 = profiling.clock()
-        with profiling.stage("spf.one", "readback"):
-            with sanctioned_transfer("spf.one.unmarshal"):
-                res = self._result(staged, h.topo.n_vertices, h.kp)
+        with profiling.dispatch_context(kind="delta" if h.mode == "delta" else "one",
+                                        engine=h.engine, bucket=h.obucket):
+            with profiling.stage("spf.one", "device", clock=h.clock):
+                faults.delaypoint("spf.dispatch")
+                # The donation guard's finish seam: a resident moved in place
+                # since the launch fails here, named.
+                assert_live("spf.one.readback", h.lease)
+                staged = _staged(h)
+            t1 = profiling.clock()
+            with profiling.stage("spf.one", "readback"):
+                with sanctioned_transfer("spf.one.unmarshal"):
+                    res = self._result(staged, h.topo.n_vertices, h.kp)
         t2 = profiling.clock()
         profiling.settle(h.clock, t2 - h.t0)
         _TRANSFER_SECONDS.labels(kind="one").observe(t2 - t1)
         _DISPATCH_SECONDS.labels(backend="torch", kind="one").observe(t2 - h.t0)
         _BATCH_SCENARIOS.labels(kind="one").inc()
+        convergence.note_dispatch("spf", "device")
         unparked = h.launch_s + (t2 - t_fs)
         if h.mode == "delta":
             note_delta(self.delta_paths, h.delta_kind, "incremental")
@@ -971,9 +1046,11 @@ class TorchSpfBackend(SpfBackend):
         b = len(masks)
         t0 = profiling.clock()
         engine, bucket = self._pick_engine("whatif", topo, b, kp, mesh)
-        with profiling.dispatch_context(kind="whatif", engine=engine, bucket=bucket), \
+        obucket = self._obs_bucket(topo, b, kp, bucket, mesh)
+        with profiling.dispatch_context(kind="whatif", engine=engine, bucket=obucket), \
                 telemetry.span("spf.dispatch", kind="whatif", backend="torch", batch=b):
             with profiling.stage("spf.whatif", "marshal"):
+                mark = profiling.work_mark()
                 if mesh is None:
                     tt = None
                     with sanctioned_transfer("spf.whatif.marshal"):
@@ -995,6 +1072,7 @@ class TorchSpfBackend(SpfBackend):
                 else:
                     clk = ls = None
                     sp, mp, first = self._sharded_whatif(mesh, topo, masks, engine, kp)
+                self._cost(mark, "spf.whatif", "whatif", engine, topo, b, kp, mesh, obucket, bucket)
             with profiling.stage("spf.whatif", "device", clock=clk):
                 assert_live("spf.whatif.readback", ls)
             t1 = profiling.clock()
@@ -1011,6 +1089,7 @@ class TorchSpfBackend(SpfBackend):
         _BATCH_SCENARIOS.labels(kind="whatif").inc(b)
         if mesh is not None:
             _SHARD_DISPATCHES.labels(kind="whatif").inc()
+        convergence.note_dispatch("spf", "device")
         if not first:
             self._tuner_observe("whatif", bucket, engine, t2 - t0)
         return [
@@ -1052,13 +1131,15 @@ class TorchSpfBackend(SpfBackend):
             empty = np.zeros((0, topo.n_vertices), np.int32)
             return MultiRootResult(dist=empty, parent=empty.copy(), hops=empty.copy())
         trop = self.one_engine == "tropical"  # holo_tpu's mr_engine
+        engine = "tropical" if trop else "seq"
         t0 = profiling.clock()
         clk = ls = None
-        with profiling.dispatch_context(kind="multiroot", engine="tropical" if trop else "seq",
-                                        bucket=None), \
+        obucket = self._obs_bucket(topo, len(roots), 1, None, mesh)
+        with profiling.dispatch_context(kind="multiroot", engine=engine, bucket=obucket), \
                 telemetry.span("spf.dispatch", kind="multiroot", backend="torch",
                                roots=len(roots)):
             with profiling.stage("spf.multiroot", "marshal"):
+                mark = profiling.work_mark()
                 if mesh is not None:
                     # The roots ride the batch axis, padded with root 0.
                     with sanctioned_transfer("spf.multiroot.marshal"):
@@ -1082,6 +1163,8 @@ class TorchSpfBackend(SpfBackend):
                     else:
                         out = spf_multiroot(g, roots, max_iters=self.max_iters)
                     profiling.sync(clk)
+                self._cost(mark, "spf.multiroot", "multiroot", engine, topo, len(roots), 1, mesh,
+                           obucket)
             with profiling.stage("spf.multiroot", "device", clock=clk):
                 assert_live("spf.multiroot.readback", ls)
             t1 = profiling.clock()
@@ -1095,6 +1178,7 @@ class TorchSpfBackend(SpfBackend):
         _BATCH_SCENARIOS.labels(kind="multiroot").inc(len(roots))
         if mesh is not None:
             _SHARD_DISPATCHES.labels(kind="multiroot").inc()
+        convergence.note_dispatch("spf", "device")
         return MultiRootResult(dist=dist, parent=parent, hops=hops)
 
     @staticmethod
@@ -1157,13 +1241,17 @@ class TorchSpfBackend(SpfBackend):
             self.routed_to_gather += 1
             return None
         t0 = profiling.clock()
-        with profiling.dispatch_context(kind="blocked", engine="blocked", bucket=None), \
+        obucket = self._obs_bucket(topo, len(edge_masks), 1, None)
+        with profiling.dispatch_context(kind="blocked", engine="blocked", bucket=obucket), \
                 telemetry.span("spf.dispatch", kind="blocked", backend="torch",
                                batch=len(edge_masks)):
             with profiling.stage("spf.blocked", "marshal"):
+                mark = profiling.work_mark()
                 clk = profiling.device_clock("spf.blocked", on=self.device)
                 out = whatif_spf_blocked(g, fdst, fid, max_iters=self.max_iters)
                 profiling.sync(clk)
+            self._cost(mark, "spf.blocked", "blocked", "blocked", topo, len(edge_masks), 1, None,
+                       obucket)
             with profiling.stage("spf.blocked", "device", clock=clk):
                 pass
             t1 = profiling.clock()
@@ -1178,6 +1266,7 @@ class TorchSpfBackend(SpfBackend):
         _TRANSFER_SECONDS.labels(kind="blocked").observe(t2 - t1)
         _DISPATCH_SECONDS.labels(backend="torch", kind="blocked").observe(t2 - t0)
         _BATCH_SCENARIOS.labels(kind="blocked").inc(dist.shape[0])
+        convergence.note_dispatch("spf", "device")
         return [
             SpfResult(dist=dist[i], parent=parent[i], hops=hops[i], nexthop_words=nh[i])
             for i in range(dist.shape[0])

@@ -26,6 +26,21 @@ into one file).  Per-dispatch stage timing is
 :mod:`holo_tpu_torch.telemetry.profiling`, the device-residency ledger
 :mod:`holo_tpu_torch.telemetry.residency`.
 
+The dispatch analytics, each off by default and one module-global check a
+seam while disarmed: the flight recorder
+(:mod:`~holo_tpu_torch.telemetry.flight`), the convergence tracker
+(:mod:`~holo_tpu_torch.telemetry.convergence`), the dispatch observatory
+(:mod:`~holo_tpu_torch.telemetry.observatory`, whose roofline join reads the
+kernel wrappers' work tallies through ``profiling.record_cost``), the
+critical-path ledger (:mod:`~holo_tpu_torch.telemetry.critpath`) and the SLO
+engine (:mod:`~holo_tpu_torch.telemetry.slo`).  Arm them in this order::
+
+    flight.configure(entries=4096, postmortem_dir=tmp)
+    convergence.configure(capacity=512)
+    observatory.configure(check_every=0, ledger_path=tmp / "ledger.json")
+    critpath.configure(capacity=1024)
+    slo.configure()
+
 Everything here is stdlib-only and import-light: an instrumented dispatch
 pays a dict hit and a locked float add per event, and :func:`set_enabled`
 (False) turns every update into an early return.

@@ -32,10 +32,17 @@ Everything is off by default (:func:`set_device_profiling`).  Disarmed,
 ``holo_tpu``: a hook that raises never fails the dispatch it times, while an
 error of the dispatch itself propagates through the stage unchanged.
 
-``holo_tpu``'s ``record_cost`` / ``cost_table`` and the
-``holo_profile_cost_*`` gauges read XLA's compile-time cost analysis, which
-has no torch counterpart; the observatory's roofline join is their reader,
-and they come with it.
+The cost source (``holo_tpu``'s :func:`record_cost`, :func:`cost_table`
+and the ``holo_profile_cost_flops`` / ``holo_profile_cost_bytes{site}``
+gauges): ``holo_tpu`` reads XLA's compile-time ``cost_analysis()`` on a fresh
+shape bucket; the port has no compiler, and reads the kernel wrappers' work
+tallies instead (:mod:`holo_tpu_torch.kernels.work`).  A backend takes
+:func:`work_mark` before a dispatch's device program and hands it to
+:func:`record_cost` after, on the first armed dispatch of each (site, kind,
+engine, shape signature): the tally's difference is the entry, int32
+operations under the key ``"flops"`` (the name the observatory and the tuner
+read) and bytes under ``"bytes"``.  The tallies count while device profiling
+or a stage observer is armed, as ``holo_tpu``'s capture runs.
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ from collections import deque
 from contextlib import contextmanager, nullcontext
 
 from holo_tpu_torch import telemetry
+from holo_tpu_torch.kernels import work
 
 log = logging.getLogger("holo_tpu_torch.telemetry")
 
@@ -57,6 +65,17 @@ _STAGE_SECONDS = telemetry.histogram(
     "mesh-sharded dispatch ('-' = host-side / whole-dispatch span)",
     ("site", "stage", "device"),
 )
+_COST_FLOPS = telemetry.gauge(
+    "holo_profile_cost_flops",
+    "Kernel-work int32 operation count of the last newly costed shape bucket",
+    ("site",),
+)
+_COST_BYTES = telemetry.gauge(
+    "holo_profile_cost_bytes",
+    "Kernel-work bytes (inputs read and outputs written once) of the last "
+    "newly costed shape bucket",
+    ("site",),
+)
 
 _enabled = False
 # The stage observer (a dispatch observatory) and the stage-edge hook (a
@@ -65,6 +84,7 @@ _enabled = False
 _OBSERVER = None
 _PHASE_HOOK = None
 _timer = time.perf_counter
+_timer_overridden = False
 _ctx_local = threading.local()
 _NULLCTX = nullcontext()
 # CUDA events this module recorded in the process: a disarmed dispatch adds
@@ -73,12 +93,20 @@ _EVENT_RECORDS = [0]
 # (site, device, device seconds, device-stage host wall, dispatch wall) of
 # the last settled device stages, newest last.
 _SETTLED: deque = deque(maxlen=4096)
+_cost_lock = threading.Lock()
+_cost_table: dict[tuple, dict] = {}
+
+
+def _sync_counting() -> None:
+    # The wrappers' work tallies count while the cost source has a reader.
+    work.set_counting(_enabled or _OBSERVER is not None)
 
 
 def set_device_profiling(on: bool) -> None:
     """Arm/disarm the per-dispatch breakdown."""
     global _enabled
     _enabled = bool(on)
+    _sync_counting()
 
 
 def device_profiling() -> bool:
@@ -91,6 +119,7 @@ def set_observer(fn) -> None:
     once its events are read); ``None`` disarms."""
     global _OBSERVER
     _OBSERVER = fn
+    _sync_counting()
 
 
 def observing() -> bool:
@@ -107,8 +136,13 @@ def set_phase_hook(fn) -> None:
 def set_stage_timer(fn) -> None:
     """Swap the stage timer (``None`` restores ``time.perf_counter``): a
     deterministic timer makes two seeded runs byte-identical."""
-    global _timer
+    global _timer, _timer_overridden
     _timer = fn if fn is not None else time.perf_counter
+    _timer_overridden = fn is not None
+
+
+def stage_timer_overridden() -> bool:
+    return _timer_overridden
 
 
 def clock() -> float:
@@ -150,7 +184,7 @@ class DeviceClock:
     finish, across threads."""
 
     __slots__ = ("site", "device", "start", "end", "stream", "span_id", "host_s",
-                 "settled")
+                 "settled", "ctx")
 
     def __init__(self, site: str, device: str, stream=None):
         self.site = site
@@ -160,6 +194,7 @@ class DeviceClock:
         self.span_id = None
         self.host_s = None
         self.settled = False
+        self.ctx = None  # the dispatch context its stage ran in (observer keying)
         if stream is not None:
             self.start = _record(stream)
 
@@ -239,6 +274,7 @@ def stage(site: str, name: str, device: str = "-", clock=None):
     dt = _timer() - t0
     if isinstance(clock, DeviceClock):
         clock.span_id, clock.host_s = sid, dt
+        clock.ctx = getattr(_ctx_local, "ctx", None)
     else:
         _STAGE_SECONDS.labels(site=site, stage=name, device=device).observe(
             dt, exemplar={"span_id": sid})
@@ -271,7 +307,13 @@ def settle(clock, wall: float | None = None) -> float | None:
     _SETTLED.append((clock.site, clock.device, dt, clock.host_s, wall))
     obs = _OBSERVER
     if obs is not None:
-        _observe_guarded(obs, clock.site, "device", clock.device, dt)
+        # Observed under the context of the stage, wherever settle runs.
+        prev = getattr(_ctx_local, "ctx", None)
+        _ctx_local.ctx = clock.ctx
+        try:
+            _observe_guarded(obs, clock.site, "device", clock.device, dt)
+        finally:
+            _ctx_local.ctx = prev
     return dt
 
 
@@ -343,6 +385,44 @@ def stage_median(site: str, stage: str, device: str = "-") -> float | None:
         if cum >= half:
             return float(le)
     return None
+
+
+def work_mark() -> tuple | None:
+    """This thread's kernel work tally now (:func:`record_cost`'s start), or
+    None while neither device profiling nor a stage observer is armed."""
+    if not _enabled and _OBSERVER is None:
+        return None
+    return work.totals()
+
+
+def record_cost(site: str, mark, shape_sig: tuple = ()) -> dict | None:
+    """The cost entry of one dispatch: the work this thread's kernel
+    wrappers counted since ``mark`` (:func:`work_mark`), as ``{"flops": int32
+    operations, "bytes": bytes}``; kept in :func:`cost_table` under (site,
+    shape signature) and exported on the ``holo_profile_cost_*`` gauges.
+    None for a None mark (disarmed).  The backends call it on the first
+    armed dispatch of each shape bucket, where ``holo_tpu`` calls its own on
+    a fresh compile."""
+    if mark is None:
+        return None
+    ops, nb = work.totals()
+    entry = {"flops": float(ops - mark[0]), "bytes": float(nb - mark[1])}
+    with _cost_lock:
+        _cost_table[(site, tuple(shape_sig))] = entry
+    _COST_FLOPS.labels(site=site).set(entry["flops"])
+    _COST_BYTES.labels(site=site).set(entry["bytes"])
+    return entry
+
+
+def cost_table() -> dict[tuple, dict]:
+    """Snapshot of {(site, shape signature) -> cost entry}."""
+    with _cost_lock:
+        return {k: dict(v) for k, v in _cost_table.items()}
+
+
+def clear_cost_table() -> None:
+    with _cost_lock:
+        _cost_table.clear()
 
 
 def capture_device_trace(trace_dir, n_routers: int = 48, seed: int = 3) -> dict:

@@ -1885,3 +1885,30 @@ def test_disarmed_dispatch_records_no_event():
     be.compute_multiroot(topo, np.arange(4, dtype=np.int32))
     assert profiling.event_records() == e0
     assert len(profiling.settled()) == n0
+
+
+@pytest.mark.parametrize("engine", ["seq", "fused", "packed", "hybrid", "tropical"])
+def test_work_tallies_equal_on_the_card_and_the_cpu(engine):
+    """The kernel wrappers' work tallies are taken before the wrappers
+    branch: the same dispatches on the card and on the CPU call the same
+    wrappers with the same shapes, so their tallies agree wrapper by
+    wrapper (a compute, a masked compute, a 40-lane what-if, a multipath
+    compute and a 4-root multi-root)."""
+    from holo_tpu_torch.kernels import work
+
+    dev = _card()
+    topo = synth.fat_tree_topology(k=8)
+    masks = synth.whatif_link_failure_masks(topo, 40, seed=3)
+    tallies = {}
+    for where in ("cpu", dev):
+        be = TorchSpfBackend(device=where, one_engine=engine)
+        with work.counted():
+            work.reset()
+            be.compute(topo)
+            be.compute(topo, masks[1])
+            be.compute_whatif(topo, masks)
+            be.compute(topo, multipath_k=4)
+            be.compute_multiroot(topo, np.arange(4, dtype=np.int32))
+            tallies[str(where)] = work.tallies()
+            work.reset()
+    assert tallies["cuda"] == tallies["cpu"] and tallies["cpu"]

@@ -49,7 +49,10 @@ def test_every_module_is_found():
                  "holo_tpu_torch.resilience.faults", "holo_tpu_torch.resilience.watchdog",
                  "holo_tpu_torch.parallel", "holo_tpu_torch.parallel.mesh",
                  "holo_tpu_torch.telemetry.profiling", "holo_tpu_torch.telemetry.residency",
-                 "holo_tpu_torch.analysis.runtime", "holo_tpu_torch.testing"):
+                 "holo_tpu_torch.analysis.runtime", "holo_tpu_torch.testing",
+                 "holo_tpu_torch.telemetry.flight", "holo_tpu_torch.telemetry.convergence",
+                 "holo_tpu_torch.telemetry.observatory", "holo_tpu_torch.telemetry.critpath",
+                 "holo_tpu_torch.telemetry.slo", "holo_tpu_torch.kernels.work"):
         assert want in mods
 
 

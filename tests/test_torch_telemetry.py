@@ -257,9 +257,12 @@ def _sequence(side: str) -> None:
 def parity(request):
     """Each package's snapshot delta over the sequence, profiling armed on
     both.  holo_tpu's compile-time cost capture is stubbed: it re-lowers
-    every fresh jit (seconds on the CPU) and feeds no compared family."""
+    every fresh jit (seconds on the CPU) and feeds no compared family.  The
+    port's cost source is stubbed alike, so that neither tuner gets a cost
+    prior and both explore in the same order."""
     mp = pytest.MonkeyPatch()
     mp.setattr(jprof, "record_cost", lambda *a, **k: None)
+    mp.setattr(tprof, "record_cost", lambda *a, **k: None)
     mp.setattr(tbackend, "_DISPATCHED", set())
     jprof.set_device_profiling(True)
     tprof.set_device_profiling(True)
