@@ -249,6 +249,17 @@ the DeltaPath chain, and its multipath program through ``compute`` at
    overhead on ``compute()`` and the 1024-lane what-if in alternating
    turns; the SLO report and the flight ring; all beside the card's name
    and power limit;
+3q. (after 3p) the kernel-contract audit (HL301-HL305) on the card: (a)
+   every registered dispatch program (33) run once on its seeded audit
+   specs under the dispatch recorder with the transfer sanitizer armed at
+   "error", its findings and seconds; (b) the main-path seams at full
+   width on the k=90 inputs -- ``spf.one`` on each of the four lane
+   engines, the what-if at 1024 lanes, the delta scatter of the chain's
+   first event and the incremental SPF after it -- their value and index
+   lanes and sanctioned windows; (c) the CPU's audit of the same registry
+   in this process, whose kernels and findings must equal the card's; no
+   error-tier finding, value lanes only int32 and bool, beside the card's
+   name and power limit;
 4. time each kernel (CUDA events; at one scenario also the profiler's
    device time, which leaves out the host's launch), its plain version, the
    whole batch, ``compute()`` and the gather batch's stages, and DeltaPath's
@@ -2919,7 +2930,7 @@ def trop_phase(ell, se, dev, topo, masks, gres, gone, gmr, mr_roots, oracle, com
             "repair_device_ms": sum(ms for key, ms in per.items()
                                     if "trop_repair" in key) / KERNEL_REPS,
             "bound_ms": trop_work(*args_, new=want[0])["bound"][0]}
-    x["repair_plain_ms"] = cuda_ms(lambda: kt.repair_plain(seed_p, bits, *ell_args), KERNEL_REPS)
+    x["repair_plain_ms"] = cuda_ms(lambda: kt.repair_plain(seed_p, rep.pairs, *ell_args), KERNEL_REPS)
     # The launch geometry: the tile and row forms at k=90's B, and the
     # tile form of every B the kernel is built for, at 1024 lanes.
     x["geometry"] = {f"B={b} x {lanes}": kt.geometry(b, lanes, nb)
@@ -4340,6 +4351,96 @@ def analytics_phase(tp, topo, masks) -> dict:
     return x
 
 
+# The kernel-contract audit (phase 3q): the main-path seams run again at
+# full width, and the value lanes they may make.
+AUDIT_SEAMS = ("spf.one.seq", "spf.one.fused", "spf.one.packed", "spf.one.hybrid",
+               "spf.whatif.batch", "spf.delta.apply", "spf.one.incremental")
+VALUE_LANES = {"int32", "bool"}
+
+
+def audit_phase(dev, topo, masks, chain, n_atoms) -> dict:
+    """Phase 3q: the kernel-contract audit on the card (module docstring)."""
+    import dataclasses
+
+    from holo_tpu_torch.analysis import kernel_audit as ka
+    from holo_tpu_torch.analysis.core import gate_findings
+    from holo_tpu_torch.ops import spf_engine as se
+    from holo_tpu_torch.ops.graph import build_ell
+
+    t_phase = time.perf_counter()
+    root = str(Path(__file__).resolve().parent)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    x = {}
+
+    # (a) every registered program on the card, the sanitizer at "error".
+    t0 = time.perf_counter()
+    card = ka.run_audit(root, device="cuda")
+    x["card_s"] = time.perf_counter() - t0
+    for name in sorted(card.kernel_seconds):
+        rows = [f.render() for f in card.kernel_findings.get(name, [])]
+        print(f"3q (a) {name}: {card.kernel_seconds[name]:.3f} s, lanes "
+              f"{card.kernel_lanes.get(name)}, findings {rows or 'none'}", flush=True)
+    print(f"3q (a) kernel audit on the card: {card.kernels_checked} programs in "
+          f"{x['card_s']:.1f} s, {len(card.findings)} findings "
+          f"({len(gate_findings(card.findings))} at error tier), skipped {card.skipped} "
+          f"({smi})", flush=True)
+    require(card.kernels_checked == 33 and not card.skipped,
+            f"3q (a): {card.kernels_checked} programs audited, skipped {card.skipped}")
+    require(not gate_findings(card.findings),
+            "3q (a): error-tier findings on the card: "
+            + "; ".join(f.render() for f in gate_findings(card.findings)))
+
+    # (c) the CPU's audit in this process: the same kernels, the same findings.
+    t0 = time.perf_counter()
+    cpu = ka.run_audit(root, device="cpu")
+    x["cpu_s"] = time.perf_counter() - t0
+
+    def view(result):
+        return (sorted(result.kernel_seconds),
+                sorted((f.context, f.rule, f.severity) for f in result.findings))
+
+    require(view(card) == view(cpu), f"3q (c): the card's audit {view(card)} != the CPU's "
+            f"{view(cpu)}")
+    print(f"3q (c) the CPU's audit ({x['cpu_s']:.1f} s) lists the same {len(view(cpu)[0])} "
+          f"programs and the same {len(cpu.findings)} findings as the card's", flush=True)
+
+    # (b) the main-path seams at full width on the k=90 inputs.
+    reg = ka.load_registry()
+    g = se.device_graph_from_ell(build_ell(topo, n_atoms=n_atoms), dev)
+    step = chain[0][1]
+    delta = step.delta_base
+    ell_d = build_ell(topo, n_atoms=n_atoms)
+    g_d = se.device_graph_from_ell(ell_d, dev)
+    ops = se.lower_delta(se._EllMirror(ell_d), delta, topo.n_vertices)
+    g_new = se.device_graph_from_ell(build_ell(step, n_atoms=n_atoms), dev)
+    prev = se.spf_one(g, topo.root)
+    args = {f"spf.one.{e}": (g, topo.root, masks[1]) for e in ("seq", "fused", "packed",
+                                                              "hybrid")}
+    args["spf.whatif.batch"] = (g, topo.root, masks)
+    args["spf.delta.apply"] = (g_d, ops)
+    args["spf.one.incremental"] = (g_new, topo.root, prev, delta.seed_rows())
+    torch.cuda.synchronize()
+    x["seams"] = {}
+    for name in AUDIT_SEAMS:
+        entry = dataclasses.replace(reg[name], specs=lambda device, a=args[name]: a)
+        rec = {}
+        t0 = time.perf_counter()
+        found, _ = ka.audit_kernel(entry, device="cuda", rec_out=rec)
+        sec = time.perf_counter() - t0
+        values = sorted(lane for lane in rec["lanes"] if lane != "int64 (index)")
+        x["seams"][name] = {"lanes": rec["lanes"], "windows": rec["windows"], "s": sec,
+                            "findings": [f.render() for f in found]}
+        print(f"3q (b) {name} at k=90 ({'1024 lanes' if 'whatif' in name else 'one lane'}): "
+              f"lanes {rec['lanes']}, windows {dict(sorted(rec['windows'].items()))}, "
+              f"findings {[f.render() for f in found] or 'none'}, {sec:.3f} s", flush=True)
+        require(not gate_findings(found), f"3q (b) {name}: error-tier findings {found}")
+        require(set(values) <= VALUE_LANES, f"3q (b) {name}: value lanes {values}")
+    x["phase_s"] = time.perf_counter() - t_phase
+    print(f"audit phase 3q checked in {x['phase_s']:.1f} s ({smi})", flush=True)
+    return x
+
+
 def oracle_result(ref, n_atoms: int):
     """The oracle's planes under SpfResult's field names."""
     return type("Ref", (), {"dist": ref.dist, "parent": ref.parent, "hops": ref.hops,
@@ -5437,6 +5538,10 @@ def main() -> None:
     # disarmed, the observatory's keys and roofline rows, the critical path,
     # the watchdog's budgets, the overhead, the SLO report and the ring
     analytics_phase(tel["paths"], topo, masks)
+    # -- 3q. the kernel-contract audit on the card: every registered program
+    # under the recorder and the sanitizer, the main-path seams at k=90, and
+    # the CPU's audit of the same registry
+    audit_phase(dev, topo, masks, chain, n_atoms)
 
     # (e) every dispatch of the run ran on the card: every breaker the run
     # built (every SPF backend, FRR engine and BGP table and rank backend)

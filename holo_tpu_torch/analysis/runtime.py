@@ -21,7 +21,10 @@ cannot see syncs inside the ctypes kernel libraries (a ``cudaMemcpy`` or
 entry points (``csrc/*.cu``) makes one: the launches are asynchronous, and
 the ``*_info`` / ``*_smem`` geometry queries read function attributes and
 occupancy into a host buffer.  On the CPU there are no syncs to catch, and
-the windows only count.
+the windows only count.  Armed or not, each window also raises a per-thread
+depth (:func:`window_depth`) while it is open: the kernel-contract audit
+(:mod:`holo_tpu_torch.analysis.kernel_audit`) reads it to tell the port's
+own sanctioned syncs from a stray scalar read, on the CPU as on the card.
 
 **The donation guard.**  Torch does not donate buffers, but the port updates
 resident tensors in place: the delta scatter into a cached graph, the tile
@@ -56,6 +59,7 @@ _SANCTIONED: dict[str, int] = {}
 _MODE_LOCK = threading.Lock()
 _ARMED = 0  # nesting depth of transfer_sanitizer()
 _OPEN = 0  # sanctioned windows open on any thread while armed
+_LOCAL = threading.local()  # .depth: sanctioned windows open on this thread
 # What an armed sanitizer sets outside windows: "error" raises; "warn" lets
 # a survey run list every unsanctioned sync site in one pass.
 ARMED_MODE = "error"
@@ -90,6 +94,12 @@ def transfer_sanitizer():
             _apply_locked()
 
 
+def window_depth() -> int:
+    """How many sanctioned windows are open on the calling thread, armed or
+    not."""
+    return getattr(_LOCAL, "depth", 0)
+
+
 @contextlib.contextmanager
 def sanctioned_transfer(reason: str):
     """Open an allow-window for one of the port's own host syncs and count
@@ -97,15 +107,21 @@ def sanctioned_transfer(reason: str):
     global _OPEN
     if not _ARMED:
         _SANCTIONED[reason] = _SANCTIONED.get(reason, 0) + 1
-        yield
+        _LOCAL.depth = window_depth() + 1
+        try:
+            yield
+        finally:
+            _LOCAL.depth -= 1
         return
     with _MODE_LOCK:
         _SANCTIONED[reason] = _SANCTIONED.get(reason, 0) + 1
         _OPEN += 1
         _apply_locked()
+    _LOCAL.depth = window_depth() + 1
     try:
         yield
     finally:
+        _LOCAL.depth -= 1
         with _MODE_LOCK:
             _OPEN -= 1
             _apply_locked()
@@ -114,10 +130,14 @@ def sanctioned_transfer(reason: str):
 def read_flag(reason: str, flag) -> bool:
     """``bool(flag)`` in a sanctioned window of its own: a fixpoint's
     per-round changed-flag read, counted under ``reason``.  Disarmed it is a
-    count and the read."""
+    count, the read, and the window's depth around it."""
     if not _ARMED:
         _SANCTIONED[reason] = _SANCTIONED.get(reason, 0) + 1
-        return bool(flag)
+        _LOCAL.depth = window_depth() + 1
+        try:
+            return bool(flag)
+        finally:
+            _LOCAL.depth -= 1
     with sanctioned_transfer(reason):
         return bool(flag)
 

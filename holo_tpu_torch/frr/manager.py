@@ -229,6 +229,38 @@ def ensure_engine(current, cfg: FrrConfig) -> "FrrEngine":
     return engine
 
 
+def sharded_frr_program(mesh, resident, root, link_far, link_cost, link_valid, edge_masks,
+                        adj_nbr, adj_cost, adj_link, adj_valid, link_srlg, adj_srlg,
+                        require_np, max_iters=None, site: str | None = None):
+    """``frr_batch`` with the protected links on the batch axis
+    (``holo_tpu``'s sharded FRR jit): ``resident(device)`` gives a shard's
+    graph; on each shard's device ``D`` (once per physical device), the post
+    batch of its links and the selection; host tensors joined in link order
+    (:func:`~holo_tpu_torch.parallel.mesh.run_batch`).  The per-link planes
+    (host arrays) are padded to the batch axis as ``holo_tpu``'s
+    ``_shard_args`` pads them: a pad link is far 0, cost 1, invalid, with an
+    all-True scenario mask and no SRLG bit."""
+    root = int(root)
+
+    def res(dev):
+        g = resident(dev)
+        return g, all_roots(g, max_iters)
+
+    def run(gd, shard):
+        g, D = gd
+        offset, (lf, lc, lv, em, lsr) = shard
+        post = spf_whatif_batch(g, root, em, max_iters)
+        return frr_select(D, post, root, g.is_router, lf, lc, lv, adj_nbr, adj_cost, adj_link,
+                          adj_valid, lsr, adj_srlg, require_np, max_iters, link_offset=offset)
+
+    planes = [pm.shard_rows(mesh, np.asarray(x), fill) for x, fill in (
+        (link_far, 0), (link_cost, 1), (link_valid, False), (edge_masks, True), (link_srlg, 0))]
+    shards = list(zip(*planes))
+    width = shards[0][0].shape[0]
+    shards = [(i * width, shard) for i, shard in enumerate(shards)]
+    return pm.run_batch(mesh, shards, res, run, np.asarray(link_far).shape[0], site)
+
+
 class FrrEngine:
     """Backup-table computation behind the SpfBackend-style interface."""
 
@@ -312,50 +344,23 @@ class FrrEngine:
             mesh is None or all(d.type == "cpu" for d in mesh.devices.flat))
         return on_cpu and self.max_iters is None
 
-    def _shard_args(self, mesh, fin) -> list:
-        """The per-link planes (link_far, link_cost, link_valid, edge_masks,
-        link_srlg) of each batch shard, padded to the batch axis as
-        ``holo_tpu``'s ``_shard_args``: a pad link is far 0, cost 1, invalid,
-        with an all-True scenario mask and no SRLG bit."""
-        lsr = self._policy_args(fin)[0]
-        planes = [pm.shard_rows(mesh, np.asarray(x), fill) for x, fill in (
-            (fin.link_far, 0), (fin.link_cost, 1), (fin.link_valid, False),
-            (fin.edge_masks, True), (lsr, 0))]
-        return list(zip(*planes))
-
     def _sharded(self, mesh, topo, fin):
-        """The FRR tables with the protected links on the batch axis: on
-        each shard's device ``D`` (once per physical device), the post
-        batch of its links and the selection; host tensors joined in link
-        order; a size-1 mesh runs the plain ``frr_batch``."""
+        """The FRR tables with the protected links on the batch axis
+        (:func:`sharded_frr_program` over this engine's per-device graphs);
+        a size-1 mesh runs the plain ``frr_batch``."""
         if mesh.size == 1:
             return frr_batch(
                 self._prepare(topo, mesh.batch_device(0), mesh), topo.root, fin.link_far,
                 fin.link_cost, fin.link_valid, fin.edge_masks, fin.adj_nbr, fin.adj_cost,
                 fin.adj_link, fin.adj_valid, *self._policy_args(fin), max_iters=self.max_iters,
                 stats=self.stats)
-        _, asr, rnp = self._policy_args(fin)
-        root = int(topo.root)
-
-        def resident(dev):
-            g = self._prepare(topo, dev, mesh)
-            return g, all_roots(g, self.max_iters)
-
-        def run(gd, shard):
-            g, D = gd
-            offset, (lf, lc, lv, em, lsr) = shard
-            post = spf_whatif_batch(g, root, em, self.max_iters)
-            return frr_select(D, post, root, g.is_router, lf, lc, lv, fin.adj_nbr,
-                              fin.adj_cost, fin.adj_link, fin.adj_valid, lsr, asr, rnp,
-                              self.max_iters, link_offset=offset)
-
-        shards = self._shard_args(mesh, fin)
-        width = shards[0][0].shape[0]
-        shards = [(i * width, shard) for i, shard in enumerate(shards)]
         if self.stats is not None:
-            self.stats["shards"] = len(shards)
-        return pm.run_batch(mesh, shards, resident, run, np.asarray(fin.link_far).shape[0],
-                            site="frr.batch")
+            self.stats["shards"] = mesh.shape["batch"]
+        return sharded_frr_program(
+            mesh, lambda dev: self._prepare(topo, dev, mesh), topo.root, fin.link_far,
+            fin.link_cost, fin.link_valid, fin.edge_masks, fin.adj_nbr, fin.adj_cost,
+            fin.adj_link, fin.adj_valid, *self._policy_args(fin), max_iters=self.max_iters,
+            site="frr.batch")
 
     def _compute_device(self, topo, fin) -> BackupTable:
         # Back to back: the finish reads the tables back with .cpu().
@@ -482,3 +487,52 @@ class FrrEngine:
                 convergence.note_dispatch("frr", "scalar")
         _FRR_SECONDS.labels(engine=self.engine).observe(time.perf_counter() - t0)
         return table
+
+
+# -- kernel-contract audit registrations (HL3xx) ------------------------
+# Inert contract descriptors for holo_tpu_torch.analysis.kernel_audit: the
+# engine's two device programs with its argument order (the host planes of
+# marshal_frr, as the engine passes them), max_iters=None.  The thunks run
+# only when the audit runs.
+from holo_tpu_torch.analysis.kernels import register_kernel as _register_kernel  # noqa: E402
+
+
+def _audit_frr_specs(device) -> tuple:
+    """The audit topology's graph on ``device`` and its FRR planes, with an
+    SRLG bit on every third edge and node protection required."""
+    from holo_tpu_torch.ops.spf_engine import audit_specs
+
+    a = audit_specs(device)
+    topo = a["topo"]
+    topo.edge_srlg = (np.arange(topo.n_edges) % 3 == 0).astype(np.uint32)
+    fin = marshal_frr(topo)
+    return (a["g"], a["root"], fin.link_far, fin.link_cost, fin.link_valid, fin.edge_masks,
+            fin.adj_nbr, fin.adj_cost, fin.adj_link, fin.adj_valid, fin.link_srlg,
+            fin.adj_srlg, np.bool_(True))
+
+
+def _audit_frr_builder():
+    return lambda g, root, lf, lc, lv, em, an, ac, al, av, lsr, asr, rnp: frr_batch(
+        g, root, lf, lc, lv, em, an, ac, al, av, link_srlg=lsr, adj_srlg=asr,
+        require_np=rnp, max_iters=None)
+
+
+def _audit_frr_sharded_builder(mesh):
+    return lambda g, *planes: sharded_frr_program(mesh, lambda dev: g, *planes)
+
+
+_register_kernel(
+    "frr.batch",
+    builder=_audit_frr_builder,
+    specs=_audit_frr_specs,
+    buckets=16,  # pow2 protected-link x adjacency pads per shape
+)
+
+_register_kernel(
+    "frr.batch.sharded",
+    builder=_audit_frr_sharded_builder,
+    specs=_audit_frr_specs,
+    fences=1,
+    needs_mesh=True,
+    buckets=16,
+)

@@ -169,11 +169,17 @@ def fold_plain(sub, order, addr_rank, has_addr, nht_enc, nht_res, mp):
     b_hasaddr = torch.zeros(m, dtype=torch.bool, device=dev)
     b_igp = torch.zeros(m, dtype=torch.int32, device=dev)
     reasons = torch.zeros((m, n_cols), dtype=torch.int32, device=dev)
-    for c in order.tolist():
-        cand = sub[:, :, c]
-        igp_c, elig_c = igp[:, c], elig[:, c]
-        a_addr = addr_rank[c]
-        a_has = has_addr[c] != 0
+    # The columns gathered in candidate order on the device: the loop reads
+    # its position, never the order's values on the host.
+    order_l = order.long()
+    sub_o, igp_o, elig_o = sub[:, :, order_l], igp[:, order_l], elig[:, order_l]
+    rank_o, has_o = addr_rank[order_l], has_addr[order_l] != 0
+    for i in range(n_cols):
+        c = order[i]
+        cand = sub_o[:, :, i]
+        igp_c, elig_c = igp_o[:, i], elig_o[:, i]
+        a_addr = rank_o[i]
+        a_has = has_o[i]
         better = torch.zeros(m, dtype=torch.bool, device=dev)
         reason = torch.full((m,), R_ADDR, dtype=torch.int32, device=dev)
         addr_app = a_has & b_hasaddr & (a_addr != b_addr)
@@ -231,9 +237,8 @@ def fold_plain(sub, order, addr_rank, has_addr, nht_enc, nht_res, mp):
         & branch
     )
     maxp = torch.where(b[L_RT] == 0, mp[1], mp[2])
-    order_l = order.long()
     eq_ord = eq[:, order_l]
-    csum = torch.cumsum(eq_ord.to(torch.int32), dim=1)
+    csum = torch.cumsum(eq_ord.to(torch.int32), dim=1, dtype=torch.int32)
     mp_sel = torch.zeros_like(eq)
     mp_sel[:, order_l] = eq_ord & (csum <= maxp[:, None])
     return best_col, reasons, elig, mp_sel

@@ -127,8 +127,8 @@ def _usable(slot, mask, sl: slice):
     valid = (slot >= 0)[:, :, None]
     if mask is None:
         return valid
-    lane = torch.arange(sl.start, sl.stop, device=slot.device)
-    words = mask[slot.clamp_min(0).long()][:, :, lane // 32]
+    lane = torch.arange(sl.start, sl.stop, dtype=torch.int32, device=slot.device)
+    words = mask[slot.clamp_min(0).long()][:, :, (lane // 32).long()]
     return valid & (((words >> (lane % 32)) & 1) != 0)
 
 
@@ -151,20 +151,22 @@ def dag_slots(src, cost, slot, mask, dist, roots, sl: slice):
 def pack_lane_bits(bits: torch.Tensor) -> torch.Tensor:
     """bool [..., L] -> int32 [..., ceil(L / 32)]: bit l % 32 of word l // 32.
 
-    Bytes are assembled as the sum of their bits shifted into place and read
-    as little-endian int32 words (byte j of a word holds its bits 8j .. 8j +
-    7), as both the host and the card store them.
+    Every lane stays int32 at one byte a bit: the bools, read as
+    little-endian int32 (byte k of group j is bit 4j + k at bit 8k), fold
+    into a nibble, and the eight nibbles of a word are summed shifted into
+    place (distinct bits: no partial sum overflows; bit 31 is the sign).
     """
     *lead, lanes = bits.shape
     if lanes == 0:
         return torch.zeros((*lead, 0), dtype=torch.int32, device=bits.device)
     padded = mask_words(lanes) * 32
-    b = bits.to(torch.uint8)
+    b = bits.contiguous()
     if padded != lanes:
         b = torch.cat([b, b.new_zeros((*lead, padded - lanes))], dim=-1)
-    shift = torch.arange(8, dtype=torch.uint8, device=bits.device)
-    byte = (b.reshape(*lead, padded // 8, 8) << shift).sum(-1, dtype=torch.uint8)
-    return byte.view(torch.int32)
+    x = b.view(torch.int32)  # [..., padded / 4]: bytes 0/1 at bits 0, 8, 16, 24
+    nib = (x | (x >> 7) | (x >> 14) | (x >> 21)) & 0xF
+    shift = torch.arange(0, 32, 4, dtype=torch.int32, device=bits.device)
+    return (nib.reshape(*lead, padded // 32, 8) << shift).sum(-1, dtype=torch.int32)
 
 
 def full_frontier(n: int, lanes: int, device) -> torch.Tensor:
@@ -178,8 +180,8 @@ def full_frontier(n: int, lanes: int, device) -> torch.Tensor:
 
 def _unpack(words, sl: slice):
     """bool [..., chunk]: the bits of ``sl``'s lanes from int32 [..., words]."""
-    lane = torch.arange(sl.start, sl.stop, device=words.device)
-    return ((words[..., lane // 32] >> (lane % 32)) & 1) != 0
+    lane = torch.arange(sl.start, sl.stop, dtype=torch.int32, device=words.device)
+    return ((words[..., (lane // 32).long()] >> (lane % 32)) & 1) != 0
 
 
 def _round_result(moved: torch.Tensor):

@@ -59,8 +59,6 @@ from holo_tpu_torch.kernels import build, work
 from holo_tpu_torch.kernels.ell import (
     _round_result,
     _unpack,
-    _usable,
-    lane_chunks,
     mask_words,
 )
 
@@ -94,24 +92,22 @@ def repair_set(bits: torch.Tensor, lanes: int) -> RepairSet:
     return RepairSet(bits, pairs.contiguous())
 
 
-def repair_plain(dist, bits, src, cost, slot, mask, perm, inv):
-    """(rows int64 [R'], values int32 [R', S]): the plain repair pass -- for
-    each permuted row with a repair bit, the exact masked ELL relax of its
-    vertex in every lane (``holo_tpu/ops/tropical.py:445-457``): the least
-    ``dist[inv[src], s] + cost`` over its usable slots whose source is
-    reached, INF where there is none."""
-    lanes = dist.shape[1]
-    rows = _unpack(bits, slice(0, lanes)).any(1).nonzero()[:, 0]
-    vals = torch.full((rows.numel(), lanes), INF, dtype=torch.int32, device=dist.device)
-    if rows.numel():
-        v = perm[rows].long()
-        vsrc = inv[src[v].long()].long()  # [R', K] permuted sources
-        vslot, vcost = slot[v], cost[v]
-        for sl in lane_chunks(*vsrc.shape, lanes):
-            dn = dist[:, sl][vsrc]  # [R', K, S']
-            ok = _usable(vslot, mask, sl) & (dn < INF)
-            vals[:, sl] = torch.where(ok, dn + vcost[:, :, None], INF).amin(1)
-    return rows, vals
+def repair_plain(dist, pairs, src, cost, slot, mask, perm, inv):
+    """int32 [R]: the plain repair pass -- for each listed repair (row, lane)
+    pair (``pairs`` int32 [R, 2], :func:`repair_set`'s), the exact masked ELL
+    relax of the row's vertex in that lane (``holo_tpu/ops/tropical.py:445-457``):
+    the least ``dist[inv[src], lane] + cost`` over its usable slots whose
+    source is reached, INF where there is none.  Gathers only, as the
+    kernel's warp a pair: the list is the fixpoint's, built once."""
+    row, lane = pairs[:, 0].long(), pairs[:, 1]
+    v = perm[row].long()
+    vslot = slot[v]  # [R, K]
+    dn = dist[inv[src[v].long()].long(), lane.long()[:, None]]  # [R, K]
+    ok = (vslot >= 0) & (dn < INF)
+    if mask is not None:
+        words = mask[vslot.clamp_min(0).long(), (lane // 32).long()[:, None]]
+        ok &= ((words >> (lane % 32)[:, None]) & 1) != 0
+    return torch.where(ok, dn + cost[v], INF).amin(1)
 
 
 def trop_relax_plain(tiles, cb, dist, active, out, repair=None, src=None, cost=None, slot=None,
@@ -148,9 +144,9 @@ def trop_relax_plain(tiles, cb, dist, active, out, repair=None, src=None, cost=N
             acc = torch.minimum(acc, cand)
         agg[:, :, sl] = acc.clamp_max(INF).to(torch.int32)
     agg = agg.view(npad, lanes)
-    if repair is not None:
-        rows, vals = repair_plain(dist, repair.bits, src, cost, slot, mask, perm, inv)
-        agg[rows] = torch.where(_unpack(repair.bits[rows], slice(0, lanes)), vals, agg[rows])
+    if repair is not None and repair.pairs.shape[0]:
+        vals = repair_plain(dist, repair.pairs, src, cost, slot, mask, perm, inv)
+        agg[repair.pairs[:, 0].long(), repair.pairs[:, 1].long()] = vals
     new = torch.minimum(dist, agg)
     out.copy_(new)
     return out, *_round_result((new != dist).view(nb, b, lanes).any(1))
@@ -270,7 +266,7 @@ def trop_count_plain(cnt, cb, listed, x, seed, out, root: int = -1):
             tot[:, :, sl] += (w[:, :, :, None] * src[:, None, :, :]).sum(2)
     tot = tot.view(npad, lanes)
     if seed is not None:
-        tot = tot + seed
+        tot = tot + seed.long()  # the int64 accumulator, as the products
     new = tot.clamp_max(MP_SAT).to(torch.int32)
     if root >= 0:
         new[root] = 1

@@ -55,9 +55,11 @@ marshal / device / readback stages; the row scatter is the donation guard's
 no torch meaning.  With the observatory armed the stages run under the
 ``(kind bgp, engine fold, (prefixes, peers) bucket)`` dispatch context, and
 the first armed batch of each (kind, shape) gives the ``bgp.table`` cost
-entry: the fold's work tally (:mod:`holo_tpu_torch.kernels.work`).  Left out
-(ROADMAP): the kernel-contract audit registrations (A13c) and the telemetry
-leaf wiring (A4).
+entry: the fold's work tally (:mod:`holo_tpu_torch.kernels.work`).  The
+fold, decide, scatter and grow programs are registered with the
+kernel-contract audit under ``holo_tpu``'s names (``bgp.table.*``, at the end
+of this module; the scatter declared donated).  Left out (ROADMAP): the
+telemetry leaf wiring (A4).
 """
 
 from __future__ import annotations
@@ -839,3 +841,91 @@ class DeviceRankBackend:
 
         serves = self.device.type == "cpu"
         return self.breaker.call(_device, _fallback if serves else None, context="bgp.rank")
+
+
+# -- kernel-contract audit registrations (HL3xx) ------------------------
+# Inert contract descriptors for holo_tpu_torch.analysis.kernel_audit: the
+# builders return the functions the dispatch path calls, so the audit runs
+# the live programs.  The thunks run only when the audit runs.
+from holo_tpu_torch.analysis.kernels import register_kernel as _register_kernel  # noqa: E402
+
+_AUDIT_M, _AUDIT_C, _AUDIT_ROWS, _AUDIT_NH = 16, 8, 32, 8
+
+
+def _audit_lanes(rng, rows: int, cols: int) -> np.ndarray:
+    """Lane planes as a table holds them: about half the peer cells
+    occupied and one more a row, the local column empty, next-hop ids below
+    the next-hop table's width; empty cells all zero."""
+    planes = np.zeros((N_LANES, rows, cols), np.int32)
+    occ = (rng.random((rows, cols)) < 0.5).astype(np.int32)
+    occ[:, LOCAL_COL] = 0
+    occ[np.arange(rows), 1 + rng.integers(0, cols - 1, size=rows)] = 1
+    planes[L_LP] = _bias(0) + rng.integers(0, 250, size=(rows, cols))
+    planes[L_L1] = (rng.integers(1, 6, size=(rows, cols)) << 2) | rng.integers(0, 3, (rows, cols))
+    planes[L_MED] = _bias(0) + rng.integers(0, 1000, size=(rows, cols))
+    planes[L_FAS] = rng.integers(1, 4, size=(rows, cols))
+    planes[L_RT] = rng.integers(0, 2, size=(rows, cols))
+    planes[L_RID] = _bias(0) + rng.integers(0, 1 << 20, size=(rows, cols))
+    planes[L_HASRID] = 1
+    planes[L_NH] = rng.integers(0, _AUDIT_NH, size=(rows, cols))
+    planes[L_PATH] = rng.integers(0, 64, size=(rows, cols))
+    planes[L_LOOP] = (rng.random((rows, cols)) < 0.05).astype(np.int32)
+    planes *= occ
+    planes[L_OCC] = occ
+    return planes
+
+
+def _audit_bgp_specs(device) -> dict:
+    rng = np.random.default_rng(1)
+    c = _AUDIT_C
+    up = lambda x: torch.from_numpy(np.ascontiguousarray(x, np.int32)).to(device)  # noqa: E731
+    nht_res = (rng.random(_AUDIT_NH) < 0.8).astype(np.int32)
+    return {
+        "sub": up(_audit_lanes(rng, _AUDIT_M, c)),
+        "planes": up(_audit_lanes(rng, _AUDIT_ROWS, c)),
+        "rows": up(_audit_lanes(rng, _AUDIT_M, c)),
+        "idx": up(rng.permutation(_AUDIT_ROWS)[:_AUDIT_M]),
+        # candidate order: peers by address rank, the local column last
+        "order": up(np.r_[np.arange(1, c), LOCAL_COL]),
+        "rank": up(np.r_[0, np.arange(c - 1)]),
+        "has": up(np.r_[0, np.ones(c - 1)]),
+        "nht_enc": up(np.where(nht_res != 0, _bias(0) + rng.integers(1, 100, _AUDIT_NH),
+                               _bias(0))),
+        "nht_res": up(nht_res),
+        "mp": up([1, 2, 4]),
+    }
+
+
+def _pick(*keys):
+    return lambda device: (lambda a: tuple(a[k] for k in keys))(_audit_bgp_specs(device))
+
+
+_register_kernel(
+    "bgp.table.fold",
+    builder=lambda: fold_planes,
+    specs=_pick("sub", "order", "rank", "has", "nht_enc", "nht_res", "mp"),
+    buckets=32,  # pow2 row x pow2 peer-column buckets
+)
+
+_register_kernel(
+    "bgp.table.decide",
+    builder=lambda: decide,
+    specs=_pick("planes", "idx", "order", "rank", "has", "nht_enc", "nht_res", "mp"),
+    buckets=32,
+)
+
+_register_kernel(
+    "bgp.table.scatter",
+    builder=lambda: scatter_rows,
+    specs=_pick("planes", "idx", "rows"),
+    donate=(0,),
+    buckets=32,
+)
+
+_register_kernel(
+    "bgp.table.grow",
+    builder=lambda: grow_planes,
+    # Static grow amounts ride the spec tuple as plain ints.
+    specs=lambda device: (_audit_bgp_specs(device)["planes"], _AUDIT_ROWS, _AUDIT_C),
+    buckets=32,
+)

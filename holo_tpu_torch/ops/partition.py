@@ -64,7 +64,7 @@ import numpy as np
 import torch
 
 from holo_tpu_torch import telemetry
-from holo_tpu_torch.analysis.runtime import note_donated, read_flag
+from holo_tpu_torch.analysis.runtime import note_donated, read_flag, sanctioned_transfer
 from holo_tpu_torch.device import resolve_device
 from holo_tpu_torch.kernels import ell
 from holo_tpu_torch.ops.graph import INF as _INF
@@ -281,7 +281,8 @@ class PartStack(NamedTuple):
         if p in self.parts:
             i = self.parts.index(p)
             row = int(self.local(plan, i, np.asarray([plan.root_row]))[0])
-        return torch.tensor([row], dtype=torch.int32, device=self.slot.device)
+        # A fill on the device: no host tensor is copied up.
+        return torch.full((1,), row, dtype=torch.int32, device=self.slot.device)
 
 
 def slot_plane(g: DeviceGraph, edge_mask: torch.Tensor | None) -> torch.Tensor:
@@ -308,9 +309,11 @@ def part_stack(plan: PartitionPlan, g: DeviceGraph, parts, edge_mask=None) -> Pa
             if parts else np.zeros(0, np.int64)).astype(np.int64)
     shift = np.repeat(base[:-1] - plan.base[parts], sizes).astype(np.int32)
     dev = g.in_src.device
-    idx = torch.from_numpy(rows).to(dev)
+    with sanctioned_transfer("spf.partition.gather"):
+        idx = torch.from_numpy(rows).to(dev)
+        shift_t = torch.from_numpy(shift).to(dev)
     sub = DeviceGraph(
-        in_src=(g.in_src[idx] + torch.from_numpy(shift).to(dev)[:, None]).contiguous(),
+        in_src=(g.in_src[idx] + shift_t[:, None]).contiguous(),
         in_cost=g.in_cost[idx], in_valid=g.in_valid[idx], in_edge_id=g.in_edge_id[idx],
         direct_nh_words=g.direct_nh_words[idx], is_router=g.is_router[idx],
     )
@@ -330,6 +333,17 @@ def relax_fixpoint(st: PartStack, dist: torch.Tensor, limit: int) -> tuple[torch
         if not read_flag("spf.flag.partition_relax", changed):
             break
     return dist, rounds
+
+
+def boundary_dist(st: PartStack, rows: torch.Tensor, cols: torch.Tensor, lanes: int,
+                  limit: int) -> tuple[torch.Tensor, int]:
+    """Phase 1's device program for one chunk of lanes (JAX's
+    ``boundary_dist_kernel``): (dist int32 [R_sub, lanes], relax rounds),
+    lane ``cols[i]`` seeded 0 at stack row ``rows[i]`` (int64 tensors on the
+    stack's device), INF elsewhere, then :func:`relax_fixpoint`."""
+    dist = torch.full((st.n_rows, lanes), INF, dtype=torch.int32, device=rows.device)
+    dist.index_put_((rows, cols), torch.zeros(rows.shape, dtype=torch.int32, device=rows.device))
+    return relax_fixpoint(st, dist, limit)
 
 
 def boundary_tables(plan: PartitionPlan, st: PartStack, limit: int,
@@ -359,10 +373,8 @@ def boundary_tables(plan: PartitionPlan, st: PartStack, limit: int,
     for c0 in range(0, lanes, chunk):
         c1 = min(c0 + chunk, lanes)
         sel = (col >= c0) & (col < c1)
-        dist = torch.full((st.n_rows, c1 - c0), INF, dtype=torch.int32, device=dev)
-        dist[rows_t[torch.from_numpy(sel).to(dev)],
-             torch.from_numpy(col[sel] - c0).to(dev)] = 0
-        dist, r = relax_fixpoint(st, dist, limit)
+        dist, r = boundary_dist(st, torch.from_numpy(rows[sel]).to(dev),
+                                torch.from_numpy(col[sel] - c0).to(dev), c1 - c0, limit)
         rounds += r
         out = dist[rows_t].cpu().numpy()  # [S_sub, c1 - c0]
         note_partition("bdist")
@@ -502,7 +514,7 @@ def pinned_fixpoint(st: PartStack, d: _Dag, pin_rows: torch.Tensor, pins, kp: in
     for x, s in zip(before, state):
         if x is not None:
             x[pin_rows] = s[pin_rows]
-    front[pin_rows] = 0
+    front.index_fill_(0, pin_rows, 0)  # a fill on the device, no host scalar
     changed = read_flag("spf.flag.partition_pin", front.any())
     state, before = before, state
     if not changed:
@@ -985,3 +997,109 @@ def assemble(plan: PartitionPlan, dist: np.ndarray, planes, sets, kp: int) -> di
                    pweight=scatter(sets[2], 0, kp), npaths=npv,
                    nh_weights=scatter(aw, 0, aw.shape[1]))
     return out
+
+
+# -- kernel-contract audit registrations (HL3xx) ------------------------
+# Inert contract descriptors for holo_tpu_torch.analysis.kernel_audit: the
+# device programs of PartitionedSpfEngine's phases (holo_tpu's partition
+# kernels), at a fixed audit limit.  The thunks run only when the audit
+# runs.
+from holo_tpu_torch.analysis.kernels import register_kernel as _register_kernel  # noqa: E402
+
+#: ``holo_tpu``'s audit sizes: 4 parts of 32 rows (here 4 grid areas of 4 x 8
+#: routers joined by 2 gateway pairs each, plus their halo rows).
+_AUDIT_P, _AUDIT_L = 4, 32
+_AUDIT_LIMIT = 32
+
+
+def audit_part_topology() -> Topology:
+    from holo_tpu_torch.spf.synth import multiarea_topology
+
+    return multiarea_topology(_AUDIT_P, 4, _AUDIT_L // 4, gateways=2, seed=1)
+
+
+def _audit_part_specs(device) -> dict:
+    """The resident of the audit topology on ``device`` after one full
+    solve, and each phase's device inputs built from it as the engine builds
+    them."""
+    topo = audit_part_topology()
+    eng = PartitionedSpfEngine(device)
+    res = eng.marshal(topo, 64)
+    eng.solve(topo, res)
+    plan = res.plan
+    st = part_stack(plan, res.graph, range(plan.n_parts))
+    counts = [plan.bnd[p].shape[0] for p in st.parts]
+    rows = np.concatenate([st.local(plan, i, plan.bnd_rows[p]) for i, p in enumerate(st.parts)])
+    cols = np.concatenate([np.arange(c) for c in counts]).astype(np.int64)
+    pin = np.concatenate([plan.halo_rows[p] for p in st.parts]).astype(np.int64)
+    pos = np.concatenate([plan.halo_skel[p] for p in st.parts]).astype(np.int64)
+    hops = res.tables["hops"][pos]
+    pins = (np.where(hops >= plan.n_vertices + 1, st.n_rows + 1, hops), res.tables["nh"][pos])
+    up = lambda x, dt=torch.int32: torch.from_numpy(np.ascontiguousarray(x)).to(device, dt)  # noqa: E731
+    return {
+        "plan": plan, "g": res.graph, "st": st, "rows": up(rows, torch.int64),
+        "cols": up(cols, torch.int64), "lanes": int(max(counts)),
+        "seed": up(final_seeds(plan, st, res.skel_dist)[:, None]),
+        "dist": up(res.dist[:, None]), "pin": up(pin, torch.int64),
+        "pins": tuple(up(x) for x in pins), "parts": [1, 2],
+        "res": res, "eng": eng, "topo": topo,
+    }
+
+
+def _audit_part_delta_specs(device) -> tuple:
+    """(the resident's graph, a delta lowered against its mirror): one
+    link's cost raised inside area 1."""
+    from holo_tpu_torch.ops.graph import diff_topologies
+    from holo_tpu_torch.spf.synth import clone_topology
+
+    a = _audit_part_specs(device)
+    topo, plan = a["topo"], a["plan"]
+    inner = np.nonzero((plan.part_of[topo.edge_src] == 1)
+                       & (plan.part_of[topo.edge_dst] == 1))[0]
+    e = int(inner[0])
+    new = clone_topology(topo, cost={e: int(topo.edge_cost[e]) + 3})
+    ops, _ = a["eng"]._lower_delta(a["res"], diff_topologies(topo, new))
+    return a["g"], ops
+
+
+def _pick(*keys):
+    return lambda device: (lambda a: tuple(a[k] for k in keys))(_audit_part_specs(device))
+
+
+_register_kernel(
+    "spf.partition.bdist",
+    builder=lambda: lambda st, rows, cols, lanes: boundary_dist(
+        st, rows, cols, lanes, _AUDIT_LIMIT),
+    specs=_pick("st", "rows", "cols", "lanes"),
+    buckets=16,  # pow2 partition-lane x root-chunk buckets
+)
+
+_register_kernel(
+    "spf.partition.fdist",
+    builder=lambda: lambda st, seed: relax_fixpoint(st, seed, _AUDIT_LIMIT),
+    specs=_pick("st", "seed"),
+    buckets=16,
+)
+
+_register_kernel(
+    "spf.partition.phase2",
+    builder=lambda: lambda plan, st, dist, pin, pins: pinned_fixpoint(
+        st, stack_dag(plan, st, dist, 1), pin, pins, 1, _AUDIT_LIMIT),
+    specs=_pick("plan", "st", "dist", "pin", "pins"),
+    buckets=16,
+)
+
+_register_kernel(
+    "spf.partition.gather",
+    builder=lambda: part_stack,
+    specs=_pick("plan", "g", "parts"),
+    buckets=8,  # pow2 gather-subset lanes
+)
+
+_register_kernel(
+    "spf.partition.apply_delta",
+    builder=lambda: apply_delta_slots,
+    specs=_audit_part_delta_specs,
+    donate=(0,),
+    buckets=16,  # pow2 delta-row pads
+)

@@ -1207,3 +1207,107 @@ def spf_one_incremental_multipath(g: DeviceGraph, root: int, prev: SpfTensors, p
                           npaths=torch.where(reach, npaths[:, 0], 0),
                           nh_weights=aw[:, :, 0])
     return sp, mp
+
+
+# -- kernel-contract audit registrations (HL3xx) ------------------------
+# Inert contract descriptors for holo_tpu_torch.analysis.kernel_audit: the
+# builder and spec thunks run only when the audit runs; registration is a
+# dict write, so the dispatch path never pays for them.
+from holo_tpu_torch.analysis.kernels import register_kernel as _register_kernel  # noqa: E402
+
+#: ``holo_tpu``'s audit sizes: 64 vertices, ELL width 8, 2 next-hop words (64
+#: atoms), 8 scenario / root lanes.  The graph is a seeded synthetic OSPF
+#: topology (56 routers, 8 transit networks, 158 edges where ``holo_tpu``'s
+#: abstract planes have 128), so every fixpoint converges as it does in use.
+_AUDIT_N, _AUDIT_W = 64, 2
+_AUDIT_B = 8  # scenario/root batch lanes
+_AUDIT_SEED = 1
+
+
+def audit_topology():
+    """The audit's topology (root: router 0)."""
+    from holo_tpu_torch.spf.synth import random_ospf_topology
+
+    return random_ospf_topology(_AUDIT_N - 8, 8, extra_p2p=0, seed=_AUDIT_SEED)
+
+
+def audit_delta_topology(base):
+    """``base`` with edge 0's cost raised by 5 and edge 2 removed, linked to
+    ``base`` as a delta (a weight op, a removal, three seed rows)."""
+    from holo_tpu_torch.ops.graph import diff_topologies
+    from holo_tpu_torch.spf.synth import clone_topology
+
+    keep = np.ones(base.n_edges, bool)
+    keep[2] = False
+    new = clone_topology(base, keep=keep, cost={0: int(base.edge_cost[0]) + 5})
+    new.link_delta(diff_topologies(base, new))
+    return new
+
+
+def audit_ell(topo) -> EllGraph:
+    return build_ell(topo, n_atoms=32 * _AUDIT_W)
+
+
+def audit_masks(topo) -> np.ndarray:
+    """bool [B, E] single-link failures (scenario 0 fails nothing)."""
+    from holo_tpu_torch.spf.synth import whatif_link_failure_masks
+
+    return whatif_link_failure_masks(topo, _AUDIT_B, seed=_AUDIT_SEED)
+
+
+def audit_roots(topo) -> np.ndarray:
+    return np.sort(np.random.default_rng(_AUDIT_SEED).choice(
+        topo.n_vertices, _AUDIT_B, replace=False)).astype(np.int32)
+
+
+def audit_specs(device) -> dict:
+    """The arguments the registered programs take, on ``device``: the graph,
+    the root, roots [B], a mask [E] and masks [B, E] (host bools, as the
+    backend passes them)."""
+    topo = audit_topology()
+    masks = audit_masks(topo)
+    return {
+        "topo": topo,
+        "g": device_graph_from_ell(audit_ell(topo), device),
+        "root": int(topo.root),
+        "roots": audit_roots(topo),
+        "mask": masks[1],
+        "masks": masks,
+    }
+
+
+def audit_incremental_specs(device, kp: int = 1) -> dict:
+    """The DeltaPath arguments on ``device``: the delta graph, the previous
+    run's planes on the base graph (``spf_one``; for ``kp`` > 1 the
+    multipath run's, with its ``npaths`` and ``nh_weights``) and the seed
+    rows."""
+    base = audit_topology()
+    new = audit_delta_topology(base)
+    g0 = device_graph_from_ell(audit_ell(base), device)
+    out = {"base": base, "topo": new, "root": int(base.root),
+           "g": device_graph_from_ell(audit_ell(new), device),
+           "seeds": new.delta_base.seed_rows()}
+    if kp > 1:
+        out["sp"], out["mp"] = spf_one_multipath(g0, out["root"], kp)
+    else:
+        out["sp"] = spf_one(g0, out["root"])
+    return out
+
+
+def _audit_delta_specs(device) -> tuple:
+    """(resident graph, lowered delta): the resident marshaled from the base
+    topology, the delta lowered against its mirror."""
+    base = audit_topology()
+    ell_graph = audit_ell(base)
+    g = device_graph_from_ell(ell_graph, device)
+    new = audit_delta_topology(base)
+    return g, lower_delta(_EllMirror(ell_graph), new.delta_base, base.n_vertices)
+
+
+_register_kernel(
+    "spf.delta.apply",
+    builder=lambda: apply_delta_slots,
+    specs=_audit_delta_specs,
+    donate=(0,),
+    buckets=16,  # pow2 delta-row pads above _DELTA_PAD_FLOOR, per shape
+)

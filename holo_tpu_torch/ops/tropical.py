@@ -319,13 +319,18 @@ def rows_to_bits(rows, tt: TropicalTiles) -> torch.Tensor:
     """Explicit repair rows (int32 [S, M] vertex ids, each lane's; ids at or
     past N are padding) -> the lane-bit plane [NB * B, ceil(S / 32)]."""
     dev = tt.inv.device
-    rows = torch.as_tensor(np.asarray(rows, np.int64)).to(dev)
-    n = tt.inv.shape[0]
-    flags = torch.zeros((tt.perm.shape[0], rows.shape[0]), dtype=torch.bool, device=dev)
-    lane = torch.arange(rows.shape[0], device=dev)[:, None].expand_as(rows)
-    keep = (rows >= 0) & (rows < n)
-    flags[tt.inv[rows[keep]].long(), lane[keep]] = True
-    return ell.pack_lane_bits(flags)
+    with sanctioned_transfer("spf.tiles.repair_rows"):
+        rows = torch.as_tensor(np.asarray(rows, np.int64)).to(dev)
+    n, npad = tt.inv.shape[0], tt.perm.shape[0]
+    # Padding ids land in a spare row past the planes, which is dropped: no
+    # boolean-mask index (a data-dependent shape) and no host scalar.
+    flags = torch.zeros((npad + 1, rows.shape[0]), dtype=torch.bool, device=dev)
+    if rows.numel() and n:
+        keep = (rows >= 0) & (rows < n)
+        prow = torch.where(keep, tt.inv[rows.clamp(0, n - 1)].long(), npad)
+        lane = torch.arange(rows.shape[0], device=dev)[:, None].expand_as(rows)
+        flags.index_put_((prow, lane), torch.ones_like(keep))
+    return ell.pack_lane_bits(flags[:npad])
 
 
 def tile_relax(g, tt: TropicalTiles, dist0: torch.Tensor, mask=None, repair=None,
@@ -427,7 +432,8 @@ def tropical_multiroot(g, tt: TropicalTiles, roots, edge_mask=None, repair_rows=
     all (``repair_rows`` [M] or None, as in :func:`tropical_spf_one`).  No
     next-hop plane, as ``spf_multiroot``."""
     dev = g.in_src.device
-    roots_t = torch.as_tensor(np.asarray(roots, np.int32)).to(dev)
+    with sanctioned_transfer("spf.roots.upload"):
+        roots_t = torch.as_tensor(np.asarray(roots, np.int32)).to(dev)
     lanes = roots_t.shape[0]
     mask = None
     if edge_mask is not None:
@@ -485,7 +491,7 @@ def direct_atom_seed(g, direct: torch.Tensor, npaths: torch.Tensor) -> torch.Ten
     val = torch.where(direct, npaths[g.in_src.long()], 0)  # [N, K]
     seed = torch.empty((n, words.shape[2], 32), dtype=torch.int32, device=direct.device)
     for bit in range(32):
-        seed[:, :, bit] = (((words >> bit) & 1) * val[:, :, None]).sum(1)
+        seed[:, :, bit] = (((words >> bit) & 1) * val[:, :, None]).sum(1, dtype=torch.int32)
     return seed.view(n, -1)
 
 
@@ -618,3 +624,121 @@ def tropical_spf_one_incremental_multipath(g, tt: TropicalTiles, root: int,
                                          prev_nh_weights, kp, limit)
     se._note_phases(stats, record, rounds)
     return sp, mp
+
+
+# -- kernel-contract audit registrations (HL3xx) ------------------------
+# Inert contract descriptors for holo_tpu_torch.analysis.kernel_audit: the
+# programs are the backend's tropical calls (same argument order,
+# max_iters=None), with holo_tpu's explicit repair rows.  The thunks run
+# only when the audit runs.
+from holo_tpu_torch.analysis.kernels import register_kernel as _register_kernel  # noqa: E402
+
+_AUDIT_RR = 8  # repair-row pad lanes
+
+
+def audit_tiles(ell_graph, device) -> TropicalTiles:
+    """The tile planes of an ELL marshal, on ``device``."""
+    host, _ = build_tiles_host(ell_graph.in_src, ell_graph.in_cost, ell_graph.in_valid)
+    return tiles_on(host, device)
+
+
+def _audit_specs(device) -> dict:
+    """``spf_engine.audit_specs`` plus the tiles and the repair rows of the
+    mask ([M]) and of the masks ([B, M])."""
+    a = se.audit_specs(device)
+    topo = a["topo"]
+    a["tt"] = audit_tiles(se.audit_ell(topo), device)
+    rows = repair_rows_host(topo.edge_dst, a["masks"], topo.n_vertices)
+    a["rrs"] = _pad_lanes(rows, _AUDIT_RR, topo.n_vertices)
+    a["rr"] = a["rrs"][1]
+    return a
+
+
+def _pad_lanes(rows: np.ndarray, m: int, sentinel: int) -> np.ndarray:
+    out = np.full((rows.shape[0], max(m, rows.shape[1])), sentinel, np.int32)
+    out[:, : rows.shape[1]] = rows
+    return out
+
+
+def _audit_incremental_specs(device, kp: int = 1) -> tuple:
+    a = se.audit_incremental_specs(device, kp)
+    tt = audit_tiles(se.audit_ell(a["topo"]), device)
+    head = (a["g"], tt, a["root"], a["sp"])
+    if kp > 1:
+        head += (a["mp"].npaths, a["mp"].nh_weights)
+    return head + (a["seeds"],)
+
+
+def _audit_tile_delta_specs(device) -> tuple:
+    """(resident tiles, lowered tile delta): the base topology's tiles, the
+    delta lowered against the post-delta mirror, as the graph cache does."""
+    base = se.audit_topology()
+    ell_graph = se.audit_ell(base)
+    host, meta = build_tiles_host(ell_graph.in_src, ell_graph.in_cost, ell_graph.in_valid)
+    new = se.audit_delta_topology(base)
+    mirror = se._EllMirror(ell_graph)
+    se.lower_delta(mirror, new.delta_base, base.n_vertices)
+    return tiles_on(host, device), lower_tile_delta(mirror, new.delta_base, meta)
+
+
+def _pick(*keys):
+    return lambda device: (lambda a: tuple(a[k] for k in keys))(_audit_specs(device))
+
+
+_register_kernel(
+    "spf.delta.apply_tiles",
+    builder=lambda: apply_tile_delta,
+    specs=_audit_tile_delta_specs,
+    donate=(0,),
+    buckets=16,  # pow2 delta-row pads x block-size buckets
+)
+
+_register_kernel(
+    "spf.tropical.one",
+    builder=lambda: lambda g, tt, r, m, rr: tropical_spf_one(g, tt, r, m, rr, None),
+    specs=_pick("g", "tt", "root", "mask", "rr"),
+    buckets=5,  # one program per pow2 tile block size (8..128)
+)
+
+_register_kernel(
+    "spf.tropical.whatif",
+    builder=lambda: lambda g, tt, r, ms, rr: tropical_whatif_batch(g, tt, r, ms, rr, None),
+    specs=_pick("g", "tt", "root", "masks", "rrs"),
+    buckets=16,  # block-size x scenario-chunk buckets
+)
+
+_register_kernel(
+    "spf.tropical.multiroot",
+    builder=lambda: lambda g, tt, rs, m, rr: tropical_multiroot(g, tt, rs, m, rr, None),
+    specs=_pick("g", "tt", "roots", "mask", "rr"),
+    buckets=16,
+)
+
+_register_kernel(
+    "spf.tropical.multipath.k2",
+    builder=lambda: lambda g, tt, r, m, rr: tropical_spf_one_multipath(
+        g, tt, r, 2, m, rr, None),
+    specs=_pick("g", "tt", "root", "mask", "rr"),
+    buckets=20,  # block-size x kp {1,2,4,8} buckets
+)
+
+# holo_tpu donates the previous planes (argument 3); the port's tropical
+# DeltaPath reads them and makes new planes, so it declares no donation.
+_register_kernel(
+    "spf.tropical.incremental",
+    builder=lambda: lambda g, tt, r, prev, seeds: tropical_spf_one_incremental(
+        g, tt, r, prev, seeds, None),
+    specs=_audit_incremental_specs,
+    buckets=16,  # block-size x pow2 seed-row pads
+)
+
+# holo_tpu donates the previous planes, npaths and nh_weights (arguments 3,
+# 4 and 5); the port only reads them (the tile fixpoints copy their seeds),
+# so it declares no donation.
+_register_kernel(
+    "spf.tropical.incremental.multipath.k2",
+    builder=lambda: lambda g, tt, r, prev, np_p, aw_p, seeds: (
+        tropical_spf_one_incremental_multipath(g, tt, r, prev, np_p, aw_p, seeds, 2, None)),
+    specs=lambda device: _audit_incremental_specs(device, 2),
+    buckets=32,
+)

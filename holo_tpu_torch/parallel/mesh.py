@@ -43,8 +43,11 @@ thread (concurrency across distinct cards is A12b too).  The axis sizes are
 ``holo_parallel_mesh_size{axis}`` (and :func:`mesh_stats`); a sharded program
 given its dispatch ``site`` times each shard's device phase on that shard's
 own CUDA events, one ``device=<index>`` row each
-(``telemetry.profiling.device_stages``).  ``holo_tpu``'s audit
-registrations come with the kernel-contract audit (ROADMAP A13c).
+(``telemetry.profiling.device_stages``).  The four sharded programs are
+registered with the kernel-contract audit under ``holo_tpu``'s names
+(``spf.shard.*``, at the end of this module): HL305 holds each to one
+:func:`gather_batch` join on a two-device mesh, which :func:`join_count`
+counts per thread.
 """
 
 from __future__ import annotations
@@ -266,12 +269,24 @@ def _join(parts: list, b: int):
     return type(first)(*items) if hasattr(first, "_fields") else tuple(items)
 
 
+# Joins of batch shards made on each thread (the kernel-contract audit's
+# HL305 counts them during a per-mesh program, as holo_tpu's counts the
+# sharding_constraint eqns of a lowered one).
+_JOINS = threading.local()
+
+
+def join_count() -> int:
+    """How many times :func:`gather_batch` joined shards on this thread."""
+    return getattr(_JOINS, "n", 0)
+
+
 def gather_batch(mesh: Mesh, parts: list, b: int):
     """The shards' outputs (read back to the host) joined in batch order along
     the leading axis and sliced to ``b`` (``constrain_batch``'s twin); on a
     size-1 mesh the one part as it is."""
     if mesh.size == 1:
         return parts[0]
+    _JOINS.n = join_count() + 1
     return _join(parts, b)
 
 
@@ -391,3 +406,62 @@ def replicated_device(mesh: Mesh) -> torch.device:
     a batch of independent lanes the port splits, so one copy on the first
     batch device serves it."""
     return mesh.batch_device(0)
+
+
+# -- kernel-contract audit registrations (HL3xx) ------------------------
+# Inert contract descriptors for holo_tpu_torch.analysis.kernel_audit: the
+# sharded programs above, each of which must join its batch shards
+# (gather_batch) on a multi-device mesh; the audit passes its own two-entry
+# mesh.  The thunks run only when the audit runs.
+from holo_tpu_torch.analysis.kernels import register_kernel as _register_kernel  # noqa: E402
+
+
+def _audit_mesh_specs(*keys):
+    def specs(device):
+        from holo_tpu_torch.ops.tropical import _audit_specs
+
+        a = _audit_specs(device)
+        return tuple(a[k] for k in keys)
+
+    return specs
+
+
+_register_kernel(
+    "spf.shard.whatif",
+    builder=lambda mesh: lambda g, r, ms: sharded_whatif_program(
+        mesh, lambda dev: g, r, ms, None, "seq"),
+    specs=_audit_mesh_specs("g", "root", "masks"),
+    fences=1,
+    needs_mesh=True,
+    buckets=16,  # pow2 scenario lanes x mesh identities
+)
+
+_register_kernel(
+    "spf.shard.multipath.k2",
+    builder=lambda mesh: lambda g, r, ms: sharded_multipath_program(
+        mesh, lambda dev: g, r, ms, 2, None),
+    specs=_audit_mesh_specs("g", "root", "masks"),
+    fences=1,
+    needs_mesh=True,
+    buckets=32,
+)
+
+_register_kernel(
+    "spf.shard.tropical.whatif",
+    builder=lambda mesh: lambda g, tt, r, ms, rrs: sharded_tropical_whatif_program(
+        mesh, lambda dev: (g, tt), r, ms, rrs, None),
+    specs=_audit_mesh_specs("g", "tt", "root", "masks", "rrs"),
+    fences=1,
+    needs_mesh=True,
+    buckets=32,
+)
+
+_register_kernel(
+    "spf.shard.tropical.multiroot",
+    builder=lambda mesh: lambda g, tt, rs, m, rr: sharded_tropical_multiroot_program(
+        mesh, lambda dev: (g, tt), rs, m, rr, None),
+    specs=_audit_mesh_specs("g", "tt", "roots", "mask", "rr"),
+    fences=1,
+    needs_mesh=True,
+    buckets=32,
+)

@@ -1271,3 +1271,88 @@ class TorchSpfBackend(SpfBackend):
             SpfResult(dist=dist[i], parent=parent[i], hops=hops[i], nexthop_words=nh[i])
             for i in range(dist.shape[0])
         ]
+
+
+# -- kernel-contract audit registrations (HL3xx) ------------------------
+# The gather path's dispatch programs, as holo_tpu registers its jits of
+# them: the same functions, the same argument order, max_iters=None.  The
+# thunks run only when the audit runs.
+from holo_tpu_torch.analysis.kernels import register_kernel as _register_kernel  # noqa: E402
+
+
+def _audit_specs(device, pick):
+    from holo_tpu_torch.ops.spf_engine import audit_specs
+
+    a = audit_specs(device)
+    return tuple(a[k] for k in pick)
+
+
+def _audit_incremental_specs(device, kp: int = 1):
+    from holo_tpu_torch.ops.spf_engine import audit_incremental_specs
+
+    a = audit_incremental_specs(device, kp)
+    if kp == 1:
+        return a["g"], a["root"], a["sp"], a["seeds"]
+    return a["g"], a["root"], a["sp"], a["mp"].npaths, a["mp"].nh_weights, a["seeds"]
+
+
+def _register_one_engines() -> None:
+    for eng in sorted(_ONE_ENGINES):
+        _register_kernel(
+            f"spf.one.{eng}",
+            builder=lambda e=eng: lambda g, r, m: _ONE_ENGINES[e](g, r, m, None),
+            specs=lambda device: _audit_specs(device, ("g", "root", "mask")),
+            buckets=4,  # engine picked per dispatch; shapes ride the resident
+        )
+
+
+_register_one_engines()
+
+_register_kernel(
+    "spf.whatif.batch",
+    builder=lambda: lambda g, r, ms: spf_whatif_batch(g, r, ms, None, engine="seq"),
+    specs=lambda device: _audit_specs(device, ("g", "root", "masks")),
+    buckets=16,  # pow2 scenario-lane pads per shape
+)
+
+_register_kernel(
+    "spf.multiroot",
+    builder=lambda: lambda g, rs, m: spf_multiroot(g, rs, m, None),
+    specs=lambda device: _audit_specs(device, ("g", "roots", "mask")),
+    buckets=16,
+)
+
+# holo_tpu donates the previous planes (argument 2) to the incremental jit;
+# the port reads them and makes new planes (ops/spf_engine.py,
+# spf_one_incremental), so it declares no donation.
+_register_kernel(
+    "spf.one.incremental",
+    builder=lambda: lambda g, r, prev, seeds: spf_one_incremental(g, r, prev, seeds, None),
+    specs=_audit_incremental_specs,
+    buckets=16,  # pow2 seed-row pads per shape
+)
+
+_register_kernel(
+    "spf.one.multipath.k2",
+    builder=lambda: lambda g, r, m: spf_one_multipath(g, r, 2, m, None),
+    specs=lambda device: _audit_specs(device, ("g", "root", "mask")),
+    buckets=4,  # kp collapses onto {1, 2, 4, 8}
+)
+
+_register_kernel(
+    "spf.multipath.batch.k2",
+    builder=lambda: lambda g, r, ms: spf_multipath_batch(g, r, ms, 2, None),
+    specs=lambda device: _audit_specs(device, ("g", "root", "masks")),
+    buckets=32,  # kp x scenario-lane buckets
+)
+
+# holo_tpu donates the previous planes, npaths and nh_weights (arguments 2,
+# 3 and 4); the port's multipath DeltaPath only reads them (mp_resume
+# copies the seeds), so it declares no donation.
+_register_kernel(
+    "spf.one.incremental.multipath.k2",
+    builder=lambda: lambda g, r, prev, np_p, aw_p, seeds: spf_one_incremental_multipath(
+        g, r, prev, np_p, aw_p, seeds, 2, None),
+    specs=lambda device: _audit_incremental_specs(device, 2),
+    buckets=32,
+)
