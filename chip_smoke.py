@@ -260,6 +260,21 @@ the DeltaPath chain, and its multipath program through ``compute`` at
    in this process, whose kernels and findings must equal the card's; no
    error-tier finding, value lanes only int32 and bool, beside the card's
    name and power limit;
+3r. (after the breaker check of phase 4) the port-side pieces the daemon
+   launcher ``holod_torch.py`` calls (it runs ``holo_tpu``'s daemon, which
+   imports JAX, so the launcher itself is not run here): (a) the breaker's
+   process defaults -- backends built through the launcher's no-argument
+   class shape (``TorchSpfBackend.bound_to``) on the card, a warm k=90
+   ``compute()`` timed, ``configure_defaults`` set to a deadline below it,
+   then one more ``compute()`` from a fresh backend must overrun: counted
+   as a ``deadline`` failure, re-raised as ``DeadlineOverrun``, no fallback
+   and no oracle call; the defaults restored (this is why the launcher
+   arms no deadline on the card: an overrun would fail the protocol's
+   SPF); (b) the ``holo-telemetry``
+   state leaf (``telemetry.provider.state_leaf``) is JSON, names
+   ``cuda:0`` and shows the graph cache (per device) and the residency
+   ledger; (c) the port registry's Prometheus text has each family once;
+   the phase's seconds beside the card's name and power limit;
 4. time each kernel (CUDA events; at one scenario also the profiler's
    device time, which leaves out the host's launch), its plain version, the
    whole batch, ``compute()`` and the gather batch's stages, and DeltaPath's
@@ -4441,6 +4456,81 @@ def audit_phase(dev, topo, masks, chain, n_atoms) -> dict:
     return x
 
 
+def launcher_phase(dev, topo) -> dict:
+    """Phase 3r: the launcher's port-side pieces on the card (module
+    docstring).  Runs after the run's breaker check: its overrun is a
+    counted failure on purpose."""
+    import re
+
+    from holo_tpu_torch import telemetry
+    from holo_tpu_torch.resilience import breaker as br
+    from holo_tpu_torch.spf.backend import TorchSpfBackend
+    from holo_tpu_torch.telemetry import prometheus, provider
+
+    t0 = time.perf_counter()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    # (a) the breaker's process defaults, on the launcher's class shape.
+    cls = TorchSpfBackend.bound_to(dev)
+    warm = cls()
+    require(warm.device.type == "cuda", f"3r (a): the class shape runs on {warm.device}")
+    warm.compute(topo)
+    compute_s = host_ms(lambda: warm.compute(topo), 3) / 1e3
+    deadline = compute_s / 8
+    saved = dict(br.DEFAULTS)
+    try:
+        br.configure_defaults(deadline=deadline)
+        be = cls()
+        require(be.breaker.deadline == deadline, "3r (a): the new breaker missed the default")
+        oracle_calls = []
+        be._oracle.compute = lambda *a, **k: oracle_calls.append(1)
+        raised = None
+        try:
+            be.compute(topo)
+        except br.DeadlineOverrun as e:
+            raised = e
+        snap = be.breaker.snapshot()
+        require(raised is not None, "3r (a): a compute() past its deadline did not raise")
+        require(snap["failures"] == {"deadline": 1} and snap["fallbacks"] == {}
+                and snap["refusals"] == {} and not oracle_calls,
+                f"3r (a): overrun counts {snap}, oracle calls {len(oracle_calls)}")
+        tal = {k: v for k, v in br.tallies().items() if k[0] == be.breaker.name}
+        require(tal == {(be.breaker.name, "failures", "deadline"): 1},
+                f"3r (a): process tallies of the overrun {tal}")
+    finally:
+        br.DEFAULTS.clear()
+        br.DEFAULTS.update(saved)
+    require(cls().breaker.deadline is None, "3r (a): the defaults were not restored")
+    print(f"3r (a) breaker defaults: a warm k=90 compute() {compute_s * 1e3:.3f} ms, deadline "
+          f"{deadline * 1e3:.3f} ms: the next compute() raised {type(raised).__name__} "
+          f"({raised}), counted {snap['failures']}, fallbacks {snap['fallbacks']}, oracle "
+          f"calls {len(oracle_calls)}; defaults restored ({smi})", flush=True)
+    # (b) the holo-telemetry state leaf.
+    leaf = json.loads(json.dumps(provider.state_leaf(device=dev)))
+    cache = leaf.get("spf-graph-cache", {})
+    placed = cache.get("per-device", {}).get("cuda:0", {})
+    planes = leaf.get("device-residency", {}).get("planes", {})
+    require(leaf.get("device") == "cuda:0", f"3r (b): the leaf names {leaf.get('device')}")
+    require(placed.get("entries", 0) >= 1 and placed.get("bytes", 0) > 0,
+            f"3r (b): graph cache placement {cache.get('per-device')}")
+    require(planes.get("spf-graph", {}).get("entries", 0) >= 1,
+            f"3r (b): residency planes {planes}")
+    print(f"3r (b) state leaf: {len(json.dumps(leaf))} bytes of JSON, device {leaf['device']}, "
+          f"keys {sorted(k for k in leaf if k != 'metric')}, {len(leaf['metric'])} metric rows, "
+          f"graph cache {cache['entries']} entries (cuda:0: {placed}), residency "
+          f"{leaf['device-residency']['total-bytes']} bytes", flush=True)
+    # (c) the metrics text.
+    text = prometheus.render_text(telemetry.registry())
+    types = re.findall(r"^# TYPE (\S+) ", text, re.M)
+    require(types and len(types) == len(set(types)),
+            f"3r (c): families twice {sorted(t for t in types if types.count(t) > 1)}")
+    print(f"3r (c) metrics text: {len(types)} families, each once, {len(text)} bytes",
+          flush=True)
+    x = {"compute_s": compute_s, "deadline_s": deadline, "phase_s": time.perf_counter() - t0}
+    print(f"launcher phase 3r checked in {x['phase_s']:.1f} s ({smi})", flush=True)
+    return x
+
+
 def oracle_result(ref, n_atoms: int):
     """The oracle's planes under SpfResult's field names."""
     return type("Ref", (), {"dist": ref.dist, "parent": ref.parent, "hops": ref.hops,
@@ -5554,6 +5644,10 @@ def main() -> None:
                 for b in live.values()), "a live breaker counted a failure")
     print(f"breakers: {len(live)} live, no failure, fallback or refusal in the run",
           flush=True)
+    # -- 3r. the daemon launcher's port-side pieces: the breaker's process
+    # defaults (a deadline overrun counted and re-raised), the state leaf and
+    # the metrics text
+    launcher_phase(dev, topo)
     print(json.dumps({"kernels": kernel_rows}), flush=True)
     print(smi, flush=True)
     print(f"chip_smoke wall: {time.perf_counter() - t_start:.1f} s", flush=True)

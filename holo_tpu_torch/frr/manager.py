@@ -125,6 +125,17 @@ class FrrConfig:
     def active(self) -> bool:
         return self.enabled
 
+    @classmethod
+    def from_policy(cls, policy, engine: str = "torch") -> "FrrConfig":
+        """The port's policy with the fields of ``policy``, a fast-reroute
+        policy of the same shape (``holo_tpu``'s ``FrrConfig``), run by
+        ``engine``."""
+        return cls(enabled=bool(policy.enabled), remote_lfa=bool(policy.remote_lfa),
+                   ti_lfa=bool(policy.ti_lfa), engine=engine,
+                   node_protection=bool(policy.node_protection),
+                   srlg_disjoint=bool(policy.srlg_disjoint),
+                   protected_prefixes=policy.protected_prefixes)
+
     def protects_prefix(self, prefix) -> bool:
         """Is ``prefix`` in the protection scope?"""
         if self.protected_prefixes is None:

@@ -58,8 +58,9 @@ the first armed batch of each (kind, shape) gives the ``bgp.table`` cost
 entry: the fold's work tally (:mod:`holo_tpu_torch.kernels.work`).  The
 fold, decide, scatter and grow programs are registered with the
 kernel-contract audit under ``holo_tpu``'s names (``bgp.table.*``, at the end
-of this module; the scatter declared donated).  Left out (ROADMAP): the
-telemetry leaf wiring (A4).
+of this module; the scatter declared donated).  The ``holo-telemetry``
+leaf lists each live backend's :meth:`stats`
+(:mod:`holo_tpu_torch.telemetry.provider`).
 """
 
 from __future__ import annotations

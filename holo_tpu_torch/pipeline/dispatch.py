@@ -67,7 +67,8 @@ enqueue, launch, finish, force-wait, ordering-stall and shed stamps; the SLO
 engine grades each served or shed ticket by class; and a shed or a worker
 crash is a flight-recorder event.  Where ``holo_tpu``'s actors open their
 events in ``holo_tpu``'s tracker, the port's callers open them in the port's
-(``holo_tpu_torch.telemetry.convergence``; the bridge is ROADMAP A4's).
+(``holo_tpu_torch.telemetry.convergence``; ``holod_torch.py`` bridges the
+two when it runs ``holo_tpu``'s daemon over the port).
 """
 
 from __future__ import annotations

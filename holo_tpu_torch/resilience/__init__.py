@@ -7,10 +7,13 @@ from holo_tpu_torch.resilience.breaker import (  # noqa: F401 (public API)
     CLOSED,
     HALF_OPEN,
     OPEN,
+    DEFAULTS,
     CircuitBreaker,
     CircuitOpen,
+    DeadlineOverrun,
     SplitGuard,
     breakers,
+    configure_defaults,
     tallies,
 )
 from holo_tpu_torch.resilience.faults import (  # noqa: F401 (public API)

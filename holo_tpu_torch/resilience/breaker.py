@@ -38,8 +38,16 @@ serves, and the guard counts a fallback or a refusal accordingly.
 Every state transition is a ``breaker`` event in the flight recorder's ring
 (:mod:`holo_tpu_torch.telemetry.flight`; no-ops while it is disarmed), and
 the open transition is a postmortem trigger, emitted outside the breaker's
-lock.  ``holo_tpu``'s deadline budget (``DeadlineOverrun``, ``configure_defaults``)
-is not carried: no caller of the port sets one.
+lock.
+
+The deadline budget and the process-wide defaults are ``holo_tpu``'s
+(:data:`DEFAULTS`, :func:`configure_defaults`: a daemon's ``[resilience]``
+section sets them at boot, for the breakers the engines build without
+explicit parameters).  A guarded dispatch that completes after ``deadline``
+(in ``clock`` units, launch to finish for a split guard) counts a
+``deadline`` failure.  With a fallback the completed result is kept, as in
+``holo_tpu``; without one (the card) the overrun re-raises as
+:class:`DeadlineOverrun` once counted, and no oracle runs.
 """
 
 from __future__ import annotations
@@ -103,6 +111,29 @@ class CircuitOpen(RuntimeError):
     """A dispatch with no fallback was refused: the circuit is open."""
 
 
+class DeadlineOverrun(RuntimeError):
+    """A guarded dispatch finished but blew its deadline budget."""
+
+
+# Process-wide defaults for breakers built without explicit parameters: the
+# engines build theirs internally, so a daemon's [resilience] section lands
+# here at boot.
+_UNSET = object()
+DEFAULTS = {"failure_threshold": 3, "recovery_timeout": 30.0, "deadline": None}
+
+
+def configure_defaults(failure_threshold: int | None = None,
+                       recovery_timeout: float | None = None, deadline=_UNSET) -> None:
+    """Update the process-wide breaker defaults (boot only: breakers already
+    built keep their parameters)."""
+    if failure_threshold is not None:
+        DEFAULTS["failure_threshold"] = int(failure_threshold)
+    if recovery_timeout is not None:
+        DEFAULTS["recovery_timeout"] = float(recovery_timeout)
+    if deadline is not _UNSET:
+        DEFAULTS["deadline"] = deadline
+
+
 # Exception types that are never how a device failure presents at this
 # boundary: programming or input errors (``ValueError`` is what the kernel
 # wrappers raise for inputs split across devices, of the wrong type or
@@ -117,10 +148,14 @@ _PASSTHROUGH = (TypeError, AttributeError, NameError, IndexError, KeyError, Valu
 class CircuitBreaker:
     """Guard one dispatch site; see the module docstring for the FSM."""
 
-    def __init__(self, name: str, failure_threshold: int = 3,
-                 recovery_timeout: float = 30.0):
+    def __init__(self, name: str, failure_threshold: int | None = None,
+                 recovery_timeout: float | None = None, deadline=_UNSET,
+                 clock: Callable[[], float] = time.monotonic):
         """Two breakers never share a name: a taken name gets a ``#n``
-        suffix."""
+        suffix.  ``deadline`` is a dispatch's budget in ``clock`` units
+        (None: no budget); ``clock`` is injectable so tests drive recovery
+        and overruns deterministically.  Parameters left unset take the
+        process-wide :data:`DEFAULTS`."""
         with _REGISTRY_LOCK:
             base, n = name, 2
             while name in _REGISTRY:
@@ -128,8 +163,12 @@ class CircuitBreaker:
                 n += 1
             self.name = name
             _REGISTRY[name] = self
-        self.failure_threshold = int(failure_threshold)
-        self.recovery_timeout = float(recovery_timeout)
+        self.failure_threshold = int(failure_threshold if failure_threshold is not None
+                                     else DEFAULTS["failure_threshold"])
+        self.recovery_timeout = float(recovery_timeout if recovery_timeout is not None
+                                      else DEFAULTS["recovery_timeout"])
+        self.deadline = DEFAULTS["deadline"] if deadline is _UNSET else deadline
+        self._clock = clock
         self._lock = threading.Lock()
         self.state = CLOSED
         self.consecutive_failures = 0
@@ -159,7 +198,7 @@ class CircuitBreaker:
         _STATE.labels(breaker=self.name).set(_STATE_CODE[to])
         _TRANSITIONS.labels(breaker=self.name, to=to).inc()
         if to == OPEN:
-            self._open_until = time.monotonic() + self.recovery_timeout
+            self._open_until = self._clock() + self.recovery_timeout
 
     def _emit(self, to: str) -> None:
         """A transition's flight-recorder forensics (outside the lock: the
@@ -174,7 +213,7 @@ class CircuitBreaker:
         half-open probe)."""
         emit = False
         with self._lock:
-            if self.state == OPEN and time.monotonic() >= self._open_until:
+            if self.state == OPEN and self._clock() >= self._open_until:
                 self._transition_locked(HALF_OPEN)
                 self._probing = False
                 emit = True
@@ -247,7 +286,9 @@ class CircuitBreaker:
         """Run ``primary`` under the breaker.  On a device failure or an
         open circuit, ``fallback`` serves the dispatch; with no fallback the
         failure re-raises (counted) and an open circuit raises
-        :class:`CircuitOpen`."""
+        :class:`CircuitOpen`.  A deadline overrun counts a failure and keeps
+        the completed result, or with no fallback raises
+        :class:`DeadlineOverrun`."""
         if not self._admit():
             if fallback is None:
                 self._count("refusals", "open")
@@ -255,6 +296,7 @@ class CircuitBreaker:
                                   f"{context or 'the dispatch'} was not tried")
             self._count("fallbacks", "open")
             return fallback()
+        t0 = self._clock()
         try:
             result = primary()
         except _PASSTHROUGH:
@@ -271,8 +313,21 @@ class CircuitBreaker:
         except BaseException:
             self._abort_probe()
             raise
-        self._on_success()
+        self._settle(t0, context, fallback is not None)
         return result
+
+    def _settle(self, t0: float, context: str, served: bool) -> None:
+        """A completed dispatch's verdict: a success, or a ``deadline``
+        failure when it took longer than the budget, which re-raises unless
+        a fallback could have served (the completed result is kept)."""
+        elapsed = self._clock() - t0
+        if self.deadline is None or elapsed <= self.deadline:
+            self._on_success()
+            return
+        err = DeadlineOverrun(f"{elapsed:.3f}s > {self.deadline}s")
+        self._on_failure(context, err, "deadline")
+        if not served:
+            raise err
 
     def split(self, context: str = "", fallback: bool = False) -> "SplitGuard":
         """:meth:`call` unbundled for a two-phase (launch, finish) dispatch:
@@ -308,12 +363,13 @@ class SplitGuard:
     fallback.
     """
 
-    __slots__ = ("breaker", "context", "fallback", "admitted", "_settled")
+    __slots__ = ("breaker", "context", "fallback", "admitted", "_settled", "_t0")
 
     def __init__(self, breaker: CircuitBreaker, context: str = "", fallback: bool = False):
         self.breaker = breaker
         self.context = context
         self.fallback = fallback
+        self._t0 = breaker._clock()
         self.admitted = breaker._admit()
         self._settled = not self.admitted
         if not self.admitted:
@@ -344,8 +400,10 @@ class SplitGuard:
         self.breaker._abort_probe()
 
     def success(self) -> None:
-        """Both phases completed."""
+        """Both phases completed.  The deadline spans launch through finish,
+        the window :meth:`CircuitBreaker.call` measures; an overrun with no
+        fallback raises :class:`DeadlineOverrun` once counted."""
         if self._settled:
             return
         self._settled = True
-        self.breaker._on_success()
+        self.breaker._settle(self._t0, self.context, self.fallback)

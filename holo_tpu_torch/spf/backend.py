@@ -454,6 +454,21 @@ class TorchSpfBackend(SpfBackend):
         self._costed: set = set()
         residency.register_spf_backend(self)  # the ledger's spf-prev row
 
+    @classmethod
+    def bound_to(cls, device) -> type:
+        """A subclass whose constructor runs on ``device`` with no other
+        argument needed: the shape of class a caller that builds its
+        backends with no arguments (a routing daemon's provider) takes."""
+        dev = resolve_device(device)
+
+        def __init__(self, **kwargs):
+            kwargs.setdefault("device", dev)
+            cls.__init__(self, **kwargs)
+
+        return type(f"{cls.__name__}On", (cls,), {
+            "__init__": __init__, "__module__": cls.__module__,
+            "__doc__": f"{cls.__name__} on {dev} by default."})
+
     def _n_atoms(self, topo) -> int:
         return max(self.n_atoms, topo.n_atoms())
 

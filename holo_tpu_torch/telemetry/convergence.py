@@ -29,10 +29,12 @@ Off by default: disarmed, each seam costs one module-global ``None`` check.
 event-loop delivery hook (``holo_tpu.utils.runtime``) that re-activates a
 message's event ids on the actor that handles it; the port has no event
 loop, so the protocol actors, which open their events in ``holo_tpu``'s
-tracker, do not reach this one.  A launcher that runs ``holo_tpu``'s daemon
-over the port (ROADMAP A4) must bridge the two trackers; until then callers
-of the port open events with this module's :func:`begin` and
-:func:`activation`, and the port's dispatch sites read them.
+tracker, do not reach this one by themselves: ``holod_torch.py``, which runs
+``holo_tpu``'s daemon over the port, bridges the two trackers (one port
+event for each ``holo_tpu`` event active at a call into the port, closed
+with it through :func:`fib_commit` or :func:`close`).  Other callers of the
+port open events with this module's :func:`begin` and :func:`activation`,
+and the port's dispatch sites read them.
 """
 
 from __future__ import annotations
@@ -280,6 +282,16 @@ class ConvergenceTracker:
             self._finish(ev, "no-fib")
         return len(evs)
 
+    def close(self, eids, outcome: str) -> int:
+        """Close the given open events with ``outcome`` and no histogram
+        observation (a bridge mirroring another tracker's close of the same
+        events); their timelines flush.  Returns the count closed."""
+        with self._lock:
+            evs = [ev for e in eids if (ev := self._open.pop(e, None)) is not None]
+        for ev in evs:
+            self._finish(ev, outcome)
+        return len(evs)
+
     def _finish(self, ev: _Event, outcome: str) -> None:
         with self._lock:
             record = {
@@ -395,6 +407,11 @@ def fib_commit(op: str = "install", eids=None, **attrs) -> None:
 def sweep() -> int:
     t = _TRACKER
     return t.sweep() if t is not None else 0
+
+
+def close(eids, outcome: str) -> int:
+    t = _TRACKER
+    return t.close(eids, outcome) if t is not None else 0
 
 
 # -- protocol-instance helpers (the shared pend/drain contract) ---------

@@ -2,9 +2,9 @@
 OpenMetrics with histogram-bucket exemplars (``holo_tpu``'s
 ``render_text``, byte for byte).
 
-Only the renderer is here: the HTTP endpoint and the gNMI leaf are the
-daemon's, and a launcher that runs the daemon over the port can append this
-text to the daemon's scrape.
+Only the renderer is here: the HTTP endpoint is the daemon's.  A launcher
+that runs the daemon over the port serves :class:`MergedRegistry` of the
+port's registry and the daemon's through it: each family once.
 """
 
 from __future__ import annotations
@@ -71,3 +71,43 @@ def render_text(registry, openmetrics: bool = False) -> str:
                 lines.append(f"{fam.name}{_labelstr(fam.labelnames, key)} "
                              f"{_fmt_value(child.value)}")
     return "\n".join(lines) + "\n"
+
+
+class _MergedFamily:
+    """One family two registries declare: the first's samples, then the
+    second's under label values the first lacks (same kind and labels
+    only)."""
+
+    def __init__(self, first, second):
+        self._first, self._second = first, second
+        self.name, self.kind, self.help = first.name, first.kind, first.help
+        self.labelnames = first.labelnames
+
+    def labels(self, *values, **kv):
+        return self._first.labels(*values, **kv)
+
+    def children(self):
+        out = list(self._first.children())
+        second = self._second
+        if second.kind == self.kind and tuple(second.labelnames) == tuple(self.labelnames):
+            have = {key for key, _ in out}
+            out += [(key, child) for key, child in second.children() if key not in have]
+        return out
+
+
+class MergedRegistry:
+    """The families of several registries as one (``families()`` is all a
+    renderer reads): sorted by name, each name once.  Where registries share
+    a family name, the earlier registry's family serves, joined by the later
+    ones' label values it lacks; so an empty twin adds nothing."""
+
+    def __init__(self, *registries):
+        self.registries = registries
+
+    def families(self) -> list:
+        merged: dict = {}
+        for reg in self.registries:
+            for fam in reg.families():
+                prev = merged.get(fam.name)
+                merged[fam.name] = fam if prev is None else _MergedFamily(prev, fam)
+        return [merged[k] for k in sorted(merged)]

@@ -1,5 +1,6 @@
 """The port stands alone: importing every module of holo_tpu_torch (and
-chip_smoke.py) loads neither jax nor anything of holo_tpu, and no source
+chip_smoke.py) loads neither jax nor anything of holo_tpu, nor the launcher
+holod_torch.py (the one module that imports both packages), and no source
 file of either, nor of the port's tools, imports them."""
 
 import ast
@@ -31,7 +32,8 @@ def _sources():
 
 
 def _forbidden(name: str) -> bool:
-    return name.split(".")[0] == "jax" or name == "holo_tpu" or name.startswith("holo_tpu.")
+    return (name.split(".")[0] in ("jax", "holod_torch") or name == "holo_tpu"
+            or name.startswith("holo_tpu."))
 
 
 def test_every_module_is_found():
@@ -52,7 +54,8 @@ def test_every_module_is_found():
                  "holo_tpu_torch.analysis.runtime", "holo_tpu_torch.testing",
                  "holo_tpu_torch.telemetry.flight", "holo_tpu_torch.telemetry.convergence",
                  "holo_tpu_torch.telemetry.observatory", "holo_tpu_torch.telemetry.critpath",
-                 "holo_tpu_torch.telemetry.slo", "holo_tpu_torch.kernels.work"):
+                 "holo_tpu_torch.telemetry.slo", "holo_tpu_torch.kernels.work",
+                 "holo_tpu_torch.telemetry.provider"):
         assert want in mods
 
 
@@ -63,7 +66,7 @@ def test_import_loads_no_jax_and_no_holo_tpu():
         f"for m in {_modules()!r}:\n"
         "    importlib.import_module(m)\n"
         "import chip_smoke\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] == 'jax'\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'holod_torch')\n"
         "             or m == 'holo_tpu' or m.startswith('holo_tpu.'))\n"
         "print(','.join(bad))\n"
     )
