@@ -275,6 +275,30 @@ the DeltaPath chain, and its multipath program through ``compute`` at
    ``cuda:0`` and shows the graph cache (per device) and the residency
    ledger; (c) the port registry's Prometheus text has each family once;
    the phase's seconds beside the card's name and power limit;
+3s. (after 3r) the OSPFv2 path from LSA to FIB (``spf/synth_storm.py``:
+   one OSPFv2 instance over a synthetic area, its SPF-delay FSM, route
+   derivation, the RIB and its FIB, under a seeded storm of link flaps, BFD
+   and carrier events and metric changes): (a) ``run_convergence_storm`` at
+   10,000 routers and 200 events (cut from 400 for time) on a
+   ``TorchSpfBackend`` on the card (DeltaPath on), with the ELL launch
+   counters at 0 (``ell_relax``, ``ell_first_parent`` and ``ell_mp_round``
+   must launch) and the host clock split over its
+   stages (``OspfInstance.run_spf``, ``build_topology``, ``link_spf_delta``,
+   ``backend.compute``, ``derive_routes``, the RIB's route adds and
+   withdrawals), then the same storm on the port's ``ScalarSpfBackend`` in
+   this process: equal FIB, SPF runs and causal digest (the timelines
+   without their ``dispatch`` entries); each arm's seconds, SPF runs and FIB
+   size, the per-trigger dispatch seconds (p50, p95, p99) and the
+   event-to-FIB percentiles, which are virtual-clock values and no card
+   times; then the 10k area over 40 events with every kernel launch held
+   bit-identical to its plain version; (b) the multipath storm (2,500
+   routers, 400 events, ``max_paths=2``) with every launch held, against the
+   scalar oracle: equal, multipath and weighted installs present,
+   ``ell_relax``, ``ell_mp_round``, ``ell_parent_sets`` and
+   ``ell_parent_weights`` launched; (c) the
+   multipath storm again on the card, unheld: the same digest and FIB; no
+   breaker of the phase counts a failure, fallback or refusal; beside the
+   card's name and power limit;
 4. time each kernel (CUDA events; at one scenario also the profiler's
    device time, which leaves out the host's launch), its plain version, the
    whole batch, ``compute()`` and the gather batch's stages, and DeltaPath's
@@ -295,6 +319,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import hashlib
 import json
 import statistics
 from collections import Counter
@@ -4531,6 +4556,212 @@ def launcher_phase(dev, topo) -> dict:
     return x
 
 
+# Phase 3s: the OSPFv2 path from LSA to FIB (spf/synth_storm.py).  The main
+# storm is a 10,000-router area (BASELINE.json's 10k LSDB), the multipath one
+# holo_tpu's bench storm of 2,500 routers x 400 events, one seed.  The main
+# storm's events are cut from 400 to 200 to keep the phase near two minutes:
+# at 400 its two arms alone took 91.7 s, the protocol's Python most of it.
+STORM_SEED = 17
+STORM_ROUTERS, STORM_EVENTS = 10000, 200
+MP_STORM_ROUTERS, MP_STORM_EVENTS, MP_STORM_PATHS = 2500, 400, 2
+HELD_STORM_EVENTS = 40  # the 10k storm with every kernel launch held
+STORM_KERNELS = ("ell_relax", "ell_first_parent", "ell_mp_round")
+# On the multipath paths ell_parent_sets (fused with G2's walk) stands in
+# for ell_first_parent.
+MP_STORM_KERNELS = ("ell_relax", "ell_mp_round", "ell_parent_sets", "ell_parent_weights")
+# The stages of the card arm's SPF runs, timed on the host clock: the
+# instance's whole run (OspfInstance.run_spf), the LSDB lowering, the delta
+# lineage, the backend's compute, the route derivation, and on the RIB's
+# side the route adds and withdrawals.
+STORM_STAGES = ("run_spf", "build_topology", "link_spf_delta", "backend.compute",
+                "derive_routes", "rib")
+
+
+def storm_causal(timelines) -> str:
+    """sha256 of the timelines without their engine attribution (the
+    ``dispatch`` entries name the backend that served each SPF), so a card
+    storm and a scalar one compare."""
+    out = []
+    for rec in timelines:
+        rec = {k: v for k, v in rec.items() if k != "dispatch"}
+        rec["timeline"] = [e for e in rec["timeline"] if e[0] != "dispatch"]
+        out.append(rec)
+    return hashlib.sha256(json.dumps(out, sort_keys=True).encode()).hexdigest()
+
+
+def storm_run(backend, n: int, events: int, max_paths=None) -> SimpleNamespace:
+    """One seeded storm from LSA install to FIB commit on ``backend``: its
+    report, digest, causal digest, FIB and host seconds."""
+    from holo_tpu_torch.spf import synth_storm
+
+    seen = []
+    digest = synth_storm.storm_digest
+    synth_storm.storm_digest = lambda timelines: (seen.append(timelines), digest(timelines))[1]
+    try:
+        t0 = time.perf_counter()
+        report, dig, net = synth_storm.run_convergence_storm(
+            n_routers=n, events=events, seed=STORM_SEED, spf_backend=backend,
+            max_paths=max_paths)
+        wall = time.perf_counter() - t0
+    finally:
+        synth_storm.storm_digest = digest
+    return SimpleNamespace(report=report, digest=dig, causal=storm_causal(seen[0]),
+                           fib=dict(net.kernel.fib), wall_s=wall)
+
+
+@contextlib.contextmanager
+def storm_split(backend):
+    """Host seconds and calls of STORM_STAGES within the block: wraps the
+    instance module's stage functions, ``OspfInstance.run_spf``, the RIB's
+    route handling and ``backend.compute`` (as the storm's own
+    ``_instrument_dispatch_wall`` wraps it), restored on exit."""
+    from holo_tpu_torch.protocols.ospf import instance as oi
+    from holo_tpu_torch.routing.rib import RibManager
+
+    acc = {k: [0.0, 0] for k in STORM_STAGES}
+
+    def timed(key, fn):
+        def stage(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                acc[key][0] += time.perf_counter() - t0
+                acc[key][1] += 1
+        return stage
+
+    seams = [(oi, "build_topology", "build_topology"), (oi, "link_spf_delta", "link_spf_delta"),
+             (oi, "derive_routes", "derive_routes"), (oi.OspfInstance, "run_spf", "run_spf"),
+             (RibManager, "route_add", "rib"), (RibManager, "route_del", "rib")]
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in seams]
+    for obj, name, key in seams:
+        setattr(obj, name, timed(key, getattr(obj, name)))
+    backend.compute = timed("backend.compute", backend.compute)
+    try:
+        yield acc
+    finally:
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
+        del backend.compute
+
+
+def storm_phase() -> dict:
+    """Phase 3s: the OSPFv2 path from LSA to FIB on the card (module
+    docstring)."""
+    from holo_tpu_torch.kernels import ell
+    from holo_tpu_torch.resilience import tallies
+    from holo_tpu_torch.spf.backend import ScalarSpfBackend, TorchSpfBackend
+
+    t_phase = time.perf_counter()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    before = dict(tallies())
+    x = {"held_err": {}}
+
+    def card_arm(label, n, events, max_paths=None, split=False, hold=False):
+        be = TorchSpfBackend(device=DEVICE)
+        ell.reset_launches()
+        with contextlib.ExitStack() as stack:
+            acc = stack.enter_context(storm_split(be)) if split else None
+            gh = stack.enter_context(holding_gather(ell, GatherHolder())) if hold else None
+            mh = stack.enter_context(holding(ell, Holder(ell))) if hold else None
+            run = storm_run(be, n, events, max_paths)
+        torch.cuda.synchronize()
+        run.launches = dict(ell.launches)
+        snap = be.breaker.snapshot()
+        require(not any(snap[k] for k in ("failures", "fallbacks", "refusals")),
+                f"3s {label}: the card backend's breaker counted {snap}")
+        require(be.device.type == "cuda", f"3s {label}: the storm ran on {be.device}")
+        run.delta_paths = {"/".join(k): v for k, v in sorted(be.delta_paths.items())}
+        run.split = acc
+        if hold:
+            for name, err in (*gh.err.items(), *mh.err.items()):
+                x["held_err"][name] = max(x["held_err"].get(name, 0), err)
+            run.held = {**{k: gh.held_count(k) for k in GATHER_PLAIN}, **dict(mh.held)}
+        return run
+
+    def scalar_arm(n, events, max_paths=None):
+        return storm_run(ScalarSpfBackend(), n, events, max_paths)
+
+    def same(label, card, oracle):
+        require(card.fib == oracle.fib and len(card.fib) > 0,
+                f"3s {label}: the card's FIB ({len(card.fib)} prefixes) differs from the "
+                f"scalar oracle's ({len(oracle.fib)})")
+        require(card.report["spf-runs"] == oracle.report["spf-runs"] > 0,
+                f"3s {label}: SPF runs {card.report['spf-runs']} against "
+                f"{oracle.report['spf-runs']}")
+        require(card.causal == oracle.causal, f"3s {label}: causal digests differ")
+
+    def line(label, run):
+        r = run.report
+        return (f"{label}: {run.wall_s:.3f} s, {r['spf-runs']} SPF runs, FIB {r['fib-size']} "
+                f"prefixes (multipath installs {r['fib-multipath']}, weighted "
+                f"{r['fib-weighted']}), outcomes {r['outcomes']}")
+
+    # (a) the main storm: card arm (launches counted, host split), then the
+    # port's scalar oracle in this process.
+    a = card_arm("(a)", STORM_ROUTERS, STORM_EVENTS, split=True)
+    for name in STORM_KERNELS:
+        require(a.launches[name] > 0, f"3s (a): {name} never launched on the storm")
+    a_ref = scalar_arm(STORM_ROUTERS, STORM_EVENTS)
+    same("(a)", a, a_ref)
+    incremental = sum(v for k, v in a.delta_paths.items() if k.endswith("/incremental"))
+    print(f"3s (a) storm {STORM_ROUTERS} routers x {STORM_EVENTS} events, seed {STORM_SEED}: "
+          f"card FIB, SPF runs and causal digest equal to the scalar oracle's; launches "
+          f"{a.launches}; DeltaPath {a.delta_paths} ({incremental} incremental steps of "
+          f"{a.report['spf-runs']} SPF runs); breaker clean ({smi})", flush=True)
+    print(f"3s (a) {line('card arm', a)}", flush=True)
+    print(f"3s (a) {line('scalar arm', a_ref)}", flush=True)
+    for label, run in (("card", a), ("scalar", a_ref)):
+        for trig, pct in run.report["dispatch-wall"].items():
+            print(f"3s (a) {label} dispatch-wall {trig}: count {pct['count']}, p50 "
+                  f"{pct.get('p50', 0) * 1e3:.3f} ms, p95 {pct.get('p95', 0) * 1e3:.3f} ms, p99 "
+                  f"{pct.get('p99', 0) * 1e3:.3f} ms, max {pct.get('max', 0) * 1e3:.3f} ms "
+                  f"(host clock)", flush=True)
+    for trig, modes in a.report["triggers"].items():
+        print(f"3s (a) event-to-FIB {trig}: {modes} (virtual-clock seconds, equal on every "
+              f"backend by construction; not card times)", flush=True)
+    sp = a.split
+    print("3s (a) host split of the card arm's SPF runs: " + ", ".join(
+        f"{k} {sp[k][0]:.3f} s / {sp[k][1]} calls" for k in STORM_STAGES)
+        + f"; run_spf less its stages {sp['run_spf'][0] - sum(sp[k][0] for k in STORM_STAGES[1:5]):.3f} s",
+        flush=True)
+    # (a') the same area with every kernel launch held to its plain version.
+    h = card_arm("(a held)", STORM_ROUTERS, HELD_STORM_EVENTS, hold=True)
+    require(all(h.held[k] > 0 for k in STORM_KERNELS), f"3s (a held): held launches {h.held}")
+    print(f"3s (a held) {STORM_ROUTERS} routers x {HELD_STORM_EVENTS} events: every launch "
+          f"held bit-identical to its plain version: {h.held}, max_abs_err "
+          f"{x['held_err']}; {line('card arm (held)', h)}", flush=True)
+    # (b) the multipath storm, every launch held, against the scalar oracle.
+    b = card_arm("(b)", MP_STORM_ROUTERS, MP_STORM_EVENTS, MP_STORM_PATHS, hold=True)
+    for name in MP_STORM_KERNELS:
+        require(b.launches[name] > 0, f"3s (b): {name} never launched on the multipath storm")
+    b_ref = scalar_arm(MP_STORM_ROUTERS, MP_STORM_EVENTS, MP_STORM_PATHS)
+    same("(b)", b, b_ref)
+    require(b.report["fib-multipath"] > 0 and b.report["fib-weighted"] > 0,
+            f"3s (b): multipath installs {b.report['fib-multipath']}, weighted "
+            f"{b.report['fib-weighted']}")
+    print(f"3s (b) multipath storm {MP_STORM_ROUTERS} routers x {MP_STORM_EVENTS} events at "
+          f"max_paths {MP_STORM_PATHS}: card FIB, SPF runs and causal digest equal to the "
+          f"scalar oracle's; launches {b.launches}; held {b.held}", flush=True)
+    print(f"3s (b) {line('card arm (held)', b)}", flush=True)
+    print(f"3s (b) {line('scalar arm', b_ref)}", flush=True)
+    # (c) determinism: the multipath storm again on the card, unheld.
+    c = card_arm("(c)", MP_STORM_ROUTERS, MP_STORM_EVENTS, MP_STORM_PATHS)
+    require(c.digest == b.digest and c.fib == b.fib,
+            f"3s (c): a second card run's digest {c.digest[:16]} against {b.digest[:16]}")
+    print(f"3s (c) determinism: the second card run's digest {c.digest[:16]} equals the "
+          f"first's; {line('card arm', c)}", flush=True)
+    for trig, pct in c.report["dispatch-wall"].items():
+        print(f"3s (c) card dispatch-wall {trig}: count {pct['count']}, p50 "
+              f"{pct.get('p50', 0) * 1e3:.3f} ms, p95 {pct.get('p95', 0) * 1e3:.3f} ms, p99 "
+              f"{pct.get('p99', 0) * 1e3:.3f} ms (host clock)", flush=True)
+    require(dict(tallies()) == before, f"3s: breaker tallies moved: {before} -> {tallies()}")
+    x.update(launches={"a": a.launches, "c": c.launches}, phase_s=time.perf_counter() - t_phase)
+    print(f"storm phase 3s checked in {x['phase_s']:.1f} s ({smi})", flush=True)
+    return x
+
+
 def oracle_result(ref, n_atoms: int):
     """The oracle's planes under SpfResult's field names."""
     return type("Ref", (), {"dist": ref.dist, "parent": ref.parent, "hops": ref.hops,
@@ -5648,6 +5879,16 @@ def main() -> None:
     # defaults (a deadline overrun counted and re-raised), the state leaf and
     # the metrics text
     launcher_phase(dev, topo)
+    # -- 3s. the OSPFv2 path from LSA to FIB: the 10k storm and the
+    # multipath storm on the card against the port's scalar oracle, every
+    # kernel launch of a held storm held, a second card run's digest
+    sx = storm_phase()
+    for krow in kernel_rows:
+        if krow["name"] in sx["launches"]["a"]:  # the storms' launches, and their holds
+            krow["storm_launches"] = sx["launches"]["a"][krow["name"]]
+            krow["mp_storm_launches"] = sx["launches"]["c"][krow["name"]]
+        if krow["name"] in sx["held_err"]:
+            krow["max_abs_err"] = max(krow["max_abs_err"], sx["held_err"][krow["name"]])
     print(json.dumps({"kernels": kernel_rows}), flush=True)
     print(smi, flush=True)
     print(f"chip_smoke wall: {time.perf_counter() - t_start:.1f} s", flush=True)

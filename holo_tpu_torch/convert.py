@@ -10,7 +10,9 @@ carry ``holo_tpu``'s FRR values across, read by their fields;
 ``partition_from_numpy`` turns a ``holo_tpu`` ``PartitionPlan`` and its
 ``PartPlanes`` into the port's plan and stacked planes, so both engines can
 run one cut; ``bgp_table_from_numpy`` carries a ``holo_tpu`` BGP table
-backend's resident table (planes and interners) into the port's.
+backend's resident table (planes and interners) into the port's;
+``lsdb_from_wire`` builds the port's OSPFv2 ``Lsdb`` from LSAs' wire images
+and install times, so both packages can marshal and route over one LSDB.
 """
 
 from __future__ import annotations
@@ -30,6 +32,9 @@ from holo_tpu_torch.ops.blocked import BlockGraph, block_graph, edge_planes
 from holo_tpu_torch.ops.blocked_spf import BlockSpfGraph, block_spf_graph
 from holo_tpu_torch.ops.partition import PartitionPlan, stack_layout
 from holo_tpu_torch.ops.spf_engine import DeviceGraph, MultipathTensors, SpfTensors
+from holo_tpu_torch.protocols.ospf.lsdb import Lsdb
+from holo_tpu_torch.protocols.ospf.packet import Lsa
+from holo_tpu_torch.utils.bytesbuf import Reader
 
 
 def _port_arrays(fields: Mapping) -> dict:
@@ -175,3 +180,15 @@ def bgp_table_from_numpy(planes, cap_rows: int, cap_cols: int, rows: Mapping,
         cap_cols=int(cap_cols), rows=dict(rows), cols=dict(cols), fas_ids=_interner(fas),
         path_ids=_interner(paths), nh_ids=_interner(nhs), poisoned=set(poisoned),
     )
+
+
+def lsdb_from_wire(entries):
+    """The port's OSPFv2 :class:`~holo_tpu_torch.protocols.ospf.lsdb.Lsdb`
+    from ``(raw, installed_at)`` pairs: each LSA's wire image (``Lsa.raw``
+    of either package) and the loop-clock time it was installed at, in
+    install order.  Each image is decoded by the port's codec and installed
+    at its time, so ages, bodies and the entries' order carry across."""
+    lsdb = Lsdb()
+    for raw, installed_at in entries:
+        lsdb.install(Lsa.decode(Reader(bytes(raw))), float(installed_at))
+    return lsdb

@@ -1,6 +1,7 @@
-"""The port's copies of the protocol-layer surfaces its device backends read.
+"""The port's copies of ``holo_tpu``'s protocol layer.
 
-``holo_tpu``'s protocols import no JAX and are not ported; a device backend
-of the port still needs the cells and the oracle it decides over, so it keeps
-its own copy here (``bgp_engine``: the BGP decision process).
+``bgp_engine``: the BGP decision process the device BGP table decides over.
+``ospf``: the OSPFv2 instance, from LSA install through the SPF-delay FSM
+and route derivation to the RIB, with its SPF on the port's backends.  The
+other protocols (OSPFv3, IS-IS, ...) are not ported yet.
 """

@@ -52,9 +52,12 @@ class FaultPlan:
     three dispatches there.  ``dispatch_delay`` ({site: seconds}) stalls a
     dispatch that still succeeds; ``dispatch_hang`` ({site: max seconds})
     wedges the thread, one shot per site; ``worker_kill`` ({site: count})
-    kills the traversing thread."""
+    kills the traversing thread.  ``drop_prob`` is the share of wire
+    arrivals the convergence storm (``spf/synth_storm.py``) loses and
+    retransmits."""
 
     seed: int = 0
+    drop_prob: float = 0.0
     dispatch_fail: dict = field(default_factory=dict)
     dispatch_fail_prob: float = 0.0
     dispatch_delay: dict = field(default_factory=dict)

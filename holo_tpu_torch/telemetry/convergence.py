@@ -25,16 +25,15 @@ SLO engine (:mod:`holo_tpu_torch.telemetry.slo`) hook in through
 :func:`set_critpath_hook` and :func:`set_slo_hook`.
 
 Off by default: disarmed, each seam costs one module-global ``None`` check.
-:func:`configure` arms the tracker alone.  ``holo_tpu``'s also installs an
-event-loop delivery hook (``holo_tpu.utils.runtime``) that re-activates a
-message's event ids on the actor that handles it; the port has no event
-loop, so the protocol actors, which open their events in ``holo_tpu``'s
-tracker, do not reach this one by themselves: ``holod_torch.py``, which runs
-``holo_tpu``'s daemon over the port, bridges the two trackers (one port
-event for each ``holo_tpu`` event active at a call into the port, closed
-with it through :func:`fib_commit` or :func:`close`).  Other callers of the
-port open events with this module's :func:`begin` and :func:`activation`,
-and the port's dispatch sites read them.
+:func:`configure` arms the tracker and installs the delivery hook of the
+port's event loop (``holo_tpu_torch.utils.runtime``), which re-activates a
+message's event ids on the actor that handles it: the port's OSPFv2
+instance, RIB and storm (``spf/synth_storm.py``) carry their events through
+it as ``holo_tpu``'s do.  ``holod_torch.py`` runs ``holo_tpu``'s daemon over
+the port, whose actors open their events in ``holo_tpu``'s tracker; it
+bridges the two trackers (one port event for each ``holo_tpu`` event active
+at a call into the port, closed with it through :func:`fib_commit` or
+:func:`close`).
 """
 
 from __future__ import annotations
@@ -333,14 +332,34 @@ class ConvergenceTracker:
 _TRACKER: ConvergenceTracker | None = None
 
 
+def _delivery_context(msg):
+    """Event-loop delivery hook: re-establish the causal context of a
+    message stamped with ``event_id`` (ibus envelopes, marshalled
+    callbacks, storm-harness messages) for the handler's extent."""
+    t = _TRACKER
+    if t is None:
+        return None
+    eids = getattr(msg, "event_id", None)
+    if not eids:
+        return None
+    if isinstance(eids, int):
+        eids = (eids,)
+    return t.activation(tuple(eids))
+
+
 def configure(capacity: int = 0, clock=None) -> ConvergenceTracker | None:
-    """Arm (``capacity`` > 0) or disarm (0) the process-wide tracker.
-    Tests pass an injected clock for deterministic timelines."""
+    """Arm (``capacity`` > 0) or disarm (0) the process-wide tracker and
+    (un)install the port's event-loop delivery hook.  Tests and the storm
+    pass the loop clock for deterministic timelines."""
     global _TRACKER
+    from holo_tpu_torch.utils import runtime as _runtime
+
     if capacity and int(capacity) > 0:
         _TRACKER = ConvergenceTracker(int(capacity), clock or time.monotonic)
+        _runtime.set_delivery_context(_delivery_context)
     else:
         _TRACKER = None
+        _runtime.set_delivery_context(None)
     return _TRACKER
 
 

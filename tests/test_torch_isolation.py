@@ -55,7 +55,18 @@ def test_every_module_is_found():
                  "holo_tpu_torch.telemetry.flight", "holo_tpu_torch.telemetry.convergence",
                  "holo_tpu_torch.telemetry.observatory", "holo_tpu_torch.telemetry.critpath",
                  "holo_tpu_torch.telemetry.slo", "holo_tpu_torch.kernels.work",
-                 "holo_tpu_torch.telemetry.provider"):
+                 "holo_tpu_torch.telemetry.provider", "holo_tpu_torch.utils",
+                 "holo_tpu_torch.utils.ip", "holo_tpu_torch.utils.bytesbuf",
+                 "holo_tpu_torch.utils.runtime", "holo_tpu_torch.utils.southbound",
+                 "holo_tpu_torch.utils.netio", "holo_tpu_torch.utils.ibus",
+                 "holo_tpu_torch.utils.bier", "holo_tpu_torch.protocols.ospf",
+                 "holo_tpu_torch.protocols.ospf.packet", "holo_tpu_torch.protocols.ospf.lsdb",
+                 "holo_tpu_torch.protocols.ospf.interface",
+                 "holo_tpu_torch.protocols.ospf.neighbor",
+                 "holo_tpu_torch.protocols.ospf.spf_run",
+                 "holo_tpu_torch.protocols.ospf.instance",
+                 "holo_tpu_torch.protocols.ospf.nb_state", "holo_tpu_torch.routing",
+                 "holo_tpu_torch.routing.rib", "holo_tpu_torch.spf.synth_storm"):
         assert want in mods
 
 
