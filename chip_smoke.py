@@ -260,17 +260,16 @@ the DeltaPath chain, and its multipath program through ``compute`` at
    in this process, whose kernels and findings must equal the card's; no
    error-tier finding, value lanes only int32 and bool, beside the card's
    name and power limit;
-3r. (after the breaker check of phase 4) the port-side pieces the daemon
-   launcher ``holod_torch.py`` calls (it runs ``holo_tpu``'s daemon, which
-   imports JAX, so the launcher itself is not run here): (a) the breaker's
-   process defaults -- backends built through the launcher's no-argument
-   class shape (``TorchSpfBackend.bound_to``) on the card, a warm k=90
+3r. (after the breaker check of phase 4) the daemon's process-wide pieces
+   (the daemon itself runs in phase 3t): (a) the breaker's
+   process defaults -- backends built through the routing provider's
+   no-argument class shape (``TorchSpfBackend.bound_to``) on the card, a warm k=90
    ``compute()`` timed, ``configure_defaults`` set to a deadline below it,
    then one more ``compute()`` from a fresh backend must overrun: counted
    as a ``deadline`` failure, re-raised as ``DeadlineOverrun``, no fallback
-   and no oracle call; the defaults restored (this is why the launcher
-   arms no deadline on the card: an overrun would fail the protocol's
-   SPF); (b) the ``holo-telemetry``
+   and no oracle call; the defaults restored (this is why the daemon's
+   ``main`` arms no deadline on the card: an overrun would fail the
+   protocol's SPF); (b) the ``holo-telemetry``
    state leaf (``telemetry.provider.state_leaf``) is JSON, names
    ``cuda:0`` and shows the graph cache (per device) and the residency
    ledger; (c) the port registry's Prometheus text has each family once;
@@ -299,6 +298,31 @@ the DeltaPath chain, and its multipath program through ``compute`` at
    multipath storm again on the card, unheld: the same digest and FIB; no
    breaker of the phase counts a failure, fallback or refusal; beside the
    card's name and power limit;
+3t. (after 3s) the port's own daemon (``holo_tpu_torch.daemon``, the entry
+   of ``holod_torch.py``; interface names that exist on no machine, and
+   ``main`` sees a user that is not root, so no netlink socket opens and no
+   link of the machine is touched): (a) one tick of ``holod_torch.main``
+   from a ``holod.toml`` whose ``[database]`` holds an OSPFv2 configuration
+   the phase committed through the port's ``Northbound`` (``[grpc]`` and
+   ``[gnmi]`` off: the machine has no ``grpc``; ``/metrics`` on localhost):
+   the tick restores the configuration (a rollback to the log's last
+   transaction), the instance runs its first SPF on its own thread, its
+   backend is a ``TorchSpfBackend`` on ``cuda:0``, ``/metrics`` has each
+   family once, and neither ``jax`` nor ``holo_tpu`` is loaded; (b) a daemon
+   on a virtual clock configured through its northbound as StormNet's DUT
+   in 3s's 10,000-router area, the area's Router-LSAs installed as
+   ``StormNet.apply_lsas`` installs them: its FIB equal to the same daemon's
+   on ``backend scalar`` and to StormNet's DUT's, and again after a
+   northbound commit of a link metric, whose SPF's G1/G2 launches are held
+   to their plain versions, and after each of three unheld metric commits;
+   the host clock from each unheld commit to the FIB, card and scalar
+   alternating, and the ``get_state`` render of the 10k LSDB; (c) the
+   six-daemon, eight-event storm of ``holo_tpu_torch.daemon.scenario`` (the
+   one ``tests/test_torch_daemon.py`` holds to ``holo_tpu``'s daemon) on
+   the card (FRR engine ``tpu``),
+   equal to the scalar daemons after every event; no breaker counts a
+   failure, fallback or refusal; the phase's seconds beside the card's name
+   and power limit;
 4. time each kernel (CUDA events; at one scenario also the profiler's
    device time, which leaves out the host's launch), its plain version, the
    whole batch, ``compute()`` and the gather batch's stages, and DeltaPath's
@@ -4481,8 +4505,8 @@ def audit_phase(dev, topo, masks, chain, n_atoms) -> dict:
     return x
 
 
-def launcher_phase(dev, topo) -> dict:
-    """Phase 3r: the launcher's port-side pieces on the card (module
+def defaults_phase(dev, topo) -> dict:
+    """Phase 3r: the daemon's process-wide pieces on the card (module
     docstring).  Runs after the run's breaker check: its overrun is a
     counted failure on purpose."""
     import re
@@ -4495,7 +4519,7 @@ def launcher_phase(dev, topo) -> dict:
     t0 = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
-    # (a) the breaker's process defaults, on the launcher's class shape.
+    # (a) the breaker's process defaults, on the routing provider's class shape.
     cls = TorchSpfBackend.bound_to(dev)
     warm = cls()
     require(warm.device.type == "cuda", f"3r (a): the class shape runs on {warm.device}")
@@ -4552,7 +4576,7 @@ def launcher_phase(dev, topo) -> dict:
     print(f"3r (c) metrics text: {len(types)} families, each once, {len(text)} bytes",
           flush=True)
     x = {"compute_s": compute_s, "deadline_s": deadline, "phase_s": time.perf_counter() - t0}
-    print(f"launcher phase 3r checked in {x['phase_s']:.1f} s ({smi})", flush=True)
+    print(f"defaults phase 3r checked in {x['phase_s']:.1f} s ({smi})", flush=True)
     return x
 
 
@@ -4759,6 +4783,312 @@ def storm_phase() -> dict:
     require(dict(tallies()) == before, f"3s: breaker tallies moved: {before} -> {tallies()}")
     x.update(launches={"a": a.launches, "c": c.launches}, phase_s=time.perf_counter() - t_phase)
     print(f"storm phase 3s checked in {x['phase_s']:.1f} s ({smi})", flush=True)
+    return x
+
+
+# Phase 3t: the port's own daemon (holo_tpu_torch.daemon, the entry of
+# holod_torch.py).  (a) one tick of main from a holod.toml whose [database]
+# the phase wrote through the port's Northbound; (b) a daemon in StormNet's
+# 10,000-router area (3s's area and seed) configured through its northbound;
+# (c) the six-daemon, eight-event storm of holo_tpu_torch.daemon.scenario.  The
+# interface names exist on no machine, and main sees a user that is not root,
+# so nothing opens netlink or touches a link of the machine.
+DAEMON_OSPF = "routing/control-plane-protocols/ospfv2"
+# Unheld metric commits timed commit to FIB in 3t (b), after the held one.
+DAEMON_METRICS = (7, 3, 9)
+DAEMON_KERNELS = ("ell_relax", "ell_first_parent")  # G1, G2 on the daemon's SPF
+
+
+def daemon_tick(dev, workdir: Path) -> dict:
+    """3t (a): one tick of ``holod_torch.main``.  The [database] holds an
+    OSPFv2 configuration committed through the port's Northbound; the tick
+    restores it (a rollback to the log's last transaction: the northbound
+    reloads the log at boot, as holo_tpu's does), waits for the instance's
+    first SPF on its own thread, and reads the backend, /metrics and
+    sys.modules."""
+    import os
+    import re
+    import urllib.request
+
+    import holod_torch
+    from holo_tpu_torch.daemon import daemon as dmod
+    from holo_tpu_torch.daemon import hardening
+    from holo_tpu_torch.northbound.core import Northbound
+    from holo_tpu_torch.parallel import mesh
+    from holo_tpu_torch.resilience import breaker as br
+    from holo_tpu_torch.telemetry.provider import device_name
+    from holo_tpu_torch.yang.data import DataTree
+    from holo_tpu_torch.yang.modules import full_schema
+
+    db = workdir / "holo.db"
+    nb = Northbound(full_schema(), [], db_path=db)
+    c = DataTree(nb.schema)
+    c.set("interfaces/interface[hx3t0]/address", ["10.77.0.1/24"])
+    c.set(f"{DAEMON_OSPF}/router-id", "10.77.0.1")
+    c.set(f"{DAEMON_OSPF}/spf-control/backend", "tpu")
+    c.set(f"{DAEMON_OSPF}/area[0.0.0.0]/interface[hx3t0]/passive", True)
+    nb.commit(c, comment="3t")
+    conf = workdir / "holod.toml"
+    conf.write_text(f'[database]\npath = "{db}"\n[grpc]\nenabled = false\n[gnmi]\n'
+                    'enabled = false\n[telemetry]\nenabled = true\naddress = "127.0.0.1:0"\n')
+    seen: dict = {}
+    real_sleep, real_euid, real_cls = time.sleep, os.geteuid, dmod.Daemon
+    real_handlers, real_time = hardening.install_signal_handlers, dmod.time
+
+    class Recorded(real_cls):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            seen["daemon"] = self
+
+    def handlers(shutdown_cb, **_):
+        seen["stop"] = shutdown_cb
+
+    def tick(wait):
+        if "stop" in seen and "out" not in seen:
+            d = seen["daemon"]
+            t0 = time.perf_counter()
+            with d.lock:
+                d.northbound.rollback(d.northbound.txn_log[-1].id)
+                d.loop.run_until_idle()
+            inst = d.routing.instances["ospfv2"]
+            while not inst.spf_log and time.perf_counter() - t0 < 20:  # logged at its end
+                real_sleep(0.01)
+            restore_s = time.perf_counter() - t0
+            # A second, warm SPF on the instance's thread: a cost commit.
+            with d.lock:
+                c = d.candidate()
+                c.set(f"{DAEMON_OSPF}/area[0.0.0.0]/interface[hx3t0]/cost", 20)
+                d.commit(c)
+            while len(inst.spf_log) < 2 and time.perf_counter() - t0 < 40:
+                real_sleep(0.01)
+            host, port = d._telemetry_server.server_address[:2]
+            text = urllib.request.urlopen(f"http://{host}:{port}/metrics",
+                                          timeout=10).read().decode()
+            seen["out"] = {"backend": inst.backend, "spf_runs": inst.spf_run_count,
+                           "restore_s": restore_s, "metrics": text,
+                           "threads": sorted(d.instance_loops),
+                           "log": list(inst.spf_log)}
+            seen["stop"]()
+        real_sleep(wait)
+
+    saved_defaults = dict(br.DEFAULTS)
+    os.geteuid = lambda: 1000  # no netlink monitor, no link actuation
+    dmod.Daemon, hardening.install_signal_handlers = Recorded, handlers
+    dmod.time = SimpleNamespace(time=time.time, sleep=tick)
+    t0 = time.perf_counter()
+    try:
+        holod_torch.main(["-f", str(conf), "--device", dev.type])
+    finally:
+        os.geteuid, dmod.Daemon = real_euid, real_cls
+        hardening.install_signal_handlers, dmod.time = real_handlers, real_time
+        mesh.reset_process_mesh()
+        br.DEFAULTS.clear()
+        br.DEFAULTS.update(saved_defaults)
+    out = seen["out"]
+    out["main_s"] = time.perf_counter() - t0
+    be = out["backend"]
+    out["device"] = device_name(be.device)
+    require(type(be).__mro__[1].__name__ == "TorchSpfBackend"
+            and out["device"] == device_name(dev) == ("cuda:0" if dev.type == "cuda" else "cpu"),
+            f"3t (a): the restored instance's backend {type(be).__name__} on {out['device']}")
+    require(out["spf_runs"] >= 2 and len(out["log"]) >= 2
+            and {e["backend"] for e in out["log"]} == {"torch"},
+            f"3t (a): SPF runs {out['spf_runs']}, log {out['log']}")
+    require(out["threads"] == ["ospfv2"], f"3t (a): instance threads {out['threads']}")
+    types = re.findall(r"^# TYPE (\S+) ", out["metrics"], re.M)
+    require(types and len(types) == len(set(types)),
+            f"3t (a): families twice {sorted(t for t in types if types.count(t) > 1)}")
+    bad = sorted(m for m in sys.modules if m.split(".")[0] == "jax" or m == "holo_tpu"
+                 or m.startswith("holo_tpu."))
+    require(not bad, f"3t (a): loaded {bad[:5]}")
+    out["families"] = len(types)
+    return out
+
+
+def storm_daemon(net, backend: str, dev):
+    """3t (b): a port daemon whose OSPFv2 instance is StormNet's DUT: its
+    configuration (router id, the two gateway interfaces, the backend) is
+    committed through the northbound; the two gateway adjacencies are made
+    FULL as StormNet makes them (the ISM/NSM machinery is bypassed), and the
+    area's Router-LSAs go in as ``StormNet.apply_lsas`` installs them."""
+    from ipaddress import IPv4Address
+
+    from holo_tpu_torch.daemon import scenario
+    from holo_tpu_torch.daemon.daemon import Daemon
+    from holo_tpu_torch.protocols.ospf.interface import IsmState
+    from holo_tpu_torch.protocols.ospf.neighbor import Neighbor, NsmState
+    from holo_tpu_torch.spf import synth_storm
+    from holo_tpu_torch.utils.runtime import VirtualClock
+
+    d = Daemon(clock=VirtualClock(), device=dev, name="dut")
+    area = f"{DAEMON_OSPF}/area[0.0.0.0]"
+    scenario.commit(d, {
+        "interfaces/interface[e0]/address": ["10.255.0.1/30"],
+        "interfaces/interface[e1]/address": ["10.255.1.1/30"],
+        f"{DAEMON_OSPF}/router-id": str(synth_storm._rid(0)),
+        f"{DAEMON_OSPF}/spf-control/backend": backend,
+        f"{area}/interface[e0]/interface-type": "point-to-point",
+        f"{area}/interface[e0]/cost": 1,
+        f"{area}/interface[e1]/interface-type": "point-to-point",
+        f"{area}/interface[e1]/cost": 1,
+    })
+    inst = d.routing.instances["ospfv2"]
+    a = inst.areas[IPv4Address("0.0.0.0")]
+    for ifname, g, addr in (("e0", net.g0, net.g0_addr), ("e1", net.g1, net.g1_addr)):
+        iface = a.interfaces[ifname]
+        iface.state = IsmState.POINT_TO_POINT
+        rid = synth_storm._rid(g)
+        iface.neighbors[rid] = Neighbor(router_id=rid, src=addr, state=NsmState.FULL)
+    inst._originate_router_lsa(a, force=True)
+    lsas = [net._router_lsa(i) for i in range(1, net.n_routers)]
+    t0 = time.perf_counter()
+    synth_storm.StormNet.apply_lsas(SimpleNamespace(inst=inst, area=a), lsas)
+    d.loop.advance(30)
+    return d, time.perf_counter() - t0
+
+
+def daemon_storm(backend: str, frr: str, dev) -> tuple:
+    """3t (c): the six-daemon storm of ``holo_tpu_torch.daemon.scenario``
+    (the one tests/test_torch_daemon.py holds to holo_tpu's daemon): the
+    snapshots after convergence and after each event, and the instances'
+    (backend, FRR engine) at the end."""
+    from holo_tpu_torch.daemon import scenario
+    from holo_tpu_torch.daemon.daemon import Daemon
+    from holo_tpu_torch.utils.netio import MockFabric
+    from holo_tpu_torch.utils.runtime import EventLoop, VirtualClock
+
+    pieces = SimpleNamespace(Daemon=Daemon, MockFabric=MockFabric, EventLoop=EventLoop,
+                             VirtualClock=VirtualClock, kw={"device": dev})
+    run = scenario.storm(pieces, backend, frr)
+    return run["steps"], run["parts"][-1]
+
+
+def daemon_phase(dev=DEVICE, n_routers: int = STORM_ROUTERS, workdir=None) -> dict:
+    """Phase 3t: the port's own daemon on the card (module docstring)."""
+    import tempfile
+
+    from holo_tpu_torch.daemon import scenario
+    from holo_tpu_torch.kernels import ell
+    from holo_tpu_torch.resilience import tallies
+    from holo_tpu_torch.spf.backend import ScalarSpfBackend
+    from holo_tpu_torch.spf import synth_storm
+
+    t_phase = time.perf_counter()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    before = dict(tallies())
+    x = {"held_err": {}}
+    # (a) one tick of main.
+    with tempfile.TemporaryDirectory(dir=workdir) as tmp:
+        a = daemon_tick(dev, Path(tmp))
+    runs = ", ".join(f"{e['type']} {(e['end-time'] - e['start-time']) * 1e3:.3f} ms"
+                     for e in a["log"])
+    print(f"3t (a) holod_torch.main, one tick: the [database] configuration restored in "
+          f"{a['restore_s'] * 1e3:.3f} ms (rollback to its last transaction and the first "
+          f"SPF on the instance's own thread {a['threads']}), backend "
+          f"{type(a['backend']).__mro__[1].__name__} on {a['device']}; SPF runs on the "
+          f"instance's thread (real clock, start to end): {runs}, the second after a cost "
+          f"commit; /metrics {a['families']} families, each once; neither jax nor holo_tpu "
+          f"loaded; main {a['main_s']:.3f} s ({smi})", flush=True)
+    # (b) the 10k area: StormNet's LSAs (its own DUT on the oracle), then
+    # the daemon on the card and on the scalar backend.
+    t0 = time.perf_counter()
+    net = synth_storm.StormNet(n_routers=n_routers, seed=STORM_SEED,
+                               spf_backend=ScalarSpfBackend())
+    net_s = time.perf_counter() - t0
+    ell.reset_launches()
+    card, card_install_s = storm_daemon(net, "tpu", dev)
+    torch.cuda.synchronize() if dev.type == "cuda" else None
+    launches = {k: ell.launches[k] for k in DAEMON_KERNELS}
+    ref, ref_install_s = storm_daemon(net, "scalar", dev)
+    fib = scenario.fib(card.routing.rib.kernel)
+    require(fib == scenario.fib(ref.routing.rib.kernel) and len(fib) > 0,
+            f"3t (b): the card daemon's FIB ({len(fib)}) differs from the scalar daemon's")
+    net_fib = scenario.fib(net.kernel)
+    require(fib == net_fib, f"3t (b): the daemon's FIB ({len(fib)}) differs from StormNet's "
+            f"DUT ({len(net_fib)})")
+    require(all(launches[k] > 0 for k in DAEMON_KERNELS), f"3t (b): launches {launches}")
+    inst = card.routing.instances["ospfv2"]
+    require(isinstance(inst.backend, synth_storm.TorchSpfBackend)
+            and inst.backend.device.type == dev.type, f"3t (b): backend {inst.backend}")
+    cost = f"{DAEMON_OSPF}/area[0.0.0.0]/interface[e1]/cost"
+
+    def commit_to_fib(d, value: int) -> float:
+        """Host clock from a metric commit to the FIB after its SPF."""
+        t0 = time.perf_counter()
+        scenario.commit(d, {cost: value})
+        d.loop.advance(30)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    # The held commit: one SPF's launches held to their plain versions
+    # (its time includes the hold's own plain runs and comparisons).
+    runs = inst.spf_run_count
+    ell.reset_launches()
+    with holding_gather(ell, GatherHolder()) as gh:
+        held_s = commit_to_fib(card, 5)
+    held = {k: gh.held_count(k) for k in DAEMON_KERNELS}
+    x["held_err"].update(gh.err)
+    require(inst.spf_run_count == runs + 1 and all(held[k] > 0 for k in DAEMON_KERNELS)
+            and max(gh.err.values()) == 0, f"3t (b): SPF runs {inst.spf_run_count - runs}, "
+            f"held {held}, err {gh.err}")
+    ref_held_s = commit_to_fib(ref, 5)
+    fib2 = scenario.fib(card.routing.rib.kernel)
+    require(fib2 == scenario.fib(ref.routing.rib.kernel) and fib2 != fib,
+            f"3t (b): after the metric commit the FIBs differ ({len(fib2)} prefixes)")
+    # Commit to FIB with nothing held, card and scalar alternating, the
+    # FIBs equal after each commit.
+    card_s, ref_s = [], []
+    for value in DAEMON_METRICS:
+        runs = inst.spf_run_count
+        card_s.append(commit_to_fib(card, value))
+        ref_s.append(commit_to_fib(ref, value))
+        got = scenario.fib(card.routing.rib.kernel)
+        require(inst.spf_run_count == runs + 1 and got == scenario.fib(ref.routing.rib.kernel),
+                f"3t (b): cost {value}: SPF runs {inst.spf_run_count - runs}, the FIBs differ")
+    x["commit_to_fib_ms"] = {"card": [t * 1e3 for t in card_s],
+                             "scalar": [t * 1e3 for t in ref_s],
+                             "card_held": held_s * 1e3, "scalar_first": ref_held_s * 1e3}
+    t0 = time.perf_counter()
+    state = card.northbound.get_state()
+    render_s = time.perf_counter() - t0
+    text = json.dumps(state, default=str)
+    lsdb = state["routing"]["ospfv2"]["areas"]["0.0.0.0"]["lsdb-count"]
+    require(lsdb >= n_routers, f"3t (b): rendered LSDB {lsdb}")
+    x.update(launches=launches, held=held)
+    print(f"3t (b) daemon in StormNet's {n_routers}-router area (seed {STORM_SEED}): FIB "
+          f"{len(fib)} prefixes equal to the scalar daemon's and StormNet's DUT's, and "
+          f"{len(fib2)} equal after the metric commit; G1/G2 launches on the daemon's first "
+          f"SPF {launches}; the commit's SPF held {held}, max_abs_err {gh.err}", flush=True)
+    ms = ", ".join(f"{c * 1e3:.3f}/{r * 1e3:.3f}" for c, r in zip(card_s, ref_s))
+    print(f"3t (b) host clock: StormNet built (its DUT on the oracle) {net_s:.3f} s; LSA "
+          f"install and first SPF {card_install_s:.3f} s card, {ref_install_s:.3f} s scalar; "
+          f"commit to FIB, nothing held, card/scalar ms for costs {list(DAEMON_METRICS)}: "
+          f"{ms}; the held commit {held_s * 1e3:.3f} ms card (launches held to their plain "
+          f"versions), {ref_held_s * 1e3:.3f} ms scalar; get_state render of the {lsdb}-LSA "
+          f"LSDB {render_s:.3f} s, {len(text)} bytes of JSON ({smi})", flush=True)
+    # (c) the six-daemon storm.
+    t0 = time.perf_counter()
+    got, parts = daemon_storm("tpu", "tpu", dev)
+    storm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want, _ = daemon_storm("scalar", "scalar", dev)
+    ref_storm_s = time.perf_counter() - t0
+    for i, (g, w) in enumerate(zip(got, want)):
+        require(g == w, f"3t (c): event {i}: the card daemons' FIBs differ from the scalar's")
+    require(got[0] != got[-1] and any(b for _, b in got[0].values()),
+            "3t (c): the storm moved no route or protected none")
+    for be, eng in parts.values():
+        require(be.device.type == dev.type and eng.engine == "torch"
+                and eng.dispatches["device"] > 0 and eng.dispatches["fallback"] == 0,
+                f"3t (c): backend on {be.device}, FRR {eng.engine} {eng.dispatches}")
+    print(f"3t (c) six daemons x 8 events: FIBs and backup sets equal to the scalar daemons' "
+          f"after every event; {storm_s:.3f} s card, {ref_storm_s:.3f} s scalar (host clock)",
+          flush=True)
+    require(dict(tallies()) == before, f"3t: breaker tallies moved: {before} -> {tallies()}")
+    x["phase_s"] = time.perf_counter() - t_phase
+    print(f"daemon phase 3t checked in {x['phase_s']:.1f} s ({smi})", flush=True)
     return x
 
 
@@ -5875,14 +6205,22 @@ def main() -> None:
                 for b in live.values()), "a live breaker counted a failure")
     print(f"breakers: {len(live)} live, no failure, fallback or refusal in the run",
           flush=True)
-    # -- 3r. the daemon launcher's port-side pieces: the breaker's process
+    # -- 3r. the daemon's process-wide pieces: the breaker's process
     # defaults (a deadline overrun counted and re-raised), the state leaf and
     # the metrics text
-    launcher_phase(dev, topo)
+    defaults_phase(dev, topo)
     # -- 3s. the OSPFv2 path from LSA to FIB: the 10k storm and the
     # multipath storm on the card against the port's scalar oracle, every
     # kernel launch of a held storm held, a second card run's digest
     sx = storm_phase()
+    # -- 3t. the port's own daemon: one tick of main from a [database], a
+    # daemon in the 10k area against the scalar daemon, the six-daemon storm
+    tx = daemon_phase()
+    for krow in kernel_rows:
+        if krow["name"] in tx["launches"]:  # the daemon's first SPF in the 10k area
+            krow["daemon_launches"] = tx["launches"][krow["name"]]
+        if krow["name"] in tx["held_err"]:
+            krow["max_abs_err"] = max(krow["max_abs_err"], tx["held_err"][krow["name"]])
     for krow in kernel_rows:
         if krow["name"] in sx["launches"]["a"]:  # the storms' launches, and their holds
             krow["storm_launches"] = sx["launches"]["a"][krow["name"]]

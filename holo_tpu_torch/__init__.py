@@ -13,3 +13,5 @@ Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; with no device given and no GPU present they raise
 (:func:`holo_tpu_torch.device.resolve_device`).
 """
+
+__version__ = "0.1.0+torch"

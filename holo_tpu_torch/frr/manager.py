@@ -227,15 +227,20 @@ def repair_map(table: BackupTable | None, cfg: FrrConfig, words: np.ndarray,
     return out
 
 
-def ensure_engine(current, cfg: FrrConfig) -> "FrrEngine":
+def ensure_engine(current, cfg: FrrConfig, device=None) -> "FrrEngine":
     """Reuse ``current`` when it already runs ``cfg.engine``, else build a
     fresh engine (its caches are its own); either way adopt ``cfg``'s
     policy.  The lazy-create step of a protocol instance's ``_frr_engine``
-    slot.  A fresh ``torch`` engine runs on the card."""
+    slot.  A fresh ``torch`` engine runs on ``device`` (the card unless the
+    caller asks for the CPU) and, with the process dispatch pipeline armed,
+    behind its facade (``current`` may so be an ``AsyncFrrEngine``, whose
+    ``engine`` delegates)."""
     if current is not None and current.engine == cfg.engine:
         current.set_policy(cfg)
         return current
-    engine = FrrEngine(engine=cfg.engine)
+    from holo_tpu_torch.pipeline import wrap_frr_engine
+
+    engine = wrap_frr_engine(FrrEngine(engine=cfg.engine, device=device))
     engine.set_policy(cfg)
     return engine
 

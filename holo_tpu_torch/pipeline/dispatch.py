@@ -65,10 +65,9 @@ runs both phases under their activation, so the backends' dispatch notes
 and stages join the caller's events; the critical-path ledger gets the
 enqueue, launch, finish, force-wait, ordering-stall and shed stamps; the SLO
 engine grades each served or shed ticket by class; and a shed or a worker
-crash is a flight-recorder event.  Where ``holo_tpu``'s actors open their
-events in ``holo_tpu``'s tracker, the port's callers open them in the port's
-(``holo_tpu_torch.telemetry.convergence``; ``holod_torch.py`` bridges the
-two when it runs ``holo_tpu``'s daemon over the port).
+crash is a flight-recorder event.  The port's callers (its OSPFv2
+instances, in its daemon or the storm) open their events in the port's
+tracker (``holo_tpu_torch.telemetry.convergence``).
 """
 
 from __future__ import annotations

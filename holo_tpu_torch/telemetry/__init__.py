@@ -106,6 +106,10 @@ def current_span_id():
     return _tracer.current_span_id()
 
 
+def current_instance():
+    return _tracer.current_instance()
+
+
 def snapshot(prefix: str | None = None) -> dict:
     """Flat metrics view (counters/gauges -> number, histograms -> {count,
     sum}); tests compare deltas of two snapshots."""

@@ -29,11 +29,9 @@ Off by default: disarmed, each seam costs one module-global ``None`` check.
 port's event loop (``holo_tpu_torch.utils.runtime``), which re-activates a
 message's event ids on the actor that handles it: the port's OSPFv2
 instance, RIB and storm (``spf/synth_storm.py``) carry their events through
-it as ``holo_tpu``'s do.  ``holod_torch.py`` runs ``holo_tpu``'s daemon over
-the port, whose actors open their events in ``holo_tpu``'s tracker; it
-bridges the two trackers (one port event for each ``holo_tpu`` event active
-at a call into the port, closed with it through :func:`fib_commit` or
-:func:`close`).
+it as ``holo_tpu``'s do, and so does the port's daemon
+(``holo_tpu_torch.daemon``), whose ``[telemetry] convergence-events`` arms
+this tracker on its loop clock.
 """
 
 from __future__ import annotations
@@ -281,16 +279,6 @@ class ConvergenceTracker:
             self._finish(ev, "no-fib")
         return len(evs)
 
-    def close(self, eids, outcome: str) -> int:
-        """Close the given open events with ``outcome`` and no histogram
-        observation (a bridge mirroring another tracker's close of the same
-        events); their timelines flush.  Returns the count closed."""
-        with self._lock:
-            evs = [ev for e in eids if (ev := self._open.pop(e, None)) is not None]
-        for ev in evs:
-            self._finish(ev, outcome)
-        return len(evs)
-
     def _finish(self, ev: _Event, outcome: str) -> None:
         with self._lock:
             record = {
@@ -426,11 +414,6 @@ def fib_commit(op: str = "install", eids=None, **attrs) -> None:
 def sweep() -> int:
     t = _TRACKER
     return t.sweep() if t is not None else 0
-
-
-def close(eids, outcome: str) -> int:
-    t = _TRACKER
-    return t.close(eids, outcome) if t is not None else 0
 
 
 # -- protocol-instance helpers (the shared pend/drain contract) ---------

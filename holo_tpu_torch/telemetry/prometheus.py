@@ -2,12 +2,17 @@
 OpenMetrics with histogram-bucket exemplars (``holo_tpu``'s
 ``render_text``, byte for byte).
 
-Only the renderer is here: the HTTP endpoint is the daemon's.  A launcher
-that runs the daemon over the port serves :class:`MergedRegistry` of the
-port's registry and the daemon's through it: each family once.
+:func:`start_http_server` serves ``/metrics`` for a registry on a stdlib
+HTTP thread (the daemon's ``[telemetry]`` endpoint).
 """
 
 from __future__ import annotations
+
+import logging
+import threading
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+log = logging.getLogger("holo_tpu_torch.telemetry")
 
 CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
 # Exemplars are an OpenMetrics feature: the 0.0.4 grammar allows only
@@ -73,41 +78,43 @@ def render_text(registry, openmetrics: bool = False) -> str:
     return "\n".join(lines) + "\n"
 
 
-class _MergedFamily:
-    """One family two registries declare: the first's samples, then the
-    second's under label values the first lacks (same kind and labels
-    only)."""
+class _Handler(BaseHTTPRequestHandler):
+    registry = None  # set on the subclass by start_http_server
 
-    def __init__(self, first, second):
-        self._first, self._second = first, second
-        self.name, self.kind, self.help = first.name, first.kind, first.help
-        self.labelnames = first.labelnames
+    def do_GET(self):  # noqa: N802 — BaseHTTPRequestHandler API
+        if self.path.split("?")[0] not in ("/metrics", "/"):
+            self.send_error(404)
+            return
+        # Content negotiation: exemplars only for scrapers that accept
+        # OpenMetrics (a 0.0.4 parser would reject the whole scrape).
+        openmetrics = "application/openmetrics-text" in self.headers.get("Accept", "")
+        try:
+            body = render_text(self.registry, openmetrics=openmetrics)
+            if openmetrics:
+                body += "# EOF\n"
+            body = body.encode()
+        except Exception:  # noqa: BLE001 — a scrape must not kill the server
+            log.exception("metrics render failed")
+            self.send_error(500)
+            return
+        self.send_response(200)
+        self.send_header("Content-Type", OPENMETRICS_CONTENT_TYPE if openmetrics else CONTENT_TYPE)
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
 
-    def labels(self, *values, **kv):
-        return self._first.labels(*values, **kv)
-
-    def children(self):
-        out = list(self._first.children())
-        second = self._second
-        if second.kind == self.kind and tuple(second.labelnames) == tuple(self.labelnames):
-            have = {key for key, _ in out}
-            out += [(key, child) for key, child in second.children() if key not in have]
-        return out
+    def log_message(self, *args):  # scrapes are not log-worthy
+        pass
 
 
-class MergedRegistry:
-    """The families of several registries as one (``families()`` is all a
-    renderer reads): sorted by name, each name once.  Where registries share
-    a family name, the earlier registry's family serves, joined by the later
-    ones' label values it lacks; so an empty twin adds nothing."""
-
-    def __init__(self, *registries):
-        self.registries = registries
-
-    def families(self) -> list:
-        merged: dict = {}
-        for reg in self.registries:
-            for fam in reg.families():
-                prev = merged.get(fam.name)
-                merged[fam.name] = fam if prev is None else _MergedFamily(prev, fam)
-        return [merged[k] for k in sorted(merged)]
+def start_http_server(registry, address: str) -> ThreadingHTTPServer:
+    """Serve ``/metrics`` for ``registry`` on ``address`` ("host:port");
+    returns the server (call ``.shutdown()`` to stop).  Port 0 picks a free
+    port: read it back from ``server.server_address``."""
+    host, _, port = address.rpartition(":")
+    handler = type("MetricsHandler", (_Handler,), {"registry": registry})
+    server = ThreadingHTTPServer((host or "127.0.0.1", int(port)), handler)
+    server.daemon_threads = True
+    thread = threading.Thread(target=server.serve_forever, name="telemetry-http", daemon=True)
+    thread.start()
+    return server

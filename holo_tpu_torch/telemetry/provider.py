@@ -1,6 +1,6 @@
 """The ``holo-telemetry`` state leaf over the port's modules (the port's
-copy of the leaf of ``holo_tpu.telemetry.provider``, without its
-northbound provider class: the port has no northbound).
+copy of ``holo_tpu.telemetry.provider``): :func:`state_leaf` builds it, and
+:class:`TelemetryStateProvider` serves it on the daemon's northbound.
 
 :func:`state_leaf` returns the subtree under ``holo_tpu``'s keys, each
 present while its subsystem is live, as ``holo_tpu``'s is:
@@ -9,6 +9,8 @@ present while its subsystem is live, as ``holo_tpu``'s is:
                          histogram's bucket exemplars on its _count row)
     device               the device the caller names
     health/breakers      every live port breaker's snapshot
+    health/supervision   the actor supervisors' restarts, crashes and
+                         degraded actors
     flight, convergence  the flight recorder and the convergence tracker
     spf-graph-cache      the shared graph caches of every device, summed,
                          with per-device placement (entries, rows, bytes)
@@ -18,16 +20,14 @@ present while its subsystem is live, as ``holo_tpu``'s is:
     observatory, critical-path, slo
     device-residency     the residency ledger, once anything is resident
 
-:func:`merge_leaves` lays the port's leaf over another ``holo-telemetry``
-leaf of the same shape (a daemon's own): the port's keys win, the breakers
-of both are listed, and the metric rows are the caller's to build (from a
-merged registry, ``prometheus.MergedRegistry``).  Every value is plain
-JSON.
+Every value is plain JSON.
 """
 
 from __future__ import annotations
 
 import sys
+
+from holo_tpu_torch.northbound.provider import Provider
 
 ROOT = "holo-telemetry"
 
@@ -119,23 +119,19 @@ def graph_cache_stats() -> dict | None:
     return out
 
 
-def state_leaf(device=None, metrics: bool = True) -> dict:
+def state_leaf(device=None) -> dict:
     """The port's ``holo-telemetry`` subtree (the value under :data:`ROOT`);
-    ``device``: the device the caller runs on, named in the leaf;
-    ``metrics=False`` leaves the port registry's rows out (a caller that
-    builds them from a merged registry)."""
+    ``device``: the device the caller runs on, named in the leaf."""
     from holo_tpu_torch import telemetry
     from holo_tpu_torch.resilience import breakers
     from holo_tpu_torch.telemetry import convergence, critpath, flight, observatory, slo
 
-    out: dict = {}
-    if metrics:
-        out["metric"] = metric_rows(telemetry.registry())
+    out: dict = {"metric": metric_rows(telemetry.registry())}
     if device is not None:
         out["device"] = device_name(device)
-    brs = {name: br.snapshot() for name, br in breakers().items()}
-    if brs:
-        out["health"] = {"breakers": brs}
+    health = _resilience_health(breakers())
+    if health:
+        out["health"] = health
     rec = flight.recorder()
     if rec is not None:
         out["flight"] = rec.stats()
@@ -177,20 +173,40 @@ def state_leaf(device=None, metrics: bool = True) -> dict:
     return out
 
 
-def merge_leaves(base: dict, port: dict) -> dict:
-    """``base`` (another ``holo-telemetry`` subtree) with the port's leaf
-    laid over it: the port's keys replace ``base``'s, except ``metric``
-    (``base``'s rows are kept: build them from a merged registry) and
-    ``health``, whose breakers are both sides' (the port's win a shared
-    name) and whose other keys are ``base``'s."""
-    out = dict(base)
-    for k, v in port.items():
-        if k == "metric":
-            continue
-        if k == "health":
-            health = dict(base.get("health") or {})
-            health["breakers"] = {**health.get("breakers", {}), **v.get("breakers", {})}
-            out["health"] = health
-        else:
-            out[k] = v
+def _resilience_health(live_breakers: dict) -> dict:
+    """The live breakers' states and the supervisors' restart and degraded
+    bookkeeping (``holo_tpu.resilience.health_snapshot``)."""
+    out: dict = {}
+    brs = {name: br.snapshot() for name, br in live_breakers.items()}
+    if brs:
+        out["breakers"] = brs
+    supm = sys.modules.get("holo_tpu_torch.resilience.supervisor")
+    sups = [s.snapshot() for s in supm.supervisors()] if supm is not None else []
+    if sups:
+        merged = {"degraded-actors": [], "restarts": {}, "crashes": {}}
+        for snap in sups:
+            merged["degraded-actors"].extend(snap["degraded-actors"])
+            merged["restarts"].update(snap["restarts"])
+            merged["crashes"].update(snap["crashes"])
+        merged["degraded-actors"].sort()
+        out["supervision"] = merged
     return out
+
+
+class TelemetryStateProvider(Provider):
+    """The ``holo-telemetry`` leaf on the northbound: :func:`state_leaf` on
+    the daemon's device.  Read-only: owns no config subtree, vetoes
+    nothing."""
+
+    name = "telemetry"
+
+    def __init__(self, device=None):
+        self.device = device
+
+    def filter_changes(self, changes):
+        return []  # state-only: never part of a commit fan-out
+
+    def get_state(self, path: str | None = None) -> dict:
+        if path and not ROOT.startswith(path.split("/")[0]):
+            return {}
+        return {ROOT: state_leaf(device=self.device)}

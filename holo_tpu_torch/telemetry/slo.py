@@ -24,7 +24,7 @@ An :class:`Objective` declares what is graded and how:
 ``source`` scopes the stream: a trigger class, a priority class, ``relay``,
 or ``"*"`` (every trigger but the canary's own).  The canary objective,
 :func:`note_probe` and the background-delivery objective are kept for the
-canary prober, which runs with ``holo_tpu``'s daemon (ROADMAP A4b).
+canary prober, which is not ported yet (ROADMAP A4b).
 
 Burn-rate math
 --------------

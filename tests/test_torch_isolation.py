@@ -1,7 +1,7 @@
-"""The port stands alone: importing every module of holo_tpu_torch (and
-chip_smoke.py) loads neither jax nor anything of holo_tpu, nor the launcher
-holod_torch.py (the one module that imports both packages), and no source
-file of either, nor of the port's tools, imports them."""
+"""The port stands alone: importing every module of holo_tpu_torch, the
+daemon's entry holod_torch.py and chip_smoke.py loads neither jax nor
+anything of holo_tpu, and no source file of them, nor of the port's tools,
+imports either (nor does the package import its entry script)."""
 
 import ast
 import pkgutil
@@ -27,13 +27,14 @@ def _modules():
 
 
 def _sources():
-    return (sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "holod_torch.py"]
             + [ROOT / "tools" / name for name in TOOLS])
 
 
-def _forbidden(name: str) -> bool:
-    return (name.split(".")[0] in ("jax", "holod_torch") or name == "holo_tpu"
-            or name.startswith("holo_tpu."))
+def _forbidden(name: str, path: Path) -> bool:
+    """jax and holo_tpu anywhere; the entry script inside the package."""
+    return (name.split(".")[0] == "jax" or name == "holo_tpu" or name.startswith("holo_tpu.")
+            or (name.split(".")[0] == "holod_torch" and PKG in path.parents))
 
 
 def test_every_module_is_found():
@@ -66,7 +67,19 @@ def test_every_module_is_found():
                  "holo_tpu_torch.protocols.ospf.spf_run",
                  "holo_tpu_torch.protocols.ospf.instance",
                  "holo_tpu_torch.protocols.ospf.nb_state", "holo_tpu_torch.routing",
-                 "holo_tpu_torch.routing.rib", "holo_tpu_torch.spf.synth_storm"):
+                 "holo_tpu_torch.routing.rib", "holo_tpu_torch.spf.synth_storm",
+                 "holo_tpu_torch.yang", "holo_tpu_torch.yang.schema",
+                 "holo_tpu_torch.yang.data", "holo_tpu_torch.yang.modules",
+                 "holo_tpu_torch.yang.serde", "holo_tpu_torch.northbound",
+                 "holo_tpu_torch.northbound.core", "holo_tpu_torch.northbound.provider",
+                 "holo_tpu_torch.utils.keychain", "holo_tpu_torch.utils.policy",
+                 "holo_tpu_torch.utils.nvstore", "holo_tpu_torch.utils.preempt",
+                 "holo_tpu_torch.utils.txqueue", "holo_tpu_torch.protocols.bfd",
+                 "holo_tpu_torch.routing.netlink", "holo_tpu_torch.resilience.supervisor",
+                 "holo_tpu_torch.daemon", "holo_tpu_torch.daemon.config",
+                 "holo_tpu_torch.daemon.hardening", "holo_tpu_torch.daemon.providers",
+                 "holo_tpu_torch.daemon.daemon", "holo_tpu_torch.daemon.grpc_server",
+                 "holo_tpu_torch.daemon.holo_tpu_pb2", "holo_tpu_torch.daemon.scenario"):
         assert want in mods
 
 
@@ -77,7 +90,8 @@ def test_import_loads_no_jax_and_no_holo_tpu():
         f"for m in {_modules()!r}:\n"
         "    importlib.import_module(m)\n"
         "import chip_smoke\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'holod_torch')\n"
+        "import holod_torch\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] == 'jax'\n"
         "             or m == 'holo_tpu' or m.startswith('holo_tpu.'))\n"
         "print(','.join(bad))\n"
     )
@@ -99,5 +113,5 @@ def test_source_imports_neither(path):
             names = [node.module or ""]
         else:
             continue
-        bad = [n for n in names if _forbidden(n)]
+        bad = [n for n in names if _forbidden(n, path)]
         assert not bad, f"{path.name}:{node.lineno} imports {bad}"
